@@ -1,0 +1,22 @@
+"""FusionStitching core: trace -> plan -> stitch -> generated kernels."""
+from .costctx import CostContext
+from .cost_model import H100, V5E, Hardware, best_estimate, \
+    delta_evaluator, partition_gain, stitch_gain
+from .ir import FusionPlan, Graph, Node, OpKind, Pattern, StitchGroup
+from .planner import make_plan, plan_stats
+from .stitch import StitchedFunction, StitchReport, stitched_jit
+from .stitcher import PartitionCandidate, StitchStats, TopKResult, \
+    make_groups, search_groups
+from .tracer import trace, trace_with_tree
+
+__all__ = [
+    "CostContext",
+    "H100", "V5E", "Hardware", "best_estimate", "delta_evaluator",
+    "partition_gain", "stitch_gain",
+    "FusionPlan", "Graph", "Node", "OpKind", "Pattern", "StitchGroup",
+    "make_plan", "plan_stats",
+    "StitchedFunction", "StitchReport", "stitched_jit",
+    "PartitionCandidate", "StitchStats", "TopKResult",
+    "make_groups", "search_groups",
+    "trace", "trace_with_tree",
+]

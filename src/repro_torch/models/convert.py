@@ -1,0 +1,39 @@
+"""Weights of the JAX package's ``Model`` (as numpy arrays) -> the port's.
+
+The JAX model stacks its layers' params along a leading axis (``lax.scan``);
+the port keeps one dict per layer.  Both use the ``x @ w`` layout, so no
+matrix is transposed: the two packages compute the same function on the
+same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _to_torch(tree, device, index=None):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, index) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if index is not None:
+        arr = arr[index]
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def from_jax_params(params: dict, *, device="cuda") -> dict:
+    """``params`` is the JAX model's param tree with numpy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``)."""
+    blocks = params["blocks"]
+    n_layers = np.asarray(next(iter(_leaves(blocks)))).shape[0]
+    return {"embed": _to_torch(params["embed"], device),
+            "blocks": [_to_torch(blocks, device, i) for i in range(n_layers)],
+            "final_norm": _to_torch(params["final_norm"], device),
+            "lm_head": _to_torch(params["lm_head"], device)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

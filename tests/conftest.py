@@ -52,3 +52,9 @@ def run_sharded():
         return proc.stdout
 
     return run
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips where there is none); "
+        "run on the card with `python -m pytest -m gpu tests/`")

@@ -11,18 +11,31 @@ each of which makes the script exit non-zero when it fails:
 2. Kernels: each generated kernel against its plain PyTorch version on
    the card, in float32 -- the one-pass kernel on the quickstart LayerNorm
    at [8192, 3072], the streaming kernel on a softmax at [2048, 128256] --
-   with kernel, plain and library-call times (CUDA events, median) and
+   with kernel, plain and library-call times (CUDA events, median, the
+   call queued behind a device sleep so only device time counts) and
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32; H100 SXM data sheet).
-3. Main path: Llama-3.2-3B at full width, all 28 layers, batch 4, prompt
-   512, float32 weights from a seed: ``Model.forward`` (a stitched_jit
-   block per layer, then a stitched head with the softmax over the
-   vocabulary), its compile and step times, the plans, the launch count
-   of each kernel, and the agreement with the same graphs replayed op by
-   op in plain PyTorch on the card (``dispatch="interpret"``).  Every
-   generated kernel instance of the main path is then held against its
-   plain version at its main-path shapes.
-4. A ``{"kernels": [...]}`` summary line, then the last line
+3. CUDA kernels: ``nvcc`` builds ``src/repro_torch/csrc`` (timed), then
+   the RMSNorm kernel at [2048, 3072] and [4, 3072] and the flash
+   attention kernel at the prefill shape (causal), at a ragged Sq = Skv =
+   500, with Sq 200 < Skv 500 (causal offset) and non-causal, each against
+   its plain version with the same per-element limit and the same times.
+4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
+   28 layers, batch 4, prompt 512, float32 weights from a seed:
+   ``Model.forward`` (a stitched_jit block per layer, then a stitched head
+   with the softmax over the vocabulary), its compile and step times, the
+   plans, the launch count of each kernel, and the agreement with the same
+   graphs replayed op by op in plain PyTorch on the card
+   (``dispatch="interpret"``).  Every generated kernel instance of the
+   path is then held against its plain version at its shapes.
+5. Serving path (``fusion_mode="stitched"``, the default): the same model
+   through ``repro_torch.launch.serve.generate`` -- 4 prompts of 500
+   tokens (bucket 512), 16 greedy tokens, cache length 1024 -- with its
+   compile seconds, time to first token, decode ms per token, tokens/s,
+   launches per prefill and per decode step, a profile of each, and the
+   logits of every step held against the plain path (``"xla"`` with
+   ``dispatch="interpret"``: no kernel of any kind) fed the same tokens.
+6. A ``{"kernels": [...]}`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports ``torch`` and the port only.
@@ -45,6 +58,7 @@ FP32_OPS_PER_S = 67e12
 
 SEED = 0
 BATCH, PROMPT = 4, 512
+SERVE_PROMPT, SERVE_GEN = 500, 16
 
 
 def fail(msg: str) -> None:
@@ -60,8 +74,19 @@ def device_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
+#: Device cycles the card sleeps before each timed call (about 1 ms at
+#: 1.98 GHz): the host enqueues the call meanwhile, so the event pair
+#: brackets device time only, not the wrapper's Python and ctypes cost.
+QUEUE_CYCLES = 2_000_000
+
+
+def time_ms(fn, reps: int, *, queued: bool = True) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up.
+
+    ``queued`` (device time): the card sleeps first, so the call is
+    already queued when the first event fires.  Without it the events
+    also see the host's cost of the call when the card idles for it.
+    """
     import torch
 
     fn()
@@ -70,6 +95,8 @@ def time_ms(fn, reps: int) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         a.record()
         fn()
         b.record()
@@ -208,9 +235,13 @@ def phase_kernels(gen) -> None:
                  library=lambda v: torch.softmax(v, -1))
 
 
-def describe(name: str, rep, graph) -> None:
+def describe(name: str, compiled) -> None:
+    rep, graph = compiled.report, compiled.graph
     n_dot = sum(1 for n in graph.nodes.values() if n.prim == "dot_general")
+    n_ops = sum(1 for n in graph.nodes.values()
+                if n.prim.startswith("repro_torch."))
     print(f"{name}: nodes={len(graph)} dot_general={n_dot} "
+          f"custom_ops={n_ops} "
           f"groups={rep.n_groups} generated={rep.n_generated} "
           f"onepass={rep.n_onepass} streaming={rep.n_streaming} "
           f"packed={rep.n_packed} stitched={rep.n_stitched} "
@@ -218,10 +249,25 @@ def describe(name: str, rep, graph) -> None:
           f"schedules={rep.schedules}")
 
 
-def where_the_time_goes(model, params, tokens) -> None:
-    """Device time of one forward by kind of kernel (torch.profiler):
-    generated Triton kernels, matrix products, and the plain PyTorch ops
-    of packed subgraphs and leftover nodes."""
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "rms_vec_kernel" in low or "rms_scalar_kernel" in low:
+        return "cuda rmsnorm"
+    if "flash_fwd_kernel" in low:
+        return "cuda flash"
+    if low == "kernel":
+        return "generated"
+    if any(k in low for k in ("gemm", "sm90", "cutlass", "matmul", "xmma",
+                              "gemv")):
+        return "matmul"
+    return "plain ops"
+
+
+def where_the_time_goes(label: str, fn) -> dict:
+    """Device time of one call of ``fn`` by kind of kernel
+    (torch.profiler): the CUDA kernels, generated Triton kernels, matrix
+    products, and the plain PyTorch ops of packed subgraphs and leftover
+    nodes.  Returns {kind: ms} and the profiled wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -230,7 +276,7 @@ def where_the_time_goes(model, params, tokens) -> None:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.forward(params, tokens)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kinds: dict[str, float] = {}
@@ -243,31 +289,27 @@ def where_the_time_goes(model, params, tokens) -> None:
         name = ev.key
         if dev_us <= 0 or name == "Command Buffer Full":
             continue
-        low = name.lower()
-        kind = ("generated" if low == "kernel" else
-                "matmul" if any(k in low for k in ("gemm", "sm90", "cutlass",
-                                                   "matmul", "xmma"))
-                else "plain ops")
+        kind = kernel_kind(name)
         kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
         rows.append((dev_us / 1e3, ev.count, name[:60]))
     busy = sum(kinds.values())
-    print(f"profile of one forward (wall {wall_ms:.1f} ms under the "
-          f"profiler): device busy {busy:.1f} ms "
+    print(f"profile of {label} (wall {wall_ms:.1f} ms under the "
+          f"profiler): device busy {busy:.2f} ms "
           f"({100 * busy / wall_ms:.1f}% of wall)")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"  {kind:10s} {ms:9.2f} ms  {100 * ms / max(busy, 1e-9):5.1f}%")
+        print(f"  {kind:12s} {ms:9.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%")
     for ms, n, name in sorted(rows, reverse=True)[:12]:
-        print(f"    {ms:9.2f} ms  x{n:<5d} {name}")
+        print(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+    return dict(kinds, wall_ms=wall_ms)
 
 
 def phase_main_path(gen) -> tuple[dict, list]:
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.codegen import OnePassKernel, StreamingKernel
     from repro_torch.models.model import Model
 
     cfg = get_config("llama3.2-3b")
-    model = Model(cfg)
+    model = Model(cfg, "xla")
     t0 = time.perf_counter()
     params = model.init(SEED)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
@@ -288,8 +330,8 @@ def phase_main_path(gen) -> tuple[dict, list]:
     head_c = model.head.compiled(head_p, h0)
     print(f"compile_s={time.perf_counter() - t0:.3f} "
           "(trace+plan+emit; Triton builds at first launch)")
-    describe("block", block_c.report, block_c.graph)
-    describe("head", head_c.report, head_c.graph)
+    describe("block", block_c)
+    describe("head", head_c)
     head_softmax = [e for e in head_c.emitted
                     if any(head_c.graph.node(n).prim == "reduce_max"
                            for p in e.parts for n in p)]
@@ -297,22 +339,21 @@ def phase_main_path(gen) -> tuple[dict, list]:
         fail("the head's softmax group did not take the streaming schedule: "
              f"{head_c.report.schedules}")
 
-    # the counted run of the main path
-    OnePassKernel.launches = 0
-    StreamingKernel.launches = 0
+    # the counted run of the forward path
+    reset_launch_counts()
     t0 = time.perf_counter()
     logits, probs = model.forward(params, tokens)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"onepass": OnePassKernel.launches,
-                "streaming": StreamingKernel.launches}
+    launches = launch_counts()
     print(f"launches in one forward: {json.dumps(launches)} "
           f"first_step_s={first_s:.2f} (includes Triton builds)")
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"the main path launched no {k} kernel")
+    for k in ("onepass", "streaming"):
+        if launches[k] <= 0:
+            fail(f"the forward path launched no {k} kernel")
 
-    where_the_time_goes(model, params, tokens)
+    where_the_time_goes("one forward",
+                        lambda: model.forward(params, tokens))
 
     steps = []
     for _ in range(3):
@@ -332,7 +373,7 @@ def phase_main_path(gen) -> tuple[dict, list]:
         fail("probabilities do not sum to one")
 
     # the same graphs replayed op by op in plain PyTorch on the card
-    plain = Model(cfg, dispatch="interpret")
+    plain = Model(cfg, "xla", dispatch="interpret")
     ref_logits, ref_probs = plain.forward(params, tokens)
     torch.cuda.synchronize()
     l_err = float((logits - ref_logits).abs().max())
@@ -381,6 +422,260 @@ def phase_main_path(gen) -> tuple[dict, list]:
     return launches, stats
 
 
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
+                      ops: float, reps: int, library=None) -> dict:
+    """Hold one hand-written CUDA kernel against its plain version on the
+    card, on the same inputs, with ``agreement``'s per-element limit.
+    Launches made here are reset before the main paths."""
+    import torch
+
+    def outs(r):
+        return list(r) if isinstance(r, tuple) else [r]
+
+    got = outs(launch(*inputs))
+    want = outs(plain(*inputs))
+    torch.cuda.synchronize()
+    err, worst = agreement(got, want)
+    ms = time_ms(lambda: launch(*inputs), reps)
+    call_ms = time_ms(lambda: launch(*inputs), reps, queued=False)
+    plain_ms = time_ms(lambda: plain(*inputs), max(3, reps // 4))
+    lib_ms = time_ms(lambda: library(*inputs), reps) if library else None
+    bound, bound_by = bound_ms(nbytes, ops)
+    print(f"cuda kernel {label}: max_abs_err={err:.3e} (worst err/limit "
+          f"{worst:.3f}) ms={ms:.4f} (call with the host's cost: "
+          f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
+          f"bound_ms={bound:.4f} ({bound_by}: {nbytes:.0f} B, {ops:.0f} ops)")
+    if not all(torch.isfinite(g).all() for g in got):
+        fail(f"{label}: kernel output not finite")
+    if not worst <= 1.0:
+        fail(f"{label}: kernel disagrees with its plain version "
+             f"(worst err/limit {worst:.3f})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_cuda_kernels(gen) -> dict:
+    """Build the CUDA kernels from the checkout's sources, then hold each
+    against its plain version at the serving path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"nvcc build of {sorted(libs)}: {time.perf_counter() - t0:.1f} s "
+          f"(flags {' '.join(_build.NVCC_FLAGS)})")
+
+    stats = {}
+    for R in (BATCH * PROMPT, BATCH):
+        C = 3072
+        x = torch.randn(R, C, generator=gen, device="cuda")
+        g = torch.randn(C, generator=gen, device="cuda")
+        res = check_cuda_kernel(
+            f"rmsnorm [{R}, {C}]", lambda a, b: RN.rmsnorm_cuda(a, b, 1e-6),
+            lambda a, b: RN.rmsnorm_plain(a, b, 1e-6), (x, g),
+            nbytes=4 * (2 * R * C + C + R), ops=4 * R * C, reps=50,
+            library=lambda a, b: F.rms_norm(a, (C,), b, 1e-6))
+        stats.setdefault("rmsnorm", res)
+
+    B, Hq, Hkv, D = BATCH, 24, 8, 128
+    for label, Sq, Skv, causal in (("prefill causal", 512, 512, True),
+                                   ("ragged causal", 500, 500, True),
+                                   ("causal offset", 200, 500, True),
+                                   ("non-causal", 512, 512, False)):
+        q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
+        k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
+        # v as the model hands it over: [B, S, H, D] transposed (strided)
+        v = torch.randn(B, Skv, Hkv, D, generator=gen,
+                        device="cuda").transpose(1, 2)
+        pairs = (sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq))
+                 if causal else Sq * Skv)
+        lib = None
+        if Sq == Skv:  # SDPA's causal mask is top-left: equal only here
+            def lib(a, b, c, _causal=causal):
+                return F.scaled_dot_product_attention(
+                    a, b, c, is_causal=_causal, enable_gqa=True)
+        res = check_cuda_kernel(
+            f"flash_attention {label} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
+            f"D{D}",
+            lambda a, b, c, _c=causal: FA.flash_attention_cuda(a, b, c, _c),
+            lambda a, b, c, _c=causal: FA.flash_attention_plain(a, b, c, _c),
+            (q, k, v), nbytes=4 * (2 * q.numel() + 2 * k.numel()),
+            ops=4 * D * B * Hq * pairs, reps=20, library=lib)
+        stats.setdefault("flash_attention", res)
+    return stats
+
+
+def launch_counts() -> dict:
+    from repro_torch.core.codegen import OnePassKernel, StreamingKernel
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    return {"onepass": OnePassKernel.launches,
+            "streaming": StreamingKernel.launches,
+            "rmsnorm": rmsnorm_cuda.launches,
+            "flash_attention": flash_attention_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.core.codegen import OnePassKernel, StreamingKernel
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    OnePassKernel.launches = StreamingKernel.launches = 0
+    rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+
+
+def phase_serving() -> dict:
+    """``generate`` at full width in the default (stitched) mode; returns
+    the launches of the counted run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    from repro_torch.serving.buckets import Buckets, pad_tokens
+
+    cfg = get_config("llama3.2-3b")
+    B, S, G = BATCH, SERVE_PROMPT, SERVE_GEN
+    V = cfg.vocab_size
+    bk = Buckets()
+    Sp, max_len = bk.bucket(S), bk.bucket(max(bk.bucket(S), S + G))
+    model = Model(cfg)
+    if model.fusion_mode != "stitched":
+        fail(f"Model's default fusion mode is {model.fusion_mode!r}")
+    params = model.init(SEED)
+    prompts = np.random.default_rng(SEED).integers(0, V, (B, S))
+    print(f"serving path: {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} batch={B} prompt={S} (bucket {Sp}) gen={G} "
+          f"cache={max_len} float32 seed={SEED} fusion_mode=stitched")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(model, params, prompts, G)
+    cold_s = time.perf_counter() - t0
+    # the counted run of the serving path
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs = generate(model, params, prompts, G)
+    warm_s = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"launches in one generate (1 prefill + {G - 1} decode steps): "
+          f"{json.dumps(launches)}")
+    for k in ("rmsnorm", "flash_attention"):
+        if launches[k] <= 0:
+            fail(f"the serving path launched no {k} kernel")
+    print(f"compile_s={cold_s - warm_s:.2f} (first generate {cold_s:.2f} s "
+          f"minus the second {warm_s:.2f} s: trace, plan, emit, Triton "
+          f"builds)  end-to-end tokens/s={B * G / warm_s:.1f} (host clock, "
+          f"{B} x {G} tokens, prefill included)")
+
+    toks = torch.from_numpy(pad_tokens(prompts, Sp)).to("cuda")
+    cache = model.init_cache(B, max_len)
+    positions = torch.arange(S, S + G, device="cuda")
+
+    def first_token():
+        lg, _ = model.prefill(params, toks, cache)
+        return lg[:, S - 1:S, :V].argmax(-1)
+
+    reset_launch_counts()
+    tok = first_token()
+    torch.cuda.synchronize()
+    per_prefill = launch_counts()
+    reset_launch_counts()
+    model.decode_step(params, cache, tok, positions[0])
+    torch.cuda.synchronize()
+    per_decode = launch_counts()
+    print(f"launches per prefill: {json.dumps(per_prefill)}; per decode "
+          f"step: {json.dumps(per_decode)}")
+    p0, h = params["blocks"][0], params["embed"][toks]
+    pos_p = torch.arange(Sp, device="cuda")
+    q, k, v = model.pre(p0, h, pos_p)
+    describe("prefill pre ", model.pre.compiled(p0, h, pos_p))
+    describe("prefill post", model.post.compiled(p0, h, q, k, v))
+    h1, pos1 = params["embed"][tok], positions[:1]
+    q, k, v = model.pre(p0, h1, pos1)
+    describe("decode pre  ", model.pre.compiled(p0, h1, pos1))
+    describe("decode post ", model.post.compiled(
+        p0, h1, q, cache["k"][0], cache["v"][0], positions[0] + 1))
+    weights = sum(t.numel() * t.element_size()
+                  for t in torch.utils._pytree.tree_leaves(
+                      [params["blocks"], params["lm_head"]]))
+    print(f"weights a decode step reads (blocks + LM head): "
+          f"{weights / 1e9:.2f} GB")
+
+    ttft = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = first_token().cpu()
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    tok = tok.to("cuda")
+    steps = []
+    for i in range(G - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = model.decode_step(params, cache, tok, positions[i])
+        tok = lg[:, -1:, :V].argmax(-1)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(steps)
+    print(f"time to first token={statistics.median(ttft):.2f} ms (median of "
+          f"3: prefill of {B} x {Sp} + argmax + copy to the host)  decode="
+          f"{step_ms:.2f} ms per token (median of {G - 1} steps, host clock "
+          f"around a synchronized step)  decode tokens/s={B * 1e3 / step_ms:.1f}")
+    where_the_time_goes("one prefill", first_token)
+    where_the_time_goes("one decode step", lambda: model.decode_step(
+        params, cache, tok, positions[1]))
+
+    # the plain path on the card, then both fed the plain path's tokens
+    plain = Model(cfg, "xla", dispatch="interpret")
+    ref_seqs = generate(plain, params, prompts, G)
+    same = float((seqs[:, S:] == ref_seqs[:, S:]).mean())
+    forced = torch.from_numpy(ref_seqs[:, S:]).to("cuda")
+
+    def forced_logits(mdl):
+        c = mdl.init_cache(B, max_len)
+        lg, _ = mdl.prefill(params, toks, c)
+        out = [lg[:, S - 1, :V]]
+        del lg
+        for i in range(G - 1):
+            lg, _ = mdl.decode_step(params, c, forced[:, i:i + 1],
+                                    positions[i])
+            out.append(lg[:, 0, :V])
+        return torch.stack(out)
+
+    got, want = forced_logits(model), forced_logits(plain)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i in range(G):
+        err = float((got[i] - want[i]).abs().max())
+        tol = 1e-4 * max(1.0, float(want[i].abs().max()))
+        worst = max(worst, err / tol)
+        if i in (0, G - 1) or err > tol:
+            print(f"  step {i}: max|dlogits|={err:.3e} (tol {tol:.2e})")
+    agree = float((got.argmax(-1) == forced.T).float().mean())
+    print(f"teacher-forced agreement with fusion_mode='xla', "
+          f"dispatch='interpret' over {G} steps: worst max|dlogits|/tol="
+          f"{worst:.3f} (tol 1e-4 max(1, max|logits|) per step), argmax "
+          f"agreement={agree:.4f} (min 0.99); free-running tokens equal: "
+          f"{same:.4f}")
+    if not torch.isfinite(got).all() or tuple(seqs.shape) != (B, S + G):
+        fail("serving path: non-finite logits or wrong output shape")
+    if worst > 1.0 or agree < 0.99:
+        fail("the stitched serving path disagrees with the plain path")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -404,17 +699,30 @@ def main() -> int:
     print(device_line())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_kernels(gen)
-    launches, stats = phase_main_path(gen)
+    cuda_stats = phase_cuda_kernels(gen)
+    reset_launch_counts()
+    fwd_launches, stats = phase_main_path(gen)
+    serve_launches = phase_serving()
+    stats.update(cuda_stats)
 
-    replaces = {"onepass": "src/repro/core/codegen.py:973",
-                "streaming": "src/repro/core/codegen.py:763"}
     kernels = []
-    for name in ("onepass", "streaming"):
+    for name, route, source, replaces in (
+            ("onepass", "triton", "src/repro_torch/core/codegen.py",
+             "src/repro/core/codegen.py:973"),
+            ("streaming", "triton", "src/repro_torch/core/codegen.py",
+             "src/repro/core/codegen.py:763"),
+            ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:20"),
+            ("flash_attention", "cuda",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:87")):
         s = stats[name]
+        by_path = {"forward": fwd_launches[name],
+                   "serve": serve_launches[name]}
         kernels.append({
-            "name": name, "route": "triton",
-            "source": "src/repro_torch/core/codegen.py",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})

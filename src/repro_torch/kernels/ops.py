@@ -1,0 +1,52 @@
+"""Public wrappers over the hand-written kernels, with the reference's
+switch (``src/repro/kernels/ops.py:37,73,80``).
+
+``use_kernels=False`` (``fusion_mode="xla"`` at the model level) routes to
+the plain oracles in ``ref.py``.  ``use_kernels=True`` calls the
+``repro_torch::`` operators: on CUDA tensors they launch the CUDA
+kernels, on CPU tensors they run the kernels' plain versions.  There is
+no autograd wrapper yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .flash_attention import flash_attention
+from .rmsnorm import rmsnorm as _rmsnorm
+
+
+def rmsnorm(x, gamma, eps: float = 1e-6, *, use_kernels: bool = True):
+    if use_kernels:
+        return _rmsnorm(x, gamma, eps)[0]
+    return ref.rmsnorm(x, gamma, eps)
+
+
+def attention(q, k, v, *, causal: bool = True, scale=None,
+              use_kernels: bool = True):
+    if use_kernels:
+        return flash_attention(q, k, v, causal, scale)
+    return ref.attention(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, *, kv_len=None, scale=None,
+                     use_kernels: bool = True):
+    """q [B, Hq, D] against caches [B, Hkv, S, D].
+
+    A tensor ``kv_len`` (the serving loop's position + 1, a value on the
+    device) masks the cache through ``ref.decode_attention``'s
+    ``lengths``, in either mode, as the reference's dynamic branch does.
+    A static ``kv_len`` with kernels is ``flash_decode``, not ported yet.
+    """
+    if isinstance(kv_len, torch.Tensor):
+        lengths = torch.broadcast_to(kv_len, (q.shape[0],))
+        return ref.decode_attention(q, k_cache, v_cache, lengths=lengths,
+                                    scale=scale)
+    if use_kernels:
+        raise NotImplementedError(
+            "decode attention with a static kv_len is flash_decode "
+            "(ROADMAP B8), not ported yet; pass kv_len as a tensor")
+    if kv_len is not None and kv_len < k_cache.shape[2]:
+        k_cache = k_cache[:, :, :kv_len, :]
+        v_cache = v_cache[:, :, :kv_len, :]
+    return ref.decode_attention(q, k_cache, v_cache, scale=scale)

@@ -1,0 +1,91 @@
+"""RMSNorm forward: the hand-written CUDA kernel (``csrc/rmsnorm.cu``),
+its plain PyTorch version, and the ``repro_torch::rmsnorm`` operator.
+
+The counterpart of ``rmsnorm_fwd`` (the TPU kernel ``_rms_kernel``,
+``src/repro/kernels/rmsnorm.py:12,20``): ``(y, rstd)`` with ``rstd``
+[R, 1] float32 over the rows R of ``x`` flattened to [R, C].  The backward
+comes with training, in a later slice.
+
+``rmsnorm(x, gamma, eps)`` is the operator: on CPU tensors it runs
+``rmsnorm_plain``, on CUDA tensors ``rmsnorm_cuda`` (the kernel, or an
+error), on fake and meta tensors its shape function -- so ``make_fx``
+traces it as one node, which the port's tracer keeps as one ``OPAQUE``
+node (the counterpart of the reference's opaque ``pallas_call``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+
+def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
+                  eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch (the order of ``_rms_kernel``:
+    x * rstd * g, float32 inside)."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C).to(torch.float32)
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    y = (xf * rstd * gamma.to(torch.float32)).to(x.dtype)
+    return y.reshape(x.shape), rstd
+
+
+def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                 eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel (float32, on the current stream)."""
+    if x.device.type != "cuda" or gamma.device != x.device:
+        raise ValueError(f"rmsnorm_cuda: x on {x.device}, gamma on "
+                         f"{gamma.device}; both must lie on one CUDA device")
+    if x.dtype != torch.float32 or gamma.dtype != torch.float32:
+        raise TypeError(f"rmsnorm_cuda takes float32, got {x.dtype} and "
+                        f"{gamma.dtype}")
+    C = x.shape[-1]
+    if gamma.shape != (C,):
+        raise ValueError(f"gamma {tuple(gamma.shape)} for rows of {C}")
+    # a copy only where the rows are not contiguous (device time)
+    x2 = x.reshape(-1, C).contiguous()
+    g = gamma.contiguous()
+    R = x2.shape[0]
+    y = torch.empty_like(x2)
+    rstd = torch.empty(R, 1, dtype=torch.float32, device=x.device)
+    fn = _entry()
+    _build.check(fn(x2.data_ptr(), g.data_ptr(), y.data_ptr(),
+                    rstd.data_ptr(), R, C, float(eps),
+                    torch.cuda.current_stream(x.device).cuda_stream),
+                 "repro_rmsnorm_f32")
+    rmsnorm_cuda.launches += 1
+    return y.reshape(x.shape), rstd
+
+
+rmsnorm_cuda.launches = 0  # kernel launches (plain runs are not counted)
+
+
+@functools.cache
+def _entry():
+    fn = _build.library("rmsnorm").repro_rmsnorm_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=(),
+                         device_types="cpu")
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, rstd): y like x, rstd [R, 1] float32."""
+    return rmsnorm_plain(x, gamma, eps)
+
+
+@rmsnorm.register_kernel("cuda")
+def _(x, gamma, eps):
+    return rmsnorm_cuda(x, gamma, eps)
+
+
+@rmsnorm.register_fake
+def _(x, gamma, eps):
+    R = x.numel() // x.shape[-1]
+    return torch.empty_like(x), x.new_empty((R, 1), dtype=torch.float32)

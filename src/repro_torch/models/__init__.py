@@ -1,1 +1,1 @@
-"""Dense transformer model in plain PyTorch, compiled by ``stitched_jit``."""
+"""Dense transformer model in PyTorch, compiled by ``stitched_jit``."""

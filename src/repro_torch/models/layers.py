@@ -1,19 +1,47 @@
-"""Model layers in plain PyTorch (dense family, no KV cache).
+"""Model layers in PyTorch (dense family, with the serving KV cache).
 
-The counterparts of ``repro.models.layers`` run with ``FusionMode("xla")``:
-plain tensor code, which ``stitched_jit`` traces, plans and compiles into
-generated kernels.  Layouts follow the JAX package (``x @ w`` weights,
-attention tensors [B, H, S, D]) so the tests compare like with like.
+The counterparts of ``repro.models.layers``.  Each memory-intensive
+pattern routes through ``repro_torch.kernels.ops``, so the execution mode
+is chosen per model:
+
+  fusion_mode="stitched" -> the hand-written CUDA kernels (RMSNorm, flash
+                            attention), one opaque node each in a traced
+                            graph
+  fusion_mode="xla"      -> the plain oracles of ``kernels/ref.py``, which
+                            ``stitched_jit`` traces, plans and compiles
+                            into generated kernels
+
+Matmuls stay ``x @ w``.  Layouts follow the JAX package (``x @ w``
+weights, attention tensors [B, H, S, D]) so the tests compare like with
+like.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels import ref
+from ..kernels import ops, ref
+
+
+@dataclass(frozen=True)
+class FusionMode:
+    name: str = "stitched"   # "stitched" | "xla"
+
+    def __post_init__(self):
+        if self.name not in ("stitched", "xla"):
+            raise ValueError(f"fusion mode {self.name!r}: 'stitched' or 'xla'")
+
+    @property
+    def use_kernels(self) -> bool:
+        return self.name == "stitched"
+
+
+STITCHED = FusionMode("stitched")
+XLA = FusionMode("xla")
 
 
 def dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -33,10 +61,14 @@ def norm_init(cfg: ArchConfig, dtype, device) -> dict:
     return p
 
 
-def norm_apply(cfg: ArchConfig, p: dict, x):
+def norm_apply(cfg: ArchConfig, p: dict, x, fm: FusionMode):
     if cfg.norm == "layernorm":
+        if fm.use_kernels:
+            raise NotImplementedError(
+                "the LayerNorm kernel (ROADMAP B5) is not ported yet: use "
+                "fusion_mode='xla'")
         return ref.layernorm(x, p["g"], p["b"], cfg.norm_eps)
-    return ref.rmsnorm(x, p["g"], cfg.norm_eps)
+    return ops.rmsnorm(x, p["g"], cfg.norm_eps, use_kernels=fm.use_kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -63,36 +95,8 @@ def rope(q, k, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, written plainly)
+# attention (GQA, optional KV cache)
 # ---------------------------------------------------------------------------
-def attention(q, k, v, *, causal: bool = True):
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] (Hq % Hkv == 0).
-
-    Grouped-query attention without repeating K/V: the query heads of one
-    KV head are folded into the row dimension of a batched product.
-    """
-    B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    g = Hq // Hkv
-    qf = q.reshape(B * Hkv, g * Sq, D)
-    kf = k.reshape(B * Hkv, Skv, D)
-    vf = v.reshape(B * Hkv, Skv, D)
-    logits = torch.bmm(qf, kf.transpose(1, 2)).reshape(B, Hkv, g, Sq, Skv) \
-        * (1.0 / math.sqrt(D))
-    if causal:
-        # built as ``jnp.tril(ones)`` builds it (a select over the causal
-        # comparison) and broadcast to the full score shape as
-        # ``jnp.where`` does: the masked softmax then has a row view and
-        # plans as the reference's one-pass softmax tail
-        row = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
-        col = torch.arange(Skv, device=q.device)[None, :]
-        mask = torch.where(row >= col, True, False)
-        logits = torch.where(mask.expand(logits.shape), logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.bmm(probs.reshape(B * Hkv, g * Sq, Skv), vf)
-    return out.reshape(B, Hq, Sq, D)
-
-
 def attn_init(cfg: ArchConfig, gen, dtype, device) -> dict:
     d, Dh = cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -102,17 +106,75 @@ def attn_init(cfg: ArchConfig, gen, dtype, device) -> dict:
             "wo": dense(gen, Hq * Dh, d, dtype, device)}
 
 
-def attn_apply(cfg: ArchConfig, p: dict, x, positions):
-    """x: [B, S, d] -> [B, S, d]."""
+def attn_qkv(cfg: ArchConfig, p: dict, x, positions):
+    """x [B, S, d] -> q [B, Hq, S, Dh], k and v [B, Hkv, S, Dh], RoPE at
+    ``positions`` [S] applied to q and k."""
     B, S, _ = x.shape
     Dh, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     q = (x @ p["wq"]).reshape(B, S, Hq, Dh).transpose(1, 2)
     k = (x @ p["wk"]).reshape(B, S, Hkv, Dh).transpose(1, 2)
     v = (x @ p["wv"]).reshape(B, S, Hkv, Dh).transpose(1, 2)
     q, k = rope(q, k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=cfg.causal)
+    return q, k, v
+
+
+def cache_write(cache: dict, k, v, positions) -> None:
+    """Write k, v [B, Hkv, S, Dh] into the cache rows ``positions`` [S],
+    in place.  ``positions`` is a tensor on the cache's device, so the
+    write needs no host sync.  Never traced: the port's tracer has no
+    mutation, so the cache is written between two stitched functions
+    (the reference returns a new cache from ``dynamic_update_slice``)."""
+    cache["k"].index_copy_(2, positions, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, positions, v.to(cache["v"].dtype))
+
+
+def attn_core(cfg: ArchConfig, p: dict, q, k, v, *, fm: FusionMode,
+              kv_len=None):
+    """Attention and the output projection -> [B, S, d].
+
+    Without ``kv_len``: causal attention of q over this call's k, v
+    (prefill, or no cache).  With ``kv_len`` (a 0-d tensor): one decode
+    token, q [B, Hq, 1, Dh] over the cache k, v [B, Hkv, max_len, Dh],
+    masked to its first ``kv_len`` rows.
+    """
+    B, Hq, S, Dh = q.shape
+    if kv_len is None:
+        o = ops.attention(q, k, v, causal=cfg.causal,
+                          use_kernels=fm.use_kernels)
+    else:
+        # q[:, :, 0] as a reshape (S == 1): no opaque select in the graph
+        o = ops.decode_attention(q.reshape(B, Hq, Dh), k, v, kv_len=kv_len,
+                                 use_kernels=fm.use_kernels)[:, :, None]
     o = o.transpose(1, 2).reshape(B, S, Hq * Dh)
     return o @ p["wo"]
+
+
+def attn_apply(cfg: ArchConfig, p: dict, x, *, fm: FusionMode, positions,
+               cache: dict | None = None, kv_len=None):
+    """x [B, S, d] -> [B, S, d] (``src/repro/models/layers.py:102-140``).
+
+    With a cache, prefill (S > 1) fills its rows ``positions`` and attends
+    over this call's k, v; decode (S == 1, ``kv_len`` = position + 1)
+    writes its row and attends over the cache.  A cache makes this eager
+    code, not a traced function (``cache_write``); ``models/model.py``
+    stitches the parts before and after the write.
+    """
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    if cache is None:
+        return attn_core(cfg, p, q, k, v, fm=fm)
+    cache_write(cache, k, v, positions)
+    if x.shape[1] > 1:
+        return attn_core(cfg, p, q, k, v, fm=fm)
+    return attn_core(cfg, p, q, cache["k"], cache["v"], fm=fm, kv_len=kv_len)
+
+
+def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                    device) -> dict:
+    Dh, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    return {"k": torch.zeros(batch, Hkv, max_len, Dh, dtype=dtype,
+                             device=device),
+            "v": torch.zeros(batch, Hkv, max_len, Dh, dtype=dtype,
+                             device=device)}
 
 
 # ---------------------------------------------------------------------------

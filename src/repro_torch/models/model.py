@@ -1,11 +1,27 @@
-"""Dense decoder model: one ``stitched_jit``-compiled block for every layer.
+"""Dense decoder model: prompt pass, KV cache, prefill and decode.
 
 ``block_apply`` is the per-layer program of the JAX package's
-``models/model.py::block_apply`` with plain ops (``FusionMode("xla")``);
-``Model.forward`` applies its compiled form to each layer in a Python loop
-(the shapes repeat, so it compiles once), then a compiled head: the final
-RMSNorm, ``torch.matmul`` for the LM head, and the softmax over the
-vocabulary.  No KV cache: this is the prompt (prefill) pass.
+``models/model.py::block_apply``.  The layer loop is a Python loop over
+compiled (``stitched_jit``) functions whose shapes repeat, so each
+compiles once:
+
+* ``Model.forward`` (no cache): one compiled block per layer, then a
+  compiled head -- the final norm, ``torch.matmul`` for the LM head, and
+  the softmax over the vocabulary.
+* ``Model.prefill`` / ``Model.decode_step`` (serving, with a cache): each
+  layer is two compiled halves around an eager in-place cache write --
+  ``block_pre`` (norm, QKV, RoPE), then ``layers.cache_write``, then
+  ``block_post`` (attention, ``wo``, residual, norm, MLP) -- and a
+  compiled head that returns the logits.  The reference stitches the
+  whole prefill with the layers inside one opaque ``lax.scan`` and
+  returns a new cache; the port's tracer has no mutation (ROADMAP C).
+
+``fusion_mode="stitched"`` (the default, as in the reference) runs the
+norms and the prompt's attention through the hand-written CUDA kernels;
+``"xla"`` runs plain ops that the compiler plans into generated kernels.
+``dispatch="interpret"`` replays each traced graph op by op: with
+``"xla"`` no kernel of any kind runs, which makes it the plain reference
+on the card.
 """
 from __future__ import annotations
 
@@ -18,6 +34,7 @@ from ..core.cost_model import H100, Hardware
 from ..core.stitch import resolve_device, stitched_jit
 from ..kernels import ref
 from . import layers as L
+from .layers import FusionMode
 
 
 def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
@@ -30,37 +47,74 @@ def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
             "mlp": L.mlp_init(cfg, gen, dtype, device)}
 
 
-def block_apply(cfg: ArchConfig, p: dict, h, positions):
-    """One layer: h [B, S, d], positions [S] -> h [B, S, d]."""
-    h = h + L.attn_apply(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h),
-                         positions)
-    return h + L.mlp_apply(cfg, p["mlp"], L.norm_apply(cfg, p["norm2"], h))
+def block_apply(cfg: ArchConfig, p: dict, h, positions, *, fm: FusionMode,
+                cache: dict | None = None, kv_len=None):
+    """One layer: h [B, S, d], positions [S] -> h [B, S, d].  With a
+    cache (eager code only) it also writes this call's k and v."""
+    h = h + L.attn_apply(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h, fm),
+                         fm=fm, positions=positions, cache=cache,
+                         kv_len=kv_len)
+    return h + L.mlp_apply(cfg, p["mlp"], L.norm_apply(cfg, p["norm2"], h, fm))
 
 
-def head_apply(cfg: ArchConfig, p: dict, h):
+def block_pre(cfg: ArchConfig, fm: FusionMode, p: dict, h, positions):
+    """The layer up to the cache write: -> q, k, v."""
+    return L.attn_qkv(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h, fm),
+                      positions)
+
+
+def block_post(cfg: ArchConfig, fm: FusionMode, p: dict, h, q, k, v,
+               kv_len=None):
+    """The layer after the cache write: -> h.  Prefill passes this call's
+    k, v; decode passes the cache and ``kv_len``."""
+    h = h + L.attn_core(cfg, p["attn"], q, k, v, fm=fm, kv_len=kv_len)
+    return h + L.mlp_apply(cfg, p["mlp"], L.norm_apply(cfg, p["norm2"], h, fm))
+
+
+def head_apply(cfg: ArchConfig, fm: FusionMode, p: dict, h):
     """Final norm, LM head and the softmax over the vocabulary."""
-    logits = L.norm_apply(cfg, p["final_norm"], h) @ p["lm_head"]
+    logits = head_logits(cfg, fm, p, h)
     return logits, ref.softmax(logits)
 
 
+def head_logits(cfg: ArchConfig, fm: FusionMode, p: dict, h):
+    """Final norm and LM head: the serving head."""
+    return L.norm_apply(cfg, p["final_norm"], h, fm) @ p["lm_head"]
+
+
 class Model:
-    """A dense model bound to a device, with its compiled block and head.
+    """A dense model bound to a device, with its compiled functions.
 
     ``device`` is CUDA unless the caller passes ``device="cpu"`` (where
-    every generated kernel runs its plain version).  Weights are float32.
+    every kernel runs its plain version).  Weights are float32.  The
+    model owns its compiled functions, and each caches one compiled
+    instance per input signature: repeated ``generate`` calls on one
+    model never re-trace.
     """
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda",
-                 hw: Hardware = H100, dispatch: str = "single"):
+    def __init__(self, cfg: ArchConfig, fusion_mode: str = "stitched", *,
+                 device="cuda", hw: Hardware = H100,
+                 dispatch: str = "single"):
         if cfg.padded_vocab != cfg.vocab_size:
             raise NotImplementedError(
                 "a vocabulary that is not a multiple of 256 needs the "
                 "reference's pad-column mask, which this slice leaves out")
         self.cfg = cfg
+        self.fusion_mode = fusion_mode
+        fm = FusionMode(fusion_mode)
         self.device = resolve_device(device)
-        kw = dict(hw=hw, dispatch=dispatch, device=self.device)
-        self.block = stitched_jit(functools.partial(block_apply, cfg), **kw)
-        self.head = stitched_jit(functools.partial(head_apply, cfg), **kw)
+
+        def jit(fn):
+            return stitched_jit(functools.partial(fn, cfg, fm), hw=hw,
+                                dispatch=dispatch, device=self.device)
+
+        self.block = stitched_jit(
+            functools.partial(block_apply, cfg, fm=fm), hw=hw,
+            dispatch=dispatch, device=self.device)
+        self.head = jit(head_apply)
+        self.pre = jit(block_pre)
+        self.post = jit(block_post)
+        self.logits_head = jit(head_logits)
 
     def init(self, seed: int) -> dict:
         """Random weights from ``seed``, made on the model's device."""
@@ -75,11 +129,54 @@ class Model:
                 "lm_head": L.dense(gen, cfg.d_model, cfg.padded_vocab, dt,
                                    dev)}
 
+    @staticmethod
+    def _head_params(params: dict) -> dict:
+        return {"final_norm": params["final_norm"],
+                "lm_head": params["lm_head"]}
+
     def forward(self, params: dict, tokens: torch.Tensor):
         """tokens [B, S] -> (logits, probs), each [B, S, padded_vocab]."""
         h = params["embed"][tokens]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         for p in params["blocks"]:
             h = self.block(p, h, positions)
-        return self.head({"final_norm": params["final_norm"],
-                          "lm_head": params["lm_head"]}, h)
+        return self.head(self._head_params(params), h)
+
+    # -- serving ------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   dtype=torch.float32) -> dict:
+        """{"k", "v"}: [n_layers, batch, n_kv_heads, max_len, head_dim]
+        zeros on the model's device, written in place by ``prefill`` and
+        ``decode_step``."""
+        one = L.attn_cache_init(self.cfg, batch, max_len, dtype, self.device)
+        return {name: torch.zeros((self.cfg.n_layers,) + t.shape,
+                                  dtype=dtype, device=self.device)
+                for name, t in one.items()}
+
+    def _layers(self, params, h, positions, cache, kv_len):
+        for i, p in enumerate(params["blocks"]):
+            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+            q, k, v = self.pre(p, h, positions)
+            L.cache_write(layer_cache, k, v, positions)
+            if kv_len is None:
+                h = self.post(p, h, q, k, v)
+            else:
+                h = self.post(p, h, q, layer_cache["k"], layer_cache["v"],
+                              kv_len)
+        return self.logits_head(self._head_params(params), h)
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """tokens [B, S] -> (logits [B, S, padded_vocab], cache); fills the
+        cache rows 0..S-1."""
+        h = params["embed"][tokens]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        return self._layers(params, h, positions, cache, None), cache
+
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
+                    pos: torch.Tensor):
+        """tokens [B, 1]; ``pos`` a 0-d integer tensor on the device, the
+        new token's position -> (logits [B, 1, padded_vocab], cache).
+        Attends over the cache rows 0..pos (kv_len = pos + 1)."""
+        h = params["embed"][tokens]
+        positions = pos.reshape(1)
+        return self._layers(params, h, positions, cache, pos + 1), cache

@@ -16,6 +16,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import H100, stitched_jit  # noqa: E402
 from repro_torch.core import codegen  # noqa: E402
 from repro_torch.core.tracer import TORCH_DTYPES  # noqa: E402
+from repro_torch.models.layers import XLA  # noqa: E402
 from repro_torch.models.model import Model, block_apply  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -111,7 +112,7 @@ def test_bf16_rmsnorm(cuda):
 
 def test_reduced_model_on_the_card(cuda):
     cfg = get_config("llama3.2-3b").reduced()
-    model = Model(cfg)
+    model = Model(cfg, "xla")
     params = model.init(0)
     tokens = torch.randint(0, cfg.vocab_size, (2, 16), device="cuda",
                            generator=cuda)
@@ -121,9 +122,93 @@ def test_reduced_model_on_the_card(cuda):
     after = (codegen.OnePassKernel.launches,
              codegen.StreamingKernel.launches)
     assert sum(after) > sum(before)
-    ref_logits, _ = Model(cfg, dispatch="interpret").forward(params, tokens)
+    ref_logits, _ = Model(cfg, "xla", dispatch="interpret").forward(
+        params, tokens)
     torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-4)
-    block = stitched_jit(functools.partial(block_apply, cfg))
+    block = stitched_jit(functools.partial(block_apply, cfg, fm=XLA))
     h = params["embed"][tokens]
     assert block.report(params["blocks"][0], h,
                         torch.arange(16, device="cuda")).n_generated >= 1
+
+
+# ---------------------------------------------------------------------------
+# the hand-written CUDA kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(37, 3072), (4, 3072), (2, 5, 64),
+                                   (7, 998), (3, 10000)],
+                         ids=["ragged-rows", "decode", "rank3", "scalar-path",
+                              "wide-row"])
+def test_rmsnorm_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels import rmsnorm as K
+
+    x = torch.randn(shape, device="cuda", generator=cuda)
+    g = torch.randn(shape[-1], device="cuda", generator=cuda)
+    before = K.rmsnorm_cuda.launches
+    y, rstd = K.rmsnorm(x, g, 1e-6)
+    assert K.rmsnorm_cuda.launches == before + 1
+    y_ref, rstd_ref = K.rmsnorm_plain(x, g, 1e-6)
+    assert rstd.shape == (x.numel() // shape[-1], 1)
+    # float32, another summation order: a few ulp
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=1e-6)
+
+
+FLASH_CASES = {
+    "gqa-causal": (2, 8, 2, 200, 200, 128, True),
+    "causal-offset": (2, 4, 2, 40, 100, 128, True),
+    "noncausal-ragged": (1, 4, 1, 70, 90, 64, False),
+    "d32-causal": (2, 4, 2, 65, 65, 32, True),
+    "one-row": (3, 6, 3, 1, 129, 128, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as K
+
+    B, Hq, Hkv, Sq, Skv, D, causal = FLASH_CASES[case]
+    q = torch.randn(B, Hq, Sq, D, device="cuda", generator=cuda)
+    # k, v as the model makes them: [B, S, H, D] transposed (strided)
+    k = torch.randn(B, Skv, Hkv, D, device="cuda",
+                    generator=cuda).transpose(1, 2)
+    v = torch.randn(B, Skv, Hkv, D, device="cuda",
+                    generator=cuda).transpose(1, 2)
+    before = K.flash_attention_cuda.launches
+    o = K.flash_attention(q, k, v, causal, None)
+    assert K.flash_attention_cuda.launches == before + 1
+    want = K.flash_attention_plain(q, k, v, causal, None)
+    # float32 with an online softmax over 64-key tiles: a few ulp
+    torch.testing.assert_close(o, want, rtol=1e-5, atol=2e-6)
+
+
+def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+
+    x = torch.randn(4, 64, device="cuda")
+    with pytest.raises(TypeError):
+        RN.rmsnorm_cuda(x.half(), torch.ones(64, device="cuda").half(), 1e-6)
+    q = torch.randn(1, 2, 8, 256, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_cuda(q, q, q, False, None)
+
+
+def test_reduced_generate_on_the_card_matches_the_cpu(cuda):
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config("llama3.2-3b").reduced()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 13))
+    want = generate(cpu, params, prompts, 6)
+    gpu = Model(cfg)
+    gparams = torch.utils._pytree.tree_map(lambda t: t.cuda(), params)
+    before = (RN.rmsnorm_cuda.launches, FA.flash_attention_cuda.launches)
+    got = generate(gpu, gparams, prompts, 6)
+    assert RN.rmsnorm_cuda.launches > before[0]
+    assert FA.flash_attention_cuda.launches > before[1]
+    np.testing.assert_array_equal(got, want)

@@ -3,7 +3,8 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
   package (an AST scan), and importing the port leaves ``jax`` out of
   ``sys.modules`` (a fresh subprocess).
-* Entry points default to CUDA: on a host without one they raise unless
+* Entry points (``stitched_jit``, ``Model`` and so ``generate``,
+  ``serve.main``) default to CUDA: on a host without one they raise unless
   the caller passes ``device="cpu"``; they never move to the CPU silently.
 """
 import ast
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import stitched_jit  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,7 +47,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.models.model, repro_torch.models.convert; "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.kernels.ops, repro_torch.launch.serve; "
             "print('jax' in sys.modules, 'repro' in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -73,6 +76,12 @@ def test_model_defaults_to_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(cfg)
     assert Model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_serve_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])
 
 
 def test_inputs_on_another_device_are_refused():

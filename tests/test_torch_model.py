@@ -38,7 +38,7 @@ def setup():
 def test_forward_matches_jax_model(setup, hw):
     cfg, params, tokens, jlogits = setup
     kw = {} if hw == "h100" else {"hw": V5E}
-    model = Model(cfg, device="cpu", **kw)
+    model = Model(cfg, "xla", device="cpu", **kw)
     logits, probs = model.forward(params, tokens)
     assert logits.shape == (B, S, cfg.padded_vocab)
     # float32 through 2 layers of matmuls, norms and softmaxes, another
@@ -52,7 +52,7 @@ def test_forward_matches_jax_model(setup, hw):
 
 def test_forward_compiles_the_block_once(setup):
     cfg, params, tokens, _ = setup
-    model = Model(cfg, device="cpu")
+    model = Model(cfg, "xla", device="cpu")
     model.forward(params, tokens)
     model.forward(params, tokens)
     assert model.block.n_compiled == 1 and model.head.n_compiled == 1
@@ -60,7 +60,7 @@ def test_forward_compiles_the_block_once(setup):
 
 def test_head_softmax_streams_and_block_generates_kernels(setup):
     cfg, params, tokens, _ = setup
-    model = Model(cfg, device="cpu")
+    model = Model(cfg, "xla", device="cpu")
     h = params["embed"][tokens]
     block = model.block.report(params["blocks"][0], h, torch.arange(S))
     head = model.head.report({"final_norm": params["final_norm"],
@@ -71,7 +71,7 @@ def test_head_softmax_streams_and_block_generates_kernels(setup):
 
 def test_seeded_init_is_deterministic():
     cfg = get_config("llama3.2-3b").reduced()
-    model = Model(cfg, device="cpu")
+    model = Model(cfg, "xla", device="cpu")
     a, b = model.init(3), model.init(3)
     torch.testing.assert_close(a["blocks"][1]["mlp"]["w_up"],
                                b["blocks"][1]["mlp"]["w_up"])

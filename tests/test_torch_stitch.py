@@ -23,6 +23,7 @@ from repro.models.model import block_apply as jblock_apply  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.models.layers import XLA  # noqa: E402
 from repro_torch.models.model import block_apply  # noqa: E402
 
 rng = np.random.default_rng(21)
@@ -117,7 +118,7 @@ def test_reduced_block_matches_reference(monkeypatch, dispatch):
                             positions=pos)[0]
 
     jf = jcore.stitched_jit(jfn, hw=jcore.V5E)
-    tf = tcore.stitched_jit(functools.partial(block_apply, cfg),
+    tf = tcore.stitched_jit(functools.partial(block_apply, cfg, fm=XLA),
                             hw=tcore.V5E, dispatch=dispatch, device="cpu")
     jargs = (jlayer, jnp.asarray(h), jnp.arange(S))
     targs = (tparams["blocks"][0], torch.from_numpy(h), torch.arange(S))

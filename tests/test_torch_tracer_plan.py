@@ -26,6 +26,7 @@ from repro_torch import core as tcore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.models.layers import XLA  # noqa: E402
 from repro_torch.models.model import block_apply  # noqa: E402
 
 rng = np.random.default_rng(11)
@@ -143,7 +144,7 @@ def _block_setup(monkeypatch):
 
     jargs = (jlayer, jnp.asarray(h), jnp.arange(S))
     targs = (tparams["blocks"][0], torch.from_numpy(h), torch.arange(S))
-    return jfn, jargs, functools.partial(block_apply, cfg), targs
+    return jfn, jargs, functools.partial(block_apply, cfg, fm=XLA), targs
 
 
 def _jax_schedules(compiled):
@@ -217,7 +218,7 @@ def test_full_width_block_plans_like_the_reference(monkeypatch):
         jlayer, jax.ShapeDtypeStruct((4, 512, 3072), jnp.float32),
         jax.ShapeDtypeStruct((512,), jnp.int32))
     tlayer = block_init(cfg, None, torch.float32, "meta")
-    tg = tcore.trace(functools.partial(block_apply, cfg), tlayer,
+    tg = tcore.trace(functools.partial(block_apply, cfg, fm=XLA), tlayer,
                      torch.empty(4, 512, 3072, device="meta"),
                      torch.empty(512, dtype=torch.int64, device="meta"))
     jgroups = _full_width_groups(jcore, jg, jcore.V5E, j_emittable)

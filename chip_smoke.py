@@ -32,11 +32,15 @@ each of which makes the script exit non-zero when it fails:
    through ``repro_torch.launch.serve.generate`` -- 4 prompts of 500
    tokens (bucket 512), 16 greedy tokens, cache length 1024 -- with its
    compile seconds, time to first token, decode ms per token, tokens/s,
-   launches per prefill and per decode step, a profile of each, and the
-   logits of every step held against the plain path (``"xla"`` with
-   ``dispatch="interpret"``: no kernel of any kind) fed the same tokens.
-6. A ``{"kernels": [...]}`` summary line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   launches per prefill and per decode step, a profile of each, every
+   generated kernel instance of the prefill and decode signatures held
+   against its plain version at its shapes, and the logits of every step
+   held against the plain path (``"xla"`` with ``dispatch="interpret"``:
+   no kernel of any kind) fed the same tokens.
+6. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
+   checked instance that moves the most bytes, the largest error of any
+   instance, ``timing`` saying how the times were taken), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Imports ``torch`` and the port only.
 """
@@ -78,6 +82,10 @@ def device_line() -> str:
 #: 1.98 GHz): the host enqueues the call meanwhile, so the event pair
 #: brackets device time only, not the wrapper's Python and ctypes cost.
 QUEUE_CYCLES = 2_000_000
+#: How the ``kernels`` line's times were taken: ``ms``, ``plain_ms`` and
+#: ``library_ms`` are device time (``time_ms`` queued); ``call_ms`` is the
+#: kernel's call with the host's cost (``time_ms`` not queued).
+TIMING = "device; call_ms with the host's cost"
 
 
 def time_ms(fn, reps: int, *, queued: bool = True) -> float:
@@ -183,6 +191,7 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     torch.cuda.synchronize()
     err, worst = agreement(got, want)
     ms = time_ms(lambda: kern.launch(*vals), reps)
+    call_ms = time_ms(lambda: kern.launch(*vals), reps, queued=False)
     plain_ms = time_ms(lambda: kern.plain(torch.device("cuda"), *vals),
                        max(3, reps // 4))
     lib_ms = time_ms(lambda: library(*vals), reps) if library else None
@@ -190,7 +199,8 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     print(f"kernel {kern.schedule:9s} {label}: R={kern.R} C={kern.C} "
           f"BR={kern.BR} max_abs_err={err:.3e} (worst err/limit "
           f"{worst:.3f}, limit {RTOL:g}|plain| + {FLOOR:g} mean|plain|) "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"ms={ms:.4f} (call with the host's cost: {call_ms:.4f}) "
+          f"plain_ms={plain_ms:.4f} library_ms="
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
           f"bound_ms={bound:.4f} ({bound_by}: {nbytes} B, {ops} ops)")
     if not all(torch.isfinite(g.float()).all() for g in got):
@@ -198,8 +208,9 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     if not worst <= 1.0:
         fail(f"{label}: kernel disagrees with its plain version "
              f"(worst err/limit {worst:.3f})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+    return {"max_abs_err": err, "worst": worst, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms, "_bytes": nbytes}
 
 
 def only_generated(compiled, schedule: str):
@@ -398,13 +409,24 @@ def phase_main_path(gen) -> tuple[dict, list]:
     del plain, ref_logits, ref_probs, logits, probs
 
     # every generated kernel instance of the main path, at its shapes
-    stats: dict[str, dict] = {}
-    checked = set()
-    for name, comp in (("block", block_c), ("head", head_c)):
+    checks: dict[str, list] = {}
+    check_generated({"block": block_c, "head": head_c}, gen, checks)
+    return launches, checks
+
+
+def check_generated(compiled: dict, gen, checks: dict) -> None:
+    """Hold every generated kernel instance of the ``{label: compiled}``
+    functions against its plain version at the shapes it was compiled for
+    (``check_kernel``), each instance once; append each result to
+    ``checks[kind]``."""
+    import torch
+
+    seen = {id(r["_fn"]) for rs in checks.values() for r in rs if "_fn" in r}
+    for name, comp in compiled.items():
         for em in comp.emitted:
-            if not em.generated or id(em.fn) in checked:
+            if not em.generated or id(em.fn) in seen:
                 continue
-            checked.add(id(em.fn))
+            seen.add(id(em.fn))
             is_softmax = any(comp.graph.node(n).prim == "reduce_max"
                              for p in em.parts for n in p)
             lib = ((lambda v: torch.softmax(v, -1))
@@ -415,11 +437,16 @@ def phase_main_path(gen) -> tuple[dict, list]:
                                label=f"{name} {'+'.join(prims)}",
                                reps=10 if em.fn.R * em.fn.C > 1e8 else 50,
                                library=lib)
-            nbytes = kernel_bound(em, comp.graph)[2]
-            best = stats.get(em.kind)
-            if best is None or nbytes > best["_bytes"]:
-                stats[em.kind] = dict(res, _bytes=nbytes)
-    return launches, stats
+            checks.setdefault(em.kind, []).append(dict(res, _fn=em.fn))
+
+
+def summarize(results: list) -> dict:
+    """One kernel's entry of the summary line from its checked instances:
+    the times of the instance that moves the most bytes, the largest
+    error of any instance."""
+    top = max(results, key=lambda r: r.get("_bytes", 0))
+    return dict(top, max_abs_err=max(r["max_abs_err"] for r in results),
+                instances_checked=len(results))
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -457,8 +484,9 @@ def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
     if not worst <= 1.0:
         fail(f"{label}: kernel disagrees with its plain version "
              f"(worst err/limit {worst:.3f})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+    return {"max_abs_err": err, "worst": worst, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
 
 
 def phase_cuda_kernels(gen) -> dict:
@@ -475,7 +503,7 @@ def phase_cuda_kernels(gen) -> dict:
     print(f"nvcc build of {sorted(libs)}: {time.perf_counter() - t0:.1f} s "
           f"(flags {' '.join(_build.NVCC_FLAGS)})")
 
-    stats = {}
+    checks: dict[str, list] = {}
     for R in (BATCH * PROMPT, BATCH):
         C = 3072
         x = torch.randn(R, C, generator=gen, device="cuda")
@@ -485,7 +513,8 @@ def phase_cuda_kernels(gen) -> dict:
             lambda a, b: RN.rmsnorm_plain(a, b, 1e-6), (x, g),
             nbytes=4 * (2 * R * C + C + R), ops=4 * R * C, reps=50,
             library=lambda a, b: F.rms_norm(a, (C,), b, 1e-6))
-        stats.setdefault("rmsnorm", res)
+        checks.setdefault("rmsnorm", []).append(
+            dict(res, _bytes=4 * (2 * R * C + C + R)))
 
     B, Hq, Hkv, D = BATCH, 24, 8, 128
     for label, Sq, Skv, causal in (("prefill causal", 512, 512, True),
@@ -511,8 +540,9 @@ def phase_cuda_kernels(gen) -> dict:
             lambda a, b, c, _c=causal: FA.flash_attention_plain(a, b, c, _c),
             (q, k, v), nbytes=4 * (2 * q.numel() + 2 * k.numel()),
             ops=4 * D * B * Hq * pairs, reps=20, library=lib)
-        stats.setdefault("flash_attention", res)
-    return stats
+        checks.setdefault("flash_attention", []).append(
+            dict(res, _bytes=4 * (2 * q.numel() + 2 * k.numel())))
+    return checks
 
 
 def launch_counts() -> dict:
@@ -535,9 +565,10 @@ def reset_launch_counts() -> None:
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
 
 
-def phase_serving() -> dict:
+def phase_serving(gen, checks: dict) -> dict:
     """``generate`` at full width in the default (stitched) mode; returns
-    the launches of the counted run."""
+    the launches of the counted run.  Appends the checks of the generated
+    kernels it launches to ``checks``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -597,16 +628,25 @@ def phase_serving() -> dict:
     per_decode = launch_counts()
     print(f"launches per prefill: {json.dumps(per_prefill)}; per decode "
           f"step: {json.dumps(per_decode)}")
+    # the compiled functions at the prefill and the decode signatures
     p0, h = params["blocks"][0], params["embed"][toks]
+    head_p = model._head_params(params)
     pos_p = torch.arange(Sp, device="cuda")
     q, k, v = model.pre(p0, h, pos_p)
-    describe("prefill pre ", model.pre.compiled(p0, h, pos_p))
-    describe("prefill post", model.post.compiled(p0, h, q, k, v))
+    served = {"prefill pre": model.pre.compiled(p0, h, pos_p),
+              "prefill post": model.post.compiled(p0, h, q, k, v),
+              "prefill head": model.logits_head.compiled(head_p, h)}
     h1, pos1 = params["embed"][tok], positions[:1]
     q, k, v = model.pre(p0, h1, pos1)
-    describe("decode pre  ", model.pre.compiled(p0, h1, pos1))
-    describe("decode post ", model.post.compiled(
-        p0, h1, q, cache["k"][0], cache["v"][0], positions[0] + 1))
+    served.update({
+        "decode pre": model.pre.compiled(p0, h1, pos1),
+        "decode post": model.post.compiled(
+            p0, h1, q, cache["k"][0], cache["v"][0], positions[0] + 1),
+        "decode head": model.logits_head.compiled(head_p, h1)})
+    for name, comp in served.items():
+        describe(f"{name:12s}", comp)
+    # every generated kernel instance that serving launches, at its shapes
+    check_generated(served, gen, checks)
     weights = sum(t.numel() * t.element_size()
                   for t in torch.utils._pytree.tree_leaves(
                       [params["blocks"], params["lm_head"]]))
@@ -699,11 +739,15 @@ def main() -> int:
     print(device_line())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_kernels(gen)
-    cuda_stats = phase_cuda_kernels(gen)
+    checks = phase_cuda_kernels(gen)
     reset_launch_counts()
-    fwd_launches, stats = phase_main_path(gen)
-    serve_launches = phase_serving()
-    stats.update(cuda_stats)
+    fwd_launches, fwd_checks = phase_main_path(gen)
+    checks.update(fwd_checks)
+    n_fwd = sum(map(len, fwd_checks.values()))
+    serve_launches = phase_serving(gen, checks)
+    n_gen = sum(len(checks[k]) for k in ("onepass", "streaming"))
+    print(f"generated kernel instances held against their plain versions: "
+          f"{n_fwd} of the forward path, {n_gen - n_fwd} more of serving")
 
     kernels = []
     for name, route, source, replaces in (
@@ -716,7 +760,7 @@ def main() -> int:
             ("flash_attention", "cuda",
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:87")):
-        s = stats[name]
+        s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name]}
         kernels.append({
@@ -725,7 +769,9 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "call_ms": s["call_ms"], "timing": TIMING,
+            "instances_checked": s["instances_checked"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

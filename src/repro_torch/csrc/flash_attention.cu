@@ -189,8 +189,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 template <int DMAX>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  // once per process: allow this kernel more than 48 KB of shared memory
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // allow this kernel more than 48 KB of shared memory on the current
+  // device; the attribute is per device, so it is set on every launch
+  const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (attr != cudaSuccess) return attr;

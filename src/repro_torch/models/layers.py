@@ -149,23 +149,13 @@ def attn_core(cfg: ArchConfig, p: dict, q, k, v, *, fm: FusionMode,
     return o @ p["wo"]
 
 
-def attn_apply(cfg: ArchConfig, p: dict, x, *, fm: FusionMode, positions,
-               cache: dict | None = None, kv_len=None):
-    """x [B, S, d] -> [B, S, d] (``src/repro/models/layers.py:102-140``).
-
-    With a cache, prefill (S > 1) fills its rows ``positions`` and attends
-    over this call's k, v; decode (S == 1, ``kv_len`` = position + 1)
-    writes its row and attends over the cache.  A cache makes this eager
-    code, not a traced function (``cache_write``); ``models/model.py``
-    stitches the parts before and after the write.
-    """
+def attn_apply(cfg: ArchConfig, p: dict, x, *, fm: FusionMode, positions):
+    """x [B, S, d] -> [B, S, d], causal over this call's tokens, no cache
+    (``src/repro/models/layers.py:102-140`` without one).  With a cache,
+    ``models/model.py`` stitches ``attn_qkv`` and ``attn_core`` on either
+    side of ``cache_write``."""
     q, k, v = attn_qkv(cfg, p, x, positions)
-    if cache is None:
-        return attn_core(cfg, p, q, k, v, fm=fm)
-    cache_write(cache, k, v, positions)
-    if x.shape[1] > 1:
-        return attn_core(cfg, p, q, k, v, fm=fm)
-    return attn_core(cfg, p, q, cache["k"], cache["v"], fm=fm, kv_len=kv_len)
+    return attn_core(cfg, p, q, k, v, fm=fm)
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,

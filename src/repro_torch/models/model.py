@@ -47,13 +47,10 @@ def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
             "mlp": L.mlp_init(cfg, gen, dtype, device)}
 
 
-def block_apply(cfg: ArchConfig, p: dict, h, positions, *, fm: FusionMode,
-                cache: dict | None = None, kv_len=None):
-    """One layer: h [B, S, d], positions [S] -> h [B, S, d].  With a
-    cache (eager code only) it also writes this call's k and v."""
+def block_apply(cfg: ArchConfig, p: dict, h, positions, *, fm: FusionMode):
+    """One layer without a cache: h [B, S, d], positions [S] -> h."""
     h = h + L.attn_apply(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h, fm),
-                         fm=fm, positions=positions, cache=cache,
-                         kv_len=kv_len)
+                         fm=fm, positions=positions)
     return h + L.mlp_apply(cfg, p["mlp"], L.norm_apply(cfg, p["norm2"], h, fm))
 
 

@@ -16,10 +16,9 @@ from repro.serving.buckets import Buckets as JBuckets  # noqa: E402
 from repro.serving.buckets import pad_tokens as jpad_tokens  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.models.layers import STITCHED, XLA  # noqa: E402
-from repro_torch.models.model import Model, block_apply  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.buckets import ENV_BUCKETS, Buckets, pad_tokens  # noqa: E402
 
 GEN = 6
@@ -121,31 +120,25 @@ def test_cache_is_written_in_place(setup):
 
 
 @pytest.mark.parametrize("fm", [STITCHED, XLA], ids=lambda f: f.name)
-def test_split_layer_equals_the_eager_cached_layer(setup, fm):
-    """The two stitched halves around the cache write compute what the
-    eager ``block_apply`` with a cache computes, in prefill and decode."""
+def test_decode_ignores_cache_rows_past_kv_len(setup, fm):
+    """A decode step at position ``pos`` reads the cache rows 0..pos only:
+    rows past it (stale or never written) leave its logits unchanged."""
     cfg, _, _, tparams = setup
     mdl = Model(cfg, fm.name, device="cpu")
-    p = tparams["blocks"][0]
-    h = torch.from_numpy(np.random.default_rng(6).standard_normal(
-        (2, 8, cfg.d_model)).astype(np.float32))
-    eager_cache = {k: v[0].clone() for k, v in mdl.init_cache(2, 16).items()}
-    split_cache = {k: v[0].clone() for k, v in mdl.init_cache(2, 16).items()}
-    pos = torch.arange(8)
-    want = block_apply(cfg, p, h, pos, fm=fm, cache=eager_cache)
-    q, k, v = mdl.pre(p, h, pos)
-    L.cache_write(split_cache, k, v, pos)
-    got = mdl.post(p, h, q, k, v)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    h1 = h[:, -1:]
-    p1 = torch.tensor(8)
-    want = block_apply(cfg, p, h1, p1.reshape(1), fm=fm, cache=eager_cache,
-                       kv_len=p1 + 1)
-    q, k, v = mdl.pre(p, h1, p1.reshape(1))
-    L.cache_write(split_cache, k, v, p1.reshape(1))
-    got = mdl.post(p, h1, q, split_cache["k"], split_cache["v"], p1 + 1)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(split_cache["k"], eager_cache["k"])
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    clean = mdl.init_cache(2, 16)
+    mdl.prefill(tparams, tokens, clean)
+    stale = {k: v.clone() for k, v in clean.items()}
+    for v in stale.values():
+        v[:, :, :, 9:] = torch.from_numpy(
+            1e3 * rng.standard_normal(v[:, :, :, 9:].shape).astype(np.float32))
+    tok, pos = tokens[:, -1:], torch.tensor(8)
+    want, _ = mdl.decode_step(tparams, clean, tok, pos)
+    got, _ = mdl.decode_step(tparams, stale, tok, pos)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(stale["k"][:, :, :, :9], clean["k"][:, :, :, :9],
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("spec", ["", "16,48,128", "100"])

@@ -16,10 +16,13 @@ each of which makes the script exit non-zero when it fails:
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s float32; H100 SXM data sheet).
 3. CUDA kernels: ``nvcc`` builds ``src/repro_torch/csrc`` (timed), then
-   the RMSNorm kernel at [2048, 3072] and [4, 3072] and the flash
+   the RMSNorm kernel at [2048, 3072] and [4, 3072], the LayerNorm
+   forward and backward kernels at the train path's [4096, 1280], at a
+   ragged [4000, 1280] and at the quickstart's [8192, 3072], and the flash
    attention kernel at the prefill shape (causal), at a ragged Sq = Skv =
-   500, with Sq 200 < Skv 500 (causal offset) and non-causal, each against
-   its plain version with the same per-element limit and the same times.
+   500, with Sq 200 < Skv 500 (causal offset), non-causal, and at the
+   train path's [8, 16, 512, 80] non-causal, each against its plain
+   version with the same per-element limit and the same times.
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -37,16 +40,26 @@ each of which makes the script exit non-zero when it fails:
    against its plain version at its shapes, and the logits of every step
    held against the plain path (``"xla"`` with ``dispatch="interpret"``:
    no kernel of any kind) fed the same tokens.
-6. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
-   checked instance that moves the most bytes, the largest error of any
-   instance, ``timing`` saying how the times were taken), then the last
-   line ``{"ok": true, "device": {...}}``.
+6. Train path (``fusion_mode="stitched"``): HuBERT-XLarge at full width
+   and depth (48 layers, d_model 1280, 16 x 80 heads, float32) through
+   ``repro_torch.launch.train.build_trainer``, batch 8 x 512 frames, 5
+   AdamW steps: step ms, frames/s, launches per step, a profile of one
+   step, peak memory; then the same weights and batches through
+   ``fusion_mode="xla"`` (the plain oracles, no kernel of any kind): the
+   step-0 loss, the step-0 gradients tensor by tensor, their global norm
+   and the loss of every step held against it.
+7. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
+   main-path instance, else of its checked instance that moves the most
+   bytes, the largest error of any instance, ``timing`` saying how the
+   times were taken, launches by path), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Imports ``torch`` and the port only.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -63,6 +76,7 @@ FP32_OPS_PER_S = 67e12
 SEED = 0
 BATCH, PROMPT = 4, 512
 SERVE_PROMPT, SERVE_GEN = 500, 16
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 512, 5
 
 
 def fail(msg: str) -> None:
@@ -266,6 +280,10 @@ def kernel_kind(name: str) -> str:
         return "cuda rmsnorm"
     if "flash_fwd_kernel" in low:
         return "cuda flash"
+    if "ln_fwd_" in low:
+        return "cuda layernorm"
+    if "ln_bwd_" in low:
+        return "cuda layernorm bwd"
     if low == "kernel":
         return "generated"
     if any(k in low for k in ("gemm", "sm90", "cutlass", "matmul", "xmma",
@@ -442,9 +460,11 @@ def check_generated(compiled: dict, gen, checks: dict) -> None:
 
 def summarize(results: list) -> dict:
     """One kernel's entry of the summary line from its checked instances:
-    the times of the instance that moves the most bytes, the largest
-    error of any instance."""
-    top = max(results, key=lambda r: r.get("_bytes", 0))
+    the times of its main-path instance (``_main``) where it has one, else
+    of the instance that moves the most bytes; the largest error of any
+    instance."""
+    top = max(results, key=lambda r: (r.get("_main", False),
+                                      r.get("_bytes", 0)))
     return dict(top, max_abs_err=max(r["max_abs_err"] for r in results),
                 instances_checked=len(results))
 
@@ -496,6 +516,7 @@ def phase_cuda_kernels(gen) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import layernorm as LN
     from repro_torch.kernels import rmsnorm as RN
 
     t0 = time.perf_counter()
@@ -516,11 +537,44 @@ def phase_cuda_kernels(gen) -> dict:
         checks.setdefault("rmsnorm", []).append(
             dict(res, _bytes=4 * (2 * R * C + C + R)))
 
-    B, Hq, Hkv, D = BATCH, 24, 8, 128
-    for label, Sq, Skv, causal in (("prefill causal", 512, 512, True),
-                                   ("ragged causal", 500, 500, True),
-                                   ("causal offset", 200, 500, True),
-                                   ("non-causal", 512, 512, False)):
+    T = TRAIN_BATCH * TRAIN_FRAMES
+    for R, C in ((T, 1280), (T - 96, 1280), (8192, 3072)):
+        x = torch.randn(R, C, generator=gen, device="cuda") * 2.0 + 0.5
+        g = torch.randn(C, generator=gen, device="cuda")
+        b = torch.randn(C, generator=gen, device="cuda")
+        dy = torch.randn(R, C, generator=gen, device="cuda")
+        _, mean, rstd = LN.layernorm_plain(x, g, b, 1e-6)
+        main = (R, C) == (T, 1280)
+        # each input read once, each output written once; 7 and 13
+        # operations an element
+        nb_f = 4 * (2 * R * C + 2 * C + 2 * R)
+        res = check_cuda_kernel(
+            f"layernorm [{R}, {C}]",
+            lambda a, c, d: LN.layernorm_cuda(a, c, d, 1e-6),
+            lambda a, c, d: LN.layernorm_plain(a, c, d, 1e-6), (x, g, b),
+            nbytes=nb_f, ops=7 * R * C, reps=50,
+            library=lambda a, c, d, _C=C: F.layer_norm(a, (_C,), c, d, 1e-6))
+        checks.setdefault("layernorm", []).append(
+            dict(res, _bytes=nb_f, _main=main))
+        nb_b = 4 * (3 * R * C + 3 * C + 2 * R)
+        res = check_cuda_kernel(
+            f"layernorm_bwd [{R}, {C}]", LN.layernorm_bwd_cuda,
+            LN.layernorm_bwd_plain, (x, g, mean, rstd, dy),
+            nbytes=nb_b, ops=13 * R * C, reps=50,
+            library=lambda a, c, m, r, d, _b=b, _C=C:
+                torch.ops.aten.native_layer_norm_backward(
+                    d, a, [_C], m, r, c, _b, [True, True, True]))
+        checks.setdefault("layernorm_bwd", []).append(
+            dict(res, _bytes=nb_b, _main=main))
+
+    llama = (BATCH, 24, 8, 128)             # B, Hq, Hkv, D
+    hubert = (TRAIN_BATCH, 16, 16, 80)      # D 80: the D 128 instance
+    for label, (B, Hq, Hkv, D), Sq, Skv, causal in (
+            ("prefill causal", llama, 512, 512, True),
+            ("ragged causal", llama, 500, 500, True),
+            ("causal offset", llama, 200, 500, True),
+            ("non-causal", llama, 512, 512, False),
+            ("train non-causal", hubert, TRAIN_FRAMES, TRAIN_FRAMES, False)):
         q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
         k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
         # v as the model hands it over: [B, S, H, D] transposed (strided)
@@ -548,21 +602,28 @@ def phase_cuda_kernels(gen) -> dict:
 def launch_counts() -> dict:
     from repro_torch.core.codegen import OnePassKernel, StreamingKernel
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
+        layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     return {"onepass": OnePassKernel.launches,
             "streaming": StreamingKernel.launches,
             "rmsnorm": rmsnorm_cuda.launches,
-            "flash_attention": flash_attention_cuda.launches}
+            "flash_attention": flash_attention_cuda.launches,
+            "layernorm": layernorm_cuda.launches,
+            "layernorm_bwd": layernorm_bwd_cuda.launches}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.core.codegen import OnePassKernel, StreamingKernel
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
+        layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     OnePassKernel.launches = StreamingKernel.launches = 0
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+    layernorm_cuda.launches = layernorm_bwd_cuda.launches = 0
 
 
 def phase_serving(gen, checks: dict) -> dict:
@@ -716,6 +777,130 @@ def phase_serving(gen, checks: dict) -> dict:
     return launches
 
 
+#: Limits of the train path against the plain path (float32, another
+#: summation order in the kernels, 48 layers): the step-0 loss, each
+#: gradient tensor (max |dg| over max |g| of the plain tensor), the
+#: global gradient norm, and the loss of every step after the updates.
+TRAIN_LOSS0_RTOL, TRAIN_GRAD_RTOL, TRAIN_GNORM_RTOL, TRAIN_LOSS_RTOL = \
+    1e-5, 1e-3, 1e-4, 1e-3
+
+
+def phase_train() -> dict:
+    """``build_trainer`` at full width in the default (stitched) mode,
+    then the plain path from the same weights and batches; returns the
+    launches of the counted 5-step run."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import build_trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config("hubert-xlarge")
+    B, S, N = TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS
+    data = SyntheticTokens(DataConfig(seed=SEED, global_batch=B, seq_len=S),
+                           cfg)
+    batches = [data.batch_at(i) for i in range(N)]
+    b0 = {k: torch.as_tensor(v).to("cuda") for k, v in batches[0].items()}
+    print(f"train path: {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}x{cfg.resolved_head_dim} d_ff="
+          f"{cfg.d_ff} vocab={cfg.vocab_size} (padded {cfg.padded_vocab}) "
+          f"batch={B}x{S} frames float32 seed={SEED} steps={N} AdamW")
+
+    def run(fusion: str) -> dict:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mdl, init_state, train_step = build_trainer(
+            cfg, fusion_mode=fusion, lr=1e-3, total_steps=N)
+        state = init_state(SEED)
+        loss0, grads0 = loss_and_grads(mdl, state["params"], b0)
+        out = {"loss0": float(loss0), "grads0": grads0,
+               "gnorm0": float(optim.global_norm(grads0)), "losses": [],
+               "step_ms": [], "per_step": []}
+        reset_launch_counts()  # the counted run of the train path
+        for b in batches:
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = train_step(state, b)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(train_step.last_metrics["loss"])
+            after = launch_counts()
+            out["per_step"].append({k: after[k] - before[k] for k in after})
+        out["launches"] = launch_counts()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if fusion == "stitched":
+            prof = where_the_time_goes(
+                "one train step", lambda: train_step(state, batches[0]))
+            out["prof"] = prof
+        n_params = sum(t.numel() for t in
+                       torch.utils._pytree.tree_leaves(state["params"]))
+        print(f"train {fusion}: params={n_params:,} losses="
+              f"{[round(x, 6) for x in out['losses']]} step_ms="
+              f"{[round(x, 2) for x in out['step_ms']]} peak_memory_GB="
+              f"{out['peak_gb']:.2f} (torch.cuda.max_memory_allocated)")
+        return out
+
+    kern = run("stitched")
+    launches = kern.pop("launches")
+    step_ms = statistics.median(kern["step_ms"][1:])
+    print(f"train step_ms={step_ms:.2f} (median of steps 2-{N}, host clock "
+          f"around a synchronized step) frames/s={B * S * 1e3 / step_ms:.1f}")
+    prof = kern.pop("prof")
+    busy = sum(v for k, v in prof.items() if k != "wall_ms")
+    shares = {k: round(100 * v / busy, 2) for k, v in prof.items()
+              if k != "wall_ms"}
+    # the profiler's own host cost stretches the profiled wall; the
+    # unprofiled step's host clock is the fairer denominator
+    print(f"train step profile: device busy {busy:.2f} ms; idle share "
+          f"{100 * (1 - busy / step_ms):.2f}% of the unprofiled step "
+          f"({step_ms:.2f} ms), {100 * (1 - busy / prof['wall_ms']):.2f}% "
+          f"of the profiled wall ({prof['wall_ms']:.2f} ms); share of busy "
+          f"by kind (%): {json.dumps(shares)}")
+    print(f"launches per train step: {json.dumps(kern['per_step'][1])}")
+    want = {"layernorm": 2 * cfg.n_layers + 1,
+            "layernorm_bwd": 2 * cfg.n_layers + 1,
+            "flash_attention": cfg.n_layers}
+    for i, per in enumerate(kern["per_step"]):
+        for k, n in want.items():
+            if per[k] != n:
+                fail(f"train step {i} launched {k} {per[k]} times, want {n}")
+
+    plain = run("xla")
+    if any(plain["launches"].values()):
+        fail(f"the plain train path launched kernels: {plain['launches']}")
+    l0 = abs(kern["loss0"] - plain["loss0"]) / abs(plain["loss0"])
+    gn = abs(kern["gnorm0"] - plain["gnorm0"]) / plain["gnorm0"]
+    worst_g, worst_name = 0.0, ""
+    leaves_k = torch.utils._pytree.tree_flatten_with_path(kern["grads0"])[0]
+    leaves_p = torch.utils._pytree.tree_leaves(plain["grads0"])
+    for (path, gk), gp in zip(leaves_k, leaves_p):
+        ratio = float((gk - gp).abs().max()) / max(float(gp.abs().max()),
+                                                    1e-30)
+        if ratio > worst_g:
+            worst_g, worst_name = ratio, torch.utils._pytree.keystr(path)
+    dl = [abs(a - b) / abs(b) for a, b in zip(kern["losses"],
+                                              plain["losses"])]
+    print(f"train agreement with fusion_mode='xla': step-0 loss "
+          f"{kern['loss0']:.7f} vs {plain['loss0']:.7f} (rel "
+          f"{l0:.2e}, limit {TRAIN_LOSS0_RTOL:g}); step-0 gradients: worst "
+          f"max|dg|/max|g| {worst_g:.2e} at {worst_name} (limit "
+          f"{TRAIN_GRAD_RTOL:g}, {len(leaves_p)} tensors); global norm "
+          f"{kern['gnorm0']:.6f} vs {plain['gnorm0']:.6f} (rel {gn:.2e}, "
+          f"limit {TRAIN_GNORM_RTOL:g}); losses of the {N} steps: worst rel "
+          f"{max(dl):.2e} (limit {TRAIN_LOSS_RTOL:g}); plain step_ms="
+          f"{statistics.median(plain['step_ms'][1:]):.2f}")
+    if not all(map(math.isfinite, kern["losses"] + plain["losses"])):
+        fail("train path: a loss is not finite")
+    if (l0 > TRAIN_LOSS0_RTOL or worst_g > TRAIN_GRAD_RTOL
+            or gn > TRAIN_GNORM_RTOL or max(dl) > TRAIN_LOSS_RTOL):
+        fail("the stitched train path disagrees with the plain path")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -748,6 +933,7 @@ def main() -> int:
     n_gen = sum(len(checks[k]) for k in ("onepass", "streaming"))
     print(f"generated kernel instances held against their plain versions: "
           f"{n_fwd} of the forward path, {n_gen - n_fwd} more of serving")
+    train_launches = phase_train()
 
     kernels = []
     for name, route, source, replaces in (
@@ -759,10 +945,15 @@ def main() -> int:
              "src/repro/kernels/rmsnorm.py:20"),
             ("flash_attention", "cuda",
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:87")):
+             "src/repro/kernels/flash_attention.py:87"),
+            ("layernorm", "cuda", "src/repro_torch/csrc/layernorm.cu",
+             "src/repro/kernels/layernorm.py:34"),
+            ("layernorm_bwd", "cuda", "src/repro_torch/csrc/layernorm.cu",
+             "src/repro/kernels/layernorm.py:92")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
-                   "serve": serve_launches[name]}
+                   "serve": serve_launches[name],
+                   "train": train_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -100,7 +100,7 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
-ARCH_IDS = ["llama3.2-3b"]  # the configs this slice of the port carries
+ARCH_IDS = ["llama3.2-3b", "hubert-xlarge"]  # the configs the port carries
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

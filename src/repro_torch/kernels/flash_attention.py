@@ -10,6 +10,11 @@ by default), the causal offset ``q_idx + (Skv - Sq) >= k_idx``, the
 padding of a ragged ``Skv``, the ``-1e30`` fill and the final
 ``max(l, 1e-30)``.  ``score_mod`` and ``flash_decode`` are not ported yet.
 
+Its autograd formula recomputes ``ref.attention`` and takes its VJP, as
+the reference's ``_attention_bwd`` does (``src/repro/kernels/ops.py:56-70``):
+the JAX package has no attention backward kernel, so the backward is
+plain ops on the card by the reference's own design.
+
 ``flash_attention(q, k, v, causal, scale)`` is the operator: on CPU
 tensors it runs ``flash_attention_plain``, on CUDA tensors
 ``flash_attention_cuda`` (the kernel, or an error), on fake and meta
@@ -117,3 +122,21 @@ def _(q, k, v, causal=True, scale=None):
 def _(q, k, v, causal=True, scale=None):
     _check_shapes(q, k, v, causal)
     return q.new_empty(q.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ref.attention(*qkv, causal=ctx.causal, scale=ctx.scale)
+        dq, dk, dv = torch.autograd.grad(o, qkv, do)
+    return dq, dk, dv, None, None
+
+
+flash_attention.register_autograd(_backward, setup_context=_setup_context)

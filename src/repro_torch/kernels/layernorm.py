@@ -1,0 +1,217 @@
+"""LayerNorm forward and backward: the hand-written CUDA kernels
+(``csrc/layernorm.cu``), their plain PyTorch versions, and the
+``repro_torch::layernorm`` / ``repro_torch::layernorm_bwd`` operators.
+
+The counterparts of ``layernorm_fwd`` and ``_ln_bwd`` (the TPU kernels
+``_ln_kernel`` and ``_ln_bwd_kernel``, ``src/repro/kernels/layernorm.py``):
+the forward returns ``(y, mean, rstd)`` with the statistics [R, 1]
+float32 over the rows R of ``x`` flattened to [R, C]; the backward takes
+them back with ``dy`` and returns ``(dx, dgamma, dbeta)``.
+
+``layernorm(x, gamma, beta, eps)`` is the forward operator: on CPU
+tensors it runs ``layernorm_plain``, on CUDA tensors ``layernorm_cuda``
+(the kernel, or an error), on fake and meta tensors its shape function,
+so ``make_fx`` traces it as one node.  Its autograd formula (the
+reference's ``custom_vjp``, ``layernorm.py:140-161``) saves x, gamma and
+the statistics and calls ``layernorm_bwd``, dispatched the same way.
+The gradients arriving for ``mean`` and ``rstd`` are ignored: they are
+statistics, not values the reference differentiates.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+
+#: Backward blocks per SM: each block walks ``ceil(R / (this * SMs))``
+#: rows and writes one dgamma and one dbeta partial row.
+BWD_BLOCKS_PER_SM = 4
+
+
+def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    eps: float) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The forward kernel's function in plain PyTorch (the order of
+    ``_ln_kernel``: the mean, then the variance of the centred values,
+    float32 inside)."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C).to(torch.float32)
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = xc * rstd * gamma.to(torch.float32) + beta.to(torch.float32)
+    return y.to(x.dtype).reshape(x.shape), mean, rstd
+
+
+def layernorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
+                        mean: torch.Tensor, rstd: torch.Tensor,
+                        dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    """The backward kernel's function in plain PyTorch (``_ln_bwd``'s
+    formula): dx like x, dgamma and dbeta [C] float32."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C).to(torch.float32)
+    dyf = dy.reshape(-1, C).to(torch.float32)
+    xhat = (xf - mean) * rstd
+    gdy = dyf * gamma.to(torch.float32)
+    m1 = gdy.mean(-1, keepdim=True)
+    m2 = (gdy * xhat).mean(-1, keepdim=True)
+    dx = rstd * (gdy - m1 - xhat * m2)
+    return (dx.to(x.dtype).reshape(x.shape), (dyf * xhat).sum(0),
+            dyf.sum(0))
+
+
+def _check(what: str, tensors: dict, C: int) -> None:
+    dev = tensors["x"].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"{what}: " + ", ".join(
+            f"{k} on {t.device}" for k, t in tensors.items())
+            + "; all must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors.values()):
+        raise TypeError(f"{what} takes float32, got " + ", ".join(
+            f"{k} {t.dtype}" for k, t in tensors.items()))
+    for k in ("gamma", "beta"):
+        if k in tensors and tensors[k].shape != (C,):
+            raise ValueError(f"{what}: {k} {tuple(tensors[k].shape)} for "
+                             f"rows of {C}")
+
+
+def layernorm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Launch the forward kernel (float32, on the current stream)."""
+    C = x.shape[-1]
+    _check("layernorm_cuda", {"x": x, "gamma": gamma, "beta": beta}, C)
+    # a copy only where the rows are not contiguous (device time)
+    x2 = x.reshape(-1, C).contiguous()
+    g, b = gamma.contiguous(), beta.contiguous()
+    R = x2.shape[0]
+    y = torch.empty_like(x2)
+    mean = torch.empty(R, 1, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(R, 1, dtype=torch.float32, device=x.device)
+    _build.check(_entry("repro_layernorm_fwd_f32")(
+        x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), R, C, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "repro_layernorm_fwd_f32")
+    layernorm_cuda.launches += 1
+    return y.reshape(x.shape), mean, rstd
+
+
+layernorm_cuda.launches = 0  # kernel launches (plain runs are not counted)
+
+
+def bwd_rows_per_block(R: int, device: torch.device) -> int:
+    """Rows each backward block walks: enough blocks to fill the card
+    (``BWD_BLOCKS_PER_SM`` per SM), as few partial rows as that allows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, math.ceil(R / (BWD_BLOCKS_PER_SM * sms)))
+
+
+def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                       mean: torch.Tensor, rstd: torch.Tensor,
+                       dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """Launch the backward kernel (float32, on the current stream), then
+    sum its [nb, C] dgamma and dbeta partials over the blocks."""
+    C = x.shape[-1]
+    _check("layernorm_bwd_cuda", {"x": x, "gamma": gamma, "mean": mean,
+                                  "rstd": rstd, "dy": dy}, C)
+    x2 = x.reshape(-1, C).contiguous()
+    dy2 = dy.reshape(-1, C).contiguous()
+    R = x2.shape[0]
+    if dy2.shape[0] != R or mean.numel() != R or rstd.numel() != R:
+        raise ValueError(f"layernorm_bwd_cuda: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, mean {tuple(mean.shape)}, rstd "
+                         f"{tuple(rstd.shape)}: want R = {R} rows each")
+    rpb = bwd_rows_per_block(R, x.device)
+    nb = math.ceil(R / rpb)
+    dx = torch.empty_like(x2)
+    dgp = torch.empty(nb, C, dtype=torch.float32, device=x.device)
+    dbp = torch.empty(nb, C, dtype=torch.float32, device=x.device)
+    _build.check(_entry("repro_layernorm_bwd_f32")(
+        x2.data_ptr(), gamma.contiguous().data_ptr(),
+        mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
+        dy2.data_ptr(), dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), R, C,
+        rpb, torch.cuda.current_stream(x.device).cuda_stream),
+        "repro_layernorm_bwd_f32")
+    layernorm_bwd_cuda.launches += 1
+    return dx.reshape(x.shape), dgp.sum(0), dbp.sum(0)
+
+
+layernorm_bwd_cuda.launches = 0  # kernel launches (plain runs excluded)
+
+
+@functools.cache
+def _entry(name: str):
+    fn = getattr(_build.library("layernorm"), name)
+    if name == "repro_layernorm_fwd_f32":
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_float, ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::layernorm", mutates_args=(),
+                         device_types="cpu")
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, mean, rstd): y like x, mean and rstd [R, 1] float32."""
+    return layernorm_plain(x, gamma, beta, eps)
+
+
+@layernorm.register_kernel("cuda")
+def _(x, gamma, beta, eps):
+    return layernorm_cuda(x, gamma, beta, eps)
+
+
+@layernorm.register_fake
+def _(x, gamma, beta, eps):
+    R = x.numel() // x.shape[-1]
+    stat = x.new_empty((R, 1), dtype=torch.float32)
+    return torch.empty_like(x), stat, stat.clone()
+
+
+@torch.library.custom_op("repro_torch::layernorm_bwd", mutates_args=(),
+                         device_types="cpu")
+def layernorm_bwd(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
+                  rstd: torch.Tensor,
+                  dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """(dx, dgamma, dbeta): dx like x, dgamma and dbeta [C] float32."""
+    return layernorm_bwd_plain(x, gamma, mean, rstd, dy)
+
+
+@layernorm_bwd.register_kernel("cuda")
+def _(x, gamma, mean, rstd, dy):
+    return layernorm_bwd_cuda(x, gamma, mean, rstd, dy)
+
+
+@layernorm_bwd.register_fake
+def _(x, gamma, mean, rstd, dy):
+    C = x.shape[-1]
+    return (torch.empty_like(x), x.new_empty((C,), dtype=torch.float32),
+            x.new_empty((C,), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    x, gamma, _, _ = inputs
+    _, mean, rstd = output
+    ctx.save_for_backward(x, gamma, mean, rstd)
+
+
+def _backward(ctx, dy, _dmean, _drstd):
+    x, gamma, mean, rstd = ctx.saved_tensors
+    dx, dg, db = layernorm_bwd(x, gamma, mean, rstd, dy)
+    return dx, dg.to(gamma.dtype), db.to(gamma.dtype), None
+
+
+layernorm.register_autograd(_backward, setup_context=_setup_context)

@@ -4,8 +4,10 @@ switch (``src/repro/kernels/ops.py:37,73,80``).
 ``use_kernels=False`` (``fusion_mode="xla"`` at the model level) routes to
 the plain oracles in ``ref.py``.  ``use_kernels=True`` calls the
 ``repro_torch::`` operators: on CUDA tensors they launch the CUDA
-kernels, on CPU tensors they run the kernels' plain versions.  There is
-no autograd wrapper yet.
+kernels, on CPU tensors they run the kernels' plain versions.  Each
+operator carries the reference's autograd formula: the LayerNorm backward
+is its own kernel (``repro_torch::layernorm_bwd``), the RMSNorm and
+attention backwards are plain ops, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -13,7 +15,14 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention
+from .layernorm import layernorm as _layernorm
 from .rmsnorm import rmsnorm as _rmsnorm
+
+
+def layernorm(x, gamma, beta, eps: float = 1e-6, *, use_kernels: bool = True):
+    if use_kernels:
+        return _layernorm(x, gamma, beta, eps)[0]
+    return ref.layernorm(x, gamma, beta, eps)
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6, *, use_kernels: bool = True):

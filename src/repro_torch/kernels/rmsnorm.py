@@ -3,8 +3,9 @@ its plain PyTorch version, and the ``repro_torch::rmsnorm`` operator.
 
 The counterpart of ``rmsnorm_fwd`` (the TPU kernel ``_rms_kernel``,
 ``src/repro/kernels/rmsnorm.py:12,20``): ``(y, rstd)`` with ``rstd``
-[R, 1] float32 over the rows R of ``x`` flattened to [R, C].  The backward
-comes with training, in a later slice.
+[R, 1] float32 over the rows R of ``x`` flattened to [R, C].  Its autograd
+formula is the reference's plain one (``src/repro/kernels/rmsnorm.py:57-74``):
+the JAX package has no RMSNorm backward kernel, so none is ported.
 
 ``rmsnorm(x, gamma, eps)`` is the operator: on CPU tensors it runs
 ``rmsnorm_plain``, on CUDA tensors ``rmsnorm_cuda`` (the kernel, or an
@@ -89,3 +90,30 @@ def _(x, gamma, eps):
 def _(x, gamma, eps):
     R = x.numel() // x.shape[-1]
     return torch.empty_like(x), x.new_empty((R, 1), dtype=torch.float32)
+
+
+def rmsnorm_bwd_plain(x, gamma, rstd, dy):
+    """The reference's backward (``rmsnorm.py:62-74``) in plain PyTorch:
+    dx like x, dgamma [C] float32."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C).to(torch.float32)
+    dyf = dy.reshape(-1, C).to(torch.float32)
+    xhat = xf * rstd
+    gdy = dyf * gamma.to(torch.float32)
+    m = (gdy * xhat).mean(-1, keepdim=True)
+    dx = rstd * (gdy - xhat * m)
+    return dx.reshape(x.shape).to(x.dtype), (dyf * xhat).sum(0)
+
+
+def _setup_context(ctx, inputs, output):
+    x, gamma, _ = inputs
+    ctx.save_for_backward(x, gamma, output[1])
+
+
+def _backward(ctx, dy, _drstd):
+    x, gamma, rstd = ctx.saved_tensors
+    dx, dg = rmsnorm_bwd_plain(x, gamma, rstd, dy)
+    return dx, dg.to(gamma.dtype), None
+
+
+rmsnorm.register_autograd(_backward, setup_context=_setup_context)

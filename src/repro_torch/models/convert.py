@@ -22,13 +22,16 @@ def _to_torch(tree, device, index=None):
 
 def from_jax_params(params: dict, *, device="cuda") -> dict:
     """``params`` is the JAX model's param tree with numpy leaves (e.g.
-    ``jax.tree_util.tree_map(np.asarray, params)``)."""
+    ``jax.tree_util.tree_map(np.asarray, params)``): ``embed`` (or
+    ``feat_proj`` for audio), the stacked ``blocks`` (norms with ``g`` and,
+    for LayerNorm, ``b``; SwiGLU or ``gelu_mlp`` weights), ``final_norm``
+    and ``lm_head``.  Every key is carried over as it is."""
     blocks = params["blocks"]
     n_layers = np.asarray(next(iter(_leaves(blocks)))).shape[0]
-    return {"embed": _to_torch(params["embed"], device),
-            "blocks": [_to_torch(blocks, device, i) for i in range(n_layers)],
-            "final_norm": _to_torch(params["final_norm"], device),
-            "lm_head": _to_torch(params["lm_head"], device)}
+    out = {k: _to_torch(v, device) for k, v in params.items()
+           if k != "blocks"}
+    out["blocks"] = [_to_torch(blocks, device, i) for i in range(n_layers)]
+    return out
 
 
 def _leaves(tree):

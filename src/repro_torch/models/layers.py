@@ -1,12 +1,13 @@
-"""Model layers in PyTorch (dense family, with the serving KV cache).
+"""Model layers in PyTorch (the dense and encoder families, with the
+serving KV cache).
 
 The counterparts of ``repro.models.layers``.  Each memory-intensive
 pattern routes through ``repro_torch.kernels.ops``, so the execution mode
 is chosen per model:
 
-  fusion_mode="stitched" -> the hand-written CUDA kernels (RMSNorm, flash
-                            attention), one opaque node each in a traced
-                            graph
+  fusion_mode="stitched" -> the hand-written CUDA kernels (LayerNorm,
+                            RMSNorm, flash attention), one opaque node
+                            each in a traced graph, differentiable
   fusion_mode="xla"      -> the plain oracles of ``kernels/ref.py``, which
                             ``stitched_jit`` traces, plans and compiles
                             into generated kernels
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels import ops, ref
+from ..kernels import ops
 
 
 @dataclass(frozen=True)
@@ -63,11 +64,8 @@ def norm_init(cfg: ArchConfig, dtype, device) -> dict:
 
 def norm_apply(cfg: ArchConfig, p: dict, x, fm: FusionMode):
     if cfg.norm == "layernorm":
-        if fm.use_kernels:
-            raise NotImplementedError(
-                "the LayerNorm kernel (ROADMAP B5) is not ported yet: use "
-                "fusion_mode='xla'")
-        return ref.layernorm(x, p["g"], p["b"], cfg.norm_eps)
+        return ops.layernorm(x, p["g"], p["b"], cfg.norm_eps,
+                             use_kernels=fm.use_kernels)
     return ops.rmsnorm(x, p["g"], cfg.norm_eps, use_kernels=fm.use_kernels)
 
 
@@ -168,17 +166,24 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU, plain GELU)
 # ---------------------------------------------------------------------------
 def mlp_init(cfg: ArchConfig, gen, dtype, device) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
+    if cfg.activation == "gelu_mlp":
+        return {"w_up": dense(gen, d, ff, dtype, device),
+                "w_down": dense(gen, ff, d, dtype, device)}
     return {"w_gate": dense(gen, d, ff, dtype, device),
             "w_up": dense(gen, d, ff, dtype, device),
             "w_down": dense(gen, ff, d, dtype, device)}
 
 
 def mlp_apply(cfg: ArchConfig, p: dict, x):
+    if cfg.activation == "gelu_mlp":
+        # jax.nn.gelu(approximate=True) is the tanh form
+        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
     if cfg.activation != "silu":
         raise NotImplementedError(
-            f"activation {cfg.activation!r}: this slice ports SwiGLU only")
+            f"activation {cfg.activation!r}: the port has SwiGLU and "
+            "gelu_mlp")
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

@@ -1,4 +1,5 @@
-"""Dense decoder model: prompt pass, KV cache, prefill and decode.
+"""Dense decoder and encoder models: prompt pass, training, KV cache,
+prefill and decode.
 
 ``block_apply`` is the per-layer program of the JAX package's
 ``models/model.py::block_apply``.  The layer loop is a Python loop over
@@ -8,6 +9,10 @@ compiles once:
 * ``Model.forward`` (no cache): one compiled block per layer, then a
   compiled head -- the final norm, ``torch.matmul`` for the LM head, and
   the softmax over the vocabulary.
+* ``Model.apply`` / ``Model.loss`` (training, no cache): the layers run
+  eagerly, differentiable through ``torch.autograd`` -- the reference's
+  ``apply`` and ``loss`` under ``jax.value_and_grad``.  Training does not
+  go through ``stitched_jit``.
 * ``Model.prefill`` / ``Model.decode_step`` (serving, with a cache): each
   layer is two compiled halves around an eager in-place cache write --
   ``block_pre`` (norm, QKV, RoPE), then ``layers.cache_write``, then
@@ -17,7 +22,8 @@ compiles once:
   returns a new cache; the port's tracer has no mutation (ROADMAP C).
 
 ``fusion_mode="stitched"`` (the default, as in the reference) runs the
-norms and the prompt's attention through the hand-written CUDA kernels;
+norms and the prompt's attention through the hand-written CUDA kernels
+(and the LayerNorm backward through its own);
 ``"xla"`` runs plain ops that the compiler plans into generated kernels.
 ``dispatch="interpret"`` replays each traced graph op by op: with
 ``"xla"`` no kernel of any kind runs, which makes it the plain reference
@@ -40,7 +46,8 @@ from .layers import FusionMode
 def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
     if cfg.family not in ("dense", "vlm", "encoder"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: this slice ports the dense family")
+            f"family {cfg.family!r}: the port has the dense and encoder "
+            "families")
     return {"norm1": L.norm_init(cfg, dtype, device),
             "attn": L.attn_init(cfg, gen, dtype, device),
             "norm2": L.norm_init(cfg, dtype, device),
@@ -75,12 +82,24 @@ def head_apply(cfg: ArchConfig, fm: FusionMode, p: dict, h):
 
 
 def head_logits(cfg: ArchConfig, fm: FusionMode, p: dict, h):
-    """Final norm and LM head: the serving head."""
-    return L.norm_apply(cfg, p["final_norm"], h, fm) @ p["lm_head"]
+    """Final norm, LM head and the pad-column mask: the serving and
+    training head."""
+    return mask_pad_columns(
+        cfg, L.norm_apply(cfg, p["final_norm"], h, fm) @ p["lm_head"])
+
+
+def mask_pad_columns(cfg: ArchConfig, logits):
+    """-1e30 on the logit columns at or past ``vocab_size``
+    (``src/repro/models/model.py:211-213``)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    col = torch.arange(cfg.padded_vocab, device=logits.device)
+    return torch.where(col < cfg.vocab_size, logits, -1e30)
 
 
 class Model:
-    """A dense model bound to a device, with its compiled functions.
+    """A dense or encoder model bound to a device, with its compiled
+    functions (the encoder family trains; it has no decode).
 
     ``device`` is CUDA unless the caller passes ``device="cpu"`` (where
     every kernel runs its plain version).  Weights are float32.  The
@@ -92,13 +111,9 @@ class Model:
     def __init__(self, cfg: ArchConfig, fusion_mode: str = "stitched", *,
                  device="cuda", hw: Hardware = H100,
                  dispatch: str = "single"):
-        if cfg.padded_vocab != cfg.vocab_size:
-            raise NotImplementedError(
-                "a vocabulary that is not a multiple of 256 needs the "
-                "reference's pad-column mask, which this slice leaves out")
         self.cfg = cfg
         self.fusion_mode = fusion_mode
-        fm = FusionMode(fusion_mode)
+        self.fm = fm = FusionMode(fusion_mode)
         self.device = resolve_device(device)
 
         def jit(fn):
@@ -114,17 +129,54 @@ class Model:
         self.logits_head = jit(head_logits)
 
     def init(self, seed: int) -> dict:
-        """Random weights from ``seed``, made on the model's device."""
+        """Random weights from ``seed``, made on the model's device.  An
+        audio model has ``feat_proj`` in place of ``embed``."""
         cfg, dt, dev = self.cfg, torch.float32, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
-        embed = torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
-                            device=dev, dtype=torch.float32) * 0.02
-        return {"embed": embed.to(dt),
+        if cfg.frontend == "audio":
+            first = {"feat_proj": {"w": L.dense(gen, cfg.frontend_dim,
+                                                cfg.d_model, dt, dev)}}
+        else:
+            embed = torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
+                                device=dev, dtype=torch.float32) * 0.02
+            first = {"embed": embed.to(dt)}
+        return {**first,
                 "blocks": [block_init(cfg, gen, dt, dev)
                            for _ in range(cfg.n_layers)],
                 "final_norm": L.norm_init(cfg, dt, dev),
                 "lm_head": L.dense(gen, cfg.d_model, cfg.padded_vocab, dt,
                                    dev)}
+
+    # -- training -----------------------------------------------------------
+    def apply(self, params: dict, tokens=None, frames=None):
+        """Eager and differentiable, no cache: tokens [B, S] (or frames
+        [B, S, frontend_dim] for audio) -> logits [B, S, padded_vocab],
+        the pad columns at -1e30.  The reference's ``Model.apply``
+        without a cache; its ``aux`` is zero for these families."""
+        cfg, fm = self.cfg, self.fm
+        if cfg.frontend == "audio":
+            h = frames.to(torch.float32) @ params["feat_proj"]["w"]
+        else:
+            h = params["embed"][tokens]
+        positions = torch.arange(h.shape[1], device=h.device)
+        for p in params["blocks"]:
+            h = block_apply(cfg, p, h, positions, fm=fm)
+        return head_logits(cfg, fm, self._head_params(params), h)
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token (or frame-label) cross entropy, float32
+        (``src/repro/models/model.py:218-232``).  The reference adds
+        ``0.01 * aux``, which is zero without MoE layers."""
+        if self.cfg.frontend == "audio":
+            logits = self.apply(params, frames=batch["frames"])
+            labels = batch["labels"]
+        else:
+            tokens = batch["tokens"]
+            logits = self.apply(params, tokens=tokens[:, :-1])
+            labels = tokens[:, 1:]
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        return -ll.mean()
 
     @staticmethod
     def _head_params(params: dict) -> dict:

@@ -8,6 +8,7 @@ decision is made in a fixture, never at import).  Run on the card with
 import dataclasses
 import functools
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -212,3 +213,115 @@ def test_reduced_generate_on_the_card_matches_the_cpu(cuda):
     assert RN.rmsnorm_cuda.launches > before[0]
     assert FA.flash_attention_cuda.launches > before[1]
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm kernels and the train path
+# ---------------------------------------------------------------------------
+LN_SHAPES = {"hubert": (4096, 1280), "ragged-rows": (4000, 1280),
+             "quickstart": (8192, 3072), "scalar-path": (37, 998),
+             "wide-row": (3, 10000), "rank3": (2, 5, 64)}
+
+
+@pytest.mark.parametrize("name", sorted(LN_SHAPES))
+def test_layernorm_kernels_match_plain(cuda, name):
+    from repro_torch.kernels import layernorm as K
+
+    shape = LN_SHAPES[name]
+    C = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=cuda) * 2.0 + 0.5
+    g = torch.randn(C, device="cuda", generator=cuda)
+    b = torch.randn(C, device="cuda", generator=cuda)
+    dy = torch.randn(shape, device="cuda", generator=cuda)
+    before = (K.layernorm_cuda.launches, K.layernorm_bwd_cuda.launches)
+    y, mean, rstd = K.layernorm(x, g, b, 1e-6)
+    dx, dg, db = K.layernorm_bwd(x, g, mean, rstd, dy)
+    assert (K.layernorm_cuda.launches,
+            K.layernorm_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = K.layernorm_plain(x, g, b, 1e-6)
+    # float32, another summation order: a few ulp
+    for got, w in zip((y, mean, rstd), want):
+        torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+    wdx, wdg, wdb = K.layernorm_bwd_plain(x, g, mean, rstd, dy)
+    torch.testing.assert_close(dx, wdx, rtol=1e-5, atol=1e-5)
+    # dgamma and dbeta sum over up to 8192 rows, in another order
+    for got, w in ((dg, wdg), (db, wdb)):
+        torch.testing.assert_close(
+            got, w, rtol=0, atol=1e-5 * max(1.0, float(w.abs().max())))
+
+
+def test_layernorm_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import layernorm as K
+
+    x = torch.randn(4, 64, device="cuda")
+    g, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    with pytest.raises(TypeError):
+        K.layernorm_cuda(x.half(), g.half(), b.half(), 1e-6)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.layernorm_cuda(x, g.cpu(), b, 1e-6)
+    _, m, r = K.layernorm_plain(x, g, b, 1e-6)
+    with pytest.raises(TypeError):
+        K.layernorm_bwd_cuda(x, g, m, r, x.double())
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.layernorm_bwd_cuda(x, g, m.cpu(), r, x)
+
+
+def test_flash_kernel_at_head_dim_80_non_causal(cuda):
+    from repro_torch.kernels import flash_attention as K
+
+    q = torch.randn(2, 16, 200, 80, device="cuda", generator=cuda)
+    k = torch.randn(2, 200, 16, 80, device="cuda",
+                    generator=cuda).transpose(1, 2)
+    v = torch.randn(2, 200, 16, 80, device="cuda",
+                    generator=cuda).transpose(1, 2)
+    o = K.flash_attention(q, k, v, False, None)
+    torch.testing.assert_close(o, K.flash_attention_plain(q, k, v, False),
+                               rtol=1e-5, atol=2e-6)
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import layernorm as LN
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import build_trainer
+
+    cfg = get_config("hubert-xlarge").reduced(vocab_size=504)
+    data = SyntheticTokens(DataConfig(seed=0, global_batch=2, seq_len=32),
+                           cfg)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        mdl, init_state, step = build_trainer(cfg, total_steps=3, device=dev)
+        if dev == "cpu":
+            params = init_state(0)["params"]
+        p = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in data.batch_at(0).items()}
+        _, grads = loss_and_grads(mdl, p, batch)
+        state = {"params": p, "opt": optim.init(optim.AdamWConfig(), p)}
+        before = (LN.layernorm_cuda.launches, LN.layernorm_bwd_cuda.launches,
+                  FA.flash_attention_cuda.launches)
+        losses = []
+        for i in range(3):
+            state = step(state, data.batch_at(i))
+            losses.append(step.last_metrics["loss"])
+        launched = (LN.layernorm_cuda.launches - before[0],
+                    LN.layernorm_bwd_cuda.launches - before[1],
+                    FA.flash_attention_cuda.launches - before[2])
+        results[dev] = (losses, grads, launched)
+    n = 2 * cfg.n_layers + 1
+    assert results["cpu"][2] == (0, 0, 0)
+    assert results["cuda"][2] == (3 * n, 3 * n, 3 * cfg.n_layers)
+    # each step's loss; a wrong update would show in the next one.  The
+    # parameters themselves are not compared: AdamW turns noise-level
+    # differences in near-zero gradients into steps of a sizeable fraction
+    # of lr, whatever the kernels' accuracy
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0],
+                               rtol=1e-5)
+    # the step-0 gradients, before the optimizer: float32 through 2
+    # layers, other summation orders
+    for a, b in zip(torch.utils._pytree.tree_leaves(results["cuda"][1]),
+                    torch.utils._pytree.tree_leaves(results["cpu"][1])):
+        torch.testing.assert_close(
+            a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)

@@ -4,7 +4,7 @@
   package (an AST scan), and importing the port leaves ``jax`` out of
   ``sys.modules`` (a fresh subprocess).
 * Entry points (``stitched_jit``, ``Model`` and so ``generate``,
-  ``serve.main``) default to CUDA: on a host without one they raise unless
+  ``serve.main``, ``build_trainer`` and ``train.main``) default to CUDA: on a host without one they raise unless
   the caller passes ``device="cpu"``; they never move to the CPU silently.
 """
 import ast
@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import stitched_jit  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,7 +48,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.models.model, repro_torch.models.convert, "
-            "repro_torch.kernels.ops, repro_torch.launch.serve; "
+            "repro_torch.kernels.ops, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.optim, repro_torch.data; "
             "print('jax' in sys.modules, 'repro' in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -82,6 +83,15 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
     _no_cuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+
+
+def test_train_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    cfg = get_config("hubert-xlarge").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.build_trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "hubert-xlarge", "--reduced", "--steps", "1"])
 
 
 def test_inputs_on_another_device_are_refused():

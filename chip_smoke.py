@@ -18,11 +18,16 @@ each of which makes the script exit non-zero when it fails:
 3. CUDA kernels: ``nvcc`` builds ``src/repro_torch/csrc`` (timed), then
    the RMSNorm kernel at [2048, 3072] and [4, 3072], the LayerNorm
    forward and backward kernels at the train path's [4096, 1280], at a
-   ragged [4000, 1280] and at the quickstart's [8192, 3072], and the flash
-   attention kernel at the prefill shape (causal), at a ragged Sq = Skv =
-   500, with Sq 200 < Skv 500 (causal offset), non-causal, and at the
-   train path's [8, 16, 512, 80] non-causal, each against its plain
-   version with the same per-element limit and the same times.
+   ragged [4000, 1280] and at the quickstart's [8192, 3072], the router
+   softmax forward and backward kernels at Granite's [2048, 32] (prefill),
+   [4, 32] (decode) and [4096, 32] (train), at a ragged [4095, 40] and at
+   [256, 4096] (wider than the one-warp path), and the flash attention
+   kernel at the prefill shape (causal), at a ragged Sq = Skv = 500, with
+   Sq 200 < Skv 500 (causal offset), non-causal, at the HuBERT train
+   path's [8, 16, 512, 80] non-causal and at Granite's head dim 64
+   ([4, 16 (Hkv 8), 512, 64] and [8, 16 (Hkv 8), 512, 64], causal), each
+   against its plain version with the same per-element limit and the
+   same times.
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -35,11 +40,12 @@ each of which makes the script exit non-zero when it fails:
    through ``repro_torch.launch.serve.generate`` -- 4 prompts of 500
    tokens (bucket 512), 16 greedy tokens, cache length 1024 -- with its
    compile seconds, time to first token, decode ms per token, tokens/s,
-   launches per prefill and per decode step, a profile of each, every
-   generated kernel instance of the prefill and decode signatures held
-   against its plain version at its shapes, and the logits of every step
-   held against the plain path (``"xla"`` with ``dispatch="interpret"``:
-   no kernel of any kind) fed the same tokens.
+   launches per prefill and per decode step, a profile of each, the
+   device's busy share of a decode step, every generated kernel instance
+   of the prefill and decode signatures held against its plain version at
+   its shapes, and the logits of every step held against the plain path
+   (``"xla"`` with ``dispatch="interpret"``: no kernel of any kind) fed
+   the same tokens.
 6. Train path (``fusion_mode="stitched"``): HuBERT-XLarge at full width
    and depth (48 layers, d_model 1280, 16 x 80 heads, float32) through
    ``repro_torch.launch.train.build_trainer``, batch 8 x 512 frames, 5
@@ -48,7 +54,20 @@ each of which makes the script exit non-zero when it fails:
    ``fusion_mode="xla"`` (the plain oracles, no kernel of any kind): the
    step-0 loss, the step-0 gradients tensor by tensor, their global norm
    and the loss of every step held against it.
-7. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
+7. MoE serving path: Granite-3.0-1B-A400M at full width and depth (24
+   layers, 32 experts top-8, d_ff 512, float32) through ``generate`` as
+   in 5, the router softmax kernel once a layer per prefill and per
+   decode step; also the full-width MoE layer check (one layer's
+   ``moe_apply`` on the kernel and the plain path, same input: routing
+   flips counted, the output held on the other tokens), and the
+   teacher-forced logits held row by row -- all 2,048 prefill rows and
+   every decode row -- since a routing flip moves a row by a gate share.
+8. MoE train path: the same model through ``build_trainer`` as in 6, batch
+   8 x 512 tokens, with the softmax backward kernel once a layer per step;
+   the step-0 routing flips between the two paths are counted, and where
+   there are any the step-0 comparison is made with the plain path
+   teacher-forced onto the kernel path's routing.
+9. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
    main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
    times were taken, launches by path), then the last line
@@ -58,6 +77,7 @@ Imports ``torch`` and the port only.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -77,6 +97,7 @@ SEED = 0
 BATCH, PROMPT = 4, 512
 SERVE_PROMPT, SERVE_GEN = 500, 16
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 512, 5
+MOE_ARCH = "granite-moe-1b-a400m"
 
 
 def fail(msg: str) -> None:
@@ -284,6 +305,10 @@ def kernel_kind(name: str) -> str:
         return "cuda layernorm"
     if "ln_bwd_" in low:
         return "cuda layernorm bwd"
+    if "softmax_fwd_" in low:
+        return "cuda softmax"
+    if "softmax_bwd_" in low:
+        return "cuda softmax bwd"
     if low == "kernel":
         return "generated"
     if any(k in low for k in ("gemm", "sm90", "cutlass", "matmul", "xmma",
@@ -518,6 +543,7 @@ def phase_cuda_kernels(gen) -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import layernorm as LN
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import softmax as SM
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -567,14 +593,44 @@ def phase_cuda_kernels(gen) -> dict:
         checks.setdefault("layernorm_bwd", []).append(
             dict(res, _bytes=nb_b, _main=main))
 
+    # the router's softmax (B7) and its backward (B10): Granite's prefill,
+    # decode and train rows of 32 experts, a ragged 40-expert shape (the
+    # 3B config's), and rows wider than the one-warp path holds
+    main_fwd, main_bwd = (BATCH * PROMPT, 32), (T, 32)
+    for R, C in (main_fwd, (BATCH, 32), main_bwd, (T - 1, 40), (256, 4096)):
+        x = torch.randn(R, C, generator=gen, device="cuda")
+        dy = torch.randn(R, C, generator=gen, device="cuda")
+        y = SM.softmax_plain(x)
+        # max, subtract, exp, sum, divide: 5 operations an element; the
+        # backward's multiply, sum, subtract, multiply: 4
+        nb_f, nb_b = 4 * 2 * R * C, 4 * 3 * R * C
+        res = check_cuda_kernel(
+            f"softmax [{R}, {C}]", SM.softmax_cuda, SM.softmax_plain, (x,),
+            nbytes=nb_f, ops=5 * R * C, reps=50,
+            library=lambda a: torch.softmax(a, -1))
+        checks.setdefault("softmax", []).append(
+            dict(res, _bytes=nb_f, _main=(R, C) == main_fwd))
+        res = check_cuda_kernel(
+            f"softmax_bwd [{R}, {C}]", SM.softmax_bwd_cuda,
+            SM.softmax_bwd_plain, (y, dy), nbytes=nb_b, ops=4 * R * C,
+            reps=50, library=lambda a, b: torch._softmax_backward_data(
+                b, a, -1, torch.float32))
+        checks.setdefault("softmax_bwd", []).append(
+            dict(res, _bytes=nb_b, _main=(R, C) == main_bwd))
+
     llama = (BATCH, 24, 8, 128)             # B, Hq, Hkv, D
     hubert = (TRAIN_BATCH, 16, 16, 80)      # D 80: the D 128 instance
+    granite = (BATCH, 16, 8, 64)            # D 64: the D 64 instance
+    granite_train = (TRAIN_BATCH, 16, 8, 64)
     for label, (B, Hq, Hkv, D), Sq, Skv, causal in (
             ("prefill causal", llama, 512, 512, True),
             ("ragged causal", llama, 500, 500, True),
             ("causal offset", llama, 200, 500, True),
             ("non-causal", llama, 512, 512, False),
-            ("train non-causal", hubert, TRAIN_FRAMES, TRAIN_FRAMES, False)):
+            ("train non-causal", hubert, TRAIN_FRAMES, TRAIN_FRAMES, False),
+            ("moe prefill causal", granite, PROMPT, PROMPT, True),
+            ("moe train causal", granite_train, TRAIN_FRAMES, TRAIN_FRAMES,
+             True)):
         q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
         k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
         # v as the model hands it over: [B, S, H, D] transposed (strided)
@@ -605,13 +661,16 @@ def launch_counts() -> dict:
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
 
     return {"onepass": OnePassKernel.launches,
             "streaming": StreamingKernel.launches,
             "rmsnorm": rmsnorm_cuda.launches,
             "flash_attention": flash_attention_cuda.launches,
             "layernorm": layernorm_cuda.launches,
-            "layernorm_bwd": layernorm_bwd_cuda.launches}
+            "layernorm_bwd": layernorm_bwd_cuda.launches,
+            "softmax": softmax_cuda.launches,
+            "softmax_bwd": softmax_bwd_cuda.launches}
 
 
 def reset_launch_counts() -> None:
@@ -620,16 +679,19 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
 
     OnePassKernel.launches = StreamingKernel.launches = 0
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
     layernorm_cuda.launches = layernorm_bwd_cuda.launches = 0
+    softmax_cuda.launches = softmax_bwd_cuda.launches = 0
 
 
-def phase_serving(gen, checks: dict) -> dict:
+def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     """``generate`` at full width in the default (stitched) mode; returns
     the launches of the counted run.  Appends the checks of the generated
-    kernels it launches to ``checks``."""
+    kernels it launches to ``checks``.  An MoE model also gets the
+    full-width MoE layer check, and its logits are held row by row."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -637,7 +699,8 @@ def phase_serving(gen, checks: dict) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.serving.buckets import Buckets, pad_tokens
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
+    moe = cfg.family == "moe"
     B, S, G = BATCH, SERVE_PROMPT, SERVE_GEN
     V = cfg.vocab_size
     bk = Buckets()
@@ -647,9 +710,12 @@ def phase_serving(gen, checks: dict) -> dict:
         fail(f"Model's default fusion mode is {model.fusion_mode!r}")
     params = model.init(SEED)
     prompts = np.random.default_rng(SEED).integers(0, V, (B, S))
+    experts = (f" experts={cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff}"
+               f" capacity_factor={cfg.capacity_factor} moe_impl="
+               f"{cfg.moe_impl}" if moe else "")
     print(f"serving path: {cfg.name} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model} batch={B} prompt={S} (bucket {Sp}) gen={G} "
-          f"cache={max_len} float32 seed={SEED} fusion_mode=stitched")
+          f"{cfg.d_model}{experts} batch={B} prompt={S} (bucket {Sp}) "
+          f"gen={G} cache={max_len} float32 seed={SEED} fusion_mode=stitched")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -663,7 +729,7 @@ def phase_serving(gen, checks: dict) -> dict:
     launches = launch_counts()
     print(f"launches in one generate (1 prefill + {G - 1} decode steps): "
           f"{json.dumps(launches)}")
-    for k in ("rmsnorm", "flash_attention"):
+    for k in ("rmsnorm", "flash_attention") + (("softmax",) if moe else ()):
         if launches[k] <= 0:
             fail(f"the serving path launched no {k} kernel")
     print(f"compile_s={cold_s - warm_s:.2f} (first generate {cold_s:.2f} s "
@@ -689,6 +755,11 @@ def phase_serving(gen, checks: dict) -> dict:
     per_decode = launch_counts()
     print(f"launches per prefill: {json.dumps(per_prefill)}; per decode "
           f"step: {json.dumps(per_decode)}")
+    if moe and not (per_prefill["softmax"] == per_decode["softmax"]
+                    == cfg.n_layers):
+        fail(f"the router softmax launched {per_prefill['softmax']} times "
+             f"per prefill and {per_decode['softmax']} per decode step, "
+             f"want {cfg.n_layers} (one a layer)")
     # the compiled functions at the prefill and the decode signatures
     p0, h = params["blocks"][0], params["embed"][toks]
     head_p = model._head_params(params)
@@ -713,6 +784,13 @@ def phase_serving(gen, checks: dict) -> dict:
                       [params["blocks"], params["lm_head"]]))
     print(f"weights a decode step reads (blocks + LM head): "
           f"{weights / 1e9:.2f} GB")
+    if moe:
+        ew = sum(t.numel() * t.element_size() for p in params["blocks"]
+                 for n, t in p["moe"].items() if n != "router")
+        print(f"of which expert weights: {ew / 1e9:.2f} GB, all of them read "
+              f"by every decode step (one token a sequence still fills a "
+              f"capacity-4 buffer for each of the {cfg.n_experts} experts): "
+              f"at least {ew / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
 
     ttft = []
     for _ in range(3):
@@ -735,8 +813,13 @@ def phase_serving(gen, checks: dict) -> dict:
           f"{step_ms:.2f} ms per token (median of {G - 1} steps, host clock "
           f"around a synchronized step)  decode tokens/s={B * 1e3 / step_ms:.1f}")
     where_the_time_goes("one prefill", first_token)
-    where_the_time_goes("one decode step", lambda: model.decode_step(
+    dec = where_the_time_goes("one decode step", lambda: model.decode_step(
         params, cache, tok, positions[1]))
+    busy = sum(v for k, v in dec.items() if k != "wall_ms")
+    print(f"decode step: device busy {busy:.2f} ms = {100 * busy / step_ms:.1f}% "
+          f"of the unprofiled step ({step_ms:.2f} ms)")
+    if moe:
+        moe_layer_check(cfg, params, gen)
 
     # the plain path on the card, then both fed the plain path's tokens
     plain = Model(cfg, "xla", dispatch="interpret")
@@ -745,36 +828,131 @@ def phase_serving(gen, checks: dict) -> dict:
     forced = torch.from_numpy(ref_seqs[:, S:]).to("cuda")
 
     def forced_logits(mdl):
+        """Step 0: the prefill's rows (all B x Sp for an MoE model, else
+        the last prompt position's); then each decode step's B rows."""
         c = mdl.init_cache(B, max_len)
         lg, _ = mdl.prefill(params, toks, c)
-        out = [lg[:, S - 1, :V]]
+        out = [lg[:, :, :V].reshape(-1, V) if moe else lg[:, S - 1, :V]]
         del lg
         for i in range(G - 1):
             lg, _ = mdl.decode_step(params, c, forced[:, i:i + 1],
                                     positions[i])
             out.append(lg[:, 0, :V])
-        return torch.stack(out)
+        return out
 
     got, want = forced_logits(model), forced_logits(plain)
     torch.cuda.synchronize()
-    worst = 0.0
-    for i in range(G):
-        err = float((got[i] - want[i]).abs().max())
-        tol = 1e-4 * max(1.0, float(want[i].abs().max()))
-        worst = max(worst, err / tol)
-        if i in (0, G - 1) or err > tol:
-            print(f"  step {i}: max|dlogits|={err:.3e} (tol {tol:.2e})")
-    agree = float((got.argmax(-1) == forced.T).float().mean())
-    print(f"teacher-forced agreement with fusion_mode='xla', "
-          f"dispatch='interpret' over {G} steps: worst max|dlogits|/tol="
-          f"{worst:.3f} (tol 1e-4 max(1, max|logits|) per step), argmax "
-          f"agreement={agree:.4f} (min 0.99); free-running tokens equal: "
-          f"{same:.4f}")
-    if not torch.isfinite(got).all() or tuple(seqs.shape) != (B, S + G):
+    if moe:
+        agree, worst = moe_logit_rows(got, want, forced, B, Sp, S)
+    else:
+        got, want = torch.stack(got), torch.stack(want)
+        worst = 0.0
+        for i in range(G):
+            err = float((got[i] - want[i]).abs().max())
+            tol = 1e-4 * max(1.0, float(want[i].abs().max()))
+            worst = max(worst, err / tol)
+            if i in (0, G - 1) or err > tol:
+                print(f"  step {i}: max|dlogits|={err:.3e} (tol {tol:.2e})")
+        agree = float((got.argmax(-1) == forced.T).float().mean())
+        print(f"teacher-forced agreement with fusion_mode='xla', "
+              f"dispatch='interpret' over {G} steps: worst max|dlogits|/tol="
+              f"{worst:.3f} (tol 1e-4 max(1, max|logits|) per step), argmax "
+              f"agreement={agree:.4f} (min 0.99); free-running tokens equal: "
+              f"{same:.4f}")
+    if moe:
+        print(f"free-running tokens equal: {same:.4f}")
+    if (not all(torch.isfinite(g).all() for g in got)
+            or tuple(seqs.shape) != (B, S + G)):
         fail("serving path: non-finite logits or wrong output shape")
     if worst > 1.0 or agree < 0.99:
         fail("the stitched serving path disagrees with the plain path")
     return launches
+
+
+#: Share of an MoE model's compared logit rows that may miss the limit: a
+#: near tie between a token's 8th and 9th expert can route it differently
+#: on the two paths (a routing flip), which moves that row by a gate share.
+MOE_ROW_ALLOWANCE = 0.01
+
+
+def moe_logit_rows(got: list, want: list, forced, B: int, Sp: int,
+                   S: int) -> tuple[float, float]:
+    """Hold an MoE model's teacher-forced logits row by row: max |dlogits|
+    <= 1e-4 max(1, max|logits|) of the row, on all but
+    ``MOE_ROW_ALLOWANCE`` of the rows (each row beyond it printed); the
+    argmax at each teacher-forced step against the plain path's token.
+    Returns (the worst step's argmax agreement, the share of rows beyond
+    over the allowance)."""
+    import torch
+
+    labels = [f"prefill b{b} pos{t}" for b in range(B) for t in range(Sp)]
+    for i in range(1, len(got)):
+        labels += [f"decode step {i} b{b}" for b in range(B)]
+    g, w = torch.cat(got), torch.cat(want)
+    err = (g - w).abs().amax(-1)
+    tol = 1e-4 * w.abs().amax(-1).clamp_min(1.0)
+    beyond = (err > tol).nonzero().flatten().tolist()
+    for r in beyond:
+        print(f"  row beyond the limit: {labels[r]}: max|dlogits|="
+              f"{float(err[r]):.3e} (tol {float(tol[r]):.2e})")
+    # the teacher-forced rows: the last prompt position, then each step
+    steps = [got[0].reshape(B, Sp, -1)[:, S - 1].argmax(-1)]
+    steps += [x.argmax(-1) for x in got[1:]]
+    per_step = [float((a == forced[:, i]).float().mean())
+                for i, a in enumerate(steps)]
+    rows_arg = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    share = len(beyond) / len(labels)
+    print(f"teacher-forced agreement with fusion_mode='xla', "
+          f"dispatch='interpret': {len(labels)} logit rows ({B * Sp} prefill,"
+          f" {len(labels) - B * Sp} decode), {len(beyond)} beyond 1e-4 "
+          f"max(1, max|logits|) of the row (share {share:.5f}, allowance "
+          f"{MOE_ROW_ALLOWANCE}); max|dlogits| over all rows "
+          f"{float(err.max()):.3e}, worst err/tol {float((err / tol).max()):.3f}"
+          f"; argmax agreement per teacher-forced step: min "
+          f"{min(per_step):.4f} (min 0.99), over all rows {rows_arg:.4f}")
+    return min(per_step), share / MOE_ROW_ALLOWANCE
+
+
+def moe_layer_check(cfg, params, gen) -> None:
+    """One layer's ``moe_apply`` at full width, [BATCH, PROMPT, d_model],
+    fed the same input on the kernel path and on the plain path.  Count
+    the routing flips (tokens whose top-k expert sets differ); hold y
+    within 1e-4 max(1, max|y|) on every token whose expert set agrees --
+    in a sequence with a flip, only the tokens before it, since the flip
+    shifts the capacity slots of the later ones."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+
+    p = params["blocks"][0]["moe"]
+    x = torch.randn(BATCH, PROMPT, cfg.d_model, generator=gen,
+                    device="cuda")
+    xt = x.reshape(-1, cfg.d_model)
+    out = {}
+    for fm in (L.STITCHED, L.XLA):
+        probs = ops.softmax((xt @ p["router"]).float(),
+                            use_kernels=fm.use_kernels)
+        idx = L.route(probs, cfg.top_k)[1].sort(-1).values
+        y, aux = L.moe_apply(cfg, p, x, fm)
+        out[fm.name] = (y.reshape(BATCH, PROMPT, -1), idx, float(aux))
+    torch.cuda.synchronize()
+    (yk, ik, ak), (yp, ip, ap) = out["stitched"], out["xla"]
+    flipped = (ik != ip).any(-1).reshape(BATCH, PROMPT)
+    held = torch.ones_like(flipped)
+    for b in range(BATCH):
+        where = flipped[b].nonzero().flatten()
+        if len(where):
+            held[b, int(where[0]):] = False
+    err = float((yk - yp).abs().amax(-1)[held].max())
+    tol = 1e-4 * max(1.0, float(yp.abs().max()))
+    n_flip = int(flipped.sum())
+    print(f"full-width MoE layer check ({cfg.n_experts} experts, top-"
+          f"{cfg.top_k}, x [{BATCH}, {PROMPT}, {cfg.d_model}]): routing flips"
+          f" {n_flip} of {BATCH * PROMPT} tokens (at most 2), tokens held "
+          f"{int(held.sum())}; max|dy| on them {err:.3e} (tol {tol:.2e}); "
+          f"aux {ak:.7f} vs {ap:.7f}")
+    if n_flip > 2 or not err <= tol:
+        fail("the MoE layer's kernel path disagrees with its plain path")
 
 
 #: Limits of the train path against the plain path (float32, another
@@ -785,10 +963,60 @@ TRAIN_LOSS0_RTOL, TRAIN_GRAD_RTOL, TRAIN_GNORM_RTOL, TRAIN_LOSS_RTOL = \
     1e-5, 1e-3, 1e-4, 1e-3
 
 
-def phase_train() -> dict:
+@contextlib.contextmanager
+def routing(record: list | None = None, force: list | None = None):
+    """Within the block, ``layers.route`` appends each MoE layer's expert
+    indices to ``record``; with ``force`` (a list of them, one a layer,
+    in call order) it gates each token by the given experts in place of
+    its own top-k -- teacher-forced routing, as the serving check feeds
+    both paths the same tokens."""
+    from repro_torch.models import layers as L
+
+    orig, it = L.route, iter(force) if force is not None else None
+
+    def route(probs, k):
+        if it is None:
+            vals, idx = orig(probs, k)
+        else:
+            idx = next(it)
+            g = probs.gather(-1, idx)
+            vals = g / g.sum(-1, keepdim=True)
+        if record is not None:
+            record.append(idx.detach())
+        return vals, idx
+
+    L.route = route
+    try:
+        yield
+    finally:
+        L.route = orig
+
+
+def compare_grads(got, want) -> dict:
+    """Per tensor max |dg| / max |g| of ``want``: the worst, its name, and
+    every tensor beyond ``TRAIN_GRAD_RTOL``."""
+    import torch
+
+    worst, name, beyond = 0.0, "", []
+    leaves = torch.utils._pytree.tree_flatten_with_path(got)[0]
+    for (path, g), w in zip(leaves, torch.utils._pytree.tree_leaves(want)):
+        ratio = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        key = torch.utils._pytree.keystr(path)
+        if ratio > worst:
+            worst, name = ratio, key
+        if ratio > TRAIN_GRAD_RTOL:
+            beyond.append((key, ratio))
+    return {"worst": worst, "name": name, "beyond": beyond,
+            "n": len(leaves)}
+
+
+def phase_train(arch: str = "hubert-xlarge") -> dict:
     """``build_trainer`` at full width in the default (stitched) mode,
     then the plain path from the same weights and batches; returns the
-    launches of the counted 5-step run."""
+    launches of the counted 5-step run.  For an MoE model the step-0
+    comparison counts the routing flips between the paths and, where
+    there are any, holds the gradients of the plain path teacher-forced
+    onto the kernel path's routing."""
     import torch
     from repro_torch import optim
     from repro_torch.configs import get_config
@@ -797,27 +1025,52 @@ def phase_train() -> dict:
     from repro_torch.launch.train import build_trainer
 
     t_phase = time.perf_counter()
-    cfg = get_config("hubert-xlarge")
+    cfg = get_config(arch)
+    moe = cfg.family == "moe"
+    unit = "frames" if cfg.frontend == "audio" else "tokens"
     B, S, N = TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS
     data = SyntheticTokens(DataConfig(seed=SEED, global_batch=B, seq_len=S),
                            cfg)
     batches = [data.batch_at(i) for i in range(N)]
     b0 = {k: torch.as_tensor(v).to("cuda") for k, v in batches[0].items()}
+    experts = (f" experts={cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff}"
+               if moe else f" d_ff={cfg.d_ff}")
     print(f"train path: {cfg.name} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model} heads={cfg.n_heads}x{cfg.resolved_head_dim} d_ff="
-          f"{cfg.d_ff} vocab={cfg.vocab_size} (padded {cfg.padded_vocab}) "
-          f"batch={B}x{S} frames float32 seed={SEED} steps={N} AdamW")
+          f"{cfg.d_model} heads={cfg.n_heads}x{cfg.resolved_head_dim}"
+          f"{experts} vocab={cfg.vocab_size} (padded {cfg.padded_vocab}) "
+          f"batch={B}x{S} {unit} float32 seed={SEED} steps={N} AdamW")
 
-    def run(fusion: str) -> dict:
+    def step0(mdl, params, kern=None) -> dict:
+        routes = []
+        with routing(record=routes):
+            loss0, grads0 = loss_and_grads(mdl, params, b0)
+        out = {"loss0": float(loss0),
+               "gnorm0": float(optim.global_norm(grads0)), "routes": routes}
+        if kern is None:
+            out["grads0"] = grads0
+            return out
+        out.update(compare_grads(kern["grads0"], grads0))
+        del grads0
+        out["flips"] = [int((a.sort(-1).values != b.sort(-1).values)
+                            .any(-1).sum())
+                        for a, b in zip(kern["routes"], routes)]
+        if sum(out["flips"]):
+            with routing(force=kern["routes"]):
+                lf, gf = loss_and_grads(mdl, params, b0)
+            out["forced"] = {"loss0": float(lf),
+                             "gnorm0": float(optim.global_norm(gf)),
+                             **compare_grads(kern["grads0"], gf)}
+            del gf
+        return out
+
+    def run(fusion: str, kern=None) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mdl, init_state, train_step = build_trainer(
             cfg, fusion_mode=fusion, lr=1e-3, total_steps=N)
         state = init_state(SEED)
-        loss0, grads0 = loss_and_grads(mdl, state["params"], b0)
-        out = {"loss0": float(loss0), "grads0": grads0,
-               "gnorm0": float(optim.global_norm(grads0)), "losses": [],
-               "step_ms": [], "per_step": []}
+        out = step0(mdl, state["params"], kern)
+        out.update(losses=[], step_ms=[], per_step=[])
         reset_launch_counts()  # the counted run of the train path
         for b in batches:
             before = launch_counts()
@@ -847,7 +1100,7 @@ def phase_train() -> dict:
     launches = kern.pop("launches")
     step_ms = statistics.median(kern["step_ms"][1:])
     print(f"train step_ms={step_ms:.2f} (median of steps 2-{N}, host clock "
-          f"around a synchronized step) frames/s={B * S * 1e3 / step_ms:.1f}")
+          f"around a synchronized step) {unit}/s={B * S * 1e3 / step_ms:.1f}")
     prof = kern.pop("prof")
     busy = sum(v for k, v in prof.items() if k != "wall_ms")
     shares = {k: round(100 * v / busy, 2) for k, v in prof.items()
@@ -860,41 +1113,51 @@ def phase_train() -> dict:
           f"of the profiled wall ({prof['wall_ms']:.2f} ms); share of busy "
           f"by kind (%): {json.dumps(shares)}")
     print(f"launches per train step: {json.dumps(kern['per_step'][1])}")
-    want = {"layernorm": 2 * cfg.n_layers + 1,
-            "layernorm_bwd": 2 * cfg.n_layers + 1,
-            "flash_attention": cfg.n_layers}
+    L = cfg.n_layers
+    norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
+    want = {norm: 2 * L + 1, "flash_attention": L}
+    if norm == "layernorm":
+        want["layernorm_bwd"] = 2 * L + 1
+    if moe:
+        want.update(softmax=L, softmax_bwd=L)
     for i, per in enumerate(kern["per_step"]):
         for k, n in want.items():
             if per[k] != n:
                 fail(f"train step {i} launched {k} {per[k]} times, want {n}")
 
-    plain = run("xla")
+    plain = run("xla", kern)
     if any(plain["launches"].values()):
         fail(f"the plain train path launched kernels: {plain['launches']}")
-    l0 = abs(kern["loss0"] - plain["loss0"]) / abs(plain["loss0"])
-    gn = abs(kern["gnorm0"] - plain["gnorm0"]) / plain["gnorm0"]
-    worst_g, worst_name = 0.0, ""
-    leaves_k = torch.utils._pytree.tree_flatten_with_path(kern["grads0"])[0]
-    leaves_p = torch.utils._pytree.tree_leaves(plain["grads0"])
-    for (path, gk), gp in zip(leaves_k, leaves_p):
-        ratio = float((gk - gp).abs().max()) / max(float(gp.abs().max()),
-                                                    1e-30)
-        if ratio > worst_g:
-            worst_g, worst_name = ratio, torch.utils._pytree.keystr(path)
+    if moe:
+        print(f"routing flips at step 0 between the paths, by layer: "
+              f"{plain['flips']} ({sum(plain['flips'])} of "
+              f"{B * S * L} routings); free-running step-0 gradients: worst "
+              f"max|dg|/max|g| {plain['worst']:.2e} at {plain['name']}; "
+              f"beyond {TRAIN_GRAD_RTOL:g}: {plain['beyond']}")
+    # with flips, the step-0 comparison is teacher-forced onto the kernel
+    # path's routing (``routing``); without, the two are the same run
+    ref = plain.get("forced", plain)
+    if "forced" in plain:
+        print("step-0 loss, gradients and norm below: the plain path "
+              "teacher-forced onto the kernel path's routing")
+    l0 = abs(kern["loss0"] - ref["loss0"]) / abs(ref["loss0"])
+    gn = abs(kern["gnorm0"] - ref["gnorm0"]) / ref["gnorm0"]
     dl = [abs(a - b) / abs(b) for a, b in zip(kern["losses"],
                                               plain["losses"])]
     print(f"train agreement with fusion_mode='xla': step-0 loss "
-          f"{kern['loss0']:.7f} vs {plain['loss0']:.7f} (rel "
+          f"{kern['loss0']:.7f} vs {ref['loss0']:.7f} (rel "
           f"{l0:.2e}, limit {TRAIN_LOSS0_RTOL:g}); step-0 gradients: worst "
-          f"max|dg|/max|g| {worst_g:.2e} at {worst_name} (limit "
-          f"{TRAIN_GRAD_RTOL:g}, {len(leaves_p)} tensors); global norm "
-          f"{kern['gnorm0']:.6f} vs {plain['gnorm0']:.6f} (rel {gn:.2e}, "
+          f"max|dg|/max|g| {ref['worst']:.2e} at {ref['name']} (limit "
+          f"{TRAIN_GRAD_RTOL:g}, {ref['n']} tensors); global norm "
+          f"{kern['gnorm0']:.6f} vs {ref['gnorm0']:.6f} (rel {gn:.2e}, "
           f"limit {TRAIN_GNORM_RTOL:g}); losses of the {N} steps: worst rel "
           f"{max(dl):.2e} (limit {TRAIN_LOSS_RTOL:g}); plain step_ms="
           f"{statistics.median(plain['step_ms'][1:]):.2f}")
+    for name, ratio in ref["beyond"]:
+        print(f"  gradient beyond its limit: {name}: {ratio:.2e}")
     if not all(map(math.isfinite, kern["losses"] + plain["losses"])):
         fail("train path: a loss is not finite")
-    if (l0 > TRAIN_LOSS0_RTOL or worst_g > TRAIN_GRAD_RTOL
+    if (l0 > TRAIN_LOSS0_RTOL or ref["worst"] > TRAIN_GRAD_RTOL
             or gn > TRAIN_GNORM_RTOL or max(dl) > TRAIN_LOSS_RTOL):
         fail("the stitched train path disagrees with the plain path")
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
@@ -931,9 +1194,13 @@ def main() -> int:
     n_fwd = sum(map(len, fwd_checks.values()))
     serve_launches = phase_serving(gen, checks)
     n_gen = sum(len(checks[k]) for k in ("onepass", "streaming"))
-    print(f"generated kernel instances held against their plain versions: "
-          f"{n_fwd} of the forward path, {n_gen - n_fwd} more of serving")
     train_launches = phase_train()
+    moe_serve_launches = phase_serving(gen, checks, MOE_ARCH)
+    n_moe = sum(len(checks[k]) for k in ("onepass", "streaming")) - n_gen
+    print(f"generated kernel instances held against their plain versions: "
+          f"{n_fwd} of the forward path, {n_gen - n_fwd} more of serving, "
+          f"{n_moe} more of MoE serving")
+    moe_train_launches = phase_train(MOE_ARCH)
 
     kernels = []
     for name, route, source, replaces in (
@@ -949,11 +1216,17 @@ def main() -> int:
             ("layernorm", "cuda", "src/repro_torch/csrc/layernorm.cu",
              "src/repro/kernels/layernorm.py:34"),
             ("layernorm_bwd", "cuda", "src/repro_torch/csrc/layernorm.cu",
-             "src/repro/kernels/layernorm.py:92")):
+             "src/repro/kernels/layernorm.py:92"),
+            ("softmax", "cuda", "src/repro_torch/csrc/softmax.cu",
+             "src/repro/kernels/softmax.py:22"),
+            ("softmax_bwd", "cuda", "src/repro_torch/csrc/softmax.cu",
+             "src/repro/kernels/softmax.py:52")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name],
-                   "train": train_launches[name]}
+                   "train": train_launches[name],
+                   "moe_serve": moe_serve_launches[name],
+                   "moe_train": moe_train_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

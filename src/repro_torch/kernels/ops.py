@@ -1,13 +1,14 @@
 """Public wrappers over the hand-written kernels, with the reference's
-switch (``src/repro/kernels/ops.py:37,73,80``).
+switch (``src/repro/kernels/ops.py:37,43,73,80``).
 
 ``use_kernels=False`` (``fusion_mode="xla"`` at the model level) routes to
 the plain oracles in ``ref.py``.  ``use_kernels=True`` calls the
 ``repro_torch::`` operators: on CUDA tensors they launch the CUDA
 kernels, on CPU tensors they run the kernels' plain versions.  Each
-operator carries the reference's autograd formula: the LayerNorm backward
-is its own kernel (``repro_torch::layernorm_bwd``), the RMSNorm and
-attention backwards are plain ops, as in the JAX package.
+operator carries the reference's autograd formula: the LayerNorm and
+softmax backwards are kernels of their own (``repro_torch::layernorm_bwd``,
+``repro_torch::softmax_bwd``), the RMSNorm and attention backwards are
+plain ops, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from . import ref
 from .flash_attention import flash_attention
 from .layernorm import layernorm as _layernorm
 from .rmsnorm import rmsnorm as _rmsnorm
+from .softmax import softmax as _softmax
 
 
 def layernorm(x, gamma, beta, eps: float = 1e-6, *, use_kernels: bool = True):
@@ -29,6 +31,13 @@ def rmsnorm(x, gamma, eps: float = 1e-6, *, use_kernels: bool = True):
     if use_kernels:
         return _rmsnorm(x, gamma, eps)[0]
     return ref.rmsnorm(x, gamma, eps)
+
+
+def softmax(x, *, use_kernels: bool = True):
+    """The softmax over the last axis (the MoE router's)."""
+    if use_kernels:
+        return _softmax(x)
+    return ref.softmax(x)
 
 
 def attention(q, k, v, *, causal: bool = True, scale=None,

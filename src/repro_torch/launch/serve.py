@@ -3,9 +3,10 @@ with a KV cache.
 
   PYTHONPATH=src python -m repro_torch.launch.serve            # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
 
 The counterpart of ``repro.launch.serve`` (``generate``, ``main``) for
-the dense family.  Prompt and cache lengths are canonicalized onto the
+the dense and MoE families.  Prompt and cache lengths are canonicalized onto the
 serving bucket ladder (``serving/buckets.py``), so a mix of lengths
 compiles once per bucket; the model owns its compiled functions, so
 repeated ``generate`` calls on one model never re-trace (the reference

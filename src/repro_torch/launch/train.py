@@ -4,13 +4,16 @@
       --reduced --device cpu --steps 3          # the plain versions, CPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
       --batch 8 --seq 512 --steps 5             # full width, on the card
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite-moe-1b-a400m --batch 8 --seq 512 --steps 5
 
 The counterpart of ``repro.launch.train`` (``build_trainer``, ``main``).
-``fusion_mode="stitched"`` (the default) runs the norms and attention
-through the hand-written CUDA kernels and the LayerNorm backward through
-its own; ``"xla"`` runs the plain oracles, no kernel of any kind.  The
-backward is eager ``torch.autograd`` (the reference's is
-``jax.value_and_grad`` under ``jit``).
+``fusion_mode="stitched"`` (the default) runs the norms, attention and
+the MoE router's softmax through the hand-written CUDA kernels and the
+LayerNorm and softmax backwards through their own; ``"xla"`` runs the
+plain oracles, no kernel of any kind.  The backward is eager
+``torch.autograd`` (the reference's is ``jax.value_and_grad`` under
+``jit``).
 
 Not ported yet: the reference's restartable loop, checkpointing and
 straggler monitor (``runtime/fault_tolerance.py``, ``checkpoint/``);

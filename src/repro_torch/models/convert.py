@@ -24,8 +24,12 @@ def from_jax_params(params: dict, *, device="cuda") -> dict:
     """``params`` is the JAX model's param tree with numpy leaves (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``): ``embed`` (or
     ``feat_proj`` for audio), the stacked ``blocks`` (norms with ``g`` and,
-    for LayerNorm, ``b``; SwiGLU or ``gelu_mlp`` weights), ``final_norm``
-    and ``lm_head``.  Every key is carried over as it is."""
+    for LayerNorm, ``b``; SwiGLU or ``gelu_mlp`` weights, or an MoE's
+    ``moe`` subtree: the router [L, d, E] and the expert stacks
+    [L, E, d, ff] / [L, E, ff, d]), ``final_norm`` and ``lm_head``.  The
+    walk is generic: every key is carried over as it is, each stacked
+    leaf cut along its leading (layer) axis, so layer i of the MoE holds
+    the router [d, E] and the experts' [E, d, ff] / [E, ff, d]."""
     blocks = params["blocks"]
     n_layers = np.asarray(next(iter(_leaves(blocks)))).shape[0]
     out = {k: _to_torch(v, device) for k, v in params.items()

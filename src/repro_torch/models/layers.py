@@ -1,4 +1,4 @@
-"""Model layers in PyTorch (the dense and encoder families, with the
+"""Model layers in PyTorch (the dense, encoder and MoE families, with the
 serving KV cache).
 
 The counterparts of ``repro.models.layers``.  Each memory-intensive
@@ -6,8 +6,9 @@ pattern routes through ``repro_torch.kernels.ops``, so the execution mode
 is chosen per model:
 
   fusion_mode="stitched" -> the hand-written CUDA kernels (LayerNorm,
-                            RMSNorm, flash attention), one opaque node
-                            each in a traced graph, differentiable
+                            RMSNorm, flash attention, the router's
+                            softmax), one opaque node each in a traced
+                            graph, differentiable
   fusion_mode="xla"      -> the plain oracles of ``kernels/ref.py``, which
                             ``stitched_jit`` traces, plans and compiles
                             into generated kernels
@@ -178,12 +179,165 @@ def mlp_init(cfg: ArchConfig, gen, dtype, device) -> dict:
             "w_down": dense(gen, ff, d, dtype, device)}
 
 
-def mlp_apply(cfg: ArchConfig, p: dict, x):
-    if cfg.activation == "gelu_mlp":
-        # jax.nn.gelu(approximate=True) is the tanh form
-        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+def _gate_act(cfg: ArchConfig, x):
+    """The gated branch's activation: SiLU (SwiGLU)."""
     if cfg.activation != "silu":
         raise NotImplementedError(
             f"activation {cfg.activation!r}: the port has SwiGLU and "
             "gelu_mlp")
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return F.silu(x)
+
+
+def mlp_apply(cfg: ArchConfig, p: dict, x):
+    if cfg.activation == "gelu_mlp":
+        # jax.nn.gelu(approximate=True) is the tanh form
+        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return (_gate_act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing; GShard dense dispatch or sort/scatter dispatch)
+# ---------------------------------------------------------------------------
+def moe_init(cfg: ArchConfig, gen, dtype, device) -> dict:
+    """The router [d, E] and the experts' stacked SwiGLU weights
+    [E, d, ff], [E, d, ff], [E, ff, d]."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    return {"router": dense(gen, d, E, dtype, device),
+            "w_gate": normal((E, d, ff), 1.0 / math.sqrt(d)),
+            "w_up": normal((E, d, ff), 1.0 / math.sqrt(d)),
+            "w_down": normal((E, ff, d), 1.0 / math.sqrt(ff))}
+
+
+def route(probs, k: int):
+    """The top-k experts of each token, in descending order of
+    probability as ``jax.lax.top_k`` returns them, and their gates
+    renormalized over the k: -> (gate_vals [T, k] float32, gate_idx [T, k]
+    int64)."""
+    vals, idx = torch.topk(probs, k)
+    return vals / vals.sum(-1, keepdim=True), idx
+
+
+def _capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens (at least 4), as the
+    reference sizes them (``np.ceil`` of the same float product)."""
+    return max(math.ceil(cfg.top_k * tokens / cfg.n_experts
+                         * cfg.capacity_factor), 4)
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x, fm: FusionMode,
+              impl: str | None = None):
+    """x [B, S, d] -> (y [B, S, d], aux): the MoE layer of
+    ``src/repro/models/layers.py:190-255``.
+
+    The router's softmax goes through ``ops.softmax`` (the CUDA kernel in
+    the stitched mode).  ``impl="sort"`` scatters each sequence's
+    (token, choice) pairs into per-expert slots (``_moe_sort_dispatch``);
+    ``impl="einsum"`` is GShard's dense one-hot dispatch over all T
+    tokens.  Pairs past an expert's capacity are dropped.  ``aux`` is the
+    GShard load-balance loss: E times the sum over experts of the mean
+    router probability and the share of tokens whose first choice it is.
+    """
+    impl = impl or cfg.moe_impl or "einsum"
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+
+    logits = (xt @ p["router"]).to(torch.float32)            # [T, E]
+    probs = ops.softmax(logits, use_kernels=fm.use_kernels)
+    gate_vals, gate_idx = route(probs, k)                    # [T, k]
+    experts = torch.arange(E, device=x.device)
+    me = probs.mean(0)
+    ce = (gate_idx[:, :1] == experts).to(torch.float32).mean(0)
+    aux = E * (me * ce).sum()
+
+    if impl == "sort":
+        y = _moe_sort_dispatch(cfg, p, x, gate_vals.reshape(B, S, k),
+                               gate_idx.reshape(B, S, k))
+        return y.reshape(B, S, d), aux
+    if impl != "einsum":
+        raise ValueError(f"moe impl {impl!r}: 'sort' or 'einsum'")
+
+    capacity = _capacity(cfg, T)
+    slots = torch.arange(capacity, device=x.device)
+    dispatch = xt.new_zeros(T, E, capacity)
+    combine = torch.zeros(T, E, capacity, dtype=torch.float32,
+                          device=x.device)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device)
+    for j in range(k):
+        onehot = (gate_idx[:, j:j + 1] == experts).to(torch.int64)  # [T, E]
+        pos = torch.cumsum(onehot, 0) - onehot + counts[None, :]
+        slot = (pos * onehot).sum(-1)                               # [T]
+        keep = slot < capacity
+        counts = counts + onehot.sum(0)
+        oh_slot = ((slot[:, None] == slots) & keep[:, None]).to(xt.dtype)
+        dispatch = dispatch + onehot.to(xt.dtype)[:, :, None] \
+            * oh_slot[:, None, :]
+        combine = combine + (onehot.to(torch.float32)
+                             * gate_vals[:, j:j + 1])[:, :, None] \
+            * oh_slot.to(torch.float32)[:, None, :]
+
+    xe = torch.einsum("tec,td->ecd", dispatch, xt)           # [E, C, d]
+    h = _gate_act(cfg, torch.bmm(xe, p["w_gate"])) \
+        * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"])
+    y = torch.einsum("tec,ecd->td", combine.to(ye.dtype), ye)
+    return y.reshape(B, S, d), aux
+
+
+def _moe_sort_dispatch(cfg: ArchConfig, p: dict, x, gate_vals, gate_idx):
+    """Grouped sort/scatter dispatch (``src/repro/models/layers.py:258-317``).
+
+    x [G, Tg, d] (one group per sequence); gate_vals, gate_idx [G, Tg, k].
+    Each group's (token, choice) pairs get slots within their expert from
+    a stable sort by expert, so the earlier token keeps the earlier slot;
+    pairs past ``capacity`` are dropped.  The reference's ``vmap`` over
+    groups is the leading batch dimension of every index op here.  The
+    kept rows are scattered into one buffer, expert-major ([E, G, C] rows,
+    so each expert's GEMM reads one contiguous [G C, d] panel, where the
+    reference keeps [G, E, C]); dropped pairs land on one spare row past
+    the end.  Every scatter is out of place (the tracer has no mutation).
+    The experts' outputs are gathered back in (token, choice) order and
+    summed over the choices, weighted by their gates.
+    """
+    G, Tg, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    capacity = _capacity(cfg, Tg)
+    Tk = Tg * k
+    dev = x.device
+    flat_e = gate_idx.reshape(G, Tk)                        # [G, Tk]
+    flat_g = gate_vals.reshape(G, Tk).to(torch.float32)
+
+    # slot within the expert: position in the stable sort minus the start
+    # of the expert's segment, scattered back to (token, choice) order
+    se, order = torch.sort(flat_e, dim=-1, stable=True)
+    starts = torch.searchsorted(
+        se, torch.arange(E, device=dev).repeat(G, 1))
+    slot_sorted = torch.arange(Tk, device=dev) - torch.gather(starts, 1, se)
+    slot = torch.zeros_like(order).scatter(1, order, slot_sorted)
+    keep = slot < capacity
+
+    rows = E * G * capacity
+    group = torch.arange(G, device=dev)[:, None]
+    dest = torch.where(keep, (flat_e * G + group) * capacity + slot, rows)
+    x_rep = x[:, :, None, :].expand(G, Tg, k, d).reshape(G * Tk, d)
+    buf = x.new_zeros(rows + 1, d).index_put((dest.reshape(-1),), x_rep)
+    xe = buf[:rows].reshape(E, G * capacity, d)
+
+    h = _gate_act(cfg, torch.bmm(xe, p["w_gate"])) \
+        * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"]).reshape(rows, d)
+
+    # dropped pairs gather row 0 with gate 0.  ``index_select``'s backward
+    # adds each row's gradient atomically: only row 0 repeats, and its
+    # extra terms are zeros, so the sum is deterministic (``ye[src]``'s
+    # sort-based backward walks the run of equal indices serially)
+    src = torch.where(keep, dest, 0).reshape(-1)
+    gate = torch.where(keep, flat_g, 0.0).to(ye.dtype)
+    out_tok = ye.index_select(0, src).reshape(G, Tk, d) * gate[..., None]
+    return out_tok.reshape(G, Tg, k, d).sum(2)

@@ -1,5 +1,5 @@
-"""Dense decoder and encoder models: prompt pass, training, KV cache,
-prefill and decode.
+"""Dense decoder, encoder and MoE models: prompt pass, training, KV
+cache, prefill and decode.
 
 ``block_apply`` is the per-layer program of the JAX package's
 ``models/model.py::block_apply``.  The layer loop is a Python loop over
@@ -21,9 +21,14 @@ compiles once:
   whole prefill with the layers inside one opaque ``lax.scan`` and
   returns a new cache; the port's tracer has no mutation (ROADMAP C).
 
+An MoE layer (``family="moe"``) replaces the MLP with ``layers.moe_apply``,
+whose load-balance loss ``loss`` adds, 0.01 times its sum over the
+layers, as the reference does; serving and the forward drop it.
+
 ``fusion_mode="stitched"`` (the default, as in the reference) runs the
-norms and the prompt's attention through the hand-written CUDA kernels
-(and the LayerNorm backward through its own);
+norms, the prompt's attention and the MoE router's softmax through the
+hand-written CUDA kernels (and the LayerNorm and softmax backwards
+through their own);
 ``"xla"`` runs plain ops that the compiler plans into generated kernels.
 ``dispatch="interpret"`` replays each traced graph op by op: with
 ``"xla"`` no kernel of any kind runs, which makes it the plain reference
@@ -44,21 +49,40 @@ from .layers import FusionMode
 
 
 def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
-    if cfg.family not in ("dense", "vlm", "encoder"):
+    if cfg.family not in ("dense", "vlm", "encoder", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense and encoder "
-            "families")
-    return {"norm1": L.norm_init(cfg, dtype, device),
-            "attn": L.attn_init(cfg, gen, dtype, device),
-            "norm2": L.norm_init(cfg, dtype, device),
-            "mlp": L.mlp_init(cfg, gen, dtype, device)}
+            f"family {cfg.family!r}: the port has no Mamba2 layer yet "
+            "(the ssm and hybrid families)")
+    p = {"norm1": L.norm_init(cfg, dtype, device),
+         "attn": L.attn_init(cfg, gen, dtype, device),
+         "norm2": L.norm_init(cfg, dtype, device)}
+    if cfg.family == "moe":
+        p["moe"] = L.moe_init(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = L.mlp_init(cfg, gen, dtype, device)
+    return p
+
+
+def ffn_apply(cfg: ArchConfig, fm: FusionMode, p: dict, x):
+    """The layer's feed-forward half -> (y, aux): the MoE's load-balance
+    loss, or None after a dense MLP."""
+    if "moe" in p:
+        return L.moe_apply(cfg, p["moe"], x, fm)
+    return L.mlp_apply(cfg, p["mlp"], x), None
+
+
+def block_apply_aux(cfg: ArchConfig, p: dict, h, positions, *,
+                    fm: FusionMode):
+    """One layer without a cache: h [B, S, d], positions [S] -> (h, aux)."""
+    h = h + L.attn_apply(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h, fm),
+                         fm=fm, positions=positions)
+    y, aux = ffn_apply(cfg, fm, p, L.norm_apply(cfg, p["norm2"], h, fm))
+    return h + y, aux
 
 
 def block_apply(cfg: ArchConfig, p: dict, h, positions, *, fm: FusionMode):
     """One layer without a cache: h [B, S, d], positions [S] -> h."""
-    h = h + L.attn_apply(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h, fm),
-                         fm=fm, positions=positions)
-    return h + L.mlp_apply(cfg, p["mlp"], L.norm_apply(cfg, p["norm2"], h, fm))
+    return block_apply_aux(cfg, p, h, positions, fm=fm)[0]
 
 
 def block_pre(cfg: ArchConfig, fm: FusionMode, p: dict, h, positions):
@@ -72,7 +96,7 @@ def block_post(cfg: ArchConfig, fm: FusionMode, p: dict, h, q, k, v,
     """The layer after the cache write: -> h.  Prefill passes this call's
     k, v; decode passes the cache and ``kv_len``."""
     h = h + L.attn_core(cfg, p["attn"], q, k, v, fm=fm, kv_len=kv_len)
-    return h + L.mlp_apply(cfg, p["mlp"], L.norm_apply(cfg, p["norm2"], h, fm))
+    return h + ffn_apply(cfg, fm, p, L.norm_apply(cfg, p["norm2"], h, fm))[0]
 
 
 def head_apply(cfg: ArchConfig, fm: FusionMode, p: dict, h):
@@ -98,7 +122,7 @@ def mask_pad_columns(cfg: ArchConfig, logits):
 
 
 class Model:
-    """A dense or encoder model bound to a device, with its compiled
+    """A dense, encoder or MoE model bound to a device, with its compiled
     functions (the encoder family trains; it has no decode).
 
     ``device`` is CUDA unless the caller passes ``device="cpu"`` (where
@@ -152,31 +176,39 @@ class Model:
         """Eager and differentiable, no cache: tokens [B, S] (or frames
         [B, S, frontend_dim] for audio) -> logits [B, S, padded_vocab],
         the pad columns at -1e30.  The reference's ``Model.apply``
-        without a cache; its ``aux`` is zero for these families."""
+        without a cache, less its ``aux`` (``apply_aux``)."""
+        return self.apply_aux(params, tokens, frames)[0]
+
+    def apply_aux(self, params: dict, tokens=None, frames=None):
+        """``apply`` -> (logits, aux): aux is the MoE layers'
+        load-balance loss summed over the layers, 0.0 without MoE."""
         cfg, fm = self.cfg, self.fm
         if cfg.frontend == "audio":
             h = frames.to(torch.float32) @ params["feat_proj"]["w"]
         else:
             h = params["embed"][tokens]
         positions = torch.arange(h.shape[1], device=h.device)
+        aux = 0.0
         for p in params["blocks"]:
-            h = block_apply(cfg, p, h, positions, fm=fm)
-        return head_logits(cfg, fm, self._head_params(params), h)
+            h, a = block_apply_aux(cfg, p, h, positions, fm=fm)
+            if a is not None:
+                aux = aux + a
+        return head_logits(cfg, fm, self._head_params(params), h), aux
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        """Mean next-token (or frame-label) cross entropy, float32
-        (``src/repro/models/model.py:218-232``).  The reference adds
-        ``0.01 * aux``, which is zero without MoE layers."""
+        """Mean next-token (or frame-label) cross entropy, float32, plus
+        0.01 times the MoE load-balance loss
+        (``src/repro/models/model.py:218-232``)."""
         if self.cfg.frontend == "audio":
-            logits = self.apply(params, frames=batch["frames"])
+            logits, aux = self.apply_aux(params, frames=batch["frames"])
             labels = batch["labels"]
         else:
             tokens = batch["tokens"]
-            logits = self.apply(params, tokens=tokens[:, :-1])
+            logits, aux = self.apply_aux(params, tokens=tokens[:, :-1])
             labels = tokens[:, 1:]
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
-        return -ll.mean()
+        return -ll.mean() + 0.01 * aux
 
     @staticmethod
     def _head_params(params: dict) -> dict:

@@ -325,3 +325,101 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
                     torch.utils._pytree.tree_leaves(results["cpu"][1])):
         torch.testing.assert_close(
             a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the router's softmax kernels and the MoE path
+# ---------------------------------------------------------------------------
+SOFTMAX_SHAPES = {"prefill": (2048, 32), "decode": (4, 32),
+                  "train": (4096, 32), "ragged-40": (4095, 40),
+                  "wide-row": (256, 4096), "rank3": (2, 5, 4)}
+
+
+@pytest.mark.parametrize("name", sorted(SOFTMAX_SHAPES))
+def test_softmax_kernels_match_plain(cuda, name):
+    from repro_torch.kernels import softmax as K
+
+    shape = SOFTMAX_SHAPES[name]
+    x = torch.randn(shape, device="cuda", generator=cuda) * 3.0
+    dy = torch.randn(shape, device="cuda", generator=cuda)
+    before = (K.softmax_cuda.launches, K.softmax_bwd_cuda.launches)
+    y = K.softmax(x)
+    dx = K.softmax_bwd(y, dy)
+    assert (K.softmax_cuda.launches,
+            K.softmax_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # float32, the same steps in another summation order: a few ulp
+    torch.testing.assert_close(y, K.softmax_plain(x), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(dx, K.softmax_bwd_plain(y, dy), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_softmax_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import softmax as K
+
+    x = torch.randn(4, 32, device="cuda")
+    with pytest.raises(TypeError):
+        K.softmax_cuda(x.half())
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.softmax_bwd_cuda(x, x.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        K.softmax_bwd_cuda(x, x[:2])
+
+
+def test_flash_kernel_at_head_dim_64_gqa_causal(cuda):
+    from repro_torch.kernels import flash_attention as K
+
+    q = torch.randn(2, 16, 200, 64, device="cuda", generator=cuda)
+    k = torch.randn(2, 200, 8, 64, device="cuda",
+                    generator=cuda).transpose(1, 2)
+    v = torch.randn(2, 200, 8, 64, device="cuda",
+                    generator=cuda).transpose(1, 2)
+    o = K.flash_attention(q, k, v, True, None)
+    torch.testing.assert_close(o, K.flash_attention_plain(q, k, v, True),
+                               rtol=1e-5, atol=2e-6)
+
+
+def test_reduced_moe_generate_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels import softmax as SM
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 13))
+    want = generate(cpu, params, prompts, 6)
+    gpu = Model(cfg)
+    gparams = torch.utils._pytree.tree_map(lambda t: t.cuda(), params)
+    before = SM.softmax_cuda.launches
+    got = generate(gpu, gparams, prompts, 6)
+    # one router softmax a layer, in the prefill and in each of 5 decodes
+    assert SM.softmax_cuda.launches - before == 6 * cfg.n_layers
+    np.testing.assert_array_equal(got, want)
+
+
+def test_reduced_moe_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import softmax as SM
+    from repro_torch.launch.steps import loss_and_grads
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    batch = SyntheticTokens(DataConfig(seed=0, global_batch=2, seq_len=32),
+                            cfg).batch_at(0)
+    params = Model(cfg, device="cpu").init(0)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        p = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        before = (SM.softmax_cuda.launches, SM.softmax_bwd_cuda.launches)
+        loss, grads = loss_and_grads(Model(cfg, device=dev), p, b)
+        results[dev] = (float(loss), grads, (
+            SM.softmax_cuda.launches - before[0],
+            SM.softmax_bwd_cuda.launches - before[1]))
+    assert results["cpu"][2] == (0, 0)
+    assert results["cuda"][2] == (cfg.n_layers, cfg.n_layers)
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0],
+                               rtol=1e-5)
+    # float32 through 2 layers, other summation orders
+    for a, b in zip(torch.utils._pytree.tree_leaves(results["cuda"][1]),
+                    torch.utils._pytree.tree_leaves(results["cpu"][1])):
+        torch.testing.assert_close(
+            a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)

@@ -24,10 +24,18 @@ each of which makes the script exit non-zero when it fails:
    [256, 4096] (wider than the one-warp path), and the flash attention
    kernel at the prefill shape (causal), at a ragged Sq = Skv = 500, with
    Sq 200 < Skv 500 (causal offset), non-causal, at the HuBERT train
-   path's [8, 16, 512, 80] non-causal and at Granite's head dim 64
-   ([4, 16 (Hkv 8), 512, 64] and [8, 16 (Hkv 8), 512, 64], causal), each
-   against its plain version with the same per-element limit and the
-   same times.
+   path's [8, 16, 512, 80] non-causal, at Granite's head dim 64
+   ([4, 16 (Hkv 8), 512, 64] and [8, 16 (Hkv 8), 512, 64], causal) and
+   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged), each against its
+   plain version with the same per-element limit and the same times; the
+   RMSNorm kernel also at the recurrent paths' prefill (2000), decode (4)
+   and train (4096) rows at 1,024 (Mamba2's blocks), 2,048 (its gated
+   norm, Zamba2's blocks) and 4,096 columns (Zamba2's concat and gated
+   norm; no train rows); and the SSD scan kernel at Mamba2's
+   prefill ([4, 512, 32, 64], N 128), Zamba2's prefill ([4, 512, 64, 64],
+   N 64) and Mamba2's train batch ([8, 512, 32, 64], N 128), x, B and C
+   strided slices of one [b, L, conv_dim] activation as the model passes
+   them, y and the state each within 1e-4 max(1, max|plain|).
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -67,7 +75,18 @@ each of which makes the script exit non-zero when it fails:
    the step-0 routing flips between the two paths are counted, and where
    there are any the step-0 comparison is made with the plain path
    teacher-forced onto the kernel path's routing.
-9. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
+9. SSM serving path: Mamba2-370m at full width and depth (48 layers,
+   d_model 1024, 32 heads of 64, state 128, float32) through
+   ``generate`` as in 5, with the prompt at its exact 500 tokens (a
+   recurrent prefill takes no pad): the SSD kernel once a layer per
+   prefill, none per decode step.
+10. Hybrid serving path: Zamba2-1.2B the same way (38 Mamba layers, state
+   64, the shared attention block before every 6th layer: 7 KV caches),
+   flash attention once a shared application per prefill.
+11. SSM train path: Mamba2-370m through ``build_trainer`` as in 6, batch
+   8 x 512 tokens, the SSD kernel once a layer per step (its backward is
+   the VJP of the plain oracle, as in the reference).
+12. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
    main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
    times were taken, launches by path), then the last line
@@ -98,6 +117,7 @@ BATCH, PROMPT = 4, 512
 SERVE_PROMPT, SERVE_GEN = 500, 16
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 512, 5
 MOE_ARCH = "granite-moe-1b-a400m"
+SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-1.2b"
 
 
 def fail(msg: str) -> None:
@@ -309,6 +329,8 @@ def kernel_kind(name: str) -> str:
         return "cuda softmax"
     if "softmax_bwd_" in low:
         return "cuda softmax bwd"
+    if "ssd_scan_kernel" in low:
+        return "cuda ssd"
     if low == "kernel":
         return "generated"
     if any(k in low for k in ("gemm", "sm90", "cutlass", "matmul", "xmma",
@@ -500,11 +522,25 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def agreement_max(got, want, rtol: float) -> tuple[float, float]:
+    """(max |got - want|, the largest ratio of it to rtol max(1,
+    max|want|)) over matching output tensors, each held to its own
+    limit."""
+    err = worst = 0.0
+    for g, w in zip(got, want):
+        e = float((g.float() - w.float()).abs().max())
+        err = max(err, e)
+        worst = max(worst, e / (rtol * max(1.0, float(w.abs().max()))))
+    return err, worst
+
+
 def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
-                      ops: float, reps: int, library=None) -> dict:
+                      ops: float, reps: int, library=None,
+                      max_rtol: float | None = None) -> dict:
     """Hold one hand-written CUDA kernel against its plain version on the
-    card, on the same inputs, with ``agreement``'s per-element limit.
-    Launches made here are reset before the main paths."""
+    card, on the same inputs, with ``agreement``'s per-element limit, or
+    with ``max_rtol`` max(1, max|plain|) for each output where it is
+    given.  Launches made here are reset before the main paths."""
     import torch
 
     def outs(r):
@@ -513,7 +549,8 @@ def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
     got = outs(launch(*inputs))
     want = outs(plain(*inputs))
     torch.cuda.synchronize()
-    err, worst = agreement(got, want)
+    err, worst = (agreement(got, want) if max_rtol is None
+                  else agreement_max(got, want, max_rtol))
     ms = time_ms(lambda: launch(*inputs), reps)
     call_ms = time_ms(lambda: launch(*inputs), reps, queued=False)
     plain_ms = time_ms(lambda: plain(*inputs), max(3, reps // 4))
@@ -544,6 +581,7 @@ def phase_cuda_kernels(gen) -> dict:
     from repro_torch.kernels import layernorm as LN
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import softmax as SM
+    from repro_torch.kernels import ssd_scan as SS
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -551,19 +589,27 @@ def phase_cuda_kernels(gen) -> dict:
           f"(flags {' '.join(_build.NVCC_FLAGS)})")
 
     checks: dict[str, list] = {}
-    for R in (BATCH * PROMPT, BATCH):
-        C = 3072
+    # Llama's prefill and decode rows; then the recurrent paths' prefill,
+    # decode and train rows at each width they norm: Mamba2's 1,024 (its
+    # blocks) and 2,048 (its gated norm; Zamba2's blocks), Zamba2's 4,096
+    # (the concat and its gated norm) -- the kernel's 1-, 2- and 4-float4
+    # instances
+    T = TRAIN_BATCH * TRAIN_FRAMES
+    for R, C in ((BATCH * PROMPT, 3072), (BATCH, 3072),
+                 (BATCH * SERVE_PROMPT, 1024), (BATCH, 1024), (T, 1024),
+                 (BATCH * SERVE_PROMPT, 2048), (BATCH, 2048), (T, 2048),
+                 (BATCH * SERVE_PROMPT, 4096), (BATCH, 4096)):
         x = torch.randn(R, C, generator=gen, device="cuda")
         g = torch.randn(C, generator=gen, device="cuda")
         res = check_cuda_kernel(
             f"rmsnorm [{R}, {C}]", lambda a, b: RN.rmsnorm_cuda(a, b, 1e-6),
             lambda a, b: RN.rmsnorm_plain(a, b, 1e-6), (x, g),
             nbytes=4 * (2 * R * C + C + R), ops=4 * R * C, reps=50,
-            library=lambda a, b: F.rms_norm(a, (C,), b, 1e-6))
+            library=lambda a, b, _C=C: F.rms_norm(a, (_C,), b, 1e-6))
         checks.setdefault("rmsnorm", []).append(
-            dict(res, _bytes=4 * (2 * R * C + C + R)))
+            dict(res, _bytes=4 * (2 * R * C + C + R),
+                 _main=(R, C) == (BATCH * PROMPT, 3072)))
 
-    T = TRAIN_BATCH * TRAIN_FRAMES
     for R, C in ((T, 1280), (T - 96, 1280), (8192, 3072)):
         x = torch.randn(R, C, generator=gen, device="cuda") * 2.0 + 0.5
         g = torch.randn(C, generator=gen, device="cuda")
@@ -622,6 +668,7 @@ def phase_cuda_kernels(gen) -> dict:
     hubert = (TRAIN_BATCH, 16, 16, 80)      # D 80: the D 128 instance
     granite = (BATCH, 16, 8, 64)            # D 64: the D 64 instance
     granite_train = (TRAIN_BATCH, 16, 8, 64)
+    zamba = (BATCH, 32, 32, 64)             # Zamba2's shared block
     for label, (B, Hq, Hkv, D), Sq, Skv, causal in (
             ("prefill causal", llama, 512, 512, True),
             ("ragged causal", llama, 500, 500, True),
@@ -630,6 +677,8 @@ def phase_cuda_kernels(gen) -> dict:
             ("train non-causal", hubert, TRAIN_FRAMES, TRAIN_FRAMES, False),
             ("moe prefill causal", granite, PROMPT, PROMPT, True),
             ("moe train causal", granite_train, TRAIN_FRAMES, TRAIN_FRAMES,
+             True),
+            ("hybrid prefill causal", zamba, SERVE_PROMPT, SERVE_PROMPT,
              True)):
         q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
         k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
@@ -652,7 +701,64 @@ def phase_cuda_kernels(gen) -> dict:
             ops=4 * D * B * Hq * pairs, reps=20, library=lib)
         checks.setdefault("flash_attention", []).append(
             dict(res, _bytes=4 * (2 * q.numel() + 2 * k.numel())))
+
+    # the SSD scan (B11) at Mamba2's prefill, Zamba2's prefill and
+    # Mamba2's train batch
+    for label, (b, L, H, P, N) in (
+            ("mamba2 prefill", (BATCH, PROMPT, 32, 64, 128)),
+            ("zamba2 prefill", (BATCH, PROMPT, 64, 64, 64)),
+            ("mamba2 train", (TRAIN_BATCH, TRAIN_FRAMES, 32, 64, 128))):
+        ins = ssd_inputs(gen, b, L, H, P, N)
+        nbytes, ops = ssd_work(b, L, H, P, N, SSD_CHUNK)
+        res = check_cuda_kernel(
+            f"ssd_scan {label} b{b} L{L} H{H} P{P} N{N} chunk{SSD_CHUNK} "
+            "(x, B, C strided)",
+            lambda *a: SS.ssd_scan_cuda(*a, SSD_CHUNK),
+            lambda *a: SS.ssd_scan_plain(*a, SSD_CHUNK), ins, nbytes=nbytes,
+            ops=ops, reps=20, max_rtol=SSD_RTOL)
+        checks.setdefault("ssd_scan", []).append(
+            dict(res, _bytes=nbytes, _main=label == "mamba2 prefill"))
     return checks
+
+
+#: The SSD scan's limit against its plain version: each output within
+#: SSD_RTOL max(1, max|plain|) (float32 sums over 64-row chunks and a
+#: state of up to 128 columns, in another order; the chunk-to-chunk
+#: carry compounds the rounding, so a per-element relative limit is too
+#: tight for outputs near zero).
+SSD_RTOL, SSD_CHUNK = 1e-4, 64
+
+
+def ssd_inputs(gen, b: int, L: int, H: int, P: int, N: int):
+    """x [b, L, H, P], dt [b, L, H] > 0, A [H] < 0, B and C [b, L, N]: x,
+    B and C column slices of one [b, L, H P + 2 N] activation, as
+    ``mamba_apply`` passes them (row stride H P + 2 N)."""
+    import torch
+    import torch.nn.functional as F
+
+    di = H * P
+    xbc = torch.randn(b, L, di + 2 * N, generator=gen, device="cuda")
+    x = xbc[..., :di].reshape(b, L, H, P)
+    dt = F.softplus(torch.randn(b, L, H, generator=gen, device="cuda") - 2.0)
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device="cuda"))
+    return x, dt, A, xbc[..., di:di + N], xbc[..., di + N:]
+
+
+def ssd_work(b: int, L: int, H: int, P: int, N: int,
+             c: int) -> tuple[int, int]:
+    """(bytes, operations) of one scan: each input read once and each
+    output written once (float32); the products the function needs, at 2
+    operations a multiply-add -- C B^T [c, c] over N once per (batch,
+    chunk), since B and C are one group that all heads share (the kernel,
+    like the TPU kernel, recomputes it per head: that extra work is not
+    the function's), then per (batch, head, chunk) W x over c, C h^T and
+    the state update over c -- plus the element-wise terms (the decay and
+    dt of W, y's scale and sum, the state's decay, the cumulative sum)."""
+    nbytes = 4 * (2 * b * L * H * P + b * L * H + H + 2 * b * L * N
+                  + b * H * P * N)
+    per_head = (2 * c * c * P + 4 * c * P * N
+                + 4 * c * c + 3 * c * P + 2 * P * N + 4 * c)
+    return nbytes, b * (L // c) * (2 * c * c * N + H * per_head)
 
 
 def launch_counts() -> dict:
@@ -662,6 +768,7 @@ def launch_counts() -> dict:
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     return {"onepass": OnePassKernel.launches,
             "streaming": StreamingKernel.launches,
@@ -670,7 +777,8 @@ def launch_counts() -> dict:
             "layernorm": layernorm_cuda.launches,
             "layernorm_bwd": layernorm_bwd_cuda.launches,
             "softmax": softmax_cuda.launches,
-            "softmax_bwd": softmax_bwd_cuda.launches}
+            "softmax_bwd": softmax_bwd_cuda.launches,
+            "ssd_scan": ssd_scan_cuda.launches}
 
 
 def reset_launch_counts() -> None:
@@ -680,31 +788,41 @@ def reset_launch_counts() -> None:
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     OnePassKernel.launches = StreamingKernel.launches = 0
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
     layernorm_cuda.launches = layernorm_bwd_cuda.launches = 0
     softmax_cuda.launches = softmax_bwd_cuda.launches = 0
+    ssd_scan_cuda.launches = 0
 
 
 def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     """``generate`` at full width in the default (stitched) mode; returns
     the launches of the counted run.  Appends the checks of the generated
     kernels it launches to ``checks``.  An MoE model also gets the
-    full-width MoE layer check, and its logits are held row by row."""
+    full-width MoE layer check, and its logits are held row by row.  An
+    SSM or hybrid model serves its prompt at its exact length, and its
+    launches per prefill and per decode step are held to one SSD scan a
+    layer (prefill only), two RMSNorms a layer and a shared application,
+    one flash attention a shared application (prefill only)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import RECURRENT, Model, shared_layers
     from repro_torch.serving.buckets import Buckets, pad_tokens
 
     cfg = get_config(arch)
     moe = cfg.family == "moe"
+    recurrent = cfg.family in RECURRENT
+    apps = len(shared_layers(cfg))
     B, S, G = BATCH, SERVE_PROMPT, SERVE_GEN
     V = cfg.vocab_size
     bk = Buckets()
-    Sp, max_len = bk.bucket(S), bk.bucket(max(bk.bucket(S), S + G))
+    Sp = S if recurrent else bk.bucket(S)
+    max_len = bk.bucket(max(Sp, S + G))
+    torch.cuda.empty_cache()
     model = Model(cfg)
     if model.fusion_mode != "stitched":
         fail(f"Model's default fusion mode is {model.fusion_mode!r}")
@@ -713,8 +831,18 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     experts = (f" experts={cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff}"
                f" capacity_factor={cfg.capacity_factor} moe_impl="
                f"{cfg.moe_impl}" if moe else "")
+    if recurrent:
+        experts = (f" d_inner={cfg.resolved_d_inner} ssm_heads="
+                   f"{cfg.ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state}"
+                   f" chunk={cfg.ssm_chunk} conv={cfg.conv_width}")
+        if apps:
+            experts += (f" shared attention before layers "
+                        f"{shared_layers(cfg)} ({cfg.n_heads}x"
+                        f"{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff})")
+    bucket = "exact: a recurrent prefill takes no pad" if recurrent \
+        else f"bucket {Sp}"
     print(f"serving path: {cfg.name} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model}{experts} batch={B} prompt={S} (bucket {Sp}) "
+          f"{cfg.d_model}{experts} batch={B} prompt={S} ({bucket}) "
           f"gen={G} cache={max_len} float32 seed={SEED} fusion_mode=stitched")
 
     torch.cuda.synchronize()
@@ -729,7 +857,11 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     launches = launch_counts()
     print(f"launches in one generate (1 prefill + {G - 1} decode steps): "
           f"{json.dumps(launches)}")
-    for k in ("rmsnorm", "flash_attention") + (("softmax",) if moe else ()):
+    if recurrent:
+        need = ("rmsnorm", "ssd_scan") + (("flash_attention",) if apps else ())
+    else:
+        need = ("rmsnorm", "flash_attention") + (("softmax",) if moe else ())
+    for k in need:
         if launches[k] <= 0:
             fail(f"the serving path launched no {k} kernel")
     print(f"compile_s={cold_s - warm_s:.2f} (first generate {cold_s:.2f} s "
@@ -760,30 +892,70 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
         fail(f"the router softmax launched {per_prefill['softmax']} times "
              f"per prefill and {per_decode['softmax']} per decode step, "
              f"want {cfg.n_layers} (one a layer)")
+    if recurrent:
+        norms = 2 * cfg.n_layers + 2 * apps + 1
+        for step, per, want in (
+                ("prefill", per_prefill, {"rmsnorm": norms, "flash_attention":
+                                          apps, "ssd_scan": cfg.n_layers}),
+                ("decode step", per_decode, {"rmsnorm": norms,
+                                             "flash_attention": 0,
+                                             "ssd_scan": 0})):
+            for k, n in want.items():
+                if per[k] != n:
+                    fail(f"{k} launched {per[k]} times per {step}, want {n}")
     # the compiled functions at the prefill and the decode signatures
     p0, h = params["blocks"][0], params["embed"][toks]
     head_p = model._head_params(params)
     pos_p = torch.arange(Sp, device="cuda")
-    q, k, v = model.pre(p0, h, pos_p)
-    served = {"prefill pre": model.pre.compiled(p0, h, pos_p),
-              "prefill post": model.post.compiled(p0, h, q, k, v),
-              "prefill head": model.logits_head.compiled(head_p, h)}
     h1, pos1 = params["embed"][tok], positions[:1]
-    q, k, v = model.pre(p0, h1, pos1)
-    served.update({
-        "decode pre": model.pre.compiled(p0, h1, pos1),
-        "decode post": model.post.compiled(
-            p0, h1, q, cache["k"][0], cache["v"][0], positions[0] + 1),
-        "decode head": model.logits_head.compiled(head_p, h1)})
+    if recurrent:
+        mc = cache["mamba"][0]
+        served = {
+            "prefill mamba": model.mamba.compiled(p0, h, mc["conv"],
+                                                  mc["ssm"]),
+            "prefill head": model.logits_head.compiled(head_p, h),
+            "decode mamba": model.mamba.compiled(p0, h1, mc["conv"],
+                                                 mc["ssm"]),
+            "decode head": model.logits_head.compiled(head_p, h1)}
+        if apps:
+            sp, kv = params["shared_attn"], cache["attn"][0]
+            q, k, v = model.shared_pre(sp, h, h, pos_p)
+            served.update({
+                "prefill shared pre": model.shared_pre.compiled(sp, h, h,
+                                                                pos_p),
+                "prefill shared post": model.post.compiled(sp, h, q, k, v)})
+            q, k, v = model.shared_pre(sp, h1, h1, pos1)
+            served.update({
+                "decode shared pre": model.shared_pre.compiled(sp, h1, h1,
+                                                               pos1),
+                "decode shared post": model.post.compiled(
+                    sp, h1, q, kv["k"], kv["v"], positions[0] + 1)})
+    else:
+        q, k, v = model.pre(p0, h, pos_p)
+        served = {"prefill pre": model.pre.compiled(p0, h, pos_p),
+                  "prefill post": model.post.compiled(p0, h, q, k, v),
+                  "prefill head": model.logits_head.compiled(head_p, h)}
+        q, k, v = model.pre(p0, h1, pos1)
+        served.update({
+            "decode pre": model.pre.compiled(p0, h1, pos1),
+            "decode post": model.post.compiled(
+                p0, h1, q, cache["k"][0], cache["v"][0], positions[0] + 1),
+            "decode head": model.logits_head.compiled(head_p, h1)})
     for name, comp in served.items():
-        describe(f"{name:12s}", comp)
+        describe(f"{name:19s}" if recurrent else f"{name:12s}", comp)
     # every generated kernel instance that serving launches, at its shapes
     check_generated(served, gen, checks)
     weights = sum(t.numel() * t.element_size()
                   for t in torch.utils._pytree.tree_leaves(
-                      [params["blocks"], params["lm_head"]]))
-    print(f"weights a decode step reads (blocks + LM head): "
-          f"{weights / 1e9:.2f} GB")
+                      [params["blocks"], params["lm_head"],
+                       params.get("shared_attn", {})]))
+    print(f"weights a decode step reads (blocks + LM head"
+          f"{' + shared block' if apps else ''}): {weights / 1e9:.2f} GB")
+    if recurrent:
+        state = sum(t.numel() * t.element_size() for c in cache["mamba"]
+                    for t in c.values())
+        print(f"SSM and conv state a decode step reads and writes anew: "
+              f"{state / 1e9:.3f} GB")
     if moe:
         ew = sum(t.numel() * t.element_size() for p in params["blocks"]
                  for n, t in p["moe"].items() if n != "router")
@@ -1035,9 +1207,13 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     b0 = {k: torch.as_tensor(v).to("cuda") for k, v in batches[0].items()}
     experts = (f" experts={cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff}"
                if moe else f" d_ff={cfg.d_ff}")
+    heads = (f"ssm_heads={cfg.ssm_heads}x{cfg.ssm_head_dim} state="
+             f"{cfg.ssm_state} d_inner={cfg.resolved_d_inner}"
+             if cfg.family == "ssm" else
+             f"heads={cfg.n_heads}x{cfg.resolved_head_dim}{experts}")
     print(f"train path: {cfg.name} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model} heads={cfg.n_heads}x{cfg.resolved_head_dim}"
-          f"{experts} vocab={cfg.vocab_size} (padded {cfg.padded_vocab}) "
+          f"{cfg.d_model} {heads} vocab={cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}) "
           f"batch={B}x{S} {unit} float32 seed={SEED} steps={N} AdamW")
 
     def step0(mdl, params, kern=None) -> dict:
@@ -1116,6 +1292,8 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     L = cfg.n_layers
     norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
     want = {norm: 2 * L + 1, "flash_attention": L}
+    if cfg.family == "ssm":  # the block's norm and the gated norm
+        want = {norm: 2 * L + 1, "flash_attention": 0, "ssd_scan": L}
     if norm == "layernorm":
         want["layernorm_bwd"] = 2 * L + 1
     if moe:
@@ -1184,6 +1362,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     print(device_line())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_kernels(gen)
@@ -1197,10 +1376,16 @@ def main() -> int:
     train_launches = phase_train()
     moe_serve_launches = phase_serving(gen, checks, MOE_ARCH)
     n_moe = sum(len(checks[k]) for k in ("onepass", "streaming")) - n_gen
+    moe_train_launches = phase_train(MOE_ARCH)
+    ssm_serve_launches = phase_serving(gen, checks, SSM_ARCH)
+    hybrid_serve_launches = phase_serving(gen, checks, HYBRID_ARCH)
+    n_rec = sum(len(checks[k]) for k in ("onepass", "streaming")) \
+        - n_gen - n_moe
     print(f"generated kernel instances held against their plain versions: "
           f"{n_fwd} of the forward path, {n_gen - n_fwd} more of serving, "
-          f"{n_moe} more of MoE serving")
-    moe_train_launches = phase_train(MOE_ARCH)
+          f"{n_moe} more of MoE serving, {n_rec} more of SSM and hybrid "
+          f"serving")
+    ssm_train_launches = phase_train(SSM_ARCH)
 
     kernels = []
     for name, route, source, replaces in (
@@ -1220,13 +1405,18 @@ def main() -> int:
             ("softmax", "cuda", "src/repro_torch/csrc/softmax.cu",
              "src/repro/kernels/softmax.py:22"),
             ("softmax_bwd", "cuda", "src/repro_torch/csrc/softmax.cu",
-             "src/repro/kernels/softmax.py:52")):
+             "src/repro/kernels/softmax.py:52"),
+            ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:75")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name],
                    "train": train_launches[name],
                    "moe_serve": moe_serve_launches[name],
-                   "moe_train": moe_train_launches[name]}
+                   "moe_train": moe_train_launches[name],
+                   "ssm_serve": ssm_serve_launches[name],
+                   "hybrid_serve": hybrid_serve_launches[name],
+                   "ssm_train": ssm_train_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1236,6 +1426,8 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "call_ms": s["call_ms"], "timing": TIMING,
             "instances_checked": s["instances_checked"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          "device line to the summary")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,7 +101,8 @@ class ArchConfig:
 # registry
 # ---------------------------------------------------------------------------
 ARCH_IDS = ["llama3.2-3b", "hubert-xlarge", "granite-moe-1b-a400m",
-            "granite-moe-3b-a800m"]  # the configs the port carries
+            "granite-moe-3b-a800m", "mamba2-370m",
+            "zamba2-1.2b"]  # the configs the port carries
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

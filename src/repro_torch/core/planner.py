@@ -70,10 +70,11 @@ def coalesce_plan(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
     PatternReduction grows patterns from a producer toward consumers, so a
     side-input's producer chain (e.g. the scale/bias broadcasts feeding a
     LayerNorm epilogue) can land in a sibling pattern.  Merging two plan
-    patterns is legal when their union is convex; we accept a merge when
-    the delta-evaluator scores the union at least as well as the parts
-    (the union also saves a launch, folded into the score).  Leftover
-    singletons adjacent to a pattern are absorbed the same way.
+    patterns is legal when their union is convex and closes no dependency
+    cycle through the other patterns (``_closes_cycle``); we accept a
+    merge when the delta-evaluator scores the union at least as well as
+    the parts (the union also saves a launch, folded into the score).
+    Leftover singletons adjacent to a pattern are absorbed the same way.
 
     Merges respect the explorer's ``MAX_PATTERN`` guardrail: a *pattern*
     stays small enough for the delta-evaluator's simplified VMEM model to
@@ -110,7 +111,9 @@ def coalesce_plan(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
                     continue
                 union = ctx.union(members, frozenset({nid}))
                 if ctx.is_convex(union) and \
-                        ctx.score(union) >= ctx.score(members):
+                        ctx.score(union) >= ctx.score(members) and \
+                        not _closes_cycle(graph, union,
+                                          pats[:i] + pats[i + 1:]):
                     pats[i] = union
                     changed = True
                     break
@@ -127,7 +130,9 @@ def coalesce_plan(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
                 if ctx.is_convex(union):
                     s_union = ctx.score(union)
                     s_parts = ctx.score(pats[i]) + ctx.score(pats[j])
-                    if s_union >= s_parts:
+                    others = pats[:i] + pats[i + 1:j] + pats[j + 1:]
+                    if s_union >= s_parts and \
+                            not _closes_cycle(graph, union, others):
                         pats[i] = union
                         pats.pop(j)
                         changed = True
@@ -151,6 +156,43 @@ def coalesce_plan(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
     return out
 
 
+def _closes_cycle(graph: Graph, members: frozenset[int],
+                  groups: list[frozenset[int]]) -> bool:
+    """Would one launch of ``members`` close a dependency cycle, inside
+    (a path that leaves ``members`` and re-enters it: not convex) or
+    through the other launch ``groups``?  Convex groups can still depend
+    on each other (a -> b' and b -> a', with a, a' in one group and b, b'
+    in the other).  So the outside nodes reachable from ``members`` grow
+    by every group they touch, with all that the group feeds, until
+    nothing changes; a cycle exists iff they meet an ancestor."""
+    desc, anc = graph.reachability()
+    pmask = d = a = 0
+    for nid in members:
+        pmask |= 1 << nid
+        d |= desc[nid]
+        a |= anc[nid]
+    reach = d & ~pmask
+    pending: list[tuple[int, int]] = []
+    for grp in groups:
+        gmask = gdesc = 0
+        for nid in grp:
+            gmask |= 1 << nid
+            gdesc |= desc[nid]
+        pending.append((gmask, gdesc))
+    grew = True
+    while grew and not reach & a:
+        grew = False
+        rest = []
+        for gmask, gdesc in pending:
+            if reach & gmask:
+                reach |= (gmask | gdesc) & ~pmask
+                grew = True
+            else:
+                rest.append((gmask, gdesc))
+        pending = rest
+    return bool(reach & a)
+
+
 def remote_fusion(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
                   max_pack: int = 8,
                   ctx: CostContext | None = None) -> FusionPlan:
@@ -158,21 +200,25 @@ def remote_fusion(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
 
     The paper introduces a virtual producer ``h`` over all pattern roots and
     re-runs PatternReduction; the effect is *kernel packing* of remote
-    patterns.  We realize the same effect directly: leftover singletons that
-    form a convex union are packed greedily into launch groups.
+    patterns.  We realize the same effect directly: leftover singletons are
+    packed greedily into launch groups, as long as a group closes no
+    dependency cycle with itself or with the plan's other launches.
     """
     if ctx is None:
         ctx = CostContext(graph, hw)
     singles = _leftover_singletons(graph, plan)
+    launches = [p.members for p in plan.patterns]
     packed: list[Pattern] = []
     bucket: list[int] = []
     for nid in singles:
         trial = frozenset(bucket + [nid])
-        if len(trial) <= max_pack and ctx.is_convex(trial):
+        if len(trial) <= max_pack and not _closes_cycle(graph, trial,
+                                                        launches):
             bucket.append(nid)
         else:
             if len(bucket) > 1:
                 packed.append(Pattern(frozenset(bucket), 0.0))
+                launches.append(frozenset(bucket))
             bucket = [nid]
     if len(bucket) > 1:
         packed.append(Pattern(frozenset(bucket), 0.0))

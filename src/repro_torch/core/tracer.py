@@ -591,9 +591,14 @@ def trace_with_tree(fn: Callable, *example_args) -> tuple[Graph, Any]:
     Returns ``(graph, out_spec)``: graph inputs are the flattened leaves of
     ``example_args`` in order, graph outputs the flattened leaves of the
     result; ``out_spec`` rebuilds the result's structure.  Tracing runs
-    on fake tensors, so no real computation happens at any size.
+    on fake tensors, so no real computation happens at any size.  Each
+    leaf is traced as a tensor of its own, even where the example passes
+    one tensor twice (Zamba2's first shared block gets the embedding as
+    both its hidden state and its ``emb0``): the compiled graph is reused
+    for calls whose leaves differ.
     """
     flat, in_spec = pytree.tree_flatten(example_args)
+    flat = [t.detach() if isinstance(t, torch.Tensor) else t for t in flat]
     holder = {}
 
     def flat_fn(*leaves):

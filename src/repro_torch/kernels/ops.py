@@ -1,5 +1,5 @@
 """Public wrappers over the hand-written kernels, with the reference's
-switch (``src/repro/kernels/ops.py:37,43,73,80``).
+switch (``src/repro/kernels/ops.py:37,43,49,73,80,119``).
 
 ``use_kernels=False`` (``fusion_mode="xla"`` at the model level) routes to
 the plain oracles in ``ref.py``.  ``use_kernels=True`` calls the
@@ -7,8 +7,8 @@ the plain oracles in ``ref.py``.  ``use_kernels=True`` calls the
 kernels, on CPU tensors they run the kernels' plain versions.  Each
 operator carries the reference's autograd formula: the LayerNorm and
 softmax backwards are kernels of their own (``repro_torch::layernorm_bwd``,
-``repro_torch::softmax_bwd``), the RMSNorm and attention backwards are
-plain ops, as in the JAX package.
+``repro_torch::softmax_bwd``), the RMSNorm, attention and SSD scan
+backwards are plain ops, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from .flash_attention import flash_attention
 from .layernorm import layernorm as _layernorm
 from .rmsnorm import rmsnorm as _rmsnorm
 from .softmax import softmax as _softmax
+from .ssd_scan import ssd_scan as _ssd_scan
 
 
 def layernorm(x, gamma, beta, eps: float = 1e-6, *, use_kernels: bool = True):
@@ -68,3 +69,10 @@ def decode_attention(q, k_cache, v_cache, *, kv_len=None, scale=None,
         k_cache = k_cache[:, :, :kv_len, :]
         v_cache = v_cache[:, :, :kv_len, :]
     return ref.decode_attention(q, k_cache, v_cache, scale=scale)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, use_kernels: bool = True):
+    """The Mamba-2 SSD chunked scan -> (y, final state)."""
+    if use_kernels:
+        return _ssd_scan(x, dt, A, B, C, chunk)
+    return ref.ssd_scan(x, dt, A, B, C, chunk=chunk)

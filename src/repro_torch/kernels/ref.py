@@ -1,5 +1,5 @@
 """Plain PyTorch oracles: the port's counterparts of ``repro.kernels.ref``
-for the normalizations, the softmax and attention.
+for the normalizations, the softmax, attention and the Mamba-2 SSD scan.
 
 They are the numerical ground truth of the tests and the
 ``fusion_mode="xla"`` path of the model code, which ``stitched_jit``
@@ -82,3 +82,62 @@ def decode_attention(q, k_cache, v_cache, lengths=None, scale=None):
     probs = torch.softmax(logits, dim=-1)
     out = torch.bmm(probs.reshape(B * Hkv, g, S), vf)
     return out.reshape(B, Hq, D)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) chunked scan
+# --------------------------------------------------------------------------
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, init_state=None):
+    """Chunked SSD scan (``src/repro/kernels/ref.py:93-150``).
+
+    x [b, L, H, P]; dt [b, L, H] (softplus-activated, > 0); A [H]
+    (negative); B, C [b, L, N] (one group, shared by the heads) ->
+    (y [b, L, H, P] like x, final state [b, H, P, N] float32), float32
+    inside.  All chunks at once, then a short loop over the chunks for
+    the running state, as the reference computes it.  Every einsum has
+    two operands (no ``[b, nc, c, c, H, P]`` intermediate), and the decay
+    exponent is taken only where i >= j: the kept values are the
+    reference's, and the masked pairs never overflow.
+    """
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    if L % chunk:
+        raise ValueError(f"ssd_scan: L {L} is not a multiple of the chunk "
+                         f"{chunk}; pad the sequence first")
+    nc = L // chunk
+    f32 = torch.float32
+    xc = x.reshape(b, nc, chunk, H, P).to(f32)
+    dtc = dt.reshape(b, nc, chunk, H).to(f32)
+    Bc = B.reshape(b, nc, chunk, N).to(f32)
+    Cc = C.reshape(b, nc, chunk, N).to(f32)
+
+    cum = torch.cumsum(dtc * A.to(f32), dim=2)            # [b,nc,c,H]
+
+    # intra-chunk (quadratic within the chunk)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [b,nc,c,c,H]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[:, :, None]
+    lmat = torch.exp(torch.where(causal, seg, -math.inf))
+    cb = torch.einsum("bzcn,bzsn->bzcs", Cc, Bc)           # [b,nc,c,c]
+    w = cb[..., None] * lmat * dtc[:, :, None, :, :]       # [b,nc,c,s,H]
+    y_intra = torch.einsum("bzcsh,bzshp->bzchp", w, xc)
+
+    # each chunk's contribution to the running state
+    decay_states = torch.exp(cum[:, :, -1:, :] - cum)      # [b,nc,c,H]
+    xw = xc * (decay_states * dtc)[..., None]              # [b,nc,c,H,P]
+    states = torch.einsum("bzsn,bzshp->bzhpn", Bc, xw)     # [b,nc,H,P,N]
+
+    # the recurrence over the chunks
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # [b,nc,H]
+    h = (torch.zeros(b, H, P, N, dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    h_prevs = []
+    for z in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, z, :, None, None] + states[:, z]
+    h_prev = torch.stack(h_prevs, dim=1)                   # [b,nc,H,P,N]
+
+    y_inter = torch.einsum("bzcn,bzhpn->bzchp", Cc, h_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, L, H, P).to(x.dtype)
+    return y, h

@@ -1,0 +1,188 @@
+"""Mamba-2 SSD chunked scan: the hand-written CUDA kernel
+(``csrc/ssd_scan.cu``), its plain PyTorch version, and the
+``repro_torch::ssd_scan`` operator.
+
+The counterpart of ``ssd_scan`` (the TPU kernel ``_ssd_kernel``,
+``src/repro/kernels/ssd_scan.py:25,75``): x [b, L, H, P], dt [b, L, H],
+A [H], B and C [b, L, N] (one group, shared by the heads) -> (y
+[b, L, H, P], final state [b, H, P, N] float32), walking the chunks of
+``chunk`` rows in order with the state carried across them.  ``L`` must
+be a multiple of ``chunk``; the model pads the sequence first.
+
+Its autograd formula recomputes ``ref.ssd_scan`` and takes its VJP, as
+the reference's ``_ssd_bwd`` does (``src/repro/kernels/ops.py:99-116``):
+the JAX package has no backward kernel for the scan, so the backward is
+plain ops on the card by the reference's own design.
+
+``ssd_scan(x, dt, A, B, C, chunk)`` is the operator: on CPU tensors it
+runs ``ssd_scan_plain``, on CUDA tensors ``ssd_scan_cuda`` (the kernel,
+or an error), on fake and meta tensors its shape function -- so
+``make_fx`` traces it as one node.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build, ref
+
+def _check_shapes(x, dt, A, B, C, chunk: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, want [b, L, H, P]")
+    b, L, H, P = x.shape
+    N = B.shape[-1] if B.dim() == 3 else -1
+    if (tuple(dt.shape) != (b, L, H) or tuple(A.shape) != (H,)
+            or tuple(B.shape) != (b, L, N) or tuple(C.shape) != (b, L, N)):
+        raise ValueError(
+            f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}; want "
+            "[b, L, H, P], [b, L, H], [H], [b, L, N], [b, L, N]")
+    if chunk < 1 or L == 0 or L % chunk:
+        raise ValueError(f"ssd_scan: L {L} is not a positive multiple of "
+                         f"the chunk {chunk}; pad the sequence first")
+
+
+def ssd_scan_plain(x, dt, A, B, C, chunk: int):
+    """The kernel's function in plain PyTorch: the chunk loop as
+    ``_ssd_kernel`` computes it, all (batch, head) pairs at once, the
+    state [b, H, P, N] carried from chunk to chunk (float32 inside)."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    f32 = torch.float32
+    Af = A.to(f32)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[:, :, None]
+    h = torch.zeros(b, H, P, N, dtype=f32, device=x.device)
+    ys = []
+    for l0 in range(0, L, chunk):
+        rows = slice(l0, l0 + chunk)
+        xz = x[:, rows].to(f32)                             # [b, c, H, P]
+        dtz = dt[:, rows].to(f32)                           # [b, c, H]
+        Bz = B[:, rows].to(f32)                             # [b, c, N]
+        Cz = C[:, rows].to(f32)
+        cum = torch.cumsum(dtz * Af, dim=1)                 # [b, c, H]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]       # [b, c, c, H]
+        lmat = torch.exp(torch.where(causal, seg, -math.inf))
+        cb = torch.bmm(Cz, Bz.transpose(1, 2))              # [b, c, c]
+        w = cb[..., None] * lmat * dtz[:, None, :, :]       # w[b, i, j, h]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xz)
+        c_scaled = Cz[:, :, None, :] * torch.exp(cum)[..., None]
+        y_inter = torch.einsum("bihn,bhpn->bihp", c_scaled, h)
+        ys.append(y_intra + y_inter)
+        decay = torch.exp(cum[:, -1:, :] - cum)             # [b, c, H]
+        bw = Bz[:, :, None, :] * (decay * dtz)[..., None]   # [b, c, H, N]
+        h = h * torch.exp(cum[:, -1, :])[..., None, None] \
+            + torch.einsum("bjhp,bjhn->bhpn", xz, bw)
+    return torch.cat(ys, dim=1).to(x.dtype), h
+
+
+def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
+    """Launch the CUDA kernel (float32, on the current stream).  x, dt, B
+    and C are read with their strides -- the model's x, B and C are
+    column slices of one activation -- and only a last dimension that is
+    not contiguous is copied (device time)."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    dev = x.device
+    ts = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
+    if dev.type != "cuda" or any(t.device != dev for t in ts.values()):
+        raise ValueError("ssd_scan_cuda: " + ", ".join(
+            f"{k} on {t.device}" for k, t in ts.items())
+            + "; all must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in ts.values()):
+        raise TypeError("ssd_scan_cuda takes float32, got " + ", ".join(
+            f"{k} {t.dtype}" for k, t in ts.items()))
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    cmax = instances().get((P, N))
+    if cmax is None or chunk > cmax:
+        raise ValueError(
+            f"ssd_scan_cuda: head dim {P}, state {N}, chunk {chunk}; the "
+            "kernel has (P, N) -> longest chunk "
+            + ", ".join(f"{k} -> {v}" for k, v in instances().items()))
+    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    A = A.contiguous()
+    y = torch.empty(b, L, H, P, dtype=torch.float32, device=dev)
+    state = torch.empty(b, H, P, N, dtype=torch.float32, device=dev)
+    _build.check(_entry()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), b, L, H, P, N, chunk,
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
+        torch.cuda.current_stream(dev).cuda_stream), "repro_ssd_scan_f32")
+    ssd_scan_cuda.launches += 1
+    return y, state
+
+
+ssd_scan_cuda.launches = 0  # kernel launches (plain runs are not counted)
+
+
+@functools.cache
+def _lib():
+    return _build.library("ssd_scan")
+
+
+@functools.cache
+def instances() -> dict[tuple[int, int], int]:
+    """(P, N) -> the longest chunk of each of the kernel's instances, as
+    the library lists them (the list its entry point dispatches on)."""
+    fn = _lib().repro_ssd_scan_instances
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(None, 0)
+    buf = (ctypes.c_int * (3 * n))()
+    fn(buf, n)
+    return {(buf[3 * i], buf[3 * i + 1]): buf[3 * i + 2] for i in range(n)}
+
+
+@functools.cache
+def _entry():
+    fn = _lib().repro_ssd_scan_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cpu")
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor,
+             chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y [b, L, H, P] like x, state [b, H, P, N] float32)."""
+    return ssd_scan_plain(x, dt, A, B, C, chunk)
+
+
+@ssd_scan.register_kernel("cuda")
+def _(x, dt, A, B, C, chunk):
+    return ssd_scan_cuda(x, dt, A, B, C, chunk)
+
+
+@ssd_scan.register_fake
+def _(x, dt, A, B, C, chunk):
+    _check_shapes(x, dt, A, B, C, chunk)
+    b, L, H, P = x.shape
+    return (x.new_empty(x.shape),
+            x.new_empty((b, H, P, B.shape[-1]), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    *tensors, chunk = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.chunk = chunk
+
+
+def _backward(ctx, dy, dstate):
+    ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+    with torch.enable_grad():
+        outs = ref.ssd_scan(*ins, chunk=ctx.chunk)
+        pairs = [(o, g) for o, g in zip(outs, (dy, dstate)) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    ins, [g for _, g in pairs],
+                                    allow_unused=True)
+    return (*grads, None)
+
+
+ssd_scan.register_autograd(_backward, setup_context=_setup_context)

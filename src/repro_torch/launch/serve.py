@@ -1,14 +1,18 @@
 """Batched serving driver of the port: bucketed prefill and greedy decode
-with a KV cache.
+with a KV cache (and the SSM state of the Mamba layers).
 
   PYTHONPATH=src python -m repro_torch.launch.serve            # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --reduced --device cpu
 
 The counterpart of ``repro.launch.serve`` (``generate``, ``main``) for
-the dense and MoE families.  Prompt and cache lengths are canonicalized onto the
-serving bucket ladder (``serving/buckets.py``), so a mix of lengths
-compiles once per bucket; the model owns its compiled functions, so
+the dense, MoE, SSM and hybrid families.  Prompt and cache lengths are
+canonicalized onto the serving bucket ladder (``serving/buckets.py``), so
+a mix of lengths compiles once per bucket -- except the prompts of the
+SSM and hybrid families, which run at their exact length, as in the
+reference; the model owns its compiled functions, so
 repeated ``generate`` calls on one model never re-trace (the reference
 keeps a per-process table of jitted pairs for the same purpose).  Logits
 are read at the true last prompt position, which the causal mask keeps
@@ -28,7 +32,7 @@ import torch
 
 from ..configs import get_config
 from ..configs.base import ARCH_IDS
-from ..models.model import Model
+from ..models.model import RECURRENT, Model
 from ..serving.buckets import Buckets, pad_tokens
 
 
@@ -37,7 +41,9 @@ def generate(mdl: Model, params: dict, prompts: np.ndarray, gen_len: int, *,
     """prompts: [B, S] int -> [B, S + gen_len] (greedy decode)."""
     B, S = prompts.shape
     bk = buckets if buckets is not None else Buckets.from_env()
-    Sp = bk.bucket(S)
+    # a recurrent prefill (ssm, hybrid) folds pad tokens into its state:
+    # exact prompt lengths there, bucketed everywhere else
+    Sp = S if mdl.cfg.family in RECURRENT else bk.bucket(S)
     max_len = bk.bucket(max(Sp, S + gen_len))
     dev = mdl.device
     cache = mdl.init_cache(B, max_len)

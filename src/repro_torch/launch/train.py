@@ -6,11 +6,14 @@
       --batch 8 --seq 512 --steps 5             # full width, on the card
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch granite-moe-1b-a400m --batch 8 --seq 512 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch mamba2-370m --batch 8 --seq 512 --steps 5
 
 The counterpart of ``repro.launch.train`` (``build_trainer``, ``main``).
-``fusion_mode="stitched"`` (the default) runs the norms, attention and
-the MoE router's softmax through the hand-written CUDA kernels and the
-LayerNorm and softmax backwards through their own; ``"xla"`` runs the
+``fusion_mode="stitched"`` (the default) runs the norms, attention, the
+MoE router's softmax and the Mamba layers' SSD scan through the
+hand-written CUDA kernels and the LayerNorm and softmax backwards
+through their own; ``"xla"`` runs the
 plain oracles, no kernel of any kind.  The backward is eager
 ``torch.autograd`` (the reference's is ``jax.value_and_grad`` under
 ``jit``).

@@ -14,6 +14,8 @@ import torch
 def _to_torch(tree, device, index=None):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, index) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device, index) for v in tree]
     arr = np.asarray(tree)
     if index is not None:
         arr = arr[index]
@@ -29,12 +31,19 @@ def from_jax_params(params: dict, *, device="cuda") -> dict:
     [L, E, d, ff] / [L, E, ff, d]), ``final_norm`` and ``lm_head``.  The
     walk is generic: every key is carried over as it is, each stacked
     leaf cut along its leading (layer) axis, so layer i of the MoE holds
-    the router [d, E] and the experts' [E, d, ff] / [E, ff, d]."""
+    the router [d, E] and the experts' [E, d, ff] / [E, ff, d], and layer
+    i of Mamba2 its ``mamba`` subtree.  The hybrid (Zamba2) keeps its
+    layers as a list, one unstacked tree each, which is carried over as
+    it is, like its ``shared_attn`` block."""
     blocks = params["blocks"]
-    n_layers = np.asarray(next(iter(_leaves(blocks)))).shape[0]
     out = {k: _to_torch(v, device) for k, v in params.items()
            if k != "blocks"}
-    out["blocks"] = [_to_torch(blocks, device, i) for i in range(n_layers)]
+    if isinstance(blocks, (list, tuple)):
+        out["blocks"] = _to_torch(blocks, device)
+    else:
+        n_layers = np.asarray(next(iter(_leaves(blocks)))).shape[0]
+        out["blocks"] = [_to_torch(blocks, device, i)
+                         for i in range(n_layers)]
     return out
 
 

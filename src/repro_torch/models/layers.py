@@ -1,5 +1,5 @@
-"""Model layers in PyTorch (the dense, encoder and MoE families, with the
-serving KV cache).
+"""Model layers in PyTorch (the dense, encoder, MoE, SSM and hybrid
+families, with the serving KV and SSM caches).
 
 The counterparts of ``repro.models.layers``.  Each memory-intensive
 pattern routes through ``repro_torch.kernels.ops``, so the execution mode
@@ -7,8 +7,8 @@ is chosen per model:
 
   fusion_mode="stitched" -> the hand-written CUDA kernels (LayerNorm,
                             RMSNorm, flash attention, the router's
-                            softmax), one opaque node each in a traced
-                            graph, differentiable
+                            softmax, the SSD scan), one opaque node each
+                            in a traced graph, differentiable
   fusion_mode="xla"      -> the plain oracles of ``kernels/ref.py``, which
                             ``stitched_jit`` traces, plans and compiles
                             into generated kernels
@@ -96,13 +96,16 @@ def rope(q, k, positions, theta: float):
 # ---------------------------------------------------------------------------
 # attention (GQA, optional KV cache)
 # ---------------------------------------------------------------------------
-def attn_init(cfg: ArchConfig, gen, dtype, device) -> dict:
-    d, Dh = cfg.d_model, cfg.resolved_head_dim
+def attn_init(cfg: ArchConfig, gen, dtype, device,
+              d_in: int | None = None) -> dict:
+    """``d_in`` is the input width (Zamba2's shared block takes
+    ``2 d_model``); the output is ``d_model`` wide."""
+    d, Dh = d_in or cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     return {"wq": dense(gen, d, Hq * Dh, dtype, device),
             "wk": dense(gen, d, Hkv * Dh, dtype, device),
             "wv": dense(gen, d, Hkv * Dh, dtype, device),
-            "wo": dense(gen, Hq * Dh, d, dtype, device)}
+            "wo": dense(gen, Hq * Dh, cfg.d_model, dtype, device)}
 
 
 def attn_qkv(cfg: ArchConfig, p: dict, x, positions):
@@ -167,7 +170,7 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU, plain GELU)
+# MLP (SwiGLU, GeGLU, plain GELU)
 # ---------------------------------------------------------------------------
 def mlp_init(cfg: ArchConfig, gen, dtype, device) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
@@ -179,13 +182,23 @@ def mlp_init(cfg: ArchConfig, gen, dtype, device) -> dict:
             "w_down": dense(gen, ff, d, dtype, device)}
 
 
+def gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)`` written out as JAX writes it,
+    so that it traces to element-wise primitives, as in the reference."""
+    cdf = 0.5 * (1.0 + torch.tanh(math.sqrt(2 / math.pi)
+                                  * (x + 0.044715 * x ** 3)))
+    return x * cdf
+
+
 def _gate_act(cfg: ArchConfig, x):
-    """The gated branch's activation: SiLU (SwiGLU)."""
-    if cfg.activation != "silu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r}: the port has SwiGLU and "
-            "gelu_mlp")
-    return F.silu(x)
+    """The gated branch's activation: SiLU (SwiGLU) or the tanh GELU
+    (GeGLU, ``activation="gelu"``; ``src/repro/models/layers.py:162-166``)."""
+    if cfg.activation == "silu":
+        return F.silu(x)
+    if cfg.activation == "gelu":
+        return gelu_tanh(x)
+    raise ValueError(f"activation {cfg.activation!r}: 'silu' or 'gelu' "
+                     "gate a branch; 'gelu_mlp' has none")
 
 
 def mlp_apply(cfg: ArchConfig, p: dict, x):
@@ -341,3 +354,111 @@ def _moe_sort_dispatch(cfg: ArchConfig, p: dict, x, gate_vals, gate_idx):
     gate = torch.where(keep, flat_g, 0.0).to(ye.dtype)
     out_tok = ye.index_select(0, src).reshape(G, Tk, d) * gate[..., None]
     return out_tok.reshape(G, Tg, k, d).sum(2)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD)
+# ---------------------------------------------------------------------------
+def mamba_init(cfg: ArchConfig, gen, dtype, device) -> dict:
+    """``src/repro/models/layers.py:323-338``: A = -exp(A_log) = -1, D 1,
+    dt_bias -2 (softplus about 0.12)."""
+    d, di, N = cfg.d_model, cfg.resolved_d_inner, cfg.ssm_state
+    H, W = cfg.ssm_heads, cfg.conv_width
+    conv_dim = di + 2 * N
+    f32 = torch.float32
+    conv_w = torch.randn(W, conv_dim, generator=gen, device=device,
+                         dtype=f32) * 0.2
+    return {"in_proj": dense(gen, d, 2 * di + 2 * N + H, dtype, device),
+            "conv_w": conv_w.to(dtype),
+            "conv_b": torch.zeros(conv_dim, dtype=dtype, device=device),
+            "A_log": torch.zeros(H, dtype=f32, device=device),
+            "D": torch.ones(H, dtype=f32, device=device),
+            "dt_bias": torch.full((H,), -2.0, dtype=f32, device=device),
+            "norm_g": torch.ones(di, dtype=dtype, device=device),
+            "out_proj": dense(gen, di, d, dtype, device)}
+
+
+def causal_depthwise_conv(x, w, b):
+    """x [B, S, C]; w [W, C]: the depthwise causal convolution of
+    ``src/repro/models/layers.py:341-350`` (cross-correlation over the
+    W - 1 zero rows before the sequence, as ``conv_general_dilated``)."""
+    W, C = w.shape
+    xp = F.pad(x, (0, 0, W - 1, 0)).transpose(1, 2)        # [B, C, S+W-1]
+    out = F.conv1d(xp, w.t().unsqueeze(1), groups=C)       # [B, C, S]
+    return out.transpose(1, 2) + b
+
+
+def mamba_apply(cfg: ArchConfig, p: dict, x, *, fm: FusionMode, cache=None):
+    """x [B, S, d] -> (y [B, S, d], new_cache): the Mamba2 block of
+    ``src/repro/models/layers.py:353-420``.
+
+    ``cache = {"conv": [B, W-1, conv_dim], "ssm": [B, H, P, N]}``.  With
+    S > 1 (and with no cache) the chunked SSD scan over the sequence,
+    padded to a chunk multiple with dt = 0 after the softplus, so the pad
+    neither decays nor feeds the state; with a cache it returns the new
+    one (the last W-1 pre-conv rows, the final state) and ignores the
+    given one's values.  With a cache and S == 1: one recurrence step from
+    the cache.  The gated RMSNorm epilogue ends both.
+    """
+    B, S, _ = x.shape
+    di, N = cfg.resolved_d_inner, cfg.ssm_state
+    H, P, W = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_width
+    conv_dim = di + 2 * N
+    f32 = torch.float32
+
+    zxbcdt = x @ p["in_proj"]
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:di + conv_dim]
+    dt_raw = zxbcdt[..., di + conv_dim:].to(f32)             # [B, S, H]
+    A = -torch.exp(p["A_log"])
+
+    if cache is not None and S == 1:
+        conv_state = torch.cat([cache["conv"], xBC], dim=1)  # [B, W, cd]
+        xBC_c = F.silu((conv_state * p["conv_w"]).sum(1) + p["conv_b"])
+        xs = xBC_c[:, :di].reshape(B, H, P).to(f32)
+        Bv = xBC_c[:, di:di + N].to(f32)
+        Cv = xBC_c[:, di + N:].to(f32)
+        dt = F.softplus(dt_raw[:, 0] + p["dt_bias"])          # [B, H]
+        decay = torch.exp(dt * A)
+        upd = dt[:, :, None, None] * Bv[:, None, None, :] * xs[..., None]
+        h = cache["ssm"] * decay[:, :, None, None] + upd     # [B, H, P, N]
+        y = (Cv[:, None, None, :] * h).sum(-1)               # [B, H, P]
+        y = (y + p["D"][None, :, None] * xs).reshape(B, 1, di)
+        new_cache = {"conv": conv_state[:, 1:], "ssm": h}
+    else:
+        xBC_c = F.silu(causal_depthwise_conv(xBC, p["conv_w"], p["conv_b"]))
+        xs = xBC_c[..., :di]
+        Bv = xBC_c[..., di:di + N]
+        Cv = xBC_c[..., di + N:]
+        dt = F.softplus(dt_raw + p["dt_bias"])                # [B, S, H]
+
+        chunk = min(cfg.ssm_chunk, S)
+        pad = (-S) % chunk
+        if pad:
+            xs, dt, Bv, Cv = (F.pad(t, (0, 0, 0, pad))
+                              for t in (xs, dt, Bv, Cv))
+        y, state = ops.ssd_scan(xs.reshape(B, S + pad, H, P), dt, A, Bv, Cv,
+                                chunk=chunk, use_kernels=fm.use_kernels)
+        y = y[:, :S].to(f32) + p["D"][None, None, :, None] \
+            * xs[:, :S].reshape(B, S, H, P).to(f32)
+        y = y.reshape(B, S, di)
+        new_cache = None
+        if cache is not None:  # the pre-conv rows feed the decode cache
+            conv = (xBC[:, S - (W - 1):] if S >= W - 1
+                    else F.pad(xBC, (0, 0, W - 1 - S, 0)))
+            new_cache = {"conv": conv, "ssm": state}
+
+    # gated RMSNorm epilogue
+    y = y * F.silu(z.to(f32))
+    y = ops.rmsnorm(y.to(x.dtype), p["norm_g"], cfg.norm_eps,
+                    use_kernels=fm.use_kernels)
+    return y @ p["out_proj"], new_cache
+
+
+def mamba_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> dict:
+    di, N = cfg.resolved_d_inner, cfg.ssm_state
+    H, P, W = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_width
+    return {"conv": torch.zeros(batch, W - 1, di + 2 * N, dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros(batch, H, P, N, dtype=torch.float32,
+                               device=device)}

@@ -1,5 +1,5 @@
-"""Dense decoder, encoder and MoE models: prompt pass, training, KV
-cache, prefill and decode.
+"""Dense decoder, encoder, MoE, SSM (Mamba2) and hybrid (Zamba2) models:
+prompt pass, training, KV and SSM caches, prefill and decode.
 
 ``block_apply`` is the per-layer program of the JAX package's
 ``models/model.py::block_apply``.  The layer loop is a Python loop over
@@ -20,6 +20,14 @@ compiles once:
   compiled head that returns the logits.  The reference stitches the
   whole prefill with the layers inside one opaque ``lax.scan`` and
   returns a new cache; the port's tracer has no mutation (ROADMAP C).
+* The SSM and hybrid families serve each Mamba layer as one compiled
+  ``mamba_block`` that returns the new conv and SSM state as outputs
+  (no in-place write), kept per layer in the cache's ``"mamba"`` list.
+  Zamba2's shared attention block, applied before layer i when
+  ``i % attn_every == 0`` on the RMSNorm of ``concat(h, emb0)`` (the
+  hidden state and the initial embedding), keeps the pattern above:
+  ``shared_pre``, ``layers.cache_write``, ``block_post``, one KV cache a
+  application (``src/repro/models/model.py:125-135, 178-207``).
 
 An MoE layer (``family="moe"``) replaces the MLP with ``layers.moe_apply``,
 whose load-balance loss ``loss`` adds, 0.01 times its sum over the
@@ -27,8 +35,8 @@ layers, as the reference does; serving and the forward drop it.
 
 ``fusion_mode="stitched"`` (the default, as in the reference) runs the
 norms, the prompt's attention and the MoE router's softmax through the
-hand-written CUDA kernels (and the LayerNorm and softmax backwards
-through their own);
+hand-written CUDA kernels, the Mamba layers' scan through the SSD kernel
+(and the LayerNorm and softmax backwards through their own);
 ``"xla"`` runs plain ops that the compiler plans into generated kernels.
 ``dispatch="interpret"`` replays each traced graph op by op: with
 ``"xla"`` no kernel of any kind runs, which makes it the plain reference
@@ -43,16 +51,21 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.cost_model import H100, Hardware
 from ..core.stitch import resolve_device, stitched_jit
-from ..kernels import ref
+from ..kernels import ops, ref
 from . import layers as L
 from .layers import FusionMode
 
 
+RECURRENT = ("ssm", "hybrid")
+
+
 def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
+    if cfg.family in RECURRENT:
+        return {"norm1": L.norm_init(cfg, dtype, device),
+                "mamba": L.mamba_init(cfg, gen, dtype, device)}
     if cfg.family not in ("dense", "vlm", "encoder", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port has no Mamba2 layer yet "
-            "(the ssm and hybrid families)")
+        raise ValueError(f"family {cfg.family!r}: dense, vlm, encoder, moe, "
+                         "ssm or hybrid")
     p = {"norm1": L.norm_init(cfg, dtype, device),
          "attn": L.attn_init(cfg, gen, dtype, device),
          "norm2": L.norm_init(cfg, dtype, device)}
@@ -74,6 +87,10 @@ def ffn_apply(cfg: ArchConfig, fm: FusionMode, p: dict, x):
 def block_apply_aux(cfg: ArchConfig, p: dict, h, positions, *,
                     fm: FusionMode):
     """One layer without a cache: h [B, S, d], positions [S] -> (h, aux)."""
+    if "mamba" in p:
+        y, _ = L.mamba_apply(cfg, p["mamba"],
+                             L.norm_apply(cfg, p["norm1"], h, fm), fm=fm)
+        return h + y, None
     h = h + L.attn_apply(cfg, p["attn"], L.norm_apply(cfg, p["norm1"], h, fm),
                          fm=fm, positions=positions)
     y, aux = ffn_apply(cfg, fm, p, L.norm_apply(cfg, p["norm2"], h, fm))
@@ -99,6 +116,38 @@ def block_post(cfg: ArchConfig, fm: FusionMode, p: dict, h, q, k, v,
     return h + ffn_apply(cfg, fm, p, L.norm_apply(cfg, p["norm2"], h, fm))[0]
 
 
+def mamba_block(cfg: ArchConfig, fm: FusionMode, p: dict, h, conv, ssm):
+    """One Mamba layer with its cache -> (h, conv, ssm): the prompt
+    (S > 1: the given cache's values are not read) or one decode step
+    (S == 1)."""
+    y, c = L.mamba_apply(cfg, p["mamba"], L.norm_apply(cfg, p["norm1"], h, fm),
+                         fm=fm, cache={"conv": conv, "ssm": ssm})
+    return h + y, c["conv"], c["ssm"]
+
+
+def shared_pre(cfg: ArchConfig, fm: FusionMode, sp: dict, h, emb0,
+               positions):
+    """Zamba2's shared block up to the cache write: the RMSNorm of
+    concat(h, emb0), then q, k, v."""
+    u = ops.rmsnorm(torch.cat([h, emb0], dim=-1), sp["norm1"]["g"],
+                    cfg.norm_eps, use_kernels=fm.use_kernels)
+    return L.attn_qkv(cfg, sp["attn"], u, positions)
+
+
+def shared_apply(cfg: ArchConfig, fm: FusionMode, sp: dict, h, emb0,
+                 positions):
+    """Zamba2's shared block without a cache -> h."""
+    q, k, v = shared_pre(cfg, fm, sp, h, emb0, positions)
+    return block_post(cfg, fm, sp, h, q, k, v)
+
+
+def shared_layers(cfg: ArchConfig) -> list[int]:
+    """The layers before which the hybrid applies its shared block."""
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return []
+    return list(range(0, cfg.n_layers, cfg.attn_every))
+
+
 def head_apply(cfg: ArchConfig, fm: FusionMode, p: dict, h):
     """Final norm, LM head and the softmax over the vocabulary."""
     logits = head_logits(cfg, fm, p, h)
@@ -122,8 +171,8 @@ def mask_pad_columns(cfg: ArchConfig, logits):
 
 
 class Model:
-    """A dense, encoder or MoE model bound to a device, with its compiled
-    functions (the encoder family trains; it has no decode).
+    """A dense, encoder, MoE, SSM or hybrid model bound to a device, with
+    its compiled functions (the encoder family trains; it has no decode).
 
     ``device`` is CUDA unless the caller passes ``device="cpu"`` (where
     every kernel runs its plain version).  Weights are float32.  The
@@ -151,6 +200,8 @@ class Model:
         self.pre = jit(block_pre)
         self.post = jit(block_post)
         self.logits_head = jit(head_logits)
+        self.mamba = jit(mamba_block)
+        self.shared_pre = jit(shared_pre)
 
     def init(self, seed: int) -> dict:
         """Random weights from ``seed``, made on the model's device.  An
@@ -164,12 +215,20 @@ class Model:
             embed = torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
                                 device=dev, dtype=torch.float32) * 0.02
             first = {"embed": embed.to(dt)}
-        return {**first,
-                "blocks": [block_init(cfg, gen, dt, dev)
-                           for _ in range(cfg.n_layers)],
-                "final_norm": L.norm_init(cfg, dt, dev),
-                "lm_head": L.dense(gen, cfg.d_model, cfg.padded_vocab, dt,
-                                   dev)}
+        params = {**first,
+                  "blocks": [block_init(cfg, gen, dt, dev)
+                             for _ in range(cfg.n_layers)],
+                  "final_norm": L.norm_init(cfg, dt, dev),
+                  "lm_head": L.dense(gen, cfg.d_model, cfg.padded_vocab, dt,
+                                     dev)}
+        if cfg.family == "hybrid":
+            params["shared_attn"] = {
+                "norm1": {"g": torch.ones(2 * cfg.d_model, dtype=dt,
+                                          device=dev)},
+                "attn": L.attn_init(cfg, gen, dt, dev, d_in=2 * cfg.d_model),
+                "norm2": L.norm_init(cfg, dt, dev),
+                "mlp": L.mlp_init(cfg, gen, dt, dev)}
+        return params
 
     # -- training -----------------------------------------------------------
     def apply(self, params: dict, tokens=None, frames=None):
@@ -189,7 +248,11 @@ class Model:
             h = params["embed"][tokens]
         positions = torch.arange(h.shape[1], device=h.device)
         aux = 0.0
-        for p in params["blocks"]:
+        emb0, shared = h, shared_layers(cfg)
+        for i, p in enumerate(params["blocks"]):
+            if i in shared:
+                h = shared_apply(cfg, fm, params["shared_attn"], h, emb0,
+                                 positions)
             h, a = block_apply_aux(cfg, p, h, positions, fm=fm)
             if a is not None:
                 aux = aux + a
@@ -228,13 +291,30 @@ class Model:
                    dtype=torch.float32) -> dict:
         """{"k", "v"}: [n_layers, batch, n_kv_heads, max_len, head_dim]
         zeros on the model's device, written in place by ``prefill`` and
-        ``decode_step``."""
+        ``decode_step``.  The SSM and hybrid families: {"mamba": one
+        {"conv" [batch, W-1, conv_dim], "ssm" [batch, H, P, N] float32} a
+        layer}, whose entries ``prefill`` and ``decode_step`` replace, and
+        for the hybrid {"attn": one {"k", "v"} cache a shared-block
+        application}."""
+        cfg = self.cfg
+        if cfg.family in RECURRENT:
+            cache = {"mamba": [L.mamba_cache_init(cfg, batch, dtype,
+                                                  self.device)
+                               for _ in range(cfg.n_layers)]}
+            if cfg.family == "hybrid":
+                cache["attn"] = [L.attn_cache_init(cfg, batch, max_len,
+                                                   dtype, self.device)
+                                 for _ in shared_layers(cfg)]
+            return cache
         one = L.attn_cache_init(self.cfg, batch, max_len, dtype, self.device)
         return {name: torch.zeros((self.cfg.n_layers,) + t.shape,
                                   dtype=dtype, device=self.device)
                 for name, t in one.items()}
 
     def _layers(self, params, h, positions, cache, kv_len):
+        if self.cfg.family in RECURRENT:
+            return self._recurrent_layers(params, h, positions, cache,
+                                          kv_len)
         for i, p in enumerate(params["blocks"]):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
             q, k, v = self.pre(p, h, positions)
@@ -246,9 +326,26 @@ class Model:
                               kv_len)
         return self.logits_head(self._head_params(params), h)
 
+    def _recurrent_layers(self, params, h, positions, cache, kv_len):
+        emb0, shared = h, shared_layers(self.cfg)
+        for i, p in enumerate(params["blocks"]):
+            if i in shared:
+                sp, kv = params["shared_attn"], cache["attn"][shared.index(i)]
+                q, k, v = self.shared_pre(sp, h, emb0, positions)
+                L.cache_write(kv, k, v, positions)
+                if kv_len is None:
+                    h = self.post(sp, h, q, k, v)
+                else:
+                    h = self.post(sp, h, q, kv["k"], kv["v"], kv_len)
+            mc = cache["mamba"][i]
+            h, conv, ssm = self.mamba(p, h, mc["conv"], mc["ssm"])
+            cache["mamba"][i] = {"conv": conv, "ssm": ssm}
+        return self.logits_head(self._head_params(params), h)
+
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
         """tokens [B, S] -> (logits [B, S, padded_vocab], cache); fills the
-        cache rows 0..S-1."""
+        cache rows 0..S-1 (and sets each Mamba layer's state after the
+        prompt)."""
         h = params["embed"][tokens]
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         return self._layers(params, h, positions, cache, None), cache

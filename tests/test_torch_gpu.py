@@ -423,3 +423,70 @@ def test_reduced_moe_train_step_on_the_card_matches_the_cpu(cuda):
                     torch.utils._pytree.tree_leaves(results["cpu"][1])):
         torch.testing.assert_close(
             a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan (B11) and the SSM / hybrid paths
+# ---------------------------------------------------------------------------
+#: name -> (b, L, H, P, N, chunk): Mamba2's and Zamba2's head dim and
+#: state at a short sequence, a chunk shorter than the instance's 64
+#: rows, and the reduced configs' P 16, N 16, chunk 16
+SSD_CASES = {"mamba2-N128": (2, 192, 4, 64, 128, 64),
+             "zamba2-N64": (2, 128, 6, 64, 64, 64),
+             "short-chunk": (1, 60, 3, 64, 128, 20),
+             "reduced": (2, 48, 16, 16, 16, 16)}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_scan_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import ssd_scan as K
+
+    b, L, H, P, N, chunk = SSD_CASES[case]
+    # x, B, C as column slices of one activation, as the model passes them
+    xbc = torch.randn(b, L, H * P + 2 * N, device="cuda", generator=cuda)
+    x = xbc[..., :H * P].reshape(b, L, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, L, H, device="cuda", generator=cuda) - 2.0)
+    A = -torch.exp(0.3 * torch.randn(H, device="cuda", generator=cuda))
+    before = K.ssd_scan_cuda.launches
+    y, state = K.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    assert K.ssd_scan_cuda.launches == before + 1
+    y_ref, s_ref = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    # float32 sums over the chunk and the state, in another order
+    for got, want in ((y, y_ref), (state, s_ref)):
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import ssd_scan as K
+
+    x = torch.randn(1, 64, 2, 32, device="cuda")
+    dt = torch.rand(1, 64, 2, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    Bm = torch.randn(1, 64, 128, device="cuda")
+    with pytest.raises(ValueError, match="head dim 32"):
+        K.ssd_scan_cuda(x, dt, A, Bm, Bm, 64)
+    with pytest.raises(TypeError, match="float32"):
+        K.ssd_scan_cuda(x.double(), dt, A, Bm, Bm, 64)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_reduced_recurrent_generate_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.launch.serve import generate
+
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(0)
+    # 21 tokens: one 16-row chunk and a pad of 11
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 21))
+    want = generate(cpu, params, prompts, 6)
+    gpu = Model(cfg)
+    gparams = torch.utils._pytree.tree_map(lambda t: t.cuda(), params)
+    before = K.ssd_scan_cuda.launches
+    got = generate(gpu, gparams, prompts, 6)
+    # one scan a layer in the prefill, none in the decode steps
+    assert K.ssd_scan_cuda.launches - before == cfg.n_layers
+    np.testing.assert_array_equal(got, want)

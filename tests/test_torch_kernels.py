@@ -216,4 +216,4 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     assert a != b and a.parent == b.parent == tmp_path / "cuda"
     assert a.name.startswith("k-") and a.suffix == ".so"
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == \
-        {"rmsnorm", "flash_attention", "layernorm", "softmax"}
+        {"rmsnorm", "flash_attention", "layernorm", "softmax", "ssd_scan"}

@@ -338,6 +338,13 @@ def test_serve_and_train_main_run_the_moe_model_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_model_names_the_families_it_lacks(family):
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), family=family)
-    with pytest.raises(NotImplementedError, match="ssm and hybrid"):
+    """The ssm and hybrid families are ported: their reduced configs
+    build Mamba blocks.  A family the port does not know is named."""
+    arch = {"ssm": "mamba2-370m", "hybrid": "zamba2-1.2b"}[family]
+    params = Model(get_config(arch).reduced(), device="cpu").init(0)
+    assert sorted(params["blocks"][0]) == ["mamba", "norm1"]
+    assert ("shared_attn" in params) == (family == "hybrid")
+    cfg = dataclasses.replace(get_config(ARCH).reduced(),
+                              family=f"{family}-x")
+    with pytest.raises(ValueError, match=f"family '{family}-x'"):
         Model(cfg, device="cpu").init(0)

@@ -179,3 +179,16 @@ def test_oracles_match_reference(name):
     # float32, another summation order: rtol/atol 1e-5
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_one_tensor_passed_twice_compiles_two_inputs():
+    """A compiled graph traced where the caller passed one tensor for two
+    arguments must not read that one input for both when reused with two
+    different tensors (Zamba2's first shared block passes the embedding
+    as its hidden state and its ``emb0``)."""
+    tf = tcore.stitched_jit(lambda a, b: a * 2.0 - b, device="cpu")
+    x, y = torch.randn(8, 16), torch.randn(8, 16)
+    torch.testing.assert_close(tf(x, x), x)
+    torch.testing.assert_close(tf(x, y), x * 2.0 - y)
+    assert tf.n_compiled == 1
+

@@ -227,3 +227,129 @@ def test_full_width_block_plans_like_the_reference(monkeypatch):
     assert [g for g in tgroups if g[0] == "onepass"] == [
         ("onepass", 128), ("onepass", 1), ("onepass", 64), ("onepass", 1)]
     assert len(jg) == 115
+
+
+# ---------------------------------------------------------------------------
+# remote fusion closes no dependency cycle between launches
+# ---------------------------------------------------------------------------
+def _dag(inputs_of: dict[int, tuple[int, ...]]):
+    """A graph of elementwise ops over one input (node 0)."""
+    from repro_torch.core.ir import Graph, Node, OpKind, TensorSpec
+
+    spec = TensorSpec((4,), "float32")
+    g = Graph()
+    g.add(Node(0, "input", OpKind.INPUT, (), spec))
+    for nid in sorted(inputs_of):
+        g.add(Node(nid, "neg", OpKind.LIGHT_EW, inputs_of[nid], spec))
+    used = {i for ins in inputs_of.values() for i in ins}
+    g.inputs, g.outputs = [0], [n for n in inputs_of if n not in used]
+    return g
+
+
+def _quotient_has_cycle(graph, groups) -> bool:
+    """Brute force: contract each group to one unit, then Kahn's sort."""
+    unit = {n: n for n in graph.nodes}
+    for grp in groups:
+        for n in grp:
+            unit[n] = ("g", min(grp))
+    deps = {u: set() for u in unit.values()}
+    for n in graph.nodes:
+        for i in graph.node(n).inputs:
+            if unit[i] != unit[n]:
+                deps[unit[n]].add(unit[i])
+    done: set = set()
+    while True:
+        ready = [u for u in deps if u not in done and deps[u] <= done]
+        if not ready:
+            return len(done) != len(deps)
+        done.update(ready)
+
+
+@pytest.mark.parametrize("with_pattern", [True, False])
+def test_remote_fusion_packs_no_cycle_with_the_plan(with_pattern):
+    """{1, 4} is a plan pattern; {2, 3} is convex on its own but, beside
+    {1, 4}, closes a cycle (1 -> 3, 2 -> 4).  Remote fusion must leave 2
+    and 3 unpacked there, and pack them where the pattern is absent."""
+    from repro_torch.core.ir import FusionPlan, Pattern
+    from repro_torch.core.planner import remote_fusion
+
+    graph = _dag({1: (0,), 2: (0,), 3: (1,), 4: (2,)})
+    assert graph.is_convex(frozenset({2, 3}))
+    pats = [Pattern(frozenset({1, 4}), 0.0)] if with_pattern else []
+    out = remote_fusion(graph, FusionPlan(pats, 0.0))
+    launches = [p.members for p in out.patterns]
+    assert not _quotient_has_cycle(graph, launches)
+    if with_pattern:
+        assert launches == [frozenset({1, 4})]
+    else:
+        assert frozenset({1, 2, 3, 4}) in launches
+
+
+class _SizeScores:
+    """A cost context that scores a pattern by its size, so coalescing
+    takes every convex merge -- except one that mixes {2, 3} with another
+    node."""
+
+    def __init__(self, graph):
+        self.graph = graph
+
+    def union(self, a, b):
+        return a | b
+
+    def is_convex(self, members):
+        return self.graph.is_convex(members)
+
+    def score(self, members):
+        mixed = members & {2, 3} and members - {2, 3}
+        return -1.0 if mixed else float(len(members))
+
+    def note_cap(self, *args):
+        pass
+
+
+def test_coalesce_merges_no_cycle_with_the_plan():
+    """{1} and {4} would merge into a convex {1, 4}, which closes a cycle
+    with the pattern {2, 3} (1 -> 3, 2 -> 4): coalescing must refuse it."""
+    from repro_torch.core.ir import FusionPlan, Pattern
+    from repro_torch.core.planner import coalesce_plan
+
+    graph = _dag({1: (0,), 2: (0,), 3: (1,), 4: (2,)})
+    plan = FusionPlan([Pattern(frozenset(m), 0.0)
+                       for m in ({1}, {4}, {2, 3})], 0.0)
+    out = coalesce_plan(graph, plan, ctx=_SizeScores(graph))
+    launches = [p.members for p in out.patterns]
+    assert not _quotient_has_cycle(graph, launches)
+    assert sorted(map(sorted, launches)) == [[1], [2, 3], [4]]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_closes_cycle_matches_a_brute_force_sort(seed):
+    """On random DAGs with acyclic sets of convex launches, a trial launch
+    closes a cycle exactly when the contracted graph cannot be sorted."""
+    from repro_torch.core.planner import _closes_cycle
+
+    r = np.random.default_rng(seed)
+    n = 24
+    graph = _dag({i: tuple(sorted({int(r.integers(0, i)) for _ in
+                                   range(int(r.integers(1, 3)))}))
+                  for i in range(1, n)})
+    groups: list[frozenset[int]] = []
+    free = set(range(1, n))
+    for _ in range(40):
+        grp = frozenset(int(v) for v in r.choice(sorted(free), 3,
+                                                 replace=False))
+        if graph.is_convex(grp) and \
+                not _quotient_has_cycle(graph, groups + [grp]):
+            groups.append(grp)
+            free -= grp
+        if len(free) < 8:
+            break
+    assert groups
+    seen = set()
+    for _ in range(200):
+        trial = frozenset(int(v) for v in r.choice(
+            sorted(free), int(r.integers(2, 5)), replace=False))
+        want = _quotient_has_cycle(graph, groups + [trial])
+        assert _closes_cycle(graph, trial, groups) == want
+        seen.add(want)
+    assert seen == {True, False}

@@ -10,7 +10,9 @@ each of which makes the script exit non-zero when it fails:
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Kernels: each generated kernel against its plain PyTorch version on
    the card, in float32 -- the one-pass kernel on the quickstart LayerNorm
-   at [8192, 3072], the streaming kernel on a softmax at [2048, 128256] --
+   at [8192, 3072], the streaming kernel on a softmax at [2048, 128256],
+   and a one-pass kernel of expm1, log1p and tanh (libdevice) at |x| <=
+   1e-4, each element held to 1e-5 of its plain value --
    with kernel, plain and library-call times (CUDA events, median, the
    call queued behind a device sleep so only device time counts) and
    the least time the card could take (bytes over 3.35 TB/s, operations
@@ -35,7 +37,13 @@ each of which makes the script exit non-zero when it fails:
    prefill ([4, 512, 32, 64], N 128), Zamba2's prefill ([4, 512, 64, 64],
    N 64) and Mamba2's train batch ([8, 512, 32, 64], N 128), x, B and C
    strided slices of one [b, L, conv_dim] activation as the model passes
-   them, y and the state each within 1e-4 max(1, max|plain|).
+   them, y and the state each within 1e-4 max(1, max|plain|); and the
+   flash decode kernel at Llama's decode_32k ([4, 24 (Hkv 8), 32768,
+   128] and batch 1), Granite's [4, 16 (Hkv 8), 32768, 64], Zamba2's
+   long_500k ([1, 32, 524288, 64]), a ragged kv_len of 1,000 of 1,024 and
+   a live prefix (1,500 of 2,048) of a layer's view, each element within
+   r |plain| + r mean|plain|, r = 1e-5 max(1, sqrt(kv_len / 32768)),
+   with SDPA as its library call.
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -48,7 +56,9 @@ each of which makes the script exit non-zero when it fails:
    through ``repro_torch.launch.serve.generate`` -- 4 prompts of 500
    tokens (bucket 512), 16 greedy tokens, cache length 1024 -- with its
    compile seconds, time to first token, decode ms per token, tokens/s,
-   launches per prefill and per decode step, a profile of each, the
+   launches per prefill and per decode step, a profile of each, one
+   decode step with the static kv_len = pos + 1 (flash decode) held
+   against the device-valued one (Llama only), the
    device's busy share of a decode step, every generated kernel instance
    of the prefill and decode signatures held against its plain version at
    its shapes, and the logits of every step held against the plain path
@@ -86,7 +96,15 @@ each of which makes the script exit non-zero when it fails:
 11. SSM train path: Mamba2-370m through ``build_trainer`` as in 6, batch
    8 x 512 tokens, the SSD kernel once a layer per step (its backward is
    the VJP of the plain oracle, as in the reference).
-12. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
+12. Static-decode paths (``make_decode_step(mdl, kv_len)``, the
+   reference's decode cells): Llama-3.2-3B at decode_32k (28 layers,
+   batch 4, a 30 GB cache of 32,768 rows from the seeded generator) and
+   Zamba2-1.2B at long_500k (batch 1, 7 shared-block caches of 524,288
+   rows, 60 GB; SSM state from zeros), 4 greedy steps at the last
+   positions each: compile seconds, ms per step, launches per step (flash
+   decode once an attention layer), a profile of one step, every step's
+   logits held against the plain path fed the same tokens.
+13. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
    main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
    times were taken, launches by path), then the last line
@@ -97,6 +115,7 @@ Imports ``torch`` and the port only.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -230,8 +249,10 @@ def agreement(got, want, rtol: float = RTOL,
 
 
 def check_kernel(em, graph, gen, *, label: str, reps: int,
-                 library=None) -> dict:
-    """Hold one generated kernel against its plain version on the card.
+                 library=None, inputs=None, rtol: float = RTOL,
+                 floor: float = FLOOR) -> dict:
+    """Hold one generated kernel against its plain version on the card,
+    on ``inputs`` (else standard normal ones).
 
     Tolerance: ``agreement`` (per element, relative to the plain value).
     Launches made here are reset before the main path and never counted
@@ -240,11 +261,11 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     import torch
 
     kern = em.fn
-    vals = random_inputs(em, graph, gen)
+    vals = random_inputs(em, graph, gen) if inputs is None else inputs
     got = kern.launch(*vals)
     want = kern.plain(torch.device("cuda"), *vals)
     torch.cuda.synchronize()
-    err, worst = agreement(got, want)
+    err, worst = agreement(got, want, rtol, floor)
     ms = time_ms(lambda: kern.launch(*vals), reps)
     call_ms = time_ms(lambda: kern.launch(*vals), reps, queued=False)
     plain_ms = time_ms(lambda: kern.plain(torch.device("cuda"), *vals),
@@ -253,7 +274,7 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     bound, bound_by, nbytes, ops = kernel_bound(em, graph)
     print(f"kernel {kern.schedule:9s} {label}: R={kern.R} C={kern.C} "
           f"BR={kern.BR} max_abs_err={err:.3e} (worst err/limit "
-          f"{worst:.3f}, limit {RTOL:g}|plain| + {FLOOR:g} mean|plain|) "
+          f"{worst:.3f}, limit {rtol:g}|plain| + {floor:g} mean|plain|) "
           f"ms={ms:.4f} (call with the host's cost: {call_ms:.4f}) "
           f"plain_ms={plain_ms:.4f} library_ms="
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
@@ -300,6 +321,18 @@ def phase_kernels(gen) -> None:
     check_kernel(em, c.graph, gen, label="softmax [2048, 128256]", reps=10,
                  library=lambda v: torch.softmax(v, -1))
 
+    # expm1, log1p and tanh (libdevice) near 0, each element held to a
+    # relative limit alone: exp(x) - 1 is off by up to 2^-24 / |x| relative
+    def near_zero(v):
+        return torch.expm1(v), torch.log1p(v), torch.tanh(v)
+
+    xz = (torch.rand(4096, 1024, generator=gen, device="cuda") * 2 - 1) \
+        * 1e-4
+    c = stitched_jit(near_zero).compiled(xz)
+    em = only_generated(c, "onepass")
+    check_kernel(em, c.graph, gen, label="expm1+log1p+tanh |x| <= 1e-4 "
+                 "[4096, 1024]", reps=20, inputs=[xz], floor=0.0)
+
 
 def describe(name: str, compiled) -> None:
     rep, graph = compiled.report, compiled.graph
@@ -321,6 +354,8 @@ def kernel_kind(name: str) -> str:
         return "cuda rmsnorm"
     if "flash_fwd_kernel" in low:
         return "cuda flash"
+    if "flash_decode_" in low:
+        return "cuda decode"
     if "ln_fwd_" in low:
         return "cuda layernorm"
     if "ln_bwd_" in low:
@@ -536,11 +571,13 @@ def agreement_max(got, want, rtol: float) -> tuple[float, float]:
 
 def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
                       ops: float, reps: int, library=None,
-                      max_rtol: float | None = None) -> dict:
+                      max_rtol: float | None = None,
+                      rtol: float = RTOL) -> dict:
     """Hold one hand-written CUDA kernel against its plain version on the
-    card, on the same inputs, with ``agreement``'s per-element limit, or
-    with ``max_rtol`` max(1, max|plain|) for each output where it is
-    given.  Launches made here are reset before the main paths."""
+    card, on the same inputs, with ``agreement``'s per-element limit (at
+    ``rtol`` |plain| + ``rtol`` mean|plain|), or with ``max_rtol`` max(1,
+    max|plain|) for each output where it is given.  Launches made here
+    are reset before the main paths."""
     import torch
 
     def outs(r):
@@ -549,7 +586,7 @@ def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
     got = outs(launch(*inputs))
     want = outs(plain(*inputs))
     torch.cuda.synchronize()
-    err, worst = (agreement(got, want) if max_rtol is None
+    err, worst = (agreement(got, want, rtol, rtol) if max_rtol is None
                   else agreement_max(got, want, max_rtol))
     ms = time_ms(lambda: launch(*inputs), reps)
     call_ms = time_ms(lambda: launch(*inputs), reps, queued=False)
@@ -718,7 +755,57 @@ def phase_cuda_kernels(gen) -> dict:
             ops=ops, reps=20, max_rtol=SSD_RTOL)
         checks.setdefault("ssd_scan", []).append(
             dict(res, _bytes=nbytes, _main=label == "mamba2 prefill"))
+
+    # flash decode (B8) at the static-decode paths' shapes: Llama's
+    # decode_32k (its batch of 128 cut to 4) and batch 1, Granite's head
+    # dim 64, Zamba2's long_500k (the cell's own batch of 1), a ragged
+    # kv_len, and a live prefix of a layer's strided view
+    for label, (B, Hq, Hkv, D), S, n, layers in (
+            ("llama decode_32k", llama, STATIC_KV, None, 1),
+            ("llama decode_32k batch 1", (1, 24, 8, 128), STATIC_KV, None,
+             1),
+            ("granite decode_32k", granite, STATIC_KV, None, 1),
+            ("zamba2 long_500k", (1, 32, 32, 64), LONG_KV, None, 1),
+            ("ragged kv_len", llama, 1024, 1000, 1),
+            ("live prefix of a layer view", llama, 2048, 1500, 3)):
+        q = torch.randn(B, Hq, D, generator=gen, device="cuda")
+        # the caches as the model hands them over: one layer's view of an
+        # [n_layers, B, Hkv, S, D] buffer
+        k = torch.randn(layers, B, Hkv, S, D, generator=gen,
+                        device="cuda")[layers // 2]
+        v = torch.randn(layers, B, Hkv, S, D, generator=gen,
+                        device="cuda")[layers // 2]
+        eff = S if n is None else n
+        nbytes, ops = 4 * (2 * B * Hkv * eff * D + 2 * B * Hq * D), \
+            4 * D * B * Hq * eff
+        res = check_cuda_kernel(
+            f"flash_decode {label} B{B} Hq{Hq} Hkv{Hkv} S{S} kv_len{eff} "
+            f"D{D}",
+            lambda a, b, c, _n=n: FA.flash_decode_cuda(a, b, c, _n),
+            lambda a, b, c, _n=n: FA.flash_decode_plain(a, b, c, _n),
+            (q, k, v), nbytes=nbytes, ops=ops, reps=10 if eff > 1e5 else 20,
+            rtol=decode_rtol(eff),
+            library=lambda a, b, c, _e=eff: F.scaled_dot_product_attention(
+                a[:, :, None], b[:, :, :_e], c[:, :, :_e],
+                enable_gqa=True)[:, :, 0])
+        checks.setdefault("flash_decode", []).append(
+            dict(res, _bytes=nbytes, _main=label == "llama decode_32k"))
+        del q, k, v
+    torch.cuda.empty_cache()
     return checks
+
+
+#: The static-decode paths' cache lengths: the reference's decode_32k and
+#: long_500k cells (``src/repro/configs/base.py:138-139``).
+STATIC_KV, LONG_KV = 32768, 524288
+
+
+def decode_rtol(kv_len: int) -> float:
+    """Flash decode's per-element limit against its plain version:
+    ``agreement`` at RTOL up to 32,768 keys, then growing as the square
+    root of the sum's length (float32 rounding of a sum grows so): 4e-5
+    at 524,288 keys."""
+    return RTOL * max(1.0, math.sqrt(kv_len / STATIC_KV))
 
 
 #: The SSD scan's limit against its plain version: each output within
@@ -763,7 +850,8 @@ def ssd_work(b: int, L: int, H: int, P: int, N: int,
 
 def launch_counts() -> dict:
     from repro_torch.core.codegen import OnePassKernel, StreamingKernel
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, \
+        flash_decode_cuda
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -774,6 +862,7 @@ def launch_counts() -> dict:
             "streaming": StreamingKernel.launches,
             "rmsnorm": rmsnorm_cuda.launches,
             "flash_attention": flash_attention_cuda.launches,
+            "flash_decode": flash_decode_cuda.launches,
             "layernorm": layernorm_cuda.launches,
             "layernorm_bwd": layernorm_bwd_cuda.launches,
             "softmax": softmax_cuda.launches,
@@ -783,7 +872,8 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     from repro_torch.core.codegen import OnePassKernel, StreamingKernel
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, \
+        flash_decode_cuda
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -792,6 +882,7 @@ def reset_launch_counts() -> None:
 
     OnePassKernel.launches = StreamingKernel.launches = 0
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
+    flash_decode_cuda.launches = 0
     layernorm_cuda.launches = layernorm_bwd_cuda.launches = 0
     softmax_cuda.launches = softmax_bwd_cuda.launches = 0
     ssd_scan_cuda.launches = 0
@@ -882,9 +973,12 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     torch.cuda.synchronize()
     per_prefill = launch_counts()
     reset_launch_counts()
-    model.decode_step(params, cache, tok, positions[0])
+    model.decode_step(params, cache, tok, positions[0],
+                      kv_len=positions[0] + 1)
     torch.cuda.synchronize()
     per_decode = launch_counts()
+    if cfg.family == "dense":
+        static_vs_masked(model, params, cache, tok, S)
     print(f"launches per prefill: {json.dumps(per_prefill)}; per decode "
           f"step: {json.dumps(per_decode)}")
     if moe and not (per_prefill["softmax"] == per_decode["softmax"]
@@ -975,7 +1069,8 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     for i in range(G - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, _ = model.decode_step(params, cache, tok, positions[i])
+        lg, _ = model.decode_step(params, cache, tok, positions[i],
+                                  kv_len=positions[i] + 1)
         tok = lg[:, -1:, :V].argmax(-1)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
@@ -986,7 +1081,7 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
           f"around a synchronized step)  decode tokens/s={B * 1e3 / step_ms:.1f}")
     where_the_time_goes("one prefill", first_token)
     dec = where_the_time_goes("one decode step", lambda: model.decode_step(
-        params, cache, tok, positions[1]))
+        params, cache, tok, positions[1], kv_len=positions[1] + 1))
     busy = sum(v for k, v in dec.items() if k != "wall_ms")
     print(f"decode step: device busy {busy:.2f} ms = {100 * busy / step_ms:.1f}% "
           f"of the unprofiled step ({step_ms:.2f} ms)")
@@ -1008,7 +1103,7 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
         del lg
         for i in range(G - 1):
             lg, _ = mdl.decode_step(params, c, forced[:, i:i + 1],
-                                    positions[i])
+                                    positions[i], kv_len=positions[i] + 1)
             out.append(lg[:, 0, :V])
         return out
 
@@ -1038,6 +1133,172 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
         fail("serving path: non-finite logits or wrong output shape")
     if worst > 1.0 or agree < 0.99:
         fail("the stitched serving path disagrees with the plain path")
+    return launches
+
+
+def static_vs_masked(model, params, cache, tok, pos: int) -> None:
+    """One decode step at ``pos`` with the static ``kv_len = pos + 1``
+    (``flash_decode``) against the device-valued one (the masked plain
+    attention) on the same cache: both attend the rows 0..pos, so the
+    logits agree within 1e-4 max(1, max|logits|).  Both write the same
+    cache row."""
+    import torch
+
+    p = torch.tensor(pos, device="cuda")
+    want, _ = model.decode_step(params, cache, tok, p, kv_len=p + 1)
+    before = launch_counts()["flash_decode"]
+    got, _ = model.decode_step(params, cache, tok, pos, kv_len=pos + 1)
+    torch.cuda.synchronize()
+    n = launch_counts()["flash_decode"] - before
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"static kv_len = pos + 1 = {pos + 1} (flash_decode, {n} launches) "
+          f"against the device-valued one (masked): max|dlogits|={err:.3e} "
+          f"(tol {tol:.2e}), argmax agreement {agree:.4f}")
+    if n != model.cfg.n_layers or not err <= tol or agree < 0.99:
+        fail("the static-kv_len decode step disagrees with the masked one")
+
+
+#: Greedy steps of a static-decode phase, at the cache's last positions.
+STATIC_STEPS = 4
+#: Device memory a static-decode phase needs beyond its weights and
+#: caches (activations, the plain path's logits and softmax, the
+#: allocator's slack).
+STATIC_SLACK_BYTES = 4e9
+
+
+def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
+    """``make_decode_step(mdl, kv_len)`` at full width and depth: the
+    reference's decode cells, each step attending all ``kv_len`` rows of
+    a cache filled in place from the seeded generator (a recurrent
+    model's SSM and conv state from zeros), ``STATIC_STEPS`` greedy steps
+    at the last positions.  Reports compile seconds, ms per step, the
+    device's busy share and a profile of one step, launches per step
+    (``flash_decode`` once an attention layer); holds every step's
+    logits against the plain path (``"xla"`` with
+    ``dispatch="interpret"``) fed the same tokens from the same cache
+    state (the rows the steps write are saved and restored).  Returns
+    the launches of the counted run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.model import Model, shared_layers
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    n_attn = len(shared_layers(cfg)) if hybrid else cfg.n_layers
+    B, V, N = batch, cfg.vocab_size, STATIC_STEPS
+    gc.collect()  # the earlier phases' models hold reference cycles
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    params = model.init(SEED)
+    # the weights a step reads: all but the embedding (one row a token)
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       torch.utils._pytree.tree_leaves(
+                           {k: v for k, v in params.items() if k != "embed"}))
+    cache_bytes = (2 * n_attn * B * cfg.n_kv_heads * kv_len
+                   * cfg.resolved_head_dim * 4)
+    free, total = torch.cuda.mem_get_info()
+    print(f"static decode: {cfg.name} layers={cfg.n_layers} (attention "
+          f"{n_attn}) batch={B} kv_len={kv_len} float32 seed={SEED}: caches "
+          f"{cache_bytes / 1e9:.2f} GB, weights a step reads "
+          f"{weight_bytes / 1e9:.2f} GB; "
+          f"device memory free after the weights {free / 1e9:.2f} of "
+          f"{total / 1e9:.2f} GB")
+    if cache_bytes + STATIC_SLACK_BYTES > free:
+        fail(f"static decode {cfg.name}: the caches need "
+             f"{cache_bytes / 1e9:.2f} GB and {STATIC_SLACK_BYTES / 1e9:.0f} "
+             f"GB of slack, {free / 1e9:.2f} GB are free")
+    cache = model.init_cache(B, kv_len)
+    kv = cache["attn"] if hybrid else [cache]
+    for c in kv:
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+    positions = list(range(kv_len - N, kv_len))
+    # the rows the steps write, and the Mamba states they replace
+    saved = [{n: c[n][..., positions, :].clone() for n in ("k", "v")}
+             for c in kv]
+    mamba0 = list(cache.get("mamba", []))
+
+    def restore():
+        for c, r in zip(kv, saved):
+            for n in ("k", "v"):
+                c[n][..., positions, :] = r[n]
+        if mamba0:
+            cache["mamba"][:] = mamba0
+
+    tok0 = torch.randint(0, V, (B, 1), generator=gen, device="cuda")
+    step = make_decode_step(model, kv_len)
+
+    def run(step_fn, forced=None, times=None):
+        """N steps from the saved state: greedy, or fed ``forced``."""
+        restore()
+        tok, logits, toks = tok0, [], []
+        for i, pos in enumerate(positions):
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = step_fn(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, 0, :V])
+            tok = (lg[:, -1:, :V].argmax(-1) if forced is None
+                   else forced[i + 1] if i + 1 < N else None)
+        return logits, toks
+
+    t0 = time.perf_counter()
+    run(step)
+    cold_s = time.perf_counter() - t0
+    reset_launch_counts()  # the counted run of the static-decode path
+    steps_ms = []
+    got, toks = run(step, times=steps_ms)
+    launches = launch_counts()
+    step_ms = statistics.median(steps_ms)
+    per_step = {k: v / N for k, v in launches.items()}
+    print(f"launches per static decode step: {json.dumps(per_step)}")
+    if per_step["flash_decode"] != n_attn:
+        fail(f"flash_decode launched {per_step['flash_decode']} times a "
+             f"static decode step, want {n_attn} (one an attention layer)")
+    print(f"compile_s={cold_s - sum(steps_ms) / 1e3:.2f} (the first {N} "
+          f"steps minus the second {N}: trace, plan, emit, Triton builds)  "
+          f"step_ms={step_ms:.2f} (median of {N}, host clock around a "
+          f"synchronized step) tokens/s={B * 1e3 / step_ms:.1f}")
+    restore()
+    prof = where_the_time_goes("one static decode step", lambda: step(
+        params, cache, tok0, positions[0]))
+    busy = sum(v for k, v in prof.items() if k != "wall_ms")
+    print(f"static decode step: device busy {busy:.2f} ms = "
+          f"{100 * busy / step_ms:.1f}% of the unprofiled step "
+          f"({step_ms:.2f} ms); flash_decode "
+          f"{prof.get('cuda decode', 0.0):.3f} ms, at least "
+          f"{cache_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms for the caches and "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms for the weights at "
+          f"3.35 TB/s")
+
+    plain = Model(cfg, "xla", dispatch="interpret")
+    want, _ = run(make_decode_step(plain, kv_len), forced=toks)
+    restore()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i in range(N):
+        err = float((got[i] - want[i]).abs().max())
+        tol = 1e-4 * max(1.0, float(want[i].abs().max()))
+        worst = max(worst, err / tol)
+        print(f"  step {i} (pos {positions[i]}): max|dlogits|={err:.3e} "
+              f"(tol {tol:.2e})")
+    g, w = torch.stack(got), torch.stack(want)
+    agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    print(f"static decode agreement with fusion_mode='xla', "
+          f"dispatch='interpret' over {N} steps: worst max|dlogits|/tol="
+          f"{worst:.3f} (tol 1e-4 max(1, max|logits|) per step), argmax "
+          f"agreement={agree:.4f} (min 0.99)")
+    if not bool(torch.isfinite(g).all()) or worst > 1.0 or agree < 0.99:
+        fail(f"the static decode path of {cfg.name} disagrees with the "
+             "plain path")
+    print(f"static decode phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1386,6 +1647,11 @@ def main() -> int:
           f"{n_moe} more of MoE serving, {n_rec} more of SSM and hybrid "
           f"serving")
     ssm_train_launches = phase_train(SSM_ARCH)
+    t_static = time.perf_counter()
+    static_launches = phase_static_decode(gen, "llama3.2-3b", BATCH,
+                                          STATIC_KV)
+    long_launches = phase_static_decode(gen, HYBRID_ARCH, 1, LONG_KV)
+    print(f"static decode phases: {time.perf_counter() - t_static:.1f} s")
 
     kernels = []
     for name, route, source, replaces in (
@@ -1407,7 +1673,9 @@ def main() -> int:
             ("softmax_bwd", "cuda", "src/repro_torch/csrc/softmax.cu",
              "src/repro/kernels/softmax.py:52"),
             ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:75")):
+             "src/repro/kernels/ssd_scan.py:75"),
+            ("flash_decode", "cuda", "src/repro_torch/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_attention.py:161")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name],
@@ -1416,7 +1684,9 @@ def main() -> int:
                    "moe_train": moe_train_launches[name],
                    "ssm_serve": ssm_serve_launches[name],
                    "hybrid_serve": hybrid_serve_launches[name],
-                   "ssm_train": ssm_train_launches[name]}
+                   "ssm_train": ssm_train_launches[name],
+                   "static_decode": static_launches[name],
+                   "hybrid_long_decode": long_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

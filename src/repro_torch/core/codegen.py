@@ -73,8 +73,10 @@ _TL_UNARY = {
     "sin": "tl.sin({0})", "cos": "tl.cos({0})", "sqrt": "tl.sqrt_rn({0})",
     "rsqrt": "tl.rsqrt({0})", "logistic": "tl.sigmoid({0})",
     "erf": "tl.erf({0})", "floor": "tl.floor({0})", "ceil": "tl.ceil({0})",
-    "expm1": "(tl.exp({0}) - 1.0)", "log1p": "tl.log(1.0 + {0})",
-    "tanh": "(2.0 * tl.sigmoid(2.0 * {0}) - 1.0)",
+    # libdevice keeps the relative precision near 0 that exp(x) - 1,
+    # log(1 + x) and 2 sigmoid(2x) - 1 lose, as XLA's lowerings do
+    "expm1": "libdevice.expm1({0})", "log1p": "libdevice.log1p({0})",
+    "tanh": "libdevice.tanh({0})",
 }
 _TL_BINARY = {
     "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -663,6 +665,7 @@ def _module(signature: str, body: list[str]) -> str:
     lines = ["# Generated by repro_torch.core.codegen: one stitch group.",
              "import triton",
              "import triton.language as tl",
+             "from triton.language.extra import libdevice",
              "",
              "",
              "@triton.jit",

@@ -8,14 +8,15 @@ kernels, on CPU tensors they run the kernels' plain versions.  Each
 operator carries the reference's autograd formula: the LayerNorm and
 softmax backwards are kernels of their own (``repro_torch::layernorm_bwd``,
 ``repro_torch::softmax_bwd``), the RMSNorm, attention and SSD scan
-backwards are plain ops, as in the JAX package.
+backwards are plain ops, as in the JAX package; ``flash_decode`` has no
+backward, as the reference's decode path has none.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_decode
 from .layernorm import layernorm as _layernorm
 from .rmsnorm import rmsnorm as _rmsnorm
 from .softmax import softmax as _softmax
@@ -55,16 +56,15 @@ def decode_attention(q, k_cache, v_cache, *, kv_len=None, scale=None,
     A tensor ``kv_len`` (the serving loop's position + 1, a value on the
     device) masks the cache through ``ref.decode_attention``'s
     ``lengths``, in either mode, as the reference's dynamic branch does.
-    A static ``kv_len`` with kernels is ``flash_decode``, not ported yet.
+    A static ``kv_len`` (an int, or None for the whole cache) with kernels
+    is ``flash_decode``; without, the plain slice of the live prefix.
     """
     if isinstance(kv_len, torch.Tensor):
         lengths = torch.broadcast_to(kv_len, (q.shape[0],))
         return ref.decode_attention(q, k_cache, v_cache, lengths=lengths,
                                     scale=scale)
     if use_kernels:
-        raise NotImplementedError(
-            "decode attention with a static kv_len is flash_decode "
-            "(ROADMAP B8), not ported yet; pass kv_len as a tensor")
+        return flash_decode(q, k_cache, v_cache, kv_len, scale)
     if kv_len is not None and kv_len < k_cache.shape[2]:
         k_cache = k_cache[:, :, :kv_len, :]
         v_cache = v_cache[:, :, :kv_len, :]

@@ -6,6 +6,7 @@ with a KV cache (and the SSM state of the Mamba layers).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-len 32768
 
 The counterpart of ``repro.launch.serve`` (``generate``, ``main``) for
 the dense, MoE, SSM and hybrid families.  Prompt and cache lengths are
@@ -17,7 +18,15 @@ repeated ``generate`` calls on one model never re-trace (the reference
 keeps a per-process table of jitted pairs for the same purpose).  Logits
 are read at the true last prompt position, which the causal mask keeps
 from seeing the pad tail.  The decode loop keeps its tokens and positions
-on the device: the host waits once, at the end.
+on the device: the host waits once, at the end.  Each step passes
+``kv_len = pos + 1`` as a device value, as the reference does: the cache
+is masked to the rows written so far (a static ``kv_len`` would let the
+zero rows of the unwritten tail into the softmax's denominator).
+
+``generate_static`` decodes at a static cache length instead, each step
+from ``launch.steps.make_decode_step(mdl, kv_len)`` over all ``kv_len``
+rows of the cache (``flash_decode`` in the stitched mode), as the
+reference's decode cells run (``--kv-len``).
 
 Not ported yet: the canary, the plan cache and the mesh key of the
 reference's dispatch table.
@@ -34,6 +43,7 @@ from ..configs import get_config
 from ..configs.base import ARCH_IDS
 from ..models.model import RECURRENT, Model
 from ..serving.buckets import Buckets, pad_tokens
+from .steps import make_decode_step
 
 
 def generate(mdl: Model, params: dict, prompts: np.ndarray, gen_len: int, *,
@@ -57,9 +67,38 @@ def generate(mdl: Model, params: dict, prompts: np.ndarray, gen_len: int, *,
     for i in range(gen_len):
         out.append(tok)
         if i + 1 < gen_len:  # the last token needs no decode step
-            logits, cache = mdl.decode_step(params, cache, tok, positions[i])
+            logits, cache = mdl.decode_step(params, cache, tok, positions[i],
+                                            kv_len=positions[i] + 1)
             tok = logits[:, -1:, :V].argmax(-1)
     gen = (torch.cat(out, dim=1).cpu().numpy() if out
+           else np.zeros((B, 0), np.int64))
+    return np.concatenate([np.asarray(prompts, np.int64), gen], axis=1)
+
+
+def generate_static(mdl: Model, params: dict, prompts: np.ndarray,
+                    gen_len: int, kv_len: int) -> np.ndarray:
+    """prompts: [B, S] int -> [B, S + gen_len] (greedy decode) with a
+    cache of ``kv_len`` rows: the prompt prefilled at its length, then
+    each step from ``make_decode_step(mdl, kv_len)``, attending all
+    ``kv_len`` rows -- those not written yet as the zeros they hold, as
+    in the reference's decode cells."""
+    B, S = prompts.shape
+    if S + gen_len - 1 > kv_len:
+        raise ValueError(f"generate_static: {S} prompt tokens and "
+                         f"{gen_len - 1} decode steps need more than "
+                         f"kv_len {kv_len} cache rows")
+    cache = mdl.init_cache(B, kv_len)
+    toks = torch.from_numpy(np.asarray(prompts, np.int64)).to(mdl.device)
+    logits, cache = mdl.prefill(params, toks, cache)
+    V = mdl.cfg.vocab_size
+    tok = logits[:, -1:, :V].argmax(-1)
+    step = make_decode_step(mdl, kv_len)
+    out = [tok]
+    for i in range(gen_len - 1):
+        logits, cache = step(params, cache, tok, S + i)
+        tok = logits[:, -1:, :V].argmax(-1)
+        out.append(tok)
+    gen = (torch.cat(out, dim=1).cpu().numpy() if gen_len
            else np.zeros((B, 0), np.int64))
     return np.concatenate([np.asarray(prompts, np.int64), gen], axis=1)
 
@@ -74,6 +113,9 @@ def main(argv=None) -> None:
     ap.add_argument("--fusion", default="stitched", choices=["stitched", "xla"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-len", type=int, default=None,
+                    help="decode at this static cache length "
+                         "(generate_static) instead of generate's buckets")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -89,11 +131,15 @@ def main(argv=None) -> None:
                            (args.batch, args.prompt_len)).astype(np.int64)
 
     t0 = time.perf_counter()
-    seqs = generate(mdl, params, prompts, args.gen)
+    if args.kv_len is None:
+        seqs = generate(mdl, params, prompts, args.gen)
+    else:
+        seqs = generate_static(mdl, params, prompts, args.gen, args.kv_len)
     dt = time.perf_counter() - t0
     tput = args.batch * args.gen / dt
+    kv = "" if args.kv_len is None else f" kv_len={args.kv_len}"
     print(f"arch={cfg.name} device={mdl.device} batch={args.batch} "
-          f"prompt={args.prompt_len} gen={args.gen}: {dt:.2f}s  "
+          f"prompt={args.prompt_len} gen={args.gen}{kv}: {dt:.2f}s  "
           f"({tput:.1f} tok/s incl. compile)")
     print("sample:", seqs[0, args.prompt_len - 4:].tolist())
 

@@ -1,10 +1,15 @@
 """Step-function builders: the counterpart of ``repro.launch.steps``'s
-``make_train_step`` (``src/repro/launch/steps.py:26-60``).
+``make_train_step``, ``make_prefill_step``, ``make_encoder_step`` and
+``make_decode_step`` (``src/repro/launch/steps.py:26-89``).
 
 ``jax.value_and_grad(mdl.loss)`` becomes ``loss_and_grads``: the params'
 leaves are taken as leaf tensors that require grad, the loss runs eagerly
 and ``torch.autograd.grad`` returns the gradients as a tree like the
-params.  The reference jits the whole step; the port runs it eagerly.
+params.  The reference jits the whole step; the port runs it eagerly,
+its serving steps through the model's compiled functions.  A decode step
+built by ``make_decode_step(mdl, kv_len)`` attends over a static cache
+length, as the reference's dry-run decode cells do: ``flash_decode`` in
+the stitched mode.
 """
 from __future__ import annotations
 
@@ -56,3 +61,38 @@ def make_train_step(mdl: Model, opt_cfg: optim.AdamWConfig,
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
+
+
+def make_prefill_step(mdl: Model):
+    """``prefill_step(params, batch, cache) -> (logits, cache)`` over
+    ``batch["tokens"]``.  The port's ``Model`` has no ``vision_embeds``
+    splice yet and no cached audio prompt, so a batch that carries
+    either is refused, never dropped."""
+    def prefill_step(params, batch, cache):
+        for key in ("vision_embeds", "frames"):
+            if batch.get(key) is not None:
+                raise NotImplementedError(
+                    f"make_prefill_step: batch[{key!r}] is not taken by the "
+                    "port's Model.prefill (tokens only; encoders use "
+                    "make_encoder_step)")
+        return mdl.prefill(params, batch["tokens"], cache)
+
+    return prefill_step
+
+
+def make_encoder_step(mdl: Model):
+    """``encoder_step(params, batch) -> logits`` of ``batch["frames"]``."""
+    def encoder_step(params, batch):
+        return mdl.apply(params, frames=batch["frames"])
+
+    return encoder_step
+
+
+def make_decode_step(mdl: Model, kv_len: int | None):
+    """``decode_step(params, cache, tokens, pos) -> (logits, cache)``
+    attending over the first ``kv_len`` cache rows (None: the whole
+    cache), a length fixed when the step is built."""
+    def decode_step(params, cache, tokens, pos):
+        return mdl.decode_step(params, cache, tokens, pos, kv_len=kv_len)
+
+    return decode_step

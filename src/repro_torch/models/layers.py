@@ -131,16 +131,20 @@ def cache_write(cache: dict, k, v, positions) -> None:
 
 
 def attn_core(cfg: ArchConfig, p: dict, q, k, v, *, fm: FusionMode,
-              kv_len=None):
+              kv_len=None, decode: bool = False):
     """Attention and the output projection -> [B, S, d].
 
-    Without ``kv_len``: causal attention of q over this call's k, v
-    (prefill, or no cache).  With ``kv_len`` (a 0-d tensor): one decode
-    token, q [B, Hq, 1, Dh] over the cache k, v [B, Hkv, max_len, Dh],
-    masked to its first ``kv_len`` rows.
+    Without ``kv_len`` and ``decode``: causal attention of q over this
+    call's k, v (prefill, or no cache).  Otherwise one decode token, q
+    [B, Hq, 1, Dh] over the cache k, v [B, Hkv, max_len, Dh]: a device
+    -valued ``kv_len`` (a 0-d tensor) masks the cache to its first
+    ``kv_len`` rows; with ``decode`` a static one -- an int, the first
+    ``kv_len`` rows, or None, the whole cache -- streams them
+    (``flash_decode`` with kernels), as the reference's ``attn_apply``
+    does with ``eff = kv_len if kv_len is not None else kc.shape[2]``.
     """
     B, Hq, S, Dh = q.shape
-    if kv_len is None:
+    if kv_len is None and not decode:
         o = ops.attention(q, k, v, causal=cfg.causal,
                           use_kernels=fm.use_kernels)
     else:

@@ -17,7 +17,11 @@ compiles once:
   layer is two compiled halves around an eager in-place cache write --
   ``block_pre`` (norm, QKV, RoPE), then ``layers.cache_write``, then
   ``block_post`` (attention, ``wo``, residual, norm, MLP) -- and a
-  compiled head that returns the logits.  The reference stitches the
+  compiled head that returns the logits.  A decode step's ``kv_len``
+  is device-valued (the serving loop's ``pos + 1``, an input of the
+  compiled ``block_post``) or static (an int, or None for the whole
+  cache: one compiled ``block_post`` closed over each, which runs
+  ``flash_decode`` in the stitched mode).  The reference stitches the
   whole prefill with the layers inside one opaque ``lax.scan`` and
   returns a new cache; the port's tracer has no mutation (ROADMAP C).
 * The SSM and hybrid families serve each Mamba layer as one compiled
@@ -109,10 +113,11 @@ def block_pre(cfg: ArchConfig, fm: FusionMode, p: dict, h, positions):
 
 
 def block_post(cfg: ArchConfig, fm: FusionMode, p: dict, h, q, k, v,
-               kv_len=None):
+               kv_len=None, *, decode: bool = False):
     """The layer after the cache write: -> h.  Prefill passes this call's
-    k, v; decode passes the cache and ``kv_len``."""
-    h = h + L.attn_core(cfg, p["attn"], q, k, v, fm=fm, kv_len=kv_len)
+    k, v; decode passes the cache and ``kv_len`` (``layers.attn_core``)."""
+    h = h + L.attn_core(cfg, p["attn"], q, k, v, fm=fm, kv_len=kv_len,
+                        decode=decode)
     return h + ffn_apply(cfg, fm, p, L.norm_apply(cfg, p["norm2"], h, fm))[0]
 
 
@@ -193,12 +198,18 @@ class Model:
             return stitched_jit(functools.partial(fn, cfg, fm), hw=hw,
                                 dispatch=dispatch, device=self.device)
 
+        self._jit = jit
         self.block = stitched_jit(
             functools.partial(block_apply, cfg, fm=fm), hw=hw,
             dispatch=dispatch, device=self.device)
         self.head = jit(head_apply)
         self.pre = jit(block_pre)
         self.post = jit(block_post)
+        #: {static kv_len (an int, or None for the whole cache): the
+        #: compiled ``block_post`` closed over it}, made at first use: the
+        #: counterpart of ``jax.jit`` closing over ``make_decode_step``'s
+        #: ``kv_len`` (a compiled function's inputs are tensors only)
+        self.static_posts: dict = {}
         self.logits_head = jit(head_logits)
         self.mamba = jit(mamba_block)
         self.shared_pre = jit(shared_pre)
@@ -311,32 +322,45 @@ class Model:
                                   dtype=dtype, device=self.device)
                 for name, t in one.items()}
 
-    def _layers(self, params, h, positions, cache, kv_len):
+    def _decode_post(self, kv_len):
+        """The compiled ``block_post`` of a decode step, as a function of
+        (p, h, q, k_cache, v_cache): the shared one fed a device-valued
+        ``kv_len``, else the one closed over the static ``kv_len``."""
+        if isinstance(kv_len, torch.Tensor):
+            return lambda p, h, q, k, v: self.post(p, h, q, k, v, kv_len)
+        post = self.static_posts.get(kv_len)
+        if post is None:
+            post = self._jit(functools.partial(block_post, kv_len=kv_len,
+                                               decode=True))
+            self.static_posts[kv_len] = post
+        return post
+
+    def _layers(self, params, h, positions, cache, post):
+        """The layer loop with a cache: ``post`` is None for a prompt
+        (attention over this call's k, v), else ``_decode_post``'s."""
         if self.cfg.family in RECURRENT:
-            return self._recurrent_layers(params, h, positions, cache,
-                                          kv_len)
+            return self._recurrent_layers(params, h, positions, cache, post)
         for i, p in enumerate(params["blocks"]):
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
             q, k, v = self.pre(p, h, positions)
             L.cache_write(layer_cache, k, v, positions)
-            if kv_len is None:
+            if post is None:
                 h = self.post(p, h, q, k, v)
             else:
-                h = self.post(p, h, q, layer_cache["k"], layer_cache["v"],
-                              kv_len)
+                h = post(p, h, q, layer_cache["k"], layer_cache["v"])
         return self.logits_head(self._head_params(params), h)
 
-    def _recurrent_layers(self, params, h, positions, cache, kv_len):
+    def _recurrent_layers(self, params, h, positions, cache, post):
         emb0, shared = h, shared_layers(self.cfg)
         for i, p in enumerate(params["blocks"]):
             if i in shared:
                 sp, kv = params["shared_attn"], cache["attn"][shared.index(i)]
                 q, k, v = self.shared_pre(sp, h, emb0, positions)
                 L.cache_write(kv, k, v, positions)
-                if kv_len is None:
+                if post is None:
                     h = self.post(sp, h, q, k, v)
                 else:
-                    h = self.post(sp, h, q, kv["k"], kv["v"], kv_len)
+                    h = post(sp, h, q, kv["k"], kv["v"])
             mc = cache["mamba"][i]
             h, conv, ssm = self.mamba(p, h, mc["conv"], mc["ssm"])
             cache["mamba"][i] = {"conv": conv, "ssm": ssm}
@@ -351,10 +375,15 @@ class Model:
         return self._layers(params, h, positions, cache, None), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
-                    pos: torch.Tensor):
-        """tokens [B, 1]; ``pos`` a 0-d integer tensor on the device, the
-        new token's position -> (logits [B, 1, padded_vocab], cache).
-        Attends over the cache rows 0..pos (kv_len = pos + 1)."""
+                    pos, kv_len=None):
+        """tokens [B, 1]; ``pos`` the new token's position (a 0-d integer
+        tensor on the device, or an int) -> (logits [B, 1, padded_vocab],
+        cache).  Writes the cache row ``pos``, then attends over the rows
+        ``kv_len`` names, as the reference's ``decode_step``: None, the
+        whole cache, and an int, that many rows (both static:
+        ``flash_decode`` with kernels); a tensor (the serving loop's
+        ``pos + 1``) masks the cache on the device."""
         h = params["embed"][tokens]
-        positions = pos.reshape(1)
-        return self._layers(params, h, positions, cache, pos + 1), cache
+        positions = torch.as_tensor(pos, device=h.device).reshape(1)
+        return self._layers(params, h, positions, cache,
+                            self._decode_post(kv_len)), cache

@@ -277,6 +277,26 @@ def test_every_emittable_primitive_has_a_lowering(prim):
         compile(kern.source(), f"<{prim} {kern.schedule}>", "exec")
 
 
+@pytest.mark.parametrize("prim", ["expm1", "log1p", "tanh"])
+def test_precise_unary_primitives_lower_through_libdevice(prim):
+    """``expm1``, ``log1p`` and ``tanh`` are emitted as libdevice calls,
+    which keep the relative precision near 0 that ``exp(x) - 1``,
+    ``log(1 + x)`` and ``2 sigmoid(2x) - 1`` lose (XLA lowers them
+    precisely too)."""
+    g, pat = _one_primitive_group(prim)
+    info = analyze(g, pat)
+    ext = g.pattern_inputs(pat)
+    for kern in (tcodegen.OnePassKernel(g, pat, info, ext, g.outputs,
+                                        block_rows=2),
+                 tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
+                                          block_rows=2, block_cols=4)):
+        src = kern.source()
+        assert "from triton.language.extra import libdevice" in src
+        assert f"libdevice.{prim}(" in src
+        for imprecise in ("tl.exp(", "tl.log(", "tl.sigmoid("):
+            assert imprecise not in src
+
+
 @pytest.mark.parametrize("name", ["pow", "atan2"])
 def test_unlowered_primitives_run_packed(name):
     """The tracer emits ``pow`` (a non-integer exponent) and ``atan2``,

@@ -490,3 +490,82 @@ def test_reduced_recurrent_generate_on_the_card_matches_the_cpu(cuda, arch):
     # one scan a layer in the prefill, none in the decode steps
     assert K.ssd_scan_cuda.launches - before == cfg.n_layers
     np.testing.assert_array_equal(got, want)
+
+
+#: name -> (B, Hq, Hkv, S, D, kv_len, layers of the cache buffer)
+DECODE_CASES = {
+    "gqa3-d128-whole": (2, 6, 2, 300, 128, None, 1),
+    "gqa2-d64-ragged": (2, 4, 2, 257, 64, 200, 1),
+    "mha-d64-long": (1, 4, 4, 5000, 64, 4999, 1),
+    "layer-view-prefix": (2, 6, 2, 640, 128, 333, 3),
+    "one-row": (3, 8, 1, 64, 128, 1, 1),
+    "gqa8": (1, 16, 2, 100, 64, None, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_flash_decode_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as K
+
+    B, Hq, Hkv, S, D, n, layers = DECODE_CASES[case]
+    q = torch.randn(B, Hq, D, device="cuda", generator=cuda)
+    # the caches as the model passes them: a layer's view of a buffer
+    k = torch.randn(layers, B, Hkv, S, D, device="cuda",
+                    generator=cuda)[layers - 1]
+    v = torch.randn(layers, B, Hkv, S, D, device="cuda",
+                    generator=cuda)[layers - 1]
+    before = K.flash_decode_cuda.launches
+    o = K.flash_decode(q, k, v, n, None)
+    assert K.flash_decode_cuda.launches == before + 1
+    want = K.flash_decode_plain(q, k, v, n, None)
+    # float32, partial softmax states merged by log-sum-exp: a few ulp
+    torch.testing.assert_close(o, want, rtol=1e-5, atol=2e-6)
+
+
+def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as K
+
+    q = torch.randn(1, 4, 32, device="cuda")
+    kv = torch.randn(1, 2, 16, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        K.flash_decode_cuda(q, kv, kv, None)
+    q = torch.randn(1, 32, 64, device="cuda")
+    kv = torch.randn(1, 2, 16, 64, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        K.flash_decode_cuda(q, kv, kv, None)
+    with pytest.raises(TypeError, match="float32"):
+        K.flash_decode_cuda(q[:, :4].half(), kv.half(), kv.half(), None)
+    with pytest.raises(ValueError, match="kv_len"):
+        K.flash_decode_cuda(q[:, :4], kv, kv, 0)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-1.2b"])
+def test_reduced_static_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """``make_decode_step`` at a static kv_len (head dim 64: the kernel's
+    instance) on the card against the same steps on the CPU."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.launch.steps import make_decode_step
+
+    cfg = get_config(arch).reduced(head_dim=64)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(0)
+    gpu = Model(cfg)
+    gparams = torch.utils._pytree.tree_map(lambda t: t.cuda(), params)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)))
+    caches = []
+    for mdl, p, dev in ((cpu, params, "cpu"), (gpu, gparams, "cuda")):
+        c = mdl.init_cache(2, 32)
+        mdl.prefill(p, tokens.to(dev), c)
+        caches.append(c)
+    n_attn = (len(range(0, cfg.n_layers, cfg.attn_every))
+              if cfg.attn_every else cfg.n_layers)
+    for pos, kv_len in ((12, 13), (13, None)):
+        tok = torch.tensor([[pos], [pos + 1]])
+        want, _ = make_decode_step(cpu, kv_len)(params, caches[0], tok, pos)
+        before = K.flash_decode_cuda.launches
+        got, _ = make_decode_step(gpu, kv_len)(gparams, caches[1],
+                                               tok.cuda(), pos)
+        assert K.flash_decode_cuda.launches - before == n_attn
+        # float32 through the layers on two devices
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)

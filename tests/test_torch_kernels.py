@@ -131,12 +131,13 @@ def test_decode_attention_oracle_matches_the_reference():
 def test_decode_attention_switch():
     q = torch.from_numpy(rng.standard_normal((2, 4, 32)).astype(np.float32))
     k, v = (torch.from_numpy(a) for a in _qkv(1, 16)[1:])
-    # a tensor kv_len masks (both modes); an int slices (plain mode)
+    # a tensor kv_len masks (both modes); an int slices (plain mode) or
+    # streams the live prefix through flash_decode (kernels)
     masked = ops.decode_attention(q, k, v, kv_len=torch.tensor(5))
     sliced = ops.decode_attention(q, k, v, kv_len=5, use_kernels=False)
     torch.testing.assert_close(masked, sliced, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="flash_decode"):
-        ops.decode_attention(q, k, v, kv_len=5)
+    static = ops.decode_attention(q, k, v, kv_len=5)
+    torch.testing.assert_close(static, sliced, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -216,4 +217,5 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     assert a != b and a.parent == b.parent == tmp_path / "cuda"
     assert a.name.startswith("k-") and a.suffix == ".so"
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == \
-        {"rmsnorm", "flash_attention", "layernorm", "softmax", "ssd_scan"}
+        {"rmsnorm", "flash_attention", "flash_decode", "layernorm",
+         "softmax", "ssd_scan"}

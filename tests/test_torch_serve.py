@@ -75,7 +75,8 @@ def test_decode_logits_match_jax(setup):
         jl, jc = jm.decode_step(jparams, jc, jnp.asarray(tok, jnp.int32),
                                 jnp.asarray(pos), kv_len=jnp.asarray(pos + 1))
         tl, _ = mdl.decode_step(tparams, cache, torch.from_numpy(tok),
-                                torch.tensor(pos))
+                                torch.tensor(pos),
+                                kv_len=torch.tensor(pos + 1))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=2e-4)
         tok = tok + 1
@@ -112,7 +113,8 @@ def test_cache_is_written_in_place(setup):
     assert cache["k"][:, :, :, 8:].abs().sum() == 0
     tok = tokens[:, -1:]
     for pos in range(8, 11):
-        _, out = mdl.decode_step(tparams, cache, tok, torch.tensor(pos))
+        _, out = mdl.decode_step(tparams, cache, tok, torch.tensor(pos),
+                                 kv_len=torch.tensor(pos + 1))
         assert out is cache
         assert (cache["k"].data_ptr(), cache["v"].data_ptr()) == ptrs
         assert cache["v"][:, :, :, pos].abs().sum() > 0
@@ -134,8 +136,8 @@ def test_decode_ignores_cache_rows_past_kv_len(setup, fm):
         v[:, :, :, 9:] = torch.from_numpy(
             1e3 * rng.standard_normal(v[:, :, :, 9:].shape).astype(np.float32))
     tok, pos = tokens[:, -1:], torch.tensor(8)
-    want, _ = mdl.decode_step(tparams, clean, tok, pos)
-    got, _ = mdl.decode_step(tparams, stale, tok, pos)
+    want, _ = mdl.decode_step(tparams, clean, tok, pos, kv_len=pos + 1)
+    got, _ = mdl.decode_step(tparams, stale, tok, pos, kv_len=pos + 1)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(stale["k"][:, :, :, :9], clean["k"][:, :, :, :9],
                                rtol=0, atol=0)

@@ -322,7 +322,8 @@ def test_prefill_and_decode_logits_match_jax(arch):
     for pos in (19, 20):
         jl, jc = jm.decode_step(jparams, jc, jnp.asarray(tok, jnp.int32),
                                 jnp.asarray(pos), kv_len=jnp.asarray(pos + 1))
-        tl, _ = mdl.decode_step(tparams, cache, _t(tok), torch.tensor(pos))
+        tl, _ = mdl.decode_step(tparams, cache, _t(tok), torch.tensor(pos),
+                                kv_len=torch.tensor(pos + 1))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=2e-4)
         tok = tok + 1

@@ -11,8 +11,11 @@ each of which makes the script exit non-zero when it fails:
 2. Kernels: each generated kernel against its plain PyTorch version on
    the card, in float32 -- the one-pass kernel on the quickstart LayerNorm
    at [8192, 3072], the streaming kernel on a softmax at [2048, 128256],
-   and a one-pass kernel of expm1, log1p and tanh (libdevice) at |x| <=
-   1e-4, each element held to 1e-5 of its plain value --
+   a one-pass kernel of expm1, log1p and tanh (libdevice) at |x| <=
+   1e-4, and one of the rest of the reference's vocabulary (round, erfc,
+   cbrt, pow, atan2, rem, nextafter at [4096, 1024]; the prod/and/or
+   row reductions at [65536, 64]), each element held to 1e-5 of its
+   plain value --
    with kernel, plain and library-call times (CUDA events, median, the
    call queued behind a device sleep so only device time counts) and
    the least time the card could take (bytes over 3.35 TB/s, operations
@@ -44,6 +47,24 @@ each of which makes the script exit non-zero when it fails:
    a live prefix (1,500 of 2,048) of a layer's view, each element within
    r |plain| + r mean|plain|, r = 1e-5 max(1, sqrt(kv_len / 32768)),
    with SDPA as its library call.
+3b. Anchored kernels (compute-anchored stitching, on by default):
+   ``stitched_jit`` folds memory-bound chains into B3 (the fused matmul,
+   one generated instance of ``csrc/matmul_fused.cuh`` a chain) and into
+   flash attention's score functor (B4's ``score_mod``).  B3 at the Llama
+   MLP's gate projection with its SiLU x up epilogue (M 2048 prefill, M 4
+   decode, a ragged M 2000; K 3072, N 8192), at bench_anchor_fusion's MLP
+   block (its own shapes and M 2048, K 3072, N 8192: the prologue and both
+   epilogues) and with a row-reducing epilogue (RMSNorm, softmax, row
+   minimum at N 256); B4 + score_mod on the bench's attention block (B 2,
+   H 4, S 128, D 64, bias [1, 1, S, S]) and at Llama's heads and prompt.
+   Each against its plain version (B3: within 1e-5 max(1, max|plain|)
+   plus three times the plain version's own float32 distance from
+   float64; score_mod: B4's limit), with kernel, plain and library times
+   (``torch.matmul`` of the product alone, which computes less than B3;
+   SDPA with the bias as its mask) and the bound; then the counted run of
+   the bench's two blocks (2 B3 launches, 1 score_mod launch).  Every
+   later phase prints its anchored groups and B3 launches per call or
+   step, and holds its anchored instances against their plain versions.
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -135,6 +156,8 @@ SEED = 0
 BATCH, PROMPT = 4, 512
 SERVE_PROMPT, SERVE_GEN = 500, 16
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 512, 5
+#: Llama-3.2-3B's MLP: d_model (B3's K) and d_ff (its N)
+ANCHOR_K, ANCHOR_N = 3072, 8192
 MOE_ARCH = "granite-moe-1b-a400m"
 SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-1.2b"
 
@@ -266,6 +289,8 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     want = kern.plain(torch.device("cuda"), *vals)
     torch.cuda.synchronize()
     err, worst = agreement(got, want, rtol, floor)
+    per_out = [round(agreement([g], [w], rtol, floor)[1], 4)
+               for g, w in zip(got, want)]
     ms = time_ms(lambda: kern.launch(*vals), reps)
     call_ms = time_ms(lambda: kern.launch(*vals), reps, queued=False)
     plain_ms = time_ms(lambda: kern.plain(torch.device("cuda"), *vals),
@@ -278,7 +303,9 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
           f"ms={ms:.4f} (call with the host's cost: {call_ms:.4f}) "
           f"plain_ms={plain_ms:.4f} library_ms="
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
-          f"bound_ms={bound:.4f} ({bound_by}: {nbytes} B, {ops} ops)")
+          f"bound_ms={bound:.4f} ({bound_by}: {nbytes} B, {ops} ops)"
+          + (f" worst err/limit by output {per_out}" if len(got) > 1
+             else ""))
     if not all(torch.isfinite(g.float()).all() for g in got):
         fail(f"{label}: kernel output not finite")
     if not worst <= 1.0:
@@ -333,6 +360,75 @@ def phase_kernels(gen) -> None:
     check_kernel(em, c.graph, gen, label="expm1+log1p+tanh |x| <= 1e-4 "
                  "[4096, 1024]", reps=20, inputs=[xz], floor=0.0)
 
+    # the rest of the reference's vocabulary (libdevice round, erfc, cbrt,
+    # pow, atan2, fmod, nextafter; the prod/and/or row reductions), each
+    # element within 1e-5 |plain| alone.  The reductions run over rows of
+    # 64: a float32 product's rounding in another order grows with its
+    # length (up to ~n 2^-24 relative), past 1e-5 at 1,024 factors.
+    from repro_torch.core.codegen import emit_pattern
+
+    for (R, C), reductions, label in (
+            ((4096, 1024), False, "round+erfc+cbrt+pow+atan2+rem+nextafter"),
+            ((65536, 64), True, "reduce_prod+reduce_and+reduce_or")):
+        g, pat = vocabulary_group(R, C, reductions)
+        em = emit_pattern(g, pat)
+        if not em.generated:
+            fail(f"the vocabulary group ran {em.kind}, not as a generated "
+                 "kernel")
+        x = torch.randn(R, C, generator=gen, device="cuda")
+        y = torch.randn(R, C, generator=gen, device="cuda")
+        check_kernel(em, g, gen, label=f"{label} [{R}, {C}]", reps=20,
+                     inputs=[x, y], floor=0.0)
+
+
+def vocabulary_group(R: int, C: int, reductions: bool):
+    """One group over x, y [R, C] with a node of each primitive the
+    generator lowers through libdevice: round(4 x), erfc(x), cbrt(x),
+    pow(|x| + 0.5, y), atan2(x, y), rem(10 x, y), nextafter(x, y); or
+    (``reductions``) of each new row reduction: prod(1 + x / 100), and(x
+    > -3), or(x > 3), beside x y.  Built in the IR: the tracer lowers no
+    aten op to round, erfc, cbrt, rem, nextafter or these reductions."""
+    from repro_torch.core.classify import classify
+    from repro_torch.core.ir import Graph, Node, OpKind, TensorSpec
+    from repro_torch.core.tracer import make_fn
+
+    g = Graph()
+
+    def add(prim, ins, shape=(R, C), dtype="float32", value=None, **params):
+        kind = (OpKind.INPUT if prim == "input" else
+                OpKind.CONST if prim == "const" else classify(prim))
+        spec = TensorSpec(shape, dtype)
+        if kind not in (OpKind.INPUT, OpKind.CONST):
+            params["_fn"] = make_fn(prim, params, spec)
+        nid = len(g.nodes)
+        g.add(Node(nid, prim, kind, tuple(ins), spec, params, value))
+        if kind is OpKind.INPUT:
+            g.inputs.append(nid)
+        return nid
+
+    def const(v, dtype="float32"):
+        return add("const", (), (), dtype, value=v)
+
+    x, y = add("input", ()), add("input", ())
+    if not reductions:
+        outs = [add("round", (add("mul", (x, const(4.0))),)),
+                add("erfc", (x,)), add("cbrt", (x,)),
+                add("pow", (add("add", (add("abs", (x,)), const(0.5))), y)),
+                add("atan2", (x, y)),
+                add("rem", (add("mul", (x, const(10.0))), y)),
+                add("nextafter", (x, y))]
+    else:
+        outs = [add("mul", (x, y)),
+                add("reduce_prod", (add("add", (const(1.0), add(
+                    "mul", (x, const(0.01))))),), (R,), axes=(1,))]
+        for prim, thr in (("reduce_and", -3.0), ("reduce_or", 3.0)):
+            gt = add("gt", (x, const(thr)), dtype="bool")
+            outs.append(add(prim, (gt,), (R,), "bool", axes=(1,)))
+    g.outputs = outs
+    return g, frozenset(n for n in g.nodes
+                        if g.node(n).kind not in (OpKind.INPUT,
+                                                  OpKind.CONST))
+
 
 def describe(name: str, compiled) -> None:
     rep, graph = compiled.report, compiled.graph
@@ -344,6 +440,7 @@ def describe(name: str, compiled) -> None:
           f"groups={rep.n_groups} generated={rep.n_generated} "
           f"onepass={rep.n_onepass} streaming={rep.n_streaming} "
           f"packed={rep.n_packed} stitched={rep.n_stitched} "
+          f"anchored={rep.n_anchored} "
           f"reused={rep.emission_reused} plan_s={rep.plan_time_s:.3f} "
           f"schedules={rep.schedules}")
 
@@ -366,6 +463,8 @@ def kernel_kind(name: str) -> str:
         return "cuda softmax bwd"
     if "ssd_scan_kernel" in low:
         return "cuda ssd"
+    if "mm_fused_kernel" in low:
+        return "cuda matmul_fused"
     if low == "kernel":
         return "generated"
     if any(k in low for k in ("gemm", "sm90", "cutlass", "matmul", "xmma",
@@ -462,6 +561,9 @@ def phase_main_path(gen) -> tuple[dict, list]:
     for k in ("onepass", "streaming"):
         if launches[k] <= 0:
             fail(f"the forward path launched no {k} kernel")
+    if launches["matmul_fused"] != cfg.n_layers:
+        fail(f"B3 launched {launches['matmul_fused']} times in the forward, "
+             f"want {cfg.n_layers} (the gate projection of every layer)")
 
     where_the_time_goes("one forward",
                         lambda: model.forward(params, tokens))
@@ -524,6 +626,17 @@ def check_generated(compiled: dict, gen, checks: dict) -> None:
     seen = {id(r["_fn"]) for rs in checks.values() for r in rs if "_fn" in r}
     for name, comp in compiled.items():
         for em in comp.emitted:
+            if em.kind == "anchored" and id(em.fn) not in seen:
+                seen.add(id(em.fn))
+                kind = ("flash_score_mod" if getattr(
+                    em.fn, "score_mod", None) is not None else "matmul_fused")
+                prims = sorted({comp.graph.node(n).prim
+                                for p in em.parts for n in p})
+                res = check_anchored(em, comp.graph, gen, reps=10,
+                                     label=f"{name} anchored "
+                                           f"{'+'.join(prims)}")
+                checks.setdefault(kind, []).append(dict(res, _fn=em.fn))
+                continue
             if not em.generated or id(em.fn) in seen:
                 continue
             seen.add(id(em.fn))
@@ -606,6 +719,251 @@ def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
     return {"max_abs_err": err, "worst": worst, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib_ms}
+
+
+#: B3's limit against its plain version, set before its first full-width
+#: run: each output within 1e-5 max(1, max|plain|) -- plus, where the
+#: float32 sum over K argues for more, three times the plain version's
+#: own distance from the same function in float64 (a chain fed by an
+#: unscaled product, as bench_anchor_fusion's MLP block is, carries the
+#: sum's rounding into values near zero).  The score_mod instance of B4
+#: keeps B4's own limit (``agreement`` at RTOL).
+B3_RTOL, B3_SUM_FACTOR = 1e-5, 3.0
+
+
+def anchored_work(em, graph) -> tuple[int, int]:
+    """(bytes, operations) of one anchored kernel: its inputs read once
+    and outputs written once; 2 operations a multiply-add of each product
+    over its contracted extent, plus the chains' element operations."""
+    members = frozenset(n for p in em.parts for n in p)
+    nbytes = (sum(graph.node(i).nbytes for i in em.ext_ids)
+              + sum(graph.node(o).nbytes for o in em.out_ids))
+    ops = graph.subgraph_flops(members)
+    for a in members:
+        node = graph.node(a)
+        if node.prim == "dot_general":
+            (lc, _), _ = node.params["dimension_numbers"]
+            lhs = graph.node(node.inputs[0]).spec.shape
+            ops += 2 * node.spec.size * math.prod(lhs[d] for d in lc)
+    return nbytes, ops
+
+
+def float64_outputs(em, graph, vals) -> list:
+    """The anchored group's function evaluated op by op in float64 on the
+    card: B3's yardstick for the float32 sum's own rounding."""
+    from repro_torch.core.tracer import run_subgraph
+
+    env = {i: v.double() for i, v in zip(em.ext_ids, vals)}
+    members = sorted(n for p in em.parts for n in p)
+    run_subgraph(graph, members, env, vals[0].device)
+    return [env[o] for o in em.out_ids]
+
+
+def check_anchored(em, graph, gen, *, label: str, reps: int,
+                   library=None, inputs=None) -> dict:
+    """Hold one anchored kernel (``em.fn.launch``) against its plain
+    version (``em.fn.plain``) on the card, on the same inputs: B3 with
+    ``B3_RTOL`` (and the float32 sum's term), the score_mod instance with
+    ``agreement``."""
+    import torch
+
+    vals = random_inputs(em, graph, gen) if inputs is None else inputs
+    nbytes, ops = anchored_work(em, graph)
+    scored = getattr(em.fn, "score_mod", None) is not None
+    max_rtol = None
+    if not scored:
+        want = em.fn.plain(*vals)
+        ref = float64_outputs(em, graph, vals)
+        sum_err = max(float((w.double() - r).abs().max())
+                      for w, r in zip(want, ref))
+        scale = max(max(1.0, float(w.abs().max())) for w in want)
+        max_rtol = B3_RTOL + B3_SUM_FACTOR * sum_err / scale
+        print(f"  {label}: the plain version's float32 distance from "
+              f"float64 {sum_err:.3e} (max|plain| {scale:.3f}): limit "
+              f"{max_rtol:.3e} max(1, max|plain|)")
+        del want, ref
+    res = check_cuda_kernel(label, em.fn.launch, em.fn.plain, vals,
+                            nbytes=nbytes, ops=ops, reps=reps,
+                            library=library, max_rtol=max_rtol)
+    return dict(res, _bytes=nbytes)
+
+
+def ext_values(comp, em, args, gen) -> list:
+    """The anchored group's inputs: the call's own arguments where the
+    group reads a graph input, standard normal values of the right shape
+    where it reads a value computed outside it."""
+    import torch
+
+    given = dict(zip(comp.graph.inputs, args))
+    return [given[i] if i in given else torch.randn(
+        comp.graph.node(i).spec.shape, generator=gen, device="cuda")
+        for i in em.ext_ids]
+
+
+def anchored_of(fn, args) -> tuple:
+    """(compiled, anchored Emitted list) of ``stitched_jit(fn)`` at
+    ``args``, or a failure if nothing anchored."""
+    from repro_torch.core import stitched_jit
+
+    comp = stitched_jit(fn).compiled(*args)
+    ems = [e for e in comp.emitted if e.kind == "anchored"]
+    if not ems:
+        fail(f"{getattr(fn, '__name__', fn)}: no anchored group "
+             f"({comp.report.schedules})")
+    return comp, ems
+
+
+def t_gate(x, wg, wu):
+    """The Llama MLP's gate projection with its SiLU x up epilogue."""
+    import torch.nn.functional as F
+
+    return F.silu(x @ wg) * (x @ wu)
+
+
+def bench_mlp(x, w1, w2, r, g):
+    """``benchmarks/bench_anchor_fusion.py``'s MLP block (its tanh GELU
+    written out op for op)."""
+    import torch
+
+    h = (x * g + 1.0) @ w1
+    h = h * (0.5 * (1.0 + torch.tanh(
+        0.7978845608028654 * (h + 0.044715 * h ** 3))))
+    return torch.tanh(h @ w2) + r
+
+
+def bench_attn(q, k, v, bias):
+    """``bench_anchor_fusion.py``'s attention block: the scale and the
+    bias fold into the flash kernel's score functor."""
+    import torch
+
+    s = q @ k.transpose(-1, -2) * 0.125 + bias
+    return torch.softmax(s, -1) @ v
+
+
+def reducing_epilogues(x, w, g):
+    """The row reductions an H100 epilogue admits (N <= 256): an RMSNorm
+    (a sum), a softmax (a max and a sum), a row minimum."""
+    import torch
+
+    h = x @ w
+    return (h * torch.rsqrt((h ** 2).mean(-1, keepdim=True) + 1e-6) * g,
+            torch.softmax(h, -1), h.amin(-1, keepdim=True))
+
+
+def phase_anchored_kernels(gen) -> tuple[dict, dict]:
+    """Compute-anchored stitching's kernels through ``stitched_jit``: B3
+    (``kernels/matmul.py`` + ``csrc/matmul_fused.cuh``, one generated
+    instance a chain) and flash attention with a score chain (B4's
+    ``score_mod``), each against its plain version with kernel, plain
+    and library times and its bound; then the counted run of
+    bench_anchor_fusion's two blocks.  Returns (checks, launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    checks: dict[str, list] = {}
+    Mp, K, N = BATCH * PROMPT, ANCHOR_K, ANCHOR_N
+
+    def product_only(M, Kx, Nx):
+        a, b = randn(M, Kx), randn(Kx, Nx, scale=Kx ** -0.5)
+        return lambda *v: torch.matmul(a, b)
+
+    # the Llama MLP's gate projection (weights at the model's init scale)
+    for label, M, main in (("prefill", Mp, True), ("decode", BATCH, False),
+                           ("ragged", 2000, False)):
+        args = (randn(M, K), randn(K, N, scale=K ** -0.5),
+                randn(K, N, scale=K ** -0.5))
+        comp, ems = anchored_of(t_gate, args)
+        em = ems[0]
+        res = check_anchored(
+            em, comp.graph, gen, inputs=ext_values(comp, em, args, gen),
+            reps=10 if M > 64 else 50,
+            label=f"matmul_fused llama gate+SiLU x up {label} M{M} K{K} N{N} "
+                  f"(tile {em.fn.tile})",
+            library=product_only(M, K, N))
+        checks.setdefault("matmul_fused", []).append(dict(res, _main=main))
+        del comp, ems, em, args
+
+    # bench_anchor_fusion's MLP block at its own shapes (unscaled, as
+    # there) and at Llama's prefill width
+    for M, Kx, Nx in ((128, 256, 256), (Mp, K, N)):
+        args = (randn(M, Kx), randn(Kx, Nx), randn(Nx, Kx), randn(M, Kx),
+                randn(Kx))
+        comp, ems = anchored_of(bench_mlp, args)
+        if len(ems) != 2:
+            fail(f"bench MLP block: {len(ems)} anchored groups, want 2")
+        for i, em in enumerate(ems):
+            k_i, n_i = (Kx, Nx) if i == 0 else (Nx, Kx)
+            res = check_anchored(
+                em, comp.graph, gen, inputs=ext_values(comp, em, args, gen),
+                reps=10,
+                label=f"matmul_fused bench MLP group {i} M{M} K{k_i} N{n_i}",
+                library=product_only(M, k_i, n_i))
+            checks["matmul_fused"].append(res)
+        del comp, ems, args
+
+    # every row-reducing epilogue form the gate admits, at N 256
+    args = (randn(Mp, K), randn(K, 256, scale=K ** -0.5), randn(256))
+    comp, ems = anchored_of(reducing_epilogues, args)
+    res = check_anchored(
+        ems[0], comp.graph, gen, inputs=list(args), reps=20,
+        label=f"matmul_fused RMSNorm+softmax+rowmin epilogue M{Mp} K{K} N256 "
+              f"(tile {ems[0].fn.tile})", library=product_only(Mp, K, 256))
+    checks["matmul_fused"].append(res)
+
+    # B4 with score_mod: the bench block, and at Llama's heads and prompt
+    for B, H, S, D in ((2, 4, 128, 64), (BATCH, 24, PROMPT, 128)):
+        args = (randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D),
+                randn(1, 1, S, S))
+        comp, ems = anchored_of(bench_attn, args)
+        em = ems[0]
+        if em.fn.score_mod is None:
+            fail("bench attention block: no score chain folded")
+        bias_i = em.ext_ids.index(comp.graph.inputs[3])
+        qi = [em.ext_ids.index(comp.graph.inputs[j]) for j in range(3)]
+        res = check_anchored(
+            em, comp.graph, gen, inputs=ext_values(comp, em, args, gen),
+            reps=20,
+            label=f"flash_attention score_mod (scale 0.125 + bias [1, 1, {S}, "
+                  f"{S}]) B{B} H{H} S{S} D{D}",
+            library=lambda *v, _b=bias_i, _q=qi:
+            F.scaled_dot_product_attention(
+                v[_q[0]], v[_q[1]], v[_q[2]], attn_mask=v[_b], scale=0.125))
+        checks.setdefault("flash_score_mod", []).append(
+            dict(res, _main=S == 128))
+        del comp, ems, em, args
+
+    # the counted run: bench_anchor_fusion's two blocks through stitched_jit
+    from repro_torch.core import stitched_jit
+
+    mlp_args = (randn(128, 256), randn(256, 256), randn(256, 256),
+                randn(128, 256), randn(256))
+    attn_args = (randn(2, 4, 128, 64), randn(2, 4, 128, 64),
+                 randn(2, 4, 128, 64), randn(1, 1, 128, 128))
+    mlp_f, attn_f = stitched_jit(bench_mlp), stitched_jit(bench_attn)
+    mlp_f(*mlp_args), attn_f(*attn_args)  # warm: builds and Triton
+    reset_launch_counts()
+    y_mlp, y_attn = mlp_f(*mlp_args), attn_f(*attn_args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for name, f, a in (("mlp", mlp_f, mlp_args), ("attn", attn_f,
+                                                  attn_args)):
+        describe(f"bench {name} block", f.compiled(*a))
+    print(f"launches in one call of each bench block: {json.dumps(launches)}")
+    if launches["matmul_fused"] != 2 or launches["flash_score_mod"] != 1:
+        fail("the bench blocks did not run as 2 B3 launches and 1 flash "
+             "score_mod launch")
+    ref_mlp = stitched_jit(bench_mlp, dispatch="interpret")(*mlp_args)
+    ref_attn = stitched_jit(bench_attn, dispatch="interpret")(*attn_args)
+    for name, y, r in (("mlp", y_mlp, ref_mlp), ("attn", y_attn, ref_attn)):
+        if y.shape != r.shape or not torch.isfinite(y).all():
+            fail(f"bench {name} block: shape {tuple(y.shape)} or non-finite")
+        err = float((y - r).abs().max())
+        print(f"bench {name} block vs the op-by-op replay: max|d|={err:.3e} "
+              f"(max|y| {float(r.abs().max()):.3f})")
+    return checks, launches
 
 
 def phase_cuda_kernels(gen) -> dict:
@@ -855,10 +1213,14 @@ def launch_counts() -> dict:
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.flash_attention import ScoreMod
+    from repro_torch.kernels.matmul import matmul_fused
     from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     return {"onepass": OnePassKernel.launches,
+            "matmul_fused": matmul_fused.launches,
+            "flash_score_mod": ScoreMod.launches,
             "streaming": StreamingKernel.launches,
             "rmsnorm": rmsnorm_cuda.launches,
             "flash_attention": flash_attention_cuda.launches,
@@ -877,10 +1239,13 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    from repro_torch.kernels.flash_attention import ScoreMod
+    from repro_torch.kernels.matmul import matmul_fused
     from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     OnePassKernel.launches = StreamingKernel.launches = 0
+    matmul_fused.launches = ScoreMod.launches = 0
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
     flash_decode_cuda.launches = 0
     layernorm_cuda.launches = layernorm_bwd_cuda.launches = 0
@@ -981,6 +1346,15 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
         static_vs_masked(model, params, cache, tok, S)
     print(f"launches per prefill: {json.dumps(per_prefill)}; per decode "
           f"step: {json.dumps(per_decode)}")
+    # B3 runs the MLP gate projection with its SiLU x up (or GeGLU)
+    # epilogue: once a layer (Llama), once a shared application (Zamba2);
+    # no group of the MoE or the Mamba layers anchors under the H100 gate
+    b3_want = (cfg.n_layers if cfg.family == "dense"
+               else apps if cfg.family == "hybrid" else 0)
+    for step, per in (("prefill", per_prefill), ("decode step", per_decode)):
+        if per["matmul_fused"] != b3_want:
+            fail(f"B3 launched {per['matmul_fused']} times per {step}, "
+                 f"want {b3_want}")
     if moe and not (per_prefill["softmax"] == per_decode["softmax"]
                     == cfg.n_layers):
         fail(f"the router softmax launched {per_prefill['softmax']} times "
@@ -1259,6 +1633,11 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
     step_ms = statistics.median(steps_ms)
     per_step = {k: v / N for k, v in launches.items()}
     print(f"launches per static decode step: {json.dumps(per_step)}")
+    for comp in model.static_posts[kv_len].instances:
+        describe("static post", comp)
+    if per_step["matmul_fused"] != n_attn:
+        fail(f"B3 launched {per_step['matmul_fused']} times a static decode "
+             f"step, want {n_attn} (the MLP gate of each attention block)")
     if per_step["flash_decode"] != n_attn:
         fail(f"flash_decode launched {per_step['flash_decode']} times a "
              f"static decode step, want {n_attn} (one an attention layer)")
@@ -1549,7 +1928,9 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
           f"({step_ms:.2f} ms), {100 * (1 - busy / prof['wall_ms']):.2f}% "
           f"of the profiled wall ({prof['wall_ms']:.2f} ms); share of busy "
           f"by kind (%): {json.dumps(shares)}")
-    print(f"launches per train step: {json.dumps(kern['per_step'][1])}")
+    print(f"launches per train step: {json.dumps(kern['per_step'][1])} "
+          "(anchored groups: none -- the train step runs eagerly, no "
+          "stitched function, so nothing anchors)")
     L = cfg.n_layers
     norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
     want = {norm: 2 * L + 1, "flash_attention": L}
@@ -1628,6 +2009,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_kernels(gen)
     checks = phase_cuda_kernels(gen)
+    anchor_checks, anchor_launches = phase_anchored_kernels(gen)
+    checks.update(anchor_checks)
     reset_launch_counts()
     fwd_launches, fwd_checks = phase_main_path(gen)
     checks.update(fwd_checks)
@@ -1675,7 +2058,12 @@ def main() -> int:
             ("ssd_scan", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:75"),
             ("flash_decode", "cuda", "src/repro_torch/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_attention.py:161")):
+             "src/repro/kernels/flash_attention.py:161"),
+            ("matmul_fused", "cuda", "src/repro_torch/csrc/matmul_fused.cuh",
+             "src/repro/kernels/matmul.py:53"),
+            ("flash_score_mod", "cuda",
+             "src/repro_torch/csrc/flash_attention.cuh",
+             "src/repro/kernels/flash_attention.py:31")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name],
@@ -1686,7 +2074,8 @@ def main() -> int:
                    "hybrid_serve": hybrid_serve_launches[name],
                    "ssm_train": ssm_train_launches[name],
                    "static_decode": static_launches[name],
-                   "hybrid_long_decode": long_launches[name]}
+                   "hybrid_long_decode": long_launches[name],
+                   "anchor_bench": anchor_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

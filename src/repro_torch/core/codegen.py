@@ -56,6 +56,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from .cost_model import H100, Hardware, KernelEstimate, best_estimate, \
@@ -77,6 +78,9 @@ _TL_UNARY = {
     # log(1 + x) and 2 sigmoid(2x) - 1 lose, as XLA's lowerings do
     "expm1": "libdevice.expm1({0})", "log1p": "libdevice.log1p({0})",
     "tanh": "libdevice.tanh({0})",
+    # round half to even, as lax.round(TO_NEAREST_EVEN) and torch.round
+    "round": "libdevice.nearbyint({0})", "erfc": "libdevice.erfc({0})",
+    "cbrt": "libdevice.cbrt({0})",
 }
 _TL_BINARY = {
     "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -85,6 +89,12 @@ _TL_BINARY = {
     "ne": "({0} != {1})", "ge": "({0} >= {1})", "gt": "({0} > {1})",
     "le": "({0} <= {1})", "lt": "({0} < {1})", "and": "({0} & {1})",
     "or": "({0} | {1})", "xor": "({0} ^ {1})",
+    "pow": "libdevice.pow({0}, {1})", "atan2": "libdevice.atan2({0}, {1})",
+    # lax.rem: the remainder with the dividend's sign (C fmod)
+    "rem": "libdevice.fmod({0}, {1})",
+    # one step on the bits (``_nextafter``): libdevice's, under Triton's
+    # flushed denormals, steps from 0 to the smallest normal float
+    "nextafter": "_nextafter({0}, {1})",
 }
 
 
@@ -93,11 +103,11 @@ _SPECIAL = {"broadcast_in_dim", "convert_element_type", "integer_pow",
             "square", "neg", "abs", "not", "select_n", "clamp", "is_finite",
             "sign"}
 _PASS = ("reshape", "squeeze", "expand_dims", "copy", "stop_gradient")
-_REDUCES = {"reduce_sum", "reduce_max", "reduce_min"}
+_REDUCES = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod",
+            "reduce_and", "reduce_or"}
 
-#: Primitives a generated kernel may hold.  The reference's set also has
-#: round, pow, atan2, rem, erfc, cbrt, nextafter and the prod/and/or
-#: reductions; here a group with one of those runs packed.
+#: Primitives a generated kernel may hold: the reference's set, lowered
+#: here to Triton and by ``codegen_cuda`` to CUDA C++.
 EMITTABLE_PRIMS = frozenset(set(_TL_UNARY) | set(_TL_BINARY) | _SPECIAL
                             | set(_PASS) | _REDUCES | {"const"})
 
@@ -117,13 +127,273 @@ def pattern_emittable(graph: Graph, pattern: frozenset[int],
     return all(graph.node(n).prim in EMITTABLE_PRIMS for n in pattern)
 
 
+# --------------------------------------------------------------------------
+# compute-anchored groups: structural matchers
+# --------------------------------------------------------------------------
+class AnchorEmitError(RuntimeError):
+    """Anchored emission found a structure the matchers do not accept.
+    The port raises it (no fallback rung): the stitcher commits an
+    anchored group only after ``anchor_emittable`` accepted it."""
+
+
+#: Shape-plumbing prims the softmax-tail matcher walks through (they are
+#: elided along with the tail itself -- the flash kernel's online softmax
+#: replaces the whole chain).
+_PASSTHROUGH = {"reshape", "squeeze", "expand_dims", "convert_element_type",
+                "copy", "stop_gradient", "broadcast_in_dim"}
+
+
+def _match_matmul_anchor(graph: Graph, union: frozenset[int],
+                         a: int) -> dict | None:
+    """Match a single-anchor group: prologue -> dot_general -> epilogue.
+
+    Requires an unbatched contraction ``(..., K) @ (K, N)`` with the rhs
+    external to the group, a prologue whose row view is (M, K) and whose
+    every escaping value feeds only the anchor, and an epilogue with row
+    view (M, N) that solely consumes the anchor's result.
+    """
+    node = graph.node(a)
+    if node.prim != "dot_general" or len(node.inputs) < 2:
+        return None
+    dn = node.params.get("dimension_numbers")
+    if dn is None:
+        return None
+    (cl, cr), (bl, br_) = dn
+    if tuple(bl) or tuple(br_):
+        return None
+    lhs_id, rhs_id = node.inputs[0], node.inputs[1]
+    lhs_spec = graph.node(lhs_id).spec
+    rhs_spec = graph.node(rhs_id).spec
+    if len(rhs_spec.shape) != 2 or rhs_id in union:
+        return None
+    if tuple(cl) != (len(lhs_spec.shape) - 1,) or tuple(cr) != (0,):
+        return None
+    K, N = rhs_spec.shape
+    if not lhs_spec.shape or lhs_spec.shape[-1] != K:
+        return None
+    M = lhs_spec.size // K
+    if node.spec.size != M * N or not node.spec.shape \
+            or node.spec.shape[-1] != N:
+        return None
+
+    mem = union - {a}
+    if not mem or any(graph.node(m).prim not in EMITTABLE_PRIMS
+                      for m in mem):
+        return None
+    _, anc = graph.reachability()
+    pro = frozenset(m for m in mem if (anc[a] >> m) & 1)
+    epi = mem - pro
+    outset = set(graph.outputs)
+
+    pro_info = None
+    if pro:
+        if lhs_id not in pro:
+            return None
+        for m in pro:
+            if m in outset or any(c not in pro and c != a
+                                  for c in graph.consumers(m)):
+                return None
+        pro_info = analyze(graph, pro)
+        if pro_info is None or pro_info.R != M or pro_info.C != K:
+            return None
+    elif lhs_id in union:
+        return None
+
+    epi_info = None
+    if epi:
+        if a in outset or any(c not in epi for c in graph.consumers(a)):
+            return None
+        epi_info = analyze(graph, epi)
+        if epi_info is None or epi_info.R != M or epi_info.C != N:
+            return None
+    return {"kind": "matmul", "a": a, "lhs": lhs_id, "rhs": rhs_id,
+            "M": M, "K": K, "N": N, "pro": pro, "epi": epi,
+            "pro_info": pro_info, "epi_info": epi_info}
+
+
+def _match_softmax_tail(graph: Graph, chain: frozenset[int],
+                        root: int) -> tuple[int, frozenset[int]] | None:
+    """Match ``div(exp(sub(s, max(s))), sum(exp(...)))`` ending at ``root``
+    (walking through shape-plumbing wrappers); returns (s_pre, elided
+    members) where ``s_pre`` is the pre-softmax score value the flash
+    kernel's score functor must reproduce.  The port's ``_softmax``
+    lowering (``tracer.softmax``) is this chain without the reference's
+    ``max(-inf, .)`` clamp, which the matcher walks through when present.
+    """
+    elided: set[int] = set()
+
+    def back(nid: int) -> int:
+        while nid in chain and graph.node(nid).prim in _PASSTHROUGH:
+            elided.add(nid)
+            nid = graph.node(nid).inputs[0]
+        return nid
+
+    div_id = back(root)
+    if div_id not in chain or graph.node(div_id).prim != "div":
+        return None
+    elided.add(div_id)
+    num_id = back(graph.node(div_id).inputs[0])
+    den_id = back(graph.node(div_id).inputs[1])
+    if den_id not in chain or graph.node(den_id).prim != "reduce_sum":
+        return None
+    elided.add(den_id)
+    if back(graph.node(den_id).inputs[0]) != num_id:
+        return None
+    if num_id not in chain or graph.node(num_id).prim != "exp":
+        return None
+    elided.add(num_id)
+    sub_id = back(graph.node(num_id).inputs[0])
+    if sub_id not in chain or graph.node(sub_id).prim != "sub":
+        return None
+    elided.add(sub_id)
+    s_pre = back(graph.node(sub_id).inputs[0])
+    mx_id = back(graph.node(sub_id).inputs[1])
+    if mx_id in chain and graph.node(mx_id).prim == "max":
+        ins = graph.node(mx_id).inputs
+        guard = [i for i in ins
+                 if graph.node(i).kind is OpKind.CONST
+                 and graph.node(i).spec.size == 1
+                 and graph.node(i).value is not None
+                 and np.isneginf(np.asarray(graph.node(i).value))]
+        rest = [i for i in ins if i not in guard]
+        if len(guard) == 1 and len(rest) == 1:
+            elided.add(mx_id)
+            mx_id = back(rest[0])
+    if mx_id not in chain or graph.node(mx_id).prim != "reduce_max":
+        return None
+    elided.add(mx_id)
+    if back(graph.node(mx_id).inputs[0]) != s_pre:
+        return None
+    for r in (den_id, mx_id):
+        rnode = graph.node(r)
+        op_shape = graph.node(rnode.inputs[0]).spec.shape
+        if tuple(rnode.params.get("axes", ())) != (len(op_shape) - 1,):
+            return None
+    return s_pre, frozenset(elided)
+
+
+def _pad4(shape: tuple[int, ...]) -> tuple[int, int, int, int]:
+    return (1,) * (4 - len(shape)) + tuple(shape)
+
+
+def _score_shape_ok(shape: tuple[int, ...],
+                    extent: tuple[int, int, int, int]) -> bool:
+    if len(shape) > 4:
+        return False
+    return all(d == 1 or d == e for d, e in zip(_pad4(shape), extent))
+
+
+def _match_attention_anchors(graph: Graph, union: frozenset[int],
+                             anchors: tuple[int, ...]) -> dict | None:
+    """Match a two-anchor group: QK dot -> score chain -> softmax -> PV dot.
+
+    q/k/v must be external 4D operands with flash-compatible dimension
+    numbers; the chain between the anchors must end in a softmax tail,
+    and everything upstream of it (scale / bias / mask) must evaluate on
+    score tiles -- each value's shape, padded to 4D, has every dim
+    either 1 or the full (B, H, Sq, Skv) extent.
+    """
+    qk, pv = anchors
+    nqk, npv = graph.node(qk), graph.node(pv)
+    if nqk.prim != "dot_general" or npv.prim != "dot_general":
+        return None
+    dn_qk = nqk.params.get("dimension_numbers")
+    dn_pv = npv.params.get("dimension_numbers")
+    if dn_qk is None or dn_pv is None:
+        return None
+    if (tuple(map(tuple, dn_qk[0])), tuple(map(tuple, dn_qk[1]))) \
+            != (((3,), (3,)), ((0, 1), (0, 1))):
+        return None
+    if (tuple(map(tuple, dn_pv[0])), tuple(map(tuple, dn_pv[1]))) \
+            != (((3,), (2,)), ((0, 1), (0, 1))):
+        return None
+    q_id, k_id = nqk.inputs[0], nqk.inputs[1]
+    p_id, v_id = npv.inputs[0], npv.inputs[1]
+    if any(x in union for x in (q_id, k_id, v_id)):
+        return None
+    q_spec, k_spec = graph.node(q_id).spec, graph.node(k_id).spec
+    v_spec = graph.node(v_id).spec
+    if len(q_spec.shape) != 4 or len(k_spec.shape) != 4 \
+            or len(v_spec.shape) != 4:
+        return None
+    B, H, Sq, D = q_spec.shape
+    _, _, Sk, _ = k_spec.shape
+    if k_spec.shape != (B, H, Sk, D) or v_spec.shape != (B, H, Sk, D):
+        return None
+    extent = (B, H, Sq, Sk)
+
+    chain = union - {qk, pv}
+    outset = set(graph.outputs)
+    if qk in outset or p_id not in chain:
+        return None
+    for m in chain:
+        if m in outset or any(c not in chain and c != pv
+                              for c in graph.consumers(m)):
+            return None
+    if any(c not in chain for c in graph.consumers(qk)):
+        return None
+
+    tail = _match_softmax_tail(graph, chain, p_id)
+    if tail is None:
+        return None
+    s_pre, elided = tail
+    score = chain - elided
+    if s_pre == qk:
+        if score:
+            return None
+    elif s_pre not in score:
+        return None
+
+    score_ext: list[int] = []
+    _, anc = graph.reachability()
+    for m in sorted(score):
+        node = graph.node(m)
+        if node.prim not in EMITTABLE_PRIMS or node.kind is OpKind.REDUCE:
+            return None
+        if m != s_pre and not ((anc[s_pre] >> m) & 1):
+            return None  # a score member the pre-softmax value never reads
+        if not _score_shape_ok(node.spec.shape, extent):
+            return None
+        if node.prim == "broadcast_in_dim":
+            bd = tuple(node.params.get("broadcast_dimensions", ()))
+            in_nd = len(graph.node(node.inputs[0]).spec.shape)
+            out_nd = len(node.spec.shape)
+            if bd != tuple(range(out_nd - in_nd, out_nd)):
+                return None  # not suffix-aligned: 4D padding would misread it
+        for i in node.inputs:
+            if i in score or i == qk:
+                continue
+            ispec = graph.node(i).spec
+            if not _score_shape_ok(ispec.shape, extent):
+                return None
+            if i not in score_ext:
+                score_ext.append(i)
+    return {"kind": "attention", "qk": qk, "pv": pv,
+            "q": q_id, "k": k_id, "v": v_id,
+            "extent": extent, "D": D, "s_pre": s_pre,
+            "score": score, "score_ext": score_ext}
+
+
+def anchor_emittable(graph: Graph, parts, anchors) -> bool:
+    """Can ``_emit_anchored`` compile this anchored group?  Structural
+    test only (dimension numbers, row views, softmax tail) -- pricing and
+    the device's own feasibility are the cost model's job."""
+    union = frozenset(n for p in parts for n in p)
+    anchors = tuple(sorted(anchors))
+    if len(anchors) == 1:
+        return _match_matmul_anchor(graph, union, anchors[0]) is not None
+    if len(anchors) == 2:
+        return _match_attention_anchors(graph, union, anchors) is not None
+    return False
+
+
 @dataclass
 class Emitted:
     """A compiled pattern or stitch group: callable + report metadata.
 
     ``fn(device, *ext_tensors) -> tuple(outputs)``."""
     fn: Callable
-    kind: str                    # "onepass" | "streaming" | "packed"
+    kind: str                    # "onepass" | "streaming" | "packed" | "anchored"
     estimate: KernelEstimate
     ext_ids: list[int]           # runtime external inputs (non-const)
     out_ids: list[int]
@@ -157,16 +427,23 @@ def _role_shape(role: Role, rows: int, cols: int) -> tuple[int, ...]:
             Role.COL: (1, cols), Role.SCALAR: ()}[role]
 
 
+#: The identity of each reduction.  ``reduce_and`` / ``reduce_or`` run
+#: as the min / max of (x != 0) in float32, their result cast to bool.
 _IDENTITY = {"reduce_sum": 0.0, "reduce_max": -math.inf,
-             "reduce_min": math.inf}
+             "reduce_min": math.inf, "reduce_prod": 1.0, "reduce_and": 1.0,
+             "reduce_or": 0.0}
 
 
 def _reduce_rows(prim: str, x: torch.Tensor) -> torch.Tensor:
     """Row reduction of a (rows, cols) block into (rows, 1), in f32."""
+    if prim in ("reduce_and", "reduce_or"):
+        x = x != 0
     xf = x.to(torch.float32)
     if prim == "reduce_sum":
         return xf.sum(-1, keepdim=True)
-    if prim == "reduce_max":
+    if prim == "reduce_prod":
+        return xf.prod(-1, keepdim=True)
+    if prim in ("reduce_max", "reduce_or"):
         return xf.amax(-1, keepdim=True)
     return xf.amin(-1, keepdim=True)
 
@@ -174,7 +451,9 @@ def _reduce_rows(prim: str, x: torch.Tensor) -> torch.Tensor:
 def _combine(prim: str, acc: torch.Tensor, part: torch.Tensor):
     if prim == "reduce_sum":
         return acc + part
-    if prim == "reduce_max":
+    if prim == "reduce_prod":
+        return acc * part
+    if prim in ("reduce_max", "reduce_or"):
         return torch.maximum(acc, part)
     return torch.minimum(acc, part)
 
@@ -386,10 +665,21 @@ class RowKernel:
 
     def _reduce_expr(self, prim: str, operand: str, mask: str) -> str:
         ident = _literal(_IDENTITY[prim])
+        if prim in ("reduce_and", "reduce_or"):
+            operand = f"(({operand}) != 0)"
+        x = f"tl.where({mask}, ({operand}).to(tl.float32), {ident})"
+        if prim == "reduce_prod":
+            return f"tl.reduce({x}, 1, _prod)[:, None]"
         fn = {"reduce_sum": "tl.sum", "reduce_max": "tl.max",
-              "reduce_min": "tl.min"}[prim]
-        return (f"{fn}(tl.where({mask}, ({operand}).to(tl.float32), "
-                f"{ident}), axis=1)[:, None]")
+              "reduce_min": "tl.min", "reduce_and": "tl.min",
+              "reduce_or": "tl.max"}[prim]
+        return f"{fn}({x}, axis=1)[:, None]"
+
+    def _from_f32(self, expr: str, nid: int) -> str:
+        """A float32 reduction result as node ``nid``'s type."""
+        if self.graph.node(nid).spec.dtype == "bool":
+            return f"({expr} != 0)"
+        return f"{expr}.to({self._dt(nid)})"
 
     def _signature(self) -> list[str]:
         n_in = len(self.ext_ids) + len(self.const_ids)
@@ -471,7 +761,7 @@ class OnePassKernel(RowKernel):
             node = self.graph.node(nid)
             if node.prim in _REDUCES:
                 e = self._reduce_expr(node.prim, val(node.inputs[0]), "fmask")
-                return f"{e}.to({self._dt(nid)})"
+                return self._from_f32(e, nid)
             return self._expr(nid, val, shape.get)
 
         for nid in self.members:
@@ -622,12 +912,16 @@ class StreamingKernel(RowKernel):
                         part = self._reduce_expr(node.prim,
                                                  val(node.inputs[0]), "fmask")
                         comb = {"reduce_sum": "acc{0} + {1}",
+                                "reduce_prod": "acc{0} * {1}",
                                 "reduce_max": "tl.maximum(acc{0}, {1})",
-                                "reduce_min": "tl.minimum(acc{0}, {1})"}
+                                "reduce_or": "tl.maximum(acc{0}, {1})",
+                                "reduce_min": "tl.minimum(acc{0}, {1})",
+                                "reduce_and": "tl.minimum(acc{0}, {1})"}
                         body.append(f"acc{nid} = "
                                     + comb[node.prim].format(nid, part))
                     else:
-                        body.append(f"v{nid} = acc{nid}.to({self._dt(nid)})")
+                        body.append(f"v{nid} = "
+                                    + self._from_f32(f"acc{nid}", nid))
                         names[nid] = f"v{nid}"
                     continue
                 body.append(f"v{nid} = "
@@ -666,6 +960,24 @@ def _module(signature: str, body: list[str]) -> str:
              "import triton",
              "import triton.language as tl",
              "from triton.language.extra import libdevice",
+             "",
+             "",
+             "@triton.jit",
+             "def _prod(a, b):",
+             "    return a * b",
+             "",
+             "",
+             "@triton.jit",
+             "def _nextafter(x, y):",
+             "    # IEEE nextafter on float32 bits: a step of one toward y",
+             "    bits = x.to(tl.int32, bitcast=True)",
+             "    step = tl.where((x > 0) == (y > x), 1, -1)",
+             "    r = (bits + step).to(tl.float32, bitcast=True)",
+             "    tiny = tl.where(y > x, 1, -2147483647).to(tl.float32,",
+             "                                              bitcast=True)",
+             "    r = tl.where(x == 0, tiny, r)",
+             "    r = tl.where(x == y, y, r)",
+             "    return tl.where((x != x) | (y != y), x + y, r)",
              "",
              "",
              "@triton.jit",
@@ -731,15 +1043,19 @@ def emit_pattern(graph: Graph, pattern: frozenset[int], *,
 
 
 def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
-               ctx=None) -> Emitted:
+               ctx=None, anchors: tuple = ()) -> Emitted:
     """Compile one stitch group into a single generated kernel (paper §4).
 
     ``parts`` are the group's member patterns.  The union runs as ONE
     kernel executing the parts back-to-back (inter-part values stay in
     registers; ``plan_group_scratch`` still prices the spanning liveness
     for the report).  A union with no row view or a non-emittable member
-    runs packed.
+    runs packed.  A group with ``anchors`` becomes one anchored compute
+    kernel (``_emit_anchored``).
     """
+    if anchors:
+        return _emit_anchored(graph, parts, tuple(sorted(anchors)), hw=hw,
+                              ctx=ctx)
     parts = tuple(tuple(sorted(p)) for p in parts)
     parts_fs = tuple(frozenset(p) for p in parts)
     union = frozenset(n for p in parts for n in p)
@@ -790,3 +1106,266 @@ def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
         est = estimate_packed(graph, union, hw, ctx=ctx)
     return Emitted(fn, "packed", est, ext_ids, out_ids, 0, 0, parts=parts,
                    hbm_saved=hbm_saved)
+
+
+# --------------------------------------------------------------------------
+# compute-anchored emission
+# --------------------------------------------------------------------------
+def _eval_chain(graph: Graph, order: Sequence[int], roles: dict, rows: int,
+                cols: int, env: dict) -> dict:
+    """The plain version of a folded chain: its members in ``order`` on
+    whole row-view tensors (``_RowEval``), ``env`` holding the operands'
+    views; multi-element constants are read by role."""
+    device = next(iter(env.values())).device
+    ev = _RowEval(graph, roles, rows, cols, device)
+    ev.env.update(env)
+    for nid in order:
+        node = graph.node(nid)
+        if node.kind is OpKind.CONST:
+            continue
+        for i in node.inputs:
+            if i not in ev.env and graph.node(i).kind is OpKind.CONST \
+                    and graph.node(i).spec.size > 1:
+                ev.env[i] = _to_rowview(const_tensor(graph.node(i), device),
+                                        roles[i], rows, cols)
+        ev.env[nid] = ev.compute(nid)
+    return ev.env
+
+
+def _anchored_estimate(graph: Graph, union: frozenset[int],
+                       hw: Hardware, block_rows: int,
+                       n_steps: int) -> KernelEstimate:
+    hbm = graph.pattern_hbm_bytes(union)
+    flops = sum(2 * graph.node(a).spec.size
+                * graph.node(graph.node(a).inputs[0]).spec.shape[-1]
+                for a in union if graph.node(a).kind is OpKind.ANCHOR)
+    return KernelEstimate(
+        schedule="anchored", block_rows=block_rows,
+        latency_s=hbm / hw.hbm_bw + flops / hw.peak_flops
+        + hw.launch_s + hw.hbm_latency_s,
+        hbm_bytes=hbm, vpu_ops=0.0, scratch_bytes=0,
+        n_steps=n_steps, feasible=True)
+
+
+def _chain_operands(graph: Graph, members: frozenset[int],
+                    skip: set[int]) -> list[int]:
+    """A chain's operands: its external inputs (not ``skip``) that are
+    runtime values or multi-element constants, in the order of
+    ``pattern_inputs``."""
+    return [i for i in graph.pattern_inputs(members)
+            if i not in skip and (graph.node(i).kind is not OpKind.CONST
+                                  or graph.node(i).spec.size > 1)]
+
+
+def _emit_anchored(graph: Graph, parts, anchors, *, hw: Hardware = H100,
+                   ctx=None) -> Emitted:
+    """Compile an anchored stitch group into ONE compute kernel whose
+    grid also runs the folded prologue/epilogue chains.  Raises
+    ``AnchorEmitError`` on a structure the matchers refuse: there is no
+    fallback rung."""
+    from .cost_model import anchor_interface_bytes
+
+    parts = tuple(tuple(sorted(p)) for p in parts)
+    union = frozenset(n for p in parts for n in p)
+    anchor_set = set(anchors)
+    ext_ids, out_ids = _boundary(graph, union, ctx)
+    folded = tuple(frozenset(p) for p in parts
+                   if not (len(p) == 1 and p[0] in anchor_set))
+    hbm_saved = anchor_interface_bytes(graph, anchors, folded)
+    if len(anchors) == 1:
+        m = _match_matmul_anchor(graph, union, anchors[0])
+        if m is None:
+            raise AnchorEmitError("anchored matmul: structure mismatch")
+        return _emit_anchored_matmul(graph, parts, m, ext_ids, out_ids,
+                                     hbm_saved, folded, hw=hw)
+    if len(anchors) == 2:
+        m = _match_attention_anchors(graph, union, anchors)
+        if m is None:
+            raise AnchorEmitError("anchored attention: structure mismatch")
+        if list(out_ids) != [m["pv"]]:
+            raise AnchorEmitError("anchored attention: escaping chain value")
+        return _emit_anchored_attention(graph, parts, m, ext_ids,
+                                        hbm_saved, folded, hw=hw)
+    raise AnchorEmitError(f"unsupported anchor count {len(anchors)}")
+
+
+def _scratch(graph: Graph, anchors, folded, hw: Hardware,
+             tpu_bytes: int) -> int:
+    """Report bytes of an anchored kernel: the reference's figure under a
+    TPU preset, the CUDA instance's shared memory under a GPU one."""
+    from .cost_model import _anchor_vmem
+
+    if hw.platform == "gpu":
+        got = _anchor_vmem(graph, anchors, hw, folded)
+        return 0 if got is None else got
+    return tpu_bytes
+
+
+def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
+                          hbm_saved: int, folded, *,
+                          hw: Hardware) -> Emitted:
+    """B3: ``kernels.matmul.matmul_fused`` with the chains as its plain
+    prologue/epilogue callables and a generated CUDA instance
+    (``codegen_cuda``) for the card."""
+    from ..kernels import matmul as mm
+    from . import codegen_cuda as cc
+
+    a, lhs_id, rhs_id = m["a"], m["lhs"], m["rhs"]
+    M, K, N = m["M"], m["K"], m["N"]
+    pro, epi = m["pro"], m["epi"]
+    pro_info, epi_info = m["pro_info"], m["epi_info"]
+    pro_order, epi_order = sorted(pro), sorted(epi)
+
+    if pro:
+        pro_ops = _chain_operands(graph, pro, set())
+        pro_roles_d = pro_info.roles
+
+        def prologue(*blocks):
+            env = _eval_chain(graph, pro_order, pro_roles_d, M, K,
+                              dict(zip(pro_ops, blocks)))
+            return env[lhs_id].expand(M, K)
+    else:
+        pro_ops, prologue = [lhs_id], None
+        pro_roles_d = {lhs_id: Role.FULL}
+    if epi:
+        epi_ops = _chain_operands(graph, epi, {a})
+        epi_roles_d = epi_info.roles
+
+        def epilogue(acc, *blocks):
+            env = dict(zip(epi_ops, blocks))
+            env[a] = acc
+            env = _eval_chain(graph, epi_order, epi_roles_d, M, N, env)
+            return tuple(env[o] for o in out_ids)
+    else:
+        epi_ops, epilogue = [], None
+        epi_roles_d = {a: Role.FULL}
+    pro_roles = [pro_roles_d[i].value for i in pro_ops]
+    epi_roles = [epi_roles_d[i].value for i in epi_ops]
+    out_roles = [epi_roles_d[o].value for o in out_ids]
+    out_dtypes = [TORCH_DTYPES[graph.node(o).spec.dtype] for o in out_ids]
+    out_shapes = [graph.node(o).spec.shape for o in out_ids]
+    row_reduce = any(graph.node(n).kind is OpKind.REDUCE for n in epi)
+    tile = mm.pick_tile(M, N, row_reduce)
+    tiles = ([mm.TILES.index(mm.TILE_ROW)] if row_reduce else
+             [mm.TILES.index(mm.TILE_LARGE), mm.TILES.index(mm.TILE_SMALL)])
+
+    def source() -> str:
+        return cc.matmul_source(
+            cc.prologue_struct(graph, pro_order, pro_roles_d, pro_ops,
+                               lhs_id),
+            cc.epilogue_struct(graph, epi_order, epi_roles_d, epi_ops, a,
+                               out_ids), tiles)
+
+    entry = cc.GeneratedEntry("mm", source, "repro_mm_fused",
+                              cc.MATMUL_ARGTYPES,
+                              eager=hw.platform == "gpu")
+
+    def operands(device, ext_vals):
+        env = dict(zip(ext_ids, ext_vals))
+
+        def get(i):
+            return env[i] if i in env else const_tensor(graph.node(i),
+                                                        device)
+
+        return ([get(i) for i in pro_ops], get(rhs_id),
+                [get(i) for i in epi_ops])
+
+    def run(call, device, ext_vals, **kw):
+        outs = call(*operands(device, ext_vals), M=M, K=K, N=N,
+                    out_roles=out_roles, out_dtypes=out_dtypes, **kw)
+        return tuple(o.reshape(s) for o, s in zip(outs, out_shapes))
+
+    chains = dict(pro_roles=pro_roles, epi_roles=epi_roles,
+                  prologue=prologue, epilogue=epilogue)
+
+    def fn(device, *ext_vals):
+        return run(mm.matmul_fused, device, ext_vals, entry=entry, tile=tile,
+                   **chains)
+
+    # the kernel and its plain version on tensors of any one device (the
+    # plain version on the card is chip_smoke's yardstick)
+    fn.launch = lambda *v: run(mm.matmul_fused_cuda, v[0].device, v,
+                               entry=entry, tile=tile)
+    fn.plain = lambda *v: run(mm.matmul_fused_plain, v[0].device, v,
+                              **chains)
+    fn.entry, fn.tile = entry, tile
+    fn.chain = {"M": M, "K": K, "N": N, "pro_ops": pro_ops,
+                "pro_roles": pro_roles, "prologue": prologue,
+                "epi_ops": epi_ops, "epi_roles": epi_roles,
+                "epilogue": epilogue, "out_roles": out_roles,
+                "out_dtypes": out_dtypes}
+    union = frozenset(n for p in parts for n in p)
+    bm = max(1, min(mm.DEFAULT_BLOCK_M, M))
+    est = _anchored_estimate(graph, union, hw, bm, math.ceil(M / bm))
+    tpu = bm * K * graph.node(lhs_id).spec.itemsize \
+        + K * N * graph.node(rhs_id).spec.itemsize + bm * N * 4
+    vmem = _scratch(graph, (a,), folded, hw, tpu)
+    return Emitted(fn, "anchored", est, ext_ids, list(out_ids), vmem, vmem,
+                   parts=parts, hbm_saved=hbm_saved)
+
+
+def _emit_anchored_attention(graph: Graph, parts, m: dict, ext_ids,
+                             hbm_saved: int, folded, *,
+                             hw: Hardware) -> Emitted:
+    """B4 with a score chain: ``kernels.flash_attention`` called with
+    ``causal=False`` and ``scale=1.0`` (the chain carries the graph's own
+    scale), as the reference calls it."""
+    from ..kernels import flash_attention as fa
+    from . import codegen_cuda as cc
+
+    qk, pv = m["qk"], m["pv"]
+    q_id, k_id, v_id = m["q"], m["k"], m["v"]
+    B, H, Sq, Sk = m["extent"]
+    D = m["D"]
+    s_pre, score, score_ext = m["s_pre"], m["score"], m["score_ext"]
+    score_order = sorted(score)
+    out_spec = graph.node(pv).spec
+    score_shapes = [_pad4(graph.node(i).spec.shape) for i in score_ext]
+
+    def plain_mod(s, *args):
+        env = {qk: s.reshape(graph.node(qk).spec.shape)}
+        env.update((i, a.reshape(graph.node(i).spec.shape))
+                   for i, a in zip(score_ext, args))
+        run_subgraph(graph, score_order, env, s.device)
+        return env[s_pre].expand(B, H, Sq, Sk)
+
+    def source() -> str:
+        return cc.attention_source(
+            cc.score_struct(graph, score_order, score_ext, qk, s_pre))
+
+    mod = None
+    if score:
+        mod = fa.ScoreMod(plain_mod, cc.GeneratedEntry(
+            "attn", source, "repro_flash_scored", cc.ATTENTION_ARGTYPES,
+            eager=hw.platform == "gpu"))
+
+    def run(call, device, ext_vals):
+        env = dict(zip(ext_ids, ext_vals))
+
+        def get(i):
+            return env[i] if i in env else const_tensor(graph.node(i),
+                                                        device)
+
+        sargs = [get(i).reshape(sh) for i, sh in zip(score_ext, score_shapes)]
+        out = call(get(q_id), get(k_id), get(v_id), False, 1.0,
+                   score_mod=mod, score_args=sargs)
+        return (out.to(TORCH_DTYPES[out_spec.dtype])
+                .reshape(out_spec.shape),)
+
+    def fn(device, *ext_vals):
+        return run(fa.flash_attention, device, ext_vals)
+
+    fn.launch = lambda *v: run(fa.flash_attention_cuda, v[0].device, v)
+    fn.plain = lambda *v: run(fa.flash_attention_plain, v[0].device, v)
+    fn.score_mod = mod
+    fn.score_operands = list(zip(score_ext, score_shapes))
+    fn.extent = (B, H, Sq, Sk)
+    union = frozenset(n for p in parts for n in p)
+    bq = max(1, min(fa.FLASH_BQ, Sq))
+    n_steps = B * H * math.ceil(Sq / bq) * math.ceil(Sk / fa.FLASH_BK)
+    est = _anchored_estimate(graph, union, hw, bq, n_steps)
+    rb, rk = max(1, min(128, Sq)), max(1, min(128, Sk))
+    tpu = rb * D * 4 + rk * D * 8 + rb * rk * 4 + rb * (D + 2) * 4
+    vmem = _scratch(graph, (qk, pv), folded, hw, tpu)
+    return Emitted(fn, "anchored", est, ext_ids, [pv], vmem, vmem,
+                   parts=parts, hbm_saved=hbm_saved)

@@ -28,6 +28,7 @@ per-element costs from ``classify._GPU_COST``):
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 from .classify import op_cost as _table_cost
@@ -50,6 +51,8 @@ class Hardware:
     one HBM round trip per op.  ``max_block_elems`` is the most elements
     one generated program holds per live value (its register block,
     rows x columns, each padded to a power of two); 0 sets no cap.
+    ``peak_flops`` is the compute peak an anchored kernel's products are
+    priced at (the reference's ``peak_bf16_flops`` on ``V5E``).
     """
 
     hbm_bw: float = 819e9                # bytes/s
@@ -59,6 +62,7 @@ class Hardware:
     hbm_latency_s: float = 1.2e-6        # fixed cost per kernel's HBM round
     platform: str = "tpu"
     max_block_elems: int = 0
+    peak_flops: float = 197e12           # MXU bf16 FLOP/s
 
     @property
     def vmem_budget(self) -> int:
@@ -75,10 +79,11 @@ V5E = Hardware()
 #: budget of one generated kernel's step.  ``launch_s`` (an eager
 #: PyTorch launch) and ``hbm_latency_s`` are assumed, not measured.  The
 #: generated kernels keep a value's whole block in registers: 8192
-#: elements (32 per thread at 8 warps) per value.
+#: elements (32 per thread at 8 warps) per value.  ``peak_flops`` is the
+#: float32 rate of the CUDA cores: the anchored kernels run float32 FMA.
 H100 = Hardware(hbm_bw=3.35e12, vpu_ops=33.5e12, vmem_bytes=232_448,
                 launch_s=5e-6, hbm_latency_s=1e-6, platform="gpu",
-                max_block_elems=8192)
+                max_block_elems=8192, peak_flops=67e12)
 
 #: Block-row candidates the codegen enumerates (launch-dimension analogue).
 BLOCK_ROWS = (1, 8, 16, 32, 64, 128, 256)
@@ -579,6 +584,171 @@ def partition_gain(graph: Graph, partition, hw: Hardware = H100,
         if g.feasible:
             total += g.latency_gain_s
     return total
+
+
+# ---------------------------------------------------------------------------
+# compute-anchored stitching (fusion across the memory/compute divide)
+# ---------------------------------------------------------------------------
+#: Env switch, the reference's own: ``REPRO_ANCHOR=0`` (or ``off``,
+#: ``false``) turns compute-anchored groups off, so anchors stay hard
+#: graph breaks.  On by default.
+ENV_ANCHOR = "REPRO_ANCHOR"
+
+
+def anchor_enabled() -> bool:
+    return os.environ.get(ENV_ANCHOR, "1").lower() \
+        not in ("0", "off", "false")
+
+
+@dataclass(frozen=True)
+class AnchorGain:
+    """What folding memory-intensive parts into a compute kernel buys.
+
+    ``hbm_bytes_saved`` is the interface traffic eliminated: every value
+    that crosses between a folded part and the anchor (or between two
+    folded parts) stops round-tripping HBM -- one store plus one load
+    each.  ``latency_gain_s`` adds the launches saved by collapsing the
+    parts and the anchor's own launch into one kernel.  ``vmem_bytes``
+    is the anchored kernel's on-chip working set (``_anchor_vmem``); a
+    group over the budget, or one the device's kernel cannot run, is
+    infeasible and stays on the memory-only plan.
+    """
+
+    latency_gain_s: float
+    hbm_bytes_saved: int
+    vmem_bytes: int
+    feasible: bool
+
+
+def anchor_interface_bytes(graph: Graph, anchors, parts) -> int:
+    """HBM bytes eliminated on the anchor/part interfaces.
+
+    A value saves its round-trip (2x nbytes: the producer kernel's store
+    and the consumer kernel's load) when it is produced inside the union,
+    all its consumers are inside the union, it is not a graph output, and
+    at least one consumer lives in a *different* sub-part than the
+    producer (values internal to one part were already saved by the
+    memory-only stitch and must not be double-counted).
+    """
+    part_of: dict[int, int] = {}
+    for pi, p in enumerate(parts):
+        for nid in p:
+            part_of[nid] = pi
+    for ai, a in enumerate(anchors):
+        part_of[a] = -1 - ai
+    outset = set(graph.outputs)
+    saved = 0
+    for nid, home in part_of.items():
+        if nid in outset:
+            continue
+        cons = graph.consumers(nid)
+        if not cons or any(c not in part_of for c in cons):
+            continue
+        if any(part_of[c] != home for c in cons):
+            saved += 2 * graph.node(nid).nbytes
+    return saved
+
+
+def _anchor_vmem_tpu(graph: Graph, anchors) -> int:
+    """The reference's per-grid-step working set (rough): the lhs tile,
+    the resident (K, N) panel and the f32 accumulator at block_m 128."""
+    total = 0
+    for a in anchors:
+        node = graph.node(a)
+        if node.prim != "dot_general" or len(node.inputs) < 2:
+            # attention-call prims / conv: assume flash-style 128-blocks
+            total += 4 * 128 * 128 * 4
+            continue
+        lhs = graph.node(node.inputs[0]).spec
+        rhs = graph.node(node.inputs[1]).spec
+        K = lhs.shape[-1] if lhs.shape else 1
+        N = rhs.shape[-1] if rhs.shape else 1
+        bm = 128
+        if len(anchors) > 1:
+            # attention pair (QK + PV): flash blocks, panels never whole
+            total += bm * (K + N) * 4 + bm * bm * 4
+        else:
+            # matmul: lhs tile (bm, K) + resident rhs panel (K, N)
+            # + f32 accumulator tile (bm, N)
+            total += bm * K * lhs.itemsize + K * N * rhs.itemsize \
+                + bm * N * 4
+    return total
+
+
+#: Types the CUDA chains compute in (the anchored kernels are float32).
+_GPU_CHAIN_DTYPES = ("float32", "bool")
+
+
+def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
+    """Shared memory of the CUDA instance the emitter would launch, from
+    that kernel's own tile constants; None where no instance can run the
+    group: a prologue that reduces (the kernel stages the lhs k-tile by
+    k-tile, never a whole row of K), an epilogue that reduces over an N
+    wider than the row tile, a value outside float32 and bool, or an
+    attention head dim the flash kernel has no instance for."""
+    from ..kernels import flash_attention as fa
+    from ..kernels import matmul as mm
+
+    members = frozenset(n for p in parts for n in p)
+    for nid in members | frozenset(
+            i for n in members for i in graph.node(n).inputs):
+        if graph.node(nid).spec.dtype not in _GPU_CHAIN_DTYPES:
+            return None
+    if len(anchors) == 2:
+        q = graph.node(graph.node(anchors[0]).inputs[0]).spec
+        if q.dtype != "float32" or not q.shape                 or q.shape[-1] > fa.MAX_HEAD_DIM:
+            return None
+        return fa.flash_smem_bytes(q.shape[-1])
+    if len(anchors) != 1:
+        return None
+    a = anchors[0]
+    node = graph.node(a)
+    if node.prim != "dot_general" or len(node.inputs) < 2:
+        return None
+    lhs = graph.node(node.inputs[0]).spec
+    rhs = graph.node(node.inputs[1]).spec
+    if "float32" != lhs.dtype or "float32" != rhs.dtype:
+        return None
+    K, N = lhs.shape[-1], rhs.shape[-1]
+    M = lhs.size // max(1, K)
+    _, anc = graph.reachability()
+    reduces = [n for n in members if graph.node(n).kind is OpKind.REDUCE]
+    if any((anc[a] >> n) & 1 for n in reduces):
+        return None                      # prologue reduction over K
+    if reduces and N > mm.TILE_ROW.bn:
+        return None                      # the row of N exceeds one block
+    return mm.TILES[mm.pick_tile(M, N, bool(reduces))].smem_bytes
+
+
+def _anchor_vmem(graph: Graph, anchors, hw: Hardware,
+                 parts=()) -> int | None:
+    """On-chip working set of the anchored kernel, None if no kernel of
+    the device can run it.  ``tpu``: the reference's formula, unchanged;
+    ``gpu``: the CUDA instance's shared memory (``_anchor_vmem_gpu``)."""
+    if hw.platform == "gpu":
+        return _anchor_vmem_gpu(graph, tuple(anchors), parts)
+    return _anchor_vmem_tpu(graph, anchors)
+
+
+def anchor_gain(graph: Graph, anchors, parts, hw: Hardware = H100,
+                ctx=None) -> AnchorGain:
+    """Price folding ``parts`` into the compute kernel(s) ``anchors``.
+
+    Unlike ``stitch_gain`` this does not re-price the union schedule --
+    the anchored kernel keeps the compute op's own grid and the folded
+    chains ride along tile by tile, so the gain is pure interface
+    traffic plus launch collapse, gated by the working-set check.
+    """
+    saved = anchor_interface_bytes(graph, anchors, parts)
+    launches_saved = max(0, len(parts) + len(anchors) - 1) \
+        * (hw.launch_s + hw.hbm_latency_s)
+    vmem = _anchor_vmem(graph, anchors, hw, parts)
+    return AnchorGain(
+        latency_gain_s=saved / hw.hbm_bw + launches_saved,
+        hbm_bytes_saved=saved,
+        vmem_bytes=-1 if vmem is None else vmem,
+        feasible=vmem is not None and vmem <= hw.vmem_budget,
+    )
 
 
 # ---------------------------------------------------------------------------

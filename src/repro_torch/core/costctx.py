@@ -76,6 +76,7 @@ class CostContext:
         self._convex: dict[frozenset[int], bool] = {}
         self._stitch_gain: dict[tuple, object] = {}  # parts tuple -> StitchGain
         self._partition_gain: dict[tuple, float] = {}  # partition fp -> gain
+        self._anchor_gain: dict[tuple, object] = {}  # (anchors, parts) -> AnchorGain
         self._recompute_cost: dict[tuple, object] = {}  # (pattern, nid)
         self._reuse: dict[tuple, object] = {}  # (pattern, br) -> ReusePlan|None
         #: search/planner cap hits ("no silent caps"): name -> count of
@@ -334,6 +335,17 @@ class CostContext:
 
             got = partition_gain(self.graph, key, self.hw, ctx=self)
             self._partition_gain[key] = got
+        return got
+
+    def anchor_gain(self, anchors: tuple, parts: tuple):
+        """Memoized compute-anchor pricing (``cost_model.anchor_gain``)."""
+        key = (tuple(anchors), tuple(parts))
+        got = self._anchor_gain.get(key)
+        if got is None:
+            from .cost_model import anchor_gain
+
+            got = anchor_gain(self.graph, key[0], key[1], self.hw, ctx=self)
+            self._anchor_gain[key] = got
         return got
 
 

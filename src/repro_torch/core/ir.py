@@ -316,9 +316,20 @@ class StitchGroup:
     back-to-back inside one generated kernel, keeping inter-part values
     on chip instead of round-tripping HBM (paper §4's composition of
     operators with varied data dependencies into one large kernel).
+
+    ``anchors`` names compute-intensive (``OpKind.ANCHOR``) nodes the
+    group is built *around*: each appears in ``parts`` as its own
+    singleton part, and the emitter folds the surrounding parts into the
+    anchor's compute kernel as prologue/epilogue chains (the fused matmul
+    B3, flash attention with a score chain) instead of staging them
+    across separate launches.  ``unanchored`` keeps the pre-fold
+    composition (a tuple of part-tuples, one per original group plus one
+    per bare anchor), as the reference records it.
     """
 
     parts: tuple[frozenset[int], ...]
+    anchors: tuple[int, ...] = ()
+    unanchored: tuple = ()
 
     @functools.cached_property
     def members(self) -> frozenset[int]:

@@ -10,7 +10,11 @@ Pipeline: trace (``make_fx`` lowered to the reference vocabulary) -> plan
 row-compatible patterns and sandwiched singletons merge into stitch
 groups, priced by the latency evaluator; the top-k partitions are kept
 and the cost-model winner is committed -- there is no measured race yet)
--> emit (ONE generated Triton kernel per group).  Structurally
+-> emit (ONE generated Triton kernel per group; a group folded around a
+compute anchor -- ``stitcher.absorb_anchors``, on by default as in the
+reference, ``REPRO_ANCHOR=0`` turns it off -- becomes ONE anchored CUDA
+kernel: the fused matmul B3 or flash attention with the score chain).
+Structurally
 isomorphic groups (repeated layers) are emitted once and rebound per
 instance.  Plans are cached per shape/dtype signature in-process.
 
@@ -60,6 +64,7 @@ class StitchReport:
     groups: list = field(default_factory=list)     # per group: its parts
     n_groups: int = 0
     n_stitched: int = 0              # groups fusing >1 part
+    n_anchored: int = 0              # groups folded into a compute anchor
     stitched_hbm_bytes_saved: int = 0
     emission_reused: int = 0         # isomorphic groups rebound
     beam_width: int = 0
@@ -204,10 +209,11 @@ def _hash_const(h, nid: int, value) -> None:
 
 
 def _emit_signature(graph: Graph, ctx: CostContext,
-                    union: frozenset[int]) -> tuple:
+                    union: frozenset[int], anchors: tuple = ()) -> tuple:
     """Dedup key for emission: structural isomorphism + what the emitted
     kernel bakes in beyond the struct key (primitive params and constant
-    values, member and external)."""
+    values, member and external, and the anchors, positionally within
+    the sorted members so isomorphic anchored layers still dedup)."""
     h = hashlib.sha1()
     params_fp = []
     for nid in sorted(union):
@@ -224,7 +230,9 @@ def _emit_signature(graph: Graph, ctx: CostContext,
             cn = graph.node(i)
             if cn.kind is OpKind.CONST and cn.value is not None:
                 _hash_const(h, i, cn.value)
-    return (ctx.struct_key(union), tuple(params_fp), h.hexdigest())
+    smem = sorted(union)
+    apos = tuple(smem.index(a) for a in anchors)
+    return (ctx.struct_key(union), tuple(params_fp), h.hexdigest(), apos)
 
 
 def _rebind_emitted(graph: Graph, ctx: CostContext, union: frozenset[int],
@@ -328,14 +336,15 @@ class StitchedFunction:
         for grp in groups:
             union = grp.members
             parts = tuple(tuple(sorted(p)) for p in grp.parts)
-            ekey = _emit_signature(graph, ctx, union)
+            ekey = _emit_signature(graph, ctx, union, grp.anchors)
             em = None
             hit = emit_cache.get(ekey)
             if hit is not None:
                 em = _rebind_emitted(graph, ctx, union, parts, *hit)
                 reused += em is not None
             if em is None:
-                em = emit_group(graph, grp.parts, hw=hw, ctx=ctx)
+                em = emit_group(graph, grp.parts, hw=hw, ctx=ctx,
+                                anchors=grp.anchors)
                 emit_cache[ekey] = (em, _ext_seen_order(graph, union,
                                                         set(em.ext_ids)))
             emitted.append(em)
@@ -354,6 +363,7 @@ class StitchedFunction:
             groups=[g.parts for g in groups],
             n_groups=len(groups),
             n_stitched=sum(1 for g in groups if g.stitched),
+            n_anchored=sum(1 for g in groups if g.anchors),
             stitched_hbm_bytes_saved=sum(e.hbm_saved for e in emitted),
             emission_reused=reused,
             beam_width=stitch_stats.beam_width if stitch_stats else 0,
@@ -372,6 +382,11 @@ class StitchedFunction:
     def n_compiled(self) -> int:
         """Distinct signatures compiled so far."""
         return len(self._cache)
+
+    @property
+    def instances(self) -> list[_Compiled]:
+        """The compiled instances so far, one a signature."""
+        return list(self._cache.values())
 
     def __call__(self, *args):
         compiled, flat = self._compile(args)

@@ -41,10 +41,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .codegen import EMITTABLE_PRIMS, pattern_emittable
-from .cost_model import H100, Hardware
+from .codegen import EMITTABLE_PRIMS, anchor_emittable, pattern_emittable
+from .cost_model import H100, Hardware, anchor_enabled
 from .costctx import CostContext
-from .ir import FUSIBLE_KINDS, FusionPlan, Graph, StitchGroup
+from .ir import FUSIBLE_KINDS, FusionPlan, Graph, OpKind, StitchGroup
 
 #: Bound on the candidate partitions assembled from segment swaps (the
 #: JAX package's ``autotune.MAX_PARTITION_BRANCHES``, the most a race
@@ -477,6 +477,141 @@ def _absorb_leftovers(graph: Graph, groups: list[list[frozenset[int]]],
                 break
 
 
+# ---------------------------------------------------------------------------
+# compute-anchored absorption (fold groups into adjacent compute kernels)
+# ---------------------------------------------------------------------------
+def absorb_anchors(graph: Graph, groups: list[list[frozenset[int]]],
+                   ctx: CostContext) -> tuple[list[StitchGroup], int]:
+    """Open anchored stitch groups around compute ops.
+
+    Walks every ``dot_general`` anchor in topo order and tries to fold
+    the memory-stitched groups flanking it into the compute kernel's own
+    grid: *prologue* groups whose every escaping value feeds only the
+    anchor, and the *epilogue* group that solely consumes the anchor's
+    result.  When the epilogue chain is a softmax tail whose output is
+    itself consumed by a second ``dot_general`` (the flash-attention
+    shape), both anchors and the chain fold into one attention kernel.
+
+    Folding is committed only when ``codegen.anchor_emittable`` accepts
+    the structure and ``cost_model.anchor_gain`` prices the interface
+    saving as feasible (the device's own gate included) and strictly
+    positive.  Returns the full group list (plain groups unchanged,
+    folded ones replaced by anchored ``StitchGroup``s carrying their
+    ``unanchored`` composition) plus the number of anchored groups.
+    """
+    outset = set(graph.outputs)
+    owner: dict[int, int] = {}
+    for gi, g in enumerate(groups):
+        for p in g:
+            for nid in p:
+                owner[nid] = gi
+    members_of = [frozenset().union(*g) if g else frozenset()
+                  for g in groups]
+
+    consumed: set[int] = set()       # group indices folded away
+    used_anchor: set[int] = set()
+    anchored: list[StitchGroup] = []
+
+    def _sole_consumer_group(a: int) -> int | None:
+        """The one group that consumes every use of ``a``, or None."""
+        cons = graph.consumers(a)
+        if not cons or a in outset:
+            return None
+        gis = {owner.get(c) for c in cons}
+        if len(gis) != 1 or None in gis:
+            return None
+        gi = gis.pop()
+        return None if gi in consumed else gi
+
+    def _prologue_groups(a: int, taken: set[int]) -> list[int]:
+        """Groups whose every escaping value feeds only the anchor."""
+        pros: list[int] = []
+        for i in graph.node(a).inputs:
+            gi = owner.get(i)
+            if gi is None or gi in consumed or gi in taken or gi in pros:
+                continue
+            mem = members_of[gi]
+            ok = True
+            for nid in mem:
+                if nid in outset or any(
+                        c not in mem and c != a
+                        for c in graph.consumers(nid)):
+                    ok = False
+                    break
+            if ok:
+                pros.append(gi)
+        return pros
+
+    def _chain_feeds_anchor(gi: int) -> int | None:
+        """If every escaping value of group ``gi`` feeds one fresh
+        ``dot_general`` anchor, return that anchor id."""
+        mem = members_of[gi]
+        heads: set[int] = set()
+        for nid in mem:
+            if nid in outset:
+                return None
+            for c in graph.consumers(nid):
+                if c not in mem:
+                    heads.add(c)
+        if len(heads) != 1:
+            return None
+        h = heads.pop()
+        node = graph.node(h)
+        if (node.kind is not OpKind.ANCHOR or node.prim != "dot_general"
+                or h in used_anchor):
+            return None
+        return h
+
+    for a in graph.topo_order():
+        node = graph.node(a)
+        if (node.kind is not OpKind.ANCHOR or node.prim != "dot_general"
+                or a in used_anchor):
+            continue
+        epi = _sole_consumer_group(a)
+        # candidate ladder: the two-anchor attention fold first (epilogue
+        # chain consumed by a second dot_general), then the plain
+        # single-anchor fold -- a chain feeding another matmul that is
+        # *not* a softmax tail must still fold into its own anchor.
+        attempts: list[tuple[list[int], list[int]]] = []
+        if epi is not None:
+            pv = _chain_feeds_anchor(epi)
+            if pv is not None:
+                attempts.append(([a, pv], [epi]))
+            attempts.append(([a], [epi]))
+        attempts.append(([a], []))
+        for anchors, epi_fold in attempts:
+            fold = list(epi_fold)
+            fold.extend(_prologue_groups(a, set(fold)))
+            if not fold:
+                continue
+            parts = sorted(
+                [p for gi in fold for p in groups[gi]]
+                + [frozenset({x}) for x in anchors], key=min)
+            if not anchor_emittable(graph, tuple(parts),
+                                    tuple(sorted(anchors))):
+                continue
+            gain = ctx.anchor_gain(tuple(sorted(anchors)),
+                                   tuple(members_of[gi] for gi in fold))
+            if not gain.feasible or gain.hbm_bytes_saved <= 0:
+                continue
+            sub = [(min(members_of[gi]), tuple(groups[gi])) for gi in fold] \
+                + [(x, (frozenset({x}),)) for x in anchors]
+            anchored.append(StitchGroup(
+                tuple(parts),
+                anchors=tuple(sorted(anchors)),
+                unanchored=tuple(g for _, g in sorted(sub))))
+            consumed.update(fold)
+            used_anchor.update(anchors)
+            break
+
+    out: list[StitchGroup] = list(anchored)
+    for gi, g in enumerate(groups):
+        if gi not in consumed:
+            out.append(StitchGroup(tuple(g)))
+    out.sort(key=lambda sg: min(sg.members))
+    return out, len(anchored)
+
+
 def _candidate_scratch_bytes(graph: Graph, ctx: CostContext,
                              groups: list[tuple]) -> int:
     """Staged VMEM bytes/row a candidate partition would allocate.
@@ -593,6 +728,25 @@ def search_groups(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
         ctx.partition_gain([tuple(g) for g in groups]),
         _candidate_scratch_bytes(graph, ctx, [tuple(g) for g in groups]))
     candidates = [best]
+    if anchor_enabled():
+        # compute-anchored variant: fold flanking groups into adjacent
+        # dot_general kernels.  Put first when any fold commits -- it is
+        # served by default, with the memory-only partition kept after it.
+        a_groups, n_anch = absorb_anchors(graph, [list(g) for g in groups],
+                                          ctx)
+        if n_anch:
+            extra = 0.0
+            for g in a_groups:
+                if not g.anchors:
+                    continue
+                folded = tuple(
+                    frozenset(x for p in sub for x in p)
+                    for sub in g.unanchored
+                    if frozenset(x for p in sub for x in p)
+                    - frozenset(g.anchors))
+                extra += ctx.anchor_gain(g.anchors, folded).latency_gain_s
+            candidates.insert(0, PartitionCandidate(
+                a_groups, best.gain_s + extra, best.scratch_bytes))
     # global runners-up: swap one segment's choice for its next-ranked
     # alternative -- and, when several segments have alternatives,
     # combine the rank-1 swaps of two segments at once (multi-segment

@@ -120,15 +120,17 @@ _UNARY: dict[str, Callable] = {
     "sin": torch.sin, "cos": torch.cos, "logistic": torch.sigmoid,
     "erf": torch.erf, "rsqrt": torch.rsqrt, "sqrt": torch.sqrt,
     "not": torch.logical_not, "is_finite": torch.isfinite,
-    "square": lambda x: x * x,
+    "square": lambda x: x * x, "erfc": torch.erfc,
+    "cbrt": lambda x: torch.sign(x) * torch.abs(x).pow(1.0 / 3.0),
 }
 _BINARY: dict[str, Callable] = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
     "max": torch.maximum, "min": torch.minimum, "pow": torch.pow,
     "eq": torch.eq, "ne": torch.ne, "ge": torch.ge, "gt": torch.gt,
     "le": torch.le, "lt": torch.lt, "atan2": torch.atan2,
-    "rem": torch.remainder, "and": torch.logical_and,
+    "rem": torch.fmod, "and": torch.logical_and,
     "or": torch.logical_or, "xor": torch.logical_xor,
+    "nextafter": torch.nextafter,
 }
 _REDUCE_FNS: dict[str, Callable] = {
     "reduce_sum": lambda x, d: torch.sum(x, dim=d),
@@ -136,6 +138,8 @@ _REDUCE_FNS: dict[str, Callable] = {
     "reduce_min": lambda x, d: torch.amin(x, dim=d),
     "reduce_prod": lambda x, d: torch.prod(x, dim=d[0]) if len(d) == 1
     else torch.prod(x.flatten(d[0], d[-1]), dim=d[0]),
+    "reduce_and": lambda x, d: torch.all(x != 0, dim=d),
+    "reduce_or": lambda x, d: torch.any(x != 0, dim=d),
 }
 
 
@@ -221,6 +225,82 @@ _SCALAR_TYPES = (int, float, bool)
 
 def _val(n):
     return n.meta.get("val") if hasattr(n, "meta") else None
+
+
+#: Ops a view chain around a batched product may hold (value-preserving
+#: index maps; ``expand`` only to the shape it already has).
+_CHAIN_OPS = _VIEW_OPS | {aten.permute.default, aten.transpose.int,
+                          aten.t.default, aten.expand.default}
+
+
+def _replay(chain, shape):
+    """Replay the view chain ``chain`` (fx nodes, first applied first) on
+    a contiguous meta tensor of ``shape``; None if a step is not a view
+    there or an ``expand`` grows the tensor."""
+    m = torch.empty(tuple(shape), device="meta")
+    for c in chain:
+        before = tuple(m.shape)
+        try:
+            m = c.target(m, *c.args[1:], **c.kwargs)
+        except RuntimeError:
+            return None
+        if c.target is aten.expand.default and tuple(m.shape) != before:
+            return None
+    return m
+
+
+def _same_view(m, ref) -> bool:
+    """Equal shape and equal strides on every dim longer than 1: the two
+    views read the same elements of a contiguous source."""
+    return (tuple(m.shape) == tuple(ref.shape)
+            and all(a == b for a, b, d in zip(m.stride(), ref.stride(),
+                                              m.shape) if d != 1))
+
+
+def _batched_source(a):
+    """(source, transposed) for a bmm operand ``a`` [BH, X, Y] that is a
+    view chain of a rank-r source flattened over its r - 2 leading dims
+    (``transposed``: with its last two dims swapped first); the deepest
+    such source, or None."""
+    x, y = _val(a).shape[1:]
+    chain: list = []
+    cur, found = a, None
+    while True:
+        sv = _val(cur)
+        if isinstance(sv, torch.Tensor) and sv.dim() >= 3:
+            m = _replay(chain, sv.shape)
+            if m is not None:
+                base = torch.empty(tuple(sv.shape), device="meta")
+                bh = math.prod(sv.shape[:-2])
+                if (tuple(sv.shape[-2:]) == (x, y)
+                        and _same_view(m, base.view(bh, x, y))):
+                    found = (cur, False)
+                elif (tuple(sv.shape[-2:]) == (y, x) and _same_view(
+                        m, base.transpose(-1, -2).view(bh, x, y))):
+                    found = (cur, True)
+        if not (hasattr(cur, "target") and cur.target in _CHAIN_OPS):
+            return found
+        chain.insert(0, cur)
+        cur = cur.args[0]
+
+
+def _unflatten_end(n, out: tuple):
+    """The last node of the single-use view chain that takes bmm ``n``'s
+    [BH, M, N] result to a contiguous ``out`` = batch + (M, N) (``n``
+    itself for a rank-3 product), or None."""
+    ref = torch.empty(out, device="meta")
+    chain: list = []
+    cur = n
+    for _ in range(8):
+        m = _replay(chain, _val(n).shape)
+        if m is not None and _same_view(m, ref):
+            return cur
+        users = list(cur.users)
+        if len(users) != 1 or users[0].target not in _CHAIN_OPS:
+            return None
+        cur = users[0]
+        chain.append(cur)
+    return None
 
 
 class _Tracer:
@@ -312,6 +392,9 @@ class _Tracer:
                 continue
             if n.op != "call_function":
                 raise NotImplementedError(f"fx node {n.op} {n.target}")
+            if n in self.fold_alias:  # a folded bmm's unflattening views
+                self.env[n] = self.env[self.fold_alias[n]]
+                continue
             self.env[n] = self.lower_call(n)
         flat_out = pytree.tree_leaves(out_node.args[0])
         self.graph.outputs = [self.env[o] for o in flat_out]
@@ -320,9 +403,16 @@ class _Tracer:
     def _matmul_views(self, gm) -> None:
         """``x @ w`` with x of rank > 2 traces to view(x) -> mm -> view.
         Mark such mm nodes so they lower to ONE rank-k ``dot_general`` on
-        the unflattened operand, as the reference traces them."""
+        the unflattened operand, as the reference traces them.  A batched
+        product (``q @ k.transpose(-1, -2)``, ``p @ v`` or their
+        ``einsum`` forms on rank-4 operands) traces to views -> bmm ->
+        views; ``_bmm_views`` marks those."""
         self.mm_unflat: dict[Any, Any] = {}
+        self.bmm_fold: dict[Any, tuple] = {}
+        self.fold_alias: dict[Any, Any] = {}
         for n in gm.graph.nodes:
+            if n.op == "call_function" and n.target is aten.bmm.default:
+                self._bmm_views(n)
             if n.op != "call_function" or n.target is not aten.mm.default:
                 continue
             a = n.args[0]
@@ -338,6 +428,35 @@ class _Tracer:
                              == tuple(sv.shape[:-1]) + (_val(n).shape[-1],)
                              for u in users):
                 self.mm_unflat[n] = src
+
+    def _bmm_views(self, n) -> None:
+        """Mark ``n`` (a bmm) to lower to ONE rank-r ``dot_general`` when
+        each operand is a view chain of a rank-r tensor flattened over its
+        r - 2 leading (batch) dims, with or without its last two dims
+        swapped, both with the same batch dims, and the product's only
+        use is a view chain back to ``batch + (M, N)``.  A chain is
+        recognised by replaying it on a meta tensor and comparing the
+        strides with those of the plain flatten."""
+        ops = []
+        for a in n.args[:2]:
+            got = _batched_source(a)
+            if got is None:
+                return
+            ops.append(got)
+        (a_src, a_t), (b_src, b_t) = ops
+        sa, sb = _val(a_src).shape, _val(b_src).shape
+        if len(sa) != len(sb) or sa[:-2] != sb[:-2]:
+            return
+        out = tuple(sa[:-2]) + tuple(_val(n).shape[1:])
+        end = _unflatten_end(n, out)
+        if end is None:
+            return
+        r = len(sa)
+        dn = (((r - 2 if a_t else r - 1,), (r - 1 if b_t else r - 2,)),
+              (tuple(range(r - 2)), tuple(range(r - 2))))
+        self.bmm_fold[n] = (a_src, b_src, dn, out)
+        if end is not n:
+            self.fold_alias[end] = n
 
     def lower_call(self, n) -> int:
         t = n.target
@@ -517,6 +636,11 @@ class _Tracer:
         return self.new("div", (e, zb), spec)
 
     def matmul(self, n, spec: TensorSpec) -> int:
+        if n in self.bmm_fold:
+            a_src, b_src, dn, out = self.bmm_fold[n]
+            return self.new("dot_general", (self.env[a_src], self.env[b_src]),
+                            TensorSpec(out, spec.dtype),
+                            params={"dimension_numbers": dn})
         a_fx, b_fx = n.args[0], n.args[1]
         if n in self.mm_unflat:
             a_fx = self.mm_unflat[n]

@@ -1,7 +1,9 @@
 // Flash attention forward for Hopper (sm_90a), float32, head_dim <= 128.
 //
 // Replaces the TPU kernel `_attn_kernel` / `flash_attention`
-// (src/repro/kernels/flash_attention.py:31,87), without `score_mod`:
+// (src/repro/kernels/flash_attention.py:31,87); this file is its
+// instance without `score_mod` (the kernel body is the template in
+// flash_attention.cuh, instantiated here with the identity functor):
 //     o = softmax(mask(q k^T * scale)) v      q [B, Hq, Sq, D]
 //                                             k, v [B, Hkv, Skv, D]
 // with grouped-query heads (kv head = h / (Hq / Hkv), K/V never
@@ -29,178 +31,7 @@
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch.  q, k, v are taken with their element strides (the last
 // dimension must be contiguous); o is a contiguous [B, Hq, Sq, D].
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kBQ = 64;       // query rows of a block
-constexpr int kBK = 64;       // key rows of a tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr float kNegInf = -1e30f;
-
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  int Hq, group, Sq, Skv, D;
-  float scale;
-  int causal;
-};
-
-template <int DMAX>
-constexpr int smem_floats() {
-  return kBQ * (DMAX + 1) + kBK * (DMAX + 1) + kBK * DMAX + kBQ * (kBK + 1);
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int QS = DMAX + 1;  // padded row stride: conflict-free columns
-  constexpr int PS = kBK + 1;
-  constexpr int DJ = DMAX / 16;  // output columns of a thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [kBQ][QS]
-  float* Ks = Qs + kBQ * QS;     // [kBK][QS]
-  float* Vs = Ks + kBK * QS;     // [kBK][DMAX]
-  float* Ps = Vs + kBK * DMAX;   // [kBQ][PS]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.group;
-  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
-
-  for (int idx = tid; idx < kBQ * DMAX; idx += kThreads) {
-    const int r = idx / DMAX, d = idx % DMAX;
-    Qs[r * QS + d] = (q0 + r < p.Sq && d < p.D)
-                         ? qg[(long long)(q0 + r) * p.q_ss + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int off = p.Skv - p.Sq;  // causal offset
-  int k_end = p.Skv;
-  if (p.causal) {
-    const int q_last = min(q0 + kBQ, p.Sq) - 1;
-    k_end = min(p.Skv, q_last + off + 1);
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < kBK * DMAX; idx += kThreads) {
-      const int r = idx / DMAX, d = idx % DMAX;
-      const bool in = k0 + r < p.Skv && d < p.D;
-      Ks[r * QS + d] = in ? kg[(long long)(k0 + r) * p.k_ss + d] : 0.f;
-      Vs[r * DMAX + d] = in ? vg[(long long)(k0 + r) * p.v_ss + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DMAX; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < p.Skv && (!p.causal || qi + off >= kj);
-        s[i][j] = ok ? s[i][j] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pij = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = pij;
-        ps += pij;
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, w);
-      l[i] = l[i] * alpha + ps;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float vv[DJ];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vv[jj] = Vs[c * DMAX + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = Ps[(ty + 16 * i) * PS + c];
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = fmaf(pv, vv[jj], acc[i][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= p.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = p.o + (((long long)blockIdx.z * p.Hq + h) * p.Sq + qi) * p.D;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < p.D) orow[d] = acc[i][jj] / denom;
-    }
-  }
-}
-
-template <int DMAX>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  // allow this kernel more than 48 KB of shared memory on the current
-  // device; the attribute is per device, so it is set on every launch
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, B);
-  flash_fwd_kernel<DMAX><<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "flash_attention.cuh"
 
 extern "C" int repro_flash_attention_f32(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
@@ -208,21 +39,11 @@ extern "C" int repro_flash_attention_f32(
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
     void* stream) {
-  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-           static_cast<const float*>(v), static_cast<float*>(o),
-           q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           Hq, Hq / Hkv, Sq, Skv, D, scale, causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (B == 0 || Sq == 0) {
-    err = cudaSuccess;
-  } else if (D <= 32) {
-    err = launch<32>(p, B, s);
-  } else if (D <= 64) {
-    err = launch<64>(p, B, s);
-  } else {
-    err = launch<128>(p, B, s);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  repro_flash::Params p{static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(o),
+                        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                        Hq, Hq / Hkv, Sq, Skv, D, scale, causal};
+  return repro_flash::run(p, repro_flash::NoScoreMod{}, B,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -7,6 +7,13 @@ loaded with ``ctypes``.  The hash covers the source and the flags, so a
 changed source builds anew; the sources are built in parallel, one
 ``nvcc`` each.  ``build/`` is listed in ``.gitignore``.
 
+Generated sources (the anchored kernels' instances, written by
+``core/codegen_cuda.py``) build the same way through
+``generated_library``: ``build/cuda/<name>-<hash>.so``, with ``csrc/``
+on the include path.  Every generated source registered by then
+(``register_generated``) builds in the same parallel round.  A library's
+hash covers its source, the flags and every ``csrc/*.cuh`` header.
+
 ``nvcc`` is found through ``$CUDA_HOME``, then ``PATH``, then
 ``/usr/local/cuda``.  A missing ``nvcc`` or a failed build raises
 ``RuntimeError`` naming the command and its stderr: there is no fallback.
@@ -42,42 +49,104 @@ def nvcc_path() -> str:
         "nvcc on the machine with the card")
 
 
-def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes())
+def _headers_digest() -> bytes:
+    h = hashlib.sha256()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    return h.digest()
+
+
+def _source_lib_path(stem: str, source: bytes) -> Path:
+    h = hashlib.sha256(source)
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    h.update(_headers_digest())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Build every source whose library is missing, all ``nvcc`` runs
-    started together; returns {name: library path}."""
-    sources = sorted(CSRC.glob("*.cu"))
-    libs = {s.stem: _lib_path(s) for s in sources}
-    todo = [s for s in sources if not libs[s.stem].exists()]
-    if not todo:
-        return libs
+def _lib_path(src: Path) -> Path:
+    return _source_lib_path(src.stem, src.read_bytes())
+
+
+def _build(jobs: list[tuple[Path, Path]]) -> None:
+    """Compile each (source, library) pair, all ``nvcc`` runs started
+    together, ``csrc/`` on the include path."""
+    if not jobs:
+        return
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for src in todo:
+    for src, lib in jobs:
         # build under a temporary name, then rename: concurrent builders
         # never load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
-        procs.append((src, tmp, cmd, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
+        procs.append((lib, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failures = []
-    for src, tmp, cmd, proc in procs:
+    for lib, tmp, cmd, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"$ {' '.join(cmd)}\n{err}")
         else:
-            os.replace(tmp, libs[src.stem])
+            os.replace(tmp, lib)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+
+
+def build_all() -> dict[str, Path]:
+    """Build every hand-written source whose library is missing, and every
+    generated source registered so far, all ``nvcc`` runs started
+    together; returns {name: library path} of the hand-written ones."""
+    sources = sorted(CSRC.glob("*.cu"))
+    libs = {s.stem: _lib_path(s) for s in sources}
+    jobs = [(s, libs[s.stem]) for s in sources if not libs[s.stem].exists()]
+    _build(jobs + _pending_generated())
     return libs
+
+
+#: {name: source} of the generated sources registered for the build.
+_GENERATED: dict[str, str] = {}
+
+
+def register_generated(name: str, source: str) -> None:
+    """Queue a generated source: the next build round compiles it."""
+    _GENERATED[name] = source
+
+
+def _generated_paths(name: str, source: str) -> tuple[Path, Path]:
+    lib = _source_lib_path(name, source.encode())
+    return lib.with_suffix(".cu"), lib
+
+
+def _pending_generated() -> list[tuple[Path, Path]]:
+    jobs = []
+    for name, source in sorted(_GENERATED.items()):
+        src, lib = _generated_paths(name, source)
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            src.write_text(source)
+            jobs.append((src, lib))
+    return jobs
+
+
+def build_generated(name: str, source: str) -> Path:
+    """The library of a generated source, built if missing -- together
+    with every other registered generated source still unbuilt, and the
+    hand-written ones (one ``nvcc`` each, all started together)."""
+    register_generated(name, source)
+    lib = _generated_paths(name, source)[1]
+    if not lib.exists():
+        build_all()
+    return lib
+
+
+@functools.cache
+def generated_library(name: str, source: str) -> ctypes.CDLL:
+    """The loaded library of a generated source (built on first use)."""
+    return ctypes.CDLL(str(build_generated(name, source)))
 
 
 @functools.cache

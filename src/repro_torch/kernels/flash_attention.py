@@ -8,17 +8,24 @@ k, v [B, Hkv, Skv, D] -> o [B, Hq, Sq, D], with grouped-query heads
 (``kv_head = h // (Hq // Hkv)``, no repeated K/V), ``scale`` (1/sqrt(D)
 by default), the causal offset ``q_idx + (Skv - Sq) >= k_idx``, the
 padding of a ragged ``Skv``, the ``-1e30`` fill and the final
-``max(l, 1e-30)``.  ``score_mod`` is not ported yet.
+``max(l, 1e-30)``.  ``score_mod`` (the reference's, :44-51): a
+``ScoreMod`` rewrites the scaled scores before the masks -- the graph's
+own scale / bias / mask chain that compute-anchored stitching folds into
+the kernel -- with a plain callable on the whole [B, H, Sq, Skv] score
+tensor for CPU tensors and a generated instance of
+``csrc/flash_attention.cuh`` for CUDA tensors.
 
 Its autograd formula recomputes ``ref.attention`` and takes its VJP, as
 the reference's ``_attention_bwd`` does (``src/repro/kernels/ops.py:56-70``):
 the JAX package has no attention backward kernel, so the backward is
 plain ops on the card by the reference's own design.
 
-``flash_attention(q, k, v, causal, scale)`` is the operator: on CPU
-tensors it runs ``flash_attention_plain``, on CUDA tensors
-``flash_attention_cuda`` (the kernel, or an error), on fake and meta
-tensors its shape function.
+``flash_attention(q, k, v, causal, scale)`` runs the operator
+``repro_torch::flash_attention``: on CPU tensors ``flash_attention_plain``,
+on CUDA tensors ``flash_attention_cuda`` (the kernel, or an error), on
+fake and meta tensors its shape function.  With ``score_mod=`` it runs
+the plain version or the generated kernel by device itself (forward
+only, as stitched functions are; a custom operator takes no callable).
 
 ``flash_decode(q, k_cache, v_cache, kv_len, scale)`` is the counterpart
 of the TPU kernel ``flash_decode`` (``src/repro/kernels/flash_attention.py:161``):
@@ -40,6 +47,29 @@ import torch
 from . import _build, ref
 
 MAX_HEAD_DIM = 128
+#: The kernel's tile constants, mirrored from ``csrc/flash_attention.cuh``
+#: (``kBQ``, ``kBK``; a test holds the two equal): query rows a block,
+#: key rows a tile, and the head-dim instances (D is padded up to one).
+FLASH_BQ = 64
+FLASH_BK = 64
+FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_instance(D: int) -> int:
+    """The head-dim instance that runs a head dim of ``D``."""
+    for dmax in FLASH_HEAD_DIMS:
+        if D <= dmax:
+            return dmax
+    raise ValueError(f"flash attention: head dim {D} > {MAX_HEAD_DIM}")
+
+
+def flash_smem_bytes(D: int) -> int:
+    """Shared memory of one block of the instance that runs ``D``: the Q
+    and K tiles with one float of padding a row, the V tile and the
+    probabilities (``smem_floats`` in ``csrc/flash_attention.cuh``)."""
+    dmax = flash_instance(D)
+    return 4 * (FLASH_BQ * (dmax + 1) + FLASH_BK * (dmax + 1)
+                + FLASH_BK * dmax + FLASH_BQ * (FLASH_BK + 1))
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -58,22 +88,72 @@ def _check_shapes(q, k, v, causal: bool) -> None:
                          "sees a key)")
 
 
+class ScoreMod:
+    """A score chain for the kernel: ``plain(s, *score_args)`` maps the
+    scaled [B, H, Sq, Skv] scores to the pre-softmax ones on whole
+    tensors; ``entry`` is the C entry of its generated CUDA instance
+    (``core.codegen_cuda.attention_source``).  ``launches`` counts the
+    kernel launches of every scored instance."""
+
+    launches = 0
+
+    def __init__(self, plain, entry):
+        self.plain = plain
+        self.entry = entry
+
+
+def _check_score_args(q, k, score_args) -> None:
+    B, Hq, Sq, _ = q.shape
+    extent = (B, Hq, Sq, k.shape[2])
+    if k.shape[1] != Hq:
+        raise ValueError("flash attention with a score_mod takes no "
+                         "grouped-query heads (Hq == Hkv), as the "
+                         "reference's anchored form")
+    for a in score_args:
+        if a.dim() != 4 or any(d not in (1, e)
+                               for d, e in zip(a.shape, extent)):
+            raise ValueError(f"score operand {tuple(a.shape)}: each dim 1 "
+                             f"or the full extent {extent}")
+
+
 def flash_attention_plain(q, k, v, causal: bool = True,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None, *, score_mod=None,
+                          score_args=()) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``ref.attention`` (all keys
     at once, the same -1e30 causal fill) on the shapes the kernel takes.
     Every query row sees a key, so the kernel's ``max(l, 1e-30)`` never
-    binds and the two agree to rounding."""
+    binds and the two agree to rounding.  With ``score_mod`` the scaled
+    scores pass through ``score_mod.plain`` before the causal mask, as in
+    the kernel."""
     _check_shapes(q, k, v, causal)
-    return ref.attention(q, k, v, causal=causal, scale=scale)
+    if score_mod is None:
+        return ref.attention(q, k, v, causal=causal, scale=scale)
+    _check_score_args(q, k, score_args)
+    Sq, Skv, D = q.shape[2], k.shape[2], q.shape[3]
+    sc = 1.0 / math.sqrt(D) if scale is None else scale
+    s = torch.matmul(q.to(torch.float32), k.to(torch.float32)
+                     .transpose(-1, -2)) * sc
+    s = score_mod.plain(s, *score_args).to(torch.float32)
+    if causal:
+        row = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        col = torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(row >= col, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.to(torch.float32)).to(q.dtype)
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True,
-                         scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel (float32, D <= 128, on the current stream).
-    q, k, v are taken with their strides; only a last dimension that is
-    not contiguous is copied (device time)."""
+                         scale: float | None = None, *, score_mod=None,
+                         score_args=()) -> torch.Tensor:
+    """Launch the CUDA kernel (float32, D <= 128, on the current stream):
+    the identity instance of ``csrc/flash_attention.cu``, or with
+    ``score_mod`` its generated instance, whose score operands are read
+    through 4D strides (0 on each dim of extent 1).  q, k, v are taken
+    with their strides; only a last dimension that is not contiguous is
+    copied (device time)."""
     _check_shapes(q, k, v, causal)
+    if score_mod is not None:
+        _check_score_args(q, k, score_args)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention_cuda: q on {q.device}, k on "
@@ -90,17 +170,30 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty(B, Hq, Sq, D, dtype=torch.float32, device=dev)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    _build.check(_entry()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Hq, Hkv, Sq, Skv, D, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], float(scale), int(causal),
-        torch.cuda.current_stream(dev).cuda_stream),
-        "repro_flash_attention_f32")
-    flash_attention_cuda.launches += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Hq, Hkv, Sq, Skv, D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], float(scale), int(causal))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if score_mod is None:
+        _build.check(_entry()(*args, stream), "repro_flash_attention_f32")
+        flash_attention_cuda.launches += 1
+        return o
+    if any(a.device != dev or a.dtype not in (torch.float32, torch.bool)
+           for a in score_args):
+        raise TypeError("flash_attention_cuda: score operands must be "
+                        f"float32 or bool on {dev}")
+    ins = (ctypes.c_void_p * max(1, len(score_args)))(
+        *[a.data_ptr() for a in score_args])
+    st = (ctypes.c_longlong * max(4, 4 * len(score_args)))(
+        *[s if d != 1 else 0 for a in score_args
+          for s, d in zip(a.stride(), a.shape)])
+    _build.check(score_mod.entry(*args, ins, st, stream),
+                 "repro_flash_scored")
+    ScoreMod.launches += 1
     return o
 
 
-flash_attention_cuda.launches = 0  # kernel launches (plain runs excluded)
+flash_attention_cuda.launches = 0  # identity-instance launches
 
 
 @functools.cache
@@ -115,19 +208,40 @@ def _entry():
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
     """o [B, Hq, Sq, D] = softmax(mask(q k^T scale)) v."""
     return flash_attention_plain(q, k, v, causal, scale)
 
 
-@flash_attention.register_kernel("cuda")
+@_flash_attention_op.register_kernel("cuda")
 def _(q, k, v, causal=True, scale=None):
     return flash_attention_cuda(q, k, v, causal, scale)
 
 
-@flash_attention.register_fake
+def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
+                    *, score_mod: ScoreMod | None = None,
+                    score_args=()) -> torch.Tensor:
+    """o [B, Hq, Sq, D] = softmax(mask(score_mod(q k^T scale))) v: the
+    operator (differentiable) without ``score_mod``; with it (forward
+    only) the plain version on CPU tensors, the generated kernel on CUDA
+    tensors."""
+    if score_mod is None:
+        return _flash_attention_op(q, k, v, causal, scale)
+    devs = {t.device.type for t in (q, k, v, *score_args)}
+    if devs == {"cpu"}:
+        return flash_attention_plain(q, k, v, causal, scale,
+                                     score_mod=score_mod,
+                                     score_args=score_args)
+    if devs != {"cuda"}:
+        raise ValueError(f"flash_attention: tensors on {sorted(devs)}; all "
+                         "must lie on the CPU or on CUDA")
+    return flash_attention_cuda(q, k, v, causal, scale, score_mod=score_mod,
+                                score_args=score_args)
+
+
+@_flash_attention_op.register_fake
 def _(q, k, v, causal=True, scale=None):
     _check_shapes(q, k, v, causal)
     return q.new_empty(q.shape)
@@ -148,7 +262,8 @@ def _backward(ctx, do):
     return dq, dk, dv, None, None
 
 
-flash_attention.register_autograd(_backward, setup_context=_setup_context)
+_flash_attention_op.register_autograd(_backward,
+                                      setup_context=_setup_context)
 
 
 # --------------------------------------------------------------------------

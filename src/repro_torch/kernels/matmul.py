@@ -1,0 +1,188 @@
+"""Fused matmul B3: ``epilogue(prologue(lhs) @ rhs, epilogue operands)``.
+
+The counterpart of ``matmul_fused`` (the TPU kernel,
+``src/repro/kernels/matmul.py:53``, ``pallas_call`` at :105), which
+compute-anchored stitching emits for a group folded around one
+``dot_general``: the element-wise chain feeding the contraction runs on
+the lhs as it is staged, and the chain consuming it runs on the float32
+accumulator before the store, so neither chain's interface tensor
+round-trips device memory.
+
+Operands fold into the kernel's 2D views by role, as in the reference:
+prologue operands against (M, K), epilogue operands and outputs against
+(M, N); ``full`` is the whole view, ``row`` one value a row, ``col`` one
+value a column, ``scalar`` one value.
+
+The TPU kernel tiles M only (block_m 128) and keeps the whole (K, N)
+panel resident in VMEM.  An H100 block has at most 227 KB of shared
+memory, a 3072 x 8192 panel is 100 MB: the CUDA kernel
+(``csrc/matmul_fused.cuh``, instantiated per chain by
+``core/codegen_cuda.py``) is a GPU GEMM instead -- a grid over (N tiles,
+M tiles), a loop over K through shared memory, a register tile per
+thread, float32 FMA (no TF32).  ``TILES`` holds its tile constants; the
+cost model's H100 feasibility gate (``cost_model._anchor_vmem``) and the
+launcher read them from here, so the two cannot drift apart.
+
+``matmul_fused`` runs the plain version (``torch.matmul`` between the
+chains, evaluated on whole tensors) for CPU tensors and the generated
+CUDA kernel for CUDA tensors, or raises.  ``matmul_fused.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Callable, Sequence
+
+import torch
+
+ROLE_FULL, ROLE_ROW, ROLE_COL, ROLE_SCALAR = "full", "row", "col", "scalar"
+
+DEFAULT_BLOCK_M = 128
+
+
+@dataclass(frozen=True)
+class Tile:
+    """One instance of the CUDA template: a (bm, bn) output tile a block,
+    K staged bk at a time, a (tm, tn) register tile a thread."""
+    bm: int
+    bn: int
+    bk: int
+    tm: int
+    tn: int
+
+    @property
+    def threads(self) -> int:
+        return (self.bm // self.tm) * (self.bn // self.tn)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of one block: the lhs tile stored k-major with
+        ``A_PAD`` floats of padding a row, and the rhs tile."""
+        return 4 * (self.bk * (self.bm + A_PAD) + self.bk * self.bn)
+
+
+#: floats of padding on each k-row of the staged lhs tile
+A_PAD = 4
+#: prefill-sized M: 128 x 128 a block, 8 x 8 a thread (256 threads)
+TILE_LARGE = Tile(128, 128, 16, 8, 8)
+#: where the large tile leaves SMs idle (decode's M 4): 16 x 32 a block,
+#: 128 deep, so that N / 32 blocks stream the panel with 16 KB of it in
+#: flight a block (bytes bound there)
+TILE_SMALL = Tile(16, 32, 128, 2, 2)
+#: epilogues that reduce over N: the whole row of N in one block (its 32
+#: threads along N are one warp, reduced by shuffles)
+TILE_ROW = Tile(16, 256, 16, 2, 8)
+TILES = (TILE_LARGE, TILE_SMALL, TILE_ROW)
+#: the H100's streaming multiprocessors
+SMS = 132
+
+
+def pick_tile(M: int, N: int, row_reduce: bool) -> int:
+    """Index into ``TILES`` of the instance an (M, N) call runs: the row
+    tile for an epilogue that reduces over N, else the large tile where
+    it gives every SM a block, else the small one."""
+    if row_reduce:
+        return TILES.index(TILE_ROW)
+    large = -(-M // TILE_LARGE.bm) * -(-N // TILE_LARGE.bn)
+    return TILES.index(TILE_LARGE if large >= SMS else TILE_SMALL)
+
+
+def _view(v: torch.Tensor, role: str, R: int, C: int) -> torch.Tensor:
+    if role == ROLE_FULL:
+        return v.reshape(R, C)
+    if role == ROLE_ROW:
+        return v.reshape(R, 1)
+    if role == ROLE_COL:
+        return v.reshape(1, C)
+    return v.reshape(())
+
+
+_OUT_SHAPE = {ROLE_FULL: lambda M, N: (M, N), ROLE_ROW: lambda M, N: (M, 1),
+              ROLE_COL: lambda M, N: (1, N), ROLE_SCALAR: lambda M, N: (1, 1)}
+
+
+def matmul_fused_plain(pro_args: Sequence, rhs, epi_args: Sequence, *,
+                       M: int, K: int, N: int, pro_roles: Sequence[str],
+                       epi_roles: Sequence[str], out_roles: Sequence[str],
+                       out_dtypes: Sequence, prologue: Callable | None = None,
+                       epilogue: Callable | None = None) -> tuple:
+    """The kernel's function in plain PyTorch: the prologue on the whole
+    (M, K) view, ``torch.matmul`` in float32, the epilogue on the whole
+    (M, N) result.  Outputs are 2D by role: (M, N), (M, 1), (1, N) or
+    (1, 1)."""
+    pro = [_view(v, r, M, K) for v, r in zip(pro_args, pro_roles)]
+    lhs = prologue(*pro) if prologue is not None else pro[0]
+    acc = torch.matmul(lhs.to(torch.float32), rhs.reshape(K, N)
+                       .to(torch.float32))
+    epi = [_view(v, r, M, N) for v, r in zip(epi_args, epi_roles)]
+    outs = epilogue(acc, *epi) if epilogue is not None else (acc,)
+    return tuple(o.expand(_OUT_SHAPE[r](M, N)).to(dt)
+                 for o, r, dt in zip(outs, out_roles, out_dtypes))
+
+
+def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
+                      M: int, K: int, N: int, out_roles: Sequence[str],
+                      out_dtypes: Sequence, entry, tile: int) -> tuple:
+    """Launch a generated instance of ``csrc/matmul_fused.cuh``.
+
+    ``entry`` is the instance's C entry point (``codegen_cuda``), ``tile``
+    an index into ``TILES``.  The rhs is read as a contiguous [K, N]
+    float32 panel, every operand as a contiguous array of its role's
+    view."""
+    dev = rhs.device
+    vals = list(pro_args) + [rhs] + list(epi_args)
+    if any(v.device != dev for v in vals) or dev.type != "cuda":
+        raise ValueError("matmul_fused_cuda: every operand must lie on one "
+                         f"CUDA device, got {sorted({str(v.device) for v in vals})}")
+    if rhs.dtype != torch.float32:
+        raise TypeError(f"matmul_fused_cuda takes a float32 rhs, got "
+                        f"{rhs.dtype}")
+    pro = [v.contiguous() for v in pro_args]
+    epi = [v.contiguous() for v in epi_args]
+    rhs = rhs.reshape(K, N).contiguous()
+    outs = [torch.empty(_OUT_SHAPE[r](M, N), dtype=dt, device=dev)
+            for r, dt in zip(out_roles, out_dtypes)]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * max(1, len(ts)))(
+            *[t.data_ptr() for t in ts])
+
+    from . import _build
+
+    _build.check(entry(
+        tile, ptrs(pro), rhs.data_ptr(), ptrs(epi), ptrs(outs), M, K, N,
+        torch.cuda.current_stream(dev).cuda_stream), "repro_mm_fused")
+    matmul_fused.launches += 1
+    return tuple(outs)
+
+
+def matmul_fused(pro_args: Sequence, rhs, epi_args: Sequence, *,
+                 M: int, K: int, N: int, pro_roles: Sequence[str],
+                 epi_roles: Sequence[str], out_roles: Sequence[str],
+                 out_dtypes: Sequence, prologue: Callable | None = None,
+                 epilogue: Callable | None = None, entry=None,
+                 tile: int = 0) -> tuple:
+    """Run ``epilogue(prologue(pro_args) @ rhs, epi_args)``: the plain
+    version on CPU tensors, the generated CUDA kernel (``entry`` at
+    ``TILES[tile]``) on CUDA tensors.  ``prologue`` maps the prologue
+    operands' (M, K) views to the lhs (None: ``pro_args[0]`` is the lhs);
+    ``epilogue`` maps the (M, N) product and the epilogue operands'
+    views to the outputs (None: the product is the one output)."""
+    devs = {v.device.type for v in (*pro_args, rhs, *epi_args)}
+    if devs == {"cpu"}:
+        return matmul_fused_plain(
+            pro_args, rhs, epi_args, M=M, K=K, N=N, pro_roles=pro_roles,
+            epi_roles=epi_roles, out_roles=out_roles, out_dtypes=out_dtypes,
+            prologue=prologue, epilogue=epilogue)
+    if devs != {"cuda"}:
+        raise ValueError(f"matmul_fused: operands on {sorted(devs)}; all "
+                         "must lie on the CPU (plain version) or on CUDA")
+    if entry is None:
+        raise RuntimeError("matmul_fused: no CUDA instance for this chain")
+    return matmul_fused_cuda(pro_args, rhs, epi_args, M=M, K=K, N=N,
+                             out_roles=out_roles, out_dtypes=out_dtypes,
+                             entry=entry, tile=tile)
+
+
+matmul_fused.launches = 0  # kernel launches (plain runs excluded)

@@ -297,11 +297,36 @@ def test_precise_unary_primitives_lower_through_libdevice(prim):
             assert imprecise not in src
 
 
+@pytest.mark.parametrize("prim", ["tan", "atan"])
+def test_unlowered_primitives_run_packed(prim):
+    """A primitive outside the generator's vocabulary (``tan``, ``atan``:
+    outside the reference's too) runs its group packed, never as a
+    generated kernel that would fail at its first launch on the card.
+    ``pow`` and ``atan2``, which this test held to the packed path before
+    the generator lowered them, now emit kernels
+    (``test_pow_and_atan2_lower_to_generated_kernels``)."""
+    from repro_torch.core.classify import classify
+    from repro_torch.core.ir import Graph, Node, OpKind, TensorSpec
+
+    g = Graph()
+    g.add(Node(0, "input", OpKind.INPUT, (), TensorSpec((4, 8), "float32"),
+               {}))
+    g.inputs.append(0)
+    g.add(Node(1, prim, classify(prim), (0,), TensorSpec((4, 8), "float32"),
+               {"_fn": lambda dev, x: getattr(torch, prim)(x)}))
+    g.outputs = [1]
+    assert prim not in tcodegen.EMITTABLE_PRIMS | jcodegen.EMITTABLE_PRIMS
+    em = tcodegen.emit_pattern(g, frozenset({1}), hw=tcost.H100)
+    assert em.kind == "packed"
+    x = torch.randn(4, 8)
+    torch.testing.assert_close(em.fn("cpu", x)[0], getattr(torch, prim)(x))
+
+
 @pytest.mark.parametrize("name", ["pow", "atan2"])
-def test_unlowered_primitives_run_packed(name):
-    """The tracer emits ``pow`` (a non-integer exponent) and ``atan2``,
-    which the generator does not lower: their group runs packed, never as
-    a generated kernel that would fail at its first launch on the card."""
+def test_pow_and_atan2_lower_to_generated_kernels(name):
+    """The tracer emits ``pow`` (a non-integer exponent) and ``atan2``;
+    the generator lowers both (libdevice), so their group is a generated
+    kernel whose plain version computes the function."""
     fns = {"pow": lambda x, y: x.abs() ** 0.5 * x.sum(-1, keepdim=True),
            "atan2": lambda x, y: torch.atan2(x, y) * x.sum(-1, keepdim=True)}
     fn = fns[name]
@@ -310,13 +335,9 @@ def test_unlowered_primitives_run_packed(name):
     assert name in {n.prim for n in tg.nodes.values()}
     em = tcodegen.emit_pattern(tg, frozenset(tg.fusible_nodes()),
                                hw=tcost.H100)
-    assert em.kind == "packed"
+    assert em.kind == "onepass"
+    assert f"libdevice.{name}(" in em.fn.source()
     from repro_torch.core import stitched_jit
-    comp = stitched_jit(fn, device="cpu").compiled(x, y)
-    for e in comp.emitted:
-        if e.generated:
-            assert name not in {comp.graph.node(n).prim
-                                for p in e.parts for n in p}
     # the same torch ops in the same order: float32 default tolerances
     torch.testing.assert_close(stitched_jit(fn, device="cpu")(x, y),
                                fn(x, y))

@@ -569,3 +569,80 @@ def test_reduced_static_decode_on_the_card_matches_the_cpu(cuda, arch):
         assert K.flash_decode_cuda.launches - before == n_attn
         # float32 through the layers on two devices
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# compute-anchored kernels: B3 and flash attention with a score chain
+# ---------------------------------------------------------------------------
+def _anchored_ems(fn, args):
+    comp = stitched_jit(fn).compiled(*args)
+    ems = [e for e in comp.emitted if e.kind == "anchored"]
+    assert ems, comp.report.schedules
+    return comp, ems
+
+
+def _hold_anchored(comp, ems, cuda, rtol=1e-5):
+    """Each anchored kernel on random inputs against its plain version on
+    the same inputs (each element within rtol max(1, max|plain|)), then the
+    whole stitched call against the op-by-op replay."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
+
+    for em in ems:
+        vals = [torch.randn(comp.graph.node(i).spec.shape, device="cuda",
+                            generator=cuda) for i in em.ext_ids]
+        before = (MM.matmul_fused.launches, FA.ScoreMod.launches)
+        got = em.fn("cuda", *vals)
+        after = (MM.matmul_fused.launches, FA.ScoreMod.launches)
+        assert sum(after) == sum(before) + 1
+        want = em.fn("cpu", *[v.cpu() for v in vals])
+        for a, b in zip(got, want):
+            lim = rtol * max(1.0, float(b.abs().max()))
+            assert float((a.cpu().float() - b.float()).abs().max()) <= lim
+
+
+def t_gate(x, wg, wu):
+    return torch.nn.functional.silu(x @ wg) * (x @ wu)
+
+
+ANCHOR_CASES = {
+    "gate-prefill": (t_gate, [(2048, 512), (512, 1024), (512, 1024)]),
+    "gate-decode": (t_gate, [(4, 512), (512, 1024), (512, 1024)]),
+    "gate-ragged": (t_gate, [(2000, 512), (512, 1000), (512, 1000)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANCHOR_CASES))
+def test_b3_kernel_matches_plain(cuda, case):
+    fn, shapes = ANCHOR_CASES[case]
+    args = [torch.randn(s, device="cuda", generator=cuda) for s in shapes]
+    comp, ems = _anchored_ems(fn, args)
+    _hold_anchored(comp, ems, cuda)
+    torch.testing.assert_close(stitched_jit(fn)(*args), fn(*args),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_b3_kernel_prologue_roles_and_reducing_epilogue(cuda):
+    def fn(x, r, c, w, g):
+        h = (x * c + r) @ w
+        return (h * torch.rsqrt((h ** 2).mean(-1, keepdim=True) + 1e-6) * g,
+                torch.softmax(h, -1))
+
+    args = [torch.randn(s, device="cuda", generator=cuda)
+            for s in [(300, 96), (300, 1), (96,), (96, 160), (160,)]]
+    comp, ems = _anchored_ems(fn, args)
+    _hold_anchored(comp, ems, cuda)
+
+
+def test_flash_score_mod_matches_plain(cuda):
+    def attn(q, k, v, bias):
+        s = q @ k.transpose(-1, -2) * 0.125 + bias
+        return torch.softmax(s, -1) @ v
+
+    args = [torch.randn(s, device="cuda", generator=cuda)
+            for s in [(2, 4, 100, 64)] * 3 + [(1, 1, 100, 100)]]
+    comp, ems = _anchored_ems(attn, args)
+    assert ems[0].fn.score_mod is not None
+    _hold_anchored(comp, ems, cuda)
+    torch.testing.assert_close(stitched_jit(attn)(*args), attn(*args),
+                               rtol=1e-5, atol=1e-5)

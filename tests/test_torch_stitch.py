@@ -129,7 +129,13 @@ def test_reduced_block_matches_reference(monkeypatch, dispatch):
     _report_counts_match(jf, tf, jargs, targs)
 
 
-def test_isomorphic_groups_emit_once():
+def test_isomorphic_groups_emit_once(monkeypatch):
+    """Memory-only dedup: anchoring off, as the reference's own test of
+    it (``test_isomorphic_layers_emit_once``); with anchoring on, each
+    RMSNorm folds into its matmul's epilogue (``test_torch_anchor.py``
+    covers the anchored dedup)."""
+    monkeypatch.setenv("REPRO_ANCHOR", "0")
+
     def chain(x, w, g):
         def rms(v):
             return v * torch.rsqrt((v ** 2).mean(-1, keepdim=True) + 1e-6) * g

@@ -18,8 +18,10 @@ each of which makes the script exit non-zero when it fails:
    plain value --
    with kernel, plain and library-call times (CUDA events, median, the
    call queued behind a device sleep so only device time counts) and
-   the least time the card could take (bytes over 3.35 TB/s, operations
-   over 67 TFLOP/s float32; H100 SXM data sheet).
+   the least time the card could take (bytes over 3.35 TB/s, element-wise
+   operations over 67 TFLOP/s float32, products over 165 TFLOP/s, the
+   float32 rate of the tensor cores' 495 TFLOP/s TF32 through a three-way
+   split; H100 SXM data sheet).
 3. CUDA kernels: ``nvcc`` builds ``src/repro_torch/csrc`` (timed), then
    the RMSNorm kernel at [2048, 3072] and [4, 3072], the LayerNorm
    forward and backward kernels at the train path's [4096, 1280], at a
@@ -31,8 +33,11 @@ each of which makes the script exit non-zero when it fails:
    Sq 200 < Skv 500 (causal offset), non-causal, at the HuBERT train
    path's [8, 16, 512, 80] non-causal, at Granite's head dim 64
    ([4, 16 (Hkv 8), 512, 64] and [8, 16 (Hkv 8), 512, 64], causal) and
-   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged), each against its
-   plain version with the same per-element limit and the same times; the
+   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged) and at Gemma-7B's
+   heads ([4, 16, 512, 256], causal), each against the same function in
+   float64 (the plain version on float64 inputs; the float32 plain
+   version's own distance is printed beside it) with the same
+   per-element limit and the same times; the
    RMSNorm kernel also at the recurrent paths' prefill (2000), decode (4)
    and train (4096) rows at 1,024 (Mamba2's blocks), 2,048 (its gated
    norm, Zamba2's blocks) and 4,096 columns (Zamba2's concat and gated
@@ -59,7 +64,8 @@ each of which makes the script exit non-zero when it fails:
    H 4, S 128, D 64, bias [1, 1, S, S]) and at Llama's heads and prompt.
    Each against its plain version (B3: within 1e-5 max(1, max|plain|)
    plus three times the plain version's own float32 distance from
-   float64; score_mod: B4's limit), with kernel, plain and library times
+   float64; score_mod: B4's limit against float64), with kernel, plain
+   and library times
    (``torch.matmul`` of the product alone, which computes less than B3;
    SDPA with the bias as its mask) and the bound; then the counted run of
    the bench's two blocks (2 B3 launches, 1 score_mod launch).  Every
@@ -125,7 +131,10 @@ each of which makes the script exit non-zero when it fails:
    positions each: compile seconds, ms per step, launches per step (flash
    decode once an attention layer), a profile of one step, every step's
    logits held against the plain path fed the same tokens.
-13. A ``{"kernels": [...]}`` summary line (per kernel: the times of its
+13. Whether each B3 and B4 instance built in the run holds tensor-core
+   instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA`` ``.TF32``
+   in B4), printed once; then a ``{"kernels": [...]}`` summary line (per
+   kernel: the times of its
    main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
    times were taken, launches by path), then the last line
@@ -148,9 +157,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM data-sheet peaks (dense, at the 700 W limit).
+#: H100 SXM data-sheet peaks (dense, at the 700 W limit): element-wise
+#: operations at float32's rate on the CUDA cores; products (contractions)
+#: at the float32 rate the tensor cores give through the three-way TF32
+#: split, a third of 495 TFLOP/s of TF32.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+SPLIT_OPS_PER_S = 495e12 / 3
 
 SEED = 0
 BATCH, PROMPT = 4, 512
@@ -632,9 +645,14 @@ def check_generated(compiled: dict, gen, checks: dict) -> None:
                     em.fn, "score_mod", None) is not None else "matmul_fused")
                 prims = sorted({comp.graph.node(n).prim
                                 for p in em.parts for n in p})
+                lib = None
+                if kind == "matmul_fused":  # the product alone
+                    ch = em.fn.chain
+                    lib = product_call(ch["M"], ch["K"], ch["N"], gen)
                 res = check_anchored(em, comp.graph, gen, reps=10,
                                      label=f"{name} anchored "
-                                           f"{'+'.join(prims)}")
+                                           f"{'+'.join(prims)}",
+                                     library=lib)
                 checks.setdefault(kind, []).append(dict(res, _fn=em.fn))
                 continue
             if not em.generated or id(em.fn) in seen:
@@ -664,9 +682,13 @@ def summarize(results: list) -> dict:
                 instances_checked=len(results))
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             mma_ops: float = 0) -> tuple[float, str]:
+    """(bound ms, "bytes"|"operations"): the larger of the bytes over the
+    HBM rate and the operations -- element-wise ``ops`` at float32's rate,
+    the products' ``mma_ops`` at the split's -- over their peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = (ops / FP32_OPS_PER_S + mma_ops / SPLIT_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -685,32 +707,44 @@ def agreement_max(got, want, rtol: float) -> tuple[float, float]:
 def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
                       ops: float, reps: int, library=None,
                       max_rtol: float | None = None,
-                      rtol: float = RTOL) -> dict:
+                      rtol: float = RTOL, mma_ops: float = 0,
+                      reference=None) -> dict:
     """Hold one hand-written CUDA kernel against its plain version on the
     card, on the same inputs, with ``agreement``'s per-element limit (at
     ``rtol`` |plain| + ``rtol`` mean|plain|), or with ``max_rtol`` max(1,
-    max|plain|) for each output where it is given.  Launches made here
-    are reset before the main paths."""
+    max|plain|) for each output where it is given; against
+    ``reference(*inputs)`` instead of the plain version where it is given
+    (a float64 evaluation of the same function).  ``ops`` are element-wise
+    operations, ``mma_ops`` those of products (``bound_ms``).  Launches
+    made here are reset before the main paths."""
     import torch
 
     def outs(r):
-        return list(r) if isinstance(r, tuple) else [r]
+        return list(r) if isinstance(r, (tuple, list)) else [r]
 
     got = outs(launch(*inputs))
-    want = outs(plain(*inputs))
+    want = outs((plain if reference is None else reference)(*inputs))
     torch.cuda.synchronize()
     err, worst = (agreement(got, want, rtol, rtol) if max_rtol is None
                   else agreement_max(got, want, max_rtol))
+    vs_plain = ""
+    if reference is not None:  # the float32 plain version, for the record
+        del want
+        _, w32 = agreement(got, outs(plain(*inputs)), rtol, rtol)
+        vs_plain = f"; against the float32 plain version {w32:.3f}"
     ms = time_ms(lambda: launch(*inputs), reps)
     call_ms = time_ms(lambda: launch(*inputs), reps, queued=False)
     plain_ms = time_ms(lambda: plain(*inputs), max(3, reps // 4))
     lib_ms = time_ms(lambda: library(*inputs), reps) if library else None
-    bound, bound_by = bound_ms(nbytes, ops)
+    bound, bound_by = bound_ms(nbytes, ops, mma_ops)
     print(f"cuda kernel {label}: max_abs_err={err:.3e} (worst err/limit "
-          f"{worst:.3f}) ms={ms:.4f} (call with the host's cost: "
+          f"{worst:.3f}{'' if reference is None else ' against float64'}"
+          f"{vs_plain}) "
+          f"ms={ms:.4f} (call with the host's cost: "
           f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
-          f"bound_ms={bound:.4f} ({bound_by}: {nbytes:.0f} B, {ops:.0f} ops)")
+          f"bound_ms={bound:.4f} ({bound_by}: {nbytes:.0f} B, {ops:.0f} "
+          f"element-wise ops, {mma_ops:.0f} product ops)")
     if not all(torch.isfinite(g).all() for g in got):
         fail(f"{label}: kernel output not finite")
     if not worst <= 1.0:
@@ -726,34 +760,42 @@ def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
 #: float32 sum over K argues for more, three times the plain version's
 #: own distance from the same function in float64 (a chain fed by an
 #: unscaled product, as bench_anchor_fusion's MLP block is, carries the
-#: sum's rounding into values near zero).  The score_mod instance of B4
-#: keeps B4's own limit (``agreement`` at RTOL).
+#: sum's rounding into values near zero).  B4, with and without
+#: score_mod, keeps its own limit (``agreement`` at RTOL), held against
+#: its function evaluated in float64: its split products sum more
+#: exactly than the float32 plain version, which itself sits at 0.4-1.3
+#: of that limit from float64 (``kernels/split_float.py``, on the card),
+#: so the float32 plain version is printed beside it, not held to.
 B3_RTOL, B3_SUM_FACTOR = 1e-5, 3.0
 
 
-def anchored_work(em, graph) -> tuple[int, int]:
-    """(bytes, operations) of one anchored kernel: its inputs read once
-    and outputs written once; 2 operations a multiply-add of each product
-    over its contracted extent, plus the chains' element operations."""
+def anchored_work(em, graph) -> tuple[int, int, int]:
+    """(bytes, element-wise operations, product operations) of one
+    anchored kernel: its inputs read once and outputs written once; the
+    chains' element operations; 2 operations a multiply-add of each
+    product over its contracted extent."""
     members = frozenset(n for p in em.parts for n in p)
     nbytes = (sum(graph.node(i).nbytes for i in em.ext_ids)
               + sum(graph.node(o).nbytes for o in em.out_ids))
     ops = graph.subgraph_flops(members)
+    mma = 0
     for a in members:
         node = graph.node(a)
         if node.prim == "dot_general":
             (lc, _), _ = node.params["dimension_numbers"]
             lhs = graph.node(node.inputs[0]).spec.shape
-            ops += 2 * node.spec.size * math.prod(lhs[d] for d in lc)
-    return nbytes, ops
+            mma += 2 * node.spec.size * math.prod(lhs[d] for d in lc)
+    return nbytes, ops, mma
 
 
 def float64_outputs(em, graph, vals) -> list:
     """The anchored group's function evaluated op by op in float64 on the
-    card: B3's yardstick for the float32 sum's own rounding."""
+    card: B3's yardstick for the float32 sum's own rounding, B4's
+    reference."""
     from repro_torch.core.tracer import run_subgraph
 
-    env = {i: v.double() for i, v in zip(em.ext_ids, vals)}
+    env = {i: v.double() if v.is_floating_point() else v
+           for i, v in zip(em.ext_ids, vals)}
     members = sorted(n for p in em.parts for n in p)
     run_subgraph(graph, members, env, vals[0].device)
     return [env[o] for o in em.out_ids]
@@ -768,7 +810,7 @@ def check_anchored(em, graph, gen, *, label: str, reps: int,
     import torch
 
     vals = random_inputs(em, graph, gen) if inputs is None else inputs
-    nbytes, ops = anchored_work(em, graph)
+    nbytes, ops, mma = anchored_work(em, graph)
     scored = getattr(em.fn, "score_mod", None) is not None
     max_rtol = None
     if not scored:
@@ -782,9 +824,11 @@ def check_anchored(em, graph, gen, *, label: str, reps: int,
               f"float64 {sum_err:.3e} (max|plain| {scale:.3f}): limit "
               f"{max_rtol:.3e} max(1, max|plain|)")
         del want, ref
-    res = check_cuda_kernel(label, em.fn.launch, em.fn.plain, vals,
-                            nbytes=nbytes, ops=ops, reps=reps,
-                            library=library, max_rtol=max_rtol)
+    res = check_cuda_kernel(
+        label, em.fn.launch, em.fn.plain, vals, nbytes=nbytes, ops=ops,
+        mma_ops=mma, reps=reps, library=library, max_rtol=max_rtol,
+        reference=(lambda *v: float64_outputs(em, graph, list(v)))
+        if scored else None)
     return dict(res, _bytes=nbytes)
 
 
@@ -811,6 +855,16 @@ def anchored_of(fn, args) -> tuple:
         fail(f"{getattr(fn, '__name__', fn)}: no anchored group "
              f"({comp.report.schedules})")
     return comp, ems
+
+
+def product_call(M: int, K: int, N: int, gen):
+    """B3's library call: ``torch.matmul`` of an (M, K) by (K, N) float32
+    product alone (TF32 off), which computes less than B3."""
+    import torch
+
+    a = torch.randn(M, K, generator=gen, device="cuda")
+    b = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+    return lambda *v: torch.matmul(a, b)
 
 
 def t_gate(x, wg, wu):
@@ -867,8 +921,7 @@ def phase_anchored_kernels(gen) -> tuple[dict, dict]:
     Mp, K, N = BATCH * PROMPT, ANCHOR_K, ANCHOR_N
 
     def product_only(M, Kx, Nx):
-        a, b = randn(M, Kx), randn(Kx, Nx, scale=Kx ** -0.5)
-        return lambda *v: torch.matmul(a, b)
+        return product_call(M, Kx, Nx, gen)
 
     # the Llama MLP's gate projection (weights at the model's init scale)
     for label, M, main in (("prefill", Mp, True), ("decode", BATCH, False),
@@ -1060,10 +1113,11 @@ def phase_cuda_kernels(gen) -> dict:
             dict(res, _bytes=nb_b, _main=(R, C) == main_bwd))
 
     llama = (BATCH, 24, 8, 128)             # B, Hq, Hkv, D
-    hubert = (TRAIN_BATCH, 16, 16, 80)      # D 80: the D 128 instance
-    granite = (BATCH, 16, 8, 64)            # D 64: the D 64 instance
+    hubert = (TRAIN_BATCH, 16, 16, 80)      # D 80: its own instance
+    granite = (BATCH, 16, 8, 64)            # D 64
     granite_train = (TRAIN_BATCH, 16, 8, 64)
     zamba = (BATCH, 32, 32, 64)             # Zamba2's shared block
+    gemma = (BATCH, 16, 16, 256)            # Gemma-7B's heads: D 256
     for label, (B, Hq, Hkv, D), Sq, Skv, causal in (
             ("prefill causal", llama, 512, 512, True),
             ("ragged causal", llama, 500, 500, True),
@@ -1074,7 +1128,8 @@ def phase_cuda_kernels(gen) -> dict:
             ("moe train causal", granite_train, TRAIN_FRAMES, TRAIN_FRAMES,
              True),
             ("hybrid prefill causal", zamba, SERVE_PROMPT, SERVE_PROMPT,
-             True)):
+             True),
+            ("gemma-7b heads causal", gemma, PROMPT, PROMPT, True)):
         q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
         k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
         # v as the model hands it over: [B, S, H, D] transposed (strided)
@@ -1093,9 +1148,12 @@ def phase_cuda_kernels(gen) -> dict:
             lambda a, b, c, _c=causal: FA.flash_attention_cuda(a, b, c, _c),
             lambda a, b, c, _c=causal: FA.flash_attention_plain(a, b, c, _c),
             (q, k, v), nbytes=4 * (2 * q.numel() + 2 * k.numel()),
-            ops=4 * D * B * Hq * pairs, reps=20, library=lib)
+            ops=0, mma_ops=4 * D * B * Hq * pairs, reps=20, library=lib,
+            reference=lambda a, b, c, _c=causal: FA.flash_attention_plain(
+                a.double(), b.double(), c.double(), _c))
         checks.setdefault("flash_attention", []).append(
-            dict(res, _bytes=4 * (2 * q.numel() + 2 * k.numel())))
+            dict(res, _bytes=4 * (2 * q.numel() + 2 * k.numel()),
+                 _main=label == "prefill causal"))
 
     # the SSD scan (B11) at Mamba2's prefill, Zamba2's prefill and
     # Mamba2's train batch
@@ -1104,13 +1162,13 @@ def phase_cuda_kernels(gen) -> dict:
             ("zamba2 prefill", (BATCH, PROMPT, 64, 64, 64)),
             ("mamba2 train", (TRAIN_BATCH, TRAIN_FRAMES, 32, 64, 128))):
         ins = ssd_inputs(gen, b, L, H, P, N)
-        nbytes, ops = ssd_work(b, L, H, P, N, SSD_CHUNK)
+        nbytes, ops, mma = ssd_work(b, L, H, P, N, SSD_CHUNK)
         res = check_cuda_kernel(
             f"ssd_scan {label} b{b} L{L} H{H} P{P} N{N} chunk{SSD_CHUNK} "
             "(x, B, C strided)",
             lambda *a: SS.ssd_scan_cuda(*a, SSD_CHUNK),
             lambda *a: SS.ssd_scan_plain(*a, SSD_CHUNK), ins, nbytes=nbytes,
-            ops=ops, reps=20, max_rtol=SSD_RTOL)
+            ops=ops, mma_ops=mma, reps=20, max_rtol=SSD_RTOL)
         checks.setdefault("ssd_scan", []).append(
             dict(res, _bytes=nbytes, _main=label == "mamba2 prefill"))
 
@@ -1141,7 +1199,8 @@ def phase_cuda_kernels(gen) -> dict:
             f"D{D}",
             lambda a, b, c, _n=n: FA.flash_decode_cuda(a, b, c, _n),
             lambda a, b, c, _n=n: FA.flash_decode_plain(a, b, c, _n),
-            (q, k, v), nbytes=nbytes, ops=ops, reps=10 if eff > 1e5 else 20,
+            (q, k, v), nbytes=nbytes, ops=0, mma_ops=ops,
+            reps=10 if eff > 1e5 else 20,
             rtol=decode_rtol(eff),
             library=lambda a, b, c, _e=eff: F.scaled_dot_product_attention(
                 a[:, :, None], b[:, :, :_e], c[:, :, :_e],
@@ -1151,6 +1210,40 @@ def phase_cuda_kernels(gen) -> dict:
         del q, k, v
     torch.cuda.empty_cache()
     return checks
+
+
+def sass_check() -> None:
+    """Whether each instance of B3 and B4 built in this run holds
+    tensor-core instructions, read with ``cuobjdump -sass`` on its
+    library: ``HGMMA`` (``wgmma``) in every B3 kernel, ``HMMA`` with
+    ``.TF32`` (``mma.sync``) in every B4 kernel.  Printed once; a kernel
+    without them fails the run."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    libs = sorted(_build.BUILD_DIR.glob("mm_*.so")) + sorted(
+        _build.BUILD_DIR.glob("attn_*.so")) + sorted(
+        _build.BUILD_DIR.glob("flash_attention-*.so"))
+    bad = []
+    for lib in libs:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        b3 = lib.name.startswith("mm_")
+        for fn in sass.split("Function : ")[1:]:
+            name = fn.split("\n", 1)[0].strip()
+            if ("mm_fused_kernel" if b3 else "flash_fwd_kernel") not in name:
+                continue
+            lines = fn.splitlines()
+            n = sum(("HGMMA" in ln) if b3 else ("HMMA" in ln and "TF32" in ln)
+                    for ln in lines)
+            inst = ("B3 " if b3 else "B4 ") + lib.name.split("-")[0]
+            print(f"sass {inst} {name[:90]}: {n} "
+                  f"{'HGMMA' if b3 else 'HMMA .TF32'}")
+            if n == 0:
+                bad.append(f"{inst} {name[:60]}")
+    if bad:
+        fail(f"no tensor-core instruction in {bad}")
 
 
 #: The static-decode paths' cache lengths: the reference's decode_32k and
@@ -1190,20 +1283,22 @@ def ssd_inputs(gen, b: int, L: int, H: int, P: int, N: int):
 
 
 def ssd_work(b: int, L: int, H: int, P: int, N: int,
-             c: int) -> tuple[int, int]:
-    """(bytes, operations) of one scan: each input read once and each
-    output written once (float32); the products the function needs, at 2
-    operations a multiply-add -- C B^T [c, c] over N once per (batch,
-    chunk), since B and C are one group that all heads share (the kernel,
-    like the TPU kernel, recomputes it per head: that extra work is not
-    the function's), then per (batch, head, chunk) W x over c, C h^T and
-    the state update over c -- plus the element-wise terms (the decay and
-    dt of W, y's scale and sum, the state's decay, the cumulative sum)."""
+             c: int) -> tuple[int, int, int]:
+    """(bytes, element-wise operations, product operations) of one scan:
+    each input read once and each output written once (float32); the
+    products the function needs, at 2 operations a multiply-add -- C B^T
+    [c, c] over N once per (batch, chunk), since B and C are one group
+    that all heads share (the kernel, like the TPU kernel, recomputes it
+    per head: that extra work is not the function's), then per (batch,
+    head, chunk) W x over c, C h^T and the state update over c; the
+    element-wise terms (the decay and dt of W, y's scale and sum, the
+    state's decay, the cumulative sum)."""
     nbytes = 4 * (2 * b * L * H * P + b * L * H + H + 2 * b * L * N
                   + b * H * P * N)
-    per_head = (2 * c * c * P + 4 * c * P * N
-                + 4 * c * c + 3 * c * P + 2 * P * N + 4 * c)
-    return nbytes, b * (L // c) * (2 * c * c * N + H * per_head)
+    chunks = b * (L // c)
+    mma = chunks * (2 * c * c * N + H * (2 * c * c * P + 4 * c * P * N))
+    elem = chunks * H * (4 * c * c + 3 * c * P + 2 * P * N + 4 * c)
+    return nbytes, elem, mma
 
 
 def launch_counts() -> dict:
@@ -2035,6 +2130,7 @@ def main() -> int:
                                           STATIC_KV)
     long_launches = phase_static_decode(gen, HYBRID_ARCH, 1, LONG_KV)
     print(f"static decode phases: {time.perf_counter() - t_static:.1f} s")
+    sass_check()
 
     kernels = []
     for name, route, source, replaces in (

@@ -1247,7 +1247,8 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
     row_reduce = any(graph.node(n).kind is OpKind.REDUCE for n in epi)
     tile = mm.pick_tile(M, N, row_reduce)
     tiles = ([mm.TILES.index(mm.TILE_ROW)] if row_reduce else
-             [mm.TILES.index(mm.TILE_LARGE), mm.TILES.index(mm.TILE_SMALL)])
+             [mm.TILES.index(t) for t in (mm.TILE_LARGE, mm.TILE_SMALL,
+                                          mm.TILE_DECODE)])
 
     def source() -> str:
         return cc.matmul_source(
@@ -1362,7 +1363,7 @@ def _emit_anchored_attention(graph: Graph, parts, m: dict, ext_ids,
     fn.extent = (B, H, Sq, Sk)
     union = frozenset(n for p in parts for n in p)
     bq = max(1, min(fa.FLASH_BQ, Sq))
-    n_steps = B * H * math.ceil(Sq / bq) * math.ceil(Sk / fa.FLASH_BK)
+    n_steps = B * H * math.ceil(Sq / bq) * math.ceil(Sk / fa.flash_kbk(D))
     est = _anchored_estimate(graph, union, hw, bq, n_steps)
     rb, rk = max(1, min(128, Sq)), max(1, min(128, Sk))
     tpu = rb * D * 4 + rk * D * 8 + rb * rk * 4 + rb * (D + 2) * 4

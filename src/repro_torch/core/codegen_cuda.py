@@ -162,7 +162,8 @@ def _members(graph: Graph, order: Sequence[int]) -> list[int]:
 def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
                     operands: Sequence[int], lhs: int) -> str:
     """``Pro``: the lhs element (m, k) from the prologue operands (in
-    ``operands`` order; a lone lhs operand when the prologue is empty)."""
+    ``operands`` order; a lone lhs operand when the prologue is empty,
+    and then ``kIdentity``: the kernel copies the raw float32 lhs)."""
     members = _members(graph, order)
     body = [_load(k, graph.node(i).spec.dtype,
                   _role_index(roles[i], "m", "k", "K"))
@@ -175,8 +176,11 @@ def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
         body.append(w.stmt(nid))
     body.append(f"return static_cast<float>({w.val(lhs)});")
     n = len(operands)
+    identity = (not members and list(operands) == [lhs]
+                and graph.node(lhs).spec.dtype == "float32")
     return "\n".join([
         "struct Pro {",
+        f"  static constexpr bool kIdentity = {str(identity).lower()};",
         f"  static constexpr int kIn = {n};",
         f"  const void* in[{max(1, n)}];",
         "  __host__ __device__ float operator()(long long m, long long k,",
@@ -317,15 +321,20 @@ def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
     harness for the CPU tests."""
     from ..kernels.matmul import TILES
 
-    cases = []
+    cases, asserts = [], []
     for t in tiles:
         c = TILES[t]
         cases.append(f"    case {t}: return static_cast<int>(repro_mm::launch<"
-                     f"{c.bm}, {c.bn}, {c.bk}, {c.tm}, {c.tn}>(pro, rhs, epi, "
-                     "M, K, N, s));")
+                     f"{c.template_args}>(pro, rhs, epi, M, K, N, s));")
+        smem = (f"{c.bm}, {c.bn}, {c.bk}, {c.stages}, {c.raw_stages}, "
+                f"{c.wn}, {c.am}")
+        asserts.append(f"static_assert(repro_mm::smem_bytes({smem}) == "
+                       f"{c.smem_bytes}, \"kernels/matmul.py::TILES[{t}]\");")
     return "\n".join([
         _HEAD, '#include "matmul_fused.cuh"', "", "namespace {", pro, "",
-        epi, "}  // namespace", "", "#ifdef __CUDACC__",
+        epi, "}  // namespace", "",
+        "// the shared memory the H100 gate prices is the instance's own",
+        *asserts, "", "#ifdef __CUDACC__",
         'extern "C" int repro_mm_fused(int tile, const void* const* pro_in,',
         "                              const float* rhs,",
         "                              const void* const* epi_in,",

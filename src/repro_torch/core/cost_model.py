@@ -69,6 +69,14 @@ class Hardware:
         # half for the in/out double-buffer pair, half for scratch
         return self.vmem_bytes // 2
 
+    @property
+    def anchor_budget(self) -> int:
+        """What an anchored kernel's working set may take: on the TPU the
+        reference's half of VMEM (the other half double-buffers); on the
+        GPU one block's whole shared memory, since the CUDA instance's own
+        figure already counts its ring of stages."""
+        return self.vmem_bytes if self.platform == "gpu" else self.vmem_budget
+
 
 V5E = Hardware()
 
@@ -80,10 +88,11 @@ V5E = Hardware()
 #: PyTorch launch) and ``hbm_latency_s`` are assumed, not measured.  The
 #: generated kernels keep a value's whole block in registers: 8192
 #: elements (32 per thread at 8 warps) per value.  ``peak_flops`` is the
-#: float32 rate of the CUDA cores: the anchored kernels run float32 FMA.
+#: rate of the anchored kernels' products: the tensor cores' 495 TFLOP/s
+#: of TF32 over the three products of the float32 split.
 H100 = Hardware(hbm_bw=3.35e12, vpu_ops=33.5e12, vmem_bytes=232_448,
                 launch_s=5e-6, hbm_latency_s=1e-6, platform="gpu",
-                max_block_elems=8192, peak_flops=67e12)
+                max_block_elems=8192, peak_flops=495e12 / 3)
 
 #: Block-row candidates the codegen enumerates (launch-dimension analogue).
 BLOCK_ROWS = (1, 8, 16, 32, 64, 128, 256)
@@ -684,8 +693,9 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     that kernel's own tile constants; None where no instance can run the
     group: a prologue that reduces (the kernel stages the lhs k-tile by
     k-tile, never a whole row of K), an epilogue that reduces over an N
-    wider than the row tile, a value outside float32 and bool, or an
-    attention head dim the flash kernel has no instance for."""
+    wider than the row tile or with more reductions than its slots, a
+    value outside float32 and bool, or an attention head dim the flash
+    kernel has no instance for."""
     from ..kernels import flash_attention as fa
     from ..kernels import matmul as mm
 
@@ -696,7 +706,8 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
             return None
     if len(anchors) == 2:
         q = graph.node(graph.node(anchors[0]).inputs[0]).spec
-        if q.dtype != "float32" or not q.shape                 or q.shape[-1] > fa.MAX_HEAD_DIM:
+        if (q.dtype != "float32" or not q.shape
+                or q.shape[-1] > fa.MAX_HEAD_DIM):
             return None
         return fa.flash_smem_bytes(q.shape[-1])
     if len(anchors) != 1:
@@ -717,6 +728,8 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
         return None                      # prologue reduction over K
     if reduces and N > mm.TILE_ROW.bn:
         return None                      # the row of N exceeds one block
+    if len(reduces) > mm.MAX_SLOTS:
+        return None                      # more row reductions than slots
     return mm.TILES[mm.pick_tile(M, N, bool(reduces))].smem_bytes
 
 
@@ -747,7 +760,7 @@ def anchor_gain(graph: Graph, anchors, parts, hw: Hardware = H100,
         latency_gain_s=saved / hw.hbm_bw + launches_saved,
         hbm_bytes_saved=saved,
         vmem_bytes=-1 if vmem is None else vmem,
-        feasible=vmem is not None and vmem <= hw.vmem_budget,
+        feasible=vmem is not None and vmem <= hw.anchor_budget,
     )
 
 

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), float32, head_dim <= 128.
+// Flash attention forward for Hopper (sm_90a), float32 on the tensor
+// cores, head dims 64, 80, 128 and 256.
 //
 // Replaces the TPU kernel `_attn_kernel` / `flash_attention`
 // (src/repro/kernels/flash_attention.py:31,87); this file is its
@@ -12,25 +13,19 @@
 // division by max(l, 1e-30) -- the reference's semantics step by step.
 //
 // Bound: operations.  At the prefill shape (B 4, Hq 24, S 512, D 128,
-// causal) the two products are about 6.4 GFLOP against 50 MB moved.
+// causal) the two products are about 6.5 GFLOP against 67 MB moved.
 // The TPU kernel walks the K tiles as a sequential grid axis and carries
-// the running max, sum and accumulator in VMEM between grid steps.  CUDA
-// blocks run in no order, so here one block of 256 threads owns one
-// (batch, head, 64-row query tile) and loops over the 64-row K/V tiles
-// itself, with the running max, sum and accumulator in registers, in
-// float32.  Each thread owns 4 query rows (ty + 16 i) and, of the score
-// tile, 4 key columns (tx + 16 j), of the output 4 rows by D/16 columns
-// (tx + 16 j); a row's max and sum are shuffles over its 16 threads.
-// Q, K, V and the probabilities of one tile sit in shared memory
-// (115 KB at D 128, above the 48 KB default: the launch raises the
-// limit first).  K tiles wholly above the causal diagonal are skipped:
-// the reference computes them, but each leaves (m, l, acc) unchanged.
-// The products run as FMA on the CUDA cores: no tensor-core path in
-// float32 yet.
+// the running max, sum and accumulator in VMEM between grid steps; CUDA
+// blocks run in no order, so here one block of 4 warps owns one (batch,
+// head, 64-row query tile) and loops over the K/V tiles itself, with the
+// running max, sum and accumulator in registers.  Both products run on
+// the tensor cores (mma.sync m16n8k8, TF32) through the three-way split
+// of float32 values; the design is in flash_attention.cuh.
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch.  q, k, v are taken with their element strides (the last
-// dimension must be contiguous); o is a contiguous [B, Hq, Sq, D].
+// dimension contiguous, rows 16-byte aligned); o is a contiguous
+// [B, Hq, Sq, D]; D is one of the instances' head dims.
 #include "flash_attention.cuh"
 
 extern "C" int repro_flash_attention_f32(

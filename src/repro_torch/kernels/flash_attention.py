@@ -20,6 +20,11 @@ the reference's ``_attention_bwd`` does (``src/repro/kernels/ops.py:56-70``):
 the JAX package has no attention backward kernel, so the backward is
 plain ops on the card by the reference's own design.
 
+The kernel runs both products on the tensor cores through the
+three-way TF32 split (``kernels/split_float.py``), in instances for
+head dims 64, 80, 128 and 256 (``FLASH_HEAD_DIMS``; a D between two is
+zero-padded up to the next, one above 256 raises).
+
 ``flash_attention(q, k, v, causal, scale)`` runs the operator
 ``repro_torch::flash_attention``: on CPU tensors ``flash_attention_plain``,
 on CUDA tensors ``flash_attention_cuda`` (the kernel, or an error), on
@@ -46,13 +51,16 @@ import torch
 
 from . import _build, ref
 
-MAX_HEAD_DIM = 128
-#: The kernel's tile constants, mirrored from ``csrc/flash_attention.cuh``
-#: (``kBQ``, ``kBK``; a test holds the two equal): query rows a block,
-#: key rows a tile, and the head-dim instances (D is padded up to one).
+MAX_HEAD_DIM = 256
+#: The kernel's constants, mirrored from ``csrc/flash_attention.cuh`` (a
+#: test holds the two equal): query rows a block (``kBQ``), the head-dim
+#: instances (a D between them is zero-padded up to the next), K/V rows a
+#: tile (``kbk``), the largest D whose Q is split into registers
+#: (``qreg``; above it Q sits in shared memory), and the row strides of
+#: the K (and Q) and V tiles (``kstride``, ``vstride``).
 FLASH_BQ = 64
-FLASH_BK = 64
-FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_HEAD_DIMS = (64, 80, 128, 256)
+FLASH_QREG_MAX_D = 80
 
 
 def flash_instance(D: int) -> int:
@@ -63,13 +71,30 @@ def flash_instance(D: int) -> int:
     raise ValueError(f"flash attention: head dim {D} > {MAX_HEAD_DIM}")
 
 
+def flash_kbk(D: int) -> int:
+    """K/V rows a tile of the instance that runs ``D``: 32 where its Q
+    tile takes shared memory, else 64."""
+    return 64 if flash_instance(D) <= FLASH_QREG_MAX_D else 32
+
+
 def flash_smem_bytes(D: int) -> int:
-    """Shared memory of one block of the instance that runs ``D``: the Q
-    and K tiles with one float of padding a row, the V tile and the
-    probabilities (``smem_floats`` in ``csrc/flash_attention.cuh``)."""
-    dmax = flash_instance(D)
-    return 4 * (FLASH_BQ * (dmax + 1) + FLASH_BK * (dmax + 1)
-                + FLASH_BK * dmax + FLASH_BQ * (FLASH_BK + 1))
+    """Shared memory of one block of the instance that runs ``D``: the K
+    and V tiles of the two-stage ring (rows padded to D + 8 and D + 4
+    floats) and, above ``FLASH_QREG_MAX_D``, the Q tile (``smem_floats``
+    in ``csrc/flash_attention.cuh``)."""
+    d = flash_instance(D)
+    q = 0 if d <= FLASH_QREG_MAX_D else FLASH_BQ * (d + 8)
+    return 4 * (2 * flash_kbk(D) * ((d + 8) + (d + 4)) + q)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernel can read it with float4 loads (last dimension
+    contiguous, the base and every other stride 16-byte aligned), else a
+    contiguous copy in storage of its own (aligned by the allocator)."""
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 4 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
@@ -145,12 +170,14 @@ def flash_attention_plain(q, k, v, causal: bool = True,
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          scale: float | None = None, *, score_mod=None,
                          score_args=()) -> torch.Tensor:
-    """Launch the CUDA kernel (float32, D <= 128, on the current stream):
+    """Launch the CUDA kernel (float32, D <= 256, on the current stream):
     the identity instance of ``csrc/flash_attention.cu``, or with
     ``score_mod`` its generated instance, whose score operands are read
     through 4D strides (0 on each dim of extent 1).  q, k, v are taken
-    with their strides; only a last dimension that is not contiguous is
-    copied (device time)."""
+    with their strides; a tensor the kernel cannot read with 16-byte
+    copies (a last dimension that is not contiguous, an unaligned stride
+    or base) is copied, and a head dim between two instances is
+    zero-padded up to the next (device time)."""
     _check_shapes(q, k, v, causal)
     if score_mod is not None:
         _check_score_args(q, k, score_args)
@@ -167,17 +194,21 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_cuda: head dim {D} > "
                          f"{MAX_HEAD_DIM}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty(B, Hq, Sq, D, dtype=torch.float32, device=dev)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
+    Dp = flash_instance(D)
+    if Dp != D:  # zero dims add nothing to q k^T; o's are cut off below
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D))
+                   for t in (q, k, v))
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    o = torch.empty(B, Hq, Sq, Dp, dtype=torch.float32, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, *q.stride()[:3], *k.stride()[:3],
+            B, Hq, Hkv, Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], float(scale), int(causal))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if score_mod is None:
         _build.check(_entry()(*args, stream), "repro_flash_attention_f32")
         flash_attention_cuda.launches += 1
-        return o
+        return o if Dp == D else o[..., :D]
     if any(a.device != dev or a.dtype not in (torch.float32, torch.bool)
            for a in score_args):
         raise TypeError("flash_attention_cuda: score operands must be "
@@ -190,7 +221,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     _build.check(score_mod.entry(*args, ins, st, stream),
                  "repro_flash_scored")
     ScoreMod.launches += 1
-    return o
+    return o if Dp == D else o[..., :D]
 
 
 flash_attention_cuda.launches = 0  # identity-instance launches
@@ -322,16 +353,6 @@ def decode_splits(pairs: int, eff: int) -> tuple[int, int]:
     per = -(-eff // want)
     rows = -(-per // DECODE_ROW_QUANTUM) * DECODE_ROW_QUANTUM
     return -(-eff // rows), rows
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if the kernel can read it with float4 loads (last dimension
-    contiguous, the base and every other stride 16-byte aligned), else a
-    contiguous copy in storage of its own (aligned by the allocator)."""
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:-1])):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,

@@ -18,10 +18,13 @@ panel resident in VMEM.  An H100 block has at most 227 KB of shared
 memory, a 3072 x 8192 panel is 100 MB: the CUDA kernel
 (``csrc/matmul_fused.cuh``, instantiated per chain by
 ``core/codegen_cuda.py``) is a GPU GEMM instead -- a grid over (N tiles,
-M tiles), a loop over K through shared memory, a register tile per
-thread, float32 FMA (no TF32).  ``TILES`` holds its tile constants; the
-cost model's H100 feasibility gate (``cost_model._anchor_vmem``) and the
-launcher read them from here, so the two cannot drift apart.
+M tiles), a loop over K through a ring of shared-memory stages, the
+products on the tensor cores (``wgmma``) through the three-way TF32
+split (``kernels/split_float.py``), float32 results.  ``TILES`` holds
+its tile constants; the cost model's H100 feasibility gate
+(``cost_model._anchor_vmem``) and the launcher read them from here, so
+the two cannot drift apart (the generated source asserts each
+instance's shared memory against ``Tile.smem_bytes``).
 
 ``matmul_fused`` runs the plain version (``torch.matmul`` between the
 chains, evaluated on whole tensors) for CPU tensors and the generated
@@ -44,46 +47,90 @@ DEFAULT_BLOCK_M = 128
 @dataclass(frozen=True)
 class Tile:
     """One instance of the CUDA template: a (bm, bn) output tile a block,
-    K staged bk at a time, a (tm, tn) register tile a thread."""
+    K staged bk at a time; ``raw_stages`` float32 k-tiles in flight
+    (cp.async), split into a ring of ``stages`` TF32 operand tiles; bm /
+    64 x ``wn`` consumer warpgroups (each 64 rows by bn / wn columns,
+    ``wn`` of them along N) and ``producers`` producer warpgroups (each
+    the k-tiles of its residue); the products of ``promote`` k-tiles
+    summed on the tensor cores from zero, then added into the
+    accumulator; ``a_rows`` (8) keeps only 8 lhs rows in shared memory,
+    for M <= 8."""
     bm: int
     bn: int
     bk: int
-    tm: int
-    tn: int
+    stages: int
+    raw_stages: int
+    wn: int = 1
+    promote: int = 1
+    producers: int = 1
+    a_rows: int = 0
+
+    @property
+    def am(self) -> int:
+        """Rows of the lhs operand tile: ``bm``, or ``a_rows`` (8) on the
+        decode tile, which takes M <= 8 only."""
+        return self.a_rows or self.bm
+
+    @property
+    def consumers(self) -> int:
+        return self.bm // 64 * self.wn
 
     @property
     def threads(self) -> int:
-        return (self.bm // self.tm) * (self.bn // self.tn)
+        return 128 * (self.consumers + self.producers)
+
+    @property
+    def template_args(self) -> str:
+        """The arguments of ``repro_mm::launch`` for this instance."""
+        return (f"{self.bm}, {self.bn}, {self.bk}, {self.stages}, "
+                f"{self.raw_stages}, {self.wn}, {self.promote}, "
+                f"{self.producers}, {self.am}")
 
     @property
     def smem_bytes(self) -> int:
-        """Shared memory of one block: the lhs tile stored k-major with
-        ``A_PAD`` floats of padding a row, and the rhs tile."""
-        return 4 * (self.bk * (self.bm + A_PAD) + self.bk * self.bn)
+        """Shared memory of one block (``smem_bytes`` in
+        ``csrc/matmul_fused.cuh``): the operand stages (big and small TF32
+        tiles of the lhs and the rhs), the raw stages (the lhs rows padded
+        by 4 floats), the exchange of the row reductions where ``wn`` > 1,
+        and two barriers a stage."""
+        op = self.stages * 2 * (self.am + self.bn) * self.bk
+        raw = self.raw_stages * (self.am * (self.bk + 4) + self.bk * self.bn)
+        xch = self.wn * self.bm * MAX_SLOTS * 4 if self.wn > 1 else 0
+        return 4 * (op + raw) + xch + 16 * self.stages
 
 
-#: floats of padding on each k-row of the staged lhs tile
-A_PAD = 4
-#: prefill-sized M: 128 x 128 a block, 8 x 8 a thread (256 threads)
-TILE_LARGE = Tile(128, 128, 16, 8, 8)
-#: where the large tile leaves SMs idle (decode's M 4): 16 x 32 a block,
-#: 128 deep, so that N / 32 blocks stream the panel with 16 KB of it in
-#: flight a block (bytes bound there)
-TILE_SMALL = Tile(16, 32, 128, 2, 2)
-#: epilogues that reduce over N: the whole row of N in one block (its 32
-#: threads along N are one warp, reduced by shuffles)
-TILE_ROW = Tile(16, 256, 16, 2, 8)
-TILES = (TILE_LARGE, TILE_SMALL, TILE_ROW)
+#: row reductions an epilogue may hold (``kMaxSlots``)
+MAX_SLOTS = 8
+#: prefill-sized M: 128 x 128 a block (two consumer warpgroups of 64 x
+#: 128, two producers), 16 deep, 6 raw and 3 operand stages, a partial
+#: sum each 32 of K (208,944 bytes: one block an SM)
+TILE_LARGE = Tile(128, 128, 16, 3, 6, promote=2, producers=2)
+#: where the large tile leaves SMs idle (decode's M 4): 64 x 32 a block,
+#: 32 deep, 3 raw and 3 operand stages (113,712 bytes: two blocks an SM),
+#: so that N / 32 blocks stream the panel (bytes bound there), a partial
+#: sum each 64 of K
+TILE_SMALL = Tile(64, 32, 32, 3, 3, promote=2)
+#: epilogues that reduce over N: the whole row of N (<= 256) in one block,
+#: two consumer warpgroups of 64 x 128 side by side along N, two producers
+TILE_ROW = Tile(64, 256, 16, 3, 4, wn=2, promote=2, producers=2)
+#: decode (M <= 8): 8 lhs rows in shared memory, which frees it for 12
+#: raw stages (11 k-tiles of the panel in flight a block) and two blocks
+#: an SM, N / 32 blocks streaming the panel (bytes bound)
+TILE_DECODE = Tile(64, 32, 32, 3, 12, promote=2, a_rows=8)
+TILES = (TILE_LARGE, TILE_SMALL, TILE_ROW, TILE_DECODE)
 #: the H100's streaming multiprocessors
 SMS = 132
 
 
 def pick_tile(M: int, N: int, row_reduce: bool) -> int:
     """Index into ``TILES`` of the instance an (M, N) call runs: the row
-    tile for an epilogue that reduces over N, else the large tile where
-    it gives every SM a block, else the small one."""
+    tile for an epilogue that reduces over N, else the decode tile for M
+    <= 8, the large tile where it gives every SM a block, else the small
+    one."""
     if row_reduce:
         return TILES.index(TILE_ROW)
+    if M <= TILE_DECODE.am:
+        return TILES.index(TILE_DECODE)
     large = -(-M // TILE_LARGE.bm) * -(-N // TILE_LARGE.bn)
     return TILES.index(TILE_LARGE if large >= SMS else TILE_SMALL)
 

@@ -1,0 +1,282 @@
+"""The three-way TF32 split that B3 and B4 run on the tensor cores, in
+plain PyTorch.
+
+A float32 value x is written as ``big = tf32(x)`` plus ``small =
+tf32(x - big)``, each rounded as ``cvt.rna.tf32.f32`` rounds (to nearest,
+ties away from zero, 10 mantissa bits kept), so ``big + small`` is x to
+about 2^-22 of |x|.  A product then takes three TF32 products into one
+float32 sum,
+
+    a b ~ big_a big_b + big_a small_b + small_a big_b,
+
+and drops ``small_a small_b``, below 2^-22 of |a b|.  A product of two
+TF32 values is exact in float32 (11 by 11 significant bits), so the
+split's only roundings are the float32 sum's and the two dropped terms.
+``csrc/matmul_fused.cuh`` (B3, ``wgmma``) and ``csrc/flash_attention.cuh``
+(B4, ``mma.sync``) compute exactly this; the functions here are its plain
+version, for the CPU tests (``tests/test_torch_split_float.py``) and for
+the measurement on the card:
+
+    PYTHONPATH=src python -m repro_torch.kernels.split_float
+
+which, at the shapes the main path gives the two kernels, holds the split
+product (three TF32 products on the card's tensor cores, summed in
+float32) and the plain float32 product against float64, and prints the
+worst ratio of each to the limit ``chip_smoke.py`` holds the kernels to.
+"""
+from __future__ import annotations
+
+import json
+import math
+
+import torch
+
+#: ``chip_smoke.py``'s limits (a test holds the two files equal): B3 within
+#: B3_RTOL max(1, max|plain|) + B3_SUM_FACTOR (the plain version's own
+#: distance from float64); B4 within RTOL |plain| + RTOL mean|plain|.
+B3_RTOL, B3_SUM_FACTOR = 1e-5, 3.0
+RTOL = 1e-5
+#: K chunks measured for B3: one k-tile of each instance
+B3_CHUNKS = (16, 32, 64)
+#: head-dim chunks measured for B4's q k^T (a partial sum a chunk)
+B4_D_CHUNKS = (8, 16, 32)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32 bits: add half of the last kept
+    mantissa bit to the magnitude, clear the 13 dropped bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of a float32 tensor: both TF32 values."""
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor,
+                 chunk: int | None = None) -> torch.Tensor:
+    """``a @ b`` (float32, [..., M, K] by [..., K, N]) as the kernels take
+    it: the three TF32 products, exact, summed in float32.  ``chunk``
+    None: one float32 sum over the concatenated K of the three terms (on
+    the card, one tensor-core accumulator over all of K); else K in
+    chunks of ``chunk``, each chunk's three products summed from zero
+    (one tensor-core accumulator a chunk), the chunks' partial sums then
+    added in order in float32, rounded to nearest."""
+    ab, as_ = split(a.float())
+    bb, bs = split(b.float())
+    K = a.shape[-1]
+    step = K if chunk is None else chunk
+    out = None
+    for k0 in range(0, K, step):
+        sl = slice(k0, min(K, k0 + step))
+        part = torch.matmul(
+            torch.cat([as_[..., sl], ab[..., sl], ab[..., sl]], -1),
+            torch.cat([bb[..., sl, :], bs[..., sl, :], bb[..., sl, :]], -2))
+        out = part if out is None else out + part
+    return out
+
+
+def attention(q, k, v, *, causal: bool, scale: float | None = None,
+              bias=None, product=torch.matmul, pv=None) -> torch.Tensor:
+    """Attention over [B, H, S, D] (k, v with Hkv heads), q k^T taken by
+    ``product`` and p v by ``pv`` (default ``product``): ``torch.matmul``
+    for the plain float32 version, ``split_matmul`` for the split one."""
+    pv = product if pv is None else pv
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    sc = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = q.reshape(B, Hkv, g * Sq, D)
+    s = product(qf, k.transpose(-1, -2)).reshape(B, Hkv, g, Sq, Skv) * sc
+    if bias is not None:
+        s = s + bias.reshape(1, 1, 1, Sq, Skv)
+    if causal:
+        row = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        col = torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(row >= col, s, -1e30)
+    p = torch.softmax(s, -1).reshape(B, Hkv, g * Sq, Skv)
+    return pv(p, v).reshape(B, Hq, Sq, D)
+
+
+def b3_ratio(got, plain, f64) -> float:
+    """The worst ratio of |got - plain| to B3's limit."""
+    sum_err = float((plain.double() - f64).abs().max())
+    scale = max(1.0, float(plain.abs().max()))
+    limit = B3_RTOL * scale + B3_SUM_FACTOR * sum_err
+    return float((got - plain).abs().max()) / limit
+
+
+def b4_ratio(got, want) -> float:
+    """The worst ratio of |got - want| to B4's limit, RTOL |want| + RTOL
+    mean|want| elementwise."""
+    w = want.float()
+    limit = (RTOL * w.abs() + RTOL * float(w.abs().mean())) \
+        .clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got.float() - w).abs() / limit).max())
+
+
+def _measure() -> list[dict]:
+    """Step 0 of the tensor-core design, on the card: the split against
+    the plain float32 product and float64 at the main path's shapes."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = True   # the split's terms are
+    torch.backends.cudnn.allow_tf32 = False        # TF32 values already
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    def plain_mm(a, b):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = True
+
+    rows = []
+
+    def b3_row(label, lhs, rhs, epi):
+        f64 = epi(lhs.double() @ rhs.double())
+        plain = epi(plain_mm(lhs, rhs))
+        row = {"kernel": "B3", "shape": label,
+               "plain_vs_f64": float((plain.double() - f64).abs().max()),
+               "max_abs_plain": float(plain.abs().max())}
+        for chunk in (None,) + B3_CHUNKS:
+            got = epi(split_matmul(lhs, rhs, chunk))
+            tag = "one_sum" if chunk is None else f"chunk{chunk}"
+            row[f"{tag}_err_over_limit"] = b3_ratio(got, plain, f64)
+            row[f"{tag}_vs_f64"] = float((got.double() - f64).abs().max())
+            del got
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    M, K, N = 2048, 3072, 8192
+    x, wg = randn(M, K), randn(K, N, scale=K ** -0.5)
+    up = plain_mm(x, randn(K, N, scale=K ** -0.5))
+    b3_row("llama gate + SiLU x up M2048 K3072 N8192", x, wg,
+           lambda h: F.silu(h) * up.to(h.dtype))
+    b3_row("decode M4 K3072 N8192", x[:4], wg,
+           lambda h: F.silu(h) * up[:4].to(h.dtype))
+    del wg, up
+    g, w1 = randn(K), randn(K, N)
+    lhs = x * g + 1.0
+    gelu = (lambda h: h * (0.5 * (1.0 + torch.tanh(
+        0.7978845608028654 * (h + 0.044715 * h ** 3)))))
+    b3_row("bench MLP group 0 M2048 K3072 N8192 (unscaled)", lhs, w1, gelu)
+    h = gelu(plain_mm(lhs, w1))
+    del w1, lhs
+    w2, r = randn(N, K), randn(M, K)
+    b3_row("bench MLP group 1 M2048 K8192 N3072 (unscaled)", h, w2,
+           lambda a: torch.tanh(a) + r.to(a.dtype))
+    del h, w2, r
+    w = randn(K, 256, scale=K ** -0.5)
+    b3_row("row-reducing epilogue M2048 K3072 N256 (RMSNorm)", x, w,
+           lambda a: a * torch.rsqrt((a ** 2).mean(-1, keepdim=True) + 1e-6))
+    del x, w
+
+    for label, (B, Hq, Hkv, S, D), causal, bias in (
+            ("llama prefill", (4, 24, 8, 512, 128), True, False),
+            ("hubert train", (8, 16, 16, 512, 80), False, False),
+            ("granite prefill", (4, 16, 8, 512, 64), True, False),
+            ("zamba2 prefill", (4, 32, 32, 500, 64), True, False),
+            ("score_mod llama heads + bias", (4, 24, 24, 512, 128), False,
+             True),
+            ("gemma-7b heads", (4, 16, 16, 512, 256), True, False)):
+        q, k, v = randn(B, Hq, S, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+        bb = randn(S, S) if bias else None
+        plain = attention(q, k, v, causal=causal, bias=bb, product=plain_mm)
+        f64 = attention(q.double(), k.double(), v.double(), causal=causal,
+                        bias=None if bb is None else bb.double())
+        row = {"kernel": "B4", "shape": f"{label} B{B} Hq{Hq} Hkv{Hkv} "
+                                        f"S{S} D{D}",
+               "plain_vs_f64_err_over_limit": b4_ratio(plain, f64)}
+        kt = 32 if D > 128 else 64
+        variants = [("one_sum", split_matmul, split_matmul),
+                    ("qk_only", split_matmul, plain_mm),
+                    ("pv_only", plain_mm, split_matmul)]
+        for dc in (None,) + B4_D_CHUNKS:
+            variants.append((
+                f"qk_chunk{dc or D}_pv_chunk{kt}",
+                lambda a, b, _c=dc: split_matmul(a, b, _c),
+                lambda a, b: split_matmul(a, b, kt)))
+        for tag, qk_, pv_ in variants:
+            got = attention(q, k, v, causal=causal, bias=bb, product=qk_,
+                            pv=pv_)
+            row[f"{tag}_err_over_limit"] = b4_ratio(got, plain)
+            row[f"{tag}_vs_f64_err_over_limit"] = b4_ratio(got, f64)
+            del got
+        if D == 80:
+            sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            row["sdpa_vs_plain_err_over_limit"] = b4_ratio(sdpa, plain)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del q, k, v, plain, f64
+    return rows
+
+
+#: ``cvt.rna.tf32.f32`` against the kernels' integer form of it, on every
+#: float32 bit pattern below 3e38 in magnitude (2^28 a launch)
+_RNA_CHECK = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void rna_check(unsigned long long* bad, uint32_t base) {
+  const uint32_t bits = base + blockIdx.x * blockDim.x + threadIdx.x;
+  const float x = __uint_as_float(bits);
+  if (!(fabsf(x) < 3.0e38f)) return;
+  uint32_t c;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(c) : "f"(x));
+  if (c != ((bits + 0x1000u) & 0xFFFFE000u)) atomicAdd(bad, 1ull);
+}
+extern "C" int repro_rna_check(void* bad, unsigned base, void* stream) {
+  rna_check<<<(1 << 28) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(bad), base);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def rna_mismatches() -> int:
+    """Bit patterns on which the card's ``cvt.rna.tf32.f32`` and the
+    integer rounding the kernels use (and ``tf32_rna``) differ."""
+    import ctypes
+
+    from . import _build
+
+    fn = _build.generated_library("tf32_rna_check", _RNA_CHECK) \
+        .repro_rna_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for base in range(0, 1 << 32, 1 << 28):
+        _build.check(fn(bad.data_ptr(), base, stream), "repro_rna_check")
+    return int(bad.item())
+
+
+def main() -> int:
+    import subprocess
+
+    if not torch.cuda.is_available():
+        print("split_float: no CUDA device")
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    print(f"cvt.rna.tf32.f32 against the integer rounding: "
+          f"{rna_mismatches()} of the float32 bit patterns below 3e38 "
+          "differ")
+    rows = _measure()
+    for key in sorted({k for r in rows for k in r
+                       if k.endswith("err_over_limit")}):
+        print(f"worst {key} {max(r.get(key, 0.0) for r in rows):.4f} "
+              f"({card})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -182,17 +182,30 @@ def test_b3_wrapper_never_runs_plain_on_other_devices():
                         out_roles=["full"], out_dtypes=[torch.float32])
 
 
-def test_tiles_cover_the_template():
-    """Each instance splits its tiles evenly over its threads, and its
-    row threads fit one warp (the template's static asserts)."""
-    for t in MM.TILES:
-        assert (t.bm * t.bk) % t.threads == 0
-        assert (t.bk * t.bn) % t.threads == 0
-        nt = t.bn // t.tn
-        assert nt <= 32 and nt & (nt - 1) == 0 and t.threads <= 1024
-    assert MM.pick_tile(4, 8192, False) == MM.TILES.index(MM.TILE_SMALL)
+@pytest.mark.parametrize("tile", MM.TILES,
+                         ids=["large", "small", "row", "decode"])
+def test_tiles_cover_the_template(tile):
+    """Each instance meets the template's static asserts: whole
+    warpgroups of 64 rows, a ``wgmma`` width (32 or 128) a consumer,
+    k8 steps, the producer's 4-float tasks spread evenly over its 128
+    threads; a ring of at least two stages within one block's shared
+    memory, a partial sum held by at most ``stages`` operand stages; and
+    ``pick_tile`` picks by (M, N, row_reduce) alone."""
+    t = tile
+    assert t.bm % 64 == 0 and t.bn % (8 * t.wn) == 0 and t.bn % 32 == 0
+    assert t.bn // t.wn in (32, 128) and t.bk % 8 == 0
+    assert t.am == t.bm or (t.am == 8 and t.bm == 64 and t.wn == 1)
+    assert (t.bn * t.bk // 4) % 128 == 0
+    assert t.stages >= t.promote and t.producers in (1, 2)
+    assert t.raw_stages % t.producers == 0
+    assert t.raw_stages // t.producers >= 2
+    assert t.threads == 128 * (t.consumers + t.producers) <= 1024
+    assert t.smem_bytes <= tcost.H100.vmem_bytes
+    assert MM.pick_tile(4, 8192, False) == MM.TILES.index(MM.TILE_DECODE)
+    assert MM.pick_tile(9, 8192, False) == MM.TILES.index(MM.TILE_SMALL)
     assert MM.pick_tile(128, 256, False) == MM.TILES.index(MM.TILE_SMALL)
     assert MM.pick_tile(2048, 8192, False) == MM.TILES.index(MM.TILE_LARGE)
+    assert MM.pick_tile(2000, 8192, False) == MM.TILES.index(MM.TILE_LARGE)
     assert MM.pick_tile(4, 256, True) == MM.TILES.index(MM.TILE_ROW)
 
 
@@ -463,7 +476,7 @@ def test_h100_plans_the_llama_gate_projection_anchored(anchoring_on):
     CUDA instance's shared memory, not a resident panel) admits the MLP
     gate projection with its SiLU x up epilogue: in the forward block at
     M 2048 (the large tile) and in serving's decode ``block_post`` at
-    M 4 (the small tile); nothing else of the layer anchors."""
+    M 4 (the decode tile); nothing else of the layer anchors."""
     from repro_torch.models.model import block_post
 
     cfg = get_config("llama3.2-3b")
@@ -480,7 +493,89 @@ def test_h100_plans_the_llama_gate_projection_anchored(anchoring_on):
         functools.partial(block_post, cfg, TFusionMode("stitched")), p, E(4, 1, 3072), E(4, 24, 1, 128), E(4, 8, 1024, 128),
         E(4, 8, 1024, 128), torch.empty((), dtype=torch.int64, device="meta"))
     assert got == [([((4, 1, 3072), (3072, 8192))],
-                    ["logistic", "mul", "mul"], MM.TILE_SMALL.smem_bytes)]
+                    ["logistic", "mul", "mul"], MM.TILE_DECODE.smem_bytes)]
+
+
+def _meta_case(name):
+    """(fn, args, want) of one piece of a carried model at full width on
+    meta tensors, as its path compiles it: ``want`` is the list of
+    anchored groups (operand shapes of the product, the folded prims)."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models.model import (block_post, block_pre,
+                                          head_apply, mamba_block,
+                                          shared_pre)
+
+    fm = TFusionMode("stitched")
+    E = functools.partial(torch.empty, device="meta")
+    arch, piece = name.split(":")
+    cfg = get_config(arch)
+    B, S = 4, 512 if cfg.family != "hybrid" else 500
+    pos = torch.empty(S, dtype=torch.int64, device="meta")
+    h = E(B, S, cfg.d_model)
+    if piece == "mamba":
+        p = block_init(cfg, None, torch.float32, "meta")
+        c = TL.mamba_cache_init(cfg, B, torch.float32, "meta")
+        return (functools.partial(mamba_block, cfg, fm), (p, h, c["conv"],
+                                                          c["ssm"]), [])
+    if piece == "head":
+        p = {"final_norm": TL.norm_init(cfg, torch.float32, "meta"),
+             "lm_head": E(cfg.d_model, cfg.padded_vocab)}
+        return functools.partial(head_apply, cfg, fm), (p, h), []
+    if cfg.family == "hybrid":
+        p = {"norm1": {"g": E(2 * cfg.d_model)},
+             "attn": TL.attn_init(cfg, None, torch.float32, "meta",
+                                  d_in=2 * cfg.d_model),
+             "norm2": TL.norm_init(cfg, torch.float32, "meta"),
+             "mlp": TL.mlp_init(cfg, None, torch.float32, "meta")}
+        x = torch.cat([h, h], -1)
+        if piece == "pre":
+            return (functools.partial(shared_pre, cfg, fm), (p, h, h, pos),
+                    [])
+    else:
+        p = block_init(cfg, None, torch.float32, "meta")
+        x = h
+        if piece == "pre":
+            return functools.partial(block_pre, cfg, fm), (p, h, pos), []
+    q, k, v = TL.attn_qkv(cfg, p["attn"], x, pos)
+    want = {"llama3.2-3b": [([((B, S, 3072), (3072, 8192))],
+                             ["logistic", "mul", "mul"])],
+            "zamba2-1.2b": [([((B, S, 2048), (2048, 8192))],
+                             ["add", "add", "integer_pow", "mul", "mul",
+                              "mul", "mul", "mul", "tanh"])]}.get(arch, [])
+    return functools.partial(block_post, cfg, fm), (p, h, q, k, v), want
+
+
+H100_PIECES = ["llama3.2-3b:pre", "llama3.2-3b:post", "llama3.2-3b:head",
+               "zamba2-1.2b:pre", "zamba2-1.2b:post", "zamba2-1.2b:mamba",
+               "granite-moe-1b-a400m:pre", "granite-moe-1b-a400m:post",
+               "mamba2-370m:mamba"]
+
+
+@pytest.mark.parametrize("name", H100_PIECES)
+def test_h100_anchoring_decisions_at_the_carried_shapes(anchoring_on, name):
+    """The H100 gate's decisions on every path's pieces at full width:
+    the MLP gate projection anchored in Llama's layer (SiLU x up) and in
+    Zamba2's shared block (GeGLU), each on the large tile; nothing in the
+    attention half, the head (its RMSNorm prologue reduces over K), the
+    MoE layer or the Mamba layers.  Whole-block shared memory as the
+    budget admits no more than half of it did."""
+    fn, args, want = _meta_case(name)
+    rep, got = _h100_anchored(fn, *args)
+    assert rep.n_anchored == len(want)
+    assert [g[:2] for g in got] == want
+    assert all(g[2] == MM.TILE_LARGE.smem_bytes for g in got)
+
+
+@pytest.mark.parametrize("name,n_b3,n_scored", [("mlp", 2, 0),
+                                                ("attn", 0, 1)])
+def test_h100_plans_the_bench_blocks_as_two_b3_and_one_score_mod(
+        anchoring_on, name, n_b3, n_scored):
+    fn, args = {"mlp": (t_mlp, _mlp_args()), "attn": (t_attn,
+                                                     _attn_args())}[name]
+    c = tcore.stitched_jit(fn, device="cpu").compiled(*_t(args))
+    ems = [e for e in c.emitted if e.kind == "anchored"]
+    scored = [e for e in ems if getattr(e.fn, "score_mod", None)]
+    assert len(ems) - len(scored) == n_b3 and len(scored) == n_scored
 
 
 def _matmul_then(epilogue, N, K=64, M=32):
@@ -522,28 +617,74 @@ def test_h100_attention_gate_is_the_flash_instance(anchoring_on):
     args = _t(_attn_args(S=64, D=64))
     rep, got = _h100_anchored(t_attn, *[a.to("meta") for a in args])
     assert rep.n_anchored == 1 and got[0][2] == FA.flash_smem_bytes(64)
-    big = [torch.empty(1, 2, 64, 160, device="meta")] * 3 \
+    # head dim 160 runs zero-padded on the D 256 instance; 264 has none
+    pad = [torch.empty(1, 2, 64, 160, device="meta")] * 3 \
+        + [torch.empty(1, 1, 64, 64, device="meta")]
+    rep, got = _h100_anchored(t_attn, *pad)
+    assert rep.n_anchored == 1 and got[0][2] == FA.flash_smem_bytes(256)
+    big = [torch.empty(1, 2, 64, 264, device="meta")] * 3 \
         + [torch.empty(1, 1, 64, 64, device="meta")]
     rep, _ = _h100_anchored(t_attn, *big)
-    assert rep.n_anchored == 0  # head dim 160: no flash instance
+    assert rep.n_anchored == 0  # head dim 264: no flash instance
 
 
-def test_gate_constants_are_the_kernels_own():
-    """The Python tile constants the gate reads are the ones the CUDA
-    sources use: the matmul template takes its tiles as template
-    arguments from ``kernels.matmul.TILES``; the flash kernel's block
-    sizes and the lhs padding are mirrored and must agree."""
-    cuh = open(f"{CSRC}/flash_attention.cuh").read()
-    assert int(re.search(r"kBQ = (\d+)", cuh).group(1)) == FA.FLASH_BQ
-    assert int(re.search(r"kBK = (\d+)", cuh).group(1)) == FA.FLASH_BK
+def test_h100_gate_admits_a_head_dim_256_attention_group(anchoring_on):
+    """Gemma-7B's heads (16 x 256): the D 256 flash instance takes more
+    than half a block's shared memory (the TPU's double-buffer rule), and
+    the H100 gate admits it against one block's whole 232,448 bytes."""
+    args = [torch.empty(4, 16, 512, 256, device="meta")] * 3 \
+        + [torch.empty(1, 1, 512, 512, device="meta")]
+    rep, got = _h100_anchored(t_attn, *args)
+    assert FA.flash_smem_bytes(256) > tcost.H100.vmem_budget
+    assert FA.flash_smem_bytes(256) <= tcost.H100.anchor_budget
+    assert rep.n_anchored == 1 and got[0][2] == FA.flash_smem_bytes(256)
+
+
+@pytest.mark.parametrize("part", ["flash", "matmul"])
+def test_gate_constants_are_the_kernels_own(part):
+    """The Python constants the gate reads are the ones the CUDA sources
+    use.  Flash attention: its block rows, head-dim instances, K/V tile
+    rows, register-Q limit and row strides are mirrored, and
+    ``flash_smem_bytes`` is ``smem_floats`` evaluated on the parsed
+    constants.  The matmul template takes its tiles as template
+    arguments from ``kernels.matmul.TILES``, and the generated source
+    asserts (at compile time, g++ here and nvcc on the card) that each
+    instance's shared memory is ``Tile.smem_bytes``."""
+    if part == "flash":
+        cuh = open(f"{CSRC}/flash_attention.cuh").read()
+        bq = int(re.search(r"kBQ = (\d+)", cuh).group(1))
+        assert bq == FA.FLASH_BQ
+        kb_q, kb_smem = map(int, re.search(
+            r"kbk\(int d\) \{ return qreg\(d\) \? (\d+) : (\d+);",
+            cuh).groups())
+        qreg = int(re.search(r"qreg\(int d\) \{ return d <= (\d+);",
+                             cuh).group(1))
+        assert qreg == FA.FLASH_QREG_MAX_D
+        ks = int(re.search(r"kstride\(int d\) \{ return d \+ (\d+);",
+                           cuh).group(1))
+        vs = int(re.search(r"vstride\(int d\) \{ return d \+ (\d+);",
+                           cuh).group(1))
+        dims = tuple(int(d) for d in re.findall(r"p\.D == (\d+)", cuh))
+        assert dims == FA.FLASH_HEAD_DIMS
+        for d in dims:
+            kbk = kb_q if d <= qreg else kb_smem
+            assert FA.flash_kbk(d) == kbk
+            floats = 2 * kbk * ((d + ks) + (d + vs)) \
+                + (0 if d <= qreg else bq * (d + ks))
+            assert FA.flash_smem_bytes(d) == 4 * floats
+        return
     mm = open(f"{CSRC}/matmul_fused.cuh").read()
-    assert int(re.search(r"kAPad = (\d+)", mm).group(1)) == MM.A_PAD
+    assert int(re.search(r"kMaxSlots = (\d+)", mm).group(1)) == MM.MAX_SLOTS
     fn, args = _matmul_then(lambda h: torch.tanh(h) * 2.0 + 1.0, 64)
     em = next(e for e in tcore.stitched_jit(fn, device="cpu")
               .compiled(*args).emitted if e.kind == "anchored")
     src = em.fn.entry.source
-    for t in (MM.TILE_LARGE, MM.TILE_SMALL):
-        assert f"launch<{t.bm}, {t.bn}, {t.bk}, {t.tm}, {t.tn}>" in src
+    for t in (MM.TILE_LARGE, MM.TILE_SMALL, MM.TILE_DECODE):
+        assert f"launch<{t.template_args}>" in src
+        assert t.template_args.startswith(
+            f"{t.bm}, {t.bn}, {t.bk}, {t.stages}, {t.raw_stages}, {t.wn}, ")
+        assert (f"smem_bytes({t.bm}, {t.bn}, {t.bk}, {t.stages}, "
+                f"{t.raw_stages}, {t.wn}, {t.am}) == {t.smem_bytes}") in src
 
 
 # ---------------------------------------------------------------------------

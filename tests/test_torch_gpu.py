@@ -189,7 +189,7 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn(4, 64, device="cuda")
     with pytest.raises(TypeError):
         RN.rmsnorm_cuda(x.half(), torch.ones(64, device="cuda").half(), 1e-6)
-    q = torch.randn(1, 2, 8, 256, device="cuda")
+    q = torch.randn(1, 2, 8, 264, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_cuda(q, q, q, False, None)
 

@@ -4,18 +4,27 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card (Triton
-compiles the generated kernels there; nothing is downloaded).  Phases,
-each of which makes the script exit non-zero when it fails:
+compiles the generated one-pass kernels there, nvcc the CUDA sources and
+the generated streaming and anchored kernels; nothing is downloaded).
+Phases, each of which makes the script exit non-zero when it fails:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Kernels: each generated kernel against its plain PyTorch version on
-   the card, in float32 -- the one-pass kernel on the quickstart LayerNorm
-   at [8192, 3072], the streaming kernel on a softmax at [2048, 128256],
-   a one-pass kernel of expm1, log1p and tanh (libdevice) at |x| <=
-   1e-4, and one of the rest of the reference's vocabulary (round, erfc,
-   cbrt, pow, atan2, rem, nextafter at [4096, 1024]; the prod/and/or
-   row reductions at [65536, 64]), each element held to 1e-5 of its
-   plain value --
+   the card -- the one-pass kernel on the quickstart LayerNorm at [8192,
+   3072]; the streaming kernel (B2: a row held on chip across a cluster
+   of up to eight CTAs, its K, slice and staged columns printed on its
+   line) on a softmax at [2048, 128256], a three-phase LayerNorm at
+   [1024, 65536], a softmax over rows longer than a cluster holds ([64,
+   600000]), an RMSNorm of bfloat16 rows at [2048, 32768] with a float32
+   and with a bfloat16 output; a one-pass kernel of expm1, log1p and tanh
+   (libdevice) at |x| <= 1e-4; and the rest of the reference's vocabulary
+   (round, erfc, cbrt, pow, atan2, rem, nextafter; the prod/and/or row
+   reductions) as one-pass kernels at [4096, 1024] and [65536, 64] and
+   as streaming kernels at [64, 131072] and [256, 131072] (there the
+   product's factors powers of two, exact in any order) -- each element
+   held to 1e-5 |plain| + 1e-5 mean|plain| (the expm1 and vocabulary
+   groups to 1e-5 |plain| alone; a bfloat16 output to one bfloat16 ulp,
+   2^-7 |plain|, the rounding of its own last step) --
    with kernel, plain and library-call times (CUDA events, median, the
    call queued behind a device sleep so only device time counts) and
    the least time the card could take (bytes over 3.35 TB/s, element-wise
@@ -41,9 +50,11 @@ each of which makes the script exit non-zero when it fails:
    RMSNorm kernel also at the recurrent paths' prefill (2000), decode (4)
    and train (4096) rows at 1,024 (Mamba2's blocks), 2,048 (its gated
    norm, Zamba2's blocks) and 4,096 columns (Zamba2's concat and gated
-   norm; no train rows); and the SSD scan kernel at Mamba2's
+   norm; no train rows); and the SSD scan kernel (B11: three launches
+   a call, its products on the tensor cores) at Mamba2's
    prefill ([4, 512, 32, 64], N 128), Zamba2's prefill ([4, 512, 64, 64],
-   N 64) and Mamba2's train batch ([8, 512, 32, 64], N 128), x, B and C
+   N 64), Mamba2's train batch ([8, 512, 32, 64], N 128) and a head dim
+   and state that no config carries ([2, 512, 16, 32], N 96), x, B and C
    strided slices of one [b, L, conv_dim] activation as the model passes
    them, y and the state each within 1e-4 max(1, max|plain|); and the
    flash decode kernel at Llama's decode_32k ([4, 24 (Hkv 8), 32768,
@@ -116,13 +127,14 @@ each of which makes the script exit non-zero when it fails:
    d_model 1024, 32 heads of 64, state 128, float32) through
    ``generate`` as in 5, with the prompt at its exact 500 tokens (a
    recurrent prefill takes no pad): the SSD kernel once a layer per
-   prefill, none per decode step.
+   prefill (three launches a call), none per decode step.
 10. Hybrid serving path: Zamba2-1.2B the same way (38 Mamba layers, state
    64, the shared attention block before every 6th layer: 7 KV caches),
    flash attention once a shared application per prefill.
 11. SSM train path: Mamba2-370m through ``build_trainer`` as in 6, batch
-   8 x 512 tokens, the SSD kernel once a layer per step (its backward is
-   the VJP of the plain oracle, as in the reference).
+   8 x 512 tokens, the SSD kernel once a layer per step (three launches a
+   call; its backward is the VJP of the plain oracle, as in the
+   reference).
 12. Static-decode paths (``make_decode_step(mdl, kv_len)``, the
    reference's decode cells): Llama-3.2-3B at decode_32k (28 layers,
    batch 4, a 30 GB cache of 32,768 rows from the seeded generator) and
@@ -131,11 +143,11 @@ each of which makes the script exit non-zero when it fails:
    positions each: compile seconds, ms per step, launches per step (flash
    decode once an attention layer), a profile of one step, every step's
    logits held against the plain path fed the same tokens.
-13. Whether each B3 and B4 instance built in the run holds tensor-core
-   instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA`` ``.TF32``
-   in B4), printed once; then a ``{"kernels": [...]}`` summary line (per
-   kernel: the times of its
-   main-path instance, else of its checked instance that moves the most
+13. Whether each B3, B4 and B11 instance built in the run holds
+   tensor-core instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA``
+   ``.TF32`` in B4 and in B11's chunk and output passes), printed once;
+   then a ``{"kernels": [...]}`` summary line (per kernel: the times of
+   its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
    times were taken, launches by path), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -270,25 +282,36 @@ def agreement(got, want, rtol: float = RTOL,
               floor: float = FLOOR) -> tuple[float, float]:
     """(max |got - want|, the largest ratio of |got - want| to its limit
     rtol |want| + floor mean|want|) over matching output tensors: the
-    check passes while the ratio is at most 1."""
+    check passes while the ratio is at most 1.  Where ``want`` is not
+    finite (the function's own value there, as fmod by zero), ``got``
+    must be the same NaN or infinity, else both numbers are infinite;
+    the finite elements are held to the limit, with the mean taken over
+    them."""
     import torch
 
     err = worst = 0.0
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
-        diff = (g - w).abs()
-        limit = (rtol * w.abs() + floor * float(w.abs().mean())) \
+        fin = torch.isfinite(w)
+        same = torch.where(fin, torch.isfinite(g),
+                           (g == w) | (torch.isnan(g) & torch.isnan(w)))
+        if not bool(same.all()):
+            return math.inf, math.inf
+        diff = torch.where(fin, (g - w).abs(), 0.0)
+        mean = float(w[fin].abs().mean()) if bool(fin.any()) else 0.0
+        limit = (rtol * w.abs() + floor * mean) \
             .clamp_min(torch.finfo(torch.float32).tiny)
         err = max(err, float(diff.max()))
-        worst = max(worst, float((diff / limit).max()))
+        worst = max(worst, float(torch.where(fin, diff / limit, 0.0).max()))
     return err, worst
 
 
 def check_kernel(em, graph, gen, *, label: str, reps: int,
                  library=None, inputs=None, rtol: float = RTOL,
-                 floor: float = FLOOR) -> dict:
-    """Hold one generated kernel against its plain version on the card,
-    on ``inputs`` (else standard normal ones).
+                 floor: float = FLOOR, want=None, keep: bool = False) -> dict:
+    """Hold one generated kernel against its plain version on the card
+    (or against ``want``, where given), on ``inputs`` (else standard
+    normal ones); ``keep`` returns its outputs too (``_got``).
 
     Tolerance: ``agreement`` (per element, relative to the plain value).
     Launches made here are reset before the main path and never counted
@@ -299,7 +322,8 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
     kern = em.fn
     vals = random_inputs(em, graph, gen) if inputs is None else inputs
     got = kern.launch(*vals)
-    want = kern.plain(torch.device("cuda"), *vals)
+    if want is None:
+        want = kern.plain(torch.device("cuda"), *vals)
     torch.cuda.synchronize()
     err, worst = agreement(got, want, rtol, floor)
     per_out = [round(agreement([g], [w], rtol, floor)[1], 4)
@@ -310,8 +334,12 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
                        max(3, reps // 4))
     lib_ms = time_ms(lambda: library(*vals), reps) if library else None
     bound, bound_by, nbytes, ops = kernel_bound(em, graph)
+    geometry = f"BR={kern.BR}"
+    if kern.schedule == "streaming":
+        K, width, staged = kern.cluster()
+        geometry = f"cluster={K} slice={width} staged={staged}"
     print(f"kernel {kern.schedule:9s} {label}: R={kern.R} C={kern.C} "
-          f"BR={kern.BR} max_abs_err={err:.3e} (worst err/limit "
+          f"{geometry} max_abs_err={err:.3e} (worst err/limit "
           f"{worst:.3f}, limit {rtol:g}|plain| + {floor:g} mean|plain|) "
           f"ms={ms:.4f} (call with the host's cost: {call_ms:.4f}) "
           f"plain_ms={plain_ms:.4f} library_ms="
@@ -319,14 +347,17 @@ def check_kernel(em, graph, gen, *, label: str, reps: int,
           f"bound_ms={bound:.4f} ({bound_by}: {nbytes} B, {ops} ops)"
           + (f" worst err/limit by output {per_out}" if len(got) > 1
              else ""))
-    if not all(torch.isfinite(g.float()).all() for g in got):
-        fail(f"{label}: kernel output not finite")
+    if not all(bool((torch.isfinite(g.float())
+                     | ~torch.isfinite(w.float())).all())
+               for g, w in zip(got, want)):
+        fail(f"{label}: kernel output not finite where its reference is")
     if not worst <= 1.0:
         fail(f"{label}: kernel disagrees with its plain version "
              f"(worst err/limit {worst:.3f})")
     return {"max_abs_err": err, "worst": worst, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms, "_bytes": nbytes}
+            "library_ms": lib_ms, "_bytes": nbytes,
+            **({"_got": got} if keep else {})}
 
 
 def only_generated(compiled, schedule: str):
@@ -355,11 +386,66 @@ def phase_kernels(gen) -> None:
                  library=lambda xv, gv, bv: torch.nn.functional.layer_norm(
                      xv, (3072,), gv, bv, 1e-6))
 
-    xs = torch.randn(2048, 128256, generator=gen, device="cuda")
-    c = stitched_jit(lambda v: torch.softmax(v, -1)).compiled(xs)
-    em = only_generated(c, "streaming")
-    check_kernel(em, c.graph, gen, label="softmax [2048, 128256]", reps=10,
-                 library=lambda v: torch.softmax(v, -1))
+    def normalize(x):  # layer_norm without gamma and beta
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + 1e-6)
+
+    # the streaming kernel (B2): the head's softmax, a three-phase
+    # LayerNorm with and without its column inputs gamma and beta (read
+    # from device memory in the last phase), rows longer than a cluster
+    # holds, bfloat16 rows
+    for (R, C), fn, label, lib in (
+            ((2048, 128256), lambda v: torch.softmax(v, -1), "softmax",
+             lambda v: torch.softmax(v, -1)),
+            ((1024, 65536), layer_norm, "layernorm (three phases)",
+             lambda xv, gv, bv: torch.nn.functional.layer_norm(
+                 xv, (xv.shape[-1],), gv, bv, 1e-6)),
+            ((1024, 65536), normalize,
+             "layernorm without gamma and beta (three phases)",
+             lambda xv: torch.nn.functional.layer_norm(
+                 xv, (xv.shape[-1],), None, None, 1e-6)),
+            ((64, 600000), lambda v: torch.softmax(v, -1),
+             "softmax longer than a cluster holds",
+             lambda v: torch.softmax(v, -1))):
+        args = [torch.randn(R, C, generator=gen, device="cuda")]
+        if fn is layer_norm:
+            args += [torch.randn(C, generator=gen, device="cuda")
+                     for _ in range(2)]
+        c = stitched_jit(fn).compiled(*args)
+        em = only_generated(c, "streaming")
+        check_kernel(em, c.graph, gen, label=f"{label} [{R}, {C}]",
+                     reps=10, library=lib,
+                     inputs=ordered(c, em, args))
+        del args, c, em
+
+    def rms_f32(x, g):  # bfloat16 rows in, float32 out
+        xf = x.float()
+        return xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + 1e-6) * g
+
+    def rms_bf16(x, g):  # bfloat16 rows in and out, float32 inside
+        return rms_f32(x, g).to(x.dtype)
+
+    # the float32 output against the plain version; the bfloat16 output
+    # (same cluster geometry, same sums) bit for bit against the float32
+    # kernel's output rounded to nearest even
+    xb = torch.randn(2048, 32768, generator=gen, device="cuda").bfloat16()
+    gb = torch.randn(32768, generator=gen, device="cuda")
+    want = None
+    for fn, out in ((rms_f32, "float32"), (rms_bf16, "bfloat16")):
+        c = stitched_jit(fn).compiled(xb, gb)
+        em = only_generated(c, "streaming")
+        exact = want is not None
+        res = check_kernel(
+            em, c.graph, gen, label=f"rmsnorm bfloat16 in, {out} out "
+            "[2048, 32768]" + (" (bit for bit: the float32 kernel's output "
+                               "rounded)" if exact else ""), reps=10,
+            inputs=ordered(c, em, [xb, gb]), want=want, keep=not exact,
+            rtol=0.0 if exact else RTOL, floor=0.0 if exact else FLOOR,
+            library=lambda xv, gv, _f=fn: _f(xv, gv))
+        if not exact:
+            want = [res["_got"][0].to(torch.bfloat16)]
+    del xb, gb, want, res
 
     # expm1, log1p and tanh (libdevice) near 0, each element held to a
     # relative limit alone: exp(x) - 1 is off by up to 2^-24 / |x| relative
@@ -380,27 +466,49 @@ def phase_kernels(gen) -> None:
     # length (up to ~n 2^-24 relative), past 1e-5 at 1,024 factors.
     from repro_torch.core.codegen import emit_pattern
 
-    for (R, C), reductions, label in (
-            ((4096, 1024), False, "round+erfc+cbrt+pow+atan2+rem+nextafter"),
-            ((65536, 64), True, "reduce_prod+reduce_and+reduce_or")):
-        g, pat = vocabulary_group(R, C, reductions)
-        em = emit_pattern(g, pat)
-        if not em.generated:
-            fail(f"the vocabulary group ran {em.kind}, not as a generated "
-                 "kernel")
+    # the streaming rows are forced with a planner budget that admits the
+    # seven-output group's column tile (the H100 preset runs it packed)
+    import dataclasses
+    from repro_torch.core import H100
+
+    wide = dataclasses.replace(H100, vmem_bytes=1 << 20)
+    elementwise = "round+erfc+cbrt+pow+atan2+rem+nextafter"
+    reductions = "reduce_prod+reduce_and+reduce_or"
+    for (R, C), reduces, label, kind in (
+            ((4096, 1024), False, elementwise, "onepass"),
+            ((65536, 64), True, reductions, "onepass"),
+            ((64, 131072), False, elementwise, "streaming"),
+            ((256, 131072), True, reductions, "streaming")):
+        g, pat = vocabulary_group(R, C, reduces,
+                                  exact_prod=kind == "streaming")
+        em = emit_pattern(g, pat, hw=wide if kind == "streaming" else H100)
+        if em.kind != kind:
+            fail(f"the vocabulary group at [{R}, {C}] ran {em.kind}, not "
+                 f"as a {kind} kernel")
         x = torch.randn(R, C, generator=gen, device="cuda")
         y = torch.randn(R, C, generator=gen, device="cuda")
         check_kernel(em, g, gen, label=f"{label} [{R}, {C}]", reps=20,
                      inputs=[x, y], floor=0.0)
 
 
-def vocabulary_group(R: int, C: int, reductions: bool):
+def ordered(comp, em, args) -> list:
+    """The call's arguments in the order of the group's inputs."""
+    given = dict(zip(comp.graph.inputs, args))
+    return [given[i] for i in em.ext_ids]
+
+
+def vocabulary_group(R: int, C: int, reductions: bool,
+                     exact_prod: bool = False):
     """One group over x, y [R, C] with a node of each primitive the
     generator lowers through libdevice: round(4 x), erfc(x), cbrt(x),
     pow(|x| + 0.5, y), atan2(x, y), rem(10 x, y), nextafter(x, y); or
-    (``reductions``) of each new row reduction: prod(1 + x / 100), and(x
-    > -3), or(x > 3), beside x y.  Built in the IR: the tracer lowers no
-    aten op to round, erfc, cbrt, rem, nextafter or these reductions."""
+    (``reductions``) of each new row reduction: prod(1 + x / 100) --
+    with ``exact_prod``, of 2 where x > 3, 1/2 where x < -3 and 1
+    elsewhere (powers of two: exact in any order, however long the row;
+    a float32 product of 131,072 factors in another order is not) --
+    and(x > -3), or(x > 3), beside x y.  Built in the IR: the tracer
+    lowers no aten op to round, erfc, cbrt, rem, nextafter or these
+    reductions."""
     from repro_torch.core.classify import classify
     from repro_torch.core.ir import Graph, Node, OpKind, TensorSpec
     from repro_torch.core.tracer import make_fn
@@ -431,9 +539,15 @@ def vocabulary_group(R: int, C: int, reductions: bool):
                 add("rem", (add("mul", (x, const(10.0))), y)),
                 add("nextafter", (x, y))]
     else:
+        if exact_prod:
+            lo = add("select_n", (add("lt", (x, const(-3.0)), dtype="bool"),
+                                  const(1.0), const(0.5)))
+            factor = add("select_n", (add("gt", (x, const(3.0)),
+                                          dtype="bool"), lo, const(2.0)))
+        else:
+            factor = add("add", (const(1.0), add("mul", (x, const(0.01)))))
         outs = [add("mul", (x, y)),
-                add("reduce_prod", (add("add", (const(1.0), add(
-                    "mul", (x, const(0.01))))),), (R,), axes=(1,))]
+                add("reduce_prod", (factor,), (R,), axes=(1,))]
         for prim, thr in (("reduce_and", -3.0), ("reduce_or", 3.0)):
             gt = add("gt", (x, const(thr)), dtype="bool")
             outs.append(add(prim, (gt,), (R,), "bool", axes=(1,)))
@@ -474,8 +588,11 @@ def kernel_kind(name: str) -> str:
         return "cuda softmax"
     if "softmax_bwd_" in low:
         return "cuda softmax bwd"
-    if "ssd_scan_kernel" in low:
+    if any(k in low for k in ("ssd_chunk_kernel", "ssd_pass_kernel",
+                              "ssd_output_kernel")):
         return "cuda ssd"
+    if "stream_kernel" in low:
+        return "cuda streaming"
     if "mm_fused_kernel" in low:
         return "cuda matmul_fused"
     if low == "kernel":
@@ -1160,7 +1277,8 @@ def phase_cuda_kernels(gen) -> dict:
     for label, (b, L, H, P, N) in (
             ("mamba2 prefill", (BATCH, PROMPT, 32, 64, 128)),
             ("zamba2 prefill", (BATCH, PROMPT, 64, 64, 64)),
-            ("mamba2 train", (TRAIN_BATCH, TRAIN_FRAMES, 32, 64, 128))):
+            ("mamba2 train", (TRAIN_BATCH, TRAIN_FRAMES, 32, 64, 128)),
+            ("padded P32 N96", (2, PROMPT, 16, 32, 96))):
         ins = ssd_inputs(gen, b, L, H, P, N)
         nbytes, ops, mma = ssd_work(b, L, H, P, N, SSD_CHUNK)
         res = check_cuda_kernel(
@@ -1213,37 +1331,50 @@ def phase_cuda_kernels(gen) -> dict:
 
 
 def sass_check() -> None:
-    """Whether each instance of B3 and B4 built in this run holds
+    """Whether each instance of B3, B4 and B11 built in this run holds
     tensor-core instructions, read with ``cuobjdump -sass`` on its
     library: ``HGMMA`` (``wgmma``) in every B3 kernel, ``HMMA`` with
-    ``.TF32`` (``mma.sync``) in every B4 kernel.  Printed once; a kernel
-    without them fails the run."""
+    ``.TF32`` (``mma.sync``) in every B4 kernel and in B11's chunk and
+    output passes (its state pass multiplies nothing).  Printed once; a
+    kernel without them fails the run."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    libs = sorted(_build.BUILD_DIR.glob("mm_*.so")) + sorted(
-        _build.BUILD_DIR.glob("attn_*.so")) + sorted(
-        _build.BUILD_DIR.glob("flash_attention-*.so"))
+    # (library glob, B name, kernel name fragments with products)
+    kinds = (("mm_*.so", "B3", ("mm_fused_kernel",)),
+             ("attn_*.so", "B4", ("flash_fwd_kernel",)),
+             ("flash_attention-*.so", "B4", ("flash_fwd_kernel",)),
+             ("ssd_scan-*.so", "B11", ("ssd_chunk_kernel",
+                                       "ssd_output_kernel")))
     bad = []
-    for lib in libs:
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        b3 = lib.name.startswith("mm_")
-        for fn in sass.split("Function : ")[1:]:
-            name = fn.split("\n", 1)[0].strip()
-            if ("mm_fused_kernel" if b3 else "flash_fwd_kernel") not in name:
-                continue
-            lines = fn.splitlines()
-            n = sum(("HGMMA" in ln) if b3 else ("HMMA" in ln and "TF32" in ln)
-                    for ln in lines)
-            inst = ("B3 " if b3 else "B4 ") + lib.name.split("-")[0]
-            print(f"sass {inst} {name[:90]}: {n} "
-                  f"{'HGMMA' if b3 else 'HMMA .TF32'}")
-            if n == 0:
-                bad.append(f"{inst} {name[:60]}")
+    for pattern, which, kernels in kinds:
+        for lib in sorted(_build.BUILD_DIR.glob(pattern)):
+            bad += sass_of(cuobjdump, lib, which, kernels)
     if bad:
         fail(f"no tensor-core instruction in {bad}")
+
+
+def sass_of(cuobjdump, lib, which: str, kernels) -> list:
+    """Print the tensor-core instructions of each kernel of ``lib`` whose
+    name holds one of ``kernels``; return those without any."""
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    b3 = which == "B3"
+    bad = []
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if not any(k in name for k in kernels):
+            continue
+        lines = fn.splitlines()
+        n = sum(("HGMMA" in ln) if b3 else ("HMMA" in ln and "TF32" in ln)
+                for ln in lines)
+        inst = f"{which} {lib.name.split('-')[0]}"
+        print(f"sass {inst} {name[:90]}: {n} "
+              f"{'HGMMA' if b3 else 'HMMA .TF32'}")
+        if n == 0:
+            bad.append(f"{inst} {name[:60]}")
+    return bad
 
 
 #: The static-decode paths' cache lengths: the reference's decode_32k and
@@ -1456,10 +1587,13 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
              f"per prefill and {per_decode['softmax']} per decode step, "
              f"want {cfg.n_layers} (one a layer)")
     if recurrent:
+        from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL
+
         norms = 2 * cfg.n_layers + 2 * apps + 1
+        ssd = cfg.n_layers * LAUNCHES_PER_CALL
         for step, per, want in (
                 ("prefill", per_prefill, {"rmsnorm": norms, "flash_attention":
-                                          apps, "ssd_scan": cfg.n_layers}),
+                                          apps, "ssd_scan": ssd}),
                 ("decode step", per_decode, {"rmsnorm": norms,
                                              "flash_attention": 0,
                                              "ssd_scan": 0})):
@@ -2030,7 +2164,10 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
     want = {norm: 2 * L + 1, "flash_attention": L}
     if cfg.family == "ssm":  # the block's norm and the gated norm
-        want = {norm: 2 * L + 1, "flash_attention": 0, "ssd_scan": L}
+        from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL
+
+        want = {norm: 2 * L + 1, "flash_attention": 0,
+                "ssd_scan": L * LAUNCHES_PER_CALL}
     if norm == "layernorm":
         want["layernorm_bwd"] = 2 * L + 1
     if moe:
@@ -2136,7 +2273,7 @@ def main() -> int:
     for name, route, source, replaces in (
             ("onepass", "triton", "src/repro_torch/core/codegen.py",
              "src/repro/core/codegen.py:973"),
-            ("streaming", "triton", "src/repro_torch/core/codegen.py",
+            ("streaming", "cuda", "src/repro_torch/csrc/streaming.cuh",
              "src/repro/core/codegen.py:763"),
             ("rmsnorm", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:20"),

@@ -1,39 +1,43 @@
-"""Stitched-kernel code generation (paper §4) for Hopper, in Triton.
+"""Stitched-kernel code generation (paper §4) for Hopper.
 
 ``emit_pattern`` / ``emit_group`` compile one fusion pattern or stitch
 group.  A group whose union has a row view (``rowspec.analyze``) and only
 emittable primitives becomes ONE generated kernel:
 
-* ``OnePassKernel`` -- the *block composition* scheme.  Replaces the JAX
-  package's ``core/codegen.py::_emit_pallas`` (one Pallas TPU kernel per
-  group).  One program owns ``BR`` rows; each row is ``BLOCK_C =
-  next_pow2(C)`` columns wide with masked loads and stores; every member
-  is evaluated in topological order on that register block with roles
-  FULL (BR, BLOCK_C), ROW (BR, 1), COL (1, BLOCK_C) and SCALAR ();
-  reductions are ``tl.sum``/``tl.max`` over axis 1 with masked lanes set
-  to the identity; staged values stay register tensors; a recompute flip
-  re-emits the producer's expression at each use.
+* ``OnePassKernel`` -- the *block composition* scheme, in Triton.
+  Replaces the JAX package's ``core/codegen.py::_emit_pallas`` (one
+  Pallas TPU kernel per group).  One program owns ``BR`` rows; each row
+  is ``BLOCK_C = next_pow2(C)`` columns wide with masked loads and
+  stores; every member is evaluated in topological order on that
+  register block with roles FULL (BR, BLOCK_C), ROW (BR, 1), COL (1,
+  BLOCK_C) and SCALAR (); reductions are ``tl.sum``/``tl.max`` over axis
+  1 with masked lanes set to the identity; staged values stay register
+  tensors; a recompute flip re-emits the producer's expression at each
+  use.
 * ``StreamingKernel`` -- the multi-phase *streaming* scheme for rows too
-  long to keep on chip.  Replaces ``core/codegen.py::
+  long for registers, in CUDA C++.  Replaces ``core/codegen.py::
   _emit_pallas_streaming``.  The TPU kernel walks a sequential grid
   (rows, phases, column tiles) carrying VMEM accumulators between grid
-  steps; blocks on the card run in parallel in no order, so here each
-  program owns ``BR`` rows and itself loops over the phases and, inside
-  each, over ``BC``-wide column tiles, with one (BR, 1) f32 accumulator
-  per reduction in registers.  Phase p recomputes the nodes of reduce
-  level <= p; the tail tile is masked; outputs are stored in the last
-  phase.
+  steps and reads every full-row input once per phase.  Here
+  ``codegen_cuda.stream_struct`` writes the group as C++ of one element
+  in phases (phase p evaluates the nodes of reduce level <= p and
+  accumulates the reductions of level p + 1), and ``csrc/streaming.cuh``
+  holds each row on chip: split across a thread-block cluster of up to
+  eight CTAs, each staging its slice in shared memory once, the phases'
+  reductions combined across the cluster through distributed shared
+  memory, the outputs written in the last phase.
 
 Both kernels move only what the group reads and writes, so HBM bandwidth
 bounds them (a few element operations per byte, far below the card's
-balance point); the design keeps every intermediate of the group in
-registers, so each input is read once (one-pass) or once per phase
-(streaming) and each output written once.  ``BR`` and ``BC`` are the
-plan's block rows and columns, padded to powers of two; the preset's
+balance point); each input is read once and each output written once
+(the streaming kernel re-reads from device memory only the columns of a
+row longer than its cluster holds).  ``BR`` and ``BC`` are the plan's
+block rows and columns, padded to powers of two; the preset's
 ``Hardware.max_block_elems`` bounds them in the planner, not here.  The
-generator writes one
-``@triton.jit`` source per group into ``build/kernels`` (content-hashed)
-and imports it there, because Triton compiles from a source file.
+one-pass generator writes one ``@triton.jit`` source per group into
+``build/kernels`` (content-hashed) and imports it there, because Triton
+compiles from a source file; the streaming generator's ``.cu`` builds
+with ``nvcc`` at its first launch (``kernels/_build.py``).
 
 Beside each kernel is its plain PyTorch version, the *row-view
 evaluator* (``plain``): the same member walk on whole rows (one-pass) or
@@ -48,6 +52,7 @@ kernel).
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import importlib.util
 import math
@@ -59,6 +64,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..kernels import _build
+from . import codegen_cuda as cc
 from .cost_model import H100, Hardware, KernelEstimate, best_estimate, \
     block_fits, estimate_packed, next_pow2, reduce_levels, stitch_gain
 from .ir import Graph, OpKind
@@ -107,7 +114,8 @@ _REDUCES = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod",
             "reduce_and", "reduce_or"}
 
 #: Primitives a generated kernel may hold: the reference's set, lowered
-#: here to Triton and by ``codegen_cuda`` to CUDA C++.
+#: here to Triton (the one-pass kernel, and the tables below) and by
+#: ``codegen_cuda`` to CUDA C++ (the streaming and anchored kernels).
 EMITTABLE_PRIMS = frozenset(set(_TL_UNARY) | set(_TL_BINARY) | _SPECIAL
                             | set(_PASS) | _REDUCES | {"const"})
 
@@ -520,7 +528,9 @@ def _literal(value) -> str:
 
 
 class RowKernel:
-    """A generated kernel for one group plus its plain version.
+    """A generated kernel for one group plus its plain version: the
+    wrapper (CPU tensors run ``plain``, CUDA tensors ``launch``) and the
+    row views of its inputs and outputs.
 
     ``const_ids`` are multi-element constants the group reads: they are
     kernel inputs like ``ext_ids`` (materialized on the call's device).
@@ -544,8 +554,6 @@ class RowKernel:
                           and graph.node(i).spec.size > 1]
         self.block_rows = max(1, min(block_rows, self.R))
         self.recompute = frozenset(recompute)
-        self._src: str | None = None
-        self._kernel = None
 
     # -- wrapper ---------------------------------------------------------------
     def __call__(self, device, *vals) -> tuple:
@@ -581,6 +589,24 @@ class RowKernel:
                 shape, dtype=TORCH_DTYPES[self.graph.node(o).spec.dtype],
                 device=device))
         return outs
+
+    def _in_nodes(self) -> list[int]:
+        return self.ext_ids + self.const_ids
+
+
+class OnePassKernel(RowKernel):
+    """Block composition (Triton): one program, ``BR`` whole rows, all in
+    registers."""
+
+    schedule = "onepass"
+    launches = 0
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.BLOCK_C = next_pow2(self.C)
+        self.BR = next_pow2(self.block_rows)
+        self._src: str | None = None
+        self._kernel = None
 
     def launch(self, *vals) -> tuple:
         device = vals[0].device if vals else torch.device("cuda")
@@ -686,20 +712,6 @@ class RowKernel:
         return ([f"in{k}" for k in range(n_in)]
                 + [f"out{k}" for k in range(len(self.out_ids))])
 
-    def _in_nodes(self) -> list[int]:
-        return self.ext_ids + self.const_ids
-
-
-class OnePassKernel(RowKernel):
-    """Block composition: one program, ``BR`` whole rows, all in registers."""
-
-    schedule = "onepass"
-    launches = 0
-
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        self.BLOCK_C = next_pow2(self.C)
-        self.BR = next_pow2(self.block_rows)
 
     def grid(self):
         return (_cdiv(self.R, self.BR),)
@@ -789,14 +801,32 @@ class OnePassKernel(RowKernel):
         return _module(sig, L)
 
 
+#: Shared memory in which a CTA of the streaming kernel stages its slice
+#: of a row (``csrc/streaming.cuh``): three CTAs an SM at this size.
+STAGE_BYTES = 64 * 1024
+#: The most CTAs a row is split across: the portable cluster size.
+MAX_CLUSTER = 8
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * max(1, len(ts)))(*[t.data_ptr() for t in ts])
+
+
 class StreamingKernel(RowKernel):
-    """Multi-phase streaming: per program, phases x column tiles, f32
-    accumulators in registers."""
+    """Multi-phase streaming (B2): the group as generated CUDA C++
+    (``codegen_cuda.stream_struct``) in ``csrc/streaming.cuh``, each row
+    held on chip across a thread-block cluster (``cluster``).  Its plain
+    version walks the same phases over ``BC``-wide column tiles with
+    float32 accumulators."""
 
     schedule = "streaming"
     launches = 0
 
-    def __init__(self, *a, block_cols: int, **kw):
+    def __init__(self, *a, block_cols: int, eager: bool = False, **kw):
         super().__init__(*a, **kw)
         pat = frozenset(self.members)
         self.lvl = reduce_levels(self.graph, pat)
@@ -805,13 +835,64 @@ class StreamingKernel(RowKernel):
                         if self.graph.node(n).kind is OpKind.REDUCE]
         self.BC = next_pow2(max(1, min(block_cols, self.C)))
         self.BR = next_pow2(self.block_rows)
+        self.staged = cc.staged_inputs(self.graph, self.roles,
+                                       self._in_nodes())
+        self.entry = cc.GeneratedEntry("stream", self._generate,
+                                       "repro_stream_launch",
+                                       cc.STREAM_ARGTYPES,
+                                       eager=eager)
 
-    def grid(self):
-        return (_cdiv(self.R, self.BR),)
+    def cluster(self) -> tuple[int, int, int]:
+        """(K, slice, staged): a cluster owns one row, split across K
+        CTAs, the fewest whose slices fit ``STAGE_BYTES`` (at most
+        ``MAX_CLUSTER``); each owns ``slice`` columns and stages ``staged``
+        of them (all, but in a row longer than the cluster holds)."""
+        per_col = sum(b for _, b in self.staged)
+        K = 1
+        while (K < MAX_CLUSTER
+               and per_col * _round16(_cdiv(self.C, K)) > STAGE_BYTES):
+            K *= 2
+        width = _round16(_cdiv(self.C, K))
+        staged = width if per_col == 0 else min(
+            width, STAGE_BYTES // per_col // 16 * 16)
+        return K, width, staged
 
-    def meta(self) -> dict:
-        warps = min(16, max(4, self.BR * self.BC // 1024))
-        return {"BR": self.BR, "BC": self.BC, "num_warps": warps}
+    def launch(self, *vals) -> tuple:
+        device = vals[0].device if vals else torch.device("cuda")
+        if any(v.device.type != "cuda" for v in vals):
+            raise ValueError("streaming kernel: the kernel takes CUDA "
+                             "tensors; got " + ", ".join(
+                                 str(v.device) for v in vals))
+        for i, v in zip(self.ext_ids, vals):
+            want = TORCH_DTYPES[self.graph.node(i).spec.dtype]
+            if v.dtype != want:
+                raise TypeError(f"streaming kernel: input {i} is {v.dtype}, "
+                                f"the group was compiled for {want}")
+        ins = [x.contiguous() for x in self._inputs(vals, device)]
+        outs = self._alloc_outputs(device)
+        K, width, staged = self.cluster()
+        # bulk copies need every staged row 16-byte aligned
+        bulk = all(ins[k].data_ptr() % 16 == 0 and self.C * b % 16 == 0
+                   for k, b in self.staged)
+
+        _build.check(self.entry(
+            _ptrs(ins), _ptrs(outs), self.R, self.C, K, width, staged,
+            int(bulk), torch.cuda.current_stream(device).cuda_stream),
+            "repro_stream_launch")
+        type(self).launches += 1
+        return self._outputs(outs)
+
+    def host(self, lib, *vals) -> tuple:
+        """The generated source's host form on CPU tensors: ``lib`` is the
+        source built for the host with g++ (its ``repro_host_stream``
+        walks every row phase by phase), the CPU tests' check of the
+        generated C++ against the plain version."""
+        ins = [x.contiguous() for x in self._inputs(vals, torch.device("cpu"))]
+        outs = self._alloc_outputs("cpu")
+        lib.repro_host_stream(_ptrs(ins), _ptrs(outs),
+                              ctypes.c_longlong(self.R),
+                              ctypes.c_longlong(self.C))
+        return self._outputs(outs)
 
     # -- plain version ------------------------------------------------------------
     def plain(self, device, *vals) -> tuple:
@@ -861,94 +942,14 @@ class StreamingKernel(RowKernel):
                         buf[...] = v
         return self._outputs(outs)
 
-    # -- Triton source ----------------------------------------------------------
+    # -- CUDA C++ source --------------------------------------------------------
+    def source(self) -> str:
+        return self.entry.source
+
     def _generate(self) -> str:
-        shape = {Role.FULL: "(BR, BC)", Role.ROW: "(BR, 1)",
-                 Role.COL: "(1, BC)", Role.SCALAR: "()"}
-        L = ["pid = tl.program_id(0)",
-             "rows = pid * BR + tl.arange(0, BR)[:, None]",
-             "rmask = rows < R",
-             "row_base = rows.to(tl.int64) * C",
-             "n_tiles = tl.cdiv(C, BC)"]
-        in_nodes = self._in_nodes()
-        tile_loads = []
-        for k, i in enumerate(in_nodes):
-            role = self.roles[i]
-            if role is Role.ROW:
-                L.append(f"x{i} = tl.load(in{k} + rows, mask=rmask, other=0)")
-            elif role is Role.SCALAR:
-                L.append(f"x{i} = tl.load(in{k})")
-            elif role is Role.FULL:
-                tile_loads.append(f"x{i} = tl.load(in{k} + row_base + cols, "
-                                  f"mask=fmask, other=0)")
-            else:
-                tile_loads.append(f"x{i} = tl.load(in{k} + cols, "
-                                  f"mask=cmask, other=0)")
-        for r in self.reduces:
-            ident = _literal(_IDENTITY[self.graph.node(r).prim])
-            L.append(f"acc{r} = tl.full((BR, 1), {ident}, tl.float32)")
-
-        for p in range(self.phases):
-            last = p == self.phases - 1
-            L.append(f"for t in range(0, n_tiles):  # phase {p}")
-            body = ["cols = t * BC + tl.arange(0, BC)[None, :]",
-                    "cmask = cols < C",
-                    "fmask = rmask & cmask"] + tile_loads
-            names = {i: f"x{i}" for i in in_nodes}
-
-            def val(i: int) -> str:
-                if i in names:
-                    return names[i]
-                return _literal(self.graph.node(i).value)
-
-            for nid in self.members:
-                node = self.graph.node(nid)
-                if node.kind is not OpKind.REDUCE and self.lvl[nid] > p:
-                    continue
-                if node.kind is OpKind.REDUCE:
-                    if self.lvl[nid] - 1 > p:
-                        continue
-                    if self.lvl[nid] - 1 == p:
-                        part = self._reduce_expr(node.prim,
-                                                 val(node.inputs[0]), "fmask")
-                        comb = {"reduce_sum": "acc{0} + {1}",
-                                "reduce_prod": "acc{0} * {1}",
-                                "reduce_max": "tl.maximum(acc{0}, {1})",
-                                "reduce_or": "tl.maximum(acc{0}, {1})",
-                                "reduce_min": "tl.minimum(acc{0}, {1})",
-                                "reduce_and": "tl.minimum(acc{0}, {1})"}
-                        body.append(f"acc{nid} = "
-                                    + comb[node.prim].format(nid, part))
-                    else:
-                        body.append(f"v{nid} = "
-                                    + self._from_f32(f"acc{nid}", nid))
-                        names[nid] = f"v{nid}"
-                    continue
-                body.append(f"v{nid} = "
-                            + self._expr(nid, val, shape.get))
-                names[nid] = f"v{nid}"
-            if last:
-                for k, o in enumerate(self.out_ids):
-                    role = self.roles[o]
-                    v = f"tl.broadcast_to({names[o]}, {shape[role]})" \
-                        if role is not Role.SCALAR else names[o]
-                    v = f"({v}).to({self._dt(o)})"
-                    if role is Role.FULL:
-                        body.append(f"tl.store(out{k} + row_base + cols, {v}, "
-                                    "mask=fmask)")
-                    elif role is Role.COL:
-                        body.append(f"tl.store(out{k} + cols, {v}, "
-                                    "mask=cmask & (pid == 0))")
-                    elif role is Role.ROW:
-                        body.append(f"tl.store(out{k} + rows, {v}, "
-                                    "mask=rmask & (t == 0))")
-                    else:
-                        body.append(f"tl.store(out{k}, {v}, "
-                                    "mask=(pid == 0) & (t == 0))")
-            L.extend("    " + b for b in body)
-        sig = ", ".join(self._signature()
-                        + ["R", "C", "BR: tl.constexpr", "BC: tl.constexpr"])
-        return _module(sig, L)
+        return cc.streaming_source(cc.stream_struct(
+            self.graph, self.members, self.roles, self._in_nodes(),
+            self.out_ids))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -1095,7 +1096,8 @@ def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
         else:
             kern = StreamingKernel(graph, union, info, ext_ids, out_ids,
                                    block_rows=est.block_rows, order=order,
-                                   block_cols=est.block_cols or 2048)
+                                   block_cols=est.block_cols or 2048,
+                                   eager=hw.platform == "gpu")
         return Emitted(kern, kern.schedule, est, ext_ids, out_ids,
                        scratch.total_bytes, scratch.naive_bytes, parts=parts,
                        hbm_saved=hbm_saved, n_recomputed=len(rec),

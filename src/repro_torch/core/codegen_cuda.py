@@ -8,14 +8,21 @@ functions of ONE element (the row view's roles decide how an operand is
 indexed: ``full`` by (row, column), ``row`` by row, ``col`` by column,
 ``scalar`` once), and the ``.cu`` source that instantiates the kernel
 template with them.  It lowers exactly ``codegen.EMITTABLE_PRIMS`` (the
-Triton generator's set, one vocabulary for both), in float32 and bool.
+Triton generator's set, one vocabulary for both), each node on its own
+dtype (``_typed``): the anchored chains hold float32 and bool values (the
+H100 gate refuses others), the streaming groups every dtype of the row
+view.
 
 * ``prologue_struct`` -- ``Pro``: the lhs element (m, k).
-* ``epilogue_struct`` -- ``Epi``: the epilogue in phases, as the Triton
-  streaming kernel runs them: phase p evaluates the nodes of reduce level
+* ``epilogue_struct`` -- ``Epi``: the epilogue in phases, as the
+  streaming kernel runs a group: phase p evaluates the nodes of reduce level
   <= p and accumulates the reductions of level p + 1; the last phase
   stores the outputs.
 * ``score_struct`` -- ``Score``: flash attention's score functor.
+* ``stream_struct`` -- ``Group``: a whole stitched group for the
+  streaming kernel (``csrc/streaming.cuh``, B2), in the same phases, on
+  the group's own dtypes: bfloat16 and float16 values compute in float32
+  and round to their type at every node that has it, as PyTorch does.
 
 Every function is ``__host__ __device__``: under a host compile
 (``csrc/chain.cuh`` makes the two empty macros) the same text builds
@@ -91,16 +98,12 @@ def literal(value, dtype: str) -> str:
 
 def _expr(graph: Graph, nid: int, ins: Sequence[str]) -> str:
     """C++ expression of one non-reduce node on its inputs' element
-    values."""
+    values, but for the casts, which ``_typed`` writes."""
     node = graph.node(nid)
     prim = node.prim
     in_dt = [graph.node(i).spec.dtype for i in node.inputs]
     if prim in _PASS:
         return ins[0]
-    if prim == "convert_element_type":
-        if node.spec.dtype == "bool":
-            return f"({ins[0]} != 0)"
-        return f"static_cast<{ctype(node.spec.dtype)}>({ins[0]})"
     if prim == "integer_pow":
         y = int(node.params["y"])
         if y == 0:
@@ -119,12 +122,53 @@ def _expr(graph: Graph, nid: int, ins: Sequence[str]) -> str:
     raise NotImplementedError(f"primitive {prim!r} has no CUDA lowering")
 
 
+#: The streaming groups' types: what a value of each dtype computes in,
+#: and what it is stored as.
+_COMPUTE = {"float32": "float", "bfloat16": "float", "float16": "float",
+            "float64": "double", "bool": "bool", "int64": "long long",
+            "int32": "int", "int16": "short", "int8": "signed char",
+            "uint8": "unsigned char"}
+_STORAGE = dict(_COMPUTE, bfloat16="uint16_t", float16="uint16_t")
+_HALF = {"bfloat16": "bf16", "float16": "f16"}
+#: dtypes the streaming kernel stages in shared memory (as float32 values
+#: they are exact); the others it reads from device memory in every phase
+STAGED_DTYPES = {"float32": 4, "bfloat16": 2, "float16": 2, "bool": 1,
+                 "int8": 1, "uint8": 1, "int16": 2}
+_FLOATS = ("float32", "bfloat16", "float16", "float64")
+
+
+def _typed(graph: Graph, nid: int, ins: Sequence[str]) -> str:
+    """The C++ expression of one non-reduce node on its own dtype:
+    integer or bool inputs of a floating node are cast to its type first
+    (C++ would divide integers), integer logic is bitwise, and a bfloat16
+    or float16 result is rounded to its type."""
+    node = graph.node(nid)
+    dt = node.spec.dtype
+    if dt in _FLOATS and node.prim not in _PASS:
+        ins = [f"static_cast<{_COMPUTE[dt]}>({x})"
+               if graph.node(i).spec.dtype not in _FLOATS else x
+               for i, x in zip(node.inputs, ins)]
+    if node.prim == "convert_element_type":
+        e = (f"({ins[0]} != 0)" if dt == "bool"
+             else f"static_cast<{_COMPUTE[dt]}>({ins[0]})")
+    elif dt not in _FLOATS and dt != "bool" and node.prim in ("and", "or",
+                                                              "xor"):
+        e = "({0} {op} {1})".format(*ins, op={"and": "&", "or": "|",
+                                              "xor": "^"}[node.prim])
+    else:
+        e = _expr(graph, nid, ins)
+    if dt in _HALF:
+        return f"repro_chain::round_{_HALF[dt]}(static_cast<float>({e}))"
+    return e if dt == "bool" else f"static_cast<{_COMPUTE[dt]}>({e})"
+
+
 class _Writer:
     """Member statements of one element chain.  Values are named by
     position (operand k is ``xk``, the j-th member ``vj``), never by node
     id, so that isomorphic chains of different graphs -- a layer's
     prefill and decode signatures, the forward and the serving path --
-    write the same source and share one build."""
+    write the same source and share one build.  Each node computes on its
+    own dtype (``_typed``)."""
 
     def __init__(self, graph: Graph, operands: Sequence[int],
                  members: Sequence[int]):
@@ -136,13 +180,18 @@ class _Writer:
         if i in self.names:
             return self.names[i]
         n = self.graph.node(i)  # a scalar const
-        return literal(n.value, n.spec.dtype)
+        if n.spec.dtype not in _FLOATS + ("bool",):
+            return f"static_cast<{_COMPUTE[n.spec.dtype]}>({int(n.value)})"
+        return literal(n.value, "bool" if n.spec.dtype == "bool"
+                       else "float32")
 
     def stmt(self, nid: int) -> str:
         node = self.graph.node(nid)
-        e = _expr(self.graph, nid, [self.val(i) for i in node.inputs])
+        ins = [self.val(i) for i in node.inputs]
+        e = _typed(self.graph, nid, ins)
         self.names[nid] = self.local[nid]
-        return f"const {ctype(node.spec.dtype)} {self.local[nid]} = {e};"
+        return (f"const {_COMPUTE[node.spec.dtype]} {self.local[nid]} = "
+                f"{e};")
 
 
 def _load(k: int, dtype: str, index: str) -> str:
@@ -190,27 +239,26 @@ def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
         "};"])
 
 
-def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
-                    operands: Sequence[int], anchor: int,
-                    out_ids: Sequence[int]) -> str:
-    """``Epi``: the epilogue on one accumulator element, in phases (the
-    anchor's value is ``acc``; ``out_ids`` are stored in the last phase
-    by role: ``full`` everywhere, ``row`` at n == 0, ``col`` at m == 0,
-    ``scalar`` at (0, 0))."""
+def _phased(graph: Graph, members: Sequence[int], operands: Sequence[int],
+            loads: Sequence[str], store, *, anchor: int | None = None
+            ) -> tuple[list[str], list[int], dict, int]:
+    """The ``if constexpr (P == p)`` branches of a chain run in phases, as
+    the streaming kernel runs a group: phase p evaluates the nodes of
+    reduce level <= p and accumulates the reductions of level p + 1 into
+    ``part`` (one float32 slot each), reading the finished ones from
+    ``red``; the last phase appends ``store(writer)``.  Returns
+    (branches, reduce nodes in slot order, levels, phases)."""
     from .cost_model import reduce_levels
 
-    members = _members(graph, order)
     lvl = reduce_levels(graph, frozenset(members))
     phases = max(lvl.values(), default=0) + 1
     reduces = [n for n in members if graph.node(n).kind is OpKind.REDUCE]
     slot = {r: s for s, r in enumerate(reduces)}
-    loads = [_load(k, graph.node(i).spec.dtype,
-                   _role_index(roles[i], "m", "n", "N"))
-             for k, i in enumerate(operands)]
     branches = []
     for p in range(phases):
         w = _Writer(graph, operands, members)
-        w.names[anchor] = "acc"
+        if anchor is not None:
+            w.names[anchor] = "acc"
         body = list(loads)
         for nid in members:
             node = graph.node(nid)
@@ -224,42 +272,36 @@ def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
                                 f"{REDUCE_OPS[node.prim]}, part[{s}], "
                                 f"static_cast<float>({x}));")
                 elif lvl[nid] <= p:
+                    dt = node.spec.dtype
                     v = f"red[{s}]"
-                    if node.spec.dtype == "bool":
+                    if dt == "bool":
                         v = f"({v} != 0)"
-                    body.append(f"const {ctype(node.spec.dtype)} "
-                                f"{w.local[nid]} = {v};")
+                    elif dt in _HALF:
+                        v = f"repro_chain::round_{_HALF[dt]}({v})"
+                    elif dt != "float32":
+                        v = f"static_cast<{_COMPUTE[dt]}>({v})"
+                    body.append(f"const {_COMPUTE[dt]} {w.local[nid]} = {v};")
                     w.names[nid] = w.local[nid]
                 continue
             if lvl[nid] <= p:
                 body.append(w.stmt(nid))
         if p == phases - 1:
-            for k, o in enumerate(out_ids):
-                t = ctype(graph.node(o).spec.dtype)
-                store = (f"static_cast<{t}*>(out[{k}])"
-                         f"[{_role_index(roles[o], 'm', 'n', 'N')}] = "
-                         f"static_cast<{t}>({w.val(o)});")
-                cond = {Role.FULL: None, Role.ROW: "n == 0",
-                        Role.COL: "m == 0",
-                        Role.SCALAR: "m == 0 && n == 0"}[roles[o]]
-                body.append(store if cond is None
-                            else f"if ({cond}) {store}")
+            body.extend(store(w))
         kw = "if" if p == 0 else "} else if"
         branches.append(f"    {kw} constexpr (P == {p}) {{")
         branches.extend("      " + b for b in body)
     branches.append("    }")
+    return branches, reduces, lvl, phases
+
+
+def _slot_functions(graph: Graph, reduces: Sequence[int], lvl: dict,
+                    phases: int) -> list[str]:
     ops = ", ".join(str(REDUCE_OPS[graph.node(r).prim]) for r in reduces)
     phs = ", ".join(str(lvl[r] - 1) for r in reduces)
-    n_in, n_out = len(operands), len(out_ids)
-    return "\n".join([
-        "struct Epi {",
-        f"  static constexpr int kIn = {n_in};",
-        f"  static constexpr int kOut = {n_out};",
+    return [
         f"  static constexpr int kPhases = {phases};",
         f"  static constexpr int kSlots = {len(reduces)};",
         f"  static constexpr int kSlotsArr = {max(1, len(reduces))};",
-        f"  const void* in[{max(1, n_in)}];",
-        f"  void* out[{max(1, n_out)}];",
         "  __host__ __device__ static constexpr int slot_op(int s) {",
         f"    constexpr int ops[kSlotsArr] = {{{ops or '0'}}};",
         "    return ops[s];",
@@ -267,12 +309,175 @@ def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
         "  __host__ __device__ static constexpr int slot_phase(int s) {",
         f"    constexpr int phs[kSlotsArr] = {{{phs or '0'}}};",
         "    return phs[s];",
-        "  }",
+        "  }"]
+
+
+def _store_cond(role: Role, row: str, col: str) -> str | None:
+    """Where an output of ``role`` is stored once: ``full`` everywhere,
+    ``row`` at column 0, ``col`` at row 0, ``scalar`` at (0, 0)."""
+    return {Role.FULL: None, Role.ROW: f"{col} == 0", Role.COL: f"{row} == 0",
+            Role.SCALAR: f"{row} == 0 && {col} == 0"}[role]
+
+
+def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
+                    operands: Sequence[int], anchor: int,
+                    out_ids: Sequence[int]) -> str:
+    """``Epi``: the epilogue on one accumulator element, in phases (the
+    anchor's value is ``acc``; ``out_ids`` are stored in the last phase
+    by role: ``full`` everywhere, ``row`` at n == 0, ``col`` at m == 0,
+    ``scalar`` at (0, 0))."""
+    members = _members(graph, order)
+    loads = [_load(k, graph.node(i).spec.dtype,
+                   _role_index(roles[i], "m", "n", "N"))
+             for k, i in enumerate(operands)]
+
+    def store(w: _Writer) -> list[str]:
+        lines = []
+        for k, o in enumerate(out_ids):
+            t = ctype(graph.node(o).spec.dtype)
+            st = (f"static_cast<{t}*>(out[{k}])"
+                  f"[{_role_index(roles[o], 'm', 'n', 'N')}] = "
+                  f"static_cast<{t}>({w.val(o)});")
+            cond = _store_cond(roles[o], "m", "n")
+            lines.append(st if cond is None else f"if ({cond}) {st}")
+        return lines
+
+    branches, reduces, lvl, phases = _phased(graph, members, operands, loads,
+                                             store, anchor=anchor)
+    n_in, n_out = len(operands), len(out_ids)
+    slots = _slot_functions(graph, reduces, lvl, phases)
+    return "\n".join([
+        "struct Epi {",
+        f"  static constexpr int kIn = {n_in};",
+        f"  static constexpr int kOut = {n_out};",
+        *slots[:3],
+        f"  const void* in[{max(1, n_in)}];",
+        f"  void* out[{max(1, n_out)}];",
+        *slots[3:],
         "  template <int P>",
         "  __host__ __device__ void elem(float acc, long long m, long long n,",
         "                                long long N, const float* red,",
         "                                float* part) const {",
         "    (void)red; (void)part;",
+        *branches,
+        "  }",
+        "};"])
+
+
+def staged_inputs(graph: Graph, roles: dict,
+                  operands: Sequence[int]) -> list[tuple[int, int]]:
+    """(operand index, element bytes) of the inputs the streaming kernel
+    stages in shared memory: the full-row ones of a dtype it stages."""
+    return [(k, STAGED_DTYPES[graph.node(i).spec.dtype])
+            for k, i in enumerate(operands)
+            if roles[i] is Role.FULL
+            and graph.node(i).spec.dtype in STAGED_DTYPES]
+
+
+def _as_float(dtype: str, x: str) -> str:
+    if dtype in _HALF:
+        return f"repro_chain::from_{_HALF[dtype]}({x})"
+    return x if dtype == "float32" else f"static_cast<float>({x})"
+
+
+def stream_struct(graph: Graph, order: Sequence[int], roles: dict,
+                  operands: Sequence[int], out_ids: Sequence[int]) -> str:
+    """``Group``: a stitched group for ``csrc/streaming.cuh`` -- its
+    staged inputs (``staged_inputs``: ``stage``, ``fetch``), ``load``
+    (every operand's value at element (r, c) of the row view, the
+    unstaged ones read by role, into ``Vals``), and ``elem`` in phases on
+    those values, ``out_ids`` stored in the last phase by role."""
+    members = _members(graph, order)
+    staged = staged_inputs(graph, roles, operands)
+    sidx = {k: j for j, (k, _) in enumerate(staged)}
+    fields, reads = [], []
+    for k, i in enumerate(operands):
+        dt = graph.node(i).spec.dtype
+        t = _COMPUTE[dt]
+        if k in sidx:
+            v = f"fv[{sidx[k]}]"
+            if dt == "bool":
+                v = f"({v} != 0.f)"
+            elif dt not in _FLOATS:
+                v = f"static_cast<{t}>({v})"
+        else:
+            v = (f"static_cast<const {_STORAGE[dt]}*>(in[{k}])"
+                 f"[{_role_index(roles[i], 'r', 'c', 'C')}]")
+            if dt in _HALF:
+                v = f"repro_chain::from_{_HALF[dt]}({v})"
+        fields.append(f"    {t} x{k};")
+        reads.append(f"    v.x{k} = {v};")
+    loads = [f"const {_COMPUTE[graph.node(i).spec.dtype]} x{k} = v.x{k};"
+             for k, i in enumerate(operands)]
+
+    def store(w: _Writer) -> list[str]:
+        lines = []
+        for k, o in enumerate(out_ids):
+            dt = graph.node(o).spec.dtype
+            st = _STORAGE[dt]
+            v = (f"repro_chain::to_{_HALF[dt]}(static_cast<float>"
+                 f"({w.val(o)}))" if dt in _HALF
+                 else f"static_cast<{st}>({w.val(o)})")
+            line = (f"static_cast<{st}*>(out[{k}])"
+                    f"[{_role_index(roles[o], 'r', 'c', 'C')}] = {v};")
+            cond = _store_cond(roles[o], "r", "c")
+            lines.append(line if cond is None else f"if ({cond}) {line}")
+        return lines
+
+    branches, reduces, lvl, phases = _phased(graph, members, operands, loads,
+                                             store)
+    fetch, stage = [], []
+    for j, (k, _) in enumerate(staged):
+        dt = graph.node(operands[k]).spec.dtype
+        ptr = f"const {_STORAGE[dt]}*"
+        fetch.append(f"    fv[{j}] = st ? "
+                     f"{_as_float(dt, f'static_cast<{ptr}>(st[{j}])[lc]')} : "
+                     f"{_as_float(dt, f'static_cast<{ptr}>(in[{k}])[g]')};")
+        stage.append(f"    static_cast<{_STORAGE[dt]}*>(st[{j}])[lc] = "
+                     f"static_cast<{ptr}>(in[{k}])[g];")
+    n_in, n_out, n_st = len(operands), len(out_ids), len(staged)
+    nbytes = ", ".join(str(b) for _, b in staged) or "0"
+    srcs = ", ".join(str(k) for k, _ in staged) or "0"
+    return "\n".join([
+        "struct Group {",
+        f"  static constexpr int kIn = {n_in};",
+        f"  static constexpr int kOut = {n_out};",
+        f"  static constexpr int kStaged = {n_st};",
+        f"  static constexpr int kStagedArr = {max(1, n_st)};",
+        f"  const void* in[{max(1, n_in)}];",
+        f"  void* out[{max(1, n_out)}];",
+        *_slot_functions(graph, reduces, lvl, phases),
+        "  __host__ __device__ static constexpr int staged_bytes(int j) {",
+        f"    constexpr int b[kStagedArr] = {{{nbytes}}};",
+        "    return b[j];",
+        "  }",
+        "  __host__ __device__ const void* staged_src(int j) const {",
+        f"    constexpr int k[kStagedArr] = {{{srcs}}};",
+        "    return in[k[j]];",
+        "  }",
+        "  __host__ __device__ void stage(void* const* st, long long lc,",
+        "                                 long long g) const {",
+        "    (void)st; (void)lc; (void)g;",
+        *stage,
+        "  }",
+        "  __host__ __device__ void fetch(const void* const* st, long long lc,",
+        "                                 long long g, float* fv) const {",
+        "    (void)st; (void)lc; (void)g; (void)fv;",
+        *fetch,
+        "  }",
+        "  struct Vals {",
+        *fields,
+        "  };",
+        "  __host__ __device__ void load(long long r, long long c, long long C,",
+        "                                const float* fv, Vals& v) const {",
+        "    (void)r; (void)c; (void)C; (void)fv; (void)v;",
+        *reads,
+        "  }",
+        "  template <int P>",
+        "  __host__ __device__ void elem(long long r, long long c, long long C,",
+        "                                const Vals& v, const float* red,",
+        "                                float* part) const {",
+        "    (void)r; (void)c; (void)C; (void)v; (void)red; (void)part;",
         *branches,
         "  }",
         "};"])
@@ -412,6 +617,36 @@ def attention_source(score: str) -> str:
         "}", "#endif", ""])
 
 
+def streaming_source(group: str) -> str:
+    """The ``.cu`` of one streaming group: ``csrc/streaming.cuh``
+    instantiated with ``group`` (``stream_struct``), a C entry for the
+    card, and the host harness for the CPU tests."""
+    return "\n".join([
+        "// Generated by repro_torch.core.codegen_cuda: one streaming group.",
+        '#include "streaming.cuh"', "", "namespace {", group,
+        "}  // namespace", "", "#ifdef __CUDACC__",
+        'extern "C" int repro_stream_launch(const void* const* ins,',
+        "                                   void* const* outs, long long R,",
+        "                                   long long C, int K, long long slice,",
+        "                                   long long cap, int bulk,",
+        "                                   void* stream) {",
+        "  Group g;",
+        "  for (int i = 0; i < Group::kIn; ++i) g.in[i] = ins[i];",
+        "  for (int i = 0; i < Group::kOut; ++i) g.out[i] = outs[i];",
+        "  return static_cast<int>(repro_stream::launch(",
+        "      g, R, C, K, slice, cap, bulk,",
+        "      static_cast<cudaStream_t>(stream)));",
+        "}", "#else",
+        'extern "C" void repro_host_stream(const void* const* ins,',
+        "                                  void* const* outs, long long R,",
+        "                                  long long C) {",
+        "  Group g;",
+        "  for (int i = 0; i < Group::kIn; ++i) g.in[i] = ins[i];",
+        "  for (int i = 0; i < Group::kOut; ++i) g.out[i] = outs[i];",
+        "  repro_stream::run_host(g, R, C);",
+        "}", "#endif", ""])
+
+
 # --------------------------------------------------------------------------
 # a generated library, built on first use
 # --------------------------------------------------------------------------
@@ -462,5 +697,7 @@ class GeneratedEntry:
 _P = ctypes.c_void_p
 MATMUL_ARGTYPES = [ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, _P]
+STREAM_ARGTYPES = [_P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]
 ATTENTION_ARGTYPES = ([_P] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
                       + [ctypes.c_float, ctypes.c_int, _P, _P, _P])

@@ -12,17 +12,20 @@ float32 sum,
 and drops ``small_a small_b``, below 2^-22 of |a b|.  A product of two
 TF32 values is exact in float32 (11 by 11 significant bits), so the
 split's only roundings are the float32 sum's and the two dropped terms.
-``csrc/matmul_fused.cuh`` (B3, ``wgmma``) and ``csrc/flash_attention.cuh``
-(B4, ``mma.sync``) compute exactly this; the functions here are its plain
-version, for the CPU tests (``tests/test_torch_split_float.py``) and for
-the measurement on the card:
+``csrc/matmul_fused.cuh`` (B3, ``wgmma``), ``csrc/flash_attention.cuh``
+(B4, ``mma.sync``) and ``csrc/ssd_scan.cu`` (B11, ``mma.sync``) compute
+exactly this; the functions here are its plain version, for the CPU
+tests (``tests/test_torch_split_float.py``) and for the measurement on
+the card:
 
     PYTHONPATH=src python -m repro_torch.kernels.split_float
 
-which, at the shapes the main path gives the two kernels, holds the split
-product (three TF32 products on the card's tensor cores, summed in
+which, at the shapes the main path gives the three kernels, holds the
+split product (three TF32 products on the card's tensor cores, summed in
 float32) and the plain float32 product against float64, and prints the
 worst ratio of each to the limit ``chip_smoke.py`` holds the kernels to.
+``ssd_chunked`` is B11's chunk-parallel decomposition of the SSD scan,
+with its four products taken by a given product function.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ import torch
 #: distance from float64); B4 within RTOL |plain| + RTOL mean|plain|.
 B3_RTOL, B3_SUM_FACTOR = 1e-5, 3.0
 RTOL = 1e-5
+#: B11 within SSD_RTOL max(1, max|plain|), each output
+SSD_RTOL = 1e-4
 #: K chunks measured for B3: one k-tile of each instance
 B3_CHUNKS = (16, 32, 64)
 #: head-dim chunks measured for B4's q k^T (a partial sum a chunk)
@@ -98,6 +103,52 @@ def attention(q, k, v, *, causal: bool, scale: float | None = None,
         s = torch.where(row >= col, s, -1e30)
     p = torch.softmax(s, -1).reshape(B, Hkv, g * Sq, Skv)
     return pv(p, v).reshape(B, Hq, Sq, D)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, product=torch.matmul):
+    """The SSD scan (``ssd_scan.ssd_scan_plain``'s function) as B11
+    computes it, chunk-parallel, its four products taken by ``product``.
+
+    Every (batch, chunk, head) at once: the cumulative decay ``cum``, the
+    chunk's own state contribution S = (x * exp(cum_last - cum) * dt)^T B
+    [P, N], and C B^T [c, c] once per (batch, chunk).  Then the state
+    passed along the chunks in order, h = h exp(cum_last) + S, and, with
+    h the state entering each chunk, y = exp(cum) * (C h^T) + W x, W = C
+    B^T * exp(cum_i - cum_j) * dt_j (i >= j); the final state is h after
+    the last chunk."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    nc = L // chunk
+    f32 = torch.promote_types(x.dtype, torch.float32)  # float64 stays
+    xz = x.to(f32).reshape(b, nc, chunk, H, P).permute(0, 1, 3, 2, 4)
+    dtz = dt.to(f32).reshape(b, nc, chunk, H).permute(0, 1, 3, 2)
+    Bz = B.to(f32).reshape(b, nc, chunk, N)
+    Cz = C.to(f32).reshape(b, nc, chunk, N)
+    cum = torch.cumsum(dtz * A.to(f32)[:, None], -1)        # [b, nc, H, c]
+    cb = product(Cz, Bz.transpose(-1, -2))                  # [b, nc, c, c]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()
+    seg = cum[..., :, None] - cum[..., None, :]
+    w = cb[:, :, None] * torch.exp(torch.where(causal, seg, -math.inf)) \
+        * dtz[..., None, :]
+    y = product(w, xz)                                      # [b, nc, H, c, P]
+    sc = torch.exp(cum[..., -1:] - cum) * dtz
+    S = product((xz * sc[..., None]).transpose(-1, -2),
+                Bz[:, :, None])                             # [b, nc, H, P, N]
+    h = torch.zeros(b, H, P, N, dtype=f32, device=x.device)
+    for z in range(nc):
+        inter = product(Cz[:, z, None], h.transpose(-1, -2))   # [b, H, c, P]
+        y[:, z] = y[:, z] + torch.exp(cum[:, z])[..., None] * inter
+        h = h * torch.exp(cum[:, z, :, -1])[..., None, None] + S[:, z]
+    return y.permute(0, 1, 3, 2, 4).reshape(b, L, H, P).to(x.dtype), h
+
+
+def ssd_ratio(got, plain) -> float:
+    """The worst ratio of |got - plain| to B11's limit, SSD_RTOL max(1,
+    max|plain|), over y and the state."""
+    return max(float((g.double() - w.double()).abs().max())
+               / (SSD_RTOL * max(1.0, float(w.abs().max())))
+               for g, w in zip(got, plain))
 
 
 def b3_ratio(got, plain, f64) -> float:
@@ -214,6 +265,53 @@ def _measure() -> list[dict]:
         rows.append(row)
         print(json.dumps(row), flush=True)
         del q, k, v, plain, f64
+    rows += _measure_b11(randn, plain_mm)
+    return rows
+
+
+#: B11's products measured: one tensor-core sum over each product's
+#: contracted extent (c 64 or N), or a partial sum each 16 or 32 of it
+B11_CHUNKS = (16, 32)
+
+
+def _measure_b11(randn, plain_mm) -> list[dict]:
+    """Step 0 of B11's tensor-core design: the chunk-parallel scan with
+    its four products split (one sum, and partial sums), and with plain
+    float32 products, against the plain version and float64, at the main
+    path's shapes."""
+    import torch.nn.functional as F
+
+    from .ssd_scan import ssd_scan_plain
+
+    rows = []
+    for label, (b, L, H, P, N) in (
+            ("mamba2 prefill", (4, 512, 32, 64, 128)),
+            ("zamba2 prefill", (4, 512, 64, 64, 64)),
+            ("mamba2 train", (8, 512, 32, 64, 128))):
+        x, Bm, Cm = randn(b, L, H, P), randn(b, L, N), randn(b, L, N)
+        dt = F.softplus(randn(b, L, H) - 2.0)
+        A = -torch.exp(0.3 * randn(H))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            plain = ssd_scan_plain(x, dt, A, Bm, Cm, 64)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = True
+        f64 = ssd_chunked(x.double(), dt.double(), A.double(), Bm.double(),
+                          Cm.double(), 64)
+        row = {"kernel": "B11", "shape": f"{label} b{b} L{L} H{H} P{P} "
+                                         f"N{N} chunk64",
+               "plain_vs_f64_err_over_limit": ssd_ratio(plain, f64)}
+        for tag, prod in (("chunked_plain_products", plain_mm),
+                          ("one_sum", split_matmul),
+                          *((f"chunk{k}", lambda a, m, _k=k:
+                             split_matmul(a, m, _k)) for k in B11_CHUNKS)):
+            got = ssd_chunked(x, dt, A, Bm, Cm, 64, product=prod)
+            row[f"{tag}_err_over_limit"] = ssd_ratio(got, plain)
+            row[f"{tag}_vs_f64_err_over_limit"] = ssd_ratio(got, f64)
+            del got
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, Bm, Cm, dt, plain, f64
     return rows
 
 

@@ -5,9 +5,14 @@
 The counterpart of ``ssd_scan`` (the TPU kernel ``_ssd_kernel``,
 ``src/repro/kernels/ssd_scan.py:25,75``): x [b, L, H, P], dt [b, L, H],
 A [H], B and C [b, L, N] (one group, shared by the heads) -> (y
-[b, L, H, P], final state [b, H, P, N] float32), walking the chunks of
-``chunk`` rows in order with the state carried across them.  ``L`` must
-be a multiple of ``chunk``; the model pads the sequence first.
+[b, L, H, P], final state [b, H, P, N] float32), the state carried from
+chunk to chunk of ``chunk`` rows.  ``L`` must be a multiple of
+``chunk``; the model pads the sequence first.  The kernel takes three
+launches a call (``LAUNCHES_PER_CALL``): every (batch, chunk, head) at
+once, the chunk's own state contribution (and C B^T once per (batch,
+chunk)); the state passed along the chunks; every (batch, chunk, head)
+at once again, the chunk's output from the state entering it
+(``split_float.ssd_chunked`` is that decomposition in plain PyTorch).
 
 Its autograd formula recomputes ``ref.ssd_scan`` and takes its VJP, as
 the reference's ``_ssd_bwd`` does (``src/repro/kernels/ops.py:99-116``):
@@ -80,11 +85,22 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int):
     return torch.cat(ys, dim=1).to(x.dtype), h
 
 
+#: The longest chunk the kernel takes (its cumulative sum: two rows a lane)
+MAX_CHUNK = 64
+#: Shared memory one block may use on the card (H100: 227 KB)
+SMEM_LIMIT = 232448
+
+
+#: Kernel launches of one call: the chunk, state and output passes
+LAUNCHES_PER_CALL = 3
+
+
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
-    """Launch the CUDA kernel (float32, on the current stream).  x, dt, B
-    and C are read with their strides -- the model's x, B and C are
-    column slices of one activation -- and only a last dimension that is
-    not contiguous is copied (device time)."""
+    """Launch the CUDA kernel (float32, on the current stream), any head
+    dim P and state N whose tiles fit a block's shared memory, chunks up
+    to ``MAX_CHUNK``.  x, dt, B and C are read with their strides -- the
+    model's x, B and C are column slices of one activation -- and only a
+    last dimension that is not contiguous is copied (device time)."""
     _check_shapes(x, dt, A, B, C, chunk)
     dev = x.device
     ts = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
@@ -97,22 +113,33 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
             f"{k} {t.dtype}" for k, t in ts.items()))
     b, L, H, P = x.shape
     N = B.shape[-1]
-    cmax = instances().get((P, N))
-    if cmax is None or chunk > cmax:
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"ssd_scan_cuda: chunk {chunk}; the kernel takes "
+                         f"chunks of at most {MAX_CHUNK} rows")
+    smem = _smem()(chunk, P, N)
+    if smem > SMEM_LIMIT:
         raise ValueError(
-            f"ssd_scan_cuda: head dim {P}, state {N}, chunk {chunk}; the "
-            "kernel has (P, N) -> longest chunk "
-            + ", ".join(f"{k} -> {v}" for k, v in instances().items()))
+            f"ssd_scan_cuda: head dim {P}, state {N}, chunk {chunk} need "
+            f"{smem} bytes of shared memory a block, above the card's "
+            f"{SMEM_LIMIT}")
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
     A = A.contiguous()
     y = torch.empty(b, L, H, P, dtype=torch.float32, device=dev)
     state = torch.empty(b, H, P, N, dtype=torch.float32, device=dev)
+    # scratch: each chunk's own state contribution and total decay, and
+    # C B^T of each (batch, chunk) at the kernel's padded chunk
+    nc, cp = L // chunk, _chunk_pad()(chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+    S = torch.empty(b, nc, H, P, N, **f32)
+    cl = torch.empty(b, nc, H, **f32)
+    CB = torch.empty(b, nc, cp, cp, **f32)
     _build.check(_entry()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), state.data_ptr(), b, L, H, P, N, chunk,
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), S.data_ptr(),
+        cl.data_ptr(), CB.data_ptr(), b, L, H, P, N, chunk,
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
         torch.cuda.current_stream(dev).cuda_stream), "repro_ssd_scan_f32")
-    ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.launches += LAUNCHES_PER_CALL
     return y, state
 
 
@@ -125,22 +152,25 @@ def _lib():
 
 
 @functools.cache
-def instances() -> dict[tuple[int, int], int]:
-    """(P, N) -> the longest chunk of each of the kernel's instances, as
-    the library lists them (the list its entry point dispatches on)."""
-    fn = _lib().repro_ssd_scan_instances
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+def _smem():
+    fn = _lib().repro_ssd_scan_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+@functools.cache
+def _chunk_pad():
+    fn = _lib().repro_ssd_scan_chunk_pad
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    n = fn(None, 0)
-    buf = (ctypes.c_int * (3 * n))()
-    fn(buf, n)
-    return {(buf[3 * i], buf[3 * i + 1]): buf[3 * i + 2] for i in range(n)}
+    return fn
 
 
 @functools.cache
 def _entry():
     fn = _lib().repro_ssd_scan_f32
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

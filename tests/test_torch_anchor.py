@@ -18,8 +18,6 @@ interpret mode) and the port (plain versions on the CPU):
 import ctypes
 import functools
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -47,6 +45,7 @@ from repro_torch.models.convert import from_jax_params  # noqa: E402
 from repro_torch.models.layers import XLA  # noqa: E402
 from repro_torch.models.layers import FusionMode as TFusionMode  # noqa: E402
 from repro_torch.models.model import block_apply, block_init  # noqa: E402
+from _host_build import gxx, ptrs  # noqa: E402
 
 rng = np.random.default_rng(23)
 CSRC = MM.__file__.rsplit("/", 2)[0] + "/csrc"
@@ -690,25 +689,6 @@ def test_gate_constants_are_the_kernels_own(part):
 # ---------------------------------------------------------------------------
 # the generated C++ chains, built for the host with g++
 # ---------------------------------------------------------------------------
-def _gxx(tmp_path, source: str, name: str):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ on this host")
-    src = tmp_path / f"{name}.cpp"
-    src.write_text(source)
-    lib = tmp_path / f"{name}.so"
-    r = subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
-                        CSRC, "-o", str(lib), str(src)],
-                       capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    return ctypes.CDLL(str(lib))
-
-
-def _ptrs(arrays):
-    return (ctypes.c_void_p * max(1, len(arrays)))(
-        *[a.ctypes.data for a in arrays])
-
-
 _ROLE_SHAPE = {"full": lambda R, C: (R, C), "row": lambda R, C: (R, 1),
                "col": lambda R, C: (1, C), "scalar": lambda R, C: ()}
 
@@ -727,7 +707,7 @@ def _close(got, want):
 
 def _check_matmul_chain(tmp_path, tag, em, graph):
     ch = em.fn.chain
-    lib = _gxx(tmp_path, em.fn.entry.source, tag)
+    lib = gxx(tmp_path, em.fn.entry.source, tag)
     M, K, N = ch["M"], ch["K"], ch["N"]
 
     def operands(ops, roles, C):
@@ -738,7 +718,7 @@ def _check_matmul_chain(tmp_path, tag, em, graph):
 
     pro = operands(ch["pro_ops"], ch["pro_roles"], K)
     lhs = np.empty((M, K), np.float32)
-    lib.repro_host_pro(_ptrs(pro), lhs.ctypes.data_as(ctypes.c_void_p),
+    lib.repro_host_pro(ptrs(pro), lhs.ctypes.data_as(ctypes.c_void_p),
                        ctypes.c_longlong(M), ctypes.c_longlong(K))
     tpro = [torch.from_numpy(np.asarray(a)) for a in pro]
     want = (ch["prologue"](*[MM._view(t, r, M, K) for t, r in
@@ -751,8 +731,8 @@ def _check_matmul_chain(tmp_path, tag, em, graph):
     outs = [np.zeros(_ROLE_SHAPE[r](M, N) or (1, 1),
                      np.bool_ if dt == torch.bool else np.float32)
             for r, dt in zip(ch["out_roles"], ch["out_dtypes"])]
-    lib.repro_host_epi(acc.ctypes.data_as(ctypes.c_void_p), _ptrs(epi),
-                       _ptrs(outs), ctypes.c_longlong(M), ctypes.c_longlong(N))
+    lib.repro_host_epi(acc.ctypes.data_as(ctypes.c_void_p), ptrs(epi),
+                       ptrs(outs), ctypes.c_longlong(M), ctypes.c_longlong(N))
     tepi = [MM._view(torch.from_numpy(np.asarray(a)), r, M, N)
             for a, r in zip(epi, ch["epi_roles"])]
     wants = (ch["epilogue"](torch.from_numpy(acc), *tepi)
@@ -764,7 +744,7 @@ def _check_matmul_chain(tmp_path, tag, em, graph):
 
 def _check_score_chain(tmp_path, tag, em):
     mod = em.fn.score_mod
-    lib = _gxx(tmp_path, mod.entry.source, tag)
+    lib = gxx(tmp_path, mod.entry.source, tag)
     B, H, Sq, Sk = em.fn.extent
     s = _rand((B, H, Sq, Sk), torch.float32)
     ops = [np.ascontiguousarray(_rand(sh, torch.float32))
@@ -773,7 +753,7 @@ def _check_score_chain(tmp_path, tag, em):
     for a in ops:
         st += [x // 4 if d != 1 else 0 for x, d in zip(a.strides, a.shape)]
     out = np.empty_like(s)
-    lib.repro_host_score(s.ctypes.data_as(ctypes.c_void_p), _ptrs(ops),
+    lib.repro_host_score(s.ctypes.data_as(ctypes.c_void_p), ptrs(ops),
                          (ctypes.c_longlong * max(4, len(st)))(*st),
                          out.ctypes.data_as(ctypes.c_void_p), B, H, Sq, Sk)
     want = mod.plain(torch.from_numpy(s),
@@ -888,9 +868,10 @@ def test_pattern_emittable_matches_the_reference(prim):
 
 @pytest.mark.parametrize("prim", C5)
 def test_new_primitives_lower_in_both_generators(tmp_path, prim):
-    """Triton: both kernels' sources compile as Python and the group's
-    plain version computes the primitive.  CUDA C++: an epilogue of the
-    primitive builds with g++ and matches the plain evaluator."""
+    """Triton: the one-pass kernel's source compiles as Python and the
+    group's plain version computes the primitive.  CUDA C++: the
+    streaming group and an epilogue of the primitive build with g++ and
+    match the plain evaluator."""
     from repro_torch.core import ir as tir
     from repro_torch.core.classify import classify as tclassify
 
@@ -905,12 +886,14 @@ def test_new_primitives_lower_in_both_generators(tmp_path, prim):
         x = x.abs() + 0.5  # a real power
     ref = {g.inputs[0]: x, g.inputs[1]: y}
     run_subgraph(g, sorted(pat), ref, "cpu")
-    for kern in (tcodegen.OnePassKernel(g, pat, info, ext, g.outputs,
-                                        block_rows=2),
-                 tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
-                                          block_rows=2, block_cols=4)):
-        compile(kern.source(), f"<{prim} {kern.schedule}>", "exec")
-        got = kern("cpu", *[ref[i] for i in ext])[0]
+    vals = [ref[i] for i in ext]
+    one = tcodegen.OnePassKernel(g, pat, info, ext, g.outputs, block_rows=2)
+    compile(one.source(), f"<{prim} onepass>", "exec")
+    stream = tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
+                                      block_rows=2, block_cols=4)
+    lib = gxx(tmp_path, stream.source(), f"{prim}_stream")
+    for got in (one("cpu", *vals)[0], stream("cpu", *vals)[0],
+                stream.host(lib, *vals)[0]):
         torch.testing.assert_close(got, ref[g.outputs[0]])
 
     from repro_torch.core import codegen_cuda as cc
@@ -919,9 +902,9 @@ def test_new_primitives_lower_in_both_generators(tmp_path, prim):
                            [g.inputs[0]], g.inputs[0]),
         cc.epilogue_struct(g, sorted(pat), info.roles, ext[1:],
                            g.inputs[0], g.outputs), [0])
-    lib = _gxx(tmp_path, src, prim)
+    lib = gxx(tmp_path, src, prim)
     out = np.zeros((4, 8), np.float32)
     lib.repro_host_epi(x.numpy().ctypes.data_as(ctypes.c_void_p),
-                       _ptrs([ref[i].numpy() for i in ext[1:]]),
-                       _ptrs([out]), ctypes.c_longlong(4), ctypes.c_longlong(8))
+                       ptrs([ref[i].numpy() for i in ext[1:]]),
+                       ptrs([out]), ctypes.c_longlong(4), ctypes.c_longlong(8))
     _close(out, ref[g.outputs[0]].numpy())

@@ -6,7 +6,13 @@ Both packages are given the same hardware preset, so they pick the same
 schedule; a small-budget ``Hardware(vmem_bytes=...)`` forces streaming in
 both.  Tolerances: float32 with another summation order (whole-row vs
 tiled partial sums), rtol 1e-5 / atol 1e-5 unless stated.
+
+The streaming kernel's generated CUDA C++ is built for the host with g++
+(``_host_build``) and its host form held to the plain row-view
+evaluator; the one-pass kernel's Triton source compiles as Python.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -22,6 +28,7 @@ from repro_torch.core import codegen as tcodegen  # noqa: E402
 from repro_torch.core import cost_model as tcost  # noqa: E402
 from repro_torch.core import trace as ttrace  # noqa: E402
 from repro_torch.core.rowspec import Role, analyze  # noqa: E402
+from _host_build import gxx  # noqa: E402
 
 rng = np.random.default_rng(5)
 
@@ -160,10 +167,13 @@ def test_onepass_recompute_flip_matches_reference():
     _assert_close(jout, tout, rtol=1e-4, atol=1e-4)
 
 
-def test_generated_sources_cover_every_role():
-    """The Triton source the card compiles: one program per BR rows, masked
-    loads/stores, reductions with identity-filled lanes, ROW/COL/SCALAR
-    broadcasting, a COL output written by program 0 only."""
+def test_generated_sources_cover_every_role(tmp_path):
+    """The sources the card compiles.  One-pass (Triton): one program per
+    BR rows, masked loads/stores, reductions with identity-filled lanes,
+    ROW/COL/SCALAR broadcasting, a COL output written by program 0 only.
+    Streaming (CUDA C++): one branch a phase, the ROW output stored once
+    a row and the COL output once; built with g++, its host form matches
+    the plain row-view evaluator."""
     R, C = 37, 200
     args = [torch.from_numpy(a) for a in _role_args(R, C)]
     tg = ttrace(t_roles, *args)
@@ -177,13 +187,153 @@ def test_generated_sources_cover_every_role():
     compile(src, "<generated>", "exec")
     args = [torch.from_numpy(a) for a in _role_args(R, 2500)]
     tg = ttrace(t_roles, *args)
-    stream = tcodegen.emit_pattern(tg, frozenset(tg.fusible_nodes()),
-                                   hw=tcost.Hardware(vmem_bytes=192 * 1024)).fn
+    em = tcodegen.emit_pattern(tg, frozenset(tg.fusible_nodes()),
+                               hw=tcost.Hardware(vmem_bytes=192 * 1024))
+    stream = em.fn
     assert isinstance(stream, tcodegen.StreamingKernel)
     s2 = stream.source()
-    assert s2.count("for t in range(0, n_tiles)") == stream.phases
-    assert "mask=rmask & (t == 0)" in s2               # ROW output, once
-    compile(s2, "<generated>", "exec")
+    assert "triton" not in s2 and '#include "streaming.cuh"' in s2
+    assert s2.count("constexpr (P == ") == stream.phases
+    assert "if (c == 0)" in s2                         # ROW output, once
+    assert "if (r == 0)" in s2                         # COL output, once
+    vals = [args[tg.inputs.index(i)] for i in em.ext_ids]
+    got = stream.host(gxx(tmp_path, s2, "roles"), *vals)
+    for g, w in zip(got, stream("cpu", *vals)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _scalar_output_group():
+    """One streaming group with a FULL, a ROW, a COL and a SCALAR output
+    (x - max(x), max(x), 2 colb, 3 s), built in the IR."""
+    from repro_torch.core.classify import classify
+    from repro_torch.core.ir import Graph, Node, OpKind, TensorSpec
+    from repro_torch.core.tracer import make_fn
+
+    R, C = 5, 300
+    g = Graph()
+
+    def add(prim, ins, out_shape, value=None, **params):
+        kind = (OpKind.INPUT if prim == "input" else
+                OpKind.CONST if prim == "const" else classify(prim))
+        spec = TensorSpec(out_shape, "float32")
+        if kind not in (OpKind.INPUT, OpKind.CONST):
+            params["_fn"] = make_fn(prim, params, spec)
+        nid = len(g.nodes)
+        g.add(Node(nid, prim, kind, tuple(ins), spec, params, value))
+        if kind is OpKind.INPUT:
+            g.inputs.append(nid)
+        return nid
+
+    x, colb, s = add("input", (), (R, C)), add("input", (), (C,)), \
+        add("input", (), ())
+    mx = add("reduce_max", (x,), (R,), axes=(1,))
+    full = add("sub", (x, add("broadcast_in_dim", (mx,), (R, C), shape=(R, C),
+                              broadcast_dimensions=(0,))), (R, C))
+    col = add("mul", (colb, add("const", (), (), value=2.0)), (C,))
+    scal = add("mul", (s, add("const", (), (), value=3.0)), ())
+    g.outputs = [full, mx, col, scal]
+    members = frozenset(n for n in g.nodes
+                        if g.node(n).kind not in (OpKind.INPUT, OpKind.CONST))
+    return g, members
+
+
+def test_streaming_row_col_and_scalar_outputs_on_the_host(tmp_path):
+    """Every output role of a streaming group, written once by the
+    generated C++ (ROW at column 0, COL at row 0, SCALAR at (0, 0)), as
+    the plain version writes it."""
+    g, pat = _scalar_output_group()
+    info = analyze(g, pat)
+    assert {info.role(o) for o in g.outputs} == set(Role)
+    ext = g.pattern_inputs(pat)
+    kern = tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
+                                    block_rows=2, block_cols=128)
+    vals = [torch.randn(g.node(i).spec.shape) for i in ext]
+    got = kern.host(gxx(tmp_path, kern.source(), "outputs"), *vals)
+    want = kern("cpu", *vals)
+    assert [tuple(t.shape) for t in got] == [(5, 300), (5,), (300,), ()]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_streaming_cluster_geometry():
+    """The row split: a cluster owns one row, split across the fewest CTAs
+    whose slices fit the stage (up to a cluster of eight), slices a
+    multiple of 16 columns, the last CTA's slice ragged where the row is
+    no multiple of the slice; a row longer than eight stages holds stages
+    what fits."""
+    def kern(R, C, dtype=torch.float32, block_rows=8):
+        tg = ttrace(lambda v: torch.softmax(v, -1),
+                    torch.zeros(R, C, dtype=dtype))
+        pat = frozenset(tg.fusible_nodes())
+        return tcodegen.StreamingKernel(
+            tg, pat, analyze(tg, pat), tg.pattern_inputs(pat), tg.outputs,
+            block_rows=block_rows, block_cols=2048)
+
+    assert kern(2048, 128256).cluster() == (8, 16032, 16032)
+    assert kern(64, 600000).cluster() == (8, 75008, 16384)
+    assert kern(37, 2500).cluster() == (1, 2512, 2512)
+    # 100003 columns: seven slices of 12512 and a ragged last one of 12419
+    K, width, staged = kern(37, 100003).cluster()
+    assert (K, width, staged) == (8, 12512, 12512)
+    assert 0 < 100003 - (K - 1) * width < width
+    # bfloat16 rows stage two bytes a column
+    assert kern(8, 40000, torch.bfloat16).cluster() == (2, 20000, 20000)
+
+
+def test_streaming_launch_takes_cuda_tensors_only():
+    """The streaming kernel has one route: its launch refuses tensors not
+    on a CUDA card (it never runs the plain version), and the group is
+    no Triton source."""
+    tg = ttrace(lambda v: torch.softmax(v, -1), torch.zeros(4, 20000))
+    em = tcodegen.emit_pattern(tg, frozenset(tg.fusible_nodes()),
+                               hw=tcost.H100)
+    assert em.kind == "streaming"
+    assert "triton" not in em.fn.source()
+    with pytest.raises(ValueError, match="CUDA"):
+        em.fn.launch(torch.randn(4, 20000))
+    meta = torch.empty(4, 20000, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        em.fn("cpu", meta)
+
+
+def test_bf16_streaming_group_on_the_host(tmp_path):
+    """A bfloat16 streaming group (RMSNorm in, float32 inside, bfloat16
+    out) built with g++: its float32-output twin against the plain
+    version, each element within 1e-5 |plain| + 1e-5 mean|plain| (sums in
+    another order), and the bfloat16 output that twin's result rounded to
+    nearest even, bit for bit (same sums, one last rounding)."""
+    def rms_f32(x, g):
+        xf = x.float()
+        return xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + 1e-6) * g
+
+    def rms(x, g):
+        return rms_f32(x, g).to(x.dtype)
+
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.standard_normal((9, 3000)).astype(np.float32))
+    gm = torch.from_numpy(r.standard_normal(3000).astype(np.float32))
+    got = {}
+    for name, fn in (("f32", rms_f32), ("bf16", rms)):
+        tg = ttrace(fn, x.bfloat16(), gm)
+        # a 2048-element register cap: a 3000-wide row no longer fits one
+        # pass
+        em = tcodegen.emit_pattern(
+            tg, frozenset(tg.fusible_nodes()),
+            hw=dataclasses.replace(tcost.H100, max_block_elems=2048))
+        assert em.kind == "streaming"
+        kern = em.fn
+        assert "repro_chain::from_bf16" in kern.source()
+        vals = [x.bfloat16(), gm][:len(em.ext_ids)]
+        got[name] = kern.host(gxx(tmp_path, kern.source(), name), *vals)[0]
+        if name == "f32":
+            want = kern("cpu", *vals)[0]
+            assert got[name].dtype == want.dtype == torch.float32
+            limit = 1e-5 * want.abs() + 1e-5 * float(want.abs().mean())
+            assert bool(((got[name] - want).abs() <= limit).all())
+        else:
+            assert "repro_chain::round_bf16" in kern.source()
+    assert got["bf16"].dtype == torch.bfloat16
+    assert torch.equal(got["bf16"], got["f32"].to(torch.bfloat16))
 
 
 def test_launch_counters_untouched_by_plain_runs():
@@ -214,13 +364,19 @@ def _one_primitive_group(prim):
     (a reduction also gets the members that give it a row view)."""
     from repro_torch.core.classify import classify
     from repro_torch.core.ir import Graph, Node, OpKind, TensorSpec
+    from repro_torch.core.tracer import make_fn
 
     g = Graph()
 
     def add(p, inputs, out_shape, dtype="float32", **params):
         kind = OpKind.INPUT if p == "input" else classify(p)
-        g.add(Node(len(g.nodes), p, kind, tuple(inputs),
-                   TensorSpec(out_shape, dtype), params))
+        spec = TensorSpec(out_shape, dtype)
+        if p == "clamp":  # lax.clamp(lo, x, hi); the tracer emits none
+            params["_fn"] = lambda dev, lo, x, hi: torch.minimum(
+                torch.maximum(x, lo), hi)
+        elif kind is not OpKind.INPUT and p not in tcodegen._PASS:
+            params["_fn"] = make_fn(p, params, spec)
+        g.add(Node(len(g.nodes), p, kind, tuple(inputs), spec, params))
         if kind is OpKind.INPUT:
             g.inputs.append(len(g.nodes) - 1)
         return len(g.nodes) - 1
@@ -261,40 +417,65 @@ def _one_primitive_group(prim):
     return g, frozenset({nid})
 
 
+def _group_inputs(g, ext):
+    vals = []
+    for i in ext:
+        spec = g.node(i).spec
+        if spec.dtype == "bool":
+            vals.append(torch.from_numpy(rng.standard_normal(spec.shape) > 0))
+        else:
+            vals.append(torch.from_numpy(
+                rng.standard_normal(spec.shape).astype(np.float32)))
+    return vals
+
+
 @pytest.mark.parametrize("prim",
                          sorted(tcodegen.EMITTABLE_PRIMS - {"const"}))
-def test_every_emittable_primitive_has_a_lowering(prim):
-    """What ``pattern_emittable`` admits, the generator can write: both
-    kernels' Triton source for a one-primitive group (no Triton needed)."""
+def test_every_emittable_primitive_has_a_lowering(tmp_path, prim):
+    """What ``pattern_emittable`` admits, the generators can write: the
+    one-pass kernel's Triton source for a one-primitive group compiles
+    (no Triton needed), and the streaming kernel's CUDA C++ builds with
+    g++ and its host form computes what the plain version computes."""
     g, pat = _one_primitive_group(prim)
     info = analyze(g, pat)
     assert tcodegen.pattern_emittable(g, pat, info=info)
     ext = g.pattern_inputs(pat)
-    for kern in (tcodegen.OnePassKernel(g, pat, info, ext, g.outputs,
-                                        block_rows=2),
-                 tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
-                                          block_rows=2, block_cols=4)):
-        compile(kern.source(), f"<{prim} {kern.schedule}>", "exec")
+    one = tcodegen.OnePassKernel(g, pat, info, ext, g.outputs, block_rows=2)
+    compile(one.source(), f"<{prim} onepass>", "exec")
+    stream = tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
+                                      block_rows=2, block_cols=4)
+    vals = _group_inputs(g, ext)
+    got = stream.host(gxx(tmp_path, stream.source(), "prim"), *vals)[0]
+    want = stream("cpu", *vals)[0]
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
 
 
 @pytest.mark.parametrize("prim", ["expm1", "log1p", "tanh"])
-def test_precise_unary_primitives_lower_through_libdevice(prim):
-    """``expm1``, ``log1p`` and ``tanh`` are emitted as libdevice calls,
-    which keep the relative precision near 0 that ``exp(x) - 1``,
-    ``log(1 + x)`` and ``2 sigmoid(2x) - 1`` lose (XLA lowers them
-    precisely too)."""
+def test_precise_unary_primitives_lower_through_libdevice(tmp_path, prim):
+    """``expm1``, ``log1p`` and ``tanh`` are emitted as libdevice calls in
+    the one-pass kernel and as ``expm1f``, ``log1pf``, ``tanhf`` in the
+    streaming kernel's C++, which keep the relative precision near 0 that
+    ``exp(x) - 1``, ``log(1 + x)`` and ``2 sigmoid(2x) - 1`` lose (XLA
+    lowers them precisely too): the host form holds 1e-6 relative at
+    |x| <= 1e-4."""
     g, pat = _one_primitive_group(prim)
     info = analyze(g, pat)
     ext = g.pattern_inputs(pat)
-    for kern in (tcodegen.OnePassKernel(g, pat, info, ext, g.outputs,
-                                        block_rows=2),
-                 tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
-                                          block_rows=2, block_cols=4)):
-        src = kern.source()
-        assert "from triton.language.extra import libdevice" in src
-        assert f"libdevice.{prim}(" in src
-        for imprecise in ("tl.exp(", "tl.log(", "tl.sigmoid("):
-            assert imprecise not in src
+    src = tcodegen.OnePassKernel(g, pat, info, ext, g.outputs,
+                                 block_rows=2).source()
+    assert "from triton.language.extra import libdevice" in src
+    assert f"libdevice.{prim}(" in src
+    for imprecise in ("tl.exp(", "tl.log(", "tl.sigmoid("):
+        assert imprecise not in src
+    stream = tcodegen.StreamingKernel(g, pat, info, ext, g.outputs,
+                                      block_rows=2, block_cols=4)
+    assert f"{prim}f(" in stream.source()
+    x = (torch.rand(4, 8) * 2 - 1) * 1e-4
+    got = stream.host(gxx(tmp_path, stream.source(), prim), x)[0]
+    torch.testing.assert_close(got, getattr(torch, prim)(x), rtol=1e-6,
+                               atol=0)
 
 
 @pytest.mark.parametrize("prim", ["tan", "atan"])

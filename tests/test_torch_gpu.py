@@ -55,6 +55,12 @@ def rmsnorm(x, g):
             * g).to(x.dtype)
 
 
+def rmsnorm_f32(x, g):
+    """``rmsnorm`` with its float32 result, not cast back to x's dtype."""
+    xf = x.float()
+    return xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + 1e-6) * g
+
+
 def _check(fn, args, hw, kind, atol=1e-4):
     """Every generated kernel of ``fn`` vs its plain version, then the
     whole stitched call vs the op-by-op replay."""
@@ -102,6 +108,64 @@ def test_onepass_recompute_flip(cuda):
     comp = stitched_jit(fanout, hw=tight).compiled(*args)
     assert comp.report.n_recomputed > 0
     _check(fanout, args, tight, "onepass")
+
+
+#: name -> (function, input shapes, bfloat16 first input): streaming
+#: groups on the cluster kernel -- a row split across eight CTAs, a row
+#: longer than eight stages hold, a width that is no multiple of 16 (the
+#: stage filled by plain loads), a ragged tail (the last CTA's slice
+#: shorter, rows no multiple of the plan's row block), a bfloat16 group
+STREAM_CASES = {
+    "cluster-8": (lambda v: torch.softmax(v, -1), [(64, 128256)], False),
+    "longer-than-a-cluster": (lambda v: torch.softmax(v, -1), [(8, 600000)],
+                              False),
+    "odd-width": (lambda v: torch.softmax(v, -1), [(37, 30001)], False),
+    "ragged-tail": (lambda v: torch.softmax(v, -1), [(37, 100000)], False),
+    "bf16-rmsnorm": (rmsnorm, [(300, 30000), (30000,)], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_streaming_cluster_kernel_matches_plain(cuda, case):
+    """The streaming kernel (one launch a call, counted) against its
+    plain version, each element within 1e-5 |plain| + 1e-5 mean|plain|
+    (float32 sums in another order).  A bfloat16 output is the same
+    group's float32 output, from the same geometry and sum order, rounded
+    to nearest even: bit for bit."""
+    fn, shapes, bf16 = STREAM_CASES[case]
+    args = [torch.randn(sh, device="cuda", generator=cuda) for sh in shapes]
+    if bf16:
+        args[0] = args[0].bfloat16()
+
+    def streaming(f):
+        comp = stitched_jit(f).compiled(*args)
+        ems = [e for e in comp.emitted if e.kind == "streaming"]
+        assert len(ems) == 1, comp.report.schedules
+        given = dict(zip(comp.graph.inputs, args))
+        return ems[0].fn, [given[i] for i in ems[0].ext_ids]
+
+    kern, vals = streaming(rmsnorm_f32 if bf16 else fn)
+    K, width, staged = kern.cluster()
+    if case == "longer-than-a-cluster":
+        assert K == 8 and staged < width
+    if case == "ragged-tail":
+        assert K == 8 and 0 < kern.C - (K - 1) * width < width
+        assert kern.R % kern.BR
+    before = codegen.StreamingKernel.launches
+    got = kern("cuda", *vals)
+    assert codegen.StreamingKernel.launches == before + 1
+    want = kern.plain(torch.device("cuda"), *vals)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.float32
+        limit = 1e-5 * b.abs() + 1e-5 * float(b.abs().mean())
+        assert bool(((a - b).abs() <= limit).all())
+    if bf16:
+        kern16, vals16 = streaming(fn)
+        assert kern16.cluster() == (K, width, staged)
+        out = kern16("cuda", *vals16)[0]
+        assert codegen.StreamingKernel.launches == before + 2
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, got[0].to(torch.bfloat16))
 
 
 def test_bf16_rmsnorm(cuda):
@@ -429,12 +493,15 @@ def test_reduced_moe_train_step_on_the_card_matches_the_cpu(cuda):
 # the SSD scan (B11) and the SSM / hybrid paths
 # ---------------------------------------------------------------------------
 #: name -> (b, L, H, P, N, chunk): Mamba2's and Zamba2's head dim and
-#: state at a short sequence, a chunk shorter than the instance's 64
-#: rows, and the reduced configs' P 16, N 16, chunk 16
+#: state at a short sequence, a chunk shorter than the tile's 64 rows, the
+#: reduced configs' P 16, N 16, chunk 16, a head dim and state that are
+#: no multiple of the tiles, and a sequence of one chunk
 SSD_CASES = {"mamba2-N128": (2, 192, 4, 64, 128, 64),
              "zamba2-N64": (2, 128, 6, 64, 64, 64),
              "short-chunk": (1, 60, 3, 64, 128, 20),
-             "reduced": (2, 48, 16, 16, 16, 16)}
+             "reduced": (2, 48, 16, 16, 16, 16),
+             "odd-P20-N36": (2, 96, 5, 20, 36, 32),
+             "one-chunk": (1, 64, 3, 32, 96, 64)}
 
 
 @pytest.mark.parametrize("case", sorted(SSD_CASES))
@@ -451,7 +518,7 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     A = -torch.exp(0.3 * torch.randn(H, device="cuda", generator=cuda))
     before = K.ssd_scan_cuda.launches
     y, state = K.ssd_scan(x, dt, A, Bm, Cm, chunk)
-    assert K.ssd_scan_cuda.launches == before + 1
+    assert K.ssd_scan_cuda.launches == before + K.LAUNCHES_PER_CALL
     y_ref, s_ref = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
     # float32 sums over the chunk and the state, in another order
     for got, want in ((y, y_ref), (state, s_ref)):
@@ -462,14 +529,18 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels import ssd_scan as K
 
-    x = torch.randn(1, 64, 2, 32, device="cuda")
-    dt = torch.rand(1, 64, 2, device="cuda")
+    x = torch.randn(1, 128, 2, 32, device="cuda")
+    dt = torch.rand(1, 128, 2, device="cuda")
     A = -torch.ones(2, device="cuda")
-    Bm = torch.randn(1, 64, 128, device="cuda")
-    with pytest.raises(ValueError, match="head dim 32"):
-        K.ssd_scan_cuda(x, dt, A, Bm, Bm, 64)
+    Bm = torch.randn(1, 128, 128, device="cuda")
+    with pytest.raises(ValueError, match="chunks of at most 64"):
+        K.ssd_scan_cuda(x, dt, A, Bm, Bm, 128)
     with pytest.raises(TypeError, match="float32"):
         K.ssd_scan_cuda(x.double(), dt, A, Bm, Bm, 64)
+    wide = torch.randn(1, 128, 2, 512, device="cuda")
+    big = torch.randn(1, 128, 512, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        K.ssd_scan_cuda(wide, dt, A, big, big, 64)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
@@ -488,7 +559,8 @@ def test_reduced_recurrent_generate_on_the_card_matches_the_cpu(cuda, arch):
     before = K.ssd_scan_cuda.launches
     got = generate(gpu, gparams, prompts, 6)
     # one scan a layer in the prefill, none in the decode steps
-    assert K.ssd_scan_cuda.launches - before == cfg.n_layers
+    assert K.ssd_scan_cuda.launches - before == \
+        cfg.n_layers * K.LAUNCHES_PER_CALL
     np.testing.assert_array_equal(got, want)
 
 
@@ -618,8 +690,15 @@ def test_b3_kernel_matches_plain(cuda, case):
     args = [torch.randn(s, device="cuda", generator=cuda) for s in shapes]
     comp, ems = _anchored_ems(fn, args)
     _hold_anchored(comp, ems, cuda)
-    torch.testing.assert_close(stitched_jit(fn)(*args), fn(*args),
-                               rtol=1e-4, atol=1e-4)
+    # the whole stitched call against the function in float64, at B3's
+    # limit: 1e-5 max(1, max|plain|) + 3 x the float32 eager function's
+    # own distance from float64 (the tensor cores sum in another order
+    # than cuBLAS, so the float32 eager result is no exact yardstick)
+    got, plain = stitched_jit(fn)(*args), fn(*args)
+    f64 = fn(*[a.double() for a in args])
+    limit = 1e-5 * max(1.0, float(plain.abs().max())) \
+        + 3.0 * float((plain.double() - f64).abs().max())
+    assert float((got.double() - f64).abs().max()) <= limit
 
 
 def test_b3_kernel_prologue_roles_and_reducing_epilogue(cuda):

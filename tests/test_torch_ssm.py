@@ -35,6 +35,7 @@ from repro.models.layers import mamba_apply as jmamba_apply  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import split_float as SF  # noqa: E402
 from repro_torch.kernels import ssd_scan as K  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
@@ -58,11 +59,13 @@ def _np(tree):
 # the SSD scan: plain version, oracle and operator against the Pallas kernel
 # ---------------------------------------------------------------------------
 #: name -> (b, L, H, P, N, chunk): the reduced configs' shapes, one chunk
-#: and several, a head dim and state of Zamba2's and Mamba2's proportions
+#: and several, a head dim and state of Zamba2's and Mamba2's proportions,
+#: a head dim and state that are no multiple of the CUDA kernel's tiles
 SCAN_SHAPES = {"reduced": (2, 32, 16, 16, 16, 16),
                "one-chunk": (1, 16, 4, 16, 16, 16),
                "odd-heads": (2, 48, 3, 8, 4, 16),
-               "wide-state": (1, 64, 2, 16, 64, 32)}
+               "wide-state": (1, 64, 2, 16, 64, 32),
+               "odd-P20-N36": (2, 96, 5, 20, 36, 32)}
 
 
 def _scan_inputs(b, L, H, P, N):
@@ -81,8 +84,12 @@ def test_ssd_scan_matches_the_pallas_kernel(name):
     ins = _scan_inputs(b, L, H, P, N)
     jy, js = jssd_kernel(*map(jnp.asarray, ins), chunk=chunk, interpret=True)
     before = K.ssd_scan_cuda.launches
+    # the plain version, the operator, the oracle, and the CUDA kernel's
+    # chunk-parallel decomposition with plain and with split products
     for fn in (K.ssd_scan_plain, K.ssd_scan,
-               lambda *a: ref.ssd_scan(*a[:5], chunk=a[5])):
+               lambda *a: ref.ssd_scan(*a[:5], chunk=a[5]),
+               SF.ssd_chunked,
+               lambda *a: SF.ssd_chunked(*a, product=SF.split_matmul)):
         y, s = fn(*map(_t, ins), chunk)
         assert y.shape == (b, L, H, P) and s.shape == (b, H, P, N)
         assert s.dtype == torch.float32

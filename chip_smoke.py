@@ -42,8 +42,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    Sq 200 < Skv 500 (causal offset), non-causal, at the HuBERT train
    path's [8, 16, 512, 80] non-causal, at Granite's head dim 64
    ([4, 16 (Hkv 8), 512, 64] and [8, 16 (Hkv 8), 512, 64], causal) and
-   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged) and at Gemma-7B's
-   heads ([4, 16, 512, 256], causal), each against the same function in
+   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged), at Gemma-7B's
+   heads ([4, 16, 512, 256], causal) and above the tuned head dims
+   ([4, 16, 512, 320], causal: the wide kernel,
+   ``csrc/flash_attention_wide.cu``), each against the same function in
    float64 (the plain version on float64 inputs; the float32 plain
    version's own distance is printed beside it) with the same
    per-element limit and the same times; the
@@ -53,16 +55,28 @@ Phases, each of which makes the script exit non-zero when it fails:
    norm; no train rows); and the SSD scan kernel (B11: three launches
    a call, its products on the tensor cores) at Mamba2's
    prefill ([4, 512, 32, 64], N 128), Zamba2's prefill ([4, 512, 64, 64],
-   N 64), Mamba2's train batch ([8, 512, 32, 64], N 128) and a head dim
-   and state that no config carries ([2, 512, 16, 32], N 96), x, B and C
+   N 64), Mamba2's train batch ([8, 512, 32, 64], N 128), a head dim
+   and state that no config carries ([2, 512, 16, 32], N 96), Mamba2's
+   prefill at a chunk of 128 (launches at 64) and P = N = 256 ([2, 512,
+   8, 256], in P slices that fit a block), x, B and C
    strided slices of one [b, L, conv_dim] activation as the model passes
    them, y and the state each within 1e-4 max(1, max|plain|); and the
    flash decode kernel at Llama's decode_32k ([4, 24 (Hkv 8), 32768,
    128] and batch 1), Granite's [4, 16 (Hkv 8), 32768, 64], Zamba2's
-   long_500k ([1, 32, 524288, 64]), a ragged kv_len of 1,000 of 1,024 and
-   a live prefix (1,500 of 2,048) of a layer's view, each element within
-   r |plain| + r mean|plain|, r = 1e-5 max(1, sqrt(kv_len / 32768)),
-   with SDPA as its library call.
+   long_500k ([1, 32, 524288, 64]), a ragged kv_len of 1,000 of 1,024, a
+   live prefix (1,500 of 2,048) of a layer's view, Gemma-7B's heads at
+   decode_32k ([4, 16, 32768, 256]), head dim 80 (read in place by the
+   128 instance, its columns masked at 80), 16 query heads a KV head
+   (two sub-groups) and head dim 320 (the wide kernel, one query row),
+   each element within r |plain| + r mean|plain|, r = 1e-5 max(1,
+   sqrt(kv_len / 32768)), with SDPA as its library call; then its time
+   at one cache against the query heads a KV head (1 to 8, and 16).
+   Beside RMSNorm's prefill row and the
+   LayerNorm backward's train row it prints the time of one PyTorch
+   element-wise op moving the same bytes (``torch.mul``, ``torch.add``).
+   Each check of the flash,
+   SSD and decode kernels prints the launches it made, by kernel, and
+   fails unless the kernel meant for its shape ran.
 3b. Anchored kernels (compute-anchored stitching, on by default):
    ``stitched_jit`` folds memory-bound chains into B3 (the fused matmul,
    one generated instance of ``csrc/matmul_fused.cuh`` a chain) and into
@@ -872,6 +886,25 @@ def check_cuda_kernel(label: str, launch, plain, inputs, *, nbytes: float,
             "library_ms": lib_ms}
 
 
+def same_bytes_op(label: str, fn, *inputs) -> None:
+    """Print the device time of one PyTorch element-wise op that moves the
+    same bytes as the kernel just checked (its inputs read once, one
+    output written): a yardstick of what the card's memory delivers to
+    such traffic, beside the bound's 3.35 TB/s."""
+    print(f"  same bytes through {label}: "
+          f"{time_ms(lambda: fn(*inputs), 50):.4f} ms")
+
+
+def launched(name: str, before: dict) -> None:
+    """Print the launches a check made, by kernel, and fail unless
+    ``name``'s counter moved: the shape ran through that kernel."""
+    after = launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    print(f"  launches of that check: {json.dumps(moved)}")
+    if not moved.get(name):
+        fail(f"the check meant for {name} launched it no time: {moved}")
+
+
 #: B3's limit against its plain version, set before its first full-width
 #: run: each output within 1e-5 max(1, max|plain|) -- plus, where the
 #: float32 sum over K argues for more, three times the plain version's
@@ -1174,6 +1207,10 @@ def phase_cuda_kernels(gen) -> dict:
         checks.setdefault("rmsnorm", []).append(
             dict(res, _bytes=4 * (2 * R * C + C + R),
                  _main=(R, C) == (BATCH * PROMPT, 3072)))
+        if C == 3072 and R > BATCH:
+            same_bytes_op("torch.mul: x read, one output written",
+                          lambda a: torch.mul(a, 2.0, out=torch.empty_like(a)),
+                          x)
 
     for R, C in ((T, 1280), (T - 96, 1280), (8192, 3072)):
         x = torch.randn(R, C, generator=gen, device="cuda") * 2.0 + 0.5
@@ -1203,6 +1240,11 @@ def phase_cuda_kernels(gen) -> dict:
                     d, a, [_C], m, r, c, _b, [True, True, True]))
         checks.setdefault("layernorm_bwd", []).append(
             dict(res, _bytes=nb_b, _main=main))
+        if main:
+            same_bytes_op("torch.add: x and dy read, one output written",
+                          lambda a, d: torch.add(a, d,
+                                                 out=torch.empty_like(a)),
+                          x, dy)
 
     # the router's softmax (B7) and its backward (B10): Granite's prefill,
     # decode and train rows of 32 experts, a ragged 40-expert shape (the
@@ -1235,6 +1277,7 @@ def phase_cuda_kernels(gen) -> dict:
     granite_train = (TRAIN_BATCH, 16, 8, 64)
     zamba = (BATCH, 32, 32, 64)             # Zamba2's shared block
     gemma = (BATCH, 16, 16, 256)            # Gemma-7B's heads: D 256
+    wide = (BATCH, 16, 16, 320)             # above 256: the wide kernel
     for label, (B, Hq, Hkv, D), Sq, Skv, causal in (
             ("prefill causal", llama, 512, 512, True),
             ("ragged causal", llama, 500, 500, True),
@@ -1246,7 +1289,8 @@ def phase_cuda_kernels(gen) -> dict:
              True),
             ("hybrid prefill causal", zamba, SERVE_PROMPT, SERVE_PROMPT,
              True),
-            ("gemma-7b heads causal", gemma, PROMPT, PROMPT, True)):
+            ("gemma-7b heads causal", gemma, PROMPT, PROMPT, True),
+            ("wide d320 causal", wide, PROMPT, PROMPT, True)):
         q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
         k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
         # v as the model hands it over: [B, S, H, D] transposed (strided)
@@ -1259,6 +1303,9 @@ def phase_cuda_kernels(gen) -> dict:
             def lib(a, b, c, _causal=causal):
                 return F.scaled_dot_product_attention(
                     a, b, c, is_causal=_causal, enable_gqa=True)
+        name = "flash_attention_wide" if D > FA.MAX_HEAD_DIM \
+            else "flash_attention"
+        before = launch_counts()
         res = check_cuda_kernel(
             f"flash_attention {label} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
             f"D{D}",
@@ -1268,7 +1315,8 @@ def phase_cuda_kernels(gen) -> dict:
             ops=0, mma_ops=4 * D * B * Hq * pairs, reps=20, library=lib,
             reference=lambda a, b, c, _c=causal: FA.flash_attention_plain(
                 a.double(), b.double(), c.double(), _c))
-        checks.setdefault("flash_attention", []).append(
+        launched(name, before)
+        checks.setdefault(name, []).append(
             dict(res, _bytes=4 * (2 * q.numel() + 2 * k.numel()),
                  _main=label == "prefill causal"))
 
@@ -1278,15 +1326,22 @@ def phase_cuda_kernels(gen) -> dict:
             ("mamba2 prefill", (BATCH, PROMPT, 32, 64, 128)),
             ("zamba2 prefill", (BATCH, PROMPT, 64, 64, 64)),
             ("mamba2 train", (TRAIN_BATCH, TRAIN_FRAMES, 32, 64, 128)),
-            ("padded P32 N96", (2, PROMPT, 16, 32, 96))):
+            ("padded P32 N96", (2, PROMPT, 16, 32, 96)),
+            ("mamba2 prefill at chunk 128", (BATCH, PROMPT, 32, 64, 128)),
+            ("P256 N256 in slices", (2, PROMPT, 8, 256, 256))):
         ins = ssd_inputs(gen, b, L, H, P, N)
-        nbytes, ops, mma = ssd_work(b, L, H, P, N, SSD_CHUNK)
+        chunk = 128 if "chunk 128" in label else SSD_CHUNK
+        nbytes, ops, mma = ssd_work(b, L, H, P, N, SS.kernel_chunk(chunk))
+        p_sl, n_sl = SS.ssd_slices(SS.kernel_chunk(chunk), P, N, SS._smem())
+        before = launch_counts()
         res = check_cuda_kernel(
-            f"ssd_scan {label} b{b} L{L} H{H} P{P} N{N} chunk{SSD_CHUNK} "
-            "(x, B, C strided)",
-            lambda *a: SS.ssd_scan_cuda(*a, SSD_CHUNK),
-            lambda *a: SS.ssd_scan_plain(*a, SSD_CHUNK), ins, nbytes=nbytes,
-            ops=ops, mma_ops=mma, reps=20, max_rtol=SSD_RTOL)
+            f"ssd_scan {label} b{b} L{L} H{H} P{P} N{N} chunk{chunk} "
+            f"(launches at chunk {SS.kernel_chunk(chunk)}, {len(p_sl)} P x "
+            f"{len(n_sl)} N slices; x, B, C strided)",
+            lambda *a, _c=chunk: SS.ssd_scan_cuda(*a, _c),
+            lambda *a, _c=chunk: SS.ssd_scan_plain(*a, _c), ins,
+            nbytes=nbytes, ops=ops, mma_ops=mma, reps=20, max_rtol=SSD_RTOL)
+        launched("ssd_scan", before)
         checks.setdefault("ssd_scan", []).append(
             dict(res, _bytes=nbytes, _main=label == "mamba2 prefill"))
 
@@ -1301,7 +1356,13 @@ def phase_cuda_kernels(gen) -> dict:
             ("granite decode_32k", granite, STATIC_KV, None, 1),
             ("zamba2 long_500k", (1, 32, 32, 64), LONG_KV, None, 1),
             ("ragged kv_len", llama, 1024, 1000, 1),
-            ("live prefix of a layer view", llama, 2048, 1500, 3)):
+            ("live prefix of a layer view", llama, 2048, 1500, 3),
+            ("gemma-7b decode_32k", gemma, STATIC_KV, None, 1),
+            ("head dim 80 masked", (BATCH, 16, 16, 80), 4096, 4000, 1),
+            ("16 query heads a KV head", (BATCH, 32, 2, 128), STATIC_KV,
+             None, 1),
+            ("head dim 320 on the wide kernel", (1, 8, 2, 320), 4096, 4000,
+             1)):
         q = torch.randn(B, Hq, D, generator=gen, device="cuda")
         # the caches as the model hands them over: one layer's view of an
         # [n_layers, B, Hkv, S, D] buffer
@@ -1312,9 +1373,12 @@ def phase_cuda_kernels(gen) -> dict:
         eff = S if n is None else n
         nbytes, ops = 4 * (2 * B * Hkv * eff * D + 2 * B * Hq * D), \
             4 * D * B * Hq * eff
+        name = "flash_decode" if FA.decode_instance(D) else \
+            "flash_attention_wide"
+        before = launch_counts()
         res = check_cuda_kernel(
             f"flash_decode {label} B{B} Hq{Hq} Hkv{Hkv} S{S} kv_len{eff} "
-            f"D{D}",
+            f"D{D} ({len(FA.decode_subgroups(Hq // Hkv))} sub-group(s))",
             lambda a, b, c, _n=n: FA.flash_decode_cuda(a, b, c, _n),
             lambda a, b, c, _n=n: FA.flash_decode_plain(a, b, c, _n),
             (q, k, v), nbytes=nbytes, ops=0, mma_ops=ops,
@@ -1323,11 +1387,36 @@ def phase_cuda_kernels(gen) -> dict:
             library=lambda a, b, c, _e=eff: F.scaled_dot_product_attention(
                 a[:, :, None], b[:, :, :_e], c[:, :, :_e],
                 enable_gqa=True)[:, :, 0])
-        checks.setdefault("flash_decode", []).append(
+        launched(name, before)
+        checks.setdefault(name, []).append(
             dict(res, _bytes=nbytes, _main=label == "llama decode_32k"))
         del q, k, v
+    decode_group_sweep(gen)
     torch.cuda.empty_cache()
     return checks
+
+
+def decode_group_sweep(gen) -> None:
+    """Print B8's device time at one cache, [4, 2, 32768, 128] (the same
+    bytes each call), against the query heads a KV head: G 1 to 8 in one
+    launch, 16 in two sub-groups.  How the time grows with G, beside the
+    cache's bytes floor, is what separates the kernel's per-head work
+    from its reads."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Hkv, S, D = BATCH, 2, STATIC_KV, 128
+    k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+    v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+    times = []
+    for G in (1, 2, 3, 4, 5, 6, 7, 8, 16):
+        q = torch.randn(B, Hkv * G, D, generator=gen, device="cuda")
+        ms = time_ms(lambda: FA.flash_decode_cuda(q, k, v, None), 20)
+        times.append(f"G{G} {ms:.4f}")
+    floor = 4 * 2 * B * Hkv * S * D / HBM_BYTES_PER_S * 1e3
+    print(f"flash_decode by query heads a KV head, B{B} Hkv{Hkv} S{S} D{D} "
+          f"(the cache's bytes {floor:.4f} ms): " + " ".join(times))
 
 
 def sass_check() -> None:
@@ -1435,7 +1524,7 @@ def ssd_work(b: int, L: int, H: int, P: int, N: int,
 def launch_counts() -> dict:
     from repro_torch.core.codegen import OnePassKernel, StreamingKernel
     from repro_torch.kernels.flash_attention import flash_attention_cuda, \
-        flash_decode_cuda
+        flash_attention_wide_cuda, flash_decode_cuda
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -1445,6 +1534,7 @@ def launch_counts() -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     return {"onepass": OnePassKernel.launches,
+            "flash_attention_wide": flash_attention_wide_cuda.launches,
             "matmul_fused": matmul_fused.launches,
             "flash_score_mod": ScoreMod.launches,
             "streaming": StreamingKernel.launches,
@@ -1461,7 +1551,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     from repro_torch.core.codegen import OnePassKernel, StreamingKernel
     from repro_torch.kernels.flash_attention import flash_attention_cuda, \
-        flash_decode_cuda
+        flash_attention_wide_cuda, flash_decode_cuda
     from repro_torch.kernels.layernorm import layernorm_bwd_cuda, \
         layernorm_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -1471,6 +1561,7 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     OnePassKernel.launches = StreamingKernel.launches = 0
+    flash_attention_wide_cuda.launches = 0
     matmul_fused.launches = ScoreMod.launches = 0
     rmsnorm_cuda.launches = flash_attention_cuda.launches = 0
     flash_decode_cuda.launches = 0
@@ -2169,7 +2260,9 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
         want = {norm: 2 * L + 1, "flash_attention": 0,
                 "ssd_scan": L * LAUNCHES_PER_CALL}
     if norm == "layernorm":
-        want["layernorm_bwd"] = 2 * L + 1
+        from repro_torch.kernels.layernorm import BWD_LAUNCHES_PER_CALL
+
+        want["layernorm_bwd"] = (2 * L + 1) * BWD_LAUNCHES_PER_CALL
     if moe:
         want.update(softmax=L, softmax_bwd=L)
     for i, per in enumerate(kern["per_step"]):
@@ -2279,6 +2372,9 @@ def main() -> int:
              "src/repro/kernels/rmsnorm.py:20"),
             ("flash_attention", "cuda",
              "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:87"),
+            ("flash_attention_wide", "cuda",
+             "src/repro_torch/csrc/flash_attention_wide.cu",
              "src/repro/kernels/flash_attention.py:87"),
             ("layernorm", "cuda", "src/repro_torch/csrc/layernorm.cu",
              "src/repro/kernels/layernorm.py:34"),

@@ -695,7 +695,8 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     k-tile, never a whole row of K), an epilogue that reduces over an N
     wider than the row tile or with more reductions than its slots, a
     value outside float32 and bool, or an attention head dim the flash
-    kernel has no instance for."""
+    kernel has no tuned instance for (above 256 the wide kernel runs,
+    which takes no score functor)."""
     from ..kernels import flash_attention as fa
     from ..kernels import matmul as mm
 
@@ -707,8 +708,8 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     if len(anchors) == 2:
         q = graph.node(graph.node(anchors[0]).inputs[0]).spec
         if (q.dtype != "float32" or not q.shape
-                or q.shape[-1] > fa.MAX_HEAD_DIM):
-            return None
+                or fa.flash_instance(q.shape[-1]) is None):
+            return None                  # the wide kernel takes no score_mod
         return fa.flash_smem_bytes(q.shape[-1])
     if len(anchors) != 1:
         return None

@@ -23,7 +23,11 @@ plain ops on the card by the reference's own design.
 The kernel runs both products on the tensor cores through the
 three-way TF32 split (``kernels/split_float.py``), in instances for
 head dims 64, 80, 128 and 256 (``FLASH_HEAD_DIMS``; a D between two is
-zero-padded up to the next, one above 256 raises).
+zero-padded up to the next).  A head dim above 256 runs on a kernel of
+its own, ``csrc/flash_attention_wide.cu`` (``flash_attention_wide_cuda``:
+float32 FMA on the CUDA cores, the output's head dim cut into tiles of at
+most 256 columns), as the reference's kernel has no ceiling on D; it
+takes no ``score_mod``, so the H100 gate anchors no attention above 256.
 
 ``flash_attention(q, k, v, causal, scale)`` runs the operator
 ``repro_torch::flash_attention``: on CPU tensors ``flash_attention_plain``,
@@ -38,8 +42,15 @@ one query row a (batch, head), q [B, Hq, D], against the first
 ``kv_len`` rows of caches [B, Hkv, S, D] (the whole cache when
 ``kv_len`` is None or at least S), the hand-written CUDA kernel
 ``csrc/flash_decode.cu`` on CUDA tensors, ``flash_decode_plain`` on CPU
-tensors.  It has no autograd formula: the reference has none for the
-decode path.
+tensors.  The kernel has instances for head dims 64, 128 and 256 and
+takes at most 8 query heads a KV head a launch: a D between two
+instances runs on the next, its columns masked at D (``decode_padded``
+zero-pads only a D that is not a multiple of 4; the scale stays that of
+the true D), and ``decode_by_subgroups`` runs a larger group as
+sub-groups, one launch each (``decode_subgroups`` is the plan); a D
+above 256 runs on the wide flash kernel, one query row, non-causal, as
+the reference builds ``flash_decode`` from ``flash_attention``.  It has
+no autograd formula: the reference has none for the decode path.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ import torch
 
 from . import _build, ref
 
+#: The largest head dim of the tuned instances; above it the wide kernel.
 MAX_HEAD_DIM = 256
 #: The kernel's constants, mirrored from ``csrc/flash_attention.cuh`` (a
 #: test holds the two equal): query rows a block (``kBQ``), the head-dim
@@ -61,28 +73,41 @@ MAX_HEAD_DIM = 256
 FLASH_BQ = 64
 FLASH_HEAD_DIMS = (64, 80, 128, 256)
 FLASH_QREG_MAX_D = 80
+#: The wide kernel's tiles (``csrc/flash_attention_wide.cu``): query rows,
+#: key rows, head-dim columns a step of q k^T, output columns a D-tile.
+WIDE_BQ, WIDE_BK, WIDE_DC, WIDE_DT = 32, 32, 32, 256
 
 
-def flash_instance(D: int) -> int:
-    """The head-dim instance that runs a head dim of ``D``."""
+def flash_instance(D: int) -> int | None:
+    """The tuned head-dim instance that runs a head dim of ``D``, or None
+    above ``MAX_HEAD_DIM``: the wide kernel runs that D as it is."""
     for dmax in FLASH_HEAD_DIMS:
         if D <= dmax:
             return dmax
-    raise ValueError(f"flash attention: head dim {D} > {MAX_HEAD_DIM}")
+    return None
 
 
 def flash_kbk(D: int) -> int:
-    """K/V rows a tile of the instance that runs ``D``: 32 where its Q
-    tile takes shared memory, else 64."""
-    return 64 if flash_instance(D) <= FLASH_QREG_MAX_D else 32
+    """K/V rows a tile of the kernel that runs ``D``: 32 where the tuned
+    instance's Q tile takes shared memory and in the wide kernel, else
+    64."""
+    d = flash_instance(D)
+    if d is None:
+        return WIDE_BK
+    return 64 if d <= FLASH_QREG_MAX_D else 32
 
 
 def flash_smem_bytes(D: int) -> int:
-    """Shared memory of one block of the instance that runs ``D``: the K
-    and V tiles of the two-stage ring (rows padded to D + 8 and D + 4
-    floats) and, above ``FLASH_QREG_MAX_D``, the Q tile (``smem_floats``
-    in ``csrc/flash_attention.cuh``)."""
+    """Shared memory of one block of the kernel that runs ``D``.  A tuned
+    instance: the K and V tiles of the two-stage ring (rows padded to D +
+    8 and D + 4 floats) and, above ``FLASH_QREG_MAX_D``, the Q tile
+    (``smem_floats`` in ``csrc/flash_attention.cuh``).  Above
+    ``MAX_HEAD_DIM`` the wide kernel: its Q, K and p tiles (rows padded by
+    one float) and one D-tile of V."""
     d = flash_instance(D)
+    if d is None:
+        return 4 * ((WIDE_BQ + WIDE_BK) * (WIDE_DC + 1)
+                    + WIDE_BQ * (WIDE_BK + 1) + WIDE_BK * WIDE_DT)
     q = 0 if d <= FLASH_QREG_MAX_D else FLASH_BQ * (d + 8)
     return 4 * (2 * flash_kbk(D) * ((d + 8) + (d + 4)) + q)
 
@@ -170,14 +195,16 @@ def flash_attention_plain(q, k, v, causal: bool = True,
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          scale: float | None = None, *, score_mod=None,
                          score_args=()) -> torch.Tensor:
-    """Launch the CUDA kernel (float32, D <= 256, on the current stream):
-    the identity instance of ``csrc/flash_attention.cu``, or with
+    """Launch the CUDA kernel (float32, on the current stream): the
+    identity instance of ``csrc/flash_attention.cu``, or with
     ``score_mod`` its generated instance, whose score operands are read
     through 4D strides (0 on each dim of extent 1).  q, k, v are taken
     with their strides; a tensor the kernel cannot read with 16-byte
     copies (a last dimension that is not contiguous, an unaligned stride
     or base) is copied, and a head dim between two instances is
-    zero-padded up to the next (device time)."""
+    zero-padded up to the next (device time).  A head dim above
+    ``MAX_HEAD_DIM`` runs on the wide kernel (``flash_attention_wide_cuda``),
+    which takes no ``score_mod``."""
     _check_shapes(q, k, v, causal)
     if score_mod is not None:
         _check_score_args(q, k, score_args)
@@ -192,8 +219,11 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_cuda: head dim {D} > "
-                         f"{MAX_HEAD_DIM}")
+        if score_mod is not None:
+            raise ValueError(f"flash_attention_cuda: head dim {D}: a "
+                             f"score_mod runs on the instances up to "
+                             f"{MAX_HEAD_DIM}")
+        return flash_attention_wide_cuda(q, k, v, causal, scale)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     Dp = flash_instance(D)
     if Dp != D:  # zero dims add nothing to q k^T; o's are cut off below
@@ -227,14 +257,56 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
 flash_attention_cuda.launches = 0  # identity-instance launches
 
 
-@functools.cache
-def _entry():
-    fn = _build.library("flash_attention").repro_flash_attention_f32
+def flash_attention_wide_cuda(q, k, v, causal: bool = True,
+                              scale: float | None = None) -> torch.Tensor:
+    """Launch the wide kernel (``csrc/flash_attention_wide.cu``: float32,
+    any head dim, meant for those above ``MAX_HEAD_DIM``; on the current
+    stream).  q, k, v are taken with their strides; only a last dimension
+    that is not contiguous is copied."""
+    _check_shapes(q, k, v, causal)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(f"flash_attention_wide_cuda: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}; all must lie on one "
+                         "CUDA device")
+    if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
+        raise TypeError(f"flash_attention_wide_cuda takes float32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty(B, Hq, Sq, D, dtype=torch.float32, device=dev)
+    _build.check(_wide_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv,
+        Sq, Skv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(scale), int(causal), torch.cuda.current_stream(dev).cuda_stream),
+        "repro_flash_wide_f32")
+    flash_attention_wide_cuda.launches += 1
+    return o
+
+
+flash_attention_wide_cuda.launches = 0  # kernel launches (plain excluded)
+
+
+def _bind_attention(fn):
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _entry():
+    return _bind_attention(
+        _build.library("flash_attention").repro_flash_attention_f32)
+
+
+@functools.cache
+def _wide_entry():
+    return _bind_attention(
+        _build.library("flash_attention_wide").repro_flash_wide_f32)
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
@@ -300,9 +372,11 @@ _flash_attention_op.register_autograd(_backward,
 # --------------------------------------------------------------------------
 # flash decode: one query row against a KV cache
 # --------------------------------------------------------------------------
-#: Head dims the decode kernel has instances for (Llama's 128; Granite's
-#: and Zamba2's 64), and the most query heads that may share a KV head.
-DECODE_HEAD_DIMS = (64, 128)
+#: Head dims the decode kernel has instances for (Granite's and Zamba2's
+#: 64, Llama's 128, Gemma-7B's 256; a D between two runs on the next, its
+#: columns masked at D), and the most query heads a KV head one launch
+#: takes (a larger group runs as sub-groups, one launch each).
+DECODE_HEAD_DIMS = (64, 128, 256)
 DECODE_MAX_GROUP = 8
 #: Blocks the decode kernel's split pass aims for: about eight for each of
 #: the H100's 132 SMs, so that B * Hkv * splits fills the card even at one
@@ -355,12 +429,77 @@ def decode_splits(pairs: int, eff: int) -> tuple[int, int]:
     return -(-eff // rows), rows
 
 
+def decode_instance(D: int) -> int | None:
+    """The decode kernel's head-dim instance that runs ``D`` (its columns
+    masked at D), or None above the largest: the wide flash kernel runs
+    it."""
+    for dmax in DECODE_HEAD_DIMS:
+        if D <= dmax:
+            return dmax
+    return None
+
+
+def decode_subgroups(G: int) -> list[tuple[int, int]]:
+    """The launches of ``G`` query heads a KV head: (first head, heads) of
+    each sub-group within the group, the fewest of at most
+    ``DECODE_MAX_GROUP`` heads, as even as they come.  Sub-group (f, n)
+    runs query heads ``j G + f .. j G + f + n - 1`` of every KV head j."""
+    n = -(-G // DECODE_MAX_GROUP)
+    base, extra = divmod(G, n)
+    plan, first = [], 0
+    for i in range(n):
+        size = base + (i < extra)
+        plan.append((first, size))
+        first += size
+    return plan
+
+
+def decode_by_subgroups(q, k_cache, v_cache, eff: int, scale: float,
+                        run) -> torch.Tensor:
+    """o [B, Hq, D]: ``run(qs, k_cache, v_cache, eff, scale, os)`` once a
+    sub-group of ``decode_subgroups``, with ``qs`` and ``os`` the
+    [B, Hkv, n, D] views of q and o that hold the sub-group's heads of
+    every KV head (strided: not copied)."""
+    B, Hq, D = q.shape
+    Hkv = k_cache.shape[1]
+    G = Hq // Hkv
+    o = torch.empty(B, Hq, D, dtype=q.dtype, device=q.device)
+    q4, o4 = q.unflatten(1, (Hkv, G)), o.view(B, Hkv, G, D)
+    for first, n in decode_subgroups(G):
+        run(q4[:, :, first:first + n], k_cache, v_cache, eff, scale,
+            o4[:, :, first:first + n])
+    return o
+
+
+def decode_padded(q, k_cache, v_cache, kv_len, scale, run) -> torch.Tensor:
+    """``run(q, k, v, eff, scale)`` at the default scale 1/sqrt(D) of the
+    true D.  The decode kernel reads a head dim that is a multiple of 4 in
+    place (its instance masks the columns at D), so the caches pass
+    through as they are; another D (no config has one) is zero-padded up
+    to the next multiple of 4, which float4 loads need, and the result
+    cut back to D.  Zero columns add nothing to q k^T, so the padded call
+    computes the same function; only the live prefix of the caches is
+    padded (a copy, device time)."""
+    eff = live_len(kv_len, k_cache.shape[2])
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    if D % 4 == 0 or decode_instance(D) is None:
+        return run(q, k_cache, v_cache, eff, scale)
+    pad = (0, -D % 4)
+    q, k_cache, v_cache = (torch.nn.functional.pad(t, pad) for t in (
+        q, k_cache[:, :, :eff], v_cache[:, :, :eff]))
+    return run(q, k_cache, v_cache, eff, scale)[..., :D]
+
+
 def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
                       scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA decode kernel (float32, D 64 or 128, at most 8
-    query heads a KV head, on the current stream): the split pass, then
-    the combine.  The caches are taken with their strides (a layer's view
-    of the model's [n_layers, B, Hkv, S, D] buffer is not copied)."""
+    """Launch the CUDA decode kernel (float32, on the current stream): the
+    split pass, then the combine, once a sub-group of at most
+    ``DECODE_MAX_GROUP`` query heads a KV head, on the head-dim instance
+    that holds D (``decode_padded``).  The caches are taken with their
+    strides (a layer's view of the model's [n_layers, B, Hkv, S, D]
+    buffer is not copied).  Above the largest instance, the wide flash
+    kernel runs one query row against the live prefix, non-causal."""
     _check_decode_shapes(q, k_cache, v_cache)
     dev = q.device
     if (dev.type != "cuda" or k_cache.device != dev
@@ -371,30 +510,37 @@ def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
     if {q.dtype, k_cache.dtype, v_cache.dtype} != {torch.float32}:
         raise TypeError(f"flash_decode_cuda takes float32, got {q.dtype}, "
                         f"{k_cache.dtype}, {v_cache.dtype}")
-    B, Hq, D = q.shape
-    Hkv = k_cache.shape[1]
-    if D not in DECODE_HEAD_DIMS:
-        raise ValueError(f"flash_decode_cuda: head dim {D}; the kernel has "
-                         f"instances for {DECODE_HEAD_DIMS}")
-    if Hq // Hkv > DECODE_MAX_GROUP:
-        raise ValueError(f"flash_decode_cuda: {Hq // Hkv} query heads a KV "
-                         f"head; the kernel takes at most {DECODE_MAX_GROUP}")
-    eff = live_len(kv_len, k_cache.shape[2])
+    return decode_padded(q, k_cache, v_cache, kv_len, scale, _decode_run)
+
+
+def _decode_run(q, k_cache, v_cache, eff: int, scale: float) -> torch.Tensor:
+    if decode_instance(q.shape[-1]) is None:
+        return flash_attention_wide_cuda(
+            q[:, :, None], k_cache[:, :, :eff], v_cache[:, :, :eff], False,
+            scale)[:, :, 0]
     q, k_cache, v_cache = (_aligned(t) for t in (q, k_cache, v_cache))
+    return decode_by_subgroups(q, k_cache, v_cache, eff, scale,
+                               _decode_launch)
+
+
+def _decode_launch(qs, k_cache, v_cache, eff: int, scale: float, os) -> None:
+    """One launch pair of the decode kernel for the sub-group views ``qs``
+    and ``os`` [B, Hkv, n, D] (their strides passed as they are)."""
+    B, Hkv, n, D = qs.shape
+    dev = qs.device
     splits, rows = decode_splits(B * Hkv, eff)
-    part_acc = torch.empty(B, Hq, splits, D, dtype=torch.float32, device=dev)
-    part_ml = torch.empty(B, Hq, splits, 2, dtype=torch.float32, device=dev)
-    o = torch.empty(B, Hq, D, dtype=torch.float32, device=dev)
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    part_acc = torch.empty(B, Hkv * n, splits, decode_instance(D),
+                           dtype=torch.float32, device=dev)
+    part_ml = torch.empty(B, Hkv * n, splits, 2, dtype=torch.float32,
+                          device=dev)
     _build.check(_decode_entry()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), o.data_ptr(),
-        B, Hq, Hkv, D, eff, rows, splits, *q.stride()[:2],
+        qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), os.data_ptr(),
+        B, n, Hkv, D, eff, rows, splits, *qs.stride()[:3], *os.stride()[:3],
         *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
         torch.cuda.current_stream(dev).cuda_stream),
         "repro_flash_decode_f32")
     flash_decode_cuda.launches += 1
-    return o
 
 
 flash_decode_cuda.launches = 0  # kernel launches (plain runs excluded)
@@ -404,7 +550,7 @@ flash_decode_cuda.launches = 0  # kernel launches (plain runs excluded)
 def _decode_entry():
     fn = _build.library("flash_decode").repro_flash_decode_f32
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 8
+                   + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -21,15 +21,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
 from . import _build
 
-#: Backward blocks per SM: each block walks ``ceil(R / (this * SMs))``
-#: rows and writes one dgamma and one dbeta partial row.
-BWD_BLOCKS_PER_SM = 4
+#: The backward's partial rows of dgamma and dbeta: at most this many a
+#: SM (its persistent CTAs, each writing one), summed by its second launch
+BWD_PARTS_PER_SM = 2
+#: Kernel launches of one backward call: the rows, then the partials' sums
+BWD_LAUNCHES_PER_CALL = 2
 
 
 def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -106,19 +107,14 @@ def layernorm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 layernorm_cuda.launches = 0  # kernel launches (plain runs are not counted)
 
 
-def bwd_rows_per_block(R: int, device: torch.device) -> int:
-    """Rows each backward block walks: enough blocks to fill the card
-    (``BWD_BLOCKS_PER_SM`` per SM), as few partial rows as that allows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, math.ceil(R / (BWD_BLOCKS_PER_SM * sms)))
-
-
 def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                        mean: torch.Tensor, rstd: torch.Tensor,
                        dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
                                                   torch.Tensor]:
-    """Launch the backward kernel (float32, on the current stream), then
-    sum its [nb, C] dgamma and dbeta partials over the blocks."""
+    """Launch the backward kernel (float32, on the current stream): the
+    rows, writing at most ``BWD_PARTS_PER_SM`` dgamma and dbeta partial
+    rows an SM into a workspace, then the partials' sums in a fixed
+    order -- two launches, no atomics, the same bits every run."""
     C = x.shape[-1]
     _check("layernorm_bwd_cuda", {"x": x, "gamma": gamma, "mean": mean,
                                   "rstd": rstd, "dy": dy}, C)
@@ -129,19 +125,21 @@ def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"layernorm_bwd_cuda: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)}, mean {tuple(mean.shape)}, rstd "
                          f"{tuple(rstd.shape)}: want R = {R} rows each")
-    rpb = bwd_rows_per_block(R, x.device)
-    nb = math.ceil(R / rpb)
+    parts = BWD_PARTS_PER_SM * torch.cuda.get_device_properties(
+        x.device).multi_processor_count
     dx = torch.empty_like(x2)
-    dgp = torch.empty(nb, C, dtype=torch.float32, device=x.device)
-    dbp = torch.empty(nb, C, dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty(2, parts, C, **f32)  # dgamma, dbeta partial rows
+    dg, db = torch.empty(C, **f32), torch.empty(C, **f32)
     _build.check(_entry("repro_layernorm_bwd_f32")(
         x2.data_ptr(), gamma.contiguous().data_ptr(),
         mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
-        dy2.data_ptr(), dx.data_ptr(), dgp.data_ptr(), dbp.data_ptr(), R, C,
-        rpb, torch.cuda.current_stream(x.device).cuda_stream),
+        dy2.data_ptr(), dx.data_ptr(), work[0].data_ptr(),
+        work[1].data_ptr(), dg.data_ptr(), db.data_ptr(), R, C, parts,
+        torch.cuda.current_stream(x.device).cuda_stream),
         "repro_layernorm_bwd_f32")
-    layernorm_bwd_cuda.launches += 1
-    return dx.reshape(x.shape), dgp.sum(0), dbp.sum(0)
+    layernorm_bwd_cuda.launches += BWD_LAUNCHES_PER_CALL
+    return dx.reshape(x.shape), dg, db
 
 
 layernorm_bwd_cuda.launches = 0  # kernel launches (plain runs excluded)
@@ -154,7 +152,7 @@ def _entry(name: str):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_float, ctypes.c_void_p]
     else:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

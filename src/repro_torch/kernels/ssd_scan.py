@@ -8,11 +8,21 @@ A [H], B and C [b, L, N] (one group, shared by the heads) -> (y
 [b, L, H, P], final state [b, H, P, N] float32), the state carried from
 chunk to chunk of ``chunk`` rows.  ``L`` must be a multiple of
 ``chunk``; the model pads the sequence first.  The kernel takes three
-launches a call (``LAUNCHES_PER_CALL``): every (batch, chunk, head) at
+launches a slice (``LAUNCHES_PER_CALL``): every (batch, chunk, head) at
 once, the chunk's own state contribution (and C B^T once per (batch,
 chunk)); the state passed along the chunks; every (batch, chunk, head)
 at once again, the chunk's output from the state entering it
 (``split_float.ssd_chunked`` is that decomposition in plain PyTorch).
+
+The scan takes any chunk and any P and N, as the reference does
+(``ssd_scan_sliced``): the function does not depend on the chunk length,
+so a chunk above ``MAX_CHUNK`` runs at its largest divisor up to it
+(``kernel_chunk``); and where one block's tiles would pass the card's
+shared memory, the work is cut into the fewest slices that fit
+(``ssd_slices``), each the same kernel's launches -- over P, since y and
+the state's rows of head dim p depend on x's column p alone, and over N,
+since both C B^T and C h^T sum over N: y is the sum of the N-slices' y
+(added on the device), and the state's columns split with B and C.
 
 Its autograd formula recomputes ``ref.ssd_scan`` and takes its VJP, as
 the reference's ``_ssd_bwd`` does (``src/repro/kernels/ops.py:99-116``):
@@ -85,22 +95,91 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int):
     return torch.cat(ys, dim=1).to(x.dtype), h
 
 
-#: The longest chunk the kernel takes (its cumulative sum: two rows a lane)
+#: The longest chunk one launch takes (its cumulative sum: two rows a
+#: lane); a longer chunk runs at its largest divisor up to this
 MAX_CHUNK = 64
 #: Shared memory one block may use on the card (H100: 227 KB)
 SMEM_LIMIT = 232448
+#: The kernel's tile: P and N are zero-padded to multiples of it, and a
+#: slice of either is a multiple of it
+SLICE_TILE = 32
 
 
-#: Kernel launches of one call: the chunk, state and output passes
+#: Kernel launches of one slice: the chunk, state and output passes
 LAUNCHES_PER_CALL = 3
 
 
+def kernel_chunk(chunk: int) -> int:
+    """The chunk a launch runs for a scan of ``chunk``: its largest divisor
+    up to ``MAX_CHUNK`` (a chunk of 128 is two of 64, the state passed
+    between them; L stays a multiple of it)."""
+    return max(d for d in range(1, min(chunk, MAX_CHUNK) + 1)
+               if chunk % d == 0)
+
+
+def _extents(n: int) -> list[int]:
+    """Slice extents to try along an axis of ``n``: n, then each multiple
+    of ``SLICE_TILE`` below it, largest first."""
+    return [n] + list(range(SLICE_TILE * ((n - 1) // SLICE_TILE), 0,
+                            -SLICE_TILE))
+
+
+def ssd_slices(chunk: int, P: int, N: int, smem,
+               limit: int = SMEM_LIMIT) -> tuple[list[slice], list[slice]]:
+    """(P slices, N slices) of a scan: the fewest launches whose blocks
+    each fit ``limit`` bytes of shared memory, ``smem(chunk, p, n)`` the
+    bytes a launch at head dim p and state n needs; among as few, the
+    fewest N-slices (their y are summed).  One slice each where the whole
+    fits."""
+    if smem(chunk, P, N) <= limit:
+        return [slice(0, P)], [slice(0, N)]
+    best = None
+    for ep in _extents(P):
+        for en in _extents(N):
+            n_p, n_n = -(-P // ep), -(-N // en)
+            if (best is not None and (n_p * n_n, n_n) >= best[0]) \
+                    or smem(chunk, ep, en) > limit:
+                continue
+            best = ((n_p * n_n, n_n), ep, en)
+    if best is None:
+        raise ValueError(f"ssd_scan: no slice of P {P}, N {N} fits "
+                         f"{limit} bytes at chunk {chunk}")
+    _, ep, en = best
+    return ([slice(i, min(P, i + ep)) for i in range(0, P, ep)],
+            [slice(i, min(N, i + en)) for i in range(0, N, en)])
+
+
+def ssd_scan_sliced(x, dt, A, B, C, chunk: int, scan, smem,
+                    limit: int = SMEM_LIMIT):
+    """(y, state) of the scan at ``chunk``, computed by ``scan(x, dt, A, B,
+    C, c)`` calls at ``c = kernel_chunk(chunk)``, one a (P slice, N slice)
+    of ``ssd_slices``: x's columns and the state's rows by P slice, B's
+    and C's columns and the state's columns by N slice, y the sum of its
+    N slices' y in slice order."""
+    c = kernel_chunk(chunk)
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    p_slices, n_slices = ssd_slices(c, P, N, smem, limit)
+    if len(p_slices) == len(n_slices) == 1:
+        return scan(x, dt, A, B, C, c)
+    ys = []
+    state = torch.empty(b, H, P, N, dtype=torch.float32, device=x.device)
+    for sp in p_slices:
+        y = None
+        for sn in n_slices:
+            yi, si = scan(x[..., sp], dt, A, B[..., sn], C[..., sn], c)
+            state[:, :, sp, sn] = si
+            y = yi if y is None else y.add_(yi)
+        ys.append(y)
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)), state
+
+
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
-    """Launch the CUDA kernel (float32, on the current stream), any head
-    dim P and state N whose tiles fit a block's shared memory, chunks up
-    to ``MAX_CHUNK``.  x, dt, B and C are read with their strides -- the
-    model's x, B and C are column slices of one activation -- and only a
-    last dimension that is not contiguous is copied (device time)."""
+    """Run the CUDA kernel (float32, on the current stream) at any chunk,
+    head dim P and state N (``ssd_scan_sliced``: three launches a slice).
+    x, dt, B and C are read with their strides -- the model's x, B and C
+    are column slices of one activation -- and only a last dimension that
+    is not contiguous is copied (device time)."""
     _check_shapes(x, dt, A, B, C, chunk)
     dev = x.device
     ts = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
@@ -111,19 +190,17 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
     if any(t.dtype != torch.float32 for t in ts.values()):
         raise TypeError("ssd_scan_cuda takes float32, got " + ", ".join(
             f"{k} {t.dtype}" for k, t in ts.items()))
+    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    return ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk, _launch,
+                           _smem())
+
+
+def _launch(x, dt, A, B, C, chunk: int):
+    """The kernel's three launches on one slice (chunk <= ``MAX_CHUNK``,
+    tiles within ``SMEM_LIMIT``)."""
     b, L, H, P = x.shape
     N = B.shape[-1]
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"ssd_scan_cuda: chunk {chunk}; the kernel takes "
-                         f"chunks of at most {MAX_CHUNK} rows")
-    smem = _smem()(chunk, P, N)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"ssd_scan_cuda: head dim {P}, state {N}, chunk {chunk} need "
-            f"{smem} bytes of shared memory a block, above the card's "
-            f"{SMEM_LIMIT}")
-    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
-    A = A.contiguous()
+    dev = x.device
     y = torch.empty(b, L, H, P, dtype=torch.float32, device=dev)
     state = torch.empty(b, H, P, N, dtype=torch.float32, device=dev)
     # scratch: each chunk's own state contribution and total decay, and

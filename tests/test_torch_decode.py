@@ -144,6 +144,110 @@ def test_launch_counter_untouched_by_plain_runs():
     assert FA.flash_decode_cuda.launches == before
 
 
+# ---------------------------------------------------------------------------
+# B8 at any head dim and group: the padding and the sub-group plan
+# ---------------------------------------------------------------------------
+def _plain_launch(qs, k, v, eff, scale, os):
+    """A sub-group launch run by the plain version: the [B, Hkv, n, D] view
+    of the sub-group's query heads as Hkv n heads of group n."""
+    B, Hkv, n, D = qs.shape
+    os.copy_(FA.flash_decode_plain(qs.reshape(B, Hkv * n, D), k, v, eff,
+                                   scale).view(B, Hkv, n, D))
+
+
+def _sub_grouped(q, k, v, kv_len, scale=None):
+    """The CUDA wrapper's composition (the true D's scale and, for a D
+    that is not a multiple of 4, padding; then sub-groups) with the plain
+    version in place of each launch."""
+    return FA.decode_padded(
+        q, k, v, kv_len, scale,
+        lambda *a: FA.decode_by_subgroups(*a, _plain_launch))
+
+
+@pytest.mark.parametrize("D,kv_len", [(80, 70), (256, None), (32, 96),
+                                       (30, 50)],
+                         ids=["d80-ragged", "d256", "d32", "d30-padded"])
+def test_padded_decode_matches_the_pallas_flash_decode(D, kv_len):
+    """A head dim without an instance runs on the next (80 on 128, 32 and
+    30 on 64), its columns masked at D; one that is not a multiple of 4
+    (30) is first zero-padded to the next multiple of 4.  Gemma-7B's 256
+    runs on its own.  The scale stays 1/sqrt(D) of the true D, so the
+    padded call is the same function."""
+    q, k, v = _decode_inputs(2, 4, 2, 96, D, seed=D)
+    want = jflash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         kv_len=kv_len, block_k=32, interpret=True)
+    seen = []
+
+    def launch(qs, k_, v_, eff, scale, os):
+        seen.append(qs.shape[-1])
+        _plain_launch(qs, k_, v_, eff, scale, os)
+
+    got = FA.decode_padded(
+        _t(q), _t(k), _t(v), kv_len, None,
+        lambda *a: FA.decode_by_subgroups(*a, launch))
+    assert got.shape == (2, 4, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-6)
+    assert seen == [-(-D // 4) * 4]   # padded only up to a multiple of 4
+    assert FA.decode_instance(D) == {80: 128, 256: 256, 32: 64, 30: 64}[D]
+
+
+def test_padded_decode_keeps_the_scale_of_the_true_head_dim():
+    """A scale taken from the instance's head dim (1/sqrt(128) at D 80) is
+    a different function: that call would not match the reference."""
+    q, k, v = (_t(a) for a in _decode_inputs(1, 4, 2, 64, 80, seed=8))
+    right = _sub_grouped(q, k, v, None)
+    torch.testing.assert_close(right, FA.flash_decode_plain(q, k, v, None),
+                               rtol=1e-5, atol=2e-6)
+    padded_scale = _sub_grouped(q, k, v, None, scale=1.0 / np.sqrt(128))
+    assert not torch.allclose(padded_scale, right, atol=1e-3)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8, 9, 12, 16, 24])
+def test_subgroup_plan_covers_every_head_once(G):
+    """Each sub-group has at most 8 heads, the fewest sub-groups, and the
+    query heads it runs of KV head j are j G + first .. j G + first + n -
+    1: every head once, each on its own KV head."""
+    plan = FA.decode_subgroups(G)
+    assert len(plan) == -(-G // FA.DECODE_MAX_GROUP)
+    assert all(1 <= n <= FA.DECODE_MAX_GROUP for _, n in plan)
+    Hkv = 3
+    seen = []
+    for first, n in plan:
+        for j in range(Hkv):
+            for i in range(n):
+                h = j * G + first + i
+                assert h // G == j   # the sub-group's own KV head
+                seen.append(h)
+    assert sorted(seen) == list(range(Hkv * G))
+
+
+@pytest.mark.parametrize("kv_len", [None, 50], ids=["whole", "ragged"])
+def test_group_16_decode_matches_the_pallas_flash_decode(kv_len):
+    """16 query heads a KV head (above one launch's 8): two sub-groups of
+    8, through strided views of q and o, against the reference."""
+    q, k, v = _decode_inputs(2, 32, 2, 64, 64, seed=17)
+    want = jflash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         kv_len=kv_len, block_k=32, interpret=True)
+    assert FA.decode_subgroups(16) == [(0, 8), (8, 8)]
+    for got in (_sub_grouped(_t(q), _t(k), _t(v), kv_len),
+                FA.flash_decode(_t(q), _t(k), _t(v), kv_len)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=2e-6)
+
+
+def test_decode_above_256_is_one_row_of_flash_attention():
+    """Above the largest instance the wrapper runs the wide flash kernel:
+    one query row over the live prefix, non-causal -- the same function
+    as the decode, as the reference builds it."""
+    q, k, v = (_t(a) for a in _decode_inputs(1, 4, 2, 40, 320, seed=9))
+    assert FA.decode_instance(320) is None
+    row = FA.flash_attention_plain(q[:, :, None], k[:, :, :33],
+                                   v[:, :, :33], False)[:, :, 0]
+    torch.testing.assert_close(FA.flash_decode_plain(q, k, v, 33), row,
+                               rtol=1e-5, atol=2e-6)
+
+
 @pytest.mark.parametrize("pairs,eff", [(32, 32768), (8, 32768),
                                        (32, 524288), (4, 1000), (2, 5),
                                        (1, 1), (1056, 70)])

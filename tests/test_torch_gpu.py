@@ -200,9 +200,13 @@ def test_reduced_model_on_the_card(cuda):
 # the hand-written CUDA kernels
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(37, 3072), (4, 3072), (2, 5, 64),
-                                   (7, 998), (3, 10000)],
+                                   (7, 998), (3, 10000), (2047, 3072),
+                                   (1, 3072), (4001, 1024), (1999, 4096),
+                                   (301, 8192)],
                          ids=["ragged-rows", "decode", "rank3", "scalar-path",
-                              "wide-row"])
+                              "wide-row", "ragged-prefill", "one-row",
+                              "ragged-rows-1024", "ragged-rows-4096",
+                              "widest-register-row"])
 def test_rmsnorm_kernel_matches_plain(cuda, shape):
     from repro_torch.kernels import rmsnorm as K
 
@@ -247,15 +251,33 @@ def test_flash_kernel_matches_plain(cuda, case):
 
 
 def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
+    """What the kernels refuse (another dtype), and what they take since
+    head dims above 256 run on the wide kernel: D 264 and 320, held
+    against the plain version, the wide kernel's launches counted."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
 
     x = torch.randn(4, 64, device="cuda")
     with pytest.raises(TypeError):
         RN.rmsnorm_cuda(x.half(), torch.ones(64, device="cuda").half(), 1e-6)
-    q = torch.randn(1, 2, 8, 264, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        FA.flash_attention_cuda(q, q, q, False, None)
+    for D, causal in ((264, False), (320, True)):
+        q = torch.randn(2, 4, 70, D, device="cuda", generator=cuda)
+        k = torch.randn(2, 90, 2, D, device="cuda",
+                        generator=cuda).transpose(1, 2)
+        v = torch.randn(2, 90, 2, D, device="cuda",
+                        generator=cuda).transpose(1, 2)
+        before = (FA.flash_attention_cuda.launches,
+                  FA.flash_attention_wide_cuda.launches)
+        o = FA.flash_attention(q, k, v, causal, None)
+        assert (FA.flash_attention_cuda.launches,
+                FA.flash_attention_wide_cuda.launches) == (
+                    before[0], before[1] + 1)
+        want = FA.flash_attention_plain(q.double(), k.double(), v.double(),
+                                        causal)
+        # float32 FMA over D in another order than the float64 function
+        torch.testing.assert_close(o.double(), want, rtol=1e-5, atol=2e-6)
+    with pytest.raises(TypeError):
+        FA.flash_attention_wide_cuda(q.double(), k.double(), v.double())
 
 
 def test_reduced_generate_on_the_card_matches_the_cpu(cuda):
@@ -284,7 +306,10 @@ def test_reduced_generate_on_the_card_matches_the_cpu(cuda):
 # ---------------------------------------------------------------------------
 LN_SHAPES = {"hubert": (4096, 1280), "ragged-rows": (4000, 1280),
              "quickstart": (8192, 3072), "scalar-path": (37, 998),
-             "wide-row": (3, 10000), "rank3": (2, 5, 64)}
+             "wide-row": (3, 10000), "rank3": (2, 5, 64),
+             "one-row": (1, 1280), "ragged-wide": (1001, 3072),
+             "widest-register-row": (299, 8192),
+             "scalar-path-many-rows": (4001, 998)}
 
 
 @pytest.mark.parametrize("name", sorted(LN_SHAPES))
@@ -300,8 +325,8 @@ def test_layernorm_kernels_match_plain(cuda, name):
     before = (K.layernorm_cuda.launches, K.layernorm_bwd_cuda.launches)
     y, mean, rstd = K.layernorm(x, g, b, 1e-6)
     dx, dg, db = K.layernorm_bwd(x, g, mean, rstd, dy)
-    assert (K.layernorm_cuda.launches,
-            K.layernorm_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert (K.layernorm_cuda.launches, K.layernorm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + K.BWD_LAUNCHES_PER_CALL)
     want = K.layernorm_plain(x, g, b, 1e-6)
     # float32, another summation order: a few ulp
     for got, w in zip((y, mean, rstd), want):
@@ -312,6 +337,9 @@ def test_layernorm_kernels_match_plain(cuda, name):
     for got, w in ((dg, wdg), (db, wdb)):
         torch.testing.assert_close(
             got, w, rtol=0, atol=1e-5 * max(1.0, float(w.abs().max())))
+    # summed in a fixed order, no atomics: the same bits on a second call
+    _, dg2, db2 = K.layernorm_bwd(x, g, mean, rstd, dy)
+    assert torch.equal(dg, dg2) and torch.equal(db, db2)
 
 
 def test_layernorm_kernels_refuse_what_they_do_not_take(cuda):
@@ -376,7 +404,8 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
         results[dev] = (losses, grads, launched)
     n = 2 * cfg.n_layers + 1
     assert results["cpu"][2] == (0, 0, 0)
-    assert results["cuda"][2] == (3 * n, 3 * n, 3 * cfg.n_layers)
+    assert results["cuda"][2] == (3 * n, 3 * n * LN.BWD_LAUNCHES_PER_CALL,
+                                  3 * cfg.n_layers)
     # each step's loss; a wrong update would show in the next one.  The
     # parameters themselves are not compared: AdamW turns noise-level
     # differences in near-zero gradients into steps of a sizeable fraction
@@ -527,20 +556,46 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    """What the scan refuses (another dtype), and what it takes since any
+    chunk and any P and N run: a chunk of 128 (two of 64 a launch) and P
+    = N = 256 (three P slices), each held against the plain version, the
+    launches counted; the shared-memory function the slice plan reads is
+    the one the CPU tests mirror."""
+    from test_torch_ssd_smem import kernel_smem
+
     from repro_torch.kernels import ssd_scan as K
 
     x = torch.randn(1, 128, 2, 32, device="cuda")
     dt = torch.rand(1, 128, 2, device="cuda")
     A = -torch.ones(2, device="cuda")
     Bm = torch.randn(1, 128, 128, device="cuda")
-    with pytest.raises(ValueError, match="chunks of at most 64"):
-        K.ssd_scan_cuda(x, dt, A, Bm, Bm, 128)
     with pytest.raises(TypeError, match="float32"):
         K.ssd_scan_cuda(x.double(), dt, A, Bm, Bm, 64)
-    wide = torch.randn(1, 128, 2, 512, device="cuda")
-    big = torch.randn(1, 128, 512, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        K.ssd_scan_cuda(wide, dt, A, big, big, 64)
+    # the library's bytes, the mirror's, and the values the slice plan's
+    # CPU tests rely on: Mamba2's shape (one launch), P = N = 256 (above
+    # one block's 232,448 bytes) and its 96-wide P slice (within), odd
+    # shapes padded to the 32-wide tiles
+    for (c, P, N), want in {(64, 64, 128): 103168, (64, 256, 256): 417536,
+                            (20, 20, 36): 27008, (64, 96, 256): 210176,
+                            (32, 256, 64): 116608}.items():
+        assert K._smem()(c, P, N) == kernel_smem(c, P, N) == want
+    for b, L, H, P, N, chunk, launches in ((2, 256, 3, 64, 128, 128, 1),
+                                           (1, 128, 2, 256, 256, 64, 3)):
+        xbc = torch.randn(b, L, H * P + 2 * N, device="cuda", generator=cuda)
+        xs = xbc[..., :H * P].reshape(b, L, H, P)
+        Bs, Cs = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dts = torch.nn.functional.softplus(
+            torch.randn(b, L, H, device="cuda", generator=cuda) - 2.0)
+        As = -torch.exp(0.3 * torch.randn(H, device="cuda", generator=cuda))
+        before = K.ssd_scan_cuda.launches
+        y, state = K.ssd_scan(xs, dts, As, Bs, Cs, chunk)
+        assert K.ssd_scan_cuda.launches - before == \
+            launches * K.LAUNCHES_PER_CALL
+        y_ref, s_ref = K.ssd_scan_plain(xs, dts, As, Bs, Cs, chunk)
+        for got, want in ((y, y_ref), (state, s_ref)):
+            torch.testing.assert_close(
+                got, want, rtol=0,
+                atol=1e-4 * max(1.0, float(want.abs().max())))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
@@ -595,20 +650,37 @@ def test_flash_decode_kernel_matches_plain(cuda, case):
 
 
 def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
+    """What the decode kernel refuses (another dtype, a kv_len below 1),
+    and what it takes since any head dim and group run: D 32, 80 and 100
+    (read in place, the columns masked in the next instance), 30
+    (zero-padded to 32), 256 (its own instance), 320 (the wide flash
+    kernel) and 16 query heads a KV head (two sub-groups, two launches),
+    each held against the plain version, the launches counted."""
     from repro_torch.kernels import flash_attention as K
 
-    q = torch.randn(1, 4, 32, device="cuda")
-    kv = torch.randn(1, 2, 16, 32, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        K.flash_decode_cuda(q, kv, kv, None)
     q = torch.randn(1, 32, 64, device="cuda")
     kv = torch.randn(1, 2, 16, 64, device="cuda")
-    with pytest.raises(ValueError, match="at most"):
-        K.flash_decode_cuda(q, kv, kv, None)
     with pytest.raises(TypeError, match="float32"):
         K.flash_decode_cuda(q[:, :4].half(), kv.half(), kv.half(), None)
     with pytest.raises(ValueError, match="kv_len"):
         K.flash_decode_cuda(q[:, :4], kv, kv, 0)
+    for B, Hq, Hkv, S, D, n, launches, wide in (
+            (1, 4, 2, 100, 32, 77, 1, 0), (2, 8, 2, 300, 80, 250, 1, 0),
+            (2, 8, 4, 300, 100, 299, 1, 0), (1, 6, 2, 90, 30, 77, 1, 0),
+            (2, 16, 16, 700, 256, None, 1, 0), (1, 16, 2, 500, 256, 499, 1, 0),
+            (2, 32, 2, 600, 128, 555, 2, 0), (1, 8, 2, 400, 320, 321, 0, 1)):
+        q = torch.randn(B, Hq, D, device="cuda", generator=cuda)
+        k = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda)
+        v = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda)
+        before = (K.flash_decode_cuda.launches,
+                  K.flash_attention_wide_cuda.launches)
+        o = K.flash_decode(q, k, v, n, None)
+        assert (K.flash_decode_cuda.launches - before[0],
+                K.flash_attention_wide_cuda.launches - before[1]) == (
+                    launches, wide)
+        want = K.flash_decode_plain(q.double(), k.double(), v.double(), n)
+        # float32, partial softmax states merged by log-sum-exp
+        torch.testing.assert_close(o.double(), want, rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-1.2b"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase router]
 
 Run from the root of a checkout on a machine with one CUDA card (Triton
 compiles the generated one-pass kernels there, nvcc the CUDA sources and
@@ -36,8 +36,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    forward and backward kernels at the train path's [4096, 1280], at a
    ragged [4000, 1280] and at the quickstart's [8192, 3072], the router
    softmax forward and backward kernels at Granite's [2048, 32] (prefill),
-   [4, 32] (decode) and [4096, 32] (train), at a ragged [4095, 40] and at
-   [256, 4096] (wider than the one-warp path), and the flash attention
+   [4, 32] (decode) and [4096, 32] (train), at a ragged [4095, 40], at
+   the prefill rows one float past an aligned address and at [256, 4096]
+   (wider than the one-warp path), each line naming the layout the call
+   took (``kernels/softmax.py::layout``), and the flash attention
    kernel at the prefill shape (causal), at a ragged Sq = Skv = 500, with
    Sq 200 < Skv 500 (causal offset), non-causal, at the HuBERT train
    path's [8, 16, 512, 80] non-causal, at Granite's head dim 64
@@ -96,6 +98,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    the bench's two blocks (2 B3 launches, 1 score_mod launch).  Every
    later phase prints its anchored groups and B3 launches per call or
    step, and holds its anchored instances against their plain versions.
+3c. Router floor (``phase_router_floor``): one empty launch; B7 and B10
+   alone at Granite's prefill and train rows, beside ``torch.softmax`` and
+   ``torch._softmax_backward_data``; the router pair (the product, then
+   B7) at the prefill and decode rows and the backward pair (the
+   gradient's add, then B10), each beside its producer alone; the host's
+   cost of one B7 call, layer by layer.  ``--phase router`` runs only the
+   device line, the build and this phase, and ends with its rows as JSON
+   (for comparing trees in one call; no path runs).
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -170,6 +180,7 @@ Imports ``torch`` and the port only.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
@@ -1169,6 +1180,15 @@ def phase_anchored_kernels(gen) -> tuple[dict, dict]:
     return checks, launches
 
 
+def at_shift(v, shift: int):
+    """``v``'s values in a contiguous tensor that starts ``shift`` elements
+    past an aligned address."""
+    import torch
+
+    return torch.empty(v.numel() + shift, dtype=v.dtype,
+                       device=v.device)[shift:].view(v.shape).copy_(v)
+
+
 def phase_cuda_kernels(gen) -> dict:
     """Build the CUDA kernels from the checkout's sources, then hold each
     against its plain version at the serving path's shapes."""
@@ -1248,28 +1268,32 @@ def phase_cuda_kernels(gen) -> dict:
 
     # the router's softmax (B7) and its backward (B10): Granite's prefill,
     # decode and train rows of 32 experts, a ragged 40-expert shape (the
-    # 3B config's), and rows wider than the one-warp path holds
+    # 3B config's), the prefill rows one float past an aligned address
+    # (the warp-a-row layout), and rows wider than the one-warp path holds
     main_fwd, main_bwd = (BATCH * PROMPT, 32), (T, 32)
-    for R, C in (main_fwd, (BATCH, 32), main_bwd, (T - 1, 40), (256, 4096)):
-        x = torch.randn(R, C, generator=gen, device="cuda")
-        dy = torch.randn(R, C, generator=gen, device="cuda")
-        y = SM.softmax_plain(x)
+    for R, C, shift in (main_fwd + (0,), (BATCH, 32, 0), main_bwd + (0,),
+                        (T - 1, 40, 0), main_fwd + (1,), (256, 4096, 0)):
+        x = at_shift(torch.randn(R, C, generator=gen, device="cuda"), shift)
+        dy = at_shift(torch.randn(R, C, generator=gen, device="cuda"), shift)
+        y = at_shift(SM.softmax_plain(x), shift)
         # max, subtract, exp, sum, divide: 5 operations an element; the
         # backward's multiply, sum, subtract, multiply: 4
         nb_f, nb_b = 4 * 2 * R * C, 4 * 3 * R * C
         res = check_cuda_kernel(
-            f"softmax [{R}, {C}]", SM.softmax_cuda, SM.softmax_plain, (x,),
+            f"softmax [{R}, {C}]{' one float off' if shift else ''} "
+            f"({SM.layout(x)})", SM.softmax_cuda, SM.softmax_plain, (x,),
             nbytes=nb_f, ops=5 * R * C, reps=50,
             library=lambda a: torch.softmax(a, -1))
         checks.setdefault("softmax", []).append(
-            dict(res, _bytes=nb_f, _main=(R, C) == main_fwd))
+            dict(res, _bytes=nb_f, _main=(R, C, shift) == main_fwd + (0,)))
         res = check_cuda_kernel(
-            f"softmax_bwd [{R}, {C}]", SM.softmax_bwd_cuda,
+            f"softmax_bwd [{R}, {C}]{' one float off' if shift else ''} "
+            f"({SM.layout(y, dy)})", SM.softmax_bwd_cuda,
             SM.softmax_bwd_plain, (y, dy), nbytes=nb_b, ops=4 * R * C,
             reps=50, library=lambda a, b: torch._softmax_backward_data(
                 b, a, -1, torch.float32))
         checks.setdefault("softmax_bwd", []).append(
-            dict(res, _bytes=nb_b, _main=(R, C) == main_bwd))
+            dict(res, _bytes=nb_b, _main=(R, C, shift) == main_bwd + (0,)))
 
     llama = (BATCH, 24, 8, 128)             # B, Hq, Hkv, D
     hubert = (TRAIN_BATCH, 16, 16, 80)      # D 80: its own instance
@@ -1394,6 +1418,126 @@ def phase_cuda_kernels(gen) -> dict:
     decode_group_sweep(gen)
     torch.cuda.empty_cache()
     return checks
+
+
+def host_us(fn, n: int = 500, repeats: int = 5) -> float:
+    """The host's cost of one call of ``fn`` in microseconds: the median
+    over ``repeats`` loops of ``n`` calls on the host clock, the card
+    synchronized before each loop (the calls timed here take less device
+    time than host time, so the launch queue does not fill)."""
+    import torch
+
+    fn()
+    per = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def phase_router_floor(gen) -> dict:
+    """The router softmax against the floor of a launch, at Granite's
+    widths (d_model 1,024, 32 experts; device time as ``time_ms`` takes
+    it, each call queued behind a device sleep): one empty launch
+    (``torch.cuda._sleep(0)``); B7 at the prefill rows [2048, 32] and B10
+    at the train rows [4096, 32], alone and beside ``torch.softmax`` and
+    ``torch._softmax_backward_data``; the router pair -- the product ``xt
+    @ w_router`` then B7, as ``moe_apply`` runs them -- at the prefill's
+    [2048, 1024] and the decode step's [4, 1024] rows, beside the product
+    alone and the product then ``torch.softmax``; the backward pair --
+    ``torch.add`` of two [4096, 32] gradients then B10 -- beside the add
+    alone and the add then ``torch._softmax_backward_data``.  A pair less
+    its producer alone is what the kernel costs on its path.  B7 also at
+    logits ten times as large, where exp(x - max) falls below float32's
+    normal range and an IEEE division takes its slow path.  Then where
+    the host's cost of one B7 call on the operator goes: the custom op's
+    dispatch, the wrapper, the stream lookup and the ctypes entry
+    (``host_us``).  Returns {row: ms or us}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import softmax as SM
+
+    cfg = get_config(MOE_ARCH)
+    d, E = cfg.d_model, cfg.n_experts
+    Rp, Rd, Rt = BATCH * PROMPT, BATCH, TRAIN_BATCH * TRAIN_FRAMES
+    out: dict[str, float] = {}
+
+    def row(label, fn, reps=200):
+        out[label] = time_ms(fn, reps)
+        print(f"router floor: {label}: {out[label]:.4f} ms")
+        return out[label]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    empty = row("empty launch, torch.cuda._sleep(0)",
+                lambda: torch.cuda._sleep(0))
+    x, w = randn(Rp, E, scale=3.0), randn(d, E, scale=d ** -0.5)
+    y, g1, g2 = SM.softmax_plain(randn(Rt, E, scale=3.0)), randn(Rt, E), \
+        randn(Rt, E)
+    b7 = row(f"B7 [{Rp}, {E}]", lambda: SM.softmax_cuda(x))
+    row(f"torch.softmax [{Rp}, {E}]", lambda: torch.softmax(x, -1))
+    # logits of a larger scale: exp(x - max) falls below float32's normal
+    # range, where an IEEE division takes its slow path
+    x10 = x * 10.0
+    row(f"B7 [{Rp}, {E}], logits x 10", lambda: SM.softmax_cuda(x10))
+    row(f"torch.softmax [{Rp}, {E}], logits x 10",
+        lambda: torch.softmax(x10, -1))
+    b10 = row(f"B10 [{Rt}, {E}]", lambda: SM.softmax_bwd_cuda(y, g1))
+    row(f"torch._softmax_backward_data [{Rt}, {E}]",
+        lambda: torch._softmax_backward_data(g1, y, -1, torch.float32))
+    for R, step in ((Rp, "prefill"), (Rd, "decode")):
+        xt = randn(R, d)
+        prod = row(f"{step} product [{R}, {d}] @ [{d}, {E}]",
+                   lambda _x=xt: _x @ w)
+        pair = row(f"{step} product then B7",
+                   lambda _x=xt: SM.softmax(_x @ w))
+        lib = row(f"{step} product then torch.softmax",
+                  lambda _x=xt: torch.softmax(_x @ w, -1))
+        print(f"router floor: {step}: B7 on its path (pair - product) "
+              f"{pair - prod:.4f} ms, torch.softmax {lib - prod:.4f} ms")
+    add = row(f"torch.add of two [{Rt}, {E}]", lambda: torch.add(g1, g2))
+    pair = row("add then B10", lambda: SM.softmax_bwd(y, torch.add(g1, g2)))
+    lib = row("add then torch._softmax_backward_data",
+              lambda: torch._softmax_backward_data(torch.add(g1, g2), y, -1,
+                                                   torch.float32))
+    print(f"router floor: B10 on its path (pair - add) {pair - add:.4f} ms, "
+          f"torch._softmax_backward_data {lib - add:.4f} ms; B7 and B10 "
+          f"alone less the empty launch: {b7 - empty:.4f} / "
+          f"{b10 - empty:.4f} ms")
+    call = time_ms(lambda: SM.softmax(x), 200, queued=False)
+    out["call with the host's cost, the operator"] = call
+    # the host's cost of one B7 call, layer by layer
+    yb = torch.empty_like(x)
+    entry = SM._entry("repro_softmax_fwd_f32")
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    costs = {
+        "operator repro_torch::softmax": host_us(lambda: SM.softmax(x)),
+        "wrapper softmax_cuda": host_us(lambda: SM.softmax_cuda(x)),
+        "torch.empty_like": host_us(lambda: torch.empty_like(x)),
+        "torch.cuda.current_stream(dev).cuda_stream": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "torch._C._cuda_getCurrentRawStream": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
+        "ctypes entry and launch": host_us(
+            lambda: entry(x.data_ptr(), yb.data_ptr(), Rp, E, stream)),
+    }
+    for k, us in costs.items():
+        out[f"host us: {k}"] = us
+    op, wrap, ent = (costs["operator repro_torch::softmax"],
+                     costs["wrapper softmax_cuda"],
+                     costs["ctypes entry and launch"])
+    print(f"router floor: B7 call with the host's cost {call:.4f} ms; "
+          f"host us a call: " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in costs.items())
+          + f"; so the custom op's dispatch {op - wrap:.2f} us, the "
+          f"wrapper's own work {wrap - ent:.2f} us, the entry {ent:.2f} us")
+    return out
 
 
 def decode_group_sweep(gen) -> None:
@@ -2309,7 +2453,15 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one CUDA card (see the "
+                    "module's docstring for the phases).")
+    ap.add_argument(
+        "--phase", choices=("all", "router"), default="all",
+        help="'router': only the device line, the build and the router "
+             "floor rows (phase 3c), then their JSON line; no path runs")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2332,8 +2484,14 @@ def main() -> int:
     t_start = time.perf_counter()
     print(device_line())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if args.phase == "router":
+        from repro_torch.kernels import _build
+        _build.build_all()
+        print(json.dumps({"router_floor": phase_router_floor(gen)}))
+        return 0
     phase_kernels(gen)
     checks = phase_cuda_kernels(gen)
+    phase_router_floor(gen)
     anchor_checks, anchor_launches = phase_anchored_kernels(gen)
     checks.update(anchor_checks)
     reset_launch_counts()

@@ -423,18 +423,33 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
 # ---------------------------------------------------------------------------
 # the router's softmax kernels and the MoE path
 # ---------------------------------------------------------------------------
-SOFTMAX_SHAPES = {"prefill": (2048, 32), "decode": (4, 32),
-                  "train": (4096, 32), "ragged-40": (4095, 40),
-                  "wide-row": (256, 4096), "rank3": (2, 5, 4)}
+#: name -> (shape, the layout csrc/softmax.cu takes): the paths' rows; the
+#: float4 layout's edges in C (1 to 32 lanes a row, 36 and 40 with idle
+#: lanes, 132 past it) and in R (one row; a ragged last block); C 33, no
+#: multiple of 4; rows wider than a warp holds; a rank-3 input
+SOFTMAX_SHAPES = {
+    "prefill": ((2048, 32), "float4 lanes 8"),
+    "decode": ((4, 32), "float4 lanes 8"),
+    "train": ((4096, 32), "float4 lanes 8"),
+    "ragged-40": ((4095, 40), "float4 lanes 16"),
+    "c4": ((1001, 4), "float4 lanes 1"),
+    "c8": ((1001, 8), "float4 lanes 2"),
+    "c36": ((1001, 36), "float4 lanes 16"),
+    "c40": ((1001, 40), "float4 lanes 16"),
+    "c64": ((1001, 64), "float4 lanes 16"),
+    "c124": ((1001, 124), "float4 lanes 32"),
+    "c128": ((1001, 128), "float4 lanes 32"),
+    "c132": ((1001, 132), "warp"),
+    "c33": ((1001, 33), "warp"),
+    "one-row": ((1, 32), "float4 lanes 8"),
+    "ragged-rows": ((2047, 32), "float4 lanes 8"),
+    "wide-row": ((256, 4096), "block"),
+    "rank3": ((2, 5, 4), "float4 lanes 1")}
 
 
-@pytest.mark.parametrize("name", sorted(SOFTMAX_SHAPES))
-def test_softmax_kernels_match_plain(cuda, name):
-    from repro_torch.kernels import softmax as K
-
-    shape = SOFTMAX_SHAPES[name]
-    x = torch.randn(shape, device="cuda", generator=cuda) * 3.0
-    dy = torch.randn(shape, device="cuda", generator=cuda)
+def _softmax_pair(K, x, dy):
+    """B7 on x, then B10 on its output and dy: one launch each, each equal
+    to its plain version."""
     before = (K.softmax_cuda.launches, K.softmax_bwd_cuda.launches)
     y = K.softmax(x)
     dx = K.softmax_bwd(y, dy)
@@ -444,6 +459,97 @@ def test_softmax_kernels_match_plain(cuda, name):
     torch.testing.assert_close(y, K.softmax_plain(x), rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(dx, K.softmax_bwd_plain(y, dy), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(SOFTMAX_SHAPES))
+def test_softmax_kernels_match_plain(cuda, name):
+    from repro_torch.kernels import softmax as K
+
+    shape, layout = SOFTMAX_SHAPES[name]
+    x = torch.randn(shape, device="cuda", generator=cuda) * 3.0
+    dy = torch.randn(shape, device="cuda", generator=cuda)
+    assert K.layout(x) == layout and K.layout(x, dy) == layout
+    _softmax_pair(K, x, dy)
+
+
+def test_softmax_kernels_on_misaligned_rows(cuda):
+    """Contiguous [2048, 32] rows that start one float into their buffer
+    take the warp-a-row layout, and agree with the plain versions."""
+    from repro_torch.kernels import softmax as K
+
+    n = 2048 * 32
+    buf = torch.randn(n + 1, device="cuda", generator=cuda) * 3.0
+    dbuf = torch.randn(n + 1, device="cuda", generator=cuda)
+    x, dy = buf[1:1 + n].view(2048, 32), dbuf[1:1 + n].view(2048, 32)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    assert K.layout(x) == "warp" and K.layout(x, dy) == "warp"
+    assert K.layout(x.clone(), dy.clone()) == "float4 lanes 8"
+    _softmax_pair(K, x, dy)
+
+
+#: consumer -> the row width it reads a producer's output at: the float4
+#: layout (32), the warp-a-row layout (33), a block a row (the producer's
+#: own width)
+PDL_CONSUMERS = {"float4-lanes": 32, "warp": 33, "block": None}
+#: the producer's rows: a block a row, two to an SM, each walking 264 KB
+#: three times, so its dependents launch (after its first walk) well
+#: before it writes y
+PDL_PRODUCER = (264, 33 * 32 * 64)
+
+
+def test_softmax_kernels_wait_for_the_product_and_the_add(cuda):
+    """Each kernel is a programmatic dependent: it launches while its
+    producer drains, and must touch no memory before
+    ``griddepcontrol.wait``.  Twenty times with fresh inputs: B7 at once
+    after the router's product that writes x, B10 at once after the add
+    that writes dy, each equal to its plain version on the same inputs."""
+    from repro_torch.kernels import softmax as K
+
+    for _ in range(20):
+        a = torch.randn(2048, 1024, device="cuda", generator=cuda)
+        w = torch.randn(1024, 32, device="cuda", generator=cuda) * 0.1
+        g1 = torch.randn(2048, 32, device="cuda", generator=cuda)
+        g2 = torch.randn(2048, 32, device="cuda", generator=cuda)
+        x = a @ w
+        y = K.softmax_cuda(x)
+        dy = torch.add(g1, g2)
+        dx = K.softmax_bwd_cuda(y, dy)
+        torch.testing.assert_close(y, K.softmax_plain(x), rtol=1e-5,
+                                   atol=1e-7)
+        torch.testing.assert_close(dx, K.softmax_bwd_plain(y, dy),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("consumer", sorted(PDL_CONSUMERS))
+def test_softmax_kernels_wait_for_a_producer_that_signals_early(cuda,
+                                                                consumer):
+    """B7 and B10 at once after a B7 that lets its dependents launch long
+    before it stores the y they read (the block layout signals after its
+    first walk over the row): a kernel of ``consumer``'s layout that read
+    before its wait would read y's old contents.  Twenty times with fresh
+    inputs, each result equal to its plain version on the producer's
+    output."""
+    from repro_torch.kernels import softmax as K
+
+    R, C = PDL_PRODUCER
+    width = PDL_CONSUMERS[consumer] or C
+    for _ in range(20):
+        x = torch.randn(R, C, device="cuda", generator=cuda) * 3.0
+        dy = torch.randn(R * C // width, width, device="cuda", generator=cuda)
+        y1 = K.softmax_cuda(x)
+        z = K.softmax_cuda(y1.view(-1, width))
+        y2 = K.softmax_cuda(x * 0.5)
+        dx = K.softmax_bwd_cuda(y2.view(-1, width), dy)
+        assert K.layout(y1) == "block"
+        assert K.layout(y1.view(-1, width), dy) == (
+            "float4 lanes 8" if width == 32 else consumer)
+        torch.testing.assert_close(y1, K.softmax_plain(x), rtol=1e-5,
+                                   atol=1e-7)
+        torch.testing.assert_close(z, K.softmax_plain(y1.view(-1, width)),
+                                   rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(
+            dx, K.softmax_bwd_plain(y2.view(-1, width), dy), rtol=1e-5,
+            atol=1e-6)
 
 
 def test_softmax_kernels_refuse_what_they_do_not_take(cuda):

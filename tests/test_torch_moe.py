@@ -53,9 +53,11 @@ def _t(a):
 # kernels
 # ---------------------------------------------------------------------------
 #: shape -> block_rows of the Pallas call: the router's [T, 32]; a ragged
-#: [7, 40] (a padded last block of 4 rows); the reduced config's 4 experts
+#: [7, 40] (a padded last block of 4 rows); the reduced config's 4 experts;
+#: Granite-3B's router width at a ragged count (a padded last block of 63
+#: rows at the reference's default 64)
 SOFTMAX_SHAPES = {"router-32": ((64, 32), 64), "ragged-40": ((7, 40), 4),
-                  "reduced-4": ((3, 4), 2)}
+                  "reduced-4": ((3, 4), 2), "granite-3b-2047": ((2047, 40), 64)}
 
 
 def _softmax_inputs(shape):
@@ -132,6 +134,19 @@ def test_softmax_cuda_wrappers_refuse_cpu_tensors():
         SM.softmax_cuda(x)
     with pytest.raises(ValueError, match="CUDA"):
         SM.softmax_bwd_cuda(x, dy)
+
+
+@pytest.mark.parametrize("case", ["float16", "0-d", "meta"])
+def test_softmax_cuda_wrappers_refuse_before_any_launch(case):
+    """What the wrappers' quick test lets past it is a float32 CUDA tensor
+    with rows; anything else gets ``_check``'s error, before the library is
+    loaded (this host has none to load)."""
+    x = {"float16": torch.randn(4, 32).half(), "0-d": torch.tensor(1.0),
+         "meta": torch.empty(4, 32, device="meta")}[case]
+    with pytest.raises(ValueError, match="CUDA"):
+        SM.softmax_cuda(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        SM.softmax_bwd_cuda(x, x)
 
 
 # ---------------------------------------------------------------------------

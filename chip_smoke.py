@@ -44,10 +44,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    Sq 200 < Skv 500 (causal offset), non-causal, at the HuBERT train
    path's [8, 16, 512, 80] non-causal, at Granite's head dim 64
    ([4, 16 (Hkv 8), 512, 64] and [8, 16 (Hkv 8), 512, 64], causal) and
-   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged), at Gemma-7B's
-   heads ([4, 16, 512, 256], causal) and above the tuned head dims
-   ([4, 16, 512, 320], causal: the wide kernel,
-   ``csrc/flash_attention_wide.cu``), each against the same function in
+   at Zamba2's prompt ([4, 32, 500, 64] causal, ragged) and at Gemma-7B's
+   heads ([4, 16, 512, 256], causal), each against the same function in
    float64 (the plain version on float64 inputs; the float32 plain
    version's own distance is printed beside it) with the same
    per-element limit and the same times; the
@@ -68,17 +66,26 @@ Phases, each of which makes the script exit non-zero when it fails:
    long_500k ([1, 32, 524288, 64]), a ragged kv_len of 1,000 of 1,024, a
    live prefix (1,500 of 2,048) of a layer's view, Gemma-7B's heads at
    decode_32k ([4, 16, 32768, 256]), head dim 80 (read in place by the
-   128 instance, its columns masked at 80), 16 query heads a KV head
-   (two sub-groups) and head dim 320 (the wide kernel, one query row),
-   each element within r |plain| + r mean|plain|, r = 1e-5 max(1,
-   sqrt(kv_len / 32768)), with SDPA as its library call; then its time
-   at one cache against the query heads a KV head (1 to 8, and 16).
+   128 instance, its columns masked at 80) and 16 query heads a KV head
+   (two sub-groups), each element within r |plain| + r mean|plain|, r =
+   1e-5 max(1, sqrt(kv_len / 32768)), with SDPA as its library call;
+   then the rows above head dim 256 (phase 3a); then B8's time at one
+   cache against the query heads a KV head (1 to 8, and 16).
    Beside RMSNorm's prefill row and the
    LayerNorm backward's train row it prints the time of one PyTorch
    element-wise op moving the same bytes (``torch.mul``, ``torch.add``).
    Each check of the flash,
    SSD and decode kernels prints the launches it made, by kernel, and
    fails unless the kernel meant for its shape ran.
+3a. Above head dim 256 (``phase_wide``): the wide flash kernel
+   (``csrc/flash_attention_wide.cu``, on the tensor cores) at [4, 16,
+   512, D] causal for D 320, 264 and 512, at [2, 16, 512, 300], at D 320
+   with 4 KV heads and with Sq 200 < Skv 500, and at [1, 8, 512, 640]
+   non-causal (two output tiles), against float64 as B4; B8 at [1, 8
+   (Hkv 2), 4096, 320] over 4,000 rows, [1, 16 (Hkv 2), 4096, 512] over
+   3,999 (two sub-groups), D 264 and D 640 (the tiled kernel), against
+   its function in float64 at B8's limit; then the device time of each
+   kernel of the D 320 decode call.
 3b. Anchored kernels (compute-anchored stitching, on by default):
    ``stitched_jit`` folds memory-bound chains into B3 (the fused matmul,
    one generated instance of ``csrc/matmul_fused.cuh`` a chain) and into
@@ -169,7 +176,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    logits held against the plain path fed the same tokens.
 13. Whether each B3, B4 and B11 instance built in the run holds
    tensor-core instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA``
-   ``.TF32`` in B4 and in B11's chunk and output passes), printed once;
+   ``.TF32`` in B4, in the wide flash kernel and in B11's chunk and
+   output passes), printed once;
    then a ``{"kernels": [...]}`` summary line (per kernel: the times of
    its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
@@ -1189,6 +1197,134 @@ def at_shift(v, shift: int):
                        device=v.device)[shift:].view(v.shape).copy_(v)
 
 
+def flash_row(gen, checks: dict, label: str, shape, Sq: int, Skv: int,
+              causal: bool, *, main: bool = False) -> None:
+    """Hold flash attention (B4, or above D 256 the wide kernel) at one
+    shape against its function in float64, with SDPA as its library call
+    where its causal mask is the same (Sq == Skv), and fail unless the
+    kernel meant for the shape ran."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Hq, Hkv, D = shape
+    q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
+    k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
+    # v as the model hands it over: [B, S, H, D] transposed (strided)
+    v = torch.randn(B, Skv, Hkv, D, generator=gen,
+                    device="cuda").transpose(1, 2)
+    pairs = (sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq))
+             if causal else Sq * Skv)
+    lib = None
+    if Sq == Skv:  # SDPA's causal mask is top-left: equal only here
+        def lib(a, b, c, _causal=causal):
+            return F.scaled_dot_product_attention(
+                a, b, c, is_causal=_causal, enable_gqa=True)
+    name = "flash_attention_wide" if D > FA.MAX_HEAD_DIM \
+        else "flash_attention"
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    before = launch_counts()
+    res = check_cuda_kernel(
+        f"flash_attention {label} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
+        f"D{D}",
+        lambda a, b, c, _c=causal: FA.flash_attention_cuda(a, b, c, _c),
+        lambda a, b, c, _c=causal: FA.flash_attention_plain(a, b, c, _c),
+        (q, k, v), nbytes=nbytes, ops=0, mma_ops=4 * D * B * Hq * pairs,
+        reps=20, library=lib,
+        reference=lambda a, b, c, _c=causal: FA.flash_attention_plain(
+            a.double(), b.double(), c.double(), _c))
+    launched(name, before)
+    checks.setdefault(name, []).append(dict(res, _bytes=nbytes, _main=main))
+
+
+def decode_row(gen, checks: dict, label: str, shape, S: int, n, layers: int,
+               *, main: bool = False, float64: bool = False) -> None:
+    """Hold flash decode (B8) at one shape against its plain version (with
+    ``float64``, against its function in float64, the float32 plain
+    version's distance printed beside it), the caches one layer's view of
+    an [n_layers, B, Hkv, S, D] buffer as the model hands them over, with
+    SDPA as its library call, and fail unless B8 ran."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Hq, Hkv, D = shape
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda")
+    k = torch.randn(layers, B, Hkv, S, D, generator=gen,
+                    device="cuda")[layers // 2]
+    v = torch.randn(layers, B, Hkv, S, D, generator=gen,
+                    device="cuda")[layers // 2]
+    eff = S if n is None else n
+    nbytes, ops = 4 * (2 * B * Hkv * eff * D + 2 * B * Hq * D), \
+        4 * D * B * Hq * eff
+    before = launch_counts()
+    res = check_cuda_kernel(
+        f"flash_decode {label} B{B} Hq{Hq} Hkv{Hkv} S{S} kv_len{eff} "
+        f"D{D} ({len(FA.decode_subgroups(Hq // Hkv, D))} sub-group(s))",
+        lambda a, b, c, _n=n: FA.flash_decode_cuda(a, b, c, _n),
+        lambda a, b, c, _n=n: FA.flash_decode_plain(a, b, c, _n),
+        (q, k, v), nbytes=nbytes, ops=0, mma_ops=ops,
+        reps=10 if eff > 1e5 else 20, rtol=decode_rtol(eff),
+        library=lambda a, b, c, _e=eff: F.scaled_dot_product_attention(
+            a[:, :, None], b[:, :, :_e], c[:, :, :_e],
+            enable_gqa=True)[:, :, 0],
+        reference=(lambda a, b, c, _n=n: FA.flash_decode_plain(
+            a.double(), b.double(), c.double(), _n)) if float64 else None)
+    launched("flash_decode", before)
+    checks.setdefault("flash_decode", []).append(
+        dict(res, _bytes=nbytes, _main=main))
+
+
+def phase_wide(gen, checks: dict) -> None:
+    """Attention above head dim 256.  The wide flash kernel at B 4, 16
+    heads, prompt 512, causal, at D 320 (its main row), 264 (read in
+    place by its 320 instance) and 512 (its largest), at D 300 (no
+    multiple of 8) with B 2, at D 320 with 4 KV heads (GQA) and with Sq
+    200 < Skv 500 (causal offset, GQA), and at D 640 non-causal (two
+    512-column output tiles); flash decode (B8) at D 320 with 4 query
+    heads a KV head over 4,000 of 4,096 rows (the 384 instance's masked
+    twin), at D 512 with 8 (two sub-groups of 4) over 3,999, at D 264 and
+    at D 640 (the tiled kernel), each against its function in float64 at
+    its limit of phase 3, then the device time of each kernel of the D
+    320 decode call (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as FA
+
+    for label, shape, Sq, Skv, causal in (
+            ("wide d320 causal", (BATCH, 16, 16, 320), PROMPT, PROMPT, True),
+            ("wide d264 causal", (BATCH, 16, 16, 264), PROMPT, PROMPT, True),
+            ("wide d300 causal", (2, 16, 16, 300), PROMPT, PROMPT, True),
+            ("wide d512 causal", (BATCH, 16, 16, 512), PROMPT, PROMPT, True),
+            ("wide d320 gqa causal", (BATCH, 16, 4, 320), PROMPT, PROMPT,
+             True),
+            ("wide d320 causal offset gqa", (2, 16, 4, 320), 200, 500, True),
+            ("wide d640 non-causal", (1, 8, 8, 640), PROMPT, PROMPT, False)):
+        flash_row(gen, checks, label, shape, Sq, Skv, causal,
+                  main=label == "wide d320 causal")
+    for label, shape, S, n in (
+            ("head dim 320 G 4 ragged", (1, 8, 2, 320), 4096, 4000),
+            ("head dim 512 G 8 ragged", (1, 16, 2, 512), 4096, 3999),
+            ("head dim 264 G 4 ragged", (2, 8, 2, 264), 2048, 2000),
+            ("head dim 640 tiled ragged", (1, 8, 2, 640), 4096, 4000)):
+        decode_row(gen, checks, label, shape, S, n, 1, float64=True)
+    q = torch.randn(1, 8, 320, generator=gen, device="cuda")
+    kv = torch.randn(2, 1, 2, 4096, 320, generator=gen, device="cuda")
+    for _ in range(3):
+        FA.flash_decode_cuda(q, kv[0], kv[1], 4000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            FA.flash_decode_cuda(q, kv[0], kv[1], 4000)
+        torch.cuda.synchronize()
+    parts = [f"{e.key.replace('(anonymous namespace)::', '').split('(')[0]}"
+             f" {e.device_time_total / e.count:.2f} us"
+             for e in prof.key_averages() if e.device_time_total > 0]
+    print("flash_decode B1 Hq8 Hkv2 kv_len4000 D320, device time a kernel "
+          "(mean of 20 calls): " + "; ".join(parts))
+
+
 def phase_cuda_kernels(gen) -> dict:
     """Build the CUDA kernels from the checkout's sources, then hold each
     against its plain version at the serving path's shapes."""
@@ -1301,8 +1437,7 @@ def phase_cuda_kernels(gen) -> dict:
     granite_train = (TRAIN_BATCH, 16, 8, 64)
     zamba = (BATCH, 32, 32, 64)             # Zamba2's shared block
     gemma = (BATCH, 16, 16, 256)            # Gemma-7B's heads: D 256
-    wide = (BATCH, 16, 16, 320)             # above 256: the wide kernel
-    for label, (B, Hq, Hkv, D), Sq, Skv, causal in (
+    for label, shape, Sq, Skv, causal in (
             ("prefill causal", llama, 512, 512, True),
             ("ragged causal", llama, 500, 500, True),
             ("causal offset", llama, 200, 500, True),
@@ -1313,36 +1448,9 @@ def phase_cuda_kernels(gen) -> dict:
              True),
             ("hybrid prefill causal", zamba, SERVE_PROMPT, SERVE_PROMPT,
              True),
-            ("gemma-7b heads causal", gemma, PROMPT, PROMPT, True),
-            ("wide d320 causal", wide, PROMPT, PROMPT, True)):
-        q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda")
-        k = torch.randn(B, Hkv, Skv, D, generator=gen, device="cuda")
-        # v as the model hands it over: [B, S, H, D] transposed (strided)
-        v = torch.randn(B, Skv, Hkv, D, generator=gen,
-                        device="cuda").transpose(1, 2)
-        pairs = (sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq))
-                 if causal else Sq * Skv)
-        lib = None
-        if Sq == Skv:  # SDPA's causal mask is top-left: equal only here
-            def lib(a, b, c, _causal=causal):
-                return F.scaled_dot_product_attention(
-                    a, b, c, is_causal=_causal, enable_gqa=True)
-        name = "flash_attention_wide" if D > FA.MAX_HEAD_DIM \
-            else "flash_attention"
-        before = launch_counts()
-        res = check_cuda_kernel(
-            f"flash_attention {label} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} "
-            f"D{D}",
-            lambda a, b, c, _c=causal: FA.flash_attention_cuda(a, b, c, _c),
-            lambda a, b, c, _c=causal: FA.flash_attention_plain(a, b, c, _c),
-            (q, k, v), nbytes=4 * (2 * q.numel() + 2 * k.numel()),
-            ops=0, mma_ops=4 * D * B * Hq * pairs, reps=20, library=lib,
-            reference=lambda a, b, c, _c=causal: FA.flash_attention_plain(
-                a.double(), b.double(), c.double(), _c))
-        launched(name, before)
-        checks.setdefault(name, []).append(
-            dict(res, _bytes=4 * (2 * q.numel() + 2 * k.numel()),
-                 _main=label == "prefill causal"))
+            ("gemma-7b heads causal", gemma, PROMPT, PROMPT, True)):
+        flash_row(gen, checks, label, shape, Sq, Skv, causal,
+                  main=label == "prefill causal")
 
     # the SSD scan (B11) at Mamba2's prefill, Zamba2's prefill and
     # Mamba2's train batch
@@ -1373,7 +1481,7 @@ def phase_cuda_kernels(gen) -> dict:
     # decode_32k (its batch of 128 cut to 4) and batch 1, Granite's head
     # dim 64, Zamba2's long_500k (the cell's own batch of 1), a ragged
     # kv_len, and a live prefix of a layer's strided view
-    for label, (B, Hq, Hkv, D), S, n, layers in (
+    for label, shape, S, n, layers in (
             ("llama decode_32k", llama, STATIC_KV, None, 1),
             ("llama decode_32k batch 1", (1, 24, 8, 128), STATIC_KV, None,
              1),
@@ -1384,37 +1492,10 @@ def phase_cuda_kernels(gen) -> dict:
             ("gemma-7b decode_32k", gemma, STATIC_KV, None, 1),
             ("head dim 80 masked", (BATCH, 16, 16, 80), 4096, 4000, 1),
             ("16 query heads a KV head", (BATCH, 32, 2, 128), STATIC_KV,
-             None, 1),
-            ("head dim 320 on the wide kernel", (1, 8, 2, 320), 4096, 4000,
-             1)):
-        q = torch.randn(B, Hq, D, generator=gen, device="cuda")
-        # the caches as the model hands them over: one layer's view of an
-        # [n_layers, B, Hkv, S, D] buffer
-        k = torch.randn(layers, B, Hkv, S, D, generator=gen,
-                        device="cuda")[layers // 2]
-        v = torch.randn(layers, B, Hkv, S, D, generator=gen,
-                        device="cuda")[layers // 2]
-        eff = S if n is None else n
-        nbytes, ops = 4 * (2 * B * Hkv * eff * D + 2 * B * Hq * D), \
-            4 * D * B * Hq * eff
-        name = "flash_decode" if FA.decode_instance(D) else \
-            "flash_attention_wide"
-        before = launch_counts()
-        res = check_cuda_kernel(
-            f"flash_decode {label} B{B} Hq{Hq} Hkv{Hkv} S{S} kv_len{eff} "
-            f"D{D} ({len(FA.decode_subgroups(Hq // Hkv))} sub-group(s))",
-            lambda a, b, c, _n=n: FA.flash_decode_cuda(a, b, c, _n),
-            lambda a, b, c, _n=n: FA.flash_decode_plain(a, b, c, _n),
-            (q, k, v), nbytes=nbytes, ops=0, mma_ops=ops,
-            reps=10 if eff > 1e5 else 20,
-            rtol=decode_rtol(eff),
-            library=lambda a, b, c, _e=eff: F.scaled_dot_product_attention(
-                a[:, :, None], b[:, :, :_e], c[:, :, :_e],
-                enable_gqa=True)[:, :, 0])
-        launched(name, before)
-        checks.setdefault(name, []).append(
-            dict(res, _bytes=nbytes, _main=label == "llama decode_32k"))
-        del q, k, v
+             None, 1)):
+        decode_row(gen, checks, label, shape, S, n, layers,
+                   main=label == "llama decode_32k")
+    phase_wide(gen, checks)
     decode_group_sweep(gen)
     torch.cuda.empty_cache()
     return checks
@@ -1567,9 +1648,10 @@ def sass_check() -> None:
     """Whether each instance of B3, B4 and B11 built in this run holds
     tensor-core instructions, read with ``cuobjdump -sass`` on its
     library: ``HGMMA`` (``wgmma``) in every B3 kernel, ``HMMA`` with
-    ``.TF32`` (``mma.sync``) in every B4 kernel and in B11's chunk and
-    output passes (its state pass multiplies nothing).  Printed once; a
-    kernel without them fails the run."""
+    ``.TF32`` (``mma.sync``) in every B4 kernel, in every instance of the
+    wide flash kernel (above head dim 256) and in B11's chunk and output
+    passes (its state pass multiplies nothing).  Printed once; a kernel
+    without them fails the run."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
@@ -1577,6 +1659,7 @@ def sass_check() -> None:
     kinds = (("mm_*.so", "B3", ("mm_fused_kernel",)),
              ("attn_*.so", "B4", ("flash_fwd_kernel",)),
              ("flash_attention-*.so", "B4", ("flash_fwd_kernel",)),
+             ("flash_attention_wide-*.so", "B4 wide", ("flash_wide_kernel",)),
              ("ssd_scan-*.so", "B11", ("ssd_chunk_kernel",
                                        "ssd_output_kernel")))
     bad = []

@@ -25,9 +25,12 @@ three-way TF32 split (``kernels/split_float.py``), in instances for
 head dims 64, 80, 128 and 256 (``FLASH_HEAD_DIMS``; a D between two is
 zero-padded up to the next).  A head dim above 256 runs on a kernel of
 its own, ``csrc/flash_attention_wide.cu`` (``flash_attention_wide_cuda``:
-float32 FMA on the CUDA cores, the output's head dim cut into tiles of at
-most 256 columns), as the reference's kernel has no ceiling on D; it
-takes no ``score_mod``, so the H100 gate anchors no attention above 256.
+the same split on the tensor cores, 8 warps a 64-row query tile that
+compute the scores once for every output column, K and V streamed in
+64-column chunks by cp.async; instances 320, 384, 448 and 512, a D below
+one read in place, above 512 output tiles of 512 columns), as the
+reference's kernel has no ceiling on D; it takes no ``score_mod``, so
+the H100 gate anchors no attention above 256.
 
 ``flash_attention(q, k, v, causal, scale)`` runs the operator
 ``repro_torch::flash_attention``: on CPU tensors ``flash_attention_plain``,
@@ -42,15 +45,16 @@ one query row a (batch, head), q [B, Hq, D], against the first
 ``kv_len`` rows of caches [B, Hkv, S, D] (the whole cache when
 ``kv_len`` is None or at least S), the hand-written CUDA kernel
 ``csrc/flash_decode.cu`` on CUDA tensors, ``flash_decode_plain`` on CPU
-tensors.  The kernel has instances for head dims 64, 128 and 256 and
-takes at most 8 query heads a KV head a launch: a D between two
-instances runs on the next, its columns masked at D (``decode_padded``
-zero-pads only a D that is not a multiple of 4; the scale stays that of
-the true D), and ``decode_by_subgroups`` runs a larger group as
-sub-groups, one launch each (``decode_subgroups`` is the plan); a D
-above 256 runs on the wide flash kernel, one query row, non-causal, as
-the reference builds ``flash_decode`` from ``flash_attention``.  It has
-no autograd formula: the reference has none for the decode path.
+tensors.  The kernel has instances for head dims 64, 128, 256, 384 and
+512 and takes at most 8 query heads a KV head a launch (4 above 256,
+``decode_max_group``): a D between two instances runs on the next, its
+columns masked at D (``decode_padded`` zero-pads only a D that is not a
+multiple of 4; the scale stays that of the true D), ``decode_by_subgroups``
+runs a larger group as sub-groups, one launch each (``decode_subgroups``
+is the plan), and a D above 512 runs on its tiled kernel, which stages q
+in shared memory and cuts the output into tiles of 512 columns.  Every D
+splits the cache over blocks and reads each K/V row once a sub-group.  It
+has no autograd formula: the reference has none for the decode path.
 """
 from __future__ import annotations
 
@@ -73,24 +77,42 @@ MAX_HEAD_DIM = 256
 FLASH_BQ = 64
 FLASH_HEAD_DIMS = (64, 80, 128, 256)
 FLASH_QREG_MAX_D = 80
-#: The wide kernel's tiles (``csrc/flash_attention_wide.cu``): query rows,
-#: key rows, head-dim columns a step of q k^T, output columns a D-tile.
-WIDE_BQ, WIDE_BK, WIDE_DC, WIDE_DT = 32, 32, 32, 256
+#: The wide kernel's constants (``csrc/flash_attention_wide.cu``; a test
+#: holds the two equal): query rows a block (``kBQ``), keys a K/V tile
+#: (``kBK``), head-dim columns a staged chunk (``kDC``), the largest
+#: output tile (``kDT``; above it the output's head dim is cut into tiles
+#: of ``kDT`` columns), the ring's stages (``kStages``), and its head-dim
+#: instances (a D runs on the first at or above it, its columns past D
+#: zero-filled as they are copied).
+WIDE_BQ, WIDE_BK, WIDE_DC, WIDE_DT, WIDE_STAGES = 64, 64, 64, 512, 3
+WIDE_HEAD_DIMS = (320, 384, 448, 512)
 
 
 def flash_instance(D: int) -> int | None:
     """The tuned head-dim instance that runs a head dim of ``D``, or None
-    above ``MAX_HEAD_DIM``: the wide kernel runs that D as it is."""
+    above ``MAX_HEAD_DIM``: the wide kernel runs that D
+    (``wide_instance``)."""
     for dmax in FLASH_HEAD_DIMS:
         if D <= dmax:
             return dmax
     return None
 
 
+def wide_instance(D: int) -> tuple[int, int]:
+    """(output columns a block, output tiles) of the wide kernel at a head
+    dim ``D`` above ``MAX_HEAD_DIM``: up to ``WIDE_DT`` the first instance
+    at or above D and one tile (the Q tile resident), above it
+    ``WIDE_DT``-column tiles."""
+    for dmax in WIDE_HEAD_DIMS:
+        if D <= dmax:
+            return dmax, 1
+    return WIDE_DT, -(-D // WIDE_DT)
+
+
 def flash_kbk(D: int) -> int:
     """K/V rows a tile of the kernel that runs ``D``: 32 where the tuned
-    instance's Q tile takes shared memory and in the wide kernel, else
-    64."""
+    instance's Q tile takes shared memory, else 64 (the wide kernel's
+    too)."""
     d = flash_instance(D)
     if d is None:
         return WIDE_BK
@@ -102,12 +124,18 @@ def flash_smem_bytes(D: int) -> int:
     instance: the K and V tiles of the two-stage ring (rows padded to D +
     8 and D + 4 floats) and, above ``FLASH_QREG_MAX_D``, the Q tile
     (``smem_floats`` in ``csrc/flash_attention.cuh``).  Above
-    ``MAX_HEAD_DIM`` the wide kernel: its Q, K and p tiles (rows padded by
-    one float) and one D-tile of V."""
+    ``MAX_HEAD_DIM`` the wide kernel's (``smem_floats`` in its source):
+    up to ``WIDE_DT`` its Q tile (rows of D + 8 floats), the ring of K/V
+    chunks (rows of ``WIDE_DC`` + 8), p (rows of ``WIDE_BK`` + 4) and the
+    exchange of the rows' max and sum; above it no Q tile, and each stage
+    also holds a chunk of Q."""
     d = flash_instance(D)
     if d is None:
-        return 4 * ((WIDE_BQ + WIDE_BK) * (WIDE_DC + 1)
-                    + WIDE_BQ * (WIDE_BK + 1) + WIDE_BK * WIDE_DT)
+        (dt, tiles), ld = wide_instance(D), WIDE_DC + 8
+        qres = tiles == 1
+        return 4 * ((WIDE_BQ * (dt + 8) if qres else 0)
+                    + WIDE_STAGES * (WIDE_BK + (0 if qres else WIDE_BQ)) * ld
+                    + WIDE_BQ * (WIDE_BK + 4) + 2 * 2 * WIDE_BQ)
     q = 0 if d <= FLASH_QREG_MAX_D else FLASH_BQ * (d + 8)
     return 4 * (2 * flash_kbk(D) * ((d + 8) + (d + 4)) + q)
 
@@ -259,10 +287,12 @@ flash_attention_cuda.launches = 0  # identity-instance launches
 
 def flash_attention_wide_cuda(q, k, v, causal: bool = True,
                               scale: float | None = None) -> torch.Tensor:
-    """Launch the wide kernel (``csrc/flash_attention_wide.cu``: float32,
-    any head dim, meant for those above ``MAX_HEAD_DIM``; on the current
-    stream).  q, k, v are taken with their strides; only a last dimension
-    that is not contiguous is copied."""
+    """Launch the wide kernel (``csrc/flash_attention_wide.cu``: float32 on
+    the tensor cores, head dims above ``MAX_HEAD_DIM``; on the current
+    stream).  q, k, v are taken with their strides and read in place (the
+    kernel zero-fills the columns past D of its instance); only a D that
+    is not a multiple of 4 (no config has one) is zero-padded up to one,
+    and a tensor the kernel cannot read with 16-byte copies is copied."""
     _check_shapes(q, k, v, causal)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -274,16 +304,23 @@ def flash_attention_wide_cuda(q, k, v, causal: bool = True,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    if D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_wide_cuda: head dim {D}; the "
+                         f"wide kernel takes those above {MAX_HEAD_DIM}")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty(B, Hq, Sq, D, dtype=torch.float32, device=dev)
+    Dp = -(-D // 4) * 4
+    if Dp != D:  # zero dims add nothing to q k^T; o's are cut off below
+        q, k, v = (torch.nn.functional.pad(t, (0, Dp - D))
+                   for t in (q, k, v))
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    o = torch.empty(B, Hq, Sq, Dp, dtype=torch.float32, device=dev)
     _build.check(_wide_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv,
-        Sq, Skv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         float(scale), int(causal), torch.cuda.current_stream(dev).cuda_stream),
         "repro_flash_wide_f32")
     flash_attention_wide_cuda.launches += 1
-    return o
+    return o if Dp == D else o[..., :D]
 
 
 flash_attention_wide_cuda.launches = 0  # kernel launches (plain excluded)
@@ -373,11 +410,20 @@ _flash_attention_op.register_autograd(_backward,
 # flash decode: one query row against a KV cache
 # --------------------------------------------------------------------------
 #: Head dims the decode kernel has instances for (Granite's and Zamba2's
-#: 64, Llama's 128, Gemma-7B's 256; a D between two runs on the next, its
-#: columns masked at D), and the most query heads a KV head one launch
-#: takes (a larger group runs as sub-groups, one launch each).
-DECODE_HEAD_DIMS = (64, 128, 256)
+#: 64, Llama's 128, Gemma-7B's 256, and 384 and 512; a D between two runs
+#: on the next, its columns masked at D), the output columns a block of
+#: its tiled kernel takes above the largest instance, and the most query
+#: heads a KV head one launch takes up to 256 (``decode_max_group`` gives
+#: it by D; a larger group runs as sub-groups, one launch each).
+DECODE_HEAD_DIMS = (64, 128, 256, 384, 512)
+DECODE_TILE = 512
 DECODE_MAX_GROUP = 8
+#: The most query heads a launch takes above 256 (registers: a lane holds
+#: q and acc of every head in 3 or 4 float4 each), and the shared memory
+#: one block of the tiled kernel may take (``tiled_smem_bytes`` in
+#: ``csrc/flash_decode.cu``).
+DECODE_MAX_GROUP_WIDE = 4
+DECODE_SMEM_LIMIT = 232_448
 #: Blocks the decode kernel's split pass aims for: about eight for each of
 #: the H100's 132 SMs, so that B * Hkv * splits fills the card even at one
 #: sequence; a split holds a multiple of ``DECODE_ROW_QUANTUM`` rows.
@@ -431,20 +477,51 @@ def decode_splits(pairs: int, eff: int) -> tuple[int, int]:
 
 def decode_instance(D: int) -> int | None:
     """The decode kernel's head-dim instance that runs ``D`` (its columns
-    masked at D), or None above the largest: the wide flash kernel runs
-    it."""
+    masked at D), or None above the largest: the tiled kernel runs it, its
+    output cut into tiles of ``DECODE_TILE`` columns."""
     for dmax in DECODE_HEAD_DIMS:
         if D <= dmax:
             return dmax
     return None
 
 
-def decode_subgroups(G: int) -> list[tuple[int, int]]:
-    """The launches of ``G`` query heads a KV head: (first head, heads) of
-    each sub-group within the group, the fewest of at most
-    ``DECODE_MAX_GROUP`` heads, as even as they come.  Sub-group (f, n)
+def decode_width(D: int) -> int:
+    """Columns of the decode kernel's partials at head dim ``D``: its
+    instance's, or above the largest its tiles'."""
+    return decode_instance(D) or -(-D // DECODE_TILE) * DECODE_TILE
+
+
+def decode_tiled_smem_bytes(D: int, G: int) -> int:
+    """Shared memory of one block of the tiled kernel (D above the largest
+    instance) at ``G`` query heads: q (D rounded up to 128 floats), the
+    four warps' (m, l) and a tile of accumulators a warp and head."""
+    return 4 * G * (-(-D // 128) * 128 + 2 * 4 + 4 * DECODE_TILE)
+
+
+def decode_max_group(D: int) -> int:
+    """The most query heads a KV head one launch takes at head dim ``D``:
+    ``DECODE_MAX_GROUP`` up to 256, ``DECODE_MAX_GROUP_WIDE`` above, and
+    above the largest instance no more than one block's shared memory
+    holds (``decode_tiled_smem_bytes``); a head dim whose one head does not
+    fit raises."""
+    if D <= 256:
+        return DECODE_MAX_GROUP
+    g = DECODE_MAX_GROUP_WIDE
+    if decode_instance(D) is None:
+        while g and decode_tiled_smem_bytes(D, g) > DECODE_SMEM_LIMIT:
+            g -= 1
+        if not g:
+            raise ValueError(f"flash_decode: head dim {D}: one query head's "
+                             "state exceeds a block's shared memory")
+    return g
+
+
+def decode_subgroups(G: int, D: int) -> list[tuple[int, int]]:
+    """The launches of ``G`` query heads a KV head at head dim ``D``: (first
+    head, heads) of each sub-group within the group, the fewest of at most
+    ``decode_max_group(D)`` heads, as even as they come.  Sub-group (f, n)
     runs query heads ``j G + f .. j G + f + n - 1`` of every KV head j."""
-    n = -(-G // DECODE_MAX_GROUP)
+    n = -(-G // decode_max_group(D))
     base, extra = divmod(G, n)
     plan, first = [], 0
     for i in range(n):
@@ -465,7 +542,7 @@ def decode_by_subgroups(q, k_cache, v_cache, eff: int, scale: float,
     G = Hq // Hkv
     o = torch.empty(B, Hq, D, dtype=q.dtype, device=q.device)
     q4, o4 = q.unflatten(1, (Hkv, G)), o.view(B, Hkv, G, D)
-    for first, n in decode_subgroups(G):
+    for first, n in decode_subgroups(G, D):
         run(q4[:, :, first:first + n], k_cache, v_cache, eff, scale,
             o4[:, :, first:first + n])
     return o
@@ -474,7 +551,8 @@ def decode_by_subgroups(q, k_cache, v_cache, eff: int, scale: float,
 def decode_padded(q, k_cache, v_cache, kv_len, scale, run) -> torch.Tensor:
     """``run(q, k, v, eff, scale)`` at the default scale 1/sqrt(D) of the
     true D.  The decode kernel reads a head dim that is a multiple of 4 in
-    place (its instance masks the columns at D), so the caches pass
+    place (its instance masks the columns at D; above the largest
+    instance the tiled kernel masks its last tile), so the caches pass
     through as they are; another D (no config has one) is zero-padded up
     to the next multiple of 4, which float4 loads need, and the result
     cut back to D.  Zero columns add nothing to q k^T, so the padded call
@@ -483,7 +561,7 @@ def decode_padded(q, k_cache, v_cache, kv_len, scale, run) -> torch.Tensor:
     eff = live_len(kv_len, k_cache.shape[2])
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    if D % 4 == 0 or decode_instance(D) is None:
+    if D % 4 == 0:
         return run(q, k_cache, v_cache, eff, scale)
     pad = (0, -D % 4)
     q, k_cache, v_cache = (torch.nn.functional.pad(t, pad) for t in (
@@ -495,11 +573,11 @@ def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
                       scale: float | None = None) -> torch.Tensor:
     """Launch the CUDA decode kernel (float32, on the current stream): the
     split pass, then the combine, once a sub-group of at most
-    ``DECODE_MAX_GROUP`` query heads a KV head, on the head-dim instance
-    that holds D (``decode_padded``).  The caches are taken with their
-    strides (a layer's view of the model's [n_layers, B, Hkv, S, D]
-    buffer is not copied).  Above the largest instance, the wide flash
-    kernel runs one query row against the live prefix, non-causal."""
+    ``decode_max_group(D)`` query heads a KV head, on the head-dim
+    instance that holds D, or above the largest on the tiled kernel
+    (``decode_padded``).  The caches are taken with their strides (a
+    layer's view of the model's [n_layers, B, Hkv, S, D] buffer is not
+    copied)."""
     _check_decode_shapes(q, k_cache, v_cache)
     dev = q.device
     if (dev.type != "cuda" or k_cache.device != dev
@@ -514,10 +592,6 @@ def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
 
 
 def _decode_run(q, k_cache, v_cache, eff: int, scale: float) -> torch.Tensor:
-    if decode_instance(q.shape[-1]) is None:
-        return flash_attention_wide_cuda(
-            q[:, :, None], k_cache[:, :, :eff], v_cache[:, :, :eff], False,
-            scale)[:, :, 0]
     q, k_cache, v_cache = (_aligned(t) for t in (q, k_cache, v_cache))
     return decode_by_subgroups(q, k_cache, v_cache, eff, scale,
                                _decode_launch)
@@ -529,7 +603,7 @@ def _decode_launch(qs, k_cache, v_cache, eff: int, scale: float, os) -> None:
     B, Hkv, n, D = qs.shape
     dev = qs.device
     splits, rows = decode_splits(B * Hkv, eff)
-    part_acc = torch.empty(B, Hkv * n, splits, decode_instance(D),
+    part_acc = torch.empty(B, Hkv * n, splits, decode_width(D),
                            dtype=torch.float32, device=dev)
     part_ml = torch.empty(B, Hkv * n, splits, 2, dtype=torch.float32,
                           device=dev)

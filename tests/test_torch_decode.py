@@ -208,7 +208,8 @@ def test_subgroup_plan_covers_every_head_once(G):
     """Each sub-group has at most 8 heads, the fewest sub-groups, and the
     query heads it runs of KV head j are j G + first .. j G + first + n -
     1: every head once, each on its own KV head."""
-    plan = FA.decode_subgroups(G)
+    plan = FA.decode_subgroups(G, 128)
+    assert FA.decode_max_group(128) == FA.DECODE_MAX_GROUP
     assert len(plan) == -(-G // FA.DECODE_MAX_GROUP)
     assert all(1 <= n <= FA.DECODE_MAX_GROUP for _, n in plan)
     Hkv = 3
@@ -229,7 +230,7 @@ def test_group_16_decode_matches_the_pallas_flash_decode(kv_len):
     q, k, v = _decode_inputs(2, 32, 2, 64, 64, seed=17)
     want = jflash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          kv_len=kv_len, block_k=32, interpret=True)
-    assert FA.decode_subgroups(16) == [(0, 8), (8, 8)]
+    assert FA.decode_subgroups(16, 64) == [(0, 8), (8, 8)]
     for got in (_sub_grouped(_t(q), _t(k), _t(v), kv_len),
                 FA.flash_decode(_t(q), _t(k), _t(v), kv_len)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -237,15 +238,69 @@ def test_group_16_decode_matches_the_pallas_flash_decode(kv_len):
 
 
 def test_decode_above_256_is_one_row_of_flash_attention():
-    """Above the largest instance the wrapper runs the wide flash kernel:
-    one query row over the live prefix, non-causal -- the same function
-    as the decode, as the reference builds it."""
+    """Above 256 the decode kernel's own instances run (320 on the 384
+    instance, its columns masked), no longer the wide flash kernel; the
+    function is still one query row of flash attention over the live
+    prefix, non-causal, as the reference builds it."""
     q, k, v = (_t(a) for a in _decode_inputs(1, 4, 2, 40, 320, seed=9))
-    assert FA.decode_instance(320) is None
+    assert FA.decode_instance(320) == 384
     row = FA.flash_attention_plain(q[:, :, None], k[:, :, :33],
                                    v[:, :, :33], False)[:, :, 0]
     torch.testing.assert_close(FA.flash_decode_plain(q, k, v, 33), row,
                                rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("D,instance,cap,width", [
+    (264, 384, 4, 384), (320, 384, 4, 384), (384, 384, 4, 384),
+    (400, 512, 4, 512), (512, 512, 4, 512), (516, None, 4, 1024),
+    (640, None, 4, 1024), (1100, None, 4, 1536), (13_000, None, 3, 13_312)])
+def test_decode_route_and_group_cap_above_256(D, instance, cap, width):
+    """Above 256: the 384 and 512 instances (a warp a row, 3 or 4 float4 a
+    lane), then the tiled kernel (None: q in shared memory, 512-column
+    output tiles); at most 4 query heads a launch, fewer where one block's
+    shared memory cannot hold the tiled kernel's state of 4."""
+    assert FA.decode_instance(D) == instance
+    assert FA.decode_max_group(D) == cap
+    assert FA.decode_width(D) == width
+    if instance is None:
+        assert FA.decode_tiled_smem_bytes(D, cap) <= FA.DECODE_SMEM_LIMIT
+        if cap < FA.DECODE_MAX_GROUP_WIDE:
+            assert (FA.decode_tiled_smem_bytes(D, cap + 1)
+                    > FA.DECODE_SMEM_LIMIT)
+    assert FA.decode_max_group(256) == FA.DECODE_MAX_GROUP == 8
+    plan = FA.decode_subgroups(8, D)
+    assert len(plan) == -(-8 // cap) and max(n for _, n in plan) <= cap
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.decode_max_group(60_000)
+
+
+@pytest.mark.parametrize("D,Hq,kv_len,plan", [
+    (320, 8, 70, [(0, 4)]), (512, 8, 70, [(0, 4)]),
+    (512, 16, 50, [(0, 4), (4, 4)]), (640, 8, 77, [(0, 4)])],
+    ids=["d320-g4-ragged", "d512-g4-ragged", "d512-g8-subgroups-ragged",
+         "d640-tiled-ragged"])
+def test_wide_decode_matches_the_pallas_flash_decode(D, Hq, kv_len, plan):
+    """Head dims above 256 through the CUDA wrapper's composition (the
+    plain version in place of each launch) against the reference's
+    ``flash_decode`` in interpret mode, over a ragged live prefix: D 320
+    and 512 at 4 query heads a KV head (one launch), 512 at 8 (two
+    sub-groups of 4), 640 on the tiled kernel."""
+    q, k, v = _decode_inputs(2, Hq, 2, 96, D, seed=D + Hq)
+    want = jflash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         kv_len=kv_len, block_k=32, interpret=True)
+    seen = []
+
+    def launch(qs, k_, v_, eff, scale, os):
+        seen.append((qs.shape[2], qs.shape[-1], eff))
+        _plain_launch(qs, k_, v_, eff, scale, os)
+
+    got = FA.decode_padded(
+        _t(q), _t(k), _t(v), kv_len, None,
+        lambda *a: FA.decode_by_subgroups(*a, launch))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-6)
+    assert FA.decode_subgroups(Hq // 2, D) == plan
+    assert seen == [(n, D, kv_len) for _, n in plan]
 
 
 @pytest.mark.parametrize("pairs,eff", [(32, 32768), (8, 32768),

@@ -252,16 +252,20 @@ def test_flash_kernel_matches_plain(cuda, case):
 
 def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
     """What the kernels refuse (another dtype), and what they take since
-    head dims above 256 run on the wide kernel: D 264 and 320, held
-    against the plain version, the wide kernel's launches counted."""
+    head dims above 256 run on the wide kernel: D 264 (read in place by
+    its 320 instance), 320, 512 (grouped heads, causal offset), 640 (two
+    output tiles) and 330 (zero-padded to 332), held against the function
+    in float64, the wide kernel's launches counted."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
 
     x = torch.randn(4, 64, device="cuda")
     with pytest.raises(TypeError):
         RN.rmsnorm_cuda(x.half(), torch.ones(64, device="cuda").half(), 1e-6)
-    for D, causal in ((264, False), (320, True)):
-        q = torch.randn(2, 4, 70, D, device="cuda", generator=cuda)
+    for D, causal, Sq in ((264, False, 70), (320, True, 70),
+                          (512, True, 61), (640, False, 70),
+                          (330, True, 70)):
+        q = torch.randn(2, 4, Sq, D, device="cuda", generator=cuda)
         k = torch.randn(2, 90, 2, D, device="cuda",
                         generator=cuda).transpose(1, 2)
         v = torch.randn(2, 90, 2, D, device="cuda",
@@ -274,7 +278,8 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
                     before[0], before[1] + 1)
         want = FA.flash_attention_plain(q.double(), k.double(), v.double(),
                                         causal)
-        # float32 FMA over D in another order than the float64 function
+        # the three-way TF32 split on the tensor cores, partial sums of
+        # q k^T each 16 of D, against the float64 function
         torch.testing.assert_close(o.double(), want, rtol=1e-5, atol=2e-6)
     with pytest.raises(TypeError):
         FA.flash_attention_wide_cuda(q.double(), k.double(), v.double())
@@ -759,9 +764,11 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
     """What the decode kernel refuses (another dtype, a kv_len below 1),
     and what it takes since any head dim and group run: D 32, 80 and 100
     (read in place, the columns masked in the next instance), 30
-    (zero-padded to 32), 256 (its own instance), 320 (the wide flash
-    kernel) and 16 query heads a KV head (two sub-groups, two launches),
-    each held against the plain version, the launches counted."""
+    (zero-padded to 32), 256 (its own instance), 264 and 320 (the 384
+    instance's masked twin), 512 at 8 query heads a KV head (two
+    sub-groups of 4), 640 (the tiled kernel) and 16 query heads a KV head
+    at D 128 (two sub-groups, two launches), each held against the plain
+    version, the launches counted (none of the wide flash kernel)."""
     from repro_torch.kernels import flash_attention as K
 
     q = torch.randn(1, 32, 64, device="cuda")
@@ -774,7 +781,9 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
             (1, 4, 2, 100, 32, 77, 1, 0), (2, 8, 2, 300, 80, 250, 1, 0),
             (2, 8, 4, 300, 100, 299, 1, 0), (1, 6, 2, 90, 30, 77, 1, 0),
             (2, 16, 16, 700, 256, None, 1, 0), (1, 16, 2, 500, 256, 499, 1, 0),
-            (2, 32, 2, 600, 128, 555, 2, 0), (1, 8, 2, 400, 320, 321, 0, 1)):
+            (2, 32, 2, 600, 128, 555, 2, 0), (1, 8, 2, 400, 320, 321, 1, 0),
+            (2, 8, 2, 300, 264, 250, 1, 0), (1, 16, 2, 400, 512, 399, 2, 0),
+            (1, 8, 2, 300, 640, 299, 1, 0)):
         q = torch.randn(B, Hq, D, device="cuda", generator=cuda)
         k = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda)
         v = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda)

@@ -131,8 +131,29 @@ Phases, each of which makes the script exit non-zero when it fails:
    device's busy share of a decode step, every generated kernel instance
    of the prefill and decode signatures held against its plain version at
    its shapes, and the logits of every step held against the plain path
-   (``"xla"`` with ``dispatch="interpret"``: no kernel of any kind) fed
-   the same tokens.
+   (``"xla"`` with ``dispatch="interpret"``: no kernel of any kind, its
+   steps eager) fed the same tokens.  ``generate`` decodes through one
+   captured CUDA graph a step (``launch/serve.py::greedy_step``); the
+   phase times its replays against the same step run eagerly, profiles
+   one of each (``captured_vs_eager``: device busy beside the walls,
+   launches a step from the profiler, and a failure unless the replay
+   calls no kernel wrapper and runs the eager step's kernels, by name and
+   count).
+5b. Scheduler (``phase_scheduler``, after the serving phases of Llama,
+   Granite and Zamba2, on the same model): ``ContinuousBatcher`` with 4
+   slots of 1,024 rows, 12 seeded requests for Llama (4 for the others)
+   with prompts of 100-500 tokens cycling through the buckets 128, 256
+   and 512, 16 tokens each, every decode wave one replayed CUDA graph:
+   a cold run (compiles, the capture), then the counted run of the same
+   requests (launches: the wrappers' eager counts and, at each replay,
+   the launches recorded into the graph), tokens/s, TTFT and ms a wave
+   (p50, p99); the same requests through eager waves (the same tokens
+   required); every prefill and wave of the counted run replayed on the
+   plain path fed the same tokens (logits within 1e-4 max(1,
+   max|logits|), an MoE model row by row as in 7, each greedy token the
+   plain path's argmax); one wave profiled captured and eager as above;
+   the wave graph's dependency edges (``graph_edges``: a B7 launch keeps
+   a programmatic edge) and a replayed wave's device time by kind.
 6. Train path (``fusion_mode="stitched"``): HuBERT-XLarge at full width
    and depth (48 layers, d_model 1280, 16 x 80 heads, float32) through
    ``repro_torch.launch.train.build_trainer``, batch 8 x 512 frames, 5
@@ -173,12 +194,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    rows, 60 GB; SSM state from zeros), 4 greedy steps at the last
    positions each: compile seconds, ms per step, launches per step (flash
    decode once an attention layer), a profile of one step, every step's
-   logits held against the plain path fed the same tokens.
+   logits held against the plain path fed the same tokens.  The step of
+   ``make_decode_step`` is one captured graph: timed as replays, against
+   the same steps eager (``captured_vs_eager``).
 13. Whether each B3, B4 and B11 instance built in the run holds
    tensor-core instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA``
    ``.TF32`` in B4, in the wide flash kernel and in B11's chunk and
    output passes), printed once;
-   then a ``{"kernels": [...]}`` summary line (per kernel: the times of
+   then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model) and
+   a ``{"kernels": [...]}`` summary line (per kernel: the times of
    its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
    times were taken, launches by path), then the last line
@@ -1201,8 +1225,9 @@ def flash_row(gen, checks: dict, label: str, shape, Sq: int, Skv: int,
               causal: bool, *, main: bool = False) -> None:
     """Hold flash attention (B4, or above D 256 the wide kernel) at one
     shape against its function in float64, with SDPA as its library call
-    where its causal mask is the same (Sq == Skv), and fail unless the
-    kernel meant for the shape ran."""
+    (with ``is_causal`` where its top-left causal mask is the same, Sq ==
+    Skv, else with the causal offset as an explicit boolean mask), and
+    fail unless the kernel meant for the shape ran."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -1215,11 +1240,17 @@ def flash_row(gen, checks: dict, label: str, shape, Sq: int, Skv: int,
                     device="cuda").transpose(1, 2)
     pairs = (sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq))
              if causal else Sq * Skv)
-    lib = None
-    if Sq == Skv:  # SDPA's causal mask is top-left: equal only here
+    if Sq == Skv or not causal:  # SDPA's causal mask is top-left
         def lib(a, b, c, _causal=causal):
             return F.scaled_dot_product_attention(
                 a, b, c, is_causal=_causal, enable_gqa=True)
+    else:  # query i sees keys up to i + Skv - Sq: the mask made once
+        rows = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
+        mask = torch.arange(Skv, device="cuda")[None, :] <= rows
+
+        def lib(a, b, c, _mask=mask):
+            return F.scaled_dot_product_attention(
+                a, b, c, attn_mask=_mask, enable_gqa=True)
     name = "flash_attention_wide" if D > FA.MAX_HEAD_DIM \
         else "flash_attention"
     nbytes = 4 * (2 * q.numel() + 2 * k.numel())
@@ -1797,9 +1828,11 @@ def reset_launch_counts() -> None:
     ssd_scan_cuda.launches = 0
 
 
-def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
+def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> tuple:
     """``generate`` at full width in the default (stitched) mode; returns
-    the launches of the counted run.  Appends the checks of the generated
+    the launches of the counted run, and those of the scheduler phase
+    (``phase_scheduler``, on the same model) for the models in
+    ``SCHED_REQUESTS``, else None.  Appends the checks of the generated
     kernels it launches to ``checks``.  An MoE model also gets the
     full-width MoE layer check, and its logits are held row by row.  An
     SSM or hybrid model serves its prompt at its exact length, and its
@@ -1809,7 +1842,7 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import generate, greedy_step
     from repro_torch.models.model import RECURRENT, Model, shared_layers
     from repro_torch.serving.buckets import Buckets, pad_tokens
 
@@ -1998,8 +2031,27 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
     step_ms = statistics.median(steps)
     print(f"time to first token={statistics.median(ttft):.2f} ms (median of "
           f"3: prefill of {B} x {Sp} + argmax + copy to the host)  decode="
-          f"{step_ms:.2f} ms per token (median of {G - 1} steps, host clock "
-          f"around a synchronized step)  decode tokens/s={B * 1e3 / step_ms:.1f}")
+          f"{step_ms:.2f} ms per token (median of {G - 1} eager steps, host "
+          f"clock around a synchronized step)  decode tokens/s="
+          f"{B * 1e3 / step_ms:.1f}")
+    # generate's decode step as it runs there: one captured graph
+    graph = greedy_step(model, params, cache)
+    ctok = graph(tok, positions[0])  # warm-up, capture, first replay
+    csteps = []
+    for i in range(G - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctok = graph(ctok, positions[i])
+        torch.cuda.synchronize()
+        csteps.append((time.perf_counter() - t0) * 1e3)
+    cstep_ms = statistics.median(csteps)
+    print(f"decode (captured, generate's step)={cstep_ms:.2f} ms per token "
+          f"(median of {G - 1} replays)  decode tokens/s="
+          f"{B * 1e3 / cstep_ms:.1f}")
+    captured_vs_eager(f"generate's decode step ({cfg.name}, batch {B})",
+                      graph, greedy_step(model, params, cache, capture=False),
+                      (tok, positions[1]), cstep_ms, step_ms)
+    del graph, ctok
     where_the_time_goes("one prefill", first_token)
     dec = where_the_time_goes("one decode step", lambda: model.decode_step(
         params, cache, tok, positions[1], kv_len=positions[1] + 1))
@@ -2011,7 +2063,7 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
 
     # the plain path on the card, then both fed the plain path's tokens
     plain = Model(cfg, "xla", dispatch="interpret")
-    ref_seqs = generate(plain, params, prompts, G)
+    ref_seqs = generate(plain, params, prompts, G, capture=False)
     same = float((seqs[:, S:] == ref_seqs[:, S:]).mean())
     forced = torch.from_numpy(ref_seqs[:, S:]).to("cuda")
 
@@ -2054,7 +2106,11 @@ def phase_serving(gen, checks: dict, arch: str = "llama3.2-3b") -> dict:
         fail("serving path: non-finite logits or wrong output shape")
     if worst > 1.0 or agree < 0.99:
         fail("the stitched serving path disagrees with the plain path")
-    return launches
+    if cfg.name not in SCHED_REQUESTS:
+        return launches, None
+    del got, want, cache
+    torch.cuda.empty_cache()
+    return launches, phase_scheduler(model, params, plain)
 
 
 def static_vs_masked(model, params, cache, tok, pos: int) -> None:
@@ -2079,6 +2135,299 @@ def static_vs_masked(model, params, cache, tok, pos: int) -> None:
           f"(tol {tol:.2e}), argmax agreement {agree:.4f}")
     if n != model.cfg.n_layers or not err <= tol or agree < 0.99:
         fail("the static-kv_len decode step disagrees with the masked one")
+
+
+#: Calls of a step that ``kernel_events`` profiles in one session.
+PROFILED_CALLS = 3
+
+
+def kernel_events(fn) -> tuple[float, dict]:
+    """``PROFILED_CALLS`` calls of ``fn`` in one ``torch.profiler`` session,
+    queued behind a device sleep: (device busy ms a call, {kernel name:
+    launches a call}) -- a replayed graph's kernels included, copies and
+    fills not.  A count a call is the session's count over the calls,
+    rounded up: on the H100 machine the profiler loses one or two records
+    of a session now and then (of an eager step's first kernels), which
+    the rounding absorbs, while a kernel that one step launches and the
+    other does not differs by one at every call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    busy, names = 0.0, {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        if (ev.self_device_time_total <= 0 or "spin_kernel" in ev.key
+                or ev.key == "Command Buffer Full"):
+            continue
+        busy += ev.self_device_time_total / 1e3
+        if not ev.key.startswith(("Memcpy", "Memset")):
+            names[ev.key] = names.get(ev.key, 0) + ev.count
+    return busy / PROFILED_CALLS, {
+        k: -(-n // PROFILED_CALLS) for k, n in names.items()}
+
+
+def graph_edges(graph) -> dict:
+    """{dependency type: edges} of a captured graph's ``cudaGraph_t``
+    (``cudaGraphGetEdges_v2``; "full" or "programmatic", the edge a
+    programmatic dependent launch keeps in a graph)."""
+    import ctypes
+
+    rt = ctypes.CDLL("libcudart.so.12")
+    fn = rt.cudaGraphGetEdges_v2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if fn(g, None, None, None, ctypes.byref(n)):
+        fail("cudaGraphGetEdges_v2 could not count the graph's edges")
+    m = max(1, n.value)
+    frm, to = (ctypes.c_void_p * m)(), (ctypes.c_void_p * m)()
+    data = (ctypes.c_uint8 * (8 * m))()  # cudaGraphEdgeData: 8 bytes
+    if fn(g, frm, to, data, ctypes.byref(n)):
+        fail("cudaGraphGetEdges_v2 could not read the graph's edges")
+    kinds = {0: "full", 1: "programmatic"}
+    out: dict = {}
+    for i in range(n.value):
+        k = kinds.get(data[8 * i + 2], f"type {data[8 * i + 2]}")
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
+def captured_vs_eager(label: str, graph, eager, args: tuple,
+                      wall_captured: float, wall_eager: float) -> dict:
+    """Profile one call of the captured step and one of the eager step on
+    the same inputs (the graph's own input tensors, so that PyTorch picks
+    the same element-wise kernel templates, which depend on the operands'
+    alignment): device busy beside the unprofiled walls, and the kernels
+    of the replay against the eager call's (by name and count).  Fails if
+    they differ, or if a replay ran Python-side launches (the graph's
+    tally is the only count a replay adds)."""
+    from repro_torch.kernels import _build
+
+    calls = []
+    count = _build.count
+    _build.count = lambda owner, n=1: calls.append(owner)
+    try:
+        busy_c, names_c = kernel_events(lambda: graph(*args))
+    finally:
+        _build.count = count
+    busy_e, names_e = kernel_events(lambda: eager(*graph.inputs))
+    n_c, n_e = sum(names_c.values()), sum(names_e.values())
+    if not n_c or not n_e:
+        fail(f"{label}: the profiler saw no kernel ({n_c} replayed, {n_e} "
+             "eager)")
+    share_c, share_e = busy_c / wall_captured, busy_e / wall_eager
+    tally = {getattr(k, "__name__", str(k)): v
+             for k, v in graph.kernels.items()}
+    print(f"{label}: captured (one graph replay) wall {wall_captured:.3f} ms"
+          f", device busy {busy_c:.3f} ms ({100 * share_c:.1f}%), {n_c} "
+          f"kernel launches a step from the profiler; eager wall "
+          f"{wall_eager:.3f} ms, busy {busy_e:.3f} ms ({100 * share_e:.1f}%),"
+          f" {n_e} launches; replays so far {graph.replays}, launches "
+          f"recorded into the graph by the wrappers: {json.dumps(tally)}")
+    if calls:
+        fail(f"{label}: a replay made {len(calls)} Python-side kernel calls")
+    if names_c != names_e:
+        diff = {k: (names_c.get(k, 0), names_e.get(k, 0))
+                for k in set(names_c) | set(names_e)
+                if names_c.get(k, 0) != names_e.get(k, 0)}
+        fail(f"{label}: the replay's kernels differ from the eager step's "
+             f"(name: (replay, eager)): {diff}")
+    return {"wall_captured_ms": wall_captured, "busy_captured_ms": busy_c,
+            "wall_eager_ms": wall_eager, "busy_eager_ms": busy_e,
+            "launches": n_c}
+
+
+#: The scheduler phase: slots, rows a slot, tokens a request, and requests
+#: by model (prompts of 100-500 tokens, cycling through the buckets of
+#: 128, 256 and 512).
+SCHED_SLOTS, SCHED_MAX_LEN, SCHED_GEN = 4, 1024, 16
+SCHED_REQUESTS = {"llama3.2-3b": 12, MOE_ARCH: 4, HYBRID_ARCH: 4}
+SCHED_LENGTHS = ((100, 128), (129, 256), (257, 500))
+
+
+def phase_scheduler(model, params, plain) -> dict:
+    """``ContinuousBatcher`` at full width and depth: ``SCHED_SLOTS``
+    slots of ``SCHED_MAX_LEN`` rows, seeded requests of ``SCHED_GEN``
+    tokens, each decode wave one replayed CUDA graph.  A cold run
+    (compiles and the capture), then the counted run of the same
+    requests; the same requests through an eager batcher; the counted
+    run's prefills and waves replayed on the plain path (``plain``:
+    ``"xla"``, ``dispatch="interpret"``, eager) fed the same tokens --
+    logits within 1e-4 max(1, max|logits|) (an MoE model row by row, as
+    ``moe_logit_rows``), the greedy tokens equal (the argmax of every
+    plain row is the kernel path's token); then one wave profiled
+    captured and eager.  Returns the counted run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.softmax import softmax_cuda
+    from repro_torch.serving import ContinuousBatcher, ServeStats
+
+    cfg = model.cfg
+    V, moe = cfg.vocab_size, cfg.family == "moe"
+    n = SCHED_REQUESTS[cfg.name]
+    rng = np.random.default_rng(SEED + 1)
+    lengths = [int(rng.integers(lo, hi + 1))
+               for lo, hi in (SCHED_LENGTHS[i % 3] for i in range(n))]
+    prompts = [rng.integers(0, V, s) for s in lengths]
+    print(f"scheduler: {cfg.name} ContinuousBatcher n_slots={SCHED_SLOTS} "
+          f"max_len={SCHED_MAX_LEN} requests={n} prompt lengths={lengths} "
+          f"max_new={SCHED_GEN} float32 seed={SEED}")
+    batcher = ContinuousBatcher(model, params, n_slots=SCHED_SLOTS,
+                                max_len=SCHED_MAX_LEN)
+
+    def serve(b) -> dict:
+        ids = [b.submit(p, max_new=SCHED_GEN) for p in prompts]
+        out = b.run()
+        return {i: out[r] for i, r in enumerate(ids)}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(batcher)
+    cold_s = time.perf_counter() - t0
+    # the counted run, its prefills and waves recorded for the plain path
+    events, last = [], {}
+    prefill_into, prefill_slot, wave = (batcher._prefill_into,
+                                        batcher._prefill_slot, batcher._wave)
+
+    def rec_prefill_into(i, toks):
+        last["logits"], last["toks"] = prefill_into(i, toks), toks
+        return last["logits"]
+
+    def rec_prefill_slot(i, req):
+        prefill_slot(i, req)
+        lg = last["logits"][0, :, :V] if moe \
+            else last["logits"][0, len(req.prompt) - 1:len(req.prompt), :V]
+        events.append(("prefill", i, last["toks"], len(req.prompt),
+                       lg.clone()))
+
+    def rec_wave(toks, poss):
+        logits, nxt = wave(toks, poss)
+        events.append(("wave", toks.clone(), poss.clone(), logits.clone(),
+                       nxt.clone()))
+        return logits, nxt
+
+    batcher._prefill_into, batcher._prefill_slot = (rec_prefill_into,
+                                                    rec_prefill_slot)
+    batcher._wave = rec_wave
+    batcher.stats = ServeStats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = serve(batcher)
+    warm_s = time.perf_counter() - t0
+    launches = launch_counts()
+    batcher._prefill_into, batcher._prefill_slot, batcher._wave = (
+        prefill_into, prefill_slot, wave)
+    st = batcher.stats
+    graph = batcher._wave
+    print(f"launches in the counted run ({st.prefills} prefills, "
+          f"{st.decode_waves} waves; a replay counts the launches recorded "
+          f"at capture): {json.dumps(launches)}")
+    need = ["rmsnorm"] + (["softmax"] if moe else []) \
+        + (["flash_attention", "matmul_fused"] if cfg.family != "moe" else
+           ["flash_attention"])
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"the scheduler path launched no {k} kernel")
+    if graph.replays < st.decode_waves or graph.graph is None:
+        fail(f"scheduler: {st.decode_waves} waves, {graph.replays} replays "
+             "of the captured wave")
+    edges = graph_edges(graph.graph)
+    b7 = graph.kernels.get(softmax_cuda, 0)
+    print(f"the wave's graph: edges by dependency {json.dumps(edges)}; B7 "
+          f"launches in it {b7}, each a programmatic dependent launch "
+          f"({'kept' if edges.get('programmatic', 0) >= b7 else 'NOT kept: full edges'}"
+          f" in the graph)")
+    print(f"scheduler (captured): cold run {cold_s:.2f} s (compiles, the "
+          f"capture), counted run {warm_s:.2f} s: {st.summary()}; "
+          f"compile_counts={batcher.compile_counts()}")
+
+    eager = ContinuousBatcher(model, params, n_slots=SCHED_SLOTS,
+                              max_len=SCHED_MAX_LEN, capture=False)
+    got_eager = serve(eager)  # the model's functions are compiled
+    se = eager.stats
+    print(f"scheduler (eager waves): {se.summary()}")
+    if got_eager != got:
+        fail("scheduler: the eager waves' tokens differ from the replayed "
+             "waves'")
+
+    # the plain path fed the same prefills and waves
+    ref = ContinuousBatcher(plain, params, n_slots=SCHED_SLOTS,
+                            max_len=SCHED_MAX_LEN, capture=False)
+    rows_got, rows_want, agree, n_rows = [], [], 0, 0
+    for ev in events:
+        if ev[0] == "prefill":
+            _, i, toks, true_len, lg = ev
+            w = ref._prefill_into(i, toks)[0, :, :V]
+            w = w if moe else w[true_len - 1:true_len]
+            rows_got.append(lg)
+            rows_want.append(w)
+            agree += int(w[true_len - 1 if moe else 0].argmax()) \
+                == int(lg[true_len - 1 if moe else 0].argmax())
+            n_rows += 1
+        else:
+            _, toks, poss, lg, nxt = ev
+            w, wn = ref._wave(toks, poss)
+            act = (poss > 0).nonzero().flatten()
+            rows_got.append(lg[act])
+            rows_want.append(w[act])
+            agree += int((wn[act] == nxt[act]).sum())
+            n_rows += len(act)
+    g, w = torch.cat(rows_got), torch.cat(rows_want)
+    err = (g - w).abs().amax(-1)
+    tol = 1e-4 * w.abs().amax(-1).clamp_min(1.0)
+    beyond = int((err > tol).sum())
+    share = beyond / len(err)
+    print(f"scheduler agreement with fusion_mode='xla', dispatch="
+          f"'interpret' fed the same prefills and waves: {len(err)} logit "
+          f"rows, {beyond} beyond 1e-4 max(1, max|logits|) of the row, "
+          f"worst err/tol {float((err / tol).max()):.3f}; greedy tokens "
+          f"equal {agree} of {n_rows}")
+    if not bool(torch.isfinite(g).all()):
+        fail("scheduler: non-finite logits")
+    if moe:
+        if share > MOE_ROW_ALLOWANCE or agree < 0.99 * n_rows:
+            fail("the scheduler's MoE logits disagree with the plain path")
+    elif beyond or agree != n_rows:
+        fail("the scheduler's logits or tokens disagree with the plain path")
+    if sorted(got) != list(range(n)) or any(
+            len(v) != SCHED_GEN for v in got.values()):
+        fail("scheduler: a request was not served in full")
+
+    # one wave, replayed and eager, on the last wave's inputs (the slots
+    # are idle: the rows it writes are refilled before they are read)
+    toks, poss = events[-1][1], events[-1][2]
+    out = captured_vs_eager(
+        f"scheduler wave ({cfg.name}, {SCHED_SLOTS} slots)", graph,
+        eager._wave, (toks, poss), 1e3 * st.p50_tok_s, 1e3 * se.p50_tok_s)
+    where_the_time_goes(f"one replayed wave ({cfg.name})",
+                        lambda: graph(toks, poss))
+    print(f"scheduler {cfg.name}: tokens/s {st.tok_per_s:.1f} (counted run, "
+          f"prefills included; eager waves {se.tok_per_s:.1f}), TTFT p50/p99 "
+          f"{1e3 * st.p50_ttft_s:.2f}/{1e3 * st.p99_ttft_s:.2f} ms (from "
+          f"submit: requests queue behind the slots), ms a wave p50/p99 "
+          f"{1e3 * st.p50_tok_s:.2f}/{1e3 * st.p99_tok_s:.2f} (eager "
+          f"{1e3 * se.p50_tok_s:.2f}/{1e3 * se.p99_tok_s:.2f}), "
+          f"{st.decode_waves} waves")
+    SCHED_RESULTS[cfg.name] = dict(
+        out, waves=st.decode_waves, tok_per_s=st.tok_per_s,
+        p50_ttft_ms=1e3 * st.p50_ttft_s, p99_ttft_ms=1e3 * st.p99_ttft_s,
+        p50_wave_ms=1e3 * st.p50_tok_s, p99_wave_ms=1e3 * st.p99_tok_s)
+    del batcher, eager, ref, events
+    return launches
+
+
+#: {model: the scheduler phase's numbers}, printed in the summary line
+SCHED_RESULTS: dict = {}
 
 
 #: Greedy steps of a static-decode phase, at the cache's last positions.
@@ -2141,14 +2490,16 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
     # the rows the steps write, and the Mamba states they replace
     saved = [{n: c[n][..., positions, :].clone() for n in ("k", "v")}
              for c in kv]
-    mamba0 = list(cache.get("mamba", []))
+    state = model.recurrent_state(cache)
+    state0 = [t.clone() for t in state]
 
     def restore():
+        """In place: a captured step reads the cache where it was."""
         for c, r in zip(kv, saved):
             for n in ("k", "v"):
                 c[n][..., positions, :] = r[n]
-        if mamba0:
-            cache["mamba"][:] = mamba0
+        for t, t0 in zip(state, state0):
+            t.copy_(t0)
 
     tok0 = torch.randint(0, V, (B, 1), generator=gen, device="cuda")
     step = make_decode_step(model, kv_len)
@@ -2189,9 +2540,23 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
         fail(f"flash_decode launched {per_step['flash_decode']} times a "
              f"static decode step, want {n_attn} (one an attention layer)")
     print(f"compile_s={cold_s - sum(steps_ms) / 1e3:.2f} (the first {N} "
-          f"steps minus the second {N}: trace, plan, emit, Triton builds)  "
-          f"step_ms={step_ms:.2f} (median of {N}, host clock around a "
-          f"synchronized step) tokens/s={B * 1e3 / step_ms:.1f}")
+          f"steps minus the second {N}: trace, plan, emit, Triton builds, "
+          f"the capture)  step_ms={step_ms:.2f} (median of {N} replays of "
+          f"the captured step, host clock around a synchronized step) "
+          f"tokens/s={B * 1e3 / step_ms:.1f}")
+    eager_step = make_decode_step(model, kv_len, capture=False)
+    eager_ms = []
+    run(eager_step, times=eager_ms)
+    restore()
+    # the graph's own inputs as the arguments: an int position would be
+    # filled in by a kernel the eager step does not run
+    graph = step.graph
+    graph.inputs[0].copy_(tok0)
+    graph.inputs[1].fill_(positions[0])
+    captured_vs_eager(
+        f"static decode step ({cfg.name}, batch {B}, kv_len {kv_len})",
+        graph, lambda t, p: eager_step(params, cache, t, p),
+        tuple(graph.inputs), step_ms, statistics.median(eager_ms))
     restore()
     prof = where_the_time_goes("one static decode step", lambda: step(
         params, cache, tok0, positions[0]))
@@ -2205,7 +2570,8 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
           f"3.35 TB/s")
 
     plain = Model(cfg, "xla", dispatch="interpret")
-    want, _ = run(make_decode_step(plain, kv_len), forced=toks)
+    want, _ = run(make_decode_step(plain, kv_len, capture=False),
+                  forced=toks)
     restore()
     torch.cuda.synchronize()
     worst = 0.0
@@ -2581,14 +2947,16 @@ def main(argv=None) -> int:
     fwd_launches, fwd_checks = phase_main_path(gen)
     checks.update(fwd_checks)
     n_fwd = sum(map(len, fwd_checks.values()))
-    serve_launches = phase_serving(gen, checks)
+    serve_launches, sched_launches = phase_serving(gen, checks)
     n_gen = sum(len(checks[k]) for k in ("onepass", "streaming"))
     train_launches = phase_train()
-    moe_serve_launches = phase_serving(gen, checks, MOE_ARCH)
+    moe_serve_launches, moe_sched_launches = phase_serving(gen, checks,
+                                                           MOE_ARCH)
     n_moe = sum(len(checks[k]) for k in ("onepass", "streaming")) - n_gen
     moe_train_launches = phase_train(MOE_ARCH)
-    ssm_serve_launches = phase_serving(gen, checks, SSM_ARCH)
-    hybrid_serve_launches = phase_serving(gen, checks, HYBRID_ARCH)
+    ssm_serve_launches, _ = phase_serving(gen, checks, SSM_ARCH)
+    hybrid_serve_launches, hybrid_sched_launches = phase_serving(
+        gen, checks, HYBRID_ARCH)
     n_rec = sum(len(checks[k]) for k in ("onepass", "streaming")) \
         - n_gen - n_moe
     print(f"generated kernel instances held against their plain versions: "
@@ -2645,6 +3013,9 @@ def main(argv=None) -> int:
                    "ssm_train": ssm_train_launches[name],
                    "static_decode": static_launches[name],
                    "hybrid_long_decode": long_launches[name],
+                   "scheduler": sched_launches[name],
+                   "moe_scheduler": moe_sched_launches[name],
+                   "hybrid_scheduler": hybrid_sched_launches[name],
                    "anchor_bench": anchor_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
@@ -2657,6 +3028,7 @@ def main(argv=None) -> int:
             "instances_checked": s["instances_checked"]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           "device line to the summary")
+    print(json.dumps({"scheduler": SCHED_RESULTS}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -614,7 +614,7 @@ class OnePassKernel(RowKernel):
         outs = self._alloc_outputs(device)
         kernel, grid, meta = self._compiled()
         kernel[grid](*ins, *outs, self.R, self.C, **meta)
-        type(self).launches += 1
+        _build.count(type(self))
         return self._outputs(outs)
 
     def _compiled(self):
@@ -879,7 +879,7 @@ class StreamingKernel(RowKernel):
             _ptrs(ins), _ptrs(outs), self.R, self.C, K, width, staged,
             int(bulk), torch.cuda.current_stream(device).cuda_stream),
             "repro_stream_launch")
-        type(self).launches += 1
+        _build.count(type(self))
         return self._outputs(outs)
 
     def host(self, lib, *vals) -> tuple:

@@ -158,6 +158,23 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(libs[name]))
 
 
+#: While ``core/capture.py`` captures a CUDA graph: {counter owner:
+#: launches recorded into the graph}; else None.
+capturing: dict | None = None
+
+
+def count(owner, n: int = 1) -> None:
+    """Count ``n`` launches of ``owner``'s kernel in ``owner.launches``
+    (a wrapper calls this where it launches).  A launch recorded into a
+    CUDA graph being captured runs only when the graph is replayed, so it
+    is tallied for the graph, which counts it at each replay
+    (``core/capture.py``)."""
+    if capturing is None:
+        owner.launches += n
+    else:
+        capturing[owner] = capturing.get(owner, 0) + n
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:

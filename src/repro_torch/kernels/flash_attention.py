@@ -265,7 +265,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if score_mod is None:
         _build.check(_entry()(*args, stream), "repro_flash_attention_f32")
-        flash_attention_cuda.launches += 1
+        _build.count(flash_attention_cuda)
         return o if Dp == D else o[..., :D]
     if any(a.device != dev or a.dtype not in (torch.float32, torch.bool)
            for a in score_args):
@@ -278,7 +278,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
           for s, d in zip(a.stride(), a.shape)])
     _build.check(score_mod.entry(*args, ins, st, stream),
                  "repro_flash_scored")
-    ScoreMod.launches += 1
+    _build.count(ScoreMod)
     return o if Dp == D else o[..., :D]
 
 
@@ -319,7 +319,7 @@ def flash_attention_wide_cuda(q, k, v, causal: bool = True,
         Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         float(scale), int(causal), torch.cuda.current_stream(dev).cuda_stream),
         "repro_flash_wide_f32")
-    flash_attention_wide_cuda.launches += 1
+    _build.count(flash_attention_wide_cuda)
     return o if Dp == D else o[..., :D]
 
 
@@ -614,7 +614,7 @@ def _decode_launch(qs, k_cache, v_cache, eff: int, scale: float, os) -> None:
         *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
         torch.cuda.current_stream(dev).cuda_stream),
         "repro_flash_decode_f32")
-    flash_decode_cuda.launches += 1
+    _build.count(flash_decode_cuda)
 
 
 flash_decode_cuda.launches = 0  # kernel launches (plain runs excluded)

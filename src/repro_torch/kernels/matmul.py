@@ -200,7 +200,7 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
     _build.check(entry(
         tile, ptrs(pro), rhs.data_ptr(), ptrs(epi), ptrs(outs), M, K, N,
         torch.cuda.current_stream(dev).cuda_stream), "repro_mm_fused")
-    matmul_fused.launches += 1
+    _build.count(matmul_fused)
     return tuple(outs)
 
 

@@ -94,7 +94,7 @@ def softmax_cuda(x: torch.Tensor) -> torch.Tensor:
     _build.check(_entry("repro_softmax_fwd_f32")(
         x2.data_ptr(), y.data_ptr(), x2.shape[0], x2.shape[1], _stream(x)),
         "repro_softmax_fwd_f32")
-    softmax_cuda.launches += 1
+    _build.count(softmax_cuda)
     return y if x2 is x else y.reshape(x.shape)
 
 
@@ -112,7 +112,7 @@ def softmax_bwd_cuda(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _build.check(_entry("repro_softmax_bwd_f32")(
         y2.data_ptr(), dy2.data_ptr(), dx.data_ptr(), y2.shape[0],
         y2.shape[1], _stream(y)), "repro_softmax_bwd_f32")
-    softmax_bwd_cuda.launches += 1
+    _build.count(softmax_bwd_cuda)
     return dx if y2 is y else dx.reshape(y.shape)
 
 

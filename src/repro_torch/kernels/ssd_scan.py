@@ -216,7 +216,7 @@ def _launch(x, dt, A, B, C, chunk: int):
         cl.data_ptr(), CB.data_ptr(), b, L, H, P, N, chunk,
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
         torch.cuda.current_stream(dev).cuda_stream), "repro_ssd_scan_f32")
-    ssd_scan_cuda.launches += LAUNCHES_PER_CALL
+    _build.count(ssd_scan_cuda, LAUNCHES_PER_CALL)
     return y, state
 
 

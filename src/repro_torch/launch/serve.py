@@ -21,7 +21,10 @@ from seeing the pad tail.  The decode loop keeps its tokens and positions
 on the device: the host waits once, at the end.  Each step passes
 ``kv_len = pos + 1`` as a device value, as the reference does: the cache
 is masked to the rows written so far (a static ``kv_len`` would let the
-zero rows of the unwritten tail into the softmax's denominator).
+zero rows of the unwritten tail into the softmax's denominator).  On the
+card the decode step, its argmax included, is captured once as a CUDA
+graph and replayed at each step (``greedy_step``, ``core/capture.py``):
+one dispatch a step, as the reference's jitted step.
 
 ``generate_static`` decodes at a static cache length instead, each step
 from ``launch.steps.make_decode_step(mdl, kv_len)`` over all ``kv_len``
@@ -41,14 +44,36 @@ import torch
 
 from ..configs import get_config
 from ..configs.base import ARCH_IDS
+from ..core.capture import graphed
 from ..models.model import RECURRENT, Model
 from ..serving.buckets import Buckets, pad_tokens
 from .steps import make_decode_step
 
 
+def greedy_step(mdl: Model, params: dict, cache: dict, *,
+                capture: bool = True):
+    """``generate``'s decode step: ``step(tok, pos) -> next`` for tok
+    [B, 1] and ``pos`` a 0-d device tensor; writes the cache row ``pos``
+    and attends the rows 0..pos (``kv_len = pos + 1`` on the device).  On
+    a CUDA model, with ``capture``, one CUDA graph replayed at each call,
+    whose output the next call overwrites; else eager."""
+    V = mdl.cfg.vocab_size
+
+    def step(tok, pos):
+        logits, _ = mdl.decode_step(params, cache, tok, pos, kv_len=pos + 1)
+        return logits[:, -1:, :V].argmax(-1)
+
+    if not capture:
+        return step
+    return graphed(step, mdl.device, restore=mdl.recurrent_state(cache))
+
+
 def generate(mdl: Model, params: dict, prompts: np.ndarray, gen_len: int, *,
-             buckets: Buckets | None = None) -> np.ndarray:
-    """prompts: [B, S] int -> [B, S + gen_len] (greedy decode)."""
+             buckets: Buckets | None = None,
+             capture: bool = True) -> np.ndarray:
+    """prompts: [B, S] int -> [B, S + gen_len] (greedy decode).  On the
+    card the decode steps replay one captured graph (``greedy_step``);
+    ``capture=False`` runs them eagerly."""
     B, S = prompts.shape
     bk = buckets if buckets is not None else Buckets.from_env()
     # a recurrent prefill (ssm, hybrid) folds pad tokens into its state:
@@ -62,17 +87,16 @@ def generate(mdl: Model, params: dict, prompts: np.ndarray, gen_len: int, *,
     logits, cache = mdl.prefill(params, toks, cache)
     V = mdl.cfg.vocab_size
     tok = logits[:, S - 1:S, :V].argmax(-1)
+    del logits
     positions = torch.arange(S, S + gen_len, device=dev)
-    out = []
-    for i in range(gen_len):
-        out.append(tok)
-        if i + 1 < gen_len:  # the last token needs no decode step
-            logits, cache = mdl.decode_step(params, cache, tok, positions[i],
-                                            kv_len=positions[i] + 1)
-            tok = logits[:, -1:, :V].argmax(-1)
-    gen = (torch.cat(out, dim=1).cpu().numpy() if out
-           else np.zeros((B, 0), np.int64))
-    return np.concatenate([np.asarray(prompts, np.int64), gen], axis=1)
+    out = torch.empty(B, gen_len, dtype=torch.int64, device=dev)
+    out[:, :1] = tok[:, :gen_len]
+    step = greedy_step(mdl, params, cache, capture=capture)
+    for i in range(1, gen_len):  # the last token needs no decode step
+        tok = step(tok, positions[i - 1])
+        out[:, i:i + 1] = tok
+    return np.concatenate([np.asarray(prompts, np.int64),
+                           out.cpu().numpy()], axis=1)
 
 
 def generate_static(mdl: Model, params: dict, prompts: np.ndarray,

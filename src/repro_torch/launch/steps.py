@@ -9,7 +9,9 @@ params.  The reference jits the whole step; the port runs it eagerly,
 its serving steps through the model's compiled functions.  A decode step
 built by ``make_decode_step(mdl, kv_len)`` attends over a static cache
 length, as the reference's dry-run decode cells do: ``flash_decode`` in
-the stitched mode.
+the stitched mode.  On the card it runs as one captured CUDA graph
+(``core/capture.py``), the counterpart of the reference's one jitted
+dispatch.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from .. import optim
+from ..core.capture import CapturedStep, leaf_signature
 from ..models.model import Model
 
 
@@ -88,11 +91,39 @@ def make_encoder_step(mdl: Model):
     return encoder_step
 
 
-def make_decode_step(mdl: Model, kv_len: int | None):
+def make_decode_step(mdl: Model, kv_len: int | None, *,
+                     capture: bool = True):
     """``decode_step(params, cache, tokens, pos) -> (logits, cache)``
     attending over the first ``kv_len`` cache rows (None: the whole
-    cache), a length fixed when the step is built."""
-    def decode_step(params, cache, tokens, pos):
-        return mdl.decode_step(params, cache, tokens, pos, kv_len=kv_len)
+    cache), a length fixed when the step is built.
 
+    On a CUDA model the step is captured as one CUDA graph at its first
+    call and replayed after (``core/capture.py``); ``tokens`` and ``pos``
+    (an int or a device tensor) are copied into the graph's inputs.  A
+    call with other weights or another cache -- other tensors, not other
+    values -- captures anew.  The logits are a copy, the caller's to
+    keep; the cache is written in place.  On the CPU, or with
+    ``capture=False``, the step runs eagerly."""
+    if mdl.device.type != "cuda" or not capture:
+        def decode_step(params, cache, tokens, pos):
+            return mdl.decode_step(params, cache, tokens, pos, kv_len=kv_len)
+
+        return decode_step
+
+    captured: dict = {}
+
+    def decode_step(params, cache, tokens, pos):
+        key = leaf_signature(params, cache) + (tuple(tokens.shape),)
+        step = captured.get(key)
+        if step is None:
+            captured.clear()  # one graph at a time: its pool is released
+            step = CapturedStep(
+                lambda t, p: mdl.decode_step(params, cache, t, p,
+                                             kv_len=kv_len)[0],
+                restore=mdl.recurrent_state(cache))
+            captured[key] = step
+        decode_step.graph = step
+        return step(tokens, pos).clone(), cache
+
+    decode_step.graph = None  # the CapturedStep of the last call
     return decode_step

@@ -74,13 +74,16 @@ def norm_apply(cfg: ArchConfig, p: dict, x, fm: FusionMode):
 # rotary embeddings
 # ---------------------------------------------------------------------------
 def rope(q, k, positions, theta: float):
-    """q, k: [B, H, S, D]; positions: [S]."""
+    """q, k: [B, H, S, D]; positions: [S], shared by the batch, or [B, S],
+    one row of positions a sequence (a continuous batch's slots)."""
     D = q.shape[-1]
     half = D // 2
     freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
                                     device=q.device)
                       * (math.log(theta) / half))
-    angles = positions.to(torch.float32)[..., None] * freqs   # [S, half]
+    angles = positions.to(torch.float32)[..., None] * freqs   # [(B,) S, half]
+    if angles.dim() == 3:                                     # [B,1,S,half]
+        angles = angles[:, None]
     while angles.dim() < q.dim():                             # [1,1,S,half]
         angles = angles[None]
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -110,7 +113,7 @@ def attn_init(cfg: ArchConfig, gen, dtype, device,
 
 def attn_qkv(cfg: ArchConfig, p: dict, x, positions):
     """x [B, S, d] -> q [B, Hq, S, Dh], k and v [B, Hkv, S, Dh], RoPE at
-    ``positions`` [S] applied to q and k."""
+    ``positions`` ([S], or [B, S] a row each) applied to q and k."""
     B, S, _ = x.shape
     Dh, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     q = (x @ p["wq"]).reshape(B, S, Hq, Dh).transpose(1, 2)
@@ -121,11 +124,18 @@ def attn_qkv(cfg: ArchConfig, p: dict, x, positions):
 
 
 def cache_write(cache: dict, k, v, positions) -> None:
-    """Write k, v [B, Hkv, S, Dh] into the cache rows ``positions`` [S],
-    in place.  ``positions`` is a tensor on the cache's device, so the
-    write needs no host sync.  Never traced: the port's tracer has no
-    mutation, so the cache is written between two stitched functions
-    (the reference returns a new cache from ``dynamic_update_slice``)."""
+    """Write k, v [B, Hkv, S, Dh] into the cache rows ``positions`` in
+    place: [S], the same rows of every sequence, or [B, S], each
+    sequence's own (a continuous batch's slots, each at its position).
+    ``positions`` is a tensor on the cache's device, so the write needs no
+    host sync.  Never traced: the port's tracer has no mutation, so the
+    cache is written between two stitched functions (the reference
+    returns a new cache from ``dynamic_update_slice``)."""
+    if positions.dim() == 2:
+        idx = positions[:, None, :, None].expand(k.shape)
+        cache["k"].scatter_(2, idx, k.to(cache["k"].dtype))
+        cache["v"].scatter_(2, idx, v.to(cache["v"].dtype))
+        return
     cache["k"].index_copy_(2, positions, k.to(cache["k"].dtype))
     cache["v"].index_copy_(2, positions, v.to(cache["v"].dtype))
 

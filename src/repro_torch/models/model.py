@@ -25,8 +25,10 @@ compiles once:
   whole prefill with the layers inside one opaque ``lax.scan`` and
   returns a new cache; the port's tracer has no mutation (ROADMAP C).
 * The SSM and hybrid families serve each Mamba layer as one compiled
-  ``mamba_block`` that returns the new conv and SSM state as outputs
-  (no in-place write), kept per layer in the cache's ``"mamba"`` list.
+  ``mamba_block`` that returns the new conv and SSM state as outputs,
+  copied into the layer's state tensors in the cache's ``"mamba"`` list
+  (the tensors stay, so a captured step reads and writes the same
+  memory at every replay).
   Zamba2's shared attention block, applied before layer i when
   ``i % attn_every == 0`` on the RMSNorm of ``concat(h, emb0)`` (the
   hidden state and the initial embedding), keeps the pattern above:
@@ -304,8 +306,8 @@ class Model:
         zeros on the model's device, written in place by ``prefill`` and
         ``decode_step``.  The SSM and hybrid families: {"mamba": one
         {"conv" [batch, W-1, conv_dim], "ssm" [batch, H, P, N] float32} a
-        layer}, whose entries ``prefill`` and ``decode_step`` replace, and
-        for the hybrid {"attn": one {"k", "v"} cache a shared-block
+        layer}, which ``prefill`` and ``decode_step`` overwrite in place,
+        and for the hybrid {"attn": one {"k", "v"} cache a shared-block
         application}."""
         cfg = self.cfg
         if cfg.family in RECURRENT:
@@ -321,6 +323,36 @@ class Model:
         return {name: torch.zeros((self.cfg.n_layers,) + t.shape,
                                   dtype=dtype, device=self.device)
                 for name, t in one.items()}
+
+    @staticmethod
+    def slot_cache(cache: dict, i: int) -> dict:
+        """The rows of sequence ``i`` of ``cache``, as views of batch 1:
+        a prefill into them fills that sequence in place (a continuous
+        batch's slot)."""
+        if "mamba" in cache:
+            view = {"mamba": [{n: t[i:i + 1] for n, t in c.items()}
+                              for c in cache["mamba"]]}
+            if "attn" in cache:
+                view["attn"] = [{n: t[i:i + 1] for n, t in c.items()}
+                                for c in cache["attn"]]
+            return view
+        return {n: t[:, i:i + 1] for n, t in cache.items()}
+
+    @staticmethod
+    def recurrent_state(cache: dict) -> list:
+        """The cache tensors a step computes from their own values (the
+        Mamba layers' conv and SSM state): running a step twice advances
+        them twice.  The KV rows a step writes, a second run writes again
+        with the same values."""
+        return [t for c in cache.get("mamba", []) for t in c.values()]
+
+    @property
+    def n_compiled(self) -> int:
+        """Signatures compiled so far by all of the model's compiled
+        functions."""
+        fns = [self.block, self.head, self.pre, self.post, self.logits_head,
+               self.mamba, self.shared_pre, *self.static_posts.values()]
+        return sum(f.n_compiled for f in fns)
 
     def _decode_post(self, kv_len):
         """The compiled ``block_post`` of a decode step, as a function of
@@ -363,7 +395,8 @@ class Model:
                     h = post(sp, h, q, kv["k"], kv["v"])
             mc = cache["mamba"][i]
             h, conv, ssm = self.mamba(p, h, mc["conv"], mc["ssm"])
-            cache["mamba"][i] = {"conv": conv, "ssm": ssm}
+            mc["conv"].copy_(conv)
+            mc["ssm"].copy_(ssm)
         return self.logits_head(self._head_params(params), h)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
@@ -376,14 +409,26 @@ class Model:
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,
                     pos, kv_len=None):
-        """tokens [B, 1]; ``pos`` the new token's position (a 0-d integer
-        tensor on the device, or an int) -> (logits [B, 1, padded_vocab],
-        cache).  Writes the cache row ``pos``, then attends over the rows
-        ``kv_len`` names, as the reference's ``decode_step``: None, the
-        whole cache, and an int, that many rows (both static:
-        ``flash_decode`` with kernels); a tensor (the serving loop's
-        ``pos + 1``) masks the cache on the device."""
+        """tokens [B, 1]; ``pos`` the new token's position -> (logits [B,
+        1, padded_vocab], cache).  ``pos`` is an int or a 0-d integer
+        tensor on the device, shared by the batch, or a [B] integer tensor
+        on the device, one position a sequence (a continuous batch's
+        slots: the counterpart of the reference's ``jax.vmap`` of
+        ``decode_step`` over slots).  Writes the cache row ``pos`` of each
+        sequence, then attends over the rows ``kv_len`` names, as the
+        reference's ``decode_step``: None, the whole cache, and an int,
+        that many rows (both static: ``flash_decode`` with kernels); a
+        tensor (the serving loop's ``pos + 1``, 0-d or [B]) masks the
+        cache on the device."""
         h = params["embed"][tokens]
-        positions = torch.as_tensor(pos, device=h.device).reshape(1)
+        B = tokens.shape[0]
+        pos = torch.as_tensor(pos, device=h.device)
+        if pos.dim() == 1 and B > 1 and pos.shape[0] == B:
+            positions = pos.long().reshape(B, 1)
+        elif pos.numel() == 1:
+            positions = pos.reshape(1)
+        else:
+            raise ValueError(f"decode_step: pos of shape {tuple(pos.shape)} "
+                             f"for a batch of {B}: a scalar or [{B}]")
         return self._layers(params, h, positions, cache,
                             self._decode_post(kv_len)), cache

@@ -593,10 +593,13 @@ def test_reduced_moe_generate_on_the_card_matches_the_cpu(cuda):
     want = generate(cpu, params, prompts, 6)
     gpu = Model(cfg)
     gparams = torch.utils._pytree.tree_map(lambda t: t.cuda(), params)
+    from repro_torch.core.capture import WARMUP
+
     before = SM.softmax_cuda.launches
     got = generate(gpu, gparams, prompts, 6)
     # one router softmax a layer, in the prefill and in each of 5 decodes
-    assert SM.softmax_cuda.launches - before == 6 * cfg.n_layers
+    # (replays of the captured step), and in the capture's eager warm-up
+    assert SM.softmax_cuda.launches - before == (6 + WARMUP) * cfg.n_layers
     np.testing.assert_array_equal(got, want)
 
 
@@ -802,6 +805,7 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
 def test_reduced_static_decode_on_the_card_matches_the_cpu(cuda, arch):
     """``make_decode_step`` at a static kv_len (head dim 64: the kernel's
     instance) on the card against the same steps on the CPU."""
+    from repro_torch.core.capture import WARMUP
     from repro_torch.kernels import flash_attention as K
     from repro_torch.launch.steps import make_decode_step
 
@@ -823,9 +827,12 @@ def test_reduced_static_decode_on_the_card_matches_the_cpu(cuda, arch):
         tok = torch.tensor([[pos], [pos + 1]])
         want, _ = make_decode_step(cpu, kv_len)(params, caches[0], tok, pos)
         before = K.flash_decode_cuda.launches
-        got, _ = make_decode_step(gpu, kv_len)(gparams, caches[1],
-                                               tok.cuda(), pos)
-        assert K.flash_decode_cuda.launches - before == n_attn
+        step = make_decode_step(gpu, kv_len)
+        got, _ = step(gparams, caches[1], tok.cuda(), pos)
+        # captured: the warm-up's eager launches, then one replay
+        assert step.graph.kernels[K.flash_decode_cuda] == n_attn
+        assert K.flash_decode_cuda.launches - before \
+            == (WARMUP + 1) * n_attn
         # float32 through the layers on two devices
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
 
@@ -912,3 +919,148 @@ def test_flash_score_mod_matches_plain(cuda):
     _hold_anchored(comp, ems, cuda)
     torch.testing.assert_close(stitched_jit(attn)(*args), attn(*args),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# one dispatch a step: captured decode waves and steps
+# ---------------------------------------------------------------------------
+def _on_card(arch):
+    cfg = get_config(arch).reduced()
+    gpu = Model(cfg)
+    params = torch.utils._pytree.tree_map(
+        lambda t: t.cuda(), Model(cfg, device="cpu").init(0))
+    return cfg, gpu, params
+
+
+def _served(mdl, params, capture, prompts):
+    """The requests through a batcher; every wave's logits kept."""
+    from repro_torch.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(mdl, params, n_slots=3, max_len=48,
+                          capture=capture)
+    wave, logits = b._wave, []
+
+    def keep(toks, poss):
+        lg, nxt = wave(toks, poss)
+        logits.append(lg.clone())
+        return lg, nxt
+
+    b._wave = keep
+    ids = [b.submit(p, max_new=6) for p in prompts]
+    out = b.run()
+    return [out[r] for r in ids], logits, wave
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m",
+                                  "zamba2-1.2b"])
+def test_replayed_waves_equal_eager_waves(cuda, arch):
+    """Five requests through three slots (refills mid-flight), every wave
+    one graph replay, against the same waves run eagerly: the same tokens,
+    each wave's logits within 1e-4 max(1, max|logits|) (``PERF.md`` §2);
+    the hybrid's Mamba states advance once a wave (restored after the
+    capture's warm-up)."""
+    cfg, gpu, params = _on_card(arch)
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((9, 5, 13, 7, 11))]
+    got, got_logits, graph = _served(gpu, params, True, prompts)
+    want, want_logits, _ = _served(gpu, params, False, prompts)
+    assert graph.replays == len(got_logits) > 0
+    assert got == want
+    for g, w in zip(got_logits, want_logits):
+        lim = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= lim
+    cpu = Model(cfg, device="cpu")
+    cparams = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    assert _served(cpu, cparams, True, prompts)[0] == got
+
+
+def _kernels(fn):
+    """{kernel: launches a call} of three calls of ``fn`` in one profiler
+    session, rounded up (the profiler can lose a record of a session's
+    first kernels), copies and fills left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and \
+                not e.key.startswith(("Memcpy", "Memset")) and \
+                "spin_kernel" not in e.key:
+            out[e.key] = out.get(e.key, 0) + e.count
+    assert out, "the profiler saw no kernel"
+    return {k: -(-n // 3) for k, n in out.items()}
+
+
+def test_a_replayed_wave_makes_no_python_kernel_call(cuda, monkeypatch):
+    """After the capture a wave calls no kernel wrapper and compiles
+    nothing; the profiler sees the eager wave's kernels, and the launch
+    counters rise by the graph's tally."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.serving import ContinuousBatcher
+
+    cfg, gpu, params = _on_card("llama3.2-3b")
+    b = ContinuousBatcher(gpu, params, n_slots=2, max_len=32)
+    e = ContinuousBatcher(gpu, params, n_slots=2, max_len=32, capture=False)
+    toks = torch.tensor([[5], [9]], device="cuda")
+    poss = torch.tensor([3, 7], device="cuda")
+    b._wave(toks, poss)  # warm-up and capture
+    e._wave(toks, poss)
+    calls, compiled = [], gpu.n_compiled
+    before = RN.rmsnorm_cuda.launches
+    monkeypatch.setattr(_build, "count", lambda owner, n=1: calls.append(1))
+    replayed = _kernels(lambda: b._wave(toks, poss))
+    monkeypatch.undo()
+    assert calls == [] and gpu.n_compiled == compiled
+    assert RN.rmsnorm_cuda.launches - before \
+        == 3 * b._wave.kernels[RN.rmsnorm_cuda] == 3 * (2 * cfg.n_layers + 1)
+    assert replayed == _kernels(lambda: e._wave(toks, poss))
+
+
+def test_generate_and_static_steps_replay_one_graph(cuda):
+    """``generate`` on the card (captured) equals ``capture=False``; the
+    static step's later calls replay its one graph."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_decode_step
+
+    cfg, gpu, params = _on_card("llama3.2-3b")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 11))
+    np.testing.assert_array_equal(
+        generate(gpu, params, prompts, 6),
+        generate(gpu, params, prompts, 6, capture=False))
+    cache = gpu.init_cache(2, 32)
+    gpu.prefill(params, torch.from_numpy(prompts).cuda(), cache)
+    step = make_decode_step(gpu, 16)
+    tok = torch.tensor([[1], [2]], device="cuda")
+    for pos in (11, 12, 13):
+        got, _ = step(params, cache, tok, pos)
+        want, _ = make_decode_step(gpu, 16, capture=False)(params, cache,
+                                                           tok, pos)
+        lim = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= lim
+    assert step.graph.replays == 3
+
+
+def test_a_failed_capture_raises(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, and nothing runs the step eagerly in its place."""
+    from repro_torch.core.capture import WARMUP, CapturedStep
+
+    ran = []
+
+    def syncs(x):
+        ran.append(1)
+        return x * float((x * 2).sum().item())
+
+    step = CapturedStep(syncs)
+    with pytest.raises(RuntimeError):
+        step(torch.ones(4, device="cuda"))
+    assert len(ran) == WARMUP + 1 and step.graph is None
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device="cuda").sum()) == 2.0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phase router]
+    python3 chip_smoke.py [--phase router|tuned]
 
 Run from the root of a checkout on a machine with one CUDA card (Triton
 compiles the generated one-pass kernels there, nvcc the CUDA sources and
@@ -154,6 +154,30 @@ Phases, each of which makes the script exit non-zero when it fails:
    plain path's argmax); one wave profiled captured and eager as above;
    the wave graph's dependency edges (``graph_edges``: a B7 launch keeps
    a programmatic edge) and a replayed wave's device time by kind.
+5c. Tuned (``phase_tuned``, run after phase 12, the last of the paths;
+   ``--phase tuned`` runs it alone): tune once, run many.  Llama-3.2-3B at full
+   width and depth through ``ContinuousBatcher`` (4 slots of 1,024 rows,
+   4 seeded requests of 257-500 tokens, all in the 512 bucket, 8 tokens
+   each: one prompt bucket and the decode wave are tuned) with
+   ``autotune=True`` into an emptied plan cache (``build/
+   plan_cache_tuned``): every compiled signature planned, its top-k
+   partitions raced on the card (each branch one replayed CUDA graph),
+   its patterns' and stitched groups' schedules swept, and stored; the
+   cold seconds and the seconds measuring; per compiled function the
+   candidates and branches raced, the winner's index and time against
+   the model pick's, the groups whose measured pin differs from the
+   model's (both timed); a race timeout or a disqualified branch fails
+   the phase.  Every generated and anchored kernel of the tuned plans is
+   held against its plain version.  The cold run's prefills and waves
+   are replayed on the plain path (logits within 1e-4 max(1,
+   max|logits|), every greedy token the plain argmax).  Then a fresh
+   ``Model`` on the same cache (warm): every compile a hit, no
+   exploration, no stitching pass, 0 s measuring, its launches counted,
+   the same tokens; the tuned plans' wave and TTFT against the cost
+   model's plans on the same requests; the head softmax [2048, 128256]:
+   the tuner's candidates, the streaming kernel's time beside its
+   estimate, and a one-pass kernel of one row a program (built without
+   the register cap) beside it.
 6. Train path (``fusion_mode="stitched"``): HuBERT-XLarge at full width
    and depth (48 layers, d_model 1280, 16 x 80 heads, float32) through
    ``repro_torch.launch.train.build_trainer``, batch 8 x 512 frames, 5
@@ -201,7 +225,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    tensor-core instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA``
    ``.TF32`` in B4, in the wide flash kernel and in B11's chunk and
    output passes), printed once;
-   then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model) and
+   then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model), a
+   ``{"tuned": {...}}`` line (phase 5c's) and
    a ``{"kernels": [...]}`` summary line (per kernel: the times of
    its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
@@ -2137,41 +2162,62 @@ def static_vs_masked(model, params, cache, tok, pos: int) -> None:
         fail("the static-kv_len decode step disagrees with the masked one")
 
 
-#: Calls of a step that ``kernel_events`` profiles in one session.
+#: Calls of a step in one of ``kernel_events``'s longer sessions, and
+#: the number of its one-call sessions.
 PROFILED_CALLS = 3
+#: ``kernel_events``'s sessions of ``PROFILED_CALLS`` calls.
+PROFILED_SESSIONS = 2
 
 
 def kernel_events(fn) -> tuple[float, dict]:
-    """``PROFILED_CALLS`` calls of ``fn`` in one ``torch.profiler`` session,
-    queued behind a device sleep: (device busy ms a call, {kernel name:
-    launches a call}) -- a replayed graph's kernels included, copies and
-    fills not.  A count a call is the session's count over the calls,
-    rounded up: on the H100 machine the profiler loses one or two records
-    of a session now and then (of an eager step's first kernels), which
-    the rounding absorbs, while a kernel that one step launches and the
-    other does not differs by one at every call."""
+    """Calls of ``fn`` under ``torch.profiler``, each session queued
+    behind a device sleep: (device busy ms a call, {kernel name: launches
+    a call}) -- a replayed graph's kernels included, copies and fills
+    not, whether they run as copies (``Memcpy`` / ``Memset`` records) or,
+    as a graph's copy nodes may, as kernels (``memcpy128``,
+    ``memcpy32_post``).  ``PROFILED_SESSIONS`` sessions of
+    ``PROFILED_CALLS`` calls, a count a call rounded up, and
+    ``PROFILED_CALLS`` sessions of one call, each after an unprofiled
+    call; a kernel's count is the largest any session gave.  On the H100
+    machine the profiler loses records, of replayed and eager steps
+    alike, and a loss only lowers a count: a session's first kernel now
+    and then, and a few records of one kernel or another in a long
+    process (up to three of 84 a call, in one session, where another
+    session lost none).  A kernel that one step launches and the other
+    does not differs at every call, so in every session."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1_000_000)
-        for _ in range(PROFILED_CALLS):
-            fn()
+    def session(calls: int) -> tuple[float, dict]:
         torch.cuda.synchronize()
-    busy, names = 0.0, {}
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        if (ev.self_device_time_total <= 0 or "spin_kernel" in ev.key
-                or ev.key == "Command Buffer Full"):
-            continue
-        busy += ev.self_device_time_total / 1e3
-        if not ev.key.startswith(("Memcpy", "Memset")):
-            names[ev.key] = names.get(ev.key, 0) + ev.count
-    return busy / PROFILED_CALLS, {
-        k: -(-n // PROFILED_CALLS) for k, n in names.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy, seen = 0.0, {}
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue
+            if (ev.self_device_time_total <= 0 or "spin_kernel" in ev.key
+                    or ev.key == "Command Buffer Full"):
+                continue
+            busy += ev.self_device_time_total / 1e3
+            if not ev.key.lower().startswith(("memcpy", "memset")):
+                seen[ev.key] = seen.get(ev.key, 0) + ev.count
+        return busy / calls, {k: -(-n // calls) for k, n in seen.items()}
+
+    busy, names = session(PROFILED_CALLS)
+    counts = [session(PROFILED_CALLS)[1]
+              for _ in range(PROFILED_SESSIONS - 1)]
+    for _ in range(PROFILED_CALLS):
+        fn()
+        counts.append(session(1)[1])
+    for seen in counts:
+        for k, n in seen.items():
+            names[k] = max(names.get(k, 0), n)
+    return busy, names
 
 
 def graph_edges(graph) -> dict:
@@ -2294,39 +2340,14 @@ def phase_scheduler(model, params, plain) -> dict:
     serve(batcher)
     cold_s = time.perf_counter() - t0
     # the counted run, its prefills and waves recorded for the plain path
-    events, last = [], {}
-    prefill_into, prefill_slot, wave = (batcher._prefill_into,
-                                        batcher._prefill_slot, batcher._wave)
-
-    def rec_prefill_into(i, toks):
-        last["logits"], last["toks"] = prefill_into(i, toks), toks
-        return last["logits"]
-
-    def rec_prefill_slot(i, req):
-        prefill_slot(i, req)
-        lg = last["logits"][0, :, :V] if moe \
-            else last["logits"][0, len(req.prompt) - 1:len(req.prompt), :V]
-        events.append(("prefill", i, last["toks"], len(req.prompt),
-                       lg.clone()))
-
-    def rec_wave(toks, poss):
-        logits, nxt = wave(toks, poss)
-        events.append(("wave", toks.clone(), poss.clone(), logits.clone(),
-                       nxt.clone()))
-        return logits, nxt
-
-    batcher._prefill_into, batcher._prefill_slot = (rec_prefill_into,
-                                                    rec_prefill_slot)
-    batcher._wave = rec_wave
     batcher.stats = ServeStats()
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    got = serve(batcher)
+    with recorded(batcher, moe) as events:
+        got = serve(batcher)
     warm_s = time.perf_counter() - t0
     launches = launch_counts()
-    batcher._prefill_into, batcher._prefill_slot, batcher._wave = (
-        prefill_into, prefill_slot, wave)
     st = batcher.stats
     graph = batcher._wave
     print(f"launches in the counted run ({st.prefills} prefills, "
@@ -2360,45 +2381,7 @@ def phase_scheduler(model, params, plain) -> dict:
         fail("scheduler: the eager waves' tokens differ from the replayed "
              "waves'")
 
-    # the plain path fed the same prefills and waves
-    ref = ContinuousBatcher(plain, params, n_slots=SCHED_SLOTS,
-                            max_len=SCHED_MAX_LEN, capture=False)
-    rows_got, rows_want, agree, n_rows = [], [], 0, 0
-    for ev in events:
-        if ev[0] == "prefill":
-            _, i, toks, true_len, lg = ev
-            w = ref._prefill_into(i, toks)[0, :, :V]
-            w = w if moe else w[true_len - 1:true_len]
-            rows_got.append(lg)
-            rows_want.append(w)
-            agree += int(w[true_len - 1 if moe else 0].argmax()) \
-                == int(lg[true_len - 1 if moe else 0].argmax())
-            n_rows += 1
-        else:
-            _, toks, poss, lg, nxt = ev
-            w, wn = ref._wave(toks, poss)
-            act = (poss > 0).nonzero().flatten()
-            rows_got.append(lg[act])
-            rows_want.append(w[act])
-            agree += int((wn[act] == nxt[act]).sum())
-            n_rows += len(act)
-    g, w = torch.cat(rows_got), torch.cat(rows_want)
-    err = (g - w).abs().amax(-1)
-    tol = 1e-4 * w.abs().amax(-1).clamp_min(1.0)
-    beyond = int((err > tol).sum())
-    share = beyond / len(err)
-    print(f"scheduler agreement with fusion_mode='xla', dispatch="
-          f"'interpret' fed the same prefills and waves: {len(err)} logit "
-          f"rows, {beyond} beyond 1e-4 max(1, max|logits|) of the row, "
-          f"worst err/tol {float((err / tol).max()):.3f}; greedy tokens "
-          f"equal {agree} of {n_rows}")
-    if not bool(torch.isfinite(g).all()):
-        fail("scheduler: non-finite logits")
-    if moe:
-        if share > MOE_ROW_ALLOWANCE or agree < 0.99 * n_rows:
-            fail("the scheduler's MoE logits disagree with the plain path")
-    elif beyond or agree != n_rows:
-        fail("the scheduler's logits or tokens disagree with the plain path")
+    ref = plain_agreement("scheduler", events, plain, params, moe)
     if sorted(got) != list(range(n)) or any(
             len(v) != SCHED_GEN for v in got.values()):
         fail("scheduler: a request was not served in full")
@@ -2428,6 +2411,356 @@ def phase_scheduler(model, params, plain) -> dict:
 
 #: {model: the scheduler phase's numbers}, printed in the summary line
 SCHED_RESULTS: dict = {}
+
+
+@contextlib.contextmanager
+def recorded(batcher, moe: bool):
+    """Record ``batcher``'s prefills and waves while the block runs:
+    yields the list of events, each with the inputs it was fed and the
+    logits (and a wave's tokens) it gave, for ``plain_agreement``."""
+    V = batcher.mdl.cfg.vocab_size
+    events, last = [], {}
+    prefill_into, prefill_slot, wave = (batcher._prefill_into,
+                                        batcher._prefill_slot, batcher._wave)
+
+    def rec_prefill_into(i, toks):
+        last["logits"], last["toks"] = prefill_into(i, toks), toks
+        return last["logits"]
+
+    def rec_prefill_slot(i, req):
+        prefill_slot(i, req)
+        lg = last["logits"][0, :, :V] if moe \
+            else last["logits"][0, len(req.prompt) - 1:len(req.prompt), :V]
+        events.append(("prefill", i, last["toks"], len(req.prompt),
+                       lg.clone()))
+
+    def rec_wave(toks, poss):
+        logits, nxt = wave(toks, poss)
+        events.append(("wave", toks.clone(), poss.clone(), logits.clone(),
+                       nxt.clone()))
+        return logits, nxt
+
+    batcher._prefill_into, batcher._prefill_slot = (rec_prefill_into,
+                                                    rec_prefill_slot)
+    batcher._wave = rec_wave
+    try:
+        yield events
+    finally:
+        batcher._prefill_into, batcher._prefill_slot, batcher._wave = (
+            prefill_into, prefill_slot, wave)
+
+
+def plain_agreement(label: str, events, plain, params, moe: bool):
+    """Replay ``recorded`` prefills and waves on the plain path
+    (``plain``: ``"xla"``, ``dispatch="interpret"``, eager waves) fed the
+    same tokens: logits within 1e-4 max(1, max|logits|) of the row (an
+    MoE model row by row, at most ``MOE_ROW_ALLOWANCE`` of the rows
+    beyond: routing flips), every greedy token the plain row's argmax.
+    Returns the plain path's batcher (its cache still allocated)."""
+    import torch
+    from repro_torch.serving import ContinuousBatcher
+
+    V = plain.cfg.vocab_size
+    ref = ContinuousBatcher(plain, params, n_slots=SCHED_SLOTS,
+                            max_len=SCHED_MAX_LEN, capture=False)
+    rows_got, rows_want, agree, n_rows = [], [], 0, 0
+    for ev in events:
+        if ev[0] == "prefill":
+            _, i, toks, true_len, lg = ev
+            w = ref._prefill_into(i, toks)[0, :, :V]
+            w = w if moe else w[true_len - 1:true_len]
+            rows_got.append(lg)
+            rows_want.append(w)
+            agree += int(w[true_len - 1 if moe else 0].argmax()) \
+                == int(lg[true_len - 1 if moe else 0].argmax())
+            n_rows += 1
+        else:
+            _, toks, poss, lg, nxt = ev
+            w, wn = ref._wave(toks, poss)
+            act = (poss > 0).nonzero().flatten()
+            rows_got.append(lg[act])
+            rows_want.append(w[act])
+            agree += int((wn[act] == nxt[act]).sum())
+            n_rows += len(act)
+    g, w = torch.cat(rows_got), torch.cat(rows_want)
+    err = (g - w).abs().amax(-1)
+    tol = 1e-4 * w.abs().amax(-1).clamp_min(1.0)
+    beyond = int((err > tol).sum())
+    share = beyond / len(err)
+    print(f"{label} agreement with fusion_mode='xla', dispatch="
+          f"'interpret' fed the same prefills and waves: {len(err)} logit "
+          f"rows, {beyond} beyond 1e-4 max(1, max|logits|) of the row, "
+          f"worst err/tol {float((err / tol).max()):.3f}; greedy tokens "
+          f"equal {agree} of {n_rows}")
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{label}: non-finite logits")
+    if moe:
+        if share > MOE_ROW_ALLOWANCE or agree < 0.99 * n_rows:
+            fail(f"{label}: the MoE logits disagree with the plain path")
+    elif beyond or agree != n_rows:
+        fail(f"{label}: the logits or tokens disagree with the plain path")
+    return ref
+
+
+#: The tuned phase: requests through the scheduler with ``autotune=True``.
+#: Their prompts (257-500 tokens) all take the 512 bucket, so the phase
+#: tunes one prompt bucket and the decode wave (every bucket would tune
+#: three prefill signatures).
+TUNED_REQUESTS, TUNED_GEN = 4, 8
+#: The tuned phase's plan cache, emptied at its start (``build/`` is
+#: git-ignored).
+TUNED_DIR = ROOT / "build" / "plan_cache_tuned"
+
+
+def named_functions(model) -> list:
+    """(name, compiled function) of one of a model's sets."""
+    fns = [("block", model.block), ("head", model.head), ("pre", model.pre),
+           ("post", model.post), ("logits_head", model.logits_head),
+           ("mamba", model.mamba), ("shared_pre", model.shared_pre)]
+    return fns + [(f"post kv_len={k}", f)
+                  for k, f in model.static_posts.items()]
+
+
+def tuned_groups(label: str, comp, gen) -> list:
+    """Each group of ``comp`` whose emitted schedule differs from the cost
+    model's pick (a measured pin): the winner's and the model pick's
+    device time on the same inputs, each kernel's time as ``time_ms``."""
+    import dataclasses
+    from repro_torch.core import H100, CostContext
+    from repro_torch.core.codegen import emit_group
+    from repro_torch.core.stitch import _sched_of
+
+    ctx = CostContext(comp.graph, H100)
+    rows = []
+    for em in comp.emitted:
+        if not em.generated:
+            continue
+        members = frozenset(n for p in em.parts for n in p)
+        pin, model = _sched_of(em.estimate), _sched_of(ctx.best(members))
+        if pin == model:
+            continue
+        alt = emit_group(comp.graph, em.parts, hw=H100, ctx=ctx)
+        vals = random_inputs(em, comp.graph, gen)
+        t_pin = time_ms(lambda: em.fn.launch(*vals), 20)
+        t_model = (time_ms(lambda: alt.fn.launch(*vals), 20)
+                   if alt.generated else None)
+        print(f"tuned {label}: group of {len(members)} nodes R={em.fn.R} "
+              f"C={em.fn.C}: measured pin {pin} {t_pin:.4f} ms, the model's "
+              f"pick {model} "
+              + (f"{t_model:.4f} ms" if t_model is not None else
+                 f"({alt.kind}, not timed)"))
+        rows.append(dataclasses.asdict(em.estimate) | {
+            "pin": pin, "model": model, "pin_ms": t_pin,
+            "model_ms": t_model})
+    return rows
+
+
+def head_softmax_schedules(gen) -> dict:
+    """The LM head's softmax over the vocabulary, [2048, 128256]: the
+    tuner's candidates under ``H100`` (no one-pass block fits the
+    register cap; every streaming tile is one kernel), the streaming
+    kernel's device time beside the cost model's estimate, and a one-pass
+    instance of one row a program built under a preset without the cap,
+    timed beside it."""
+    import dataclasses
+    import torch
+    from repro_torch.core import H100, CostContext, stitched_jit
+    from repro_torch.core import autotune
+    from repro_torch.core.codegen import emit_group
+
+    x = torch.randn(2048, 128256, generator=gen, device="cuda")
+    comp = stitched_jit(lambda v: torch.softmax(v, -1)).compiled(x)
+    em = only_generated(comp, "streaming")
+    g = comp.graph
+    members = frozenset(n for p in em.parts for n in p)
+    ctx = CostContext(g, H100)
+    info = ctx.info(members)
+    cands = autotune._candidate_overrides(info, H100)
+    t0 = time.perf_counter()
+    pin = autotune.tune_group(g, em.parts, hw=H100, ctx=ctx)
+    sweep_s = time.perf_counter() - t0
+    t_stream = time_ms(lambda: em.fn.launch(x), 20)
+    uncapped = dataclasses.replace(H100, max_block_elems=0,
+                                   vmem_bytes=1 << 24)
+    one = emit_group(g, em.parts, hw=uncapped, schedule_override={
+        "schedule": "onepass", "block_rows": 1})
+    if one.kind != "onepass":
+        fail(f"head softmax: the uncapped one-pass emitted {one.kind}")
+    got = one.fn.launch(x)[0]
+    want = em.fn.plain(torch.device("cuda"), x)[0]
+    err, worst = agreement([got], [want])
+    t_one = time_ms(lambda: one.fn.launch(x), 20)
+    out = {"candidates": cands, "tuned_pin": pin, "sweep_s": sweep_s,
+           "streaming_ms": t_stream,
+           "streaming_estimate_ms": 1e3 * em.estimate.latency_s,
+           "onepass_br1_ms": t_one,
+           "onepass_br1_estimate_ms": 1e3 * one.estimate.latency_s,
+           "onepass_worst_err_over_limit": worst}
+    print(f"head softmax [2048, 128256]: tuner candidates under H100 "
+          f"{cands}, pin {pin} ({sweep_s:.2f} s); streaming {t_stream:.4f} "
+          f"ms (model {1e3 * em.estimate.latency_s:.4f}); one-pass BR=1 "
+          f"without the register cap {t_one:.4f} ms (model "
+          f"{1e3 * one.estimate.latency_s:.4f}; worst err/limit "
+          f"{worst:.3f})")
+    if not worst <= 1.0:
+        fail("head softmax: the uncapped one-pass kernel disagrees")
+    return out
+
+
+def phase_tuned(gen, checks: dict) -> dict:
+    """Tune once, run many: Llama-3.2-3B at full width and depth through
+    ``ContinuousBatcher`` with ``autotune=True`` into an empty plan cache
+    (cold: every compiled signature planned, raced and swept on the card,
+    and stored), then a fresh ``Model`` on the same cache (warm: every
+    compile a hit -- no exploration, no stitching pass, no measurement),
+    the same greedy tokens, each the plain path's argmax (teacher-forced
+    as in ``phase_scheduler``).  Every generated and anchored kernel of the
+    tuned plans is held against its plain version (``check_generated``).
+    Then the tuned plans' waves and TTFT against the cost model's plans on
+    the same requests, and the head softmax's schedules."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import PlanCache, explorer
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousBatcher
+
+    cfg = get_config("llama3.2-3b")
+    shutil.rmtree(TUNED_DIR, ignore_errors=True)
+    cache_dir = str(TUNED_DIR)
+    gc.collect()  # the earlier phases' models hold reference cycles
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    params = model.init(SEED)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(257, 501)))
+               for _ in range(TUNED_REQUESTS)]
+    print(f"tuned: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"through ContinuousBatcher n_slots={SCHED_SLOTS} max_len="
+          f"{SCHED_MAX_LEN}, {TUNED_REQUESTS} requests of "
+          f"{[len(p) for p in prompts]} tokens (bucket 512), max_new="
+          f"{TUNED_GEN}, plan cache {TUNED_DIR.relative_to(ROOT)}")
+
+    def serve(b):
+        ids = [b.submit(p, max_new=TUNED_GEN) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = b.run()
+        torch.cuda.synchronize()
+        return [out[r] for r in ids], time.perf_counter() - t0
+
+    def batcher(mdl, **kw):
+        return ContinuousBatcher(mdl, params, n_slots=SCHED_SLOTS,
+                                 max_len=SCHED_MAX_LEN, **kw)
+
+    # -- cold: plan, race, sweep, store ------------------------------------
+    cold = batcher(model, plan_cache=cache_dir, autotune=True)
+    with recorded(cold, False) as events:
+        cold_tokens, cold_s = serve(cold)
+    st = cold.stats
+    rows = []
+    store = PlanCache(cache_dir)
+    for name, fn in named_functions(cold.mdl):
+        for comp in fn.instances:
+            r = comp.report
+            entry = store.load(r.signature)
+            ms = r.partition_measured_s
+            row = {"function": name, "signature": r.signature[:12],
+                   "groups": r.n_groups, "stitched": r.n_stitched,
+                   "anchored": r.n_anchored,
+                   "candidates": r.partition_candidates,
+                   "branches": r.partition_branches,
+                   "partition_source": r.partition_source,
+                   "partition_index": r.partition_index,
+                   "winner_ms": (1e3 * ms[r.partition_index] if ms else None),
+                   "model_pick_ms": 1e3 * ms[0] if ms else None,
+                   "group_tuned": r.group_tuned,
+                   "group_tuned_wins": r.group_tuned_wins,
+                   "tune_s": r.tune_s, "caps": r.caps_hit,
+                   "stored_source": (entry or {}).get("partition_source")}
+            print(f"tuned cold {name}: {json.dumps(row)}")
+            rows.append(row)
+            if r.caps_hit.get("race_timeout") or r.partition_disqualified:
+                fail(f"tuned {name}: a race timed out or lost a branch "
+                     f"({r.caps_hit}, {r.partition_disqualified} "
+                     "disqualified)")
+            if r.caps_hit.get("partition_branches"):
+                print(f"tuned {name}: the race was cut to the first "
+                      f"branches ({r.caps_hit['partition_branches']} "
+                      "left out, the partition_branches cap)")
+            if entry is None:
+                fail(f"tuned {name}: no plan-cache entry stored")
+            if r.partition_candidates > 1 and (
+                    r.partition_source != "measured"
+                    or entry.get("partition_source") != "measured"):
+                fail(f"tuned {name}: {r.partition_candidates} candidates "
+                     "but the partition was not measured and stored")
+            check_generated({f"tuned {name}": comp}, gen, checks)
+            rows[-1]["groups_pinned"] = tuned_groups(name, comp, gen)
+    n_sig = len(rows)
+    print(f"tuned cold: {cold_s:.2f} s, {st.summary()}, {st.tune_s:.2f} s "
+          f"measuring, {n_sig} compiled signatures")
+    if st.plan_cache_misses != n_sig or st.plan_cache_hits:
+        fail(f"tuned cold: {st.plan_cache_hits} hits, "
+             f"{st.plan_cache_misses} misses of {n_sig} compiles")
+    plain = Model(cfg, "xla", dispatch="interpret")
+    plain_agreement("tuned cold", events, plain, params, False)
+    del plain, events
+
+    # -- warm: a fresh model on the same cache -----------------------------
+    explored = explorer.EXPLORE_RUNS
+    warm = batcher(Model(cfg), plan_cache=cache_dir)
+    reset_launch_counts()
+    warm_tokens, warm_s = serve(warm)
+    launches = launch_counts()
+    print(f"tuned warm launches: {json.dumps(launches)}")
+    for k in ("rmsnorm", "flash_attention", "matmul_fused"):
+        if launches[k] <= 0:
+            fail(f"the tuned warm run launched no {k} kernel")
+    sw = warm.stats
+    reports = warm.mdl.reports()
+    stitched = sum(r.beam_width > 0 for r in reports)
+    print(f"tuned warm: {warm_s:.2f} s, {sw.summary()}, {sw.tune_s} s "
+          f"measuring, {explorer.EXPLORE_RUNS - explored} explorations, "
+          f"{stitched} stitching passes, {len(reports)} compiles")
+    if (sw.plan_cache_hits != len(reports) or sw.plan_cache_misses
+            or len(reports) != n_sig or sw.tune_s != 0.0 or stitched
+            or explorer.EXPLORE_RUNS != explored):
+        fail("tuned warm: not every compile was a plain cache hit")
+    if warm_tokens != cold_tokens:
+        fail("tuned warm: the tokens differ from the cold run's")
+
+    # -- the tuned plans against the cost model's, same requests -----------
+    timed = {}
+    for label, b in (("tuned", warm),
+                     ("model", batcher(Model(cfg)))):
+        if label == "model":
+            serve(b)  # its compiles and capture
+        b.stats = type(b.stats)()
+        tokens, _ = serve(b)
+        timed[label] = b.stats
+        if tokens != cold_tokens and label == "tuned":
+            fail("tuned: a second warm run gave other tokens")
+    t, m = timed["tuned"], timed["model"]
+    print(f"tuned against modeled plans (same requests, captured waves): "
+          f"wave p50 {1e3 * t.p50_tok_s:.3f} / {1e3 * m.p50_tok_s:.3f} ms, "
+          f"TTFT p50 {1e3 * t.p50_ttft_s:.2f} / {1e3 * m.p50_ttft_s:.2f} "
+          f"ms, tokens/s {t.tok_per_s:.1f} / {m.tok_per_s:.1f}")
+    head = head_softmax_schedules(gen)
+    TUNED_RESULTS.update({
+        "cold_s": cold_s, "tune_s": st.tune_s, "warm_s": warm_s,
+            "signatures": n_sig, "warm_hits": sw.plan_cache_hits,
+            "wave_p50_ms": {"tuned": 1e3 * t.p50_tok_s,
+                            "model": 1e3 * m.p50_tok_s},
+            "ttft_p50_ms": {"tuned": 1e3 * t.p50_ttft_s,
+                            "model": 1e3 * m.p50_ttft_s},
+            "functions": rows, "head_softmax": head})
+    return launches
+
+
+#: The tuned phase's numbers, printed in the ``{"tuned": ...}`` line
+TUNED_RESULTS: dict = {}
 
 
 #: Greedy steps of a static-decode phase, at the cache's last positions.
@@ -2907,9 +3240,11 @@ def main(argv=None) -> int:
         description="Drive the PyTorch port on one CUDA card (see the "
                     "module's docstring for the phases).")
     ap.add_argument(
-        "--phase", choices=("all", "router"), default="all",
+        "--phase", choices=("all", "router", "tuned"), default="all",
         help="'router': only the device line, the build and the router "
-             "floor rows (phase 3c), then their JSON line; no path runs")
+             "floor rows (phase 3c), then their JSON line; no path runs. "
+             "'tuned': only the device line and the tuned phase (5c), "
+             "then its JSON line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2937,6 +3272,10 @@ def main(argv=None) -> int:
         from repro_torch.kernels import _build
         _build.build_all()
         print(json.dumps({"router_floor": phase_router_floor(gen)}))
+        return 0
+    if args.phase == "tuned":
+        phase_tuned(gen, {})
+        print(json.dumps({"tuned": TUNED_RESULTS}, default=str))
         return 0
     phase_kernels(gen)
     checks = phase_cuda_kernels(gen)
@@ -2969,6 +3308,8 @@ def main(argv=None) -> int:
                                           STATIC_KV)
     long_launches = phase_static_decode(gen, HYBRID_ARCH, 1, LONG_KV)
     print(f"static decode phases: {time.perf_counter() - t_static:.1f} s")
+    # last of the paths: the earlier phases run as they did before it
+    tuned_launches = phase_tuned(gen, checks)
     sass_check()
 
     kernels = []
@@ -3016,6 +3357,7 @@ def main(argv=None) -> int:
                    "scheduler": sched_launches[name],
                    "moe_scheduler": moe_sched_launches[name],
                    "hybrid_scheduler": hybrid_sched_launches[name],
+                   "tuned": tuned_launches[name],
                    "anchor_bench": anchor_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
@@ -3029,6 +3371,7 @@ def main(argv=None) -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           "device line to the summary")
     print(json.dumps({"scheduler": SCHED_RESULTS}))
+    print(json.dumps({"tuned": TUNED_RESULTS}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
-"""FusionStitching core: trace -> plan -> stitch -> generated kernels."""
+"""FusionStitching core: trace -> plan -> stitch -> generated kernels, with
+the persistent plan cache and measured tuning."""
 from .costctx import CostContext
 from .cost_model import H100, V5E, Hardware, best_estimate, \
     delta_evaluator, partition_gain, stitch_gain
 from .ir import FusionPlan, Graph, Node, OpKind, Pattern, StitchGroup
+from .plan_cache import PlanCache, graph_signature
 from .planner import make_plan, plan_stats
-from .stitch import StitchedFunction, StitchReport, stitched_jit
+from .stitch import StitchedFunction, StitchReport, fusion_report, \
+    stitched_jit
 from .stitcher import PartitionCandidate, StitchStats, TopKResult, \
     make_groups, search_groups
 from .tracer import trace, trace_with_tree
@@ -14,8 +17,9 @@ __all__ = [
     "H100", "V5E", "Hardware", "best_estimate", "delta_evaluator",
     "partition_gain", "stitch_gain",
     "FusionPlan", "Graph", "Node", "OpKind", "Pattern", "StitchGroup",
+    "PlanCache", "graph_signature",
     "make_plan", "plan_stats",
-    "StitchedFunction", "StitchReport", "stitched_jit",
+    "StitchedFunction", "StitchReport", "fusion_report", "stitched_jit",
     "PartitionCandidate", "StitchStats", "TopKResult",
     "make_groups", "search_groups",
     "trace", "trace_with_tree",

@@ -1037,14 +1037,57 @@ def _boundary(graph: Graph, union: frozenset[int], ctx):
     return ext_ids, out_ids
 
 
+def _override_estimate(graph: Graph, pattern: frozenset[int], info,
+                       override: dict, hw: Hardware,
+                       ctx=None) -> KernelEstimate | None:
+    """Re-price a cached or tuned schedule choice; None if it does not
+    apply (the reference's ``codegen._override_estimate``): an unknown
+    schedule, no row view, or a block the preset refuses (the register
+    cap under ``H100``) degrade to the analytic sweep."""
+    from .cost_model import estimate_onepass, estimate_streaming
+
+    sched = override.get("schedule")
+    if sched == "packed":
+        return estimate_packed(graph, pattern, hw, ctx=ctx)
+    if info is None:
+        return None
+    if sched == "onepass":
+        rec = frozenset(int(x) for x in override.get("recompute", ())
+                        if isinstance(x, int)
+                        and not isinstance(x, bool)) & pattern
+        if rec:
+            # a corrupt or hand-edited pin naming an output (or a value
+            # nothing inside reads) must degrade, not miscompile: the
+            # generator never materializes a recomputed value.
+            outs = set(graph.pattern_outputs(pattern))
+            rec = frozenset(
+                r for r in rec
+                if r not in outs
+                and any(c in pattern for c in graph.consumers(r)))
+        est = estimate_onepass(graph, pattern, info,
+                               int(override.get("block_rows", 8)), hw,
+                               ctx=ctx, recompute=rec or None)
+        return est if est.feasible else None
+    if sched == "streaming":
+        est = estimate_streaming(graph, pattern, info,
+                                 int(override.get("block_rows", 8)),
+                                 int(override.get("block_cols", 2048)), hw,
+                                 ctx=ctx)
+        return est if est.feasible else None
+    return None
+
+
 def emit_pattern(graph: Graph, pattern: frozenset[int], *,
-                 hw: Hardware = H100, ctx=None) -> Emitted:
+                 hw: Hardware = H100, ctx=None,
+                 schedule_override: dict | None = None) -> Emitted:
     """Compile one pattern (a single-part group)."""
-    return emit_group(graph, (tuple(sorted(pattern)),), hw=hw, ctx=ctx)
+    return emit_group(graph, (tuple(sorted(pattern)),), hw=hw, ctx=ctx,
+                      schedule_override=schedule_override)
 
 
 def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
-               ctx=None, anchors: tuple = ()) -> Emitted:
+               ctx=None, anchors: tuple = (),
+               schedule_override: dict | None = None) -> Emitted:
     """Compile one stitch group into a single generated kernel (paper §4).
 
     ``parts`` are the group's member patterns.  The union runs as ONE
@@ -1052,7 +1095,11 @@ def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
     registers; ``plan_group_scratch`` still prices the spanning liveness
     for the report).  A union with no row view or a non-emittable member
     runs packed.  A group with ``anchors`` becomes one anchored compute
-    kernel (``_emit_anchored``).
+    kernel (``_emit_anchored``), whose scheme is fixed: an override does
+    not apply to it.  ``schedule_override`` (from the plan cache or the
+    measured tuner) pins {schedule, block_rows, block_cols, recompute}
+    instead of the analytic sweep's pick; one that does not apply
+    (``_override_estimate``) falls back to the sweep.
     """
     if anchors:
         return _emit_anchored(graph, parts, tuple(sorted(anchors)), hw=hw,
@@ -1061,7 +1108,13 @@ def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
     parts_fs = tuple(frozenset(p) for p in parts)
     union = frozenset(n for p in parts for n in p)
     info = ctx.info(union) if ctx is not None else analyze(graph, union)
-    est = ctx.best(union) if ctx is not None else best_estimate(graph, union, hw)
+    est = None
+    if schedule_override:
+        est = _override_estimate(graph, union, info, schedule_override, hw,
+                                 ctx=ctx)
+    if est is None:
+        est = ctx.best(union) if ctx is not None \
+            else best_estimate(graph, union, hw)
     ext_ids, out_ids = _boundary(graph, union, ctx)
     hbm_saved = 0
     if len(parts) > 1:

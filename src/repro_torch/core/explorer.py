@@ -24,6 +24,10 @@ TOP_K = 3          # paper: top-3 candidate patterns per vertex
 MAX_GROUP = 2      # paper: recursive split of consumers into groups
 MAX_PATTERN = 96   # guardrail on pattern size (VMEM planning stays sane)
 
+#: Number of ``explore()`` runs in this process (plan-cache tests read it
+#: to prove a cache hit skipped exploration entirely).
+EXPLORE_RUNS = 0
+
 
 def _fusible_consumers(graph: Graph, nid: int) -> list[int]:
     return [c for c in graph.consumers(nid)
@@ -99,6 +103,8 @@ class FusionExplorer:
     # -- main entry -----------------------------------------------------------
     def explore(self) -> dict[int, list[Pattern]]:
         """Candidate patterns per vertex (vertex = pattern producer)."""
+        global EXPLORE_RUNS
+        EXPLORE_RUNS += 1
         order = self.graph.topo_order()
         for vid in reversed(order):  # post-order: last vertex first (§5.2)
             node = self.graph.node(vid)

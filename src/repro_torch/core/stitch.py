@@ -8,15 +8,23 @@ Usage::
 Pipeline: trace (``make_fx`` lowered to the reference vocabulary) -> plan
 (``make_plan``) -> **stitch** (``stitcher.search_groups``: adjacent
 row-compatible patterns and sandwiched singletons merge into stitch
-groups, priced by the latency evaluator; the top-k partitions are kept
-and the cost-model winner is committed -- there is no measured race yet)
--> emit (ONE generated Triton kernel per group; a group folded around a
+groups, priced by the latency evaluator; the top-k distinct candidate
+partitions are kept and, with ``autotune=True`` on the card, *raced* by
+``autotune.tune_partitions`` -- the committed partition is the measured
+winner, not just the cost-model pick -- and each stitched group's
+schedule is measured by ``autotune.tune_group``) -> emit (ONE generated
+Triton kernel per group; a group folded around a
 compute anchor -- ``stitcher.absorb_anchors``, on by default as in the
 reference, ``REPRO_ANCHOR=0`` turns it off -- becomes ONE anchored CUDA
 kernel: the fused matmul B3 or flash attention with the score chain).
 Structurally
 isomorphic groups (repeated layers) are emitted once and rebound per
-instance.  Plans are cached per shape/dtype signature in-process.
+instance, and share one measured schedule.  Plans are cached per
+shape/dtype signature in-process and, when ``$REPRO_PLAN_CACHE`` (or
+``plan_cache=``) names a directory, across processes
+(``core/plan_cache.py``): a later process whose graph has the same
+signature loads the patterns, the stitch groups and their (measured)
+schedules and skips exploration, stitching and measurement.
 
 Dispatch:
 
@@ -27,7 +35,9 @@ Dispatch:
 * ``"interpret"`` replays the traced graph op by op in plain PyTorch: the
   equivalence oracle.  The plan and report are built all the same.
 
-A failed emission or launch raises: there is no fallback rung.
+A failed emission or launch raises: there is no fallback rung (the
+reference's guard ladder, shadow verification, canary, background racing
+and mesh options are not ported yet, ``ROADMAP.md`` A.8 and A.10).
 """
 from __future__ import annotations
 
@@ -42,10 +52,13 @@ from torch.utils import _pytree as pytree
 
 from .codegen import Emitted, emit_group
 from .costctx import CostContext
-from .cost_model import H100, Hardware
-from .ir import Graph, OpKind, StitchGroup
+from .cost_model import H100, Hardware, KernelEstimate, anchor_enabled
+from .ir import FusionPlan, Graph, OpKind, StitchGroup
+from .plan_cache import PlanCache, entry_format_for, \
+    entry_partition_source, entry_to_groups, entry_to_plan, \
+    graph_signature, override_fp, plan_to_entry
 from .planner import PlanStats, make_plan, plan_stats
-from .stitcher import search_groups
+from .stitcher import absorb_anchors, search_groups
 from .tracer import bind_node, const_tensor, trace_with_tree
 
 
@@ -69,11 +82,26 @@ class StitchReport:
     emission_reused: int = 0         # isomorphic groups rebound
     beam_width: int = 0
     beam_states_explored: int = 0
-    partition_source: str = "model"
-    partition_candidates: int = 0
+    partition_source: str = "model"  # how the committed partition was chosen
+    partition_candidates: int = 0    # distinct top-k partitions considered
+    partition_index: int = 0         # winner's rank in the model ordering
+    #                                  (> 0: the card disagreed with the model)
     n_recomputed: int = 0
     recompute_bytes_freed: int = 0
     caps_hit: dict = field(default_factory=dict)
+    # -- persistent plan cache + measured tuning -----------------------------
+    plan_cache_hit: bool = False     # plan loaded from the cache directory
+    autotuned: bool = False          # something was measured for this plan
+    signature: str = ""              # graph_signature (the cache key)
+    group_tuned: int = 0             # groups with a *measured* schedule
+    group_tuned_wins: int = 0        # ...where it differs from the model's
+    plan_cache_hits: int = 0         # this cache instance's load hits
+    plan_cache_misses: int = 0       # ...and misses (absent/corrupt entries)
+    tune_s: float = 0.0              # seconds spent measuring (0 on a hit)
+    partition_branches: int = 0      # (partition, schedules) branches raced
+    partition_disqualified: int = 0  # ...taken out by an injected crash
+    partition_measured_s: list = field(default_factory=list)
+    #                                  best time per candidate (inf: none)
 
     @property
     def n_onepass(self) -> int:
@@ -209,11 +237,13 @@ def _hash_const(h, nid: int, value) -> None:
 
 
 def _emit_signature(graph: Graph, ctx: CostContext,
-                    union: frozenset[int], anchors: tuple = ()) -> tuple:
+                    union: frozenset[int], override: dict | None,
+                    anchors: tuple = ()) -> tuple:
     """Dedup key for emission: structural isomorphism + what the emitted
     kernel bakes in beyond the struct key (primitive params and constant
-    values, member and external, and the anchors, positionally within
-    the sorted members so isomorphic anchored layers still dedup)."""
+    values, member and external, the schedule pin, and the anchors,
+    positionally within the sorted members so isomorphic anchored layers
+    still dedup)."""
     h = hashlib.sha1()
     params_fp = []
     for nid in sorted(union):
@@ -232,7 +262,8 @@ def _emit_signature(graph: Graph, ctx: CostContext,
                 _hash_const(h, i, cn.value)
     smem = sorted(union)
     apos = tuple(smem.index(a) for a in anchors)
-    return (ctx.struct_key(union), tuple(params_fp), h.hexdigest(), apos)
+    return (ctx.struct_key(union), tuple(params_fp), h.hexdigest(),
+            override_fp(override), apos)
 
 
 def _rebind_emitted(graph: Graph, ctx: CostContext, union: frozenset[int],
@@ -267,6 +298,38 @@ def _rebind_emitted(graph: Graph, ctx: CostContext, union: frozenset[int],
                    recompute_bytes_freed=template.recompute_bytes_freed)
 
 
+def _remap_override(over: dict, src_members: list[int],
+                    dst_members: list[int]) -> dict:
+    """Retarget a struct-shared schedule override to an isomorphic
+    sibling.  The ``recompute`` flip set names node ids: it maps through
+    the positional correspondence of the sorted member lists (equal
+    ``struct_key``s imply equal id-offset sequences).  A broken
+    correspondence drops the field (re-decided at emission), never a
+    foreign-id pin."""
+    out = dict(over)
+    rec = out.get("recompute")
+    if rec:
+        pos = {nid: i for i, nid in enumerate(src_members)}
+        try:
+            out["recompute"] = sorted(dst_members[pos[int(r)]] for r in rec)
+        except (KeyError, IndexError, ValueError):
+            out.pop("recompute", None)
+    return out
+
+
+def _sched_of(est: KernelEstimate) -> dict:
+    """Persistable schedule pin of an estimate (with the streaming tile
+    and the stage-vs-recompute flip set)."""
+    d: dict = {"schedule": est.schedule}
+    if est.block_rows > 0:
+        d["block_rows"] = est.block_rows
+    if est.schedule == "streaming" and est.block_cols > 0:
+        d["block_cols"] = est.block_cols
+    if est.schedule == "onepass" and est.recompute_ids:
+        d["recompute"] = sorted(est.recompute_ids)
+    return d
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for the
     CPU; a CUDA device on a host without one is an error, never a
@@ -282,7 +345,8 @@ def resolve_device(device) -> torch.device:
 class StitchedFunction:
     def __init__(self, fn: Callable, *, hw: Hardware = H100,
                  dispatch: str = "single", stitch_groups: bool = True,
-                 device="cuda"):
+                 device="cuda", plan_cache: str | None = None,
+                 autotune: bool = False, use_remote_fusion: bool = True):
         if dispatch not in ("single", "interpret"):
             raise ValueError(
                 f"dispatch must be 'single' or 'interpret', got {dispatch!r}")
@@ -290,7 +354,11 @@ class StitchedFunction:
         self._hw = hw
         self._dispatch = dispatch
         self._stitch_groups = stitch_groups
+        self._autotune = autotune
+        self._remote = use_remote_fusion
         self.device = resolve_device(device)
+        self._plan_cache = (PlanCache(plan_cache) if plan_cache
+                            else PlanCache.from_env())
         self._cache: dict[tuple, _Compiled] = {}
 
     def _check_devices(self, flat) -> None:
@@ -314,29 +382,195 @@ class StitchedFunction:
             self._cache[key] = compiled
         return compiled, flat
 
+    def _load_cached_plan(self, graph: Graph, sig: str
+                          ) -> tuple[FusionPlan, list[dict], dict] | None:
+        if self._plan_cache is None:
+            return None
+        entry = self._plan_cache.load(sig)
+        if entry is None:
+            return None
+        decoded = entry_to_plan(entry, graph)
+        if decoded is None:
+            return None
+        plan, overrides = decoded
+        return plan, overrides, entry
+
+    def _can_measure(self) -> bool:
+        from .autotune import autotune_available
+
+        return self._autotune and autotune_available(self.device)
+
     def _build(self, args) -> _Compiled:
         t0 = time.perf_counter()
         graph, out_spec = trace_with_tree(self._fn, *args)
         hw = self._hw
         ctx = CostContext(graph, hw)
-        plan = make_plan(graph, hw, ctx=ctx)
+        sig = graph_signature(graph, hw, remote_fusion=self._remote)
+        can_measure = self._can_measure()
+        tune_s = 0.0
+
+        # persistent cache: an identical graph signature in any process
+        # reuses the stored patterns, group composition and (measured)
+        # schedules and skips exploration *and* stitching entirely.
+        overrides: list[dict] = []
+        entry: dict | None = None
+        cached = self._load_cached_plan(graph, sig)
+        autotuned = False
+        if cached is not None:
+            plan, overrides, entry = cached
+        else:
+            plan = make_plan(graph, hw, use_remote_fusion=self._remote,
+                             ctx=ctx)
+            if can_measure:
+                from .autotune import tune_pattern
+
+                # isomorphic patterns share one measured sweep; shared
+                # pins are remapped to each sibling's node ids.
+                t1 = time.perf_counter()
+                tuned_by_struct: dict[tuple, tuple] = {}
+                for pat in plan.patterns:
+                    skey = ctx.struct_key(pat.members)
+                    members = sorted(pat.members)
+                    hit = tuned_by_struct.get(skey)
+                    if hit is None:
+                        over = tune_pattern(graph, pat.members, hw=hw,
+                                            ctx=ctx, device=self.device) or {}
+                        tuned_by_struct[skey] = (over, members)
+                    else:
+                        over = _remap_override(hit[0], hit[1], members)
+                    overrides.append(over)
+                autotuned = True
+                tune_s += time.perf_counter() - t1
+            if not overrides:
+                overrides = [{} for _ in plan.patterns]
+
+        # ---- stitch groups: compose patterns into megakernels -------------
+        # The partition search ranks the top-k candidate partitions by
+        # modeled gain; with measurement on, the candidates are raced on
+        # the card and the measured winner is committed.  A cached entry
+        # whose partition was measured already is trusted; a model-sourced
+        # one degrades to re-measuring and is upgraded in place.
         stitch_stats = None
-        candidates = 0
+        partition_source = "model"
+        partition_index = 0
+        partition_candidates = 0
+        race = None
+        groups_from_cache = False
         if self._stitch_groups:
-            result = search_groups(graph, plan, hw, ctx=ctx)
-            stitch_stats = result.stats
-            candidates = len(result.candidates)
-            groups = result.groups
+            loaded = (entry_to_groups(entry, plan, graph)
+                      if entry is not None else None)
+            cached_source = (entry_partition_source(entry)
+                             if entry is not None else "model")
+            if loaded is not None and (cached_source == "measured"
+                                       or not can_measure):
+                groups, group_overrides = loaded
+                groups_from_cache = True
+                partition_source = cached_source
+                # a pre-anchor (v5) composition re-plans its anchors on
+                # load (absorption is deterministic); the store below
+                # rewrites the upgraded entry as v6.
+                if anchor_enabled() and not any(g.anchors for g in groups):
+                    a_groups, n_anch = absorb_anchors(
+                        graph, [list(g.parts) for g in groups], ctx)
+                    if n_anch:
+                        over_by = {g.parts: o for g, o in
+                                   zip(groups, group_overrides)}
+                        groups = a_groups
+                        group_overrides = [dict(over_by.get(g.parts, {}))
+                                           for g in groups]
+            else:
+                # a model-sourced entry re-measures the *partition*, but
+                # its group pins are reused for any winner group with the
+                # same parts.
+                loaded_over_by_parts: dict[tuple, dict] = {}
+                if loaded is not None:
+                    for lgrp, lover in zip(*loaded):
+                        if lover:
+                            loaded_over_by_parts[lgrp.parts] = lover
+                result = search_groups(graph, plan, hw, ctx=ctx)
+                stitch_stats = result.stats
+                candidates = result.candidates
+                partition_candidates = len(candidates)
+                groups = result.groups
+                if can_measure and len(candidates) > 1:
+                    from .autotune import tune_partitions
+
+                    t1 = time.perf_counter()
+                    race = tune_partitions(
+                        graph, [c.groups for c in candidates], hw=hw,
+                        ctx=ctx, device=self.device)
+                    tune_s += time.perf_counter() - t1
+                    if race is not None:
+                        # the race's family swaps screen partitions; the
+                        # winner's pins come from the group sweep below
+                        groups = candidates[race.index].groups
+                        partition_source = "measured"
+                        partition_index = race.index
+                        autotuned = True
+                # a lone candidate stays model-sourced: "measured" is
+                # never stamped without a race
+                group_overrides = [
+                    dict(loaded_over_by_parts.get(grp.parts, {}))
+                    for grp in groups]
         else:
             groups = [StitchGroup((p.members,)) for p in plan.patterns]
+            group_overrides = [{} for _ in groups]
 
+        # ---- measured group tuning ----------------------------------------
+        # Stitched unions get their one-pass / streaming choice and tile
+        # measured; a cache hit holding a measured pin (``tuned``) is
+        # trusted, and a v2 entry arrives with its group schedules
+        # dropped, so it re-tunes here.
+        group_tuned = group_tuned_wins = 0
+        tuned_fresh = False
+        if can_measure and self._stitch_groups:
+            from .autotune import tune_group
+
+            group_tuned_by_struct: dict[tuple, tuple] = {}
+            for gi, grp in enumerate(groups):
+                if grp.anchors or not grp.stitched:
+                    # anchored groups keep their kernel's fixed scheme;
+                    # single patterns are tune_pattern's job
+                    continue
+                gover = group_overrides[gi]
+                analytic = _sched_of(ctx.best(grp.members))
+                if gover.get("tuned"):
+                    group_tuned += 1
+                    pin = {k: v for k, v in gover.items() if k != "tuned"}
+                    group_tuned_wins += pin != analytic
+                    continue
+                skey = ctx.struct_key(grp.members)
+                members = sorted(grp.members)
+                hit = group_tuned_by_struct.get(skey)
+                if hit is not None:
+                    over = (_remap_override(hit[0], hit[1], members)
+                            if hit[0] is not None else None)
+                else:
+                    t1 = time.perf_counter()
+                    over = tune_group(graph, grp.parts, hw=hw, ctx=ctx,
+                                      device=self.device)
+                    tune_s += time.perf_counter() - t1
+                    group_tuned_by_struct[skey] = (over, members)
+                if over is None:
+                    continue
+                group_tuned += 1
+                group_tuned_wins += over != analytic
+                group_overrides[gi] = dict(over, tuned=True)
+                tuned_fresh = True
+            autotuned = True
+
+        pat_over = {pat.members: over
+                    for pat, over in zip(plan.patterns, overrides)}
         emit_cache: dict[tuple, tuple[Emitted, list[int]]] = {}
         emitted: list[Emitted] = []
         reused = 0
-        for grp in groups:
+        for grp, gover in zip(groups, group_overrides):
             union = grp.members
+            over = gover or (pat_over.get(grp.parts[0], {})
+                             if len(grp.parts) == 1 else {})
+            over = {k: v for k, v in over.items() if k != "tuned"}
             parts = tuple(tuple(sorted(p)) for p in grp.parts)
-            ekey = _emit_signature(graph, ctx, union, grp.anchors)
+            ekey = _emit_signature(graph, ctx, union, over, grp.anchors)
             em = None
             hit = emit_cache.get(ekey)
             if hit is not None:
@@ -344,11 +578,49 @@ class StitchedFunction:
                 reused += em is not None
             if em is None:
                 em = emit_group(graph, grp.parts, hw=hw, ctx=ctx,
-                                anchors=grp.anchors)
+                                anchors=grp.anchors,
+                                schedule_override=over or None)
                 emit_cache[ekey] = (em, _ext_seen_order(graph, union,
                                                         set(em.ext_ids)))
             emitted.append(em)
         schedule = _build_schedule(graph, emitted)
+
+        cached_hit = cached is not None
+        pc = self._plan_cache
+        poisoned = pc is not None and sig in pc.poison
+        store_fresh = pc is not None and not cached_hit and not poisoned
+        # a hit whose entry lacked a usable groups section, was in an
+        # older format, or whose groups were just measured for the first
+        # time is written back, so later processes skip the work
+        store_backfill = (pc is not None and cached_hit
+                          and self._stitch_groups and not poisoned
+                          and (not groups_from_cache or tuned_fresh
+                               or (entry or {}).get("format")
+                               != entry_format_for(groups)))
+        if store_fresh or store_backfill:
+            em_of_pattern = {em.parts[0]: em for em in emitted
+                             if len(em.parts) == 1}
+            schedules = []
+            for pat, over in zip(plan.patterns, overrides):
+                em = em_of_pattern.get(tuple(sorted(pat.members)))
+                if em is not None:
+                    schedules.append(_sched_of(em.estimate))
+                elif over:
+                    schedules.append(dict(over))
+                else:
+                    schedules.append(_sched_of(ctx.best(pat.members)))
+            # groups persist only when the stitcher ran: a
+            # stitch_groups=False run must not write its singletons
+            groups_arg = groups if self._stitch_groups else None
+            group_scheds = ([dict(gover) if gover.get("tuned")
+                             else _sched_of(em.estimate)
+                             for em, gover in zip(emitted, group_overrides)]
+                            if self._stitch_groups else None)
+            pc.store(sig, plan_to_entry(
+                plan, schedules, sig, groups=groups_arg,
+                group_schedules=group_scheds,
+                partition_source=(partition_source if self._stitch_groups
+                                  else None)))
 
         report = StitchReport(
             stats=plan_stats(graph, plan, ctx=ctx, groups=groups),
@@ -369,11 +641,26 @@ class StitchedFunction:
             beam_width=stitch_stats.beam_width if stitch_stats else 0,
             beam_states_explored=(stitch_stats.states_explored
                                   if stitch_stats else 0),
-            partition_candidates=candidates,
+            partition_source=partition_source,
+            partition_candidates=partition_candidates,
+            partition_index=partition_index,
             n_recomputed=sum(e.n_recomputed for e in emitted),
             recompute_bytes_freed=sum(e.recompute_bytes_freed
                                       for e in emitted),
             caps_hit=dict(ctx.caps),
+            plan_cache_hit=cached_hit,
+            autotuned=autotuned,
+            signature=sig,
+            group_tuned=group_tuned,
+            group_tuned_wins=group_tuned_wins,
+            plan_cache_hits=pc.hits if pc is not None else 0,
+            plan_cache_misses=pc.misses if pc is not None else 0,
+            tune_s=tune_s,
+            partition_branches=race.branches if race is not None else 0,
+            partition_disqualified=(race.disqualified if race is not None
+                                    else 0),
+            partition_measured_s=(list(race.measured_s) if race is not None
+                                  else []),
         )
         return _Compiled(graph, emitted, schedule, report, out_spec,
                          self._dispatch, self.device)
@@ -387,6 +674,11 @@ class StitchedFunction:
     def instances(self) -> list[_Compiled]:
         """The compiled instances so far, one a signature."""
         return list(self._cache.values())
+
+    def reports(self) -> list[StitchReport]:
+        """Reports of every compiled instance, in compile order (the
+        scheduler sums plan-cache hits and misses from these)."""
+        return [c.report for c in self._cache.values()]
 
     def __call__(self, *args):
         compiled, flat = self._compile(args)
@@ -402,7 +694,9 @@ class StitchedFunction:
 
 def stitched_jit(fn: Callable, *, hw: Hardware = H100,
                  dispatch: str = "single", stitch_groups: bool = True,
-                 device="cuda") -> StitchedFunction:
+                 device="cuda", plan_cache: str | None = None,
+                 autotune: bool = False,
+                 use_remote_fusion: bool = True) -> StitchedFunction:
     """Wrap ``fn`` (a function of tensors, or pytrees of tensors) with the
     FusionStitching trace -> plan -> stitch -> emit pipeline.
 
@@ -414,6 +708,20 @@ def stitched_jit(fn: Callable, *, hw: Hardware = H100,
     plain replay).  ``stitch_groups=False`` emits one kernel per plan
     pattern.  ``device`` is where the function runs: CUDA unless the
     caller passes ``device="cpu"``; inputs must lie there.
+    ``plan_cache`` names a persistent plan-cache directory (default
+    ``$REPRO_PLAN_CACHE`` when set).  With ``autotune=True`` on the card
+    (or under ``REPRO_AUTOTUNE=force``) the patterns' and stitched
+    groups' schedules and the top-k partitions are measured instead of
+    modeled, and the results land in the plan cache.
+    ``use_remote_fusion=False`` turns off the planner's remote fusion.
     """
     return StitchedFunction(fn, hw=hw, dispatch=dispatch,
-                            stitch_groups=stitch_groups, device=device)
+                            stitch_groups=stitch_groups, device=device,
+                            plan_cache=plan_cache, autotune=autotune,
+                            use_remote_fusion=use_remote_fusion)
+
+
+def fusion_report(fn: Callable, *example_args, hw: Hardware = H100,
+                  device="cuda") -> StitchReport:
+    """Plan ``fn`` on example inputs and return the plan statistics."""
+    return stitched_jit(fn, hw=hw, device=device).report(*example_args)

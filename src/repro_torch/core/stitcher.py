@@ -39,6 +39,7 @@ instance's searched partition instead of re-searching.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from .codegen import EMITTABLE_PRIMS, anchor_emittable, pattern_emittable
@@ -46,9 +47,9 @@ from .cost_model import H100, Hardware, anchor_enabled
 from .costctx import CostContext
 from .ir import FUSIBLE_KINDS, FusionPlan, Graph, OpKind, StitchGroup
 
-#: Bound on the candidate partitions assembled from segment swaps (the
-#: JAX package's ``autotune.MAX_PARTITION_BRANCHES``, the most a race
-#: would measure; the port has no race yet and commits the model pick).
+#: Bound on the candidate partitions assembled from segment swaps: the
+#: most a race measures (``autotune.MAX_PARTITION_BRANCHES``, defined here
+#: so that the stitcher does not import the tuner).
 MAX_PARTITION_BRANCHES = 32
 
 #: Hard cap on stitched-union size (node count): VMEM scratch planning and
@@ -56,11 +57,34 @@ MAX_PARTITION_BRANCHES = 32
 #: explorer's per-pattern bound, so this is several times MAX_PATTERN.
 MAX_GROUP_NODES = 512
 
-#: Beam width of the stitch-partition search (1 = greedy).
+#: Env knob: beam width of the stitch-partition search (1 = greedy).
+ENV_BEAM = "REPRO_STITCH_BEAM"
+
+#: Default beam width when ``$REPRO_STITCH_BEAM`` is unset.
 DEFAULT_BEAM_WIDTH = 4
 
-#: How many distinct top-ranked partitions ``search_groups`` retains.
+#: Env knob: how many distinct top-ranked partitions ``search_groups``
+#: retains for measured tuning (1 = the cost-model winner only).
+ENV_TOPK = "REPRO_STITCH_TOPK"
+
+#: Default top-k when ``$REPRO_STITCH_TOPK`` is unset.
 DEFAULT_TOPK = 3
+
+
+def beam_width_from_env() -> int:
+    try:
+        width = int(os.environ.get(ENV_BEAM, DEFAULT_BEAM_WIDTH))
+    except ValueError:
+        return DEFAULT_BEAM_WIDTH
+    return max(1, width)
+
+
+def topk_from_env() -> int:
+    try:
+        k = int(os.environ.get(ENV_TOPK, DEFAULT_TOPK))
+    except ValueError:
+        return DEFAULT_TOPK
+    return max(1, k)
 
 
 @dataclass
@@ -644,7 +668,7 @@ def search_groups(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
     Patterns are walked in topological (min-member) order.  The chain is
     split into segments at structurally unmergeable boundaries; each
     segment's group partition is found by a ``beam_width``-wide beam
-    search (default 4; width 1 reproduces the
+    search (default ``$REPRO_STITCH_BEAM`` / 4; width 1 reproduces the
     original greedy forward merge) and compared against the greedy
     partition, keeping the better by total modeled gain -- a wider beam
     is never worse under the cost model.  Segments isomorphic to an
@@ -652,18 +676,19 @@ def search_groups(graph: Graph, plan: FusionPlan, hw: Hardware = H100,
     replay its partition.  Unmerged patterns become singleton groups, so
     the result always covers every plan pattern exactly once.
 
-    Beyond the winner, up to ``topk`` (default 3) distinct runner-up partitions are retained: each segment's beam
+    Beyond the winner, up to ``topk`` (``$REPRO_STITCH_TOPK``, default
+    3) distinct runner-up partitions are retained: each segment's beam
     keeps its ranked end states, and global runners-up swap one
     segment's choice for its next-best alternative, ranked by modeled
     gain with the staged-VMEM footprint as the deterministic tie-break.
-    The list is kept for a measured race; the port commits the
-    cost-model winner.
+    ``autotune.tune_partitions`` races these candidates on the card
+    instead of trusting the cost-model ranking.
     """
     if ctx is None:
         ctx = CostContext(graph, hw)
     width = max(1, int(beam_width if beam_width is not None
-                       else DEFAULT_BEAM_WIDTH))
-    k = max(1, int(topk if topk is not None else DEFAULT_TOPK))
+                       else beam_width_from_env()))
+    k = max(1, int(topk if topk is not None else topk_from_env()))
     pats = sorted((p.members for p in plan.patterns), key=lambda m: min(m))
     stats = StitchStats(beam_width=width, topk=k)
     if not pats:

@@ -20,6 +20,7 @@ hash covers its source, the flags and every ``csrc/*.cuh`` header.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -162,13 +163,31 @@ def library(name: str) -> ctypes.CDLL:
 #: launches recorded into the graph}; else None.
 capturing: dict | None = None
 
+#: Depth of ``uncounted`` blocks: launches made inside one are not counted.
+_uncounted = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside this block count nowhere: the measured tuner's
+    (``core/autotune.py``) are not the path's, even when a compile --
+    and so the tuner -- runs inside a step's warm-up."""
+    global _uncounted
+    _uncounted += 1
+    try:
+        yield
+    finally:
+        _uncounted -= 1
+
 
 def count(owner, n: int = 1) -> None:
     """Count ``n`` launches of ``owner``'s kernel in ``owner.launches``
     (a wrapper calls this where it launches).  A launch recorded into a
     CUDA graph being captured runs only when the graph is replayed, so it
     is tallied for the graph, which counts it at each replay
-    (``core/capture.py``)."""
+    (``core/capture.py``).  Inside ``uncounted`` nothing is counted."""
+    if _uncounted:
+        return
     if capturing is None:
         owner.launches += n
     else:

@@ -31,8 +31,11 @@ from ``launch.steps.make_decode_step(mdl, kv_len)`` over all ``kv_len``
 rows of the cache (``flash_decode`` in the stitched mode), as the
 reference's decode cells run (``--kv-len``).
 
-Not ported yet: the canary, the plan cache and the mesh key of the
-reference's dispatch table.
+``generate(..., plan_cache=d)`` plans through the plan cache in ``d``:
+the model keeps one set of compiled functions a (plan cache, autotune)
+(``Model.with_plan``), the counterpart of the reference's dispatch table
+keyed by (model, stitched, plan_cache).  Not ported yet: the canary and
+the mesh key of that table.
 """
 from __future__ import annotations
 
@@ -69,11 +72,15 @@ def greedy_step(mdl: Model, params: dict, cache: dict, *,
 
 
 def generate(mdl: Model, params: dict, prompts: np.ndarray, gen_len: int, *,
-             buckets: Buckets | None = None,
-             capture: bool = True) -> np.ndarray:
+             buckets: Buckets | None = None, capture: bool = True,
+             plan_cache: str | None = None) -> np.ndarray:
     """prompts: [B, S] int -> [B, S + gen_len] (greedy decode).  On the
     card the decode steps replay one captured graph (``greedy_step``);
-    ``capture=False`` runs them eagerly."""
+    ``capture=False`` runs them eagerly.  ``plan_cache`` (a directory)
+    selects the model's compiled functions that plan through it
+    (``Model.with_plan``; by default the model's own)."""
+    if plan_cache is not None:
+        mdl = mdl.with_plan(plan_cache, mdl.autotune)
     B, S = prompts.shape
     bk = buckets if buckets is not None else Buckets.from_env()
     # a recurrent prefill (ssm, hybrid) folds pad tokens into its state:

@@ -50,6 +50,7 @@ on the card.
 """
 from __future__ import annotations
 
+import copy
 import functools
 
 import torch
@@ -186,24 +187,60 @@ class Model:
     model owns its compiled functions, and each caches one compiled
     instance per input signature: repeated ``generate`` calls on one
     model never re-trace.
+
+    ``plan_cache`` (a directory; default ``$REPRO_PLAN_CACHE``) and
+    ``autotune`` are passed to every compiled function
+    (``stitched_jit``).  One model keeps one set of compiled functions
+    per (``plan_cache``, ``autotune``): ``with_plan`` returns the model
+    bound to another set, made at first use and kept -- the counterpart
+    of the reference's dispatch table keyed by (model, stitched,
+    plan_cache) (``src/repro/launch/serve.py:27-62``).
     """
 
     def __init__(self, cfg: ArchConfig, fusion_mode: str = "stitched", *,
                  device="cuda", hw: Hardware = H100,
-                 dispatch: str = "single"):
+                 dispatch: str = "single", plan_cache: str | None = None,
+                 autotune: bool = False):
         self.cfg = cfg
         self.fusion_mode = fusion_mode
-        self.fm = fm = FusionMode(fusion_mode)
+        self.fm = FusionMode(fusion_mode)
         self.device = resolve_device(device)
+        self._hw, self._dispatch = hw, dispatch
+        #: {(plan_cache, autotune): the model bound to that set}, shared
+        #: by every view of this model
+        self._sets: dict[tuple, Model] = {}
+        self._bind(plan_cache, autotune)
+
+    def with_plan(self, plan_cache: str | None = None,
+                  autotune: bool = False) -> "Model":
+        """This model with the compiled functions of (``plan_cache``,
+        ``autotune``): a view sharing the config and device, whose
+        compiled functions plan through that cache and measure when
+        ``autotune`` is on.  The same key gives the same view."""
+        key = (None if plan_cache is None else str(plan_cache),
+               bool(autotune))
+        view = self._sets.get(key)
+        if view is None:
+            view = copy.copy(self)
+            view._bind(*key)
+        return view
+
+    def _bind(self, plan_cache, autotune) -> None:
+        """Make this object's compiled functions, for (``plan_cache``,
+        ``autotune``), and register it in the shared table."""
+        cfg, fm = self.cfg, self.fm
+        self.plan_cache = None if plan_cache is None else str(plan_cache)
+        self.autotune = bool(autotune)
+        self._sets[(self.plan_cache, self.autotune)] = self
+        opts = dict(hw=self._hw, dispatch=self._dispatch, device=self.device,
+                    plan_cache=self.plan_cache, autotune=self.autotune)
 
         def jit(fn):
-            return stitched_jit(functools.partial(fn, cfg, fm), hw=hw,
-                                dispatch=dispatch, device=self.device)
+            return stitched_jit(functools.partial(fn, cfg, fm), **opts)
 
         self._jit = jit
         self.block = stitched_jit(
-            functools.partial(block_apply, cfg, fm=fm), hw=hw,
-            dispatch=dispatch, device=self.device)
+            functools.partial(block_apply, cfg, fm=fm), **opts)
         self.head = jit(head_apply)
         self.pre = jit(block_pre)
         self.post = jit(block_post)
@@ -347,12 +384,21 @@ class Model:
         return [t for c in cache.get("mamba", []) for t in c.values()]
 
     @property
+    def compiled_functions(self) -> list:
+        """This set's compiled functions (``stitched_jit``)."""
+        return [self.block, self.head, self.pre, self.post,
+                self.logits_head, self.mamba, self.shared_pre,
+                *self.static_posts.values()]
+
+    @property
     def n_compiled(self) -> int:
-        """Signatures compiled so far by all of the model's compiled
+        """Signatures compiled so far by all of this set's compiled
         functions."""
-        fns = [self.block, self.head, self.pre, self.post, self.logits_head,
-               self.mamba, self.shared_pre, *self.static_posts.values()]
-        return sum(f.n_compiled for f in fns)
+        return sum(f.n_compiled for f in self.compiled_functions)
+
+    def reports(self) -> list:
+        """The ``StitchReport`` of every signature this set compiled."""
+        return [r for f in self.compiled_functions for r in f.reports()]
 
     def _decode_post(self, kv_len):
         """The compiled ``block_post`` of a decode step, as a function of

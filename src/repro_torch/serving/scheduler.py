@@ -29,10 +29,17 @@ Where the reference differs, and why:
   the wave's tokens and positions and reads back [n_slots] token ids,
   nothing else.  ``capture=False`` runs the wave eagerly (to measure
   the difference); a capture that fails raises.
-* The reference's ``plan_cache``, ``autotune``, ``background`` and
-  ``canary`` options and the stats they fill have no counterpart: their
-  modules are not ported.  The prefill runs eagerly through the
-  model's compiled functions.
+* ``plan_cache`` and ``autotune`` select the model's set of compiled
+  functions (``Model.with_plan``): the reference passes them to its
+  stitched prefill and wave; the port stitches inside ``Model``, one
+  compiled function a layer half, so the model keeps one set a
+  (``plan_cache``, ``autotune``).  ``ServeStats.plan_cache_hits`` and
+  ``plan_cache_misses`` are summed from the set's compiled reports, as
+  in the reference.  A compile that measures (``autotune``) on the card
+  runs in the wave's warm-up, before its capture.  The reference's
+  ``background`` and ``canary`` options and the stats they fill have no
+  counterpart: their modules are not ported.  The prefill runs eagerly
+  through the model's compiled functions.
 """
 from __future__ import annotations
 
@@ -75,6 +82,10 @@ class ServeStats:
     shape_hits: int = 0        # calls on an already-compiled shape
     shape_misses: int = 0      # ...that traced and planned fresh (replans)
     compile_s: float = 0.0     # wall spent inside cold (first-shape) calls
+    # -- persistent plan cache (from StitchReport) ---------------------------
+    plan_cache_hits: int = 0   # compiled signatures loaded from disk
+    plan_cache_misses: int = 0  # ...planned from scratch
+    tune_s: float = 0.0        # seconds the compiles spent measuring
     # -- latency samples ------------------------------------------------------
     ttft_s: list = field(default_factory=list)   # submit -> first token
     wave_s: list = field(default_factory=list)   # per decode wave
@@ -120,7 +131,9 @@ class ServeStats:
     def summary(self) -> str:
         return (f"{self.prefills} prefills, {self.decode_waves} decode "
                 f"waves, {self.tokens_out} tokens | shape hit rate "
-                f"{self.hit_rate:.1%} ({self.replans} replans) | ttft "
+                f"{self.hit_rate:.1%} ({self.replans} replans) | "
+                f"plan-cache {self.plan_cache_hits}h/"
+                f"{self.plan_cache_misses}m | ttft "
                 f"p50/p99 {self.p50_ttft_s * 1e3:.1f}/"
                 f"{self.p99_ttft_s * 1e3:.1f}ms | tok p50/p99 "
                 f"{self.p50_tok_s * 1e3:.1f}/{self.p99_tok_s * 1e3:.1f}ms"
@@ -132,12 +145,18 @@ class ContinuousBatcher:
     """``submit`` prompts, then ``run`` until every request is served.
 
     ``mdl`` is the port's ``Model`` (its device is where the slots live);
-    ``params`` its weights, read in place at every wave."""
+    ``params`` its weights, read in place at every wave.  ``plan_cache``
+    (a directory) and ``autotune`` select the model's compiled functions
+    (``Model.with_plan``; by default the model's own)."""
 
     def __init__(self, mdl: Model, params: dict, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: int | None = None,
                  buckets: Buckets | None = None, pad_id: int = 0,
-                 capture: bool = True):
+                 capture: bool = True, plan_cache: str | None = None,
+                 autotune: bool = False):
+        mdl = mdl.with_plan(
+            plan_cache if plan_cache is not None else mdl.plan_cache,
+            autotune or mdl.autotune)
         self.mdl = mdl
         self.params = params
         self.n_slots = n_slots
@@ -192,7 +211,17 @@ class ContinuousBatcher:
                     self.slots[i] = None
             self._fill_slots()
         self.stats.wall_s += time.perf_counter() - t0
+        self._refresh_plan_stats()
         return results
+
+    def _refresh_plan_stats(self) -> None:
+        """Plan-cache hits and misses and the seconds spent measuring,
+        summed over the compiled signatures' reports."""
+        reports = self.mdl.reports()
+        self.stats.plan_cache_hits = sum(r.plan_cache_hit for r in reports)
+        self.stats.plan_cache_misses = sum(not r.plan_cache_hit
+                                           for r in reports)
+        self.stats.tune_s = sum(r.tune_s for r in reports)
 
     def compile_counts(self) -> dict[str, int]:
         """Prefill and decode calls that compiled new signatures of the

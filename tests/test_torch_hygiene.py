@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.kernels.ops, repro_torch.launch.serve, "
-            "repro_torch.launch.train, repro_torch.optim, repro_torch.data; "
+            "repro_torch.launch.train, repro_torch.optim, repro_torch.data, "
+            "repro_torch.core.plan_cache, repro_torch.core.autotune, "
+            "repro_torch.runtime, repro_torch.serving.scheduler; "
             "print('jax' in sys.modules, 'repro' in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -269,11 +269,14 @@ def test_serve_stats_percentiles_and_summary():
 
 def test_batcher_takes_no_reference_only_options():
     cfg, _, _, tparams = _setup(LLAMA)
-    for option in ("plan_cache", "autotune", "background", "canary",
-                   "donate"):
+    for option in ("background", "canary", "donate"):
         with pytest.raises(TypeError):
             ContinuousBatcher(Model(cfg, device="cpu"), tparams,
                               **{option: None})
+    # ported since: plan_cache and autotune select the model's set
+    b = ContinuousBatcher(Model(cfg, device="cpu"), tparams,
+                          plan_cache=None, autotune=False)
+    assert b.mdl.plan_cache is None and not b.mdl.autotune
     server = ContinuousBatcher(Model(cfg, device="cpu"), tparams, max_len=32)
     with pytest.raises(ValueError, match="exceeds a slot"):
         server.submit(np.zeros(25, np.int64), max_new=8)

@@ -104,7 +104,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    SDPA with the bias as its mask) and the bound; then the counted run of
    the bench's two blocks (2 B3 launches, 1 score_mod launch).  Every
    later phase prints its anchored groups and B3 launches per call or
-   step, and holds its anchored instances against their plain versions.
+   step, and holds its anchored instances against their plain versions;
+   ``describe`` lists each anchored group (its product's operands, the
+   folded primitives, the reductions its prologue and epilogue hold).
 3c. Router floor (``phase_router_floor``): one empty launch; B7 and B10
    alone at Granite's prefill and train rows, beside ``torch.softmax`` and
    ``torch._softmax_backward_data``; the router pair (the product, then
@@ -113,6 +115,26 @@ Phases, each of which makes the script exit non-zero when it fails:
    cost of one B7 call, layer by layer.  ``--phase router`` runs only the
    device line, the build and this phase, and ends with its rows as JSON
    (for comparing trees in one call; no path runs).
+3d. Anchor forms (``phase_anchor_forms``): B3 with a prologue that
+   reduces over K (an RMSNorm feeding Llama's gate projection, M 2048, K
+   3072, N 8192, built directly since the plan leaves it memory-only, and
+   feeding Granite's router, K 1024, N 32, which the plan folds; the
+   statistics pass's extra lhs reads printed), B3 with
+   a softmax epilogue across the N tiles of a cluster (M 2048, K 3072, N
+   512 and 2048), and the wide flash kernel with a generated score
+   functor (B 4, H 16, S 512, D 320, causal, bias [1, 1, 512, 512];
+   against float64, SDPA with the bias and the causal mask as its
+   library call), each as 3b; then the counted run of the router-width
+   RMSNorm, the N 2048 softmax and a wide attention through
+   ``stitched_jit`` (one launch of each form).
+3e. Differentiable (``phase_differentiable``): ``stitched_jit(fn,
+   differentiable=True)`` forward and backward (loss sum(y ** 2)) on the
+   Fig. 1 LayerNorm at [8192, 3072] and on Llama-3.2-3B's MLP input chain
+   (RMSNorm, then SiLU(h w_gate) x (h w_up); M 2048, K 3072, N 8192):
+   the launches of one counted step, each gradient within 1e-4 max(1,
+   max|g|) of plain autograd on the card, forward and backward device
+   times against eager autograd (and ``F.layer_norm``'s), the backward's
+   kernels and HBM bytes stitched against unfused.
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -135,7 +157,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    steps eager) fed the same tokens.  ``generate`` decodes through one
    captured CUDA graph a step (``launch/serve.py::greedy_step``); the
    phase times its replays against the same step run eagerly, profiles
-   one of each (``captured_vs_eager``: device busy beside the walls,
+   both (``captured_vs_eager``: device busy beside the walls,
    launches a step from the profiler, and a failure unless the replay
    calls no kernel wrapper and runs the eager step's kernels, by name and
    count).
@@ -226,7 +248,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``.TF32`` in B4, in the wide flash kernel and in B11's chunk and
    output passes), printed once;
    then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model), a
-   ``{"tuned": {...}}`` line (phase 5c's) and
+   ``{"tuned": {...}}`` line (phase 5c's), a ``{"differentiable":
+   {...}}`` line (phase 3e's) and
    a ``{"kernels": [...]}`` summary line (per kernel: the times of
    its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
@@ -652,6 +675,33 @@ def describe(name: str, compiled) -> None:
           f"anchored={rep.n_anchored} "
           f"reused={rep.emission_reused} plan_s={rep.plan_time_s:.3f} "
           f"schedules={rep.schedules}")
+    groups = anchored_groups(compiled)
+    if groups:
+        print(f"  {name.strip()} anchored groups: {json.dumps(groups)}")
+
+
+def anchored_groups(compiled) -> list:
+    """Each anchored group of a compiled function: its product's operand
+    shapes (or attention's q shape), the folded primitives, and the
+    reductions its prologue and epilogue hold."""
+    graph = compiled.graph
+    out = []
+    for em in compiled.emitted:
+        if em.kind != "anchored":
+            continue
+        members = [n for p in em.parts for n in p]
+        dots = [n for n in members if graph.node(n).prim == "dot_general"]
+        entry = getattr(em.fn, "entry", None)
+        out.append({
+            "operands": [[list(graph.node(i).spec.shape)
+                          for i in graph.node(d).inputs] for d in dots],
+            "folded": sorted(graph.node(n).prim for n in members
+                             if graph.node(n).prim != "dot_general"),
+            "prologue_reductions": getattr(entry, "pro_slots", 0),
+            "epilogue_reductions": getattr(entry, "epi_slots", 0),
+            "wide_score_mod": bool(getattr(getattr(
+                em.fn, "score_mod", None), "wide", False))})
+    return out
 
 
 def kernel_kind(name: str) -> str:
@@ -1237,6 +1287,342 @@ def phase_anchored_kernels(gen) -> tuple[dict, dict]:
     return checks, launches
 
 
+def rms_proj(x, g, w):
+    """An RMSNorm feeding a projection (Llama's layer halves: the norm
+    before the gate projection): B3's prologue reduces over K."""
+    import torch
+
+    return (x * torch.rsqrt((x ** 2).mean(-1, keepdim=True) + 1e-6) * g) @ w
+
+
+def softmax_proj(x, w):
+    """A softmax over N after the product: B3's epilogue reduces across
+    the N tiles of a thread-block cluster."""
+    import torch
+
+    return torch.softmax(x @ w, -1)
+
+
+def wide_attn(q, k, v, bias):
+    """Attention above head dim 256 whose scale and bias fold into the
+    wide kernel's score functor."""
+    import torch
+
+    s = q @ k.transpose(-1, -2) * (q.shape[-1] ** -0.5) + bias
+    return torch.softmax(s, -1) @ v
+
+
+def wide_causal_row(gen, D: int = 320) -> dict:
+    """The wide kernel with a generated score functor at B4 H16 S512 D
+    causal with a [1, 1, S, S] bias: the functor of ``wide_attn``'s
+    anchored group called causal (the score chain first, then the causal
+    mask, as the reference's ``_attn_kernel``), against the same function
+    in float64, with SDPA as its library call (the bias and the causal
+    mask as its float mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.tracer import const_tensor
+    from repro_torch.kernels import flash_attention as FA
+
+    B, H, S = BATCH, 16, PROMPT
+    args = tuple(torch.randn(*sh, generator=gen, device="cuda")
+                 for sh in ((B, H, S, D),) * 3 + ((1, 1, S, S),))
+    comp, ems = anchored_of(wide_attn, args)
+    em = ems[0]
+    mod = em.fn.score_mod
+    if mod is None or not mod.wide:
+        fail(f"wide attention D {D}: no wide score functor folded")
+    given = dict(zip(comp.graph.inputs, args))
+    sargs = [(given[i] if i in given else const_tensor(
+        comp.graph.node(i), "cuda")).reshape(sh)
+        for i, sh in em.fn.score_operands]
+    q, k, v = args[:3]
+    causal = torch.ones(S, S, dtype=torch.bool, device="cuda").triu(1)
+
+    def launch(*_):
+        return FA.flash_attention_cuda(q, k, v, True, 1.0, score_mod=mod,
+                                       score_args=sargs)
+
+    def plain(*_):
+        return FA.flash_attention_plain(q, k, v, True, 1.0, score_mod=mod,
+                                        score_args=sargs)
+
+    def reference(*_):
+        s = mod.plain(q.double() @ k.double().transpose(-1, -2),
+                      *[a.double() if a.is_floating_point() else a
+                        for a in sargs])
+        s = s.masked_fill(causal, -1e30)
+        return torch.softmax(s, -1) @ v.double()
+
+    mask = args[3].masked_fill(causal, float("-inf"))
+    pairs = B * H * S * (S + 1) // 2
+    members = frozenset(n for p in em.parts for n in p)
+    per_pair = comp.graph.subgraph_flops(members) / (B * H * S * S)
+    before = launch_counts()
+    res = check_cuda_kernel(
+        f"flash_wide_score_mod (scale D^-0.5 + bias [1, 1, {S}, {S}], "
+        f"causal) B{B} H{H} S{S} D{D}", launch, plain, [],
+        nbytes=4 * (4 * B * H * S * D + S * S), ops=per_pair * pairs,
+        mma_ops=4 * D * pairs, reps=20, reference=reference,
+        library=lambda *_: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=D ** -0.5))
+    launched("flash_wide_score_mod", before)
+    return res
+
+
+def forced_b3(fn, args):
+    """(compiled, B3 group) of ``fn``'s one product with its whole
+    prologue and epilogue chains, emitted for the card whatever the cost
+    model picks: the H100 preset folds a reducing prologue only where B3's
+    statistics pass reads no more than the fold saves (a narrow
+    projection), so the kernel row at Llama's width is built here."""
+    from repro_torch.core import H100, OpKind, stitched_jit
+    from repro_torch.core.codegen import emit_group
+
+    comp = stitched_jit(fn, dispatch="interpret").compiled(*args)
+    g = comp.graph
+    a = next(n for n in g.nodes if g.node(n).prim == "dot_general")
+    _, anc = g.reachability()
+    body = [n for n in g.nodes if n != a and g.node(n).kind
+            not in (OpKind.INPUT, OpKind.CONST)]
+    pro = frozenset(n for n in body if (anc[a] >> n) & 1)
+    parts = [p for p in (pro, frozenset({a}), frozenset(body) - pro) if p]
+    return comp, emit_group(g, parts, hw=H100, anchors=(a,))
+
+
+def phase_anchor_forms(gen) -> tuple[dict, dict]:
+    """The forms of the anchored kernels that the reference's kernels take
+    and the H100 gate once refused: B3 with a prologue that reduces over K
+    (an RMSNorm feeding Llama's gate projection, M 2048, K 3072, N 8192,
+    built by ``forced_b3``: the plan leaves it memory-only; and feeding
+    Granite's router, M 2048, K 1024, N 32, which the plan folds), B3 with
+    an epilogue that reduces across the N tiles of a cluster (a softmax at
+    M 2048, K 3072, N 512 and 2048), and the wide flash kernel with a
+    generated score functor (``wide_causal_row``), each against its plain
+    version with kernel, plain and library times and its bound; then the
+    counted run of the router-width RMSNorm, the N 2048 softmax and a wide
+    attention through ``stitched_jit`` (one launch of each form).
+    Returns (checks, launches)."""
+    import torch
+    from repro_torch.kernels import matmul as MM
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    checks: dict[str, list] = {}
+    Mp, K, N = BATCH * PROMPT, ANCHOR_K, ANCHOR_N
+    from repro_torch.core import stitched_jit
+
+    KR, NR = 1024, 32  # Granite-3.0-1B-A400M's d_model and experts
+    router_args = (randn(Mp, KR), randn(KR), randn(KR, NR, scale=KR ** -0.5))
+    for (Mx, Kx, Nx), args, main in (
+            ((Mp, K, N), (randn(Mp, K), randn(K),
+                          randn(K, N, scale=K ** -0.5)), True),
+            ((Mp, KR, NR), router_args, False)):
+        planned = stitched_jit(rms_proj).report(*args).n_anchored
+        comp, em = forced_b3(rms_proj, args)
+        if em.fn.entry.pro_slots != 1:
+            fail(f"RMSNorm prologue: {em.fn.entry.pro_slots} prologue slots")
+        tile = MM.TILES[em.fn.tile]
+        extra = Mx * Kx * 4 * -(-Nx // tile.bn)
+        print(f"  RMSNorm prologue M{Mx} K{Kx} N{Nx}: the plan folds it: "
+              f"{bool(planned)}; the statistics pass reads the lhs rows "
+              f"once more a level for each N tile: {extra / 1e9:.4f} GB (M "
+              f"K (N / {tile.bn}) floats, one level; the lhs itself "
+              f"{Mx * Kx * 4 / 1e6:.1f} MB)")
+        if planned != (not main):
+            fail(f"RMSNorm prologue M{Mx} K{Kx} N{Nx}: the plan folds it: "
+                 f"{bool(planned)}")
+        before = launch_counts()
+        res = check_anchored(
+            em, comp.graph, gen, inputs=ext_values(comp, em, args, gen),
+            reps=10, label=f"matmul_fused RMSNorm prologue (reduces over K) "
+                           f"M{Mx} K{Kx} N{Nx} (tile {em.fn.tile})",
+            library=product_call(Mx, Kx, Nx, gen))
+        launched("matmul_fused_prologue_reduce", before)
+        checks.setdefault("matmul_fused_prologue_reduce", []).append(
+            dict(res, _main=main))
+        del comp, em
+
+    epi_args = {}
+    for n in (512, 2048):
+        args = (randn(Mp, K), randn(K, n, scale=K ** -0.5))
+        epi_args[n] = args
+        comp, ems = anchored_of(softmax_proj, args)
+        em = ems[0]
+        blocks = -(-n // MM.TILE_ROW.bn)
+        before = launch_counts()
+        res = check_anchored(
+            em, comp.graph, gen, inputs=list(args), reps=10,
+            label=f"matmul_fused softmax epilogue across a cluster of "
+                  f"{blocks} M{Mp} K{K} N{n} (tile {em.fn.tile})",
+            library=product_call(Mp, K, n, gen))
+        launched("matmul_fused_cluster_epilogue", before)
+        checks.setdefault("matmul_fused_cluster_epilogue", []).append(
+            dict(res, _main=n == MM.ROW_MAX_N))
+        del comp, ems, em
+
+    checks["flash_wide_score_mod"] = [dict(wide_causal_row(gen),
+                                           _main=True)]
+
+    # the counted run: each function once through stitched_jit
+    attn_args = tuple(randn(*sh) for sh in ((2, 16, 256, 320),) * 3
+                      + ((1, 1, 256, 256),))
+    runs = [(rms_proj, router_args), (softmax_proj, epi_args[2048]),
+            (wide_attn, attn_args)]
+    fns = [stitched_jit(f) for f, _ in runs]
+    for f, (_, a) in zip(fns, runs):
+        f(*a)  # warm
+    reset_launch_counts()
+    ys = [f(*a) for f, (_, a) in zip(fns, runs)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"launches in one call of each form: {json.dumps(launches)}")
+    if (launches["matmul_fused_prologue_reduce"] != 1
+            or launches["matmul_fused_cluster_epilogue"] != 1
+            or launches["flash_wide_score_mod"] != 1
+            or launches["matmul_fused"] != 2):
+        fail("the three functions did not run as one launch of each form")
+    for (f, a), y in zip(runs, ys):
+        r = stitched_jit(f, dispatch="interpret")(*a)
+        if y.shape != r.shape or not torch.isfinite(y).all():
+            fail(f"{f.__name__}: shape {tuple(y.shape)} or non-finite")
+        print(f"{f.__name__} vs the op-by-op replay: max|d|="
+              f"{float((y - r).abs().max()):.3e} (max|y| "
+              f"{float(r.abs().max()):.3f})")
+    return checks, launches
+
+
+def layer_norm_fig1(x, gamma, beta):
+    """The paper's Fig. 1 LayerNorm (``examples/quickstart.py``)."""
+    import torch
+
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-6) * gamma + beta
+
+
+def llama_mlp_input(x, g, w_gate, w_up):
+    """Llama-3.2-3B's MLP input chain: the RMSNorm, then SiLU(h w_gate) x
+    (h w_up)."""
+    import torch
+    import torch.nn.functional as F
+
+    h = x * torch.rsqrt((x ** 2).mean(-1, keepdim=True) + 1e-6) * g
+    return F.silu(h @ w_gate) * (h @ w_up)
+
+
+#: A differentiable path's gradients against plain autograd on the card:
+#: max |dg| <= GRAD_RTOL max(1, max|g|), each tensor.
+GRAD_RTOL = 1e-4
+
+
+def differentiable_path(label: str, fn, args, library=None) -> dict:
+    """``stitched_jit(fn, differentiable=True)`` forward and backward on
+    the card (loss sum(y ** 2)): the launches of one counted step, each
+    gradient against plain autograd of ``fn`` (eager PyTorch ops, TF32
+    off), forward and backward device times against eager autograd (and
+    ``library``'s autograd where given), and the backward's kernels and
+    HBM bytes stitched against unfused."""
+    import torch
+    from repro_torch.core import stitched_jit
+
+    ins = [a.detach().requires_grad_() for a in args]
+    wrapped = stitched_jit(fn, differentiable=True)
+
+    def step(f):
+        y = f(*ins)
+        return torch.autograd.grad((y ** 2).sum(), ins)
+
+    t0 = time.perf_counter()
+    step(wrapped)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    reset_launch_counts()
+    got = step(wrapped)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = step(fn)
+    worst = 0.0
+    errs = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{label}: gradient {i} of shape {tuple(a.shape)} or "
+                 "non-finite")
+        e = float((a - b).abs().max())
+        lim = GRAD_RTOL * max(1.0, float(b.abs().max()))
+        errs.append(e)
+        worst = max(worst, e / lim)
+    fwd_rep = wrapped.report(*ins)
+    bwd_rep = wrapped.backward_reports()[0]
+
+    def times(f):
+        y = f(*ins)
+        loss = (y ** 2).sum()
+        fwd = time_ms(lambda: f(*ins), 10)
+        bwd = time_ms(lambda: torch.autograd.grad(loss, ins,
+                                                  retain_graph=True), 10)
+        return fwd, bwd
+
+    t_st, t_eager = times(wrapped), times(fn)
+    t_lib = times(library) if library is not None else None
+    st = bwd_rep.stats
+    print(f"differentiable {label}: compile_s={compile_s:.2f} launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+          f"gradients max|dg|={['%.3e' % e for e in errs]} (worst err/limit "
+          f"{worst:.3f}, limit {GRAD_RTOL:g} max(1, max|g|)); forward "
+          f"{t_st[0]:.4f} ms / backward {t_st[1]:.4f} ms (eager autograd "
+          f"{t_eager[0]:.4f} / {t_eager[1]:.4f}"
+          + (f"; library {t_lib[0]:.4f} / {t_lib[1]:.4f}" if t_lib else "")
+          + f"); forward schedules {fwd_rep.schedules}; backward "
+          f"schedules {bwd_rep.schedules}, kernels {st.n_kernels_stitched} "
+          f"stitched / {st.n_kernels_unfused} unfused, HBM "
+          f"{st.hbm_bytes_stitched / 1e6:.1f} / "
+          f"{st.hbm_bytes_unfused / 1e6:.1f} MB")
+    if not worst <= 1.0:
+        fail(f"{label}: the stitched gradients disagree with autograd")
+    if not launches["onepass"] + launches["streaming"] \
+            + launches["matmul_fused"]:
+        fail(f"{label}: no generated or B3 kernel launched")
+    DIFF_RESULTS[label] = {
+        "grad_worst": worst, "forward_ms": t_st[0], "backward_ms": t_st[1],
+        "eager_forward_ms": t_eager[0], "eager_backward_ms": t_eager[1],
+        "library_ms": t_lib, "launches": launches,
+        "backward_kernels": [st.n_kernels_stitched, st.n_kernels_unfused],
+        "backward_hbm_bytes": [st.hbm_bytes_stitched, st.hbm_bytes_unfused]}
+    return launches
+
+
+#: phase_differentiable's numbers, by path
+DIFF_RESULTS: dict = {}
+
+
+def phase_differentiable(gen) -> dict:
+    """``stitched_jit(differentiable=True)`` on the card: the Fig. 1
+    LayerNorm at the quickstart's [8192, 3072] (against ``F.layer_norm``'s
+    autograd too) and Llama-3.2-3B's MLP input chain (M 2048 = batch 4 x
+    512, K 3072, N 8192, weights at the model's init scale), forward and
+    backward (``differentiable_path``).  Returns the launches of both
+    counted steps."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    R, C = 8192, 3072
+    ln = differentiable_path(
+        f"Fig. 1 LayerNorm [{R}, {C}]", layer_norm_fig1,
+        (randn(R, C), randn(C), randn(C)),
+        library=lambda x, g, b: F.layer_norm(x, (C,), g, b, eps=1e-6))
+    M, K, N = BATCH * PROMPT, ANCHOR_K, ANCHOR_N
+    mlp = differentiable_path(
+        f"Llama MLP input chain M{M} K{K} N{N}", llama_mlp_input,
+        (randn(M, K), 1.0 + 0.1 * randn(K), randn(K, N, scale=K ** -0.5),
+         randn(K, N, scale=K ** -0.5)))
+    return {k: ln[k] + mlp[k] for k in ln}
+
+
 def at_shift(v, shift: int):
     """``v``'s values in a contiguous tensor that starts ``shift`` elements
     past an aligned address."""
@@ -1713,7 +2099,7 @@ def sass_check() -> None:
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     # (library glob, B name, kernel name fragments with products)
     kinds = (("mm_*.so", "B3", ("mm_fused_kernel",)),
-             ("attn_*.so", "B4", ("flash_fwd_kernel",)),
+             ("attn_*.so", "B4", ("flash_fwd_kernel", "flash_wide_kernel")),
              ("flash_attention-*.so", "B4", ("flash_fwd_kernel",)),
              ("flash_attention_wide-*.so", "B4 wide", ("flash_wide_kernel",)),
              ("ssd_scan-*.so", "B11", ("ssd_chunk_kernel",
@@ -1816,9 +2202,15 @@ def launch_counts() -> dict:
     from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
+    from repro_torch.kernels.flash_attention import WIDE_SCORE_MOD
+    from repro_torch.kernels.matmul import CLUSTER_EPILOGUE, PROLOGUE_REDUCE
+
     return {"onepass": OnePassKernel.launches,
             "flash_attention_wide": flash_attention_wide_cuda.launches,
             "matmul_fused": matmul_fused.launches,
+            "matmul_fused_prologue_reduce": PROLOGUE_REDUCE.launches,
+            "matmul_fused_cluster_epilogue": CLUSTER_EPILOGUE.launches,
+            "flash_wide_score_mod": WIDE_SCORE_MOD.launches,
             "flash_score_mod": ScoreMod.launches,
             "streaming": StreamingKernel.launches,
             "rmsnorm": rmsnorm_cuda.launches,
@@ -1843,6 +2235,11 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.softmax import softmax_bwd_cuda, softmax_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
+    from repro_torch.kernels.flash_attention import WIDE_SCORE_MOD
+    from repro_torch.kernels.matmul import CLUSTER_EPILOGUE, PROLOGUE_REDUCE
+
+    PROLOGUE_REDUCE.launches = CLUSTER_EPILOGUE.launches = 0
+    WIDE_SCORE_MOD.launches = 0
     OnePassKernel.launches = StreamingKernel.launches = 0
     flash_attention_wide_cuda.launches = 0
     matmul_fused.launches = ScoreMod.launches = 0
@@ -2162,62 +2559,83 @@ def static_vs_masked(model, params, cache, tok, pos: int) -> None:
         fail("the static-kv_len decode step disagrees with the masked one")
 
 
-#: Calls of a step in one of ``kernel_events``'s longer sessions, and
-#: the number of its one-call sessions.
+#: Counted calls of a step in each of ``kernel_events``'s sessions, after
+#: the session's first call, which is not counted.
 PROFILED_CALLS = 3
-#: ``kernel_events``'s sessions of ``PROFILED_CALLS`` calls.
+#: ``kernel_events``'s sessions.
 PROFILED_SESSIONS = 2
 
 
-def kernel_events(fn) -> tuple[float, dict]:
-    """Calls of ``fn`` under ``torch.profiler``, each session queued
-    behind a device sleep: (device busy ms a call, {kernel name: launches
-    a call}) -- a replayed graph's kernels included, copies and fills
-    not, whether they run as copies (``Memcpy`` / ``Memset`` records) or,
-    as a graph's copy nodes may, as kernels (``memcpy128``,
-    ``memcpy32_post``).  ``PROFILED_SESSIONS`` sessions of
-    ``PROFILED_CALLS`` calls, a count a call rounded up, and
-    ``PROFILED_CALLS`` sessions of one call, each after an unprofiled
-    call; a kernel's count is the largest any session gave.  On the H100
-    machine the profiler loses records, of replayed and eager steps
-    alike, and a loss only lowers a count: a session's first kernel now
-    and then, and a few records of one kernel or another in a long
-    process (up to three of 84 a call, in one session, where another
-    session lost none).  A kernel that one step launches and the other
-    does not differs at every call, so in every session."""
+def kernel_events(fn) -> tuple[float, dict, int]:
+    """Calls of ``fn`` under ``torch.profiler``: (device busy ms a call,
+    {kernel name: launches a call}, records dropped) -- a replayed graph's
+    kernels included, copies and fills not, whether they run as copies
+    (``Memcpy`` / ``Memset`` records) or, as a graph's copy nodes may, as
+    kernels (``memcpy128``, ``memcpy32_post``).  Each call is queued
+    behind a device sleep and ``PROFILE_PAD_KERNELS`` spin kernels, which
+    split a session's records into its calls and are counted nowhere.
+
+    On the H100 machine the profiler drops the first kernel records of
+    every session, a number that grows over a long process: 1 to 9 in run
+    26P, of the eager and the replayed step alike, always in a session's
+    first call and never in a later one (the spin kernels before the
+    first call do not take the loss).  So each of ``PROFILED_SESSIONS``
+    sessions makes one call more than it counts: its first call takes the
+    loss, ``PROFILED_CALLS`` calls follow, and a kernel's count is the
+    largest any counted call gave (a loss only lowers a count).  A kernel
+    that one step launches and the other does not differs at every call.
+    "Records dropped": the most by which a session's first call fell
+    short of that count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def session(calls: int) -> tuple[float, dict]:
+    def session() -> list:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1_000_000)
-            for _ in range(calls):
+            for _ in range(1 + PROFILED_CALLS):
+                torch.cuda._sleep(PROFILE_QUEUE_CYCLES)
+                for _ in range(PROFILE_PAD_KERNELS):
+                    torch.cuda._sleep(1)
                 fn()
             torch.cuda.synchronize()
-        busy, seen = 0.0, {}
-        for ev in prof.key_averages():
-            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+        calls, cur = [], []
+        for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
+            if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                    or ev.self_device_time_total <= 0
+                    or ev.name == "Command Buffer Full"):
                 continue
-            if (ev.self_device_time_total <= 0 or "spin_kernel" in ev.key
-                    or ev.key == "Command Buffer Full"):
+            if "spin_kernel" in ev.name:
+                if cur:
+                    calls.append(cur)
+                    cur = []
                 continue
-            busy += ev.self_device_time_total / 1e3
-            if not ev.key.lower().startswith(("memcpy", "memset")):
-                seen[ev.key] = seen.get(ev.key, 0) + ev.count
-        return busy / calls, {k: -(-n // calls) for k, n in seen.items()}
+            cur.append(ev)
+        if cur:
+            calls.append(cur)
+        if len(calls) != 1 + PROFILED_CALLS:
+            fail(f"kernel_events: the profiler's records split into "
+                 f"{len(calls)} calls, not {1 + PROFILED_CALLS}")
+        return calls
 
-    busy, names = session(PROFILED_CALLS)
-    counts = [session(PROFILED_CALLS)[1]
-              for _ in range(PROFILED_SESSIONS - 1)]
-    for _ in range(PROFILED_CALLS):
-        fn()
-        counts.append(session(1)[1])
-    for seen in counts:
-        for k, n in seen.items():
+    def kernels(call: list) -> dict:
+        seen: dict = {}
+        for ev in call:
+            if not ev.name.lower().startswith(("memcpy", "memset")):
+                seen[ev.name] = seen.get(ev.name, 0) + 1
+        return seen
+
+    sessions = [session() for _ in range(PROFILED_SESSIONS)]
+    counted = [c for calls in sessions for c in calls[1:]]
+    busy = sum(ev.self_device_time_total for c in counted
+               for ev in c) / 1e3 / len(counted)
+    names: dict = {}
+    for c in counted:
+        for k, n in kernels(c).items():
             names[k] = max(names.get(k, 0), n)
-    return busy, names
+    dropped = max(sum(names.values()) - sum(kernels(calls[0]).values())
+                  for calls in sessions)
+    return busy, names, dropped
 
 
 def graph_edges(graph) -> dict:
@@ -2247,9 +2665,18 @@ def graph_edges(graph) -> dict:
     return out
 
 
+#: Device cycles ``kernel_events`` sleeps before each profiled call
+#: (about 10 ms at 1.98 GHz), then ``PROFILE_PAD_KERNELS`` spin kernels.
+PROFILE_QUEUE_CYCLES = 20_000_000
+#: Spin kernels launched before each profiled call: with the sleep, the
+#: records that split a session into its calls (one lost record does not
+#: merge two calls).
+PROFILE_PAD_KERNELS = 8
+
+
 def captured_vs_eager(label: str, graph, eager, args: tuple,
                       wall_captured: float, wall_eager: float) -> dict:
-    """Profile one call of the captured step and one of the eager step on
+    """Profile calls of the captured step and of the eager step on
     the same inputs (the graph's own input tensors, so that PyTorch picks
     the same element-wise kernel templates, which depend on the operands'
     alignment): device busy beside the unprofiled walls, and the kernels
@@ -2262,10 +2689,10 @@ def captured_vs_eager(label: str, graph, eager, args: tuple,
     count = _build.count
     _build.count = lambda owner, n=1: calls.append(owner)
     try:
-        busy_c, names_c = kernel_events(lambda: graph(*args))
+        busy_c, names_c, lost_c = kernel_events(lambda: graph(*args))
     finally:
         _build.count = count
-    busy_e, names_e = kernel_events(lambda: eager(*graph.inputs))
+    busy_e, names_e, lost_e = kernel_events(lambda: eager(*graph.inputs))
     n_c, n_e = sum(names_c.values()), sum(names_e.values())
     if not n_c or not n_e:
         fail(f"{label}: the profiler saw no kernel ({n_c} replayed, {n_e} "
@@ -2278,7 +2705,9 @@ def captured_vs_eager(label: str, graph, eager, args: tuple,
           f"kernel launches a step from the profiler; eager wall "
           f"{wall_eager:.3f} ms, busy {busy_e:.3f} ms ({100 * share_e:.1f}%),"
           f" {n_e} launches; replays so far {graph.replays}, launches "
-          f"recorded into the graph by the wrappers: {json.dumps(tally)}")
+          f"recorded into the graph by the wrappers: {json.dumps(tally)}; "
+          f"records the profiler dropped from a session's first, uncounted "
+          f"call: {lost_c} replayed, {lost_e} eager")
     if calls:
         fail(f"{label}: a replay made {len(calls)} Python-side kernel calls")
     if names_c != names_e:
@@ -3282,6 +3711,9 @@ def main(argv=None) -> int:
     phase_router_floor(gen)
     anchor_checks, anchor_launches = phase_anchored_kernels(gen)
     checks.update(anchor_checks)
+    form_checks, form_launches = phase_anchor_forms(gen)
+    checks.update(form_checks)
+    diff_launches = phase_differentiable(gen)
     reset_launch_counts()
     fwd_launches, fwd_checks = phase_main_path(gen)
     checks.update(fwd_checks)
@@ -3342,6 +3774,15 @@ def main(argv=None) -> int:
              "src/repro/kernels/matmul.py:53"),
             ("flash_score_mod", "cuda",
              "src/repro_torch/csrc/flash_attention.cuh",
+             "src/repro/kernels/flash_attention.py:31"),
+            ("matmul_fused_prologue_reduce", "cuda",
+             "src/repro_torch/csrc/matmul_fused.cuh",
+             "src/repro/kernels/matmul.py:53"),
+            ("matmul_fused_cluster_epilogue", "cuda",
+             "src/repro_torch/csrc/matmul_fused.cuh",
+             "src/repro/kernels/matmul.py:53"),
+            ("flash_wide_score_mod", "cuda",
+             "src/repro_torch/csrc/flash_attention_wide.cuh",
              "src/repro/kernels/flash_attention.py:31")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
@@ -3358,7 +3799,9 @@ def main(argv=None) -> int:
                    "moe_scheduler": moe_sched_launches[name],
                    "hybrid_scheduler": hybrid_sched_launches[name],
                    "tuned": tuned_launches[name],
-                   "anchor_bench": anchor_launches[name]}
+                   "anchor_bench": anchor_launches[name],
+                   "anchor_forms": form_launches[name],
+                   "differentiable": diff_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3372,6 +3815,7 @@ def main(argv=None) -> int:
           "device line to the summary")
     print(json.dumps({"scheduler": SCHED_RESULTS}))
     print(json.dumps({"tuned": TUNED_RESULTS}, default=str))
+    print(json.dumps({"differentiable": DIFF_RESULTS}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,17 @@
 """FusionStitching core: trace -> plan -> stitch -> generated kernels, with
-the persistent plan cache and measured tuning."""
+the persistent plan cache and measured tuning; ``stitched_jit(...,
+differentiable=True)`` stitches the backward too."""
 from .costctx import CostContext
 from .cost_model import H100, V5E, Hardware, best_estimate, \
     delta_evaluator, partition_gain, stitch_gain
 from .ir import FusionPlan, Graph, Node, OpKind, Pattern, StitchGroup
 from .plan_cache import PlanCache, graph_signature
 from .planner import make_plan, plan_stats
-from .stitch import StitchedFunction, StitchReport, fusion_report, \
-    stitched_jit
+from .stitch import DifferentiableStitched, StitchedFunction, \
+    StitchReport, fusion_report, stitched_jit
 from .stitcher import PartitionCandidate, StitchStats, TopKResult, \
     make_groups, search_groups
-from .tracer import trace, trace_with_tree
+from .tracer import check_lowerings, trace, trace_with_tree
 
 __all__ = [
     "CostContext",
@@ -19,8 +20,9 @@ __all__ = [
     "FusionPlan", "Graph", "Node", "OpKind", "Pattern", "StitchGroup",
     "PlanCache", "graph_signature",
     "make_plan", "plan_stats",
-    "StitchedFunction", "StitchReport", "fusion_report", "stitched_jit",
+    "DifferentiableStitched", "StitchedFunction", "StitchReport",
+    "fusion_report", "stitched_jit",
     "PartitionCandidate", "StitchStats", "TopKResult",
     "make_groups", "search_groups",
-    "trace", "trace_with_tree",
+    "check_lowerings", "trace", "trace_with_tree",
 ]

@@ -1299,7 +1299,9 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
     out_roles = [epi_roles_d[o].value for o in out_ids]
     out_dtypes = [TORCH_DTYPES[graph.node(o).spec.dtype] for o in out_ids]
     out_shapes = [graph.node(o).spec.shape for o in out_ids]
-    row_reduce = any(graph.node(n).kind is OpKind.REDUCE for n in epi)
+    epi_slots = sum(graph.node(n).kind is OpKind.REDUCE for n in epi)
+    pro_slots = sum(graph.node(n).kind is OpKind.REDUCE for n in pro)
+    row_reduce = epi_slots > 0
     tile = mm.pick_tile(M, N, row_reduce)
     tiles = ([mm.TILES.index(mm.TILE_ROW)] if row_reduce else
              [mm.TILES.index(t) for t in (mm.TILE_LARGE, mm.TILE_SMALL,
@@ -1315,6 +1317,7 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
     entry = cc.GeneratedEntry("mm", source, "repro_mm_fused",
                               cc.MATMUL_ARGTYPES,
                               eager=hw.platform == "gpu")
+    entry.epi_slots, entry.pro_slots = epi_slots, pro_slots
 
     def operands(device, ext_vals):
         env = dict(zip(ext_ids, ext_vals))
@@ -1385,15 +1388,18 @@ def _emit_anchored_attention(graph: Graph, parts, m: dict, ext_ids,
         run_subgraph(graph, score_order, env, s.device)
         return env[s_pre].expand(B, H, Sq, Sk)
 
+    wide = fa.flash_instance(D) is None
+
     def source() -> str:
         return cc.attention_source(
-            cc.score_struct(graph, score_order, score_ext, qk, s_pre))
+            cc.score_struct(graph, score_order, score_ext, qk, s_pre),
+            wide=wide)
 
     mod = None
     if score:
         mod = fa.ScoreMod(plain_mod, cc.GeneratedEntry(
             "attn", source, "repro_flash_scored", cc.ATTENTION_ARGTYPES,
-            eager=hw.platform == "gpu"))
+            eager=hw.platform == "gpu"), wide=wide)
 
     def run(call, device, ext_vals):
         env = dict(zip(ext_ids, ext_vals))

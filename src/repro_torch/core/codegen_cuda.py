@@ -13,12 +13,14 @@ dtype (``_typed``): the anchored chains hold float32 and bool values (the
 H100 gate refuses others), the streaming groups every dtype of the row
 view.
 
-* ``prologue_struct`` -- ``Pro``: the lhs element (m, k).
+* ``prologue_struct`` -- ``Pro``: the lhs element (m, k), in phases
+  where the prologue reduces over K (its statistics first).
 * ``epilogue_struct`` -- ``Epi``: the epilogue in phases, as the
   streaming kernel runs a group: phase p evaluates the nodes of reduce level
   <= p and accumulates the reductions of level p + 1; the last phase
   stores the outputs.
-* ``score_struct`` -- ``Score``: flash attention's score functor.
+* ``score_struct`` -- ``Score``: flash attention's score functor (the
+  tuned instances' template, or the wide kernel's above head dim 256).
 * ``stream_struct`` -- ``Group``: a whole stitched group for the
   streaming kernel (``csrc/streaming.cuh``, B2), in the same phases, on
   the group's own dtypes: bfloat16 and float16 values compute in float32
@@ -35,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import math
+import re
 from typing import Sequence
 
 from .ir import Graph, OpKind
@@ -212,29 +215,60 @@ def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
                     operands: Sequence[int], lhs: int) -> str:
     """``Pro``: the lhs element (m, k) from the prologue operands (in
     ``operands`` order; a lone lhs operand when the prologue is empty,
-    and then ``kIdentity``: the kernel copies the raw float32 lhs)."""
+    and then ``kIdentity``: the kernel copies the raw float32 lhs), in
+    phases as ``Epi``: phase p < kPhases - 1 accumulates the reductions
+    over K of level p + 1 (the kernel's pass over the row before its
+    k-tiles), the last phase returns the element.  ``kStaged`` names the
+    operand the kernel stages a k-tile at a time with 16-byte copies (the
+    first float32 one of the whole (M, K) view; -1 if none), and
+    ``elem_at`` is ``elem`` with that operand's value given (read from
+    the staged tile, or as a float4 in the statistics pass)."""
     members = _members(graph, order)
-    body = [_load(k, graph.node(i).spec.dtype,
-                  _role_index(roles[i], "m", "k", "K"))
-            for k, i in enumerate(operands)]
-    w = _Writer(graph, operands, members)
-    for nid in members:
-        if graph.node(nid).kind is OpKind.REDUCE:
-            raise ValueError("a prologue that reduces over K has no CUDA "
-                             "instance (the cost model's gate refuses it)")
-        body.append(w.stmt(nid))
-    body.append(f"return static_cast<float>({w.val(lhs)});")
+    staged = next((k for k, i in enumerate(operands)
+                   if roles[i] is Role.FULL
+                   and graph.node(i).spec.dtype == "float32"), -1)
+    loads = [_load(k, graph.node(i).spec.dtype,
+                   _role_index(roles[i], "m", "k", "K"))
+             for k, i in enumerate(operands)]
+    at_loads = [f"const float x{k} = xs;" if k == staged else ld
+                for k, ld in enumerate(loads)]
+
+    def ret(w):
+        return [f"return static_cast<float>({w.val(lhs)});"]
+
+    branches, reduces, lvl, phases = _phased(graph, members, operands,
+                                             loads, ret)
+    at_branches = _phased(graph, members, operands, at_loads, ret)[0]
     n = len(operands)
     identity = (not members and list(operands) == [lhs]
                 and graph.node(lhs).spec.dtype == "float32")
+    slots = _slot_functions(graph, reduces, lvl, phases)
+    sig = ("long long m, long long k, long long K, const float* red, "
+           "float* part) const {")
     return "\n".join([
         "struct Pro {",
         f"  static constexpr bool kIdentity = {str(identity).lower()};",
         f"  static constexpr int kIn = {n};",
+        f"  static constexpr int kStaged = {staged};",
+        *slots[:3],
         f"  const void* in[{max(1, n)}];",
+        *slots[3:],
+        "  template <int P>",
+        f"  __host__ __device__ float elem({sig}",
+        "    (void)red; (void)part;",
+        *branches,
+        "    return 0.f;",
+        "  }",
+        "  template <int P>",
+        f"  __host__ __device__ float elem_at(float xs, {sig}",
+        "    (void)xs; (void)red; (void)part;",
+        *at_branches,
+        "    return 0.f;",
+        "  }",
         "  __host__ __device__ float operator()(long long m, long long k,",
-        "                                       long long K) const {",
-        *("    " + b for b in body),
+        "                                       long long K,",
+        "                                       const float* red) const {",
+        "    return elem<kPhases - 1>(m, k, K, red, nullptr);",
         "  }",
         "};"])
 
@@ -519,12 +553,21 @@ def score_struct(graph: Graph, order: Sequence[int],
 _HEAD = "// Generated by repro_torch.core.codegen_cuda: one anchored group."
 
 
+def struct_slots(struct: str) -> int:
+    """The row reductions (``kSlots``) of a generated ``Pro`` or ``Epi``."""
+    return int(re.search(r"static constexpr int kSlots = (\d+);",
+                         struct).group(1))
+
+
 def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
     """The ``.cu`` of one anchored matmul: the template instantiated with
     ``pro`` and ``epi`` at the tiles ``tiles`` (indices into
     ``kernels.matmul.TILES``), a C entry for the card, and the host
-    harness for the CPU tests."""
+    harness for the CPU tests.  Each instance's shared memory is asserted
+    to be ``Tile.smem`` at the chain's own counts of row reductions."""
     from ..kernels.matmul import TILES
+
+    epi_slots, pro_slots = struct_slots(epi), struct_slots(pro)
 
     cases, asserts = [], []
     for t in tiles:
@@ -532,9 +575,11 @@ def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
         cases.append(f"    case {t}: return static_cast<int>(repro_mm::launch<"
                      f"{c.template_args}>(pro, rhs, epi, M, K, N, s));")
         smem = (f"{c.bm}, {c.bn}, {c.bk}, {c.stages}, {c.raw_stages}, "
-                f"{c.wn}, {c.am}")
+                f"{c.wn}, {c.am}, Epi::kSlots, Pro::kSlots")
         asserts.append(f"static_assert(repro_mm::smem_bytes({smem}) == "
-                       f"{c.smem_bytes}, \"kernels/matmul.py::TILES[{t}]\");")
+                       f"{c.smem(epi_slots, pro_slots)}, "
+                       f"\"kernels/matmul.py::TILES[{t}]\");")
+
     return "\n".join([
         _HEAD, '#include "matmul_fused.cuh"', "", "namespace {", pro, "",
         epi, "}  // namespace", "",
@@ -558,8 +603,14 @@ def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
         "                               long long M, long long K) {",
         "  Pro pro;",
         "  for (int i = 0; i < Pro::kIn; ++i) pro.in[i] = ins[i];",
-        "  for (long long m = 0; m < M; ++m)",
-        "    for (long long k = 0; k < K; ++k) lhs[m * K + k] = pro(m, k, K);",
+        "  repro_mm::prologue_host(pro, lhs, M, K, false);",
+        "}",
+        'extern "C" void repro_host_pro_staged(const void* const* ins,',
+        "                                      float* lhs, long long M,",
+        "                                      long long K) {",
+        "  Pro pro;",
+        "  for (int i = 0; i < Pro::kIn; ++i) pro.in[i] = ins[i];",
+        "  repro_mm::prologue_host(pro, lhs, M, K, true);",
         "}",
         'extern "C" void repro_host_epi(const float* acc,',
         "                               const void* const* ins,",
@@ -572,12 +623,16 @@ def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
         "}", "#endif", ""])
 
 
-def attention_source(score: str) -> str:
+def attention_source(score: str, wide: bool = False) -> str:
     """The ``.cu`` of one anchored attention: the flash template
-    instantiated with the ``Score`` functor, a C entry for the card, and
-    the host harness of the functor for the CPU tests."""
+    (``csrc/flash_attention.cuh``, or with ``wide`` the template above
+    head dim 256, ``csrc/flash_attention_wide.cuh``) instantiated with the
+    ``Score`` functor, a C entry for the card, and the host harness of the
+    functor for the CPU tests."""
+    ns = "repro_flash_wide" if wide else "repro_flash"
+    header = "flash_attention_wide.cuh" if wide else "flash_attention.cuh"
     return "\n".join([
-        _HEAD, '#include "flash_attention.cuh"', "", "namespace {", score,
+        _HEAD, f'#include "{header}"', "", "namespace {", score,
         "}  // namespace", "", "#ifdef __CUDACC__",
         'extern "C" int repro_flash_scored(',
         "    const void* q, const void* k, const void* v, void* o, int B,",
@@ -591,13 +646,13 @@ def attention_source(score: str) -> str:
         "    mod.in[i] = score_in[i];",
         "    for (int d = 0; d < 4; ++d) mod.st[i][d] = score_st[4 * i + d];",
         "  }",
-        "  repro_flash::Params p{static_cast<const float*>(q),",
-        "                        static_cast<const float*>(k),",
-        "                        static_cast<const float*>(v),",
-        "                        static_cast<float*>(o), q_sb, q_sh, q_ss,",
-        "                        k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, Hq,",
-        "                        Hq / Hkv, Sq, Skv, D, scale, causal};",
-        "  return repro_flash::run(p, mod, B, static_cast<cudaStream_t>(stream));",
+        "  if (Hkv < 1 || Hq % Hkv != 0)",
+        "    return static_cast<int>(cudaErrorInvalidValue);",
+        f"  {ns}::Params p{{static_cast<const float*>(q),",
+        "      static_cast<const float*>(k), static_cast<const float*>(v),",
+        "      static_cast<float*>(o), q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
+        "      v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale, causal};",
+        f"  return {ns}::run(p, mod, B, static_cast<cudaStream_t>(stream));",
         "}", "#else",
         'extern "C" void repro_host_score(const float* s,',
         "                                 const void* const* ins,",

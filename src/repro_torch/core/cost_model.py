@@ -690,13 +690,14 @@ _GPU_CHAIN_DTYPES = ("float32", "bool")
 
 def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     """Shared memory of the CUDA instance the emitter would launch, from
-    that kernel's own tile constants; None where no instance can run the
-    group: a prologue that reduces (the kernel stages the lhs k-tile by
-    k-tile, never a whole row of K), an epilogue that reduces over an N
-    wider than the row tile or with more reductions than its slots, a
-    value outside float32 and bool, or an attention head dim the flash
-    kernel has no tuned instance for (above 256 the wide kernel runs,
-    which takes no score functor)."""
+    that kernel's own tile constants and the chain's own count of row
+    reductions (``Tile.smem``); the budget (``anchor_gain``) refuses an
+    instance past one block's shared memory.  None where no instance can
+    run the group: a value outside float32 and bool, or an epilogue that
+    reduces over an N wider than the row tile's largest cluster
+    (``matmul.ROW_MAX_N``).  An attention group prices the flash instance
+    of its head dim (above 256 the wide kernel's, which takes a score
+    functor as the tuned ones do)."""
     from ..kernels import flash_attention as fa
     from ..kernels import matmul as mm
 
@@ -707,9 +708,8 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
             return None
     if len(anchors) == 2:
         q = graph.node(graph.node(anchors[0]).inputs[0]).spec
-        if (q.dtype != "float32" or not q.shape
-                or fa.flash_instance(q.shape[-1]) is None):
-            return None                  # the wide kernel takes no score_mod
+        if q.dtype != "float32" or not q.shape:
+            return None
         return fa.flash_smem_bytes(q.shape[-1])
     if len(anchors) != 1:
         return None
@@ -725,13 +725,40 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     M = lhs.size // max(1, K)
     _, anc = graph.reachability()
     reduces = [n for n in members if graph.node(n).kind is OpKind.REDUCE]
-    if any((anc[a] >> n) & 1 for n in reduces):
-        return None                      # prologue reduction over K
-    if reduces and N > mm.TILE_ROW.bn:
-        return None                      # the row of N exceeds one block
-    if len(reduces) > mm.MAX_SLOTS:
-        return None                      # more row reductions than slots
-    return mm.TILES[mm.pick_tile(M, N, bool(reduces))].smem_bytes
+    pro = [n for n in reduces if (anc[a] >> n) & 1]
+    epi = [n for n in reduces if not (anc[a] >> n) & 1]
+    if epi and N > mm.ROW_MAX_N:
+        return None                      # wider than the largest cluster
+    return mm.TILES[mm.pick_tile(M, N, bool(epi))].smem(len(epi), len(pro))
+
+
+def prologue_stats_bytes(graph: Graph, anchors, parts) -> int:
+    """Extra lhs bytes B3's statistics pass reads when its prologue
+    reduces over K (``csrc/matmul_fused.cuh``): each block streams its lhs
+    rows once a reduce level before its k-tiles, so the lhs is read once
+    more a level for each N tile of the instance ``pick_tile`` launches;
+    0 for any other group."""
+    from ..kernels import matmul as mm
+
+    if len(anchors) != 1:
+        return 0
+    a = anchors[0]
+    node = graph.node(a)
+    if node.prim != "dot_general" or len(node.inputs) < 2:
+        return 0
+    members = frozenset(n for p in parts for n in p)
+    _, anc = graph.reachability()
+    pro = frozenset(n for n in members if (anc[a] >> n) & 1)
+    levels = max(reduce_levels(graph, pro).values(), default=0)
+    if not levels:
+        return 0
+    lhs = graph.node(node.inputs[0]).spec
+    K, N = lhs.shape[-1], graph.node(node.inputs[1]).spec.shape[-1]
+    M = lhs.size // max(1, K)
+    epi_reduces = any(graph.node(n).kind is OpKind.REDUCE
+                      for n in members - pro)
+    bn = mm.TILES[mm.pick_tile(M, N, epi_reduces)].bn
+    return levels * M * K * 4 * -(-N // bn)
 
 
 def _anchor_vmem(graph: Graph, anchors, hw: Hardware,
@@ -751,17 +778,26 @@ def anchor_gain(graph: Graph, anchors, parts, hw: Hardware = H100,
     Unlike ``stitch_gain`` this does not re-price the union schedule --
     the anchored kernel keeps the compute op's own grid and the folded
     chains ride along tile by tile, so the gain is pure interface
-    traffic plus launch collapse, gated by the working-set check.
+    traffic plus launch collapse, gated by the working-set check.  On a
+    GPU preset a prologue that reduces over K also costs B3's statistics
+    pass (``prologue_stats_bytes``): the fold is feasible only where that
+    pass reads no more than the interface saves (a narrow projection, such
+    as a router's; not a projection of thousands of columns).
     """
     saved = anchor_interface_bytes(graph, anchors, parts)
     launches_saved = max(0, len(parts) + len(anchors) - 1) \
         * (hw.launch_s + hw.hbm_latency_s)
     vmem = _anchor_vmem(graph, anchors, hw, parts)
+    # the CUDA B3 reads a reducing prologue's lhs rows again for its
+    # statistics: a fold that reads more than it saves is not taken
+    extra = (prologue_stats_bytes(graph, anchors, parts)
+             if hw.platform == "gpu" else 0)
     return AnchorGain(
-        latency_gain_s=saved / hw.hbm_bw + launches_saved,
+        latency_gain_s=(saved - extra) / hw.hbm_bw + launches_saved,
         hbm_bytes_saved=saved,
         vmem_bytes=-1 if vmem is None else vmem,
-        feasible=vmem is not None and vmem <= hw.anchor_budget,
+        feasible=(vmem is not None and vmem <= hw.anchor_budget
+                  and extra <= saved),
     )
 
 

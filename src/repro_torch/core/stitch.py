@@ -35,6 +35,10 @@ Dispatch:
 * ``"interpret"`` replays the traced graph op by op in plain PyTorch: the
   equivalence oracle.  The plan and report are built all the same.
 
+``differentiable=True`` (``DifferentiableStitched``) stitches the
+backward too: the VJP of ``fn``, traced functionalized, is another
+fusion-planned graph.
+
 A failed emission or launch raises: there is no fallback rung (the
 reference's guard ladder, shadow verification, canary, background racing
 and mesh options are not ported yet, ``ROADMAP.md`` A.8 and A.10).
@@ -346,11 +350,18 @@ class StitchedFunction:
     def __init__(self, fn: Callable, *, hw: Hardware = H100,
                  dispatch: str = "single", stitch_groups: bool = True,
                  device="cuda", plan_cache: str | None = None,
-                 autotune: bool = False, use_remote_fusion: bool = True):
+                 autotune: bool = False, use_remote_fusion: bool = True,
+                 functional: bool = False):
         if dispatch not in ("single", "interpret"):
             raise ValueError(
                 f"dispatch must be 'single' or 'interpret', got {dispatch!r}")
         self._fn = fn
+        self._options = dict(hw=hw, dispatch=dispatch,
+                             stitch_groups=stitch_groups, device=device,
+                             plan_cache=plan_cache, autotune=autotune,
+                             use_remote_fusion=use_remote_fusion)
+        self._functional = functional
+        self._autograd: DifferentiableStitched | None = None
         self._hw = hw
         self._dispatch = dispatch
         self._stitch_groups = stitch_groups
@@ -402,7 +413,8 @@ class StitchedFunction:
 
     def _build(self, args) -> _Compiled:
         t0 = time.perf_counter()
-        graph, out_spec = trace_with_tree(self._fn, *args)
+        graph, out_spec = trace_with_tree(self._fn, *args,
+                                          functional=self._functional)
         hw = self._hw
         ctx = CostContext(graph, hw)
         sig = graph_signature(graph, hw, remote_fusion=self._remote)
@@ -681,6 +693,15 @@ class StitchedFunction:
         return [c.report for c in self._cache.values()]
 
     def __call__(self, *args):
+        if (self.device.type == "cuda" and torch.is_grad_enabled()
+                and any(isinstance(a, torch.Tensor) and a.requires_grad
+                        for a in pytree.tree_leaves(args))):
+            # as the reference's function differentiates under jax.grad:
+            # the kernels forward, the stitched VJP backward
+            if self._autograd is None:
+                self._autograd = DifferentiableStitched(self._fn,
+                                                        **self._options)
+            return self._autograd(*args)
         compiled, flat = self._compile(args)
         return compiled(flat)
 
@@ -692,11 +713,137 @@ class StitchedFunction:
         return self._compile(args)[0].report
 
 
+def _static_key(v) -> Any:
+    """A non-tensor argument's part of a cache key."""
+    try:
+        hash(v)
+        return (type(v).__name__, v)
+    except TypeError:
+        return (type(v).__name__, repr(v))
+
+
+class _StitchedVJP(torch.autograd.Function):
+    """One differentiable call: the forward runs the stitched kernels and
+    saves the primal inputs (recompute-style, as the reference's
+    ``custom_vjp``); the backward runs the stitched VJP
+    (``DifferentiableStitched._backward``)."""
+
+    @staticmethod
+    def forward(ctx, owner, skey, out_spec, *tensors):
+        outs = pytree.tree_leaves(owner._forward[skey](*tensors))
+        ctx.owner, ctx.skey, ctx.out_spec = owner, skey, out_spec
+        ctx.save_for_backward(*tensors)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        grads = ctx.owner._backward(ctx.skey, ctx.out_spec, cts,
+                                    ctx.saved_tensors)
+        return (None, None, None, *grads)
+
+
+class DifferentiableStitched:
+    """``stitched_jit(fn, differentiable=True)``: a function whose
+    outputs carry autograd's graph.  The forward is ``fn`` stitched (its
+    kernels on the card); the backward is ``vjp_fn(ct, *primals)`` --
+    ``torch.func.vjp(fn, *primals)`` applied to the cotangents -- traced
+    functionalized and stitched too, one ``StitchedFunction`` a (shapes,
+    dtypes, device) key (``bwd_cache``), the reference's ``bwd_cache``
+    (``src/repro/core/stitch.py:1438-1460``): the paper's training
+    support, where the backward graph is just another fusion-planned
+    graph.  The backward keeps the forward's options (``plan_cache``,
+    ``autotune``, ``stitch_groups``, ...).  Arguments are pytrees; the
+    floating tensor leaves are differentiated, other tensor leaves are
+    inputs without a gradient, and non-tensor leaves are baked into the
+    traced function (one forward and backward a distinct value)."""
+
+    def __init__(self, fn: Callable, **options):
+        self._fn = fn
+        self._options = options
+        self.device = resolve_device(options.get("device", "cuda"))
+        self._forward: dict[tuple, StitchedFunction] = {}
+        self._tensor_fns: dict[tuple, Callable] = {}
+        self.bwd_cache: dict[tuple, StitchedFunction] = {}
+
+    def _split(self, args) -> tuple[tuple, list]:
+        """(static key, tensor leaves); the tensor function of the key
+        registered on first sight."""
+        flat, spec = pytree.tree_flatten(args)
+        pos = [i for i, a in enumerate(flat) if isinstance(a, torch.Tensor)]
+        statics = {i: a for i, a in enumerate(flat)
+                   if not isinstance(a, torch.Tensor)}
+        skey = (str(spec), len(flat), tuple(
+            (i, _static_key(a)) for i, a in sorted(statics.items())))
+        if skey not in self._tensor_fns:
+            fn, n = self._fn, len(flat)
+
+            def tensor_fn(*tensors, _spec=spec, _pos=tuple(pos),
+                          _statics=dict(statics)):
+                leaves = [_statics.get(i) for i in range(n)]
+                for i, t in zip(_pos, tensors):
+                    leaves[i] = t
+                return fn(*pytree.tree_unflatten(leaves, _spec))
+
+            self._tensor_fns[skey] = tensor_fn
+            self._forward[skey] = StitchedFunction(tensor_fn,
+                                                   **self._options)
+        return skey, [flat[i] for i in pos]
+
+    def __call__(self, *args):
+        skey, tensors = self._split(args)
+        out_spec = self._forward[skey].compiled(*tensors).out_spec
+        outs = _StitchedVJP.apply(self, skey, out_spec, *tensors)
+        return pytree.tree_unflatten(list(outs), out_spec)
+
+    def _backward(self, skey, out_spec, cts, primals) -> list:
+        diff = [i for i, t in enumerate(primals) if t.is_floating_point()]
+        key = (skey, tuple((tuple(t.shape), t.dtype) for t in primals),
+               str(primals[0].device) if primals else "")
+        sf = self.bwd_cache.get(key)
+        if sf is None:
+            tensor_fn = self._tensor_fns[skey]
+
+            def vjp_fn(ct, *prims, _diff=tuple(diff)):
+                def f(*d):
+                    full = list(prims)
+                    for i, t in zip(_diff, d):
+                        full[i] = t
+                    return tensor_fn(*full)
+
+                _, pullback = torch.func.vjp(f, *[prims[i] for i in _diff])
+                return pullback(ct)
+
+            sf = StitchedFunction(vjp_fn, functional=True, **self._options)
+            self.bwd_cache[key] = sf
+        grads = sf(pytree.tree_unflatten(list(cts), out_spec), *primals)
+        out: list = [None] * len(primals)
+        for i, g in zip(diff, grads):
+            out[i] = g
+        return out
+
+    def report(self, *args) -> StitchReport:
+        """The forward's report at ``args``."""
+        skey, tensors = self._split(args)
+        return self._forward[skey].report(*tensors)
+
+    def compiled(self, *args) -> _Compiled:
+        """The forward's compiled instance at ``args``."""
+        skey, tensors = self._split(args)
+        return self._forward[skey].compiled(*tensors)
+
+    def backward_reports(self) -> list[StitchReport]:
+        """The reports of every compiled backward instance."""
+        return [r for sf in self.bwd_cache.values() for r in sf.reports()]
+
+
 def stitched_jit(fn: Callable, *, hw: Hardware = H100,
                  dispatch: str = "single", stitch_groups: bool = True,
                  device="cuda", plan_cache: str | None = None,
                  autotune: bool = False,
-                 use_remote_fusion: bool = True) -> StitchedFunction:
+                 use_remote_fusion: bool = True,
+                 differentiable: bool = False):
     """Wrap ``fn`` (a function of tensors, or pytrees of tensors) with the
     FusionStitching trace -> plan -> stitch -> emit pipeline.
 
@@ -714,11 +861,24 @@ def stitched_jit(fn: Callable, *, hw: Hardware = H100,
     groups' schedules and the top-k partitions are measured instead of
     modeled, and the results land in the plan cache.
     ``use_remote_fusion=False`` turns off the planner's remote fusion.
+
+    With ``differentiable=True`` the result is a ``DifferentiableStitched``:
+    a ``torch.autograd.Function`` whose forward runs the stitched kernels
+    and saves the primal inputs, and whose backward traces the VJP of
+    ``fn`` (``torch.func.vjp``) and stitches it too, one stitched backward
+    a (shapes, dtypes, device) key -- recompute-style, as the reference's
+    ``custom_vjp``.  ``report`` is the forward's, ``backward_reports()``
+    the backward functions'.  Without it, a call on the card whose inputs
+    require grad (grad mode on) takes the same route, as the reference's
+    function differentiates under ``jax.grad``; on the CPU the plain
+    versions carry autograd's graph themselves.
     """
-    return StitchedFunction(fn, hw=hw, dispatch=dispatch,
-                            stitch_groups=stitch_groups, device=device,
-                            plan_cache=plan_cache, autotune=autotune,
-                            use_remote_fusion=use_remote_fusion)
+    options = dict(hw=hw, dispatch=dispatch, stitch_groups=stitch_groups,
+                   device=device, plan_cache=plan_cache, autotune=autotune,
+                   use_remote_fusion=use_remote_fusion)
+    if differentiable:
+        return DifferentiableStitched(fn, **options)
+    return StitchedFunction(fn, **options)
 
 
 def fusion_report(fn: Callable, *example_args, hw: Hardware = H100,

@@ -14,6 +14,13 @@ planner sees the same graph the reference sees for the same function:
   consumer;
 * ``pow`` by an integer -> ``integer_pow``; ``silu`` -> ``logistic`` * x;
   ``_softmax`` -> ``reduce_max``/``sub``/``exp``/``reduce_sum``/``div``;
+  ``gelu`` (tanh and exact) as ``jax.nn.gelu`` writes it; the backward
+  ops of the VJPs of the reference's patterns (``_softmax_backward_data``,
+  ``gelu_backward``, ``silu_backward``, ``sigmoid_backward``,
+  ``tanh_backward``, ``threshold_backward``) and ``relu`` in element-wise
+  primitives, and a filled tensor (``fill``, ``ones_like``, ...) as a
+  broadcast ``const`` (``_LOWERED``; ``check_lowerings`` holds each to its
+  aten op);
   ``where`` -> ``select_n``; ``mm``/``bmm`` -> ``dot_general``
   (``OpKind.ANCHOR``), folding a last-two-dims transpose of an operand and
   the flatten/unflatten views ``matmul`` wraps around ``mm``;
@@ -24,7 +31,9 @@ Every node keeps an executable handle -- ``params["_fn"]``, a callable
 ``fn(device, *input_tensors)`` -- so that any subgraph can be replayed in
 plain PyTorch (``bind_node``/``run_subgraph``), the counterpart of the
 reference's primitive re-binding.  An aten op with no lowering becomes an
-``OPAQUE`` node whose handle calls the aten op itself.
+``OPAQUE`` node whose handle calls the aten op itself.  A backward
+function is traced functionalized (``trace_with_tree(functional=True)``),
+so no in-place op reaches its graph.
 """
 from __future__ import annotations
 
@@ -368,6 +377,21 @@ class _Tracer:
                 ins.append(self.const(a, operand_dtype))
         return self.new(prim, ins, out, params=params)
 
+    def ew(self, prim: str, ins: Sequence, spec: TensorSpec, **params) -> int:
+        """An element-wise node on IR ids (ints) and Python floats (each
+        a ``const`` node of ``spec``'s dtype, float32 beside a bool
+        result), ranks raised as ``elementwise`` raises them: the building
+        block of the multi-node lowerings."""
+        rank = len(spec.shape)
+        ids = []
+        for a in ins:
+            if isinstance(a, float):
+                dt = spec.dtype if spec.dtype != "bool" else "float32"
+                ids.append(self.const(a, dt))
+            else:
+                ids.append(self.promote(a, rank))
+        return self.new(prim, ids, spec, params=params)
+
     # -- lowering ------------------------------------------------------------
     def lower(self, gm: torch.fx.GraphModule) -> Graph:
         placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
@@ -507,6 +531,8 @@ class _Tracer:
             return self.new("mul", (x, s), spec)
         if t is aten._softmax.default:
             return self.softmax(self.env[args[0]], int(args[1]), spec)
+        if t in _LOWERED:
+            return _LOWERED[t](self, n, spec)
         if t in (aten.mean.dim, aten.sum.dim_IntList, aten.amax.default,
                  aten.amin.default):
             x = self.env[args[0]]
@@ -688,6 +714,146 @@ class _Tracer:
                         fn=call)
 
 
+# --------------------------------------------------------------------------
+# multi-node lowerings: the ops a forward and the VJPs of the reference's
+# patterns emit, in the reference's primitives (each held to its aten op
+# by ``check_lowerings``)
+# --------------------------------------------------------------------------
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+_INV_SQRT_2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def _gelu(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``gelu``, as ``jax.nn.gelu`` writes it: ``x * cdf`` with the tanh
+    form's cdf ``0.5 (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))``, or the
+    exact one's ``(erf(x / sqrt 2) + 1) / 2``."""
+    x = tr.env[n.args[0]]
+    if n.kwargs.get("approximate", "none") == "tanh":
+        x3 = tr.new("integer_pow", (x,), spec, params={"y": 3})
+        inner = tr.ew("add", [x, tr.ew("mul", [0.044715, x3], spec)], spec)
+        t = tr.new("tanh", (tr.ew("mul", [_SQRT_2_OVER_PI, inner], spec),),
+                   spec)
+        cdf = tr.ew("mul", [0.5, tr.ew("add", [1.0, t], spec)], spec)
+        return tr.ew("mul", [x, cdf], spec)
+    e = tr.new("erf", (tr.ew("mul", [x, _INV_SQRT_2], spec),), spec)
+    return tr.ew("div", [tr.ew("mul", [x, tr.ew("add", [e, 1.0], spec)],
+                               spec), 2.0], spec)
+
+
+def _gelu_backward(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``gelu_backward(grad, x)``: ``grad * gelu'(x)``, the derivative of
+    the form ``approximate`` names (PyTorch's own formulas)."""
+    g, x = tr.env[n.args[0]], tr.env[n.args[1]]
+    approx = n.kwargs.get("approximate",
+                          n.args[2] if len(n.args) > 2 else "none")
+    if approx == "tanh":
+        x2 = tr.new("integer_pow", (x,), spec, params={"y": 2})
+        x3 = tr.new("integer_pow", (x,), spec, params={"y": 3})
+        inner = tr.ew("mul", [_SQRT_2_OVER_PI, tr.ew(
+            "add", [x, tr.ew("mul", [0.044715, x3], spec)], spec)], spec)
+        t = tr.new("tanh", (inner,), spec)
+        left = tr.ew("mul", [0.5, x], spec)
+        d_left = tr.ew("mul", [0.5, tr.ew("add", [1.0, t], spec)], spec)
+        d_inner = tr.ew("mul", [_SQRT_2_OVER_PI, tr.ew(
+            "add", [1.0, tr.ew("mul", [3.0 * 0.044715, x2], spec)], spec)],
+            spec)
+        sech2 = tr.ew("sub", [1.0, tr.ew("mul", [t, t], spec)], spec)
+        d_right = tr.ew("mul", [tr.ew("mul", [left, sech2], spec), d_inner],
+                        spec)
+        return tr.ew("mul", [g, tr.ew("add", [d_left, d_right], spec)], spec)
+    cdf = tr.ew("mul", [0.5, tr.ew("add", [1.0, tr.new(
+        "erf", (tr.ew("mul", [x, _INV_SQRT_2], spec),), spec)], spec)], spec)
+    pdf = tr.ew("mul", [_INV_SQRT_2PI, tr.new("exp", (tr.ew(
+        "mul", [-0.5, tr.ew("mul", [x, x], spec)], spec),), spec)], spec)
+    return tr.ew("mul", [g, tr.ew("add", [cdf, tr.ew("mul", [x, pdf], spec)],
+                                  spec)], spec)
+
+
+def _silu_backward(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``silu_backward(grad, x)``: ``grad s (1 + x (1 - s))``, s the
+    logistic of x."""
+    g, x = tr.env[n.args[0]], tr.env[n.args[1]]
+    sg = tr.new("logistic", (x,), spec)
+    inner = tr.ew("add", [1.0, tr.ew("mul", [x, tr.ew("sub", [1.0, sg], spec)],
+                                     spec)], spec)
+    return tr.ew("mul", [g, tr.ew("mul", [sg, inner], spec)], spec)
+
+
+def _sigmoid_backward(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``sigmoid_backward(grad, y)``: ``grad y (1 - y)``."""
+    g, y = tr.env[n.args[0]], tr.env[n.args[1]]
+    return tr.ew("mul", [g, tr.ew("mul", [y, tr.ew("sub", [1.0, y], spec)],
+                                  spec)], spec)
+
+
+def _tanh_backward(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``tanh_backward(grad, y)``: ``grad (1 - y^2)``."""
+    g, y = tr.env[n.args[0]], tr.env[n.args[1]]
+    return tr.ew("mul", [g, tr.ew("sub", [1.0, tr.ew("mul", [y, y], spec)],
+                                  spec)], spec)
+
+
+def _threshold_backward(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``threshold_backward(grad, x, t)``: 0 where x <= t, else grad (a
+    ``select_n``, as ``where`` lowers)."""
+    g, x = tr.env[n.args[0]], tr.env[n.args[1]]
+    keep = tr.ew("le", [x, float(n.args[2])], TensorSpec(spec.shape, "bool"))
+    return tr.ew("select_n", [keep, g, 0.0], spec)
+
+
+def _relu(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``relu``: ``max(x, 0)``, as ``jax.nn.relu``."""
+    return tr.ew("max", [tr.env[n.args[0]], 0.0], spec)
+
+
+def _softmax_backward(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """``_softmax_backward_data(grad, y, dim)``: ``y (grad - sum(grad y,
+    dim))``."""
+    g, y = tr.env[n.args[0]], tr.env[n.args[1]]
+    shape, rank = spec.shape, len(spec.shape)
+    dim = int(n.args[2]) % rank
+    red = tuple(d for i, d in enumerate(shape) if i != dim)
+    keep = tuple(1 if i == dim else d for i, d in enumerate(shape))
+    gy = tr.ew("mul", [g, y], spec)
+    s = tr.new("reduce_sum", (gy,), TensorSpec(red, spec.dtype),
+               params={"axes": (dim,)})
+    sb = tr.new("broadcast_in_dim", (s,), TensorSpec(keep, spec.dtype),
+                params={"shape": keep, "broadcast_dimensions": tuple(
+                    i for i in range(rank) if i != dim)})
+    return tr.ew("mul", [y, tr.ew("sub", [g, sb], spec)], spec)
+
+
+def _filled(tr: _Tracer, n, spec: TensorSpec) -> int:
+    """A tensor of one value (``fill``, ``ones_like``, ``zeros_like``,
+    ``full_like``): a broadcast ``const``, independent of the tensor it
+    was shaped like."""
+    t = n.target
+    value = (1 if t is aten.ones_like.default else
+             0 if t is aten.zeros_like.default else n.args[1])
+    c = tr.const(value, spec.dtype)
+    if not spec.shape:
+        return c
+    return tr.new("broadcast_in_dim", (c,), spec,
+                  params={"shape": spec.shape, "broadcast_dimensions": ()})
+
+
+_LOWERED: dict[Any, Callable] = {
+    aten.gelu.default: _gelu,
+    aten.gelu_backward.default: _gelu_backward,
+    aten.silu_backward.default: _silu_backward,
+    aten.sigmoid_backward.default: _sigmoid_backward,
+    aten.tanh_backward.default: _tanh_backward,
+    aten.threshold_backward.default: _threshold_backward,
+    aten.relu.default: _relu,
+    aten._softmax_backward_data.default: _softmax_backward,
+    aten.fill.Scalar: _filled,
+    aten.ones_like.default: _filled,
+    aten.zeros_like.default: _filled,
+    aten.full_like.default: _filled,
+}
+
+
 def _prune(graph: Graph) -> Graph:
     """Drop nodes no output depends on (folded transposes and views) and
     renumber densely, keeping topological order: the planner's convexity
@@ -709,7 +875,16 @@ def _prune(graph: Graph) -> Graph:
     return out
 
 
-def trace_with_tree(fn: Callable, *example_args) -> tuple[Graph, Any]:
+def _mutating(gm: torch.fx.GraphModule) -> list[str]:
+    """The in-place (mutating) aten ops of a traced graph."""
+    return sorted({str(n.target) for n in gm.graph.nodes
+                   if n.op == "call_function"
+                   and isinstance(n.target, torch._ops.OpOverload)
+                   and n.target._schema.is_mutable})
+
+
+def trace_with_tree(fn: Callable, *example_args,
+                    functional: bool = False) -> tuple[Graph, Any]:
     """Trace ``fn`` on example tensors (any pytree of tensors) to a Graph.
 
     Returns ``(graph, out_spec)``: graph inputs are the flattened leaves of
@@ -720,6 +895,13 @@ def trace_with_tree(fn: Callable, *example_args) -> tuple[Graph, Any]:
     one tensor twice (Zamba2's first shared block gets the embedding as
     both its hidden state and its ``emb0``): the compiled graph is reused
     for calls whose leaves differ.
+
+    ``functional`` traces ``fn`` under ``torch.func.functionalize`` (the
+    in-place ops autograd's formulas use, such as SiLU's ``fill_`` and
+    ``sub_``, become their out-of-place forms) and raises if an in-place
+    op is left: a backward function (``stitched_jit(differentiable=True)``)
+    is traced so.  Without it the trace keeps what ``fn`` does (an
+    in-place cache write stays an opaque, in-place node).
     """
     flat, in_spec = pytree.tree_flatten(example_args)
     flat = [t.detach() if isinstance(t, torch.Tensor) else t for t in flat]
@@ -731,13 +913,72 @@ def trace_with_tree(fn: Callable, *example_args) -> tuple[Graph, Any]:
         out, holder["spec"] = pytree.tree_flatten(res)
         return tuple(out)
 
-    gm = make_fx(flat_fn, tracing_mode="fake")(*flat)
+    if functional:
+        gm = make_fx(torch.func.functionalize(flat_fn, remove="mutations"),
+                     tracing_mode="fake")(*flat)
+        left = _mutating(gm)
+        if left:
+            raise ValueError(f"functionalized trace still mutates: {left}")
+    else:
+        gm = make_fx(flat_fn, tracing_mode="fake")(*flat)
     return _Tracer().lower(gm), holder["spec"]
 
 
-def trace(fn: Callable, *example_args) -> Graph:
+def trace(fn: Callable, *example_args, functional: bool = False) -> Graph:
     """``trace_with_tree`` without the output structure."""
-    return trace_with_tree(fn, *example_args)[0]
+    return trace_with_tree(fn, *example_args, functional=functional)[0]
+
+
+def lowering_cases(seed: int = 0, shape=(6, 40)) -> dict:
+    """{name: (the aten op as a function of tensors, its inputs)} for
+    every multi-node lowering (``_LOWERED``), on inputs from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def r():
+        return torch.randn(*shape, generator=gen)
+
+    x, g = r(), r()
+    y = torch.sigmoid(r())
+    return {
+        "gelu": (lambda a: aten.gelu(a), (x,)),
+        "gelu_tanh": (lambda a: aten.gelu(a, approximate="tanh"), (x,)),
+        "gelu_backward": (lambda a, b: aten.gelu_backward(a, b), (g, x)),
+        "gelu_backward_tanh": (lambda a, b: aten.gelu_backward(
+            a, b, approximate="tanh"), (g, x)),
+        "silu_backward": (lambda a, b: aten.silu_backward(a, b), (g, x)),
+        "sigmoid_backward": (lambda a, b: aten.sigmoid_backward(a, b),
+                             (g, y)),
+        "tanh_backward": (lambda a, b: aten.tanh_backward(a, b),
+                          (g, torch.tanh(x))),
+        "threshold_backward": (lambda a, b: aten.threshold_backward(
+            a, b, 0.0), (g, x)),
+        "relu": (lambda a: aten.relu(a), (x,)),
+        "_softmax_backward_data": (lambda a, b: aten._softmax_backward_data(
+            a, b, -1, torch.float32), (g, torch.softmax(x, -1))),
+        "fill": (lambda a: aten.fill(a, 1.5), (x,)),
+        "ones_like": (lambda a: aten.ones_like(a) * a, (x,)),
+        "zeros_like": (lambda a: aten.zeros_like(a) + a, (x,)),
+        "full_like": (lambda a: aten.full_like(a, -2.0), (x,)),
+    }
+
+
+def check_lowerings(seed: int = 0) -> dict:
+    """{name: (max |lowering - aten op|, OPAQUE nodes left)} of every
+    multi-node lowering: the op traced and lowered to the reference's
+    primitives, replayed op by op in plain PyTorch, against the aten op
+    itself on the same random inputs."""
+    out = {}
+    for name, (fn, args) in lowering_cases(seed).items():
+        graph = trace(fn, *args)
+        env = dict(zip(graph.inputs, args))
+        run_subgraph(graph, [n for n in graph.topo_order()
+                             if n not in env], env, "cpu")
+        got = env[graph.outputs[0]]
+        want = fn(*args)
+        opaque = sum(graph.node(n).kind is OpKind.OPAQUE
+                     for n in graph.nodes)
+        out[name] = (float((got.to(want.dtype) - want).abs().max()), opaque)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -5,11 +5,12 @@
 // pallas_call at :105): out = epilogue(prologue(lhs) @ rhs, operands).
 // core/codegen_cuda.py generates, per stitched chain, a .cu file that
 // includes this header and defines
-//   Pro  -- kIdentity (the lhs is operand 0, unchanged) and
-//           float operator()(long long m, long long k, long long K):
-//           the lhs element (m, k), computed from the prologue operands
-//           as the k-tile is staged (no reduction: the cost model's gate
-//           refuses a prologue that reduces over K);
+//   Pro  -- kIdentity (the lhs is operand 0, unchanged), kPhases, kSlots,
+//           slot_op(s), slot_phase(s) and
+//           template <int P> elem(m, k, K, red, part): phase P of the
+//           prologue on one lhs element.  A reduction over K accumulates
+//           into part[s] in its phase and is read as red[s] in the phases
+//           after; the last phase returns the lhs element (m, k).
 //   Epi  -- kPhases, kSlots, slot_op(s), slot_phase(s) and
 //           template <int P> elem(acc, m, n, N, red, part): phase P of
 //           the epilogue on one accumulator element; in the last phase it
@@ -36,10 +37,27 @@
 // times B3's limit off the plain product at K 8192, a sum each 32 of K
 // 0.3 times.
 //
+// A prologue's float32 operand of the whole (M, K) view (Pro::kStaged;
+// the lhs itself for the identity) is staged by cp.async as the identity
+// lhs is, and the producers evaluate the prologue on the staged values
+// (elem_at) as they split them; a prologue without one reads its
+// operands through `pro`.  A prologue that reduces over K (an RMSNorm
+// feeding a projection) needs each lhs row's statistics before its first
+// k-tile is split, and the block stages K a tile at a time: so every warp
+// of the block first streams the block's lhs rows over all of K, once a
+// reduce level (a row a warp, lanes along K four values at a time, the
+// partials combined by shuffles), and keeps the rows' statistics in
+// shared memory; the split then evaluates the prologue's last phase from
+// them.  That reads the lhs rows once more a level for each N tile (M K
+// (N / BN) floats a level, mostly from L2); one launch, as in the
+// reference.  (Blocks of a cluster along N sharing the statistics
+// through distributed shared memory, each computing a quarter of the
+// rows, measured slower on the card: the pass is bound by each block's
+// latency through its rows, not by the bytes.)
+//
 // A block is warp-specialized.  Its last PW warpgroups are producers,
 // each taking every PW-th k-tile: cp.async copies the float32 k-tiles of
-// the lhs (the identity prologue; any other prologue is evaluated by the
-// split instead) and of the rhs into a ring of RS raw stages, RS / PW - 1
+// the lhs (or the prologue's staged operand) and of the rhs into a ring of RS raw stages, RS / PW - 1
 // of a producer's tiles in flight; the producer then splits a landed
 // tile into the operand ring (ST stages): big and small as K-major
 // operand tiles in the canonical no-swizzle layout of `wgmma` (8 x
@@ -56,12 +74,19 @@
 // r and r + 8 of its warp's 16 rows and two adjacent columns of each 8,
 // so a row's reduction over the block's N is a per-thread partial, then
 // shuffles within the quad (xor 1, 2), then, where WN warpgroups split
-// N, one exchange through shared memory in a fixed order.  M, K and N
-// are runtime arguments, so a prefill and a decode call of one chain
-// share one instance.  Bound: operations at prefill sizes (2 M N K FLOP
-// against the split's 165 TFLOP/s), bytes at decode sizes (the K x N
-// panel over 3.35 TB/s), where the small tile streams the panel with two
-// blocks an SM.
+// N, one exchange through shared memory in a fixed order.  An epilogue
+// that reduces over N runs on the row tile, whose blocks along N form a
+// thread-block cluster (N / BN blocks, at most 8, the portable size):
+// after each reducing phase every block writes its rows' partials to its
+// own shared memory, and after `barrier.cluster` each reads all the
+// cluster's partials through distributed shared memory in rank order, so
+// every block combines the same values in the same order.  The slot
+// exchanges are sized from the chain's own count of reductions.  M, K
+// and N are runtime arguments, so a prefill and a decode call of one
+// chain share one instance.  Bound: operations at prefill sizes (2 M N K
+// FLOP against the split's 165 TFLOP/s), bytes at decode sizes (the K x
+// N panel over 3.35 TB/s), where the small tile streams the panel with
+// two blocks an SM.
 #pragma once
 
 #include "chain.cuh"
@@ -76,14 +101,19 @@ namespace repro_mm {
 // Shared memory of one block: ST operand stages of big and small TF32
 // tiles of the lhs (AM x BK: AM = BM rows, or 8 where M <= 8) and the rhs
 // (BN x BK), RS raw stages of the float32 k-tiles (the lhs rows padded to
-// BK + 4 floats), the exchange of the row reductions (WN x BM rows of
-// kMaxSlots), the 2 ST barriers.
-constexpr int kMaxSlots = 8;
+// BK + 4 floats), the epilogue's es row reductions (exchanged across the
+// WN consumer warpgroups, WN x BM rows, and across the cluster, BM rows),
+// the prologue's ps row statistics (AM rows), the 2 ST barriers.
 __host__ __device__ constexpr int smem_bytes(int bm, int bn, int bk, int st,
-                                             int rs, int wn, int am) {
-  return 4 * (st * 2 * (am + bn) * bk + rs * (am * (bk + 4) + bk * bn))
-         + (wn > 1 ? wn * bm * kMaxSlots * 4 : 0) + 2 * st * 8;
+                                             int rs, int wn, int am, int es,
+                                             int ps) {
+  return 4 * (st * 2 * (am + bn) * bk + rs * (am * (bk + 4) + bk * bn)
+              + (wn > 1 ? wn * bm * es : 0) + (es > 0 ? bm * es : 0)
+              + am * ps)
+         + 2 * st * 8;
 }
+// blocks a cluster of the row tile may hold (the portable size)
+constexpr int kMaxCluster = 8;
 
 #ifdef __CUDACC__
 
@@ -216,15 +246,42 @@ __device__ __forceinline__ int tile_off(int r, int c) {  // c: k / 4
   return ((r >> 3) * (BK / 4) + c) * 32 + (r & 7) * 4;
 }
 
+// The thread-block cluster: its size, a barrier of every thread of every
+// block (release / acquire: the shared-memory writes before it are
+// visible to the reads after it, in any block), and a float of block
+// `rank`'s shared memory at the address of `p` in this block's.
+__device__ __forceinline__ int cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return static_cast<int>(n);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // Phase P of the epilogue on a consumer's fragment: rows m and m + 8,
 // columns n + 8 j and n + 8 j + 1.  Reductions over N: per thread, then
 // across the quad, then (WN > 1) across the WN warpgroups of the row
-// through `xch` in a fixed order.
+// through `xch` in a fixed order, then across the cluster's blocks
+// through `cx` (each block's row partials, read by every block in rank
+// order).  A slot is written in its own phase only, so one barrier a
+// phase orders the writes before the reads.
 template <int P, int BM, int NW, int WN, class Epi>
 __device__ __forceinline__ void epi_phase(
     const Epi& e, const float (&acc)[NW / 2],
     float (&red)[2][Epi::kSlotsArr], long long m, long long n, long long M,
-    long long N, float* xch, int row, int wn, int consumers) {
+    long long N, float* xch, float* cx, int row, int wn, int consumers) {
+  constexpr int S = Epi::kSlots;
   if constexpr (P < Epi::kPhases) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -243,7 +300,7 @@ __device__ __forceinline__ void epi_phase(
                                part);
         }
 #pragma unroll
-      for (int s = 0; s < Epi::kSlots; ++s) {
+      for (int s = 0; s < S; ++s) {
         if (Epi::slot_phase(s) != P) continue;
         float v = part[s];
         v = repro_chain::combine(Epi::slot_op(s), v,
@@ -253,34 +310,111 @@ __device__ __forceinline__ void epi_phase(
         red[h][s] = v;
       }
     }
-    if constexpr (WN > 1 && Epi::kSlots > 0) {
-      // xch[wn][row][s] (BM rows): each quad's first thread writes its two
-      // rows' partials; every thread combines the WN of its rows in order
-      if ((threadIdx.x & 3) == 0)
+    if constexpr (S > 0 && P < Epi::kPhases - 1) {
+      if constexpr (WN > 1) {
+        // xch[wn][row][s] (BM rows): each quad's first thread writes its
+        // two rows' partials; every thread combines the WN of its rows in
+        // order
+        if ((threadIdx.x & 3) == 0)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int s = 0; s < S; ++s)
+              if (Epi::slot_phase(s) == P)
+                xch[(wn * BM + row + 8 * h) * S + s] = red[h][s];
+        asm volatile("bar.sync 1, %0;" :: "r"(consumers * 128) : "memory");
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int s = 0; s < Epi::kSlots; ++s)
-            if (Epi::slot_phase(s) == P)
-              xch[(wn * BM + row + 8 * h) * kMaxSlots + s] = red[h][s];
-      asm volatile("bar.sync 1, %0;" :: "r"(consumers * 128) : "memory");
+          for (int s = 0; s < S; ++s) {
+            if (Epi::slot_phase(s) != P) continue;
+            float v = xch[(row + 8 * h) * S + s];
+#pragma unroll
+            for (int w = 1; w < WN; ++w)
+              v = repro_chain::combine(Epi::slot_op(s), v,
+                                       xch[(w * BM + row + 8 * h) * S + s]);
+            red[h][s] = v;
+          }
+      }
+      // cx[row][s]: the block's row partials, then the cluster's in rank
+      // order (the producers meet the same barriers)
+      if ((threadIdx.x & 3) == 0 && wn == 0)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int s = 0; s < S; ++s)
+            if (Epi::slot_phase(s) == P) cx[(row + 8 * h) * S + s] = red[h][s];
+      cluster_sync();
+      const int blocks = cluster_blocks();
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int s = 0; s < Epi::kSlots; ++s) {
+        for (int s = 0; s < S; ++s) {
           if (Epi::slot_phase(s) != P) continue;
-          float v = xch[(row + 8 * h) * kMaxSlots + s];
-#pragma unroll
-          for (int w = 1; w < WN; ++w)
-            v = repro_chain::combine(
-                Epi::slot_op(s), v,
-                xch[(w * BM + row + 8 * h) * kMaxSlots + s]);
+          const float* src = cx + (row + 8 * h) * S + s;
+          float v = ld_cluster(src, 0);
+          for (int q = 1; q < blocks; ++q)
+            v = repro_chain::combine(Epi::slot_op(s), v, ld_cluster(src, q));
           red[h][s] = v;
         }
-      asm volatile("bar.sync 1, %0;" :: "r"(consumers * 128) : "memory");
     }
-    epi_phase<P + 1, BM, NW, WN>(e, acc, red, m, n, M, N, xch, row, wn,
+    epi_phase<P + 1, BM, NW, WN>(e, acc, red, m, n, M, N, xch, cx, row, wn,
                                  consumers);
+  }
+}
+
+// The prologue's statistics of one lhs row: phase P < kPhases - 1 over
+// all of K, the warp's lanes along K, each slot of phase P combined
+// across the warp (every lane ends with the row's value).  With `xrow`
+// (the staged operand's row, 16-byte aligned, K a multiple of 4) a lane
+// reads 4 consecutive values at once and gives them to elem_at.
+template <int P, class Pro>
+__device__ __forceinline__ void pro_stats(const Pro& pro, long long m, int K,
+                                          const float* xrow,
+                                          float (&red)[Pro::kSlotsArr],
+                                          int lane) {
+  if constexpr (P < Pro::kPhases - 1) {
+    float part[Pro::kSlotsArr];
+#pragma unroll
+    for (int s = 0; s < Pro::kSlotsArr; ++s)
+      part[s] = repro_chain::ident(Pro::slot_op(s));
+    if (xrow != nullptr) {
+      // U loads of 16 bytes in flight a lane before any is used: the pass
+      // is bound by the latency of L2, not by its rate
+      constexpr int U = 8;
+      for (int k0 = 4 * lane; k0 < K; k0 += 128 * U) {
+        float4 x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          x[u] = k0 + 128 * u < K
+                     ? *reinterpret_cast<const float4*>(xrow + k0 + 128 * u)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int k = k0 + 128 * u;
+          if (k >= K) break;
+          pro.template elem_at<P>(x[u].x, m, k, K, red, part);
+          pro.template elem_at<P>(x[u].y, m, k + 1, K, red, part);
+          pro.template elem_at<P>(x[u].z, m, k + 2, K, red, part);
+          pro.template elem_at<P>(x[u].w, m, k + 3, K, red, part);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int k = lane; k < K; k += 32)
+        pro.template elem<P>(m, k, K, red, part);
+    }
+#pragma unroll
+    for (int s = 0; s < Pro::kSlots; ++s) {
+      if (Pro::slot_phase(s) != P) continue;
+      float v = part[s];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        v = repro_chain::combine(Pro::slot_op(s), v,
+                                 __shfl_xor_sync(0xffffffffu, v, o));
+      red[s] = v;
+    }
+    pro_stats<P + 1>(pro, m, K, xrow, red, lane);
   }
 }
 
@@ -324,12 +458,13 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
   // registers moved from the producers to the consumers where four
   // warpgroups share the register file: 2 x 104 + 2 x 152 (x 128)
   constexpr bool kRealloc = CW == 2 && PW == 2;
-  static_assert(Epi::kSlots <= kMaxSlots, "row reductions");
+  constexpr int ES = Epi::kSlots, PS = Pro::kSlots;
   extern __shared__ __align__(128) float smem[];
   float* raw = smem + ST * STAGE_F;
-  float* xch = raw + RS * RAW_F;
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      xch + (WN > 1 ? WN * BM * kMaxSlots : 0));
+  float* xch = raw + RS * RAW_F;                  // [WN][BM][ES], WN > 1
+  float* cx = xch + (WN > 1 ? WN * BM * ES : 0);  // [BM][ES]
+  float* stats = cx + (ES > 0 ? BM * ES : 0);     // [AM][PS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + AM * PS);
   uint64_t* empty = full + ST;
 
   const int tid = threadIdx.x, wg = tid / 128;
@@ -350,6 +485,29 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // the operand staged by 16-byte copies: the raw float32 lhs of the
+  // identity prologue, else the prologue's own float32 (M, K) operand
+  // (kStaged), from which the split evaluates the prologue
+  const float* lhs =
+      static_cast<const float*>(pro.in[Pro::kStaged >= 0 ? Pro::kStaged : 0]);
+  const bool a_raw = Pro::kStaged >= 0 && (K & 3) == 0
+                     && (reinterpret_cast<uintptr_t>(lhs) & 15) == 0;
+  if constexpr (PS > 0) {
+    // the prologue's row statistics: a row a warp, every warp of the block
+    const int lane = tid & 31;
+    for (int r = tid >> 5; r < AM; r += blockDim.x >> 5) {
+      if (m0 + r >= M) break;
+      float red[Pro::kSlotsArr];
+#pragma unroll
+      for (int s = 0; s < Pro::kSlotsArr; ++s)
+        red[s] = repro_chain::ident(Pro::slot_op(s));
+      pro_stats<0>(pro, m0 + r, K, a_raw ? lhs + (m0 + r) * K : nullptr,
+                   red, lane);
+      if (lane == 0)
+#pragma unroll
+        for (int s = 0; s < PS; ++s) stats[r * PS + s] = red[s];
+    }
+  }
   __syncthreads();
 
   if (wg >= CW) {
@@ -361,11 +519,9 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
     // slots (kt mod RS), RR of them, RR - 1 in flight
     const int pw = wg - CW, pt = tid - 128 * wg;
     constexpr int RR = RS / PW;
-    const float* lhs = static_cast<const float*>(pro.in[0]);
     // 16-byte copies need K (N) a multiple of 4 and aligned bases; any
-    // other lhs (a prologue, an odd K) is read through `pro` by the split
-    const bool a_raw = Pro::kIdentity && (K & 3) == 0
-                       && (reinterpret_cast<uintptr_t>(lhs) & 15) == 0;
+    // other lhs (a prologue without a float32 (M, K) operand, an odd K) is
+    // read through `pro` by the split
     const bool b_raw = (N & 3) == 0
                        && (reinterpret_cast<uintptr_t>(rhs) & 15) == 0;
     // This thread's tasks, the same in every k-tile.  Copies: lhs chunk
@@ -463,8 +619,26 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
         for (int i = 0; i < TA; ++i) {
           if (!a_ok[i]) continue;
           const float4 x = *reinterpret_cast<const float4*>(ra + a_src[i]);
-          store4(a_big + a_dst[i], a_big + A_F + a_dst[i], x.x, x.y, x.z,
-                 x.w);
+          if constexpr (Pro::kIdentity) {
+            store4(a_big + a_dst[i], a_big + A_F + a_dst[i], x.x, x.y, x.z,
+                   x.w);
+          } else {
+            // the prologue's last phase on the staged values (columns
+            // past K stay zero, whatever the prologue makes of 0)
+            const int t = pt + 128 * i;
+            const long long m = m0 + (t / (8 * (BK / 4))) * 8 + (t & 7);
+            const int k = k0 + 4 * ((t >> 3) % (BK / 4));
+            const float* red = stats + (m - m0) * PS;
+            const float xv[4] = {x.x, x.y, x.z, x.w};
+            float v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = k + j < K ? pro.template elem_at<Pro::kPhases - 1>(
+                                     xv[j], m, k + j, K, red, nullptr)
+                               : 0.f;
+            store4(a_big + a_dst[i], a_big + A_F + a_dst[i], v[0], v[1],
+                   v[2], v[3]);
+          }
         }
       } else {
 #pragma unroll
@@ -476,7 +650,8 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
           float v[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            v[j] = k + j < K ? pro(m, k + j, K) : 0.f;
+            v[j] = k + j < K ? pro(m, k + j, K, stats + (m - m0) * PS)
+                             : 0.f;
           store4(a_big + a_dst[i], a_big + A_F + a_dst[i], v[0], v[1], v[2],
                  v[3]);
         }
@@ -517,6 +692,10 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
       issue(kt + PW * (RR - 1));
       split(kt);
     }
+    // the consumers' cluster barriers, one a reducing phase of the
+    // epilogue and one before the exit, are every thread's
+    if constexpr (ES > 0)
+      for (int p = 0; p < Epi::kPhases; ++p) cluster_sync();
   } else {
     // ---- consumers: wgmma on PROMO stages into a partial sum from zero,
     // then added on the CUDA cores ----------------------------------------
@@ -568,8 +747,11 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
     const int row = wm * 64 + warp * 16 + (lane >> 2);
     float red[2][Epi::kSlotsArr];
     epi_phase<0, BM, NW, WN>(epi, acc, red, m0 + row,
-                             n0 + wn * NW + 2 * (lane & 3), M, N, xch, row,
-                             wn, CW);
+                             n0 + wn * NW + 2 * (lane & 3), M, N, xch, cx,
+                             row, wn, CW);
+    // the cluster's reads of this block's partials are done before it
+    // exits
+    if constexpr (ES > 0) cluster_sync();
   }
 }
 
@@ -579,7 +761,8 @@ cudaError_t launch(const Pro& pro, const float* rhs, const Epi& epi, int M,
                    int K, int N, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (AM < BM && M > AM) return cudaErrorInvalidValue;
-  constexpr int bytes = smem_bytes(BM, BN, BK, ST, RS, WN, AM);
+  constexpr int bytes = smem_bytes(BM, BN, BK, ST, RS, WN, AM, Epi::kSlots,
+                                   Pro::kSlots);
   auto kernel =
       mm_fused_kernel<BM, BN, BK, ST, RS, WN, PROMO, PW, AM, Pro, Epi>;
   // above 48 KB only as dynamic shared memory, allowed per device: set on
@@ -589,8 +772,29 @@ cudaError_t launch(const Pro& pro, const float* rhs, const Epi& epi, int M,
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  kernel<<<grid, 128 * (BM / 64 * WN + PW), bytes, stream>>>(pro, rhs, epi,
-                                                             M, K, N);
+  const int threads = 128 * (BM / 64 * WN + PW);
+  if constexpr (Epi::kSlots == 0) {
+    kernel<<<grid, threads, bytes, stream>>>(pro, rhs, epi, M, K, N);
+    return cudaGetLastError();
+  }
+  // an epilogue that reduces over N: the blocks of a row form one cluster
+  const unsigned cluster = grid.x;
+  if (cluster > kMaxCluster) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, pro, rhs, epi, M, K, N);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -616,6 +820,57 @@ void epilogue_host(const Epi& e, const float* acc, long long M, long long N) {
   for (long long m = 0; m < M; ++m) {
     float red[Epi::kSlotsArr];
     epi_host_phase<0>(e, acc, m, N, red);
+  }
+}
+
+template <int P, class Pro>
+void pro_host_phase(const Pro& pro, long long m, long long K, float* red) {
+  if constexpr (P < Pro::kPhases - 1) {
+    float part[Pro::kSlotsArr];
+    for (int s = 0; s < Pro::kSlotsArr; ++s)
+      part[s] = repro_chain::ident(Pro::slot_op(s));
+    for (long long k = 0; k < K; ++k) pro.template elem<P>(m, k, K, red, part);
+    for (int s = 0; s < Pro::kSlots; ++s)
+      if (Pro::slot_phase(s) == P) red[s] = part[s];
+    pro_host_phase<P + 1>(pro, m, K, red);
+  }
+}
+
+template <int P, class Pro>
+void pro_host_phase_at(const Pro& pro, long long m, long long K, float* red) {
+  if constexpr (P < Pro::kPhases - 1) {
+    const float* xs = static_cast<const float*>(pro.in[Pro::kStaged]);
+    float part[Pro::kSlotsArr];
+    for (int s = 0; s < Pro::kSlotsArr; ++s)
+      part[s] = repro_chain::ident(Pro::slot_op(s));
+    for (long long k = 0; k < K; ++k)
+      pro.template elem_at<P>(xs[m * K + k], m, k, K, red, part);
+    for (int s = 0; s < Pro::kSlots; ++s)
+      if (Pro::slot_phase(s) == P) red[s] = part[s];
+    pro_host_phase_at<P + 1>(pro, m, K, red);
+  }
+}
+
+// the lhs the prologue makes, row by row: its statistics, then its
+// elements; with `staged` as the kernel makes it from a staged operand
+// (elem_at given the operand's value)
+template <class Pro>
+void prologue_host(const Pro& pro, float* lhs, long long M, long long K,
+                   bool staged) {
+  for (long long m = 0; m < M; ++m) {
+    float red[Pro::kSlotsArr];
+    for (int s = 0; s < Pro::kSlotsArr; ++s)
+      red[s] = repro_chain::ident(Pro::slot_op(s));
+    if (staged && Pro::kStaged >= 0) {
+      const float* xs = static_cast<const float*>(pro.in[Pro::kStaged]);
+      pro_host_phase_at<0>(pro, m, K, red);
+      for (long long k = 0; k < K; ++k)
+        lhs[m * K + k] = pro.template elem_at<Pro::kPhases - 1>(
+            xs[m * K + k], m, k, K, red, nullptr);
+    } else {
+      pro_host_phase<0>(pro, m, K, red);
+      for (long long k = 0; k < K; ++k) lhs[m * K + k] = pro(m, k, K, red);
+    }
   }
 }
 

@@ -180,6 +180,15 @@ def uncounted():
         _uncounted -= 1
 
 
+class LaunchCount:
+    """A launch counter of its own (``launches``) for one form of a
+    kernel whose wrapper counts every form elsewhere too."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
 def count(owner, n: int = 1) -> None:
     """Count ``n`` launches of ``owner``'s kernel in ``owner.launches``
     (a wrapper calls this where it launches).  A launch recorded into a

@@ -24,13 +24,16 @@ The kernel runs both products on the tensor cores through the
 three-way TF32 split (``kernels/split_float.py``), in instances for
 head dims 64, 80, 128 and 256 (``FLASH_HEAD_DIMS``; a D between two is
 zero-padded up to the next).  A head dim above 256 runs on a kernel of
-its own, ``csrc/flash_attention_wide.cu`` (``flash_attention_wide_cuda``:
+its own, ``csrc/flash_attention_wide.cuh`` (``flash_attention_wide_cuda``:
 the same split on the tensor cores, 8 warps a 64-row query tile that
 compute the scores once for every output column, K and V streamed in
 64-column chunks by cp.async; instances 320, 384, 448 and 512, a D below
 one read in place, above 512 output tiles of 512 columns), as the
-reference's kernel has no ceiling on D; it takes no ``score_mod``, so
-the H100 gate anchors no attention above 256.
+reference's kernel has no ceiling on D.  Its identity instance is
+``csrc/flash_attention_wide.cu``; a score chain above 256 gets a
+generated instance of the wide template, as one up to 256 gets one of
+``csrc/flash_attention.cuh`` (``ScoreMod.wide``; its launches count in
+``WIDE_SCORE_MOD``).
 
 ``flash_attention(q, k, v, causal, scale)`` runs the operator
 ``repro_torch::flash_attention``: on CPU tensors ``flash_attention_plain``,
@@ -170,14 +173,22 @@ class ScoreMod:
     """A score chain for the kernel: ``plain(s, *score_args)`` maps the
     scaled [B, H, Sq, Skv] scores to the pre-softmax ones on whole
     tensors; ``entry`` is the C entry of its generated CUDA instance
-    (``core.codegen_cuda.attention_source``).  ``launches`` counts the
-    kernel launches of every scored instance."""
+    (``core.codegen_cuda.attention_source``): of the tuned template
+    (``csrc/flash_attention.cuh``), or with ``wide`` of the wide one, for
+    head dims above ``MAX_HEAD_DIM``.  ``launches`` counts the kernel
+    launches of every scored instance of the tuned template,
+    ``WIDE_SCORE_MOD.launches`` those of the wide one."""
 
     launches = 0
 
-    def __init__(self, plain, entry):
+    def __init__(self, plain, entry, wide: bool = False):
         self.plain = plain
         self.entry = entry
+        self.wide = wide
+
+
+#: launches of the wide kernel's scored instances
+WIDE_SCORE_MOD = _build.LaunchCount("flash_wide_score_mod")
 
 
 def _check_score_args(q, k, score_args) -> None:
@@ -232,7 +243,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     or base) is copied, and a head dim between two instances is
     zero-padded up to the next (device time).  A head dim above
     ``MAX_HEAD_DIM`` runs on the wide kernel (``flash_attention_wide_cuda``),
-    which takes no ``score_mod``."""
+    with ``score_mod`` on its generated wide instance."""
     _check_shapes(q, k, v, causal)
     if score_mod is not None:
         _check_score_args(q, k, score_args)
@@ -246,12 +257,14 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    if score_mod is not None and score_mod.wide != (D > MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention_cuda: head dim {D} against a "
+                         f"score_mod instance of the "
+                         f"{'wide' if score_mod.wide else 'tuned'} kernel")
     if D > MAX_HEAD_DIM:
-        if score_mod is not None:
-            raise ValueError(f"flash_attention_cuda: head dim {D}: a "
-                             f"score_mod runs on the instances up to "
-                             f"{MAX_HEAD_DIM}")
-        return flash_attention_wide_cuda(q, k, v, causal, scale)
+        return flash_attention_wide_cuda(q, k, v, causal, scale,
+                                         score_mod=score_mod,
+                                         score_args=score_args)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     Dp = flash_instance(D)
     if Dp != D:  # zero dims add nothing to q k^T; o's are cut off below
@@ -267,33 +280,48 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         _build.check(_entry()(*args, stream), "repro_flash_attention_f32")
         _build.count(flash_attention_cuda)
         return o if Dp == D else o[..., :D]
+    _build.check(score_mod.entry(*args, *_score_operands(score_args, dev),
+                                 stream), "repro_flash_scored")
+    _build.count(ScoreMod)
+    return o if Dp == D else o[..., :D]
+
+
+def _score_operands(score_args, dev) -> tuple:
+    """(pointers, 4D element strides: 0 on each dim of extent 1) of the
+    score operands, as a generated instance's C entry takes them."""
     if any(a.device != dev or a.dtype not in (torch.float32, torch.bool)
            for a in score_args):
-        raise TypeError("flash_attention_cuda: score operands must be "
-                        f"float32 or bool on {dev}")
+        raise TypeError("flash attention: score operands must be float32 "
+                        f"or bool on {dev}")
     ins = (ctypes.c_void_p * max(1, len(score_args)))(
         *[a.data_ptr() for a in score_args])
     st = (ctypes.c_longlong * max(4, 4 * len(score_args)))(
         *[s if d != 1 else 0 for a in score_args
           for s, d in zip(a.stride(), a.shape)])
-    _build.check(score_mod.entry(*args, ins, st, stream),
-                 "repro_flash_scored")
-    _build.count(ScoreMod)
-    return o if Dp == D else o[..., :D]
+    return ins, st
 
 
 flash_attention_cuda.launches = 0  # identity-instance launches
 
 
 def flash_attention_wide_cuda(q, k, v, causal: bool = True,
-                              scale: float | None = None) -> torch.Tensor:
-    """Launch the wide kernel (``csrc/flash_attention_wide.cu``: float32 on
-    the tensor cores, head dims above ``MAX_HEAD_DIM``; on the current
-    stream).  q, k, v are taken with their strides and read in place (the
-    kernel zero-fills the columns past D of its instance); only a D that
-    is not a multiple of 4 (no config has one) is zero-padded up to one,
-    and a tensor the kernel cannot read with 16-byte copies is copied."""
+                              scale: float | None = None, *, score_mod=None,
+                              score_args=()) -> torch.Tensor:
+    """Launch the wide kernel (``csrc/flash_attention_wide.cuh``: float32
+    on the tensor cores, head dims above ``MAX_HEAD_DIM``; on the current
+    stream): its identity instance (``csrc/flash_attention_wide.cu``), or
+    with ``score_mod`` its generated wide instance, whose score operands
+    are read through 4D strides.  q, k, v are taken with their strides
+    and read in place (the kernel zero-fills the columns past D of its
+    instance); only a D that is not a multiple of 4 (no config has one) is
+    zero-padded up to one, and a tensor the kernel cannot read with
+    16-byte copies is copied."""
     _check_shapes(q, k, v, causal)
+    if score_mod is not None:
+        _check_score_args(q, k, score_args)
+        if not score_mod.wide:
+            raise ValueError("flash_attention_wide_cuda: a score_mod "
+                             "instance of the tuned kernel")
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention_wide_cuda: q on {q.device}, k on "
@@ -314,12 +342,18 @@ def flash_attention_wide_cuda(q, k, v, causal: bool = True,
                    for t in (q, k, v))
     q, k, v = (_aligned(t) for t in (q, k, v))
     o = torch.empty(B, Hq, Sq, Dp, dtype=torch.float32, device=dev)
-    _build.check(_wide_entry()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv,
-        Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(causal), torch.cuda.current_stream(dev).cuda_stream),
-        "repro_flash_wide_f32")
-    _build.count(flash_attention_wide_cuda)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
+            Hkv, Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], float(scale), int(causal))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if score_mod is None:
+        _build.check(_wide_entry()(*args, stream), "repro_flash_wide_f32")
+        _build.count(flash_attention_wide_cuda)
+    else:
+        _build.check(score_mod.entry(*args, *_score_operands(score_args,
+                                                             dev), stream),
+                     "repro_flash_scored")
+        _build.count(WIDE_SCORE_MOD)
     return o if Dp == D else o[..., :D]
 
 

@@ -20,7 +20,12 @@ memory, a 3072 x 8192 panel is 100 MB: the CUDA kernel
 ``core/codegen_cuda.py``) is a GPU GEMM instead -- a grid over (N tiles,
 M tiles), a loop over K through a ring of shared-memory stages, the
 products on the tensor cores (``wgmma``) through the three-way TF32
-split (``kernels/split_float.py``), float32 results.  ``TILES`` holds
+split (``kernels/split_float.py``), float32 results.  A prologue that
+reduces over K gets its row statistics from a pass over the block's lhs
+rows before the k-tiles; an epilogue that reduces over N runs on the row
+tile, whose blocks along N form a thread-block cluster of up to
+``MAX_CLUSTER`` (so N up to ``ROW_MAX_N``) that exchanges the row
+partials through distributed shared memory.  ``TILES`` holds
 its tile constants; the cost model's H100 feasibility gate
 (``cost_model._anchor_vmem``) and the launcher read them from here, so
 the two cannot drift apart (the generated source asserts each
@@ -38,6 +43,8 @@ from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import torch
+
+from . import _build
 
 ROLE_FULL, ROLE_ROW, ROLE_COL, ROLE_SCALAR = "full", "row", "col", "scalar"
 
@@ -86,21 +93,28 @@ class Tile:
                 f"{self.raw_stages}, {self.wn}, {self.promote}, "
                 f"{self.producers}, {self.am}")
 
-    @property
-    def smem_bytes(self) -> int:
+    def smem(self, epi_slots: int = 0, pro_slots: int = 0) -> int:
         """Shared memory of one block (``smem_bytes`` in
-        ``csrc/matmul_fused.cuh``): the operand stages (big and small TF32
-        tiles of the lhs and the rhs), the raw stages (the lhs rows padded
-        by 4 floats), the exchange of the row reductions where ``wn`` > 1,
-        and two barriers a stage."""
+        ``csrc/matmul_fused.cuh``) for a chain whose epilogue holds
+        ``epi_slots`` row reductions and whose prologue ``pro_slots``: the
+        operand stages (big and small TF32 tiles of the lhs and the rhs),
+        the raw stages (the lhs rows padded by 4 floats), the epilogue's
+        slot exchanges (across the ``wn`` consumer warpgroups where ``wn``
+        > 1, and across the cluster), the prologue's row statistics, and
+        two barriers a stage."""
         op = self.stages * 2 * (self.am + self.bn) * self.bk
         raw = self.raw_stages * (self.am * (self.bk + 4) + self.bk * self.bn)
-        xch = self.wn * self.bm * MAX_SLOTS * 4 if self.wn > 1 else 0
-        return 4 * (op + raw) + xch + 16 * self.stages
+        xch = self.wn * self.bm * epi_slots if self.wn > 1 else 0
+        cx = self.bm * epi_slots
+        return 4 * (op + raw + xch + cx + self.am * pro_slots) \
+            + 16 * self.stages
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of one block of a chain without reductions."""
+        return self.smem()
 
 
-#: row reductions an epilogue may hold (``kMaxSlots``)
-MAX_SLOTS = 8
 #: prefill-sized M: 128 x 128 a block (two consumer warpgroups of 64 x
 #: 128, two producers), 16 deep, 6 raw and 3 operand stages, a partial
 #: sum each 32 of K (208,944 bytes: one block an SM)
@@ -110,16 +124,32 @@ TILE_LARGE = Tile(128, 128, 16, 3, 6, promote=2, producers=2)
 #: so that N / 32 blocks stream the panel (bytes bound there), a partial
 #: sum each 64 of K
 TILE_SMALL = Tile(64, 32, 32, 3, 3, promote=2)
-#: epilogues that reduce over N: the whole row of N (<= 256) in one block,
-#: two consumer warpgroups of 64 x 128 side by side along N, two producers
+#: epilogues that reduce over N: 256 columns of N a block, two consumer
+#: warpgroups of 64 x 128 side by side along N, two producers; the
+#: blocks of a row form one thread-block cluster that exchanges the row
+#: partials through distributed shared memory
 TILE_ROW = Tile(64, 256, 16, 3, 4, wn=2, promote=2, producers=2)
 #: decode (M <= 8): 8 lhs rows in shared memory, which frees it for 12
 #: raw stages (11 k-tiles of the panel in flight a block) and two blocks
 #: an SM, N / 32 blocks streaming the panel (bytes bound)
 TILE_DECODE = Tile(64, 32, 32, 3, 12, promote=2, a_rows=8)
 TILES = (TILE_LARGE, TILE_SMALL, TILE_ROW, TILE_DECODE)
+#: blocks a cluster of the row tile holds at most (``kMaxCluster``: the
+#: portable cluster size, which every H100 grants), and so the widest N
+#: an epilogue may reduce over: the gate refuses a wider one (it then
+#: runs memory-only), and otherwise only by shared memory
+MAX_CLUSTER = 8
+ROW_MAX_N = MAX_CLUSTER * TILE_ROW.bn
 #: the H100's streaming multiprocessors
 SMS = 132
+
+
+#: Launches of two forms, counted beside ``matmul_fused.launches`` (which
+#: counts every form): instances whose prologue reduces over K (its row
+#: statistics first)
+PROLOGUE_REDUCE = _build.LaunchCount("matmul_fused_prologue_reduce")
+#: launches whose epilogue reduces across the N tiles of a cluster
+CLUSTER_EPILOGUE = _build.LaunchCount("matmul_fused_cluster_epilogue")
 
 
 def pick_tile(M: int, N: int, row_reduce: bool) -> int:
@@ -173,10 +203,13 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
                       out_dtypes: Sequence, entry, tile: int) -> tuple:
     """Launch a generated instance of ``csrc/matmul_fused.cuh``.
 
-    ``entry`` is the instance's C entry point (``codegen_cuda``), ``tile``
+    ``entry`` is the instance's C entry point (``codegen_cuda``; its
+    ``pro_slots`` and ``epi_slots`` are the chain's row reductions), ``tile``
     an index into ``TILES``.  The rhs is read as a contiguous [K, N]
     float32 panel, every operand as a contiguous array of its role's
-    view."""
+    view.  Every launch counts in ``matmul_fused.launches``; one with a
+    reducing prologue also in ``PROLOGUE_REDUCE``, one whose epilogue
+    reduces across more than one N tile in ``CLUSTER_EPILOGUE``."""
     dev = rhs.device
     vals = list(pro_args) + [rhs] + list(epi_args)
     if any(v.device != dev for v in vals) or dev.type != "cuda":
@@ -195,12 +228,14 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
         return (ctypes.c_void_p * max(1, len(ts)))(
             *[t.data_ptr() for t in ts])
 
-    from . import _build
-
     _build.check(entry(
         tile, ptrs(pro), rhs.data_ptr(), ptrs(epi), ptrs(outs), M, K, N,
         torch.cuda.current_stream(dev).cuda_stream), "repro_mm_fused")
     _build.count(matmul_fused)
+    if getattr(entry, "pro_slots", 0):
+        _build.count(PROLOGUE_REDUCE)
+    if getattr(entry, "epi_slots", 0) and N > TILE_ROW.bn:
+        _build.count(CLUSTER_EPILOGUE)
     return tuple(outs)
 
 

@@ -555,8 +555,9 @@ def test_h100_anchoring_decisions_at_the_carried_shapes(anchoring_on, name):
     """The H100 gate's decisions on every path's pieces at full width:
     the MLP gate projection anchored in Llama's layer (SiLU x up) and in
     Zamba2's shared block (GeGLU), each on the large tile; nothing in the
-    attention half, the head (its RMSNorm prologue reduces over K), the
-    MoE layer or the Mamba layers.  Whole-block shared memory as the
+    attention half, the head (its RMSNorm is B6's custom op, and its
+    softmax over the vocabulary is wider than a cluster of the row tile
+    holds), the MoE layer or the Mamba layers.  Whole-block shared memory as the
     budget admits no more than half of it did."""
     fn, args, want = _meta_case(name)
     rep, got = _h100_anchored(fn, *args)
@@ -583,12 +584,18 @@ def _matmul_then(epilogue, N, K=64, M=32):
     return fn, (torch.randn(M, K), torch.randn(K, N))
 
 
-@pytest.mark.parametrize("N,anchored", [(256, 1), (512, 0)])
+@pytest.mark.parametrize("N,anchored", [(256, 1), (512, 1), (2048, 1),
+                                        (2304, 0)])
 def test_h100_gate_refuses_an_epilogue_reduction_wider_than_a_block(
         anchoring_on, N, anchored):
-    """A softmax over N after the product: the row tile holds 256 columns,
-    so N 512 stays memory-only on the H100 (the reference's V5E gate
-    admits it: it keeps the row in VMEM)."""
+    """A softmax over N after the product: the row tile's blocks along N
+    form one thread-block cluster of at most ``MAX_CLUSTER`` (8 x 256 =
+    2,048 columns), which exchanges the row partials through distributed
+    shared memory, so N 512 and 2048 anchor on the H100 and N 2304, past
+    the largest cluster, stays memory-only (the reference's V5E gate
+    admits each: it keeps the row in VMEM).  The stitched result is the
+    function's either way."""
+    assert MM.ROW_MAX_N == 2048
     fn, args = _matmul_then(lambda h: torch.softmax(h, -1), N)
     rep = tcore.stitched_jit(fn, device="cpu").report(*args)
     assert rep.n_anchored == anchored
@@ -598,33 +605,143 @@ def test_h100_gate_refuses_an_epilogue_reduction_wider_than_a_block(
     torch.testing.assert_close(sf(*args), fn(*args), rtol=1e-5, atol=1e-6)
 
 
-def test_h100_gate_refuses_a_prologue_reduction(anchoring_on):
-    """An RMSNorm feeding the product: the CUDA kernel stages the lhs
-    k-tile by k-tile, never a row of K, so the fold is refused on the
-    H100 (and admitted under V5E)."""
-    def fn(x, w, g):
-        xn = x * torch.rsqrt((x ** 2).mean(-1, keepdim=True) + 1e-6) * g
-        return xn @ w
+def _rmsnorm_proj(x, w, g):
+    xn = x * torch.rsqrt((x ** 2).mean(-1, keepdim=True) + 1e-6) * g
+    return xn @ w
 
+
+def test_h100_gate_refuses_a_prologue_reduction(tmp_path, anchoring_on):
+    """An RMSNorm feeding the product: the CUDA kernel first streams the
+    block's lhs rows over K for the row statistics, then evaluates the
+    prologue on each staged k-tile, so the fold is admitted on the H100
+    as under V5E (the reference stages the whole (bm, K) block) where the
+    statistics pass reads no more than the fold saves (here two N tiles
+    of the small tile: twice the lhs, the interface's round trip).  The
+    anchored result is the function's, and the generated ``Pro`` (two
+    phases: the sum of squares, then the element), built with g++, is
+    the plain chain."""
     args = (torch.randn(32, 64), torch.randn(64, 48), torch.randn(64))
-    assert tcore.stitched_jit(fn, device="cpu").report(*args).n_anchored == 0
-    assert tcore.stitched_jit(fn, hw=tcore.V5E,
+    sf = tcore.stitched_jit(_rmsnorm_proj, device="cpu")
+    assert sf.report(*args).n_anchored == 1
+    assert tcore.stitched_jit(_rmsnorm_proj, hw=tcore.V5E,
                               device="cpu").report(*args).n_anchored == 1
+    torch.testing.assert_close(sf(*args), _rmsnorm_proj(*args), rtol=1e-5,
+                               atol=1e-5)
+    c = sf.compiled(*args)
+    em = next(e for e in c.emitted if e.kind == "anchored")
+    assert em.fn.entry.pro_slots == 1 and em.fn.entry.epi_slots == 0
+    assert "struct Pro {\n  static constexpr bool kIdentity = false;" \
+        in em.fn.entry.source
+    assert "static constexpr int kPhases = 2;" in em.fn.entry.source
+    _check_matmul_chain(tmp_path, "pro_red", em, c.graph)
+
+
+@pytest.mark.parametrize("M,K,N,anchored", [
+    (2048, 1024, 32, 1),      # Granite's router: one N tile
+    (2048, 2048, 64, 1),      # two N tiles: the pass reads what it saves
+    (2048, 2048, 128, 0),     # four: more than it saves
+    (2048, 3072, 8192, 0),    # Llama's gate projection
+    (2048, 3072, 128256, 0)])  # Llama's LM head after the final norm
+def test_h100_prices_the_statistics_pass_of_a_reducing_prologue(
+        anchoring_on, M, K, N, anchored):
+    """B3 reads a reducing prologue's lhs rows again for each N tile
+    (``cost_model.prologue_stats_bytes``): the H100 preset folds an
+    RMSNorm into a narrow projection, where that pass reads no more than
+    the fold saves, and leaves a wide one memory-only (the forward path's
+    LM head among them, so its plan is the parent's)."""
+    E = functools.partial(torch.empty, device="meta")
+    c = tcore.stitched_jit(_rmsnorm_proj, device="meta").compiled(
+        E(M, K), E(K, N), E(K))
+    assert c.report.n_anchored == anchored
+    a = next(n for n in c.graph.nodes if c.graph.node(n).prim
+             == "dot_general")
+    parts = [frozenset(n for n in c.graph.nodes
+                       if c.graph.node(n).kind not in (tcodegen.OpKind.INPUT,
+                                                       tcodegen.OpKind.CONST)
+                       and n != a)]
+    extra = tcost.prologue_stats_bytes(c.graph, (a,), parts)
+    tile = MM.TILES[MM.pick_tile(M, N, False)]
+    assert extra == M * K * 4 * -(-N // tile.bn)
+    saved = tcost.anchor_interface_bytes(c.graph, (a,), parts)
+    assert (extra <= saved) == bool(anchored)
+
+
+def test_h100_keeps_the_forward_heads_plan(anchoring_on):
+    """The forward path's head (``fusion_mode="xla"``: the final RMSNorm
+    as plain ops, then the LM head and the softmax over the vocabulary)
+    at Llama-3.2-3B's full width: no anchored group, as at the parent --
+    the norm's fold into the LM head would read the lhs again for each
+    of its 1,002 N tiles."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models.model import head_apply
+
+    cfg = get_config("llama3.2-3b")
+    E = functools.partial(torch.empty, device="meta")
+    p = {"final_norm": TL.norm_init(cfg, torch.float32, "meta"),
+         "lm_head": E(cfg.d_model, cfg.padded_vocab)}
+    rep, got = _h100_anchored(functools.partial(head_apply, cfg, XLA), p,
+                              E(4, 512, cfg.d_model))
+    assert rep.n_anchored == 0 and got == []
+    assert "streaming" in rep.schedules
+
+
+def _row_mins(n):
+    def fn(x, w):
+        h = x @ w
+        out = h
+        for i in range(n):
+            out = out - (h * float(i + 1)).amax(-1, keepdim=True)
+        return out
+    return fn
+
+
+@pytest.mark.parametrize("n,anchored", [(12, 1), (31, 0)])
+def test_h100_gate_takes_more_row_reductions_than_eight(tmp_path,
+                                                        anchoring_on, n,
+                                                        anchored):
+    """An epilogue of ``n`` row maxima: the slot exchanges are sized from
+    the chain's own count, so 12 anchor (the kernel once held 8); 31 pass
+    one block's shared memory (``Tile.smem``: 768 bytes a slot on the row
+    tile) and stay memory-only.  The result is the function's; the
+    admitted chain's host build is the plain evaluator."""
+    fn = _row_mins(n)
+    args = (torch.randn(16, 32), torch.randn(32, 64))
+    sf = tcore.stitched_jit(fn, device="cpu")
+    assert sf.report(*args).n_anchored == anchored
+    smem = MM.TILE_ROW.smem(n, 0)
+    assert (smem <= tcost.H100.anchor_budget) == bool(anchored)
+    torch.testing.assert_close(sf(*args), fn(*args), rtol=1e-5, atol=1e-5)
+    if anchored:
+        c = sf.compiled(*args)
+        em = next(e for e in c.emitted if e.kind == "anchored")
+        assert em.fn.entry.epi_slots == n
+        assert f"static constexpr int kSlots = {n};" in em.fn.entry.source
+        _check_matmul_chain(tmp_path, f"rows{n}", em, c.graph)
 
 
 def test_h100_attention_gate_is_the_flash_instance(anchoring_on):
     args = _t(_attn_args(S=64, D=64))
     rep, got = _h100_anchored(t_attn, *[a.to("meta") for a in args])
     assert rep.n_anchored == 1 and got[0][2] == FA.flash_smem_bytes(64)
-    # head dim 160 runs zero-padded on the D 256 instance; 264 has none
+    # head dim 160 runs zero-padded on the D 256 instance; 264 on the
+    # wide kernel with its generated score functor
     pad = [torch.empty(1, 2, 64, 160, device="meta")] * 3 \
         + [torch.empty(1, 1, 64, 64, device="meta")]
     rep, got = _h100_anchored(t_attn, *pad)
     assert rep.n_anchored == 1 and got[0][2] == FA.flash_smem_bytes(256)
     big = [torch.empty(1, 2, 64, 264, device="meta")] * 3 \
         + [torch.empty(1, 1, 64, 64, device="meta")]
-    rep, _ = _h100_anchored(t_attn, *big)
-    assert rep.n_anchored == 0  # head dim 264: no flash instance
+    rep, got = _h100_anchored(t_attn, *big)
+    assert rep.n_anchored == 1 and got[0][2] == FA.flash_smem_bytes(264)
+    assert FA.flash_smem_bytes(264) == 157_696  # the D 320 wide instance
+    vals = [torch.randn(*t.shape) for t in big]
+    sf = tcore.stitched_jit(t_attn, device="cpu")
+    c = sf.compiled(*vals)
+    em = next(e for e in c.emitted if e.kind == "anchored")
+    assert em.fn.score_mod is not None
+    assert '#include "flash_attention_wide.cuh"' in em.fn.score_mod.entry.source
+    torch.testing.assert_close(sf(*vals), t_attn(*vals), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_h100_gate_admits_a_head_dim_256_attention_group(anchoring_on):
@@ -673,7 +790,8 @@ def test_gate_constants_are_the_kernels_own(part):
             assert FA.flash_smem_bytes(d) == 4 * floats
         return
     mm = open(f"{CSRC}/matmul_fused.cuh").read()
-    assert int(re.search(r"kMaxSlots = (\d+)", mm).group(1)) == MM.MAX_SLOTS
+    assert int(re.search(r"kMaxCluster = (\d+)", mm).group(1)) \
+        == MM.MAX_CLUSTER
     fn, args = _matmul_then(lambda h: torch.tanh(h) * 2.0 + 1.0, 64)
     em = next(e for e in tcore.stitched_jit(fn, device="cpu")
               .compiled(*args).emitted if e.kind == "anchored")
@@ -683,7 +801,8 @@ def test_gate_constants_are_the_kernels_own(part):
         assert t.template_args.startswith(
             f"{t.bm}, {t.bn}, {t.bk}, {t.stages}, {t.raw_stages}, {t.wn}, ")
         assert (f"smem_bytes({t.bm}, {t.bn}, {t.bk}, {t.stages}, "
-                f"{t.raw_stages}, {t.wn}, {t.am}) == {t.smem_bytes}") in src
+                f"{t.raw_stages}, {t.wn}, {t.am}, Epi::kSlots, "
+                f"Pro::kSlots) == {t.smem_bytes}") in src
 
 
 # ---------------------------------------------------------------------------
@@ -717,14 +836,16 @@ def _check_matmul_chain(tmp_path, tag, em, graph):
             for i, r in zip(ops, roles)]
 
     pro = operands(ch["pro_ops"], ch["pro_roles"], K)
-    lhs = np.empty((M, K), np.float32)
-    lib.repro_host_pro(ptrs(pro), lhs.ctypes.data_as(ctypes.c_void_p),
-                       ctypes.c_longlong(M), ctypes.c_longlong(K))
     tpro = [torch.from_numpy(np.asarray(a)) for a in pro]
     want = (ch["prologue"](*[MM._view(t, r, M, K) for t, r in
                              zip(tpro, ch["pro_roles"])])
             if ch["prologue"] else tpro[0])
-    _close(lhs, want.numpy())
+    # the prologue read through its loads, and from its staged operand
+    for entry in (lib.repro_host_pro, lib.repro_host_pro_staged):
+        lhs = np.empty((M, K), np.float32)
+        entry(ptrs(pro), lhs.ctypes.data_as(ctypes.c_void_p),
+              ctypes.c_longlong(M), ctypes.c_longlong(K))
+        _close(lhs, want.numpy())
 
     acc = _rand((M, N), torch.float32)
     epi = operands(ch["epi_ops"], ch["epi_roles"], N)
@@ -908,3 +1029,55 @@ def test_new_primitives_lower_in_both_generators(tmp_path, prim):
                        ptrs([ref[i].numpy() for i in ext[1:]]),
                        ptrs([out]), ctypes.c_longlong(4), ctypes.c_longlong(8))
     _close(out, ref[g.outputs[0]].numpy())
+
+
+def _ln_proj(x, g, b, w):
+    m = x.mean(-1, keepdim=True)
+    v = ((x - m) ** 2).mean(-1, keepdim=True)
+    return ((x - m) * torch.rsqrt(v + 1e-5) * g + b) @ w
+
+
+@pytest.mark.parametrize("form", ["rmsnorm_prologue", "layernorm_prologue",
+                                  "softmax_n2048", "twelve_maxima"])
+def test_new_b3_forms_plain_versions_against_float64(form):
+    """B3's plain version (``matmul_fused_plain``: the chains on whole
+    tensors around ``torch.matmul``) of each new form -- a prologue that
+    reduces over K in one and in two levels, a softmax epilogue over the
+    2,048 columns of the largest cluster, twelve row reductions -- against
+    the same group evaluated op by op in float64, within 1e-5 max(1,
+    max|ref|) an output."""
+    from repro_torch.core.tracer import run_subgraph
+
+    g = torch.Generator().manual_seed(5)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=g) * scale
+
+    fn, args = {
+        "rmsnorm_prologue": (_rmsnorm_proj, (r(48, 96), r(96, 80, scale=0.1),
+                                             r(96))),
+        "layernorm_prologue": (_ln_proj, (r(40, 72), r(72), r(72),
+                                          r(72, 56, scale=0.1))),
+        "softmax_n2048": (lambda x, w: torch.softmax(x @ w, -1),
+                          (r(16, 64), r(64, 2048, scale=0.1))),
+        "twelve_maxima": (_row_mins(12), (r(24, 32), r(32, 300, scale=0.1))),
+    }[form]
+    c = tcore.stitched_jit(fn, device="cpu", dispatch="interpret").compiled(
+        *args)
+    gr = c.graph
+    a = next(n for n in gr.nodes if gr.node(n).prim == "dot_general")
+    _, anc = gr.reachability()
+    body = [n for n in gr.nodes if n != a and gr.node(n).kind
+            not in (tcodegen.OpKind.INPUT, tcodegen.OpKind.CONST)]
+    pro = frozenset(n for n in body if (anc[a] >> n) & 1)
+    parts = [p for p in (pro, frozenset({a}), frozenset(body) - pro) if p]
+    em = tcodegen.emit_group(gr, parts, hw=tcost.H100, anchors=(a,))
+    given = dict(zip(gr.inputs, args))
+    vals = [given[i] for i in em.ext_ids]
+    got = em.fn.plain(*vals)
+    env = {i: given[i].double() for i in em.ext_ids}
+    run_subgraph(gr, sorted(n for p in em.parts for n in p), env, "cpu")
+    for o, w in zip(got, [env[i] for i in em.out_ids]):
+        assert o.dtype == torch.float32
+        err = float((o.double() - w).abs().max())
+        assert err <= 1e-5 * max(1.0, float(w.abs().max()))

@@ -3,7 +3,7 @@ its wide kernel above 256, against the JAX package.
 
 HuBERT's 80 runs on an instance of its own, and Gemma-7B's 256 on the
 largest; a D between two instances is zero-padded up to the next, and a
-D above 256 runs on the wide kernel (``csrc/flash_attention_wide.cu``:
+D above 256 runs on the wide kernel (``csrc/flash_attention_wide.cuh``:
 instances 320, 384, 448 and 512, a D below one read in place, above 512
 output tiles of 512 columns),
 as the reference's kernel has no ceiling on D.  On the CPU the operator
@@ -95,7 +95,7 @@ def test_head_dim_above_256_runs_the_wide_kernel(D):
 
 
 def _wide_source_constants() -> dict:
-    cu = (CSRC / "flash_attention_wide.cu").read_text()
+    cu = (CSRC / "flash_attention_wide.cuh").read_text()
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", cu).group(1))
             for k in ("kRows", "kCols", "kBK", "kDC", "kDT", "kStages")}
 
@@ -106,7 +106,7 @@ def test_wide_kernel_constants_are_its_own():
     entry dispatches, and ``flash_smem_bytes`` above 256 is the source's
     ``smem_floats`` with the row paddings it names, equal to the bytes its
     comment lists for each instance."""
-    cu = (CSRC / "flash_attention_wide.cu").read_text()
+    cu = (CSRC / "flash_attention_wide.cuh").read_text()
     text = " ".join(cu.replace("//", " ").split())  # comments as one line
     c = _wide_source_constants()
     assert (16 * c["kRows"], c["kBK"], c["kDC"], c["kDT"], c["kStages"]) == (

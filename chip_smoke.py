@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phase router|tuned]
+    python3 chip_smoke.py [--phase router|tuned|dispatch]
 
 Run from the root of a checkout on a machine with one CUDA card (Triton
 compiles the generated one-pass kernels there, nvcc the CUDA sources and
@@ -135,6 +135,27 @@ Phases, each of which makes the script exit non-zero when it fails:
    max|g|) of plain autograd on the card, forward and backward device
    times against eager autograd (and ``F.layer_norm``'s), the backward's
    kernels and HBM bytes stitched against unfused.
+3f. Dispatch (``phase_dispatch``; ``--phase dispatch`` runs it alone):
+   ``stitched_jit``'s ``dispatch="single"`` as one replayed CUDA graph a
+   call, against the same schedule run eagerly, on the Fig. 1 LayerNorm
+   at [8192, 3072] (beside ``F.layer_norm``), ``mini_transformer``
+   (``tests/test_plan_dispatch.py``) at 2048 x 3072 with an 8192-wide
+   hidden product, and Llama-3.2-3B's ``block_post`` called standalone at
+   batch 1 x 128: the first call (eager), the second (a warm-up run,
+   the capture), ``exec_count`` unchanged over three more, walls (host clock, each call waited for)
+   and device times (CUDA events, queued; profiler busy), the replay's
+   kernels against the eager schedule's by name and count, the output
+   against ``dispatch="interpret"`` (1e-5 max(1, max|y|); 1e-4 where a
+   B3 or B4 group runs) and the eager schedule, an earlier output kept
+   intact while the input changes in place (a second graph), every
+   generated and anchored instance against its plain version; the
+   LayerNorm with ``donate=True`` (its output written over x); calls
+   whose addresses do not simply repeat (``traffic_rows``): the
+   ``block_post`` looped over 28 per-layer weight sets (no capture
+   allowed) and h = f(h) with the LayerNorm, wall a call against the
+   eager schedule, and one LayerNorm function at six row counts with the
+   device memory reserved before and after and the graphs it keeps; then
+   the counted run, one call of each.
 4. Forward path (``fusion_mode="xla"``): Llama-3.2-3B at full width, all
    28 layers, batch 4, prompt 512, float32 weights from a seed:
    ``Model.forward`` (a stitched_jit block per layer, then a stitched head
@@ -175,7 +196,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    max|logits|), an MoE model row by row as in 7, each greedy token the
    plain path's argmax); one wave profiled captured and eager as above;
    the wave graph's dependency edges (``graph_edges``: a B7 launch keeps
-   a programmatic edge) and a replayed wave's device time by kind.
+   a programmatic edge) and a replayed wave's device time by kind.  Each
+   bucketed prefill (Llama, Granite) is one replayed CUDA graph a bucket
+   (its greedy token held to the plain path's argmax, its logits rows
+   taken from the eager batcher's same prefill); ms a prefill by bucket,
+   captured against eager, graphs and pool bytes, and one bucket's
+   prefill profiled captured and eager as above.
 5c. Tuned (``phase_tuned``, run after phase 12, the last of the paths;
    ``--phase tuned`` runs it alone): tune once, run many.  Llama-3.2-3B at full
    width and depth through ``ContinuousBatcher`` (4 slots of 1,024 rows,
@@ -249,7 +275,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    output passes), printed once;
    then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model), a
    ``{"tuned": {...}}`` line (phase 5c's), a ``{"differentiable":
-   {...}}`` line (phase 3e's) and
+   {...}}`` line (phase 3e's), a ``{"dispatch": {...}}`` line (phase
+   3f's) and
    a ``{"kernels": [...]}`` summary line (per kernel: the times of
    its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
@@ -1574,7 +1601,10 @@ def differentiable_path(label: str, fn, args, library=None) -> dict:
           f"{t_st[0]:.4f} ms / backward {t_st[1]:.4f} ms (eager autograd "
           f"{t_eager[0]:.4f} / {t_eager[1]:.4f}"
           + (f"; library {t_lib[0]:.4f} / {t_lib[1]:.4f}" if t_lib else "")
-          + f"); forward schedules {fwd_rep.schedules}; backward "
+          + f"); graphs captured / replays: forward "
+          f"{fwd_rep.graph_captures} / {fwd_rep.graph_replays}, backward "
+          f"{bwd_rep.graph_captures} / {bwd_rep.graph_replays}"
+          + f"; forward schedules {fwd_rep.schedules}; backward "
           f"schedules {bwd_rep.schedules}, kernels {st.n_kernels_stitched} "
           f"stitched / {st.n_kernels_unfused} unfused, HBM "
           f"{st.hbm_bytes_stitched / 1e6:.1f} / "
@@ -1621,6 +1651,393 @@ def phase_differentiable(gen) -> dict:
         (randn(M, K), 1.0 + 0.1 * randn(K), randn(K, N, scale=K ** -0.5),
          randn(K, N, scale=K ** -0.5)))
     return {k: ln[k] + mlp[k] for k in ln}
+
+
+#: Host-clock walls of a call: calls timed, each waited for.
+WALL_CALLS = 30
+
+
+def wall_ms(fn, n: int = WALL_CALLS) -> float:
+    """Median host-clock ms of ``fn()``, the card synchronized before and
+    after each call: what a caller waits for one call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def leaves(tree) -> list:
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_leaves(tree)
+
+
+def dispatch_row(label: str, fn, args: tuple, vary: int, gen, checks: dict,
+                 *, rtol: float, library=None) -> dict:
+    """One stitched call on the card, eager schedule against one replayed
+    graph (``dispatch="single"``): the first call (eager), the second
+    (the capture and its replay), three more that leave ``exec_count`` where the
+    capture left it, the output against ``dispatch="interpret"`` (within
+    ``rtol`` max(1, max|y|)) and against the eager schedule (same
+    kernels: 1e-5 max(1, max|y|)), walls (host clock, each call waited
+    for) and device times (CUDA events, queued) of both and of
+    ``library``, the replay's kernels against the eager schedule's
+    (``replay_vs_eager``), and an earlier output kept while ``args[vary]``
+    changes in place (a second graph of the same addresses).  Every
+    generated and anchored instance is held against its plain version
+    (``check_generated``)."""
+    import torch
+    from repro_torch.core import stitched_jit
+
+    f = stitched_jit(fn)
+    c = f.compiled(*args)
+    flat = leaves(args)  # the schedule's inputs
+    describe(f"dispatch {label}", c)
+    check_generated({f"dispatch {label}": c}, gen, checks)
+    want = leaves(stitched_jit(fn, dispatch="interpret")(*args))
+    rep = c.report
+    firsts = []
+    for _ in range(2):  # eager, then the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = leaves(f(*args))
+        torch.cuda.synchronize()
+        firsts.append(time.perf_counter() - t0)
+        del got
+    first_s, capture_s = firsts
+    n = c.exec_count
+    for _ in range(3):
+        f(*args)
+    if (n != 2 or c.exec_count != n or rep.graph_captures != 1
+            or rep.graph_replays != 4 or rep.graph_eager_runs != 1):
+        fail(f"dispatch {label}: exec_count {n} -> {c.exec_count}, "
+             f"{rep.graph_eager_runs} eager runs, {rep.graph_captures} "
+             f"captures, {rep.graph_replays} replays after five calls")
+    got, eager = leaves(f(*args)), leaves(c.run_schedule(*flat))
+    _, worst_i = agreement_max(got, want, rtol)
+    _, worst_e = agreement_max(got, eager, 1e-5)
+    if not all(bool(torch.isfinite(g).all()) for g in got) or not (
+            worst_i <= 1.0 and worst_e <= 1.0):
+        fail(f"dispatch {label}: the replay disagrees (err/limit "
+             f"{worst_i:.3f} against interpret, {worst_e:.3f} against the "
+             "eager schedule)")
+    del got, eager, want
+
+    def replay():
+        f(*args)
+
+    def eager_run():
+        c.run_schedule(*flat)
+
+    walls = {"replay": wall_ms(replay), "eager": wall_ms(eager_run)}
+    devs = {"replay": time_ms(replay, 20), "eager": time_ms(eager_run, 20)}
+    if library is not None:
+        walls["library"] = wall_ms(lambda: library(*args))
+        devs["library"] = time_ms(lambda: library(*args), 20)
+    prof = replay_vs_eager(f"dispatch {label}", replay, eager_run,
+                           c.graphs[-1].kernels, rep.graph_replays,
+                           walls["replay"], walls["eager"])
+
+    # an earlier output kept: the same addresses, new values in place
+    y1 = leaves(f(*args))
+    kept = [t.clone() for t in y1]
+    saved = args[vary].clone()
+    args[vary].copy_(torch.randn(args[vary].shape, generator=gen,
+                                 device="cuda"))
+    y2 = leaves(f(*args))
+    _, worst2 = agreement_max(y2, leaves(c.run_schedule(*flat)), 1e-5)
+    if not all(torch.equal(a, b) for a, b in zip(y1, kept)):
+        fail(f"dispatch {label}: a replay overwrote an earlier output")
+    if worst2 > 1.0 or all(torch.equal(a, b) for a, b in zip(y1, y2)):
+        fail(f"dispatch {label}: the second graph's output is wrong")
+    args[vary].copy_(saved)
+    captures = rep.graph_captures
+    del y1, y2, kept, saved
+    out = {"first_call_s": first_s, "capture_call_s": capture_s,
+           "exec_count": c.exec_count, "eager_runs": rep.graph_eager_runs,
+           "captures": captures, "replays": rep.graph_replays,
+           "pool_bytes": rep.graph_pool_bytes,
+           "copy_bytes_per_call": 0,
+           "wall_ms": walls, "device_ms": devs,
+           "busy_ms": {"replay": prof["busy_captured_ms"],
+                       "eager": prof["busy_eager_ms"]},
+           "launches": prof["launches"],
+           "worst_vs_interpret": worst_i, "worst_vs_eager": worst_e}
+    print(f"dispatch {label}: first call (eager) {first_s:.4f} s, second "
+          f"(the capture, its replay) {capture_s:.4f} s; exec_count {n} "
+          f"after them and after three more, 4 replays by then; walls "
+          f"(host clock, "
+          f"waited for) {json.dumps({k: round(v, 4) for k, v in walls.items()})}"
+          f" ms; device (CUDA events, queued) "
+          f"{json.dumps({k: round(v, 4) for k, v in devs.items()})} ms; "
+          f"{prof['launches']} kernels a call; err/limit {worst_i:.3f} "
+          f"against interpret ({rtol:g} max(1, max|y|)), {worst_e:.3f} "
+          f"against the eager schedule; bytes copied a call 0; graphs "
+          f"captured {captures} "
+          f"(the second: an earlier output still held), pool "
+          f"{rep.graph_pool_bytes / 2 ** 20:.1f} MiB")
+    return out
+
+
+#: phase_dispatch's rows, by label
+DISPATCH_RESULTS: dict = {}
+
+#: Calls in one timed chain of ``traffic_rows``' h = f(h) row.
+CHAIN_CALLS = 40
+
+
+def traffic_rows(gen, post, p, layer_args, n_layers: int,
+                 ln_args) -> None:
+    """Stitched calls whose addresses do not simply repeat, wall time a
+    call (host clock, the card synchronized around each timed loop,
+    median of 5) of ``dispatch="single"`` against the eager schedule
+    (``run_schedule``) on the same inputs:
+
+    * Llama-3.2-3B's ``block_post`` at 1 x 128 looped over ``n_layers``
+      per-layer weight sets (clones of one layer's), as a layer loop
+      calls it: no set comes back among the last ``GRAPHS_PER_FUNCTION``,
+      so nothing may be captured;
+    * h = f(h) with the Fig. 1 LayerNorm, ``CHAIN_CALLS`` calls a chain:
+      each output is the next input, its address as the allocator or a
+      graph's pool gives it; the final h against the eager chain's;
+    * one LayerNorm function called at six row counts, three calls each:
+      device memory reserved before, with its graphs, and after the
+      function is dropped, and the graphs kept (at most
+      ``GRAPHS_PER_FUNCTION`` over all its signatures)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core import stitched_jit
+    from repro_torch.core.stitch import GRAPHS_PER_FUNCTION
+
+    def per_call(loop, calls: int) -> float:
+        loop()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            loop()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / calls)
+        return statistics.median(times)
+
+    # a layer loop over per-layer weights
+    _, h, q, k, v = layer_args
+    sets = [pytree.tree_map(lambda t: t.clone(), p) for _ in range(n_layers)]
+    f = stitched_jit(post)
+    c = f.compiled(sets[0], h, q, k, v)
+    flats = [leaves((pl, h, q, k, v)) for pl in sets]
+
+    def loop_single():
+        for pl in sets:
+            f(pl, h, q, k, v)
+
+    def loop_eager():
+        for fl in flats:
+            c.run_schedule(*fl)
+
+    walls = {"single": per_call(loop_single, n_layers),
+             "eager": per_call(loop_eager, n_layers)}
+    got = leaves(f(sets[3], h, q, k, v))
+    _, worst = agreement_max(got, leaves(c.run_schedule(*flats[3])), 1e-5)
+    rep = c.report
+    row = {"wall_ms_per_call": walls, "calls": rep.graph_eager_runs,
+           "captures": rep.graph_captures, "worst_vs_eager": worst}
+    print(f"dispatch layer loop, Llama-3.2-3B block_post at 1 x 128 over "
+          f"{n_layers} weight sets: wall a call (host clock) "
+          f"{json.dumps({a: round(b, 4) for a, b in walls.items()})} ms, "
+          f"{rep.graph_eager_runs} eager runs, {rep.graph_captures} "
+          f"captures, err/limit {worst:.3f} against the eager schedule")
+    if rep.graph_captures or worst > 1.0:
+        fail("dispatch layer loop: a set of per-layer weights was captured "
+             "or the call disagrees with the eager schedule")
+    DISPATCH_RESULTS[f"layer loop block_post x{n_layers}"] = row
+    del sets, flats, got, f, c
+
+    # h = f(h)
+    x0, g, b = ln_args
+    fh = stitched_jit(layer_norm_fig1)
+    ch = fh.compiled(*ln_args)
+
+    def chain(call):
+        hh = x0
+        for _ in range(CHAIN_CALLS):
+            hh = call(hh)
+        return hh
+
+    def single(hh):
+        return fh(hh, g, b)
+
+    def eager(hh):
+        return ch.run_schedule(hh, g, b)[0]
+
+    walls = {"single": per_call(lambda: chain(single), CHAIN_CALLS),
+             "eager": per_call(lambda: chain(eager), CHAIN_CALLS)}
+    _, worst = agreement_max([chain(single)], [chain(eager)], 1e-5)
+    rep = ch.report
+    calls = rep.graph_eager_runs + rep.graph_replays
+    row = {"wall_ms_per_call": walls, "calls": calls,
+           "eager_runs": rep.graph_eager_runs,
+           "replays": rep.graph_replays, "captures": rep.graph_captures,
+           "evictions": rep.graph_evictions, "worst_vs_eager": worst}
+    print(f"dispatch h = f(h), Fig. 1 LayerNorm [{x0.shape[0]}, "
+          f"{x0.shape[1]}], {CHAIN_CALLS} calls a chain: wall a call (host "
+          f"clock) {json.dumps({a: round(b, 4) for a, b in walls.items()})}"
+          f" ms; of {calls} calls {rep.graph_eager_runs} eager, "
+          f"{rep.graph_replays} replays, {rep.graph_captures} captures, "
+          f"{rep.graph_evictions} evictions; err/limit {worst:.3f} against "
+          f"the eager chain")
+    if worst > 1.0:
+        fail("dispatch h = f(h): the chain disagrees with the eager chain")
+    DISPATCH_RESULTS["h = f(h) LayerNorm"] = row
+    del fh, ch
+
+    # one function at several shapes: the graphs it keeps, the memory
+    C = x0.shape[1]
+    xs = [torch.randn(1024 * m, C, generator=gen, device="cuda")
+          for m in range(1, 7)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    fs = stitched_jit(layer_norm_fig1)
+    for x in xs:
+        for _ in range(2):  # eager, capture (the outputs dropped)
+            fs(x, g, b)
+        y = fs(x, g, b)  # a replay
+        _, worst = agreement_max([y], [layer_norm_fig1(x, g, b)], 1e-5)
+        if worst > 1.0:
+            fail(f"dispatch shapes: wrong LayerNorm at {tuple(x.shape)}")
+        del y
+    torch.cuda.synchronize()
+    with_graphs = torch.cuda.memory_reserved()
+    kept = sum(len(ci.graphs) for ci in fs.instances)
+    captures = sum(ci.report.graph_captures for ci in fs.instances)
+    evictions = sum(ci.report.graph_evictions for ci in fs.instances)
+    del fs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    row = {"shapes": [list(x.shape) for x in xs], "captures": captures,
+           "graphs_kept": kept, "evictions": evictions,
+           "reserved_before": before, "reserved_with_graphs": with_graphs,
+           "reserved_after_drop": after}
+    print(f"dispatch shapes, one LayerNorm function at {len(xs)} row counts "
+          f"(1024..{1024 * len(xs)} x {C}), 3 calls each: {captures} "
+          f"captures, {kept} graphs kept, {evictions} evictions; reserved "
+          f"{before / 2 ** 20:.1f} MiB before, {with_graphs / 2 ** 20:.1f} "
+          f"MiB with the graphs, {after / 2 ** 20:.1f} MiB once the "
+          "function is dropped")
+    if kept > GRAPHS_PER_FUNCTION or captures != len(xs):
+        fail(f"dispatch shapes: {kept} graphs kept, {captures} captures")
+    DISPATCH_RESULTS["shapes LayerNorm x6"] = row
+    del xs
+
+
+def phase_dispatch(gen, checks: dict) -> dict:
+    """``dispatch="single"`` as one replayed CUDA graph a call
+    (``dispatch_row``): the Fig. 1 LayerNorm at [8192, 3072] (against
+    ``F.layer_norm``), ``tests/test_plan_dispatch.py``'s
+    ``mini_transformer`` at Llama's widths (2048 rows of 3072, a 8192-wide
+    hidden product), and Llama-3.2-3B's ``block_post`` (attention, ``wo``,
+    the MLP) called standalone at batch 1 x 128; then the LayerNorm with
+    ``donate=True`` (its output written over x, one graph replayed at the
+    donated address); then the counted run, one call of each.  Returns
+    its launches."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import stitched_jit
+    from repro_torch.models.layers import STITCHED
+    from repro_torch.models.model import block_init, block_post, block_pre
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    R, C = 8192, 3072
+    ln_args = (randn(R, C), randn(C), randn(C))
+    M, H = BATCH * PROMPT, ANCHOR_N
+    mini_args = (randn(M, C), randn(C).abs() + 0.5, randn(C),
+                 randn(C, H, scale=C ** -0.5), randn(H, C, scale=H ** -0.5))
+    cfg = get_config("llama3.2-3b")
+    p = block_init(cfg, gen, torch.float32, "cuda")
+    h = randn(1, 128, cfg.d_model)
+    q, k, v = block_pre(cfg, STITCHED, p, h,
+                        torch.arange(128, device="cuda"))
+    post = functools.partial(block_post, cfg, STITCHED)
+    layer_args = (p, h, q, k, v)
+
+    def mini_transformer(x, g1, b1, w1, w2):
+        hh = layer_norm_fig1(x, g1, b1)
+        u = F.gelu(hh @ w1, approximate="tanh")
+        return torch.softmax(x + u @ w2, -1)
+
+    rows = [(f"Fig. 1 LayerNorm [{R}, {C}]", layer_norm_fig1, ln_args, 0,
+             1e-5, lambda x, g, b: F.layer_norm(x, (C,), g, b, eps=1e-6)),
+            (f"mini_transformer [{M}, {C}] hidden {H}", mini_transformer,
+             mini_args, 0, 1e-4, None),
+            (f"Llama-3.2-3B block_post at 1 x 128", post, layer_args, 1,
+             1e-4, None)]
+    for label, fn, args, vary, rtol, lib in rows:
+        DISPATCH_RESULTS[label] = dispatch_row(label, fn, args, vary, gen,
+                                               checks, rtol=rtol,
+                                               library=lib)
+
+    # donation: the LayerNorm's output written over x
+    fd = stitched_jit(layer_norm_fig1, donate=True)
+    want = layer_norm_fig1(*ln_args)
+    xin = ln_args[0].clone()
+    cd = fd.compiled(xin, *ln_args[1:])
+    first = [em for kind, em in cd.schedule if kind == "group"][0]
+    y = fd(xin, *ln_args[1:])
+    _, worst = agreement_max([y], [want], 1e-5)
+    if y.data_ptr() != xin.data_ptr() or not first.io_aliases or worst > 1:
+        fail(f"dispatch donate: aliases {first.io_aliases}, output at x "
+             f"{y.data_ptr() == xin.data_ptr()}, err/limit {worst:.3f}")
+    del y, want
+    donated = {"wall_ms": wall_ms(lambda: fd(xin, *ln_args[1:])),
+               "device_ms": time_ms(lambda: fd(xin, *ln_args[1:]), 20),
+               "captures": cd.report.graph_captures,
+               "replays": cd.report.graph_replays,
+               "io_aliases": first.io_aliases, "worst": worst}
+    if cd.report.graph_captures != 1:
+        fail(f"dispatch donate: {cd.report.graph_captures} captures at one "
+             "donated address")
+    print(f"dispatch Fig. 1 LayerNorm, donate=True: io_aliases "
+          f"{first.io_aliases} (x written over), err/limit {worst:.3f}, wall "
+          f"{donated['wall_ms']:.4f} ms, device {donated['device_ms']:.4f} "
+          f"ms, {donated['captures']} capture, bytes copied a call 0")
+    DISPATCH_RESULTS["Fig. 1 LayerNorm donate=True"] = donated
+
+    traffic_rows(gen, post, p, layer_args, cfg.n_layers, ln_args)
+
+    # the counted run: one call of each, replays
+    fns = [stitched_jit(fn) for _, fn, _, _, _, _ in rows] + [fd]
+    calls = [a for _, _, a, _, _, _ in rows] + [(xin,) + ln_args[1:]]
+    for f, a in zip(fns, calls):
+        f(*a)  # eager
+        f(*a)  # the capture
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for f, a in zip(fns, calls):
+        f(*a)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"launches in one replayed call of each dispatch row: "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    for kern in ("onepass", "matmul_fused", "flash_attention", "rmsnorm"):
+        if not launches[kern]:
+            fail(f"the dispatch path launched no {kern} kernel")
+    del fns, calls, ln_args, mini_args, layer_args, p, xin
+    torch.cuda.empty_cache()
+    return launches
 
 
 def at_shift(v, shift: int):
@@ -2566,7 +2983,7 @@ PROFILED_CALLS = 3
 PROFILED_SESSIONS = 2
 
 
-def kernel_events(fn) -> tuple[float, dict, int]:
+def kernel_events(fn) -> tuple[float, dict, str]:
     """Calls of ``fn`` under ``torch.profiler``: (device busy ms a call,
     {kernel name: launches a call}, records dropped) -- a replayed graph's
     kernels included, copies and fills not, whether they run as copies
@@ -2578,14 +2995,16 @@ def kernel_events(fn) -> tuple[float, dict, int]:
     On the H100 machine the profiler drops the first kernel records of
     every session, a number that grows over a long process: 1 to 9 in run
     26P, of the eager and the replayed step alike, always in a session's
-    first call and never in a later one (the spin kernels before the
-    first call do not take the loss).  So each of ``PROFILED_SESSIONS``
-    sessions makes one call more than it counts: its first call takes the
-    loss, ``PROFILED_CALLS`` calls follow, and a kernel's count is the
+    first call and never in a later one; a call of one kernel can lose
+    it all, and then its spin kernels merge with the next call's.  So
+    each of ``PROFILED_SESSIONS`` sessions makes one call more
+    than it counts: its first call takes the loss, the last
+    ``PROFILED_CALLS`` calls are counted, and a kernel's count is the
     largest any counted call gave (a loss only lowers a count).  A kernel
     that one step launches and the other does not differs at every call.
     "Records dropped": the most by which a session's first call fell
-    short of that count."""
+    short of that count, and how many sessions lost the spin kernels
+    before their first call (that call is then not seen at all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2599,24 +3018,30 @@ def kernel_events(fn) -> tuple[float, dict, int]:
                     torch.cuda._sleep(1)
                 fn()
             torch.cuda.synchronize()
-        calls, cur = [], []
+        # a call is the records after a run of spin kernels; records
+        # before the first run belong to no call
+        calls, spin = [], False
         for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
             if (getattr(ev, "device_type", None) != DeviceType.CUDA
                     or ev.self_device_time_total <= 0
                     or ev.name == "Command Buffer Full"):
                 continue
             if "spin_kernel" in ev.name:
-                if cur:
-                    calls.append(cur)
-                    cur = []
+                if not spin:
+                    calls.append([])
+                spin = True
                 continue
-            cur.append(ev)
-        if cur:
-            calls.append(cur)
-        if len(calls) != 1 + PROFILED_CALLS:
+            spin = False
+            if calls:
+                calls[-1].append(ev)
+        if len(calls) < PROFILED_CALLS or len(calls) > 1 + PROFILED_CALLS:
             fail(f"kernel_events: the profiler's records split into "
                  f"{len(calls)} calls, not {1 + PROFILED_CALLS}")
-        return calls
+        # a loss at the session's start can take the first call's records
+        # (its spin runs then merge) or the first spin run (its call then
+        # precedes every run): the last PROFILED_CALLS are counted alike,
+        # and an unseen first call is None
+        return [None] * (1 + PROFILED_CALLS - len(calls)) + calls
 
     def kernels(call: list) -> dict:
         seen: dict = {}
@@ -2633,8 +3058,12 @@ def kernel_events(fn) -> tuple[float, dict, int]:
     for c in counted:
         for k, n in kernels(c).items():
             names[k] = max(names.get(k, 0), n)
-    dropped = max(sum(names.values()) - sum(kernels(calls[0]).values())
-                  for calls in sessions)
+    seen = [sum(names.values()) - sum(kernels(calls[0]).values())
+            for calls in sessions if calls[0] is not None]
+    dropped = (f"{max(seen)}" if seen else "?") + (
+        f" ({len(sessions) - len(seen)} of {len(sessions)} sessions lost "
+        "the first call's spin kernels)" if len(seen) < len(sessions)
+        else "")
     return busy, names, dropped
 
 
@@ -2679,32 +3108,41 @@ def captured_vs_eager(label: str, graph, eager, args: tuple,
     """Profile calls of the captured step and of the eager step on
     the same inputs (the graph's own input tensors, so that PyTorch picks
     the same element-wise kernel templates, which depend on the operands'
-    alignment): device busy beside the unprofiled walls, and the kernels
-    of the replay against the eager call's (by name and count).  Fails if
-    they differ, or if a replay ran Python-side launches (the graph's
-    tally is the only count a replay adds)."""
+    alignment): ``replay_vs_eager``."""
+    return replay_vs_eager(label, lambda: graph(*args),
+                           lambda: eager(*graph.inputs), graph.kernels,
+                           graph.replays, wall_captured, wall_eager)
+
+
+def replay_vs_eager(label: str, replay, eager, kernels: dict, replays: int,
+                    wall_captured: float, wall_eager: float) -> dict:
+    """Profile calls of ``replay`` (one graph replay) and of ``eager``
+    (the same step run eagerly): device busy beside the unprofiled walls,
+    and the kernels of the replay against the eager call's (by name and
+    count).  Fails if they differ, or if a replay ran Python-side
+    launches (the graph's tally, ``kernels``, is the only count a replay
+    adds)."""
     from repro_torch.kernels import _build
 
     calls = []
     count = _build.count
     _build.count = lambda owner, n=1: calls.append(owner)
     try:
-        busy_c, names_c, lost_c = kernel_events(lambda: graph(*args))
+        busy_c, names_c, lost_c = kernel_events(replay)
     finally:
         _build.count = count
-    busy_e, names_e, lost_e = kernel_events(lambda: eager(*graph.inputs))
+    busy_e, names_e, lost_e = kernel_events(eager)
     n_c, n_e = sum(names_c.values()), sum(names_e.values())
     if not n_c or not n_e:
         fail(f"{label}: the profiler saw no kernel ({n_c} replayed, {n_e} "
              "eager)")
     share_c, share_e = busy_c / wall_captured, busy_e / wall_eager
-    tally = {getattr(k, "__name__", str(k)): v
-             for k, v in graph.kernels.items()}
+    tally = {getattr(k, "__name__", str(k)): v for k, v in kernels.items()}
     print(f"{label}: captured (one graph replay) wall {wall_captured:.3f} ms"
           f", device busy {busy_c:.3f} ms ({100 * share_c:.1f}%), {n_c} "
           f"kernel launches a step from the profiler; eager wall "
           f"{wall_eager:.3f} ms, busy {busy_e:.3f} ms ({100 * share_e:.1f}%),"
-          f" {n_e} launches; replays so far {graph.replays}, launches "
+          f" {n_e} launches; replays so far {replays}, launches "
           f"recorded into the graph by the wrappers: {json.dumps(tally)}; "
           f"records the profiler dropped from a session's first, uncounted "
           f"call: {lost_c} replayed, {lost_e} eager")
@@ -2740,6 +3178,10 @@ def phase_scheduler(model, params, plain) -> dict:
     logits within 1e-4 max(1, max|logits|) (an MoE model row by row, as
     ``moe_logit_rows``), the greedy tokens equal (the argmax of every
     plain row is the kernel path's token); then one wave profiled
+    captured and eager.  A bucketed prefill (Llama, Granite) is one
+    replayed graph a bucket: its token against the eager batcher's same
+    prefill, ms a prefill by bucket captured against eager
+    (``prefill_graphs``), and the largest bucket's prefill profiled
     captured and eager.  Returns the counted run's launches."""
     import numpy as np
     import torch
@@ -2803,14 +3245,34 @@ def phase_scheduler(model, params, plain) -> dict:
 
     eager = ContinuousBatcher(model, params, n_slots=SCHED_SLOTS,
                               max_len=SCHED_MAX_LEN, capture=False)
-    got_eager = serve(eager)  # the model's functions are compiled
+    with recorded(eager, moe) as eager_events:
+        got_eager = serve(eager)  # the model's functions are compiled
     se = eager.stats
-    print(f"scheduler (eager waves): {se.summary()}")
+    print(f"scheduler (eager prefills and waves): {se.summary()}")
     if got_eager != got:
-        fail("scheduler: the eager waves' tokens differ from the replayed "
-             "waves'")
+        fail("scheduler: the eager steps' tokens differ from the replayed "
+             "steps'")
+    # the same requests with captured waves and eager prefills, as the
+    # scheduler ran before its prefill graphs: a cold run, then counted
+    # (a recurrent model's prefills are eager in both)
+    mixed = None
+    if batcher._prefills is not None:
+        mixed = ContinuousBatcher(model, params, n_slots=SCHED_SLOTS,
+                                  max_len=SCHED_MAX_LEN)
+        mixed._prefills = None
+        serve(mixed)
+        mixed.stats = ServeStats()
+        if serve(mixed) != got:
+            fail("scheduler: eager prefills with captured waves gave other "
+                 "tokens")
+        print(f"scheduler (captured waves, eager prefills): "
+              f"{mixed.stats.summary()}")
+    sm = (mixed or eager).stats
+    prefills = prefill_graphs(cfg.name, batcher, mixed or eager, events,
+                              eager_events)
+    del eager_events
 
-    ref = plain_agreement("scheduler", events, plain, params, moe)
+    ref = plain_agreement("scheduler", events, plain, params, moe, model)
     if sorted(got) != list(range(n)) or any(
             len(v) != SCHED_GEN for v in got.values()):
         fail("scheduler: a request was not served in full")
@@ -2823,6 +3285,23 @@ def phase_scheduler(model, params, plain) -> dict:
         eager._wave, (toks, poss), 1e3 * st.p50_tok_s, 1e3 * se.p50_tok_s)
     where_the_time_goes(f"one replayed wave ({cfg.name})",
                         lambda: graph(toks, poss))
+    if prefills["graphs"]:
+        # one bucket's prefill, replayed and eager, on the graph's own
+        # inputs (the slot is idle); the largest bucket served
+        S = max(batcher._prefills)
+        step = batcher._prefills[S]
+        out_p = captured_vs_eager(
+            f"scheduler prefill ({cfg.name}, bucket {S})", step,
+            batcher._prefill_staged, tuple(step.inputs),
+            prefills["ms"][S], prefills["eager_ms"][S])
+        prefills["check_bucket"] = S
+        prefills["check"] = out_p
+    if mixed is not None:
+        print(f"scheduler {cfg.name}, prefill graphs against eager prefills"
+              f" (both with captured waves): TTFT p50/p99 "
+              f"{1e3 * st.p50_ttft_s:.2f}/{1e3 * st.p99_ttft_s:.2f} against "
+              f"{1e3 * sm.p50_ttft_s:.2f}/{1e3 * sm.p99_ttft_s:.2f} ms, "
+              f"tokens/s {st.tok_per_s:.1f} against {sm.tok_per_s:.1f}")
     print(f"scheduler {cfg.name}: tokens/s {st.tok_per_s:.1f} (counted run, "
           f"prefills included; eager waves {se.tok_per_s:.1f}), TTFT p50/p99 "
           f"{1e3 * st.p50_ttft_s:.2f}/{1e3 * st.p99_ttft_s:.2f} ms (from "
@@ -2833,8 +3312,14 @@ def phase_scheduler(model, params, plain) -> dict:
     SCHED_RESULTS[cfg.name] = dict(
         out, waves=st.decode_waves, tok_per_s=st.tok_per_s,
         p50_ttft_ms=1e3 * st.p50_ttft_s, p99_ttft_ms=1e3 * st.p99_ttft_s,
-        p50_wave_ms=1e3 * st.p50_tok_s, p99_wave_ms=1e3 * st.p99_tok_s)
-    del batcher, eager, ref, events
+        p50_wave_ms=1e3 * st.p50_tok_s, p99_wave_ms=1e3 * st.p99_tok_s,
+        eager_tok_per_s=se.tok_per_s, eager_p50_ttft_ms=1e3 * se.p50_ttft_s,
+        eager_p99_ttft_ms=1e3 * se.p99_ttft_s, prefill=prefills,
+        **({} if mixed is None else dict(
+            eager_prefill_tok_per_s=sm.tok_per_s,
+            eager_prefill_p50_ttft_ms=1e3 * sm.p50_ttft_s,
+            eager_prefill_p99_ttft_ms=1e3 * sm.p99_ttft_s)))
+    del batcher, eager, mixed, ref, events
     return launches
 
 
@@ -2842,26 +3327,76 @@ def phase_scheduler(model, params, plain) -> dict:
 SCHED_RESULTS: dict = {}
 
 
+def prefill_graphs(name: str, batcher, eager, events, eager_events) -> dict:
+    """The scheduler's prefills, captured (one graph a bucket) against
+    eager (``eager``'s counted run), from the counted runs: ms a prefill
+    by bucket (medians, host clock to the token read), graphs and their
+    pool's bytes; ``eager_events`` are the eager batcher's.  Fails if a
+    bucketed prefill of the counted run was not a replay, or if a
+    captured prefill and the eager batcher's same prefill were fed other
+    tokens or gave another token."""
+    import numpy as np
+
+    st = batcher.stats
+    graphs = batcher._prefills or {}
+    pre = [e for e in events if e[0] == "prefill"]
+    pre_e = [e for e in eager_events if e[0] == "prefill"]
+    if len(pre) != len(pre_e):
+        fail(f"scheduler {name}: {len(pre)} captured prefills, {len(pre_e)} "
+             "eager")
+    for a, b in zip(pre, pre_e):
+        if a[1] != b[1] or not np.array_equal(a[2], b[2]) or a[5] != b[5]:
+            fail(f"scheduler {name}: a prefill differs captured and eager "
+                 f"(slot {a[1]}/{b[1]}, token {a[5]}/{b[5]})")
+
+    def by_bucket(samples) -> dict:
+        out: dict = {}
+        for S, dt in samples:
+            out.setdefault(S, []).append(1e3 * dt)
+        return {S: statistics.median(v) for S, v in sorted(out.items())}
+
+    ms, eager_ms = by_bucket(st.prefill_s), by_bucket(eager.stats.prefill_s)
+    pool = sum(getattr(g, "pool_bytes", 0) for g in graphs.values())
+    if graphs and st.prefill_replays != st.prefills:
+        fail(f"scheduler {name}: {st.prefills} prefills, "
+             f"{st.prefill_replays} replays of a bucket's graph")
+    print(f"scheduler {name} prefill: {len(graphs)} graphs (buckets "
+          f"{sorted(graphs)}), pool {pool / 2 ** 20:.1f} MiB; ms a prefill "
+          f"by bucket (median, host clock to the token read), captured "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} against "
+          f"eager {json.dumps({k: round(v, 3) for k, v in eager_ms.items()})}"
+          f"; replays in the counted run {st.prefill_replays} of "
+          f"{st.prefills} prefills")
+    return {"graphs": len(graphs), "pool_bytes": pool, "ms": ms,
+            "eager_ms": eager_ms, "replays": st.prefill_replays}
+
+
 @contextlib.contextmanager
 def recorded(batcher, moe: bool):
     """Record ``batcher``'s prefills and waves while the block runs:
-    yields the list of events, each with the inputs it was fed and the
-    logits (and a wave's tokens) it gave, for ``plain_agreement``."""
+    yields the list of events, each with the inputs it was fed and what
+    it gave, for ``plain_agreement``: a prefill's greedy token and, where
+    it ran eagerly (``_prefill_into``), its logits rows (a captured
+    prefill gives its token alone); a wave's logits and tokens."""
     V = batcher.mdl.cfg.vocab_size
     events, last = [], {}
-    prefill_into, prefill_slot, wave = (batcher._prefill_into,
-                                        batcher._prefill_slot, batcher._wave)
+    prefill_into, prefill_token, wave = (batcher._prefill_into,
+                                         batcher._prefill_token,
+                                         batcher._wave)
 
     def rec_prefill_into(i, toks):
-        last["logits"], last["toks"] = prefill_into(i, toks), toks
+        last["logits"] = prefill_into(i, toks)
         return last["logits"]
 
-    def rec_prefill_slot(i, req):
-        prefill_slot(i, req)
-        lg = last["logits"][0, :, :V] if moe \
-            else last["logits"][0, len(req.prompt) - 1:len(req.prompt), :V]
-        events.append(("prefill", i, last["toks"], len(req.prompt),
-                       lg.clone()))
+    def rec_prefill_token(i, toks, true_len):
+        last.pop("logits", None)
+        tok = prefill_token(i, toks, true_len)
+        lg = last.get("logits")
+        if lg is not None:
+            lg = (lg[0, :, :V] if moe
+                  else lg[0, true_len - 1:true_len, :V]).clone()
+        events.append(("prefill", i, toks, true_len, lg, tok))
+        return tok
 
     def rec_wave(toks, poss):
         logits, nxt = wave(toks, poss)
@@ -2869,23 +3404,28 @@ def recorded(batcher, moe: bool):
                        nxt.clone()))
         return logits, nxt
 
-    batcher._prefill_into, batcher._prefill_slot = (rec_prefill_into,
-                                                    rec_prefill_slot)
+    batcher._prefill_into, batcher._prefill_token = (rec_prefill_into,
+                                                     rec_prefill_token)
     batcher._wave = rec_wave
     try:
         yield events
     finally:
-        batcher._prefill_into, batcher._prefill_slot, batcher._wave = (
-            prefill_into, prefill_slot, wave)
+        batcher._prefill_into, batcher._prefill_token, batcher._wave = (
+            prefill_into, prefill_token, wave)
 
 
-def plain_agreement(label: str, events, plain, params, moe: bool):
+def plain_agreement(label: str, events, plain, params, moe: bool,
+                    model=None):
     """Replay ``recorded`` prefills and waves on the plain path
     (``plain``: ``"xla"``, ``dispatch="interpret"``, eager waves) fed the
     same tokens: logits within 1e-4 max(1, max|logits|) of the row (an
     MoE model row by row, at most ``MOE_ROW_ALLOWANCE`` of the rows
     beyond: routing flips), every greedy token the plain row's argmax.
-    Returns the plain path's batcher (its cache still allocated)."""
+    A captured prefill gives its token alone: its logits are those of
+    the same prefill through ``model`` (the kernel path) run eagerly on a
+    scratch cache, whose argmax must be the captured token.  Returns the
+    plain path's batcher (its cache still allocated)."""
+    import numpy as np
     import torch
     from repro_torch.serving import ContinuousBatcher
 
@@ -2895,13 +3435,22 @@ def plain_agreement(label: str, events, plain, params, moe: bool):
     rows_got, rows_want, agree, n_rows = [], [], 0, 0
     for ev in events:
         if ev[0] == "prefill":
-            _, i, toks, true_len, lg = ev
+            _, i, toks, true_len, lg, tok = ev
+            if lg is None:  # captured: the same prefill, eagerly
+                tokens = torch.as_tensor(np.asarray(toks, np.int64)[None],
+                                         device="cuda")
+                lg, _ = model.prefill(params, tokens,
+                                      model.init_cache(1, len(toks)))
+                lg = (lg[0, :, :V] if moe
+                      else lg[0, true_len - 1:true_len, :V])
+            if int(lg[true_len - 1 if moe else 0].argmax()) != tok:
+                fail(f"{label}: a prefill's token is not the argmax of its "
+                     "logits run eagerly")
             w = ref._prefill_into(i, toks)[0, :, :V]
             w = w if moe else w[true_len - 1:true_len]
             rows_got.append(lg)
             rows_want.append(w)
-            agree += int(w[true_len - 1 if moe else 0].argmax()) \
-                == int(lg[true_len - 1 if moe else 0].argmax())
+            agree += int(w[true_len - 1 if moe else 0].argmax()) == tok
             n_rows += 1
         else:
             _, toks, poss, lg, nxt = ev
@@ -3134,7 +3683,7 @@ def phase_tuned(gen, checks: dict) -> dict:
         fail(f"tuned cold: {st.plan_cache_hits} hits, "
              f"{st.plan_cache_misses} misses of {n_sig} compiles")
     plain = Model(cfg, "xla", dispatch="interpret")
-    plain_agreement("tuned cold", events, plain, params, False)
+    plain_agreement("tuned cold", events, plain, params, False, cold.mdl)
     del plain, events
 
     # -- warm: a fresh model on the same cache -----------------------------
@@ -3669,11 +4218,13 @@ def main(argv=None) -> int:
         description="Drive the PyTorch port on one CUDA card (see the "
                     "module's docstring for the phases).")
     ap.add_argument(
-        "--phase", choices=("all", "router", "tuned"), default="all",
+        "--phase", choices=("all", "router", "tuned", "dispatch"),
+        default="all",
         help="'router': only the device line, the build and the router "
              "floor rows (phase 3c), then their JSON line; no path runs. "
              "'tuned': only the device line and the tuned phase (5c), "
-             "then its JSON line")
+             "then its JSON line. 'dispatch': only the device line and "
+             "the dispatch phase (3f), then its JSON line")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3706,6 +4257,10 @@ def main(argv=None) -> int:
         phase_tuned(gen, {})
         print(json.dumps({"tuned": TUNED_RESULTS}, default=str))
         return 0
+    if args.phase == "dispatch":
+        phase_dispatch(gen, {})
+        print(json.dumps({"dispatch": DISPATCH_RESULTS}, default=str))
+        return 0
     phase_kernels(gen)
     checks = phase_cuda_kernels(gen)
     phase_router_floor(gen)
@@ -3714,6 +4269,7 @@ def main(argv=None) -> int:
     form_checks, form_launches = phase_anchor_forms(gen)
     checks.update(form_checks)
     diff_launches = phase_differentiable(gen)
+    dispatch_launches = phase_dispatch(gen, checks)
     reset_launch_counts()
     fwd_launches, fwd_checks = phase_main_path(gen)
     checks.update(fwd_checks)
@@ -3801,7 +4357,8 @@ def main(argv=None) -> int:
                    "tuned": tuned_launches[name],
                    "anchor_bench": anchor_launches[name],
                    "anchor_forms": form_launches[name],
-                   "differentiable": diff_launches[name]}
+                   "differentiable": diff_launches[name],
+                   "dispatch": dispatch_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3816,6 +4373,7 @@ def main(argv=None) -> int:
     print(json.dumps({"scheduler": SCHED_RESULTS}))
     print(json.dumps({"tuned": TUNED_RESULTS}, default=str))
     print(json.dumps({"differentiable": DIFF_RESULTS}))
+    print(json.dumps({"dispatch": DISPATCH_RESULTS}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

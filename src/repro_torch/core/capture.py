@@ -2,11 +2,15 @@
 replayed.
 
 The counterpart of the reference compiling a whole schedule into one
-``jax.jit`` dispatch (``src/repro/core/stitch.py:28-36, 198-200``).  The
-port's compiled functions launch their kernels from Python, group by
-group and layer by layer; a decode step of Llama-3.2-3B is hundreds of
-launches whose host cost exceeds their device time.  ``CapturedStep``
-records those launches once and replays them with one call.
+``jax.jit`` dispatch (``src/repro/core/stitch.py:28-36, 198-200``).  A
+stitched call captures its own schedule once its input addresses repeat
+(``core/stitch.py``); a model's compiled functions run theirs directly
+(``stitch.run_directly``), layer by layer, so a decode step of
+Llama-3.2-3B is hundreds of launches whose host cost exceeds their
+device time.
+``CapturedStep`` records a whole step's launches once and replays them
+with one call: a decode step or wave, the scheduler's prefill of a
+bucket.
 
     step = CapturedStep(lambda tok, pos: ..., restore=state)
     out = step(tok, pos)      # 1st call: warm up, capture, replay
@@ -15,9 +19,11 @@ records those launches once and replays them with one call.
 The first call follows ``torch.cuda.graph``'s rules: ``fn`` runs eagerly
 ``WARMUP`` times on a side stream -- every ``nvcc`` build, generated
 kernel, Triton compile and trace of a compiled function happens there,
-none during the capture -- then one call is captured into a graph whose
-allocations (a kernel wrapper's outputs and scratch) come from the
-graph's own memory pool, and the graph is replayed for the call.  The
+none during the capture, and a stitched call inside captures no graph
+of its own (``_build.warming``) -- then one call is captured into a
+graph whose allocations (a kernel wrapper's outputs and scratch) come
+from the graph's own memory pool, and the graph is replayed for the
+call.  The
 inputs are the graph's static tensors: each later call copies its
 tensors (or fills its ints) into them.  Everything else ``fn``
 reads -- weights, the cache written in place -- is read at the addresses
@@ -33,6 +39,9 @@ put back before the capture, so the replay advances them once.
 A failed capture raises (a host sync, an allocation the graph cannot
 take, a launch the capture refuses): there is no eager fallback.  The
 outputs are the graph's own tensors, overwritten by the next call.
+Steps given one ``pool`` (``torch.cuda.graph_pool_handle()``) allocate
+from one memory pool: a replay may overwrite another step's outputs, so
+each replay's outputs are read before the next replay of any of them.
 
 Kernel wrappers count their launches in Python (``kernels/_build.py::
 count``); a replay runs no Python, so the launches recorded at capture
@@ -57,9 +66,15 @@ class CapturedStep:
     """``fn(*inputs) -> outputs`` (a pytree of CUDA tensors), captured at
     its first call and replayed at each call."""
 
-    def __init__(self, fn: Callable, *, restore: Sequence = ()):
+    def __init__(self, fn: Callable, *, restore: Sequence = (),
+                 pool=None):
         self.fn = fn
         self.restore = list(restore)
+        #: the memory pool the graph allocates from (``graph_pool_handle``;
+        #: None: a pool of its own)
+        self.pool = pool
+        #: device memory the capture reserved for the pool
+        self.pool_bytes = 0
         self.graph: torch.cuda.CUDAGraph | None = None
         self.inputs: list[torch.Tensor] = []
         self.outputs: Any = None
@@ -86,8 +101,7 @@ class CapturedStep:
                     buf.fill_(x)  # an int: a fill, no copy from the host
         self.graph.replay()
         self.replays += 1
-        for owner, n in self.kernels.items():
-            owner.launches += n
+        _build.add_replayed(self.kernels)
         return self.outputs
 
     @staticmethod
@@ -107,11 +121,15 @@ class CapturedStep:
         saved = [t.clone() for t in self.restore]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                self.fn(*self.inputs)
-            for t, s in zip(self.restore, saved):
-                t.copy_(s)
+        _build.warming += 1
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    self.fn(*self.inputs)
+                for t, s in zip(self.restore, saved):
+                    t.copy_(s)
+        finally:
+            _build.warming -= 1
         torch.cuda.current_stream().wait_stream(side)
         del saved
         # the graph's cudaGraph_t is kept (``raw_cuda_graph``) for whoever
@@ -121,10 +139,13 @@ class CapturedStep:
             raise RuntimeError("captured step: another capture is running")
         _build.capturing = {}
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=self.pool):
+                # read inside: entering empties the allocator's cache
+                reserved = torch.cuda.memory_reserved()
                 outputs = self.fn(*self.inputs)
         finally:
             tally, _build.capturing = _build.capturing, None
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
         if not all(isinstance(t, torch.Tensor)
                    for t in pytree.tree_leaves(outputs)):
             raise TypeError("captured step: outputs must be tensors")
@@ -132,12 +153,13 @@ class CapturedStep:
         self.graph, self.outputs, self.kernels = graph, outputs, tally
 
 
-def graphed(fn: Callable, device, *, restore: Sequence = ()) -> Callable:
+def graphed(fn: Callable, device, *, restore: Sequence = (),
+            pool=None) -> Callable:
     """``fn`` as a ``CapturedStep`` on a CUDA device; on the CPU ``fn``
     itself, run eagerly (its outputs are then new tensors at each
     call)."""
     if torch.device(device).type == "cuda":
-        return CapturedStep(fn, restore=restore)
+        return CapturedStep(fn, restore=restore, pool=pool)
     return fn
 
 

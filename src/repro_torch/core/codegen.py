@@ -411,6 +411,7 @@ class Emitted:
     hbm_saved: int = 0           # inter-pattern HBM bytes the group avoids
     n_recomputed: int = 0        # values inlined per consumer (not staged)
     recompute_bytes_freed: int = 0
+    io_aliases: dict | None = None  # ext pos -> out pos written into it
 
     @property
     def generated(self) -> bool:
@@ -554,12 +555,15 @@ class RowKernel:
                           and graph.node(i).spec.size > 1]
         self.block_rows = max(1, min(block_rows, self.R))
         self.recompute = frozenset(recompute)
+        #: {ext position: output position}: the output is written into
+        #: that donated input's storage (``_alias_map``)
+        self.io_aliases: dict[int, int] = {}
 
     # -- wrapper ---------------------------------------------------------------
     def __call__(self, device, *vals) -> tuple:
         devs = {v.device.type for v in vals} or {torch.device(device).type}
         if devs == {"cpu"}:
-            return self.plain(device, *vals)
+            return self._write_aliases(vals, self.plain(device, *vals))
         if devs != {"cuda"}:
             raise ValueError(
                 f"{type(self).__name__}: inputs must all lie on the CPU "
@@ -593,6 +597,38 @@ class RowKernel:
     def _in_nodes(self) -> list[int]:
         return self.ext_ids + self.const_ids
 
+    def _donated(self, vals, i: int, like: torch.Tensor) -> bool:
+        """Can output ``like`` live in input ``i``'s storage?  Only a
+        contiguous input of its dtype: another would be copied by
+        ``contiguous()`` and the output land in the copy."""
+        v = vals[i]
+        return (v.is_contiguous() and v.dtype == like.dtype
+                and v.numel() == like.numel())
+
+    def _aliased(self, vals, outs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The kernel's output buffers, each aliased one in its donated
+        input's storage."""
+        for i, j in self.io_aliases.items():
+            if self._donated(vals, i, outs[j]):
+                outs[j] = vals[i].view(outs[j].shape)
+        return outs
+
+    def _write_aliases(self, vals, outs: tuple) -> tuple:
+        """The plain version's outputs, each aliased one copied into its
+        donated input's storage and returned as it, as the kernel writes
+        it there.  An output that is a view of a donated input is cloned
+        first: the copy would overwrite it."""
+        if not self.io_aliases:
+            return outs
+        writes = [(i, j) for i, j in self.io_aliases.items()
+                  if self._donated(vals, i, outs[j])]
+        dst = {vals[i].untyped_storage().data_ptr() for i, _ in writes}
+        outs = [o.clone() if o.untyped_storage().data_ptr() in dst else o
+                for o in outs]
+        for i, j in writes:
+            outs[j] = vals[i].view(outs[j].shape).copy_(outs[j])
+        return tuple(outs)
+
 
 class OnePassKernel(RowKernel):
     """Block composition (Triton): one program, ``BR`` whole rows, all in
@@ -611,7 +647,7 @@ class OnePassKernel(RowKernel):
     def launch(self, *vals) -> tuple:
         device = vals[0].device if vals else torch.device("cuda")
         ins = [x.contiguous() for x in self._inputs(vals, device)]
-        outs = self._alloc_outputs(device)
+        outs = self._aliased(vals, self._alloc_outputs(device))
         kernel, grid, meta = self._compiled()
         kernel[grid](*ins, *outs, self.R, self.C, **meta)
         _build.count(type(self))
@@ -869,7 +905,7 @@ class StreamingKernel(RowKernel):
                 raise TypeError(f"streaming kernel: input {i} is {v.dtype}, "
                                 f"the group was compiled for {want}")
         ins = [x.contiguous() for x in self._inputs(vals, device)]
-        outs = self._alloc_outputs(device)
+        outs = self._aliased(vals, self._alloc_outputs(device))
         K, width, staged = self.cluster()
         # bulk copies need every staged row 16-byte aligned
         bulk = all(ins[k].data_ptr() % 16 == 0 and self.C * b % 16 == 0
@@ -1077,17 +1113,67 @@ def _override_estimate(graph: Graph, pattern: frozenset[int], info,
     return None
 
 
+def _alias_map(graph: Graph, roles: dict, ext_ids: list[int],
+               out_ids: list[int],
+               donate_into: frozenset[int] | None) -> dict[int, int]:
+    """Donated inputs written over by the one-pass kernel's outputs (the
+    reference's ``codegen._alias_map``): each input of ``donate_into``
+    (graph inputs whose only readers are this group's members) takes the
+    first unclaimed output of its role and dtype, FULL -> FULL or ROW ->
+    ROW.  Legal for ``OnePassKernel``: a program loads its row block
+    whole before it stores, and no other program touches those rows.  A
+    COL or scalar input is read by every program: never aliased."""
+    aliases: dict[int, int] = {}
+    for i, e in enumerate(ext_ids):
+        if not donate_into or e not in donate_into:
+            continue
+        role = roles.get(e)
+        if role not in (Role.FULL, Role.ROW):
+            continue
+        for j, o in enumerate(out_ids):
+            if (j not in aliases.values() and roles[o] is role
+                    and graph.node(o).spec.dtype == graph.node(e).spec.dtype):
+                aliases[i] = j
+                break
+    return aliases
+
+
+def _alias_map_streaming(kern: "StreamingKernel",
+                         donate_into: frozenset[int] | None
+                         ) -> dict[int, int]:
+    """``_alias_map`` for the streaming kernel (B2), re-derived for
+    ``csrc/streaming.cuh``: only FULL -> FULL, and only an input the
+    kernel stages, while the cluster holds the whole row (``staged`` =
+    ``slice``).  Every phase then reads that input from shared memory,
+    each element staged by the thread (or the bulk copy completed)
+    before the last phase stores over it.  Refused: a row longer than
+    the cluster holds (the columns past the stage are read from device
+    memory in every phase, after an earlier phase may have stored), an
+    unstaged input (read from device memory in every phase), and ROW
+    inputs (every thread of the row's CTAs reads them in every phase)."""
+    _, width, staged = kern.cluster()
+    if not donate_into or staged < width:
+        return {}
+    pos = sorted(k for k, _ in kern.staged if k < len(kern.ext_ids))
+    sub = _alias_map(kern.graph, kern.roles, [kern.ext_ids[k] for k in pos],
+                     kern.out_ids, donate_into)
+    return {pos[i]: j for i, j in sub.items()}
+
+
 def emit_pattern(graph: Graph, pattern: frozenset[int], *,
                  hw: Hardware = H100, ctx=None,
-                 schedule_override: dict | None = None) -> Emitted:
+                 schedule_override: dict | None = None,
+                 donate_into: frozenset[int] | None = None) -> Emitted:
     """Compile one pattern (a single-part group)."""
     return emit_group(graph, (tuple(sorted(pattern)),), hw=hw, ctx=ctx,
-                      schedule_override=schedule_override)
+                      schedule_override=schedule_override,
+                      donate_into=donate_into)
 
 
 def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
                ctx=None, anchors: tuple = (),
-               schedule_override: dict | None = None) -> Emitted:
+               schedule_override: dict | None = None,
+               donate_into: frozenset[int] | None = None) -> Emitted:
     """Compile one stitch group into a single generated kernel (paper §4).
 
     ``parts`` are the group's member patterns.  The union runs as ONE
@@ -1099,7 +1185,11 @@ def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
     not apply to it.  ``schedule_override`` (from the plan cache or the
     measured tuner) pins {schedule, block_rows, block_cols, recompute}
     instead of the analytic sweep's pick; one that does not apply
-    (``_override_estimate``) falls back to the sweep.
+    (``_override_estimate``) falls back to the sweep.  ``donate_into``
+    names graph inputs whose only readers are this group's members: a
+    generated kernel writes outputs over them where its scheme allows
+    (``_alias_map``, ``_alias_map_streaming``; ``Emitted.io_aliases``).
+    An anchored or packed group aliases nothing, as in the reference.
     """
     if anchors:
         return _emit_anchored(graph, parts, tuple(sorted(anchors)), hw=hw,
@@ -1151,10 +1241,15 @@ def emit_group(graph: Graph, parts, *, hw: Hardware = H100,
                                    block_rows=est.block_rows, order=order,
                                    block_cols=est.block_cols or 2048,
                                    eager=hw.platform == "gpu")
+        kern.io_aliases = (
+            _alias_map(graph, info.roles, ext_ids, out_ids, donate_into)
+            if est.schedule == "onepass"
+            else _alias_map_streaming(kern, donate_into))
         return Emitted(kern, kern.schedule, est, ext_ids, out_ids,
                        scratch.total_bytes, scratch.naive_bytes, parts=parts,
                        hbm_saved=hbm_saved, n_recomputed=len(rec),
-                       recompute_bytes_freed=rec_freed)
+                       recompute_bytes_freed=rec_freed,
+                       io_aliases=kern.io_aliases or None)
 
     fn = _emit_packed(graph, union, ext_ids, out_ids)
     if est.schedule != "packed":  # emitter gap: price what actually runs

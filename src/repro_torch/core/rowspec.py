@@ -62,6 +62,65 @@ def _classify_shape(shape: tuple[int, ...], R: int, C: int) -> Role | None:
 _MISS = object()
 
 
+def _resolve_square(graph: Graph, members: list, roles: dict[int, Role],
+                    C: int) -> bool:
+    """Where R == C, a tensor of C elements whose last dim is C may hold a
+    row's scalars (ROW) or a column parameter (COL): its size says
+    nothing.  ``_classify_shape`` calls it ROW; decide it here from how it
+    is made and used, in place in ``roles``: a reduction makes ROW; a
+    ``broadcast_in_dim`` whose input's last axis lands on its output's
+    last axis keeps the role (a FULL output: COL), else the input is ROW;
+    an element-wise op aligns its operands at their trailing axes, so
+    against a FULL output such an operand is COL, and an operand of the
+    output's own shape shares its role; a reshape keeps it.  False where
+    one stays undecided: no row view."""
+    nodes = graph.nodes
+    open_ = {n for n, r in roles.items() if r is Role.ROW
+             and nodes[n].spec.shape and nodes[n].spec.shape[-1] == C
+             and nodes[n].spec.size == C}
+
+    def known(n: int) -> Role | None:
+        return None if n in open_ else roles.get(n)
+
+    def decide(n: int, role: Role | None) -> bool:
+        if n in open_ and role in (Role.ROW, Role.COL):
+            roles[n] = role
+            open_.discard(n)
+            return True
+        return False
+
+    changed = True
+    while open_ and changed:
+        changed = False
+        for m in members:
+            shape = m.spec.shape
+            if m.kind is OpKind.REDUCE:
+                changed |= decide(m.nid, Role.ROW)
+            elif m.kind is OpKind.BROADCAST:
+                src = m.inputs[0]
+                dims = tuple(m.params.get("broadcast_dimensions", ()))
+                last = bool(dims) and dims[-1] == len(shape) - 1
+                out = known(m.nid)
+                if out is Role.FULL:
+                    changed |= decide(src, Role.COL if last else Role.ROW)
+                elif out is not None:
+                    changed |= decide(src, out if last else Role.ROW)
+                if last:
+                    changed |= decide(m.nid, known(src))
+            elif m.kind is OpKind.RESHAPE:
+                changed |= decide(m.inputs[0], known(m.nid))
+                changed |= decide(m.nid, known(m.inputs[0]))
+            else:
+                out = known(m.nid)
+                for i in m.inputs:
+                    if out is Role.FULL:
+                        changed |= decide(i, Role.COL)
+                    elif nodes[i].spec.shape == shape:
+                        changed |= decide(i, out)
+                        changed |= decide(m.nid, known(i))
+    return not open_
+
+
 def analyze(graph: Graph, pattern: frozenset[int], *,
             ext: "tuple[int, ...] | list[int] | None" = None,
             role_cache: dict | None = None) -> RowInfo | None:
@@ -125,6 +184,8 @@ def analyze(graph: Graph, pattern: frozenset[int], *,
         if role is None:
             return None
         roles[nid] = role
+    if R == C and not _resolve_square(graph, members, roles, C):
+        return None
 
     # 4. structural checks the emitter relies on.
     for m in members:

@@ -29,19 +29,38 @@ schedules and skips exploration, stitching and measurement.
 Dispatch:
 
 * ``"single"`` runs the schedule -- generated kernels, packed subgraphs
-  and the leftover single ops (matmuls among them) -- as eager launches
-  on the call's device.  On CPU tensors each generated kernel runs its
-  plain version; on CUDA tensors it launches or raises.
+  and the leftover single ops (matmuls among them) -- as one dispatch a
+  call on the card once a set of input addresses repeats: the first call
+  at a set runs the schedule eagerly (every build and compile happens
+  there); a call at a set the function saw among its last
+  ``GRAPHS_PER_FUNCTION`` sets captures it as a CUDA graph on a side
+  stream and replays it, and every later call with those addresses
+  replays the graph (``_Compiled``), as the reference composes the
+  schedule into one ``jax.jit`` callable.  A caller whose addresses
+  never repeat (a layer loop over per-layer weights) thus pays what an
+  eager call pays, never a capture.  A call gets aliases of the graph's
+  outputs; while a caller still holds one, the next call with those
+  addresses captures a second graph, then runs eagerly (counted in the
+  report, as is every eager call on the card).  A function keeps at most
+  ``GRAPHS_PER_FUNCTION`` graphs over all its signatures, the least
+  recently used dropped first.  Inside another capture, or its warm-up,
+  the schedule runs directly, recorded into the outer graph.  On CPU
+  tensors the schedule runs at each call, each generated kernel its
+  plain version.
 * ``"interpret"`` replays the traced graph op by op in plain PyTorch: the
   equivalence oracle.  The plan and report are built all the same.
+
+``donate`` and ``donate_argnums`` let the first kernel write its outputs
+over inputs nothing after it reads (``Emitted.io_aliases``); under a
+graph a donated input is read and written at its own address.
 
 ``differentiable=True`` (``DifferentiableStitched``) stitches the
 backward too: the VJP of ``fn``, traced functionalized, is another
 fusion-planned graph.
 
-A failed emission or launch raises: there is no fallback rung (the
-reference's guard ladder, shadow verification, canary, background racing
-and mesh options are not ported yet, ``ROADMAP.md`` A.8 and A.10).
+A failed emission, launch or capture raises: there is no fallback rung
+(the reference's guard ladder, shadow verification, canary, background
+racing and mesh options are not ported yet, ``ROADMAP.md`` A.7 and A.9).
 """
 from __future__ import annotations
 
@@ -54,6 +73,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ..kernels import _build
 from .codegen import Emitted, emit_group
 from .costctx import CostContext
 from .cost_model import H100, Hardware, KernelEstimate, anchor_enabled
@@ -106,6 +126,14 @@ class StitchReport:
     partition_disqualified: int = 0  # ...taken out by an injected crash
     partition_measured_s: list = field(default_factory=list)
     #                                  best time per candidate (inf: none)
+    # -- one dispatch a call: dispatch="single" on the card ------------------
+    graph_captures: int = 0          # CUDA graphs captured (an address set
+    #                                  each)
+    graph_replays: int = 0           # calls answered by one replay
+    graph_eager_runs: int = 0        # calls run eagerly on the card: an
+    #                                  address set's first, or its graphs busy
+    graph_evictions: int = 0         # graphs dropped, least recently used
+    graph_pool_bytes: int = 0        # device memory the captures reserved
 
     @property
     def n_onepass(self) -> int:
@@ -116,12 +144,137 @@ class StitchReport:
         return self.schedules.count("streaming")
 
 
+#: CUDA graphs a stitched function keeps over all its signatures, the
+#: least recently used dropped first; an address set is captured only
+#: when a call comes back to it while it is among the last
+#: ``GRAPHS_PER_FUNCTION`` sets the function was called at, so callers
+#: cycling over more sets than that never capture a graph that would be
+#: dropped before its replay.
+GRAPHS_PER_FUNCTION = 4
+
+#: Graphs one address set may hold: a second is captured while a caller
+#: still holds the first one's outputs (``y = f(x)`` in a loop holds the
+#: last ``y`` during the call); with both held the call runs eagerly.
+GRAPHS_PER_ADDRESS_SET = 2
+
+
+def _use_count(t: torch.Tensor) -> int:
+    """References to ``t``'s storage (tensors viewing it included)."""
+    return torch._C._storage_Use_Count(t.untyped_storage()._cdata)
+
+
+class _Replay:
+    """One schedule captured as a CUDA graph at one address set.
+
+    ``outputs`` are the graph's own output tensors, overwritten at each
+    replay; a call gets aliases of them.  ``sources`` names, for an
+    output that views an input's storage (a passthrough, a reshape, an
+    output written into a donated input), that input and the view, so the
+    call gets a view of its own argument and the graph keeps no input
+    alive.  ``busy`` says whether a caller still holds an output of the
+    last replay: replaying would overwrite it."""
+
+    def __init__(self, graph, outputs: tuple, flat: list, kernels: dict,
+                 pool_bytes: int):
+        self.graph = graph
+        self.kernels = kernels
+        self.pool_bytes = pool_bytes
+        storages = {a.untyped_storage().data_ptr(): k
+                    for k, a in enumerate(flat)}
+        self.sources: list = []
+        self.outputs: list = []
+        for o in outputs:
+            k = storages.get(o.untyped_storage().data_ptr())
+            if k is not None and o.dtype == flat[k].dtype:
+                self.sources.append((k, tuple(o.shape), o.stride(),
+                                     o.storage_offset()
+                                     - flat[k].storage_offset()))
+                self.outputs.append(None)
+            else:
+                self.sources.append(None)
+                self.outputs.append(o)
+        self._base = [None if o is None else _use_count(o)
+                      for o in self.outputs]
+
+    def busy(self) -> bool:
+        return any(o is not None and _use_count(o) > b
+                   for o, b in zip(self.outputs, self._base))
+
+    def __call__(self, flat) -> tuple:
+        self.graph.replay()
+        _build.add_replayed(self.kernels)
+        outs = []
+        for o, src in zip(self.outputs, self.sources):
+            if src is None:
+                outs.append(o.detach())
+            else:
+                k, size, stride, off = src
+                outs.append(flat[k].as_strided(
+                    size, stride, flat[k].storage_offset() + off))
+        return tuple(outs)
+
+
+class _Graphs:
+    """The CUDA graphs of one stitched function, over all its signatures:
+    ``kept``, [(signature, address key, _Replay)], and ``recent``, the
+    last ``GRAPHS_PER_FUNCTION`` distinct (signature, address key) pairs
+    it was called at, each least recently used first.  A signature is
+    its instance's ``StitchReport`` (not the instance, which holds this
+    object: dropping the function frees its graphs at once)."""
+
+    def __init__(self):
+        self.kept: list = []
+        self.recent: list = []
+
+    def lookup(self, sig: StitchReport, key) -> tuple[_Replay | None, bool]:
+        """(a free graph of ``sig`` at ``key``, whether to capture one
+        where there is none): a set seen among the recent ones is
+        captured, a set whose graphs are all busy only below
+        ``GRAPHS_PER_ADDRESS_SET``."""
+        mine = [n for n, (s, k, _) in enumerate(self.kept)
+                if s is sig and k == key]
+        seen = any(s is sig and k == key for s, k in self.recent)
+        self.recent = [(s, k) for s, k in self.recent
+                       if not (s is sig and k == key)]
+        self.recent = (self.recent + [(sig, key)])[-GRAPHS_PER_FUNCTION:]
+        for n in mine:
+            if not self.kept[n][2].busy():
+                self.kept.append(self.kept.pop(n))
+                return self.kept[-1][2], False
+        if mine:
+            return None, len(mine) < GRAPHS_PER_ADDRESS_SET
+        return None, seen
+
+    def add(self, sig: StitchReport, key, rep: _Replay) -> None:
+        if len(self.kept) >= GRAPHS_PER_FUNCTION:
+            self.kept.pop(0)[0].graph_evictions += 1
+        self.kept.append((sig, key, rep))
+
+
 class _Compiled:
-    """One traced + planned + emitted instance for a fixed signature."""
+    """One traced + planned + emitted instance for a fixed signature.
+
+    ``dispatch="single"`` on the card: the first call with a set of input
+    addresses runs the schedule eagerly; a call back at a recent set
+    captures it as a CUDA graph, replayed at every later call with the
+    same addresses -- one dispatch a call, the counterpart of the
+    reference wrapping the schedule in one ``jax.jit`` (``graphs``, a
+    ``_Graphs`` the function's signatures share).  ``exec_count`` counts
+    Python runs of the schedule body, as the reference's does: the eager
+    first call and the capture of each graph, then nothing while calls
+    replay.  On the CPU (and inside another capture or its warm-up, where
+    the outer graph records the launches) every call runs the schedule,
+    so ``exec_count`` counts calls; ``dispatch="interpret"`` counts each
+    call too.  ``donate_argnums``
+    are the donated flat positions (the reference's rule: every input
+    that is not an output, or the positions named, less those that are
+    outputs)."""
 
     def __init__(self, graph: Graph, emitted: list[Emitted],
                  schedule: list[tuple[str, Any]], report: StitchReport,
-                 out_spec, dispatch: str, device: torch.device):
+                 out_spec, dispatch: str, device: torch.device, *,
+                 donate_argnums: tuple[int, ...] = (),
+                 graphs: _Graphs | None = None):
         self.graph = graph
         self.emitted = emitted
         self.schedule = schedule  # [("group", Emitted) | ("node", nid)]
@@ -129,12 +282,27 @@ class _Compiled:
         self.out_spec = out_spec
         self.dispatch = dispatch
         self.device = device
+        self.donate_argnums = donate_argnums
+        self.exec_count = 0
+        #: the function's graphs; None where no graph is captured (the
+        #: CPU, "interpret", ``run_directly``)
+        self._graphs = (graphs if dispatch == "single"
+                        and device.type == "cuda" else None)
+
+    @property
+    def graphs(self) -> list | None:
+        """This signature's graphs kept, least recently used first (None
+        where no graph is captured)."""
+        if self._graphs is None:
+            return None
+        return [rep for s, _, rep in self._graphs.kept if s is self.report]
 
     def _value(self, env, i):
         return env[i] if i in env else const_tensor(self.graph.node(i),
                                                     self.device)
 
     def run_schedule(self, *flat_args) -> tuple:
+        self.exec_count += 1
         graph, dev = self.graph, self.device
         env: dict[int, Any] = dict(zip(graph.inputs, flat_args))
         for kind, item in self.schedule:
@@ -149,6 +317,7 @@ class _Compiled:
 
     def run_plain(self, *flat_args) -> tuple:
         """The traced graph replayed op by op in plain PyTorch."""
+        self.exec_count += 1
         graph, dev = self.graph, self.device
         env: dict[int, Any] = dict(zip(graph.inputs, flat_args))
         for nid in graph.topo_order():
@@ -160,8 +329,75 @@ class _Compiled:
         return tuple(env[o] for o in graph.outputs)
 
     def __call__(self, flat_args):
-        run = self.run_schedule if self.dispatch == "single" else self.run_plain
-        return pytree.tree_unflatten(list(run(*flat_args)), self.out_spec)
+        if self.dispatch != "single":
+            outs = self.run_plain(*flat_args)
+        elif (self._graphs is None or _build.warming
+              or torch.cuda.is_current_stream_capturing()):
+            outs = self.run_schedule(*flat_args)
+        else:
+            outs = self._dispatch_one(list(flat_args))
+        return pytree.tree_unflatten(list(outs), self.out_spec)
+
+    def _dispatch_one(self, flat: list) -> tuple:
+        """Replay a free graph of these addresses, capture one where the
+        addresses came back (``_Graphs.lookup``), else run the schedule
+        eagerly (counted: ``graph_eager_runs``)."""
+        key = tuple((a.data_ptr(), tuple(a.shape), a.stride(), a.dtype)
+                    for a in flat)
+        rep, capture = self._graphs.lookup(self.report, key)
+        if rep is None and not capture:
+            self.report.graph_eager_runs += 1
+            return self.run_schedule(*flat)
+        if rep is None:
+            rep = self._capture(flat)
+            self._graphs.add(self.report, key, rep)
+        self.report.graph_replays += 1
+        return rep(flat)
+
+    def _capture(self, flat: list) -> _Replay:
+        """Capture the schedule at ``flat``'s addresses into a graph with
+        its own memory pool (graphs of one function cannot share one: a
+        replay would overwrite outputs of another graph that a caller
+        still holds).  No warm-up run: the set's first call ran the
+        schedule eagerly (``core/capture.py``'s warm-up), so every build,
+        Triton compile and measurement is done and none happens during
+        the capture; and the capture runs nothing, so a donated input or
+        one an in-place op writes is written once a call, by the replay.
+        A failed capture raises: no call runs the schedule eagerly in its
+        place."""
+        if _build.capturing is not None:
+            raise RuntimeError("stitched call: another capture is running")
+        rep = self.report
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        # captured on the side stream with ``capture_begin``/``_end``, not
+        # ``torch.cuda.graph``, whose entry collects garbage and empties
+        # the allocator's cache at every capture: a call's fresh inputs
+        # would then come from new segments, at new addresses, and
+        # capture again
+        graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(self.device)
+        _build.capturing = {}
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    outputs = self.run_schedule(*flat)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is invalid: the first error says why
+                    raise
+                graph.capture_end()
+        finally:
+            tally, _build.capturing = _build.capturing, None
+        cur.wait_stream(side)
+        pool = torch.cuda.memory_reserved(self.device) - reserved
+        rep.graph_captures += 1
+        rep.graph_pool_bytes += pool
+        return _Replay(graph, outputs, flat, tally, pool)
 
 
 def _build_schedule(graph: Graph, emitted: list[Emitted]
@@ -334,6 +570,40 @@ def _sched_of(est: KernelEstimate) -> dict:
     return d
 
 
+def _donate_into(graph: Graph, ctx: CostContext, groups: list[StitchGroup],
+                 donate_argnums: tuple[int, ...]
+                 ) -> tuple[int, frozenset[int]]:
+    """(group index, graph inputs) of the kernel that may write its
+    outputs over donated inputs: the group of the first scheduled node,
+    where it reads only graph inputs and constants, takes the donated
+    inputs whose every reader is among its members -- dead the moment it
+    has read them (the reference's schedule-position analysis,
+    ``src/repro/core/stitch.py:930-971``).  (-1, empty) where nothing is
+    donated."""
+    if not donate_argnums:
+        return -1, frozenset()
+    allowed = {graph.inputs[i] for i in donate_argnums}
+    member_of = {nid: gi for gi, grp in enumerate(groups)
+                 for nid in grp.members}
+    inset = set(graph.inputs)
+    first_idx = -1
+    for nid in graph.topo_order():
+        if nid in inset or graph.node(nid).kind is OpKind.CONST:
+            continue
+        first_idx = member_of.get(nid, -1)
+        break
+    if first_idx < 0:
+        return -1, frozenset()
+    members = groups[first_idx].members
+    if not all(i in inset or graph.node(i).kind is OpKind.CONST
+               for i in ctx.bounds(members).inputs):
+        return -1, frozenset()
+    into = frozenset(i for i in graph.inputs
+                     if i in allowed and graph.consumers(i)
+                     and all(c in members for c in graph.consumers(i)))
+    return (first_idx, into) if into else (-1, frozenset())
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for the
     CPU; a CUDA device on a host without one is an error, never a
@@ -351,16 +621,22 @@ class StitchedFunction:
                  dispatch: str = "single", stitch_groups: bool = True,
                  device="cuda", plan_cache: str | None = None,
                  autotune: bool = False, use_remote_fusion: bool = True,
-                 functional: bool = False):
+                 functional: bool = False, donate: bool = False,
+                 donate_argnums: tuple[int, ...] | None = None):
         if dispatch not in ("single", "interpret"):
             raise ValueError(
                 f"dispatch must be 'single' or 'interpret', got {dispatch!r}")
         self._fn = fn
+        # a differentiable call keeps its primal inputs for the backward:
+        # it donates nothing, as in the reference
         self._options = dict(hw=hw, dispatch=dispatch,
                              stitch_groups=stitch_groups, device=device,
                              plan_cache=plan_cache, autotune=autotune,
                              use_remote_fusion=use_remote_fusion)
         self._functional = functional
+        self._donate = donate
+        self._donate_argnums = (tuple(donate_argnums)
+                                if donate_argnums is not None else None)
         self._autograd: DifferentiableStitched | None = None
         self._hw = hw
         self._dispatch = dispatch
@@ -371,6 +647,9 @@ class StitchedFunction:
         self._plan_cache = (PlanCache(plan_cache) if plan_cache
                             else PlanCache.from_env())
         self._cache: dict[tuple, _Compiled] = {}
+        #: the CUDA graphs of every signature (``dispatch="single"``; None:
+        #: ``run_directly``)
+        self._graphs: _Graphs | None = _Graphs()
 
     def _check_devices(self, flat) -> None:
         for leaf in flat:
@@ -382,8 +661,10 @@ class StitchedFunction:
                     f"input on {leaf.device}, but this stitched function "
                     f"runs on {self.device}")
 
-    def _compile(self, args) -> tuple[_Compiled, list]:
-        flat, in_spec = pytree.tree_flatten(args)
+    def _compile(self, args, flat=None, in_spec=None
+                 ) -> tuple[_Compiled, list]:
+        if flat is None:
+            flat, in_spec = pytree.tree_flatten(args)
         self._check_devices(flat)
         key = (str(in_spec),) + tuple((tuple(a.shape), a.dtype)
                                       for a in flat)
@@ -573,16 +854,22 @@ class StitchedFunction:
 
         pat_over = {pat.members: over
                     for pat, over in zip(plan.patterns, overrides)}
+        donate_argnums = self._donated_positions(graph)
+        first_idx, donate_first = _donate_into(graph, ctx, groups,
+                                               donate_argnums)
         emit_cache: dict[tuple, tuple[Emitted, list[int]]] = {}
         emitted: list[Emitted] = []
         reused = 0
-        for grp, gover in zip(groups, group_overrides):
+        for gi, (grp, gover) in enumerate(zip(groups, group_overrides)):
             union = grp.members
             over = gover or (pat_over.get(grp.parts[0], {})
                              if len(grp.parts) == 1 else {})
             over = {k: v for k, v in over.items() if k != "tuned"}
             parts = tuple(tuple(sorted(p)) for p in grp.parts)
-            ekey = _emit_signature(graph, ctx, union, over, grp.anchors)
+            donate_into = donate_first if gi == first_idx else None
+            ekey = _emit_signature(graph, ctx, union, over, grp.anchors) + (
+                (("donate", tuple(sorted(donate_first))),)
+                if donate_into else ())
             em = None
             hit = emit_cache.get(ekey)
             if hit is not None:
@@ -591,7 +878,8 @@ class StitchedFunction:
             if em is None:
                 em = emit_group(graph, grp.parts, hw=hw, ctx=ctx,
                                 anchors=grp.anchors,
-                                schedule_override=over or None)
+                                schedule_override=over or None,
+                                donate_into=donate_into)
                 emit_cache[ekey] = (em, _ext_seen_order(graph, union,
                                                         set(em.ext_ids)))
             emitted.append(em)
@@ -675,7 +963,24 @@ class StitchedFunction:
                                   else []),
         )
         return _Compiled(graph, emitted, schedule, report, out_spec,
-                         self._dispatch, self.device)
+                         self._dispatch, self.device,
+                         donate_argnums=donate_argnums, graphs=self._graphs)
+
+    def _donated_positions(self, graph: Graph) -> tuple[int, ...]:
+        """The donated flat input positions (the reference's rule,
+        ``src/repro/core/stitch.py:186-199``): with ``donate`` every input
+        that is not also an output, with ``donate_argnums`` the positions
+        named less those; nothing under ``dispatch="interpret"``."""
+        if self._dispatch != "single" or not (
+                self._donate or self._donate_argnums is not None):
+            return ()
+        outset = set(graph.outputs)
+        if self._donate_argnums is not None:
+            return tuple(i for i in self._donate_argnums
+                         if 0 <= i < len(graph.inputs)
+                         and graph.inputs[i] not in outset)
+        return tuple(i for i, nid in enumerate(graph.inputs)
+                     if nid not in outset)
 
     @property
     def n_compiled(self) -> int:
@@ -693,16 +998,17 @@ class StitchedFunction:
         return [c.report for c in self._cache.values()]
 
     def __call__(self, *args):
+        flat, in_spec = pytree.tree_flatten(args)
         if (self.device.type == "cuda" and torch.is_grad_enabled()
                 and any(isinstance(a, torch.Tensor) and a.requires_grad
-                        for a in pytree.tree_leaves(args))):
+                        for a in flat)):
             # as the reference's function differentiates under jax.grad:
             # the kernels forward, the stitched VJP backward
             if self._autograd is None:
                 self._autograd = DifferentiableStitched(self._fn,
                                                         **self._options)
             return self._autograd(*args)
-        compiled, flat = self._compile(args)
+        compiled, flat = self._compile(args, flat, in_spec)
         return compiled(flat)
 
     def compiled(self, *args) -> _Compiled:
@@ -838,8 +1144,21 @@ class DifferentiableStitched:
         return [r for sf in self.bwd_cache.values() for r in sf.reports()]
 
 
+def run_directly(sf: StitchedFunction) -> StitchedFunction:
+    """``sf`` with no graphs of its own: each call on the card runs its
+    schedule, as inside a capture.  For ``Model``'s compiled functions,
+    called layer by layer inside steps their callers capture whole: a
+    graph of one of them would keep a pool (a head's logits) for replays
+    an eager step never needs, and put replays into the eager steps the
+    captured ones are held against, kernel by kernel."""
+    sf._graphs = None
+    return sf
+
+
 def stitched_jit(fn: Callable, *, hw: Hardware = H100,
                  dispatch: str = "single", stitch_groups: bool = True,
+                 donate: bool = False,
+                 donate_argnums: tuple[int, ...] | None = None,
                  device="cuda", plan_cache: str | None = None,
                  autotune: bool = False,
                  use_remote_fusion: bool = True,
@@ -851,10 +1170,17 @@ def stitched_jit(fn: Callable, *, hw: Hardware = H100,
     ``V5E`` plans exactly as the JAX package does, for a TPU's VMEM and
     with no register cap, so its kernels are for the CPU parity tests,
     not the card).  ``dispatch`` is
-    ``"single"`` (the stitched schedule) or ``"interpret"`` (op-by-op
-    plain replay).  ``stitch_groups=False`` emits one kernel per plan
-    pattern.  ``device`` is where the function runs: CUDA unless the
-    caller passes ``device="cpu"``; inputs must lie there.
+    ``"single"`` (the stitched schedule; on the card one replayed CUDA
+    graph a call, ``_Compiled``) or ``"interpret"`` (op-by-op plain
+    replay).  ``stitch_groups=False`` emits one kernel per plan
+    pattern.  ``donate=True`` donates every input that is not also an
+    output, ``donate_argnums`` only the flat positions named (less the
+    outputs): the first kernel writes its outputs over the donated
+    inputs that nothing after it reads (``Emitted.io_aliases``), on the
+    card and, through the plain versions, on the CPU, so a donated input
+    may hold an output after the call.  ``device`` is where the function
+    runs: CUDA unless the caller passes ``device="cpu"``; inputs must lie
+    there.
     ``plan_cache`` names a persistent plan-cache directory (default
     ``$REPRO_PLAN_CACHE`` when set).  With ``autotune=True`` on the card
     (or under ``REPRO_AUTOTUNE=force``) the patterns' and stitched
@@ -877,8 +1203,11 @@ def stitched_jit(fn: Callable, *, hw: Hardware = H100,
                    device=device, plan_cache=plan_cache, autotune=autotune,
                    use_remote_fusion=use_remote_fusion)
     if differentiable:
+        # the primal inputs are the backward's residuals: nothing is
+        # donated, as in the reference
         return DifferentiableStitched(fn, **options)
-    return StitchedFunction(fn, **options)
+    return StitchedFunction(fn, donate=donate, donate_argnums=donate_argnums,
+                            **options)
 
 
 def fusion_report(fn: Callable, *example_args, hw: Hardware = H100,

@@ -159,9 +159,15 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(libs[name]))
 
 
-#: While ``core/capture.py`` captures a CUDA graph: {counter owner:
-#: launches recorded into the graph}; else None.
+#: While ``core/capture.py`` or a stitched call (``core/stitch.py``)
+#: captures a CUDA graph: {counter owner: launches recorded into the
+#: graph}; else None.
 capturing: dict | None = None
+
+#: Depth of whole-step warm-ups running (``core/capture.py``): a stitched
+#: call inside one runs its schedule directly, as it does inside the
+#: capture that follows, and captures no graph of its own.
+warming: int = 0
 
 #: Depth of ``uncounted`` blocks: launches made inside one are not counted.
 _uncounted = 0
@@ -194,13 +200,23 @@ def count(owner, n: int = 1) -> None:
     (a wrapper calls this where it launches).  A launch recorded into a
     CUDA graph being captured runs only when the graph is replayed, so it
     is tallied for the graph, which counts it at each replay
-    (``core/capture.py``).  Inside ``uncounted`` nothing is counted."""
+    (``add_replayed``).  Inside ``uncounted`` nothing is counted."""
     if _uncounted:
         return
     if capturing is None:
         owner.launches += n
     else:
         capturing[owner] = capturing.get(owner, 0) + n
+
+
+def add_replayed(tally: dict) -> None:
+    """Count, at a replay of a CUDA graph, the launches ``tally``
+    ({owner: launches}) recorded into it at capture.  Inside
+    ``uncounted`` nothing is counted."""
+    if _uncounted:
+        return
+    for owner, n in tally.items():
+        owner.launches += n
 
 
 def check(err: int, what: str) -> None:

@@ -4,7 +4,9 @@ prompt pass, training, KV and SSM caches, prefill and decode.
 ``block_apply`` is the per-layer program of the JAX package's
 ``models/model.py::block_apply``.  The layer loop is a Python loop over
 compiled (``stitched_jit``) functions whose shapes repeat, so each
-compiles once:
+compiles once.  On the card they run their schedules at every call
+(``run_directly``), never a graph of their own: the callers capture
+whole steps (a decode step or wave, the scheduler's prefill):
 
 * ``Model.forward`` (no cache): one compiled block per layer, then a
   compiled head -- the final norm, ``torch.matmul`` for the LM head, and
@@ -57,7 +59,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.cost_model import H100, Hardware
-from ..core.stitch import resolve_device, stitched_jit
+from ..core.stitch import resolve_device, run_directly, stitched_jit
 from ..kernels import ops, ref
 from . import layers as L
 from .layers import FusionMode
@@ -236,11 +238,12 @@ class Model:
                     plan_cache=self.plan_cache, autotune=self.autotune)
 
         def jit(fn):
-            return stitched_jit(functools.partial(fn, cfg, fm), **opts)
+            return run_directly(
+                stitched_jit(functools.partial(fn, cfg, fm), **opts))
 
         self._jit = jit
-        self.block = stitched_jit(
-            functools.partial(block_apply, cfg, fm=fm), **opts)
+        self.block = run_directly(stitched_jit(
+            functools.partial(block_apply, cfg, fm=fm), **opts))
         self.head = jit(head_apply)
         self.pre = jit(block_pre)
         self.post = jit(block_post)

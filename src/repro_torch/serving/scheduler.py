@@ -38,8 +38,23 @@ Where the reference differs, and why:
   in the reference.  A compile that measures (``autotune``) on the card
   runs in the wave's warm-up, before its capture.  The reference's
   ``background`` and ``canary`` options and the stats they fill have no
-  counterpart: their modules are not ported.  The prefill runs eagerly
-  through the model's compiled functions.
+  counterpart: their modules are not ported.
+* The reference dispatches each prefill as one jitted call a bucket
+  shape.  On the card a bucketed prefill (the dense and ``moe``
+  families) is one captured CUDA graph a bucket, replayed at each
+  prefill of that bucket (``_prefill_staged``): it prefills into a
+  batch-1 cache of the bucket's rows in the graph's memory, zeroes the
+  slot's rows past them and copies them into the slot, the slot and the
+  true last position passed as device ints, and returns the greedy
+  token at that position -- one int read by the host, never the [1, S,
+  padded_vocab] logits.  The bucket graphs share one memory pool: each
+  replay's token is read before the next replay.  Its compiles and
+  measured tuning run in the graph's warm-up.  The recurrent families
+  keep exact prompt lengths (a pad token would fold into the state), so
+  a graph a length would hardly be replayed: their prefill runs eagerly
+  through the model's compiled functions, as it does with
+  ``capture=False`` (and on the CPU, where ``capture=True`` runs the
+  graph's function eagerly).
 """
 from __future__ import annotations
 
@@ -52,7 +67,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from ..core.capture import graphed
+from ..core.capture import CapturedStep, graphed
 from ..models.model import RECURRENT, Model
 from .buckets import Buckets, pad_tokens
 
@@ -89,6 +104,11 @@ class ServeStats:
     # -- latency samples ------------------------------------------------------
     ttft_s: list = field(default_factory=list)   # submit -> first token
     wave_s: list = field(default_factory=list)   # per decode wave
+    prefill_s: list = field(default_factory=list)  # (length, s) a prefill
+    # -- captured prefill (one CUDA graph a bucket) ---------------------------
+    prefill_captures: int = 0   # bucket graphs captured
+    prefill_replays: int = 0    # prefills answered by a replay
+    prefill_pool_bytes: int = 0  # device memory the graphs' pool reserved
     steady_wall_s: float = 0.0  # wall in warm (already-compiled) calls
     steady_tokens: int = 0      # tokens produced by warm calls
 
@@ -138,7 +158,9 @@ class ServeStats:
                 f"{self.p99_ttft_s * 1e3:.1f}ms | tok p50/p99 "
                 f"{self.p50_tok_s * 1e3:.1f}/{self.p99_tok_s * 1e3:.1f}ms"
                 f" | {self.tok_per_s:.1f} tok/s "
-                f"({self.tok_per_s_steady:.1f} steady)")
+                f"({self.tok_per_s_steady:.1f} steady) | prefill graphs "
+                f"{self.prefill_captures} ({self.prefill_replays} replays, "
+                f"pool {self.prefill_pool_bytes / 2 ** 20:.1f} MiB)")
 
 
 class ContinuousBatcher:
@@ -186,6 +208,14 @@ class ContinuousBatcher:
         self._wave = (graphed(wave, mdl.device,
                               restore=mdl.recurrent_state(self.cache))
                       if capture else wave)
+        #: {bucket length: the bucket's prefill (a ``CapturedStep`` on the
+        #: card)}; None where prefills run eagerly (``capture=False``, the
+        #: recurrent families)
+        self._prefills: dict | None = (
+            {} if capture and self._pad_prompts else None)
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self._prefills is not None
+                      and mdl.device.type == "cuda" else None)
 
     # -- client API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new: int = 16) -> int:
@@ -226,8 +256,11 @@ class ContinuousBatcher:
     def compile_counts(self) -> dict[str, int]:
         """Prefill and decode calls that compiled new signatures of the
         model's functions (a 7-length prompt mix compiles once per
-        bucket, the wave once)."""
-        return dict(self._compiles)
+        bucket, the wave once), and the prefill graphs captured (one a
+        bucket on the card)."""
+        return dict(self._compiles, prefill_graphs=sum(
+            isinstance(s, CapturedStep) and s.graph is not None
+            for s in (self._prefills or {}).values()))
 
     # -- internals ---------------------------------------------------------------
     def _note_call(self, shape_key: tuple, dt: float, tokens: int) -> None:
@@ -261,6 +294,55 @@ class ContinuousBatcher:
         self._compiles["prefill"] += self.mdl.n_compiled > before
         return logits
 
+    def _prefill_staged(self, tokens: torch.Tensor, slot, last):
+        """The captured prefill's function: ``tokens`` [1, S] into a
+        batch-1 cache of S rows, then into slot ``slot``'s rows (those
+        past S zeroed, as a fresh cache has them) -> the greedy token at
+        position ``last``, a 0-d device tensor.  ``slot`` and ``last`` are
+        ints or 0-d device tensors (the graph's inputs)."""
+        dev = self.mdl.device
+        slot = torch.as_tensor(slot, device=dev).reshape(1)
+        last = torch.as_tensor(last, device=dev).reshape(1)
+        S = tokens.shape[1]
+        stage = {}
+        for name, t in self.cache.items():
+            L, _, H, _, D = t.shape
+            stage[name] = t.new_empty((L, 1, H, S, D))
+        logits, _ = self.mdl.prefill(self.params, tokens, stage)
+        for name, t in self.cache.items():
+            t[:, :, :, S:].index_fill_(1, slot, 0.0)
+            t[:, :, :, :S].index_copy_(1, slot, stage[name])
+        row = logits[0].index_select(0, last)[0, : self.mdl.cfg.vocab_size]
+        return row.argmax()
+
+    def _prefill_token(self, i: int, toks: np.ndarray, true_len: int) -> int:
+        """Prefill ``toks`` into slot ``i`` -> the greedy token at the
+        *true* last prompt position (the causal mask makes the padded
+        tail invisible to it): through the bucket's graph where there is
+        one, else eagerly (``_prefill_into``)."""
+        if self._prefills is None:
+            logits = self._prefill_into(i, toks)
+            return int(logits[0, true_len - 1,
+                              : self.mdl.cfg.vocab_size].argmax())
+        S = int(toks.shape[-1])
+        step = self._prefills.get(S)
+        if step is None:
+            step = graphed(self._prefill_staged, self.mdl.device,
+                           pool=self._pool)
+            self._prefills[S] = step
+        before = self.mdl.n_compiled
+        tokens = torch.from_numpy(np.asarray(toks, np.int64)[None, :]).to(
+            self.mdl.device)
+        fresh = isinstance(step, CapturedStep) and step.graph is None
+        tok = int(step(tokens, i, true_len - 1))  # the prefill's one read
+        self._compiles["prefill"] += self.mdl.n_compiled > before
+        if isinstance(step, CapturedStep):
+            self.stats.prefill_replays += 1
+            if fresh:
+                self.stats.prefill_captures += 1
+                self.stats.prefill_pool_bytes += step.pool_bytes
+        return tok
+
     def _prefill_slot(self, i: int, req: Request) -> None:
         t0 = time.perf_counter()
         true_len = len(req.prompt)
@@ -269,12 +351,9 @@ class ContinuousBatcher:
             toks = pad_tokens(req.prompt, plen, pad_id=self.pad_id)
         else:
             toks = req.prompt
-        logits = self._prefill_into(i, toks)
-        # the *true* last prompt position: the causal mask makes the
-        # padded tail invisible to it.
-        first = int(logits[0, true_len - 1,
-                           : self.mdl.cfg.vocab_size].argmax())
+        first = self._prefill_token(i, toks, true_len)
         dt = time.perf_counter() - t0
+        self.stats.prefill_s.append((int(toks.shape[-1]), dt))
         self._note_call(("prefill", int(toks.shape[-1])), dt, tokens=1)
         req.out.append(first)
         req.pos = true_len

@@ -259,6 +259,33 @@ Phases, each of which makes the script exit non-zero when it fails:
    8 x 512 tokens, the SSD kernel once a layer per step (three launches a
    call; its backward is the VJP of the plain oracle, as in the
    reference).
+11b. bfloat16 (``phase_bf16_kernels``, ``phase_bf16_llama``,
+   ``phase_bf16_train``; ``--phase bf16`` alone, 5e in its help): the
+   kernels' bfloat16 instances -- B6 at [2048, 3072] and [4, 3072]; B4 at
+   Llama's prefill (B4 Hq24 Hkv8 S512 D128 causal), D 64 and D 256, and
+   with a bias score functor at Llama's heads; B8 at decode_32k with a
+   bfloat16 q against float32 and against bfloat16 caches; B3 at Llama's
+   gate x SiLU x up, M 2048 and the decode tile's M 4 -- each within the
+   reference's bfloat16 band of its plain version (rtol = atol 2e-2 for
+   B6 and B8; 4e-2 and 1.2e-1 anchored) and no more than 2x the plain
+   version's distance from float64 of the same inputs, its bound at
+   989 TFLOP/s (bf16) or 3.35 TB/s, with ``F.rms_norm``, SDPA or
+   ``torch.matmul`` in bfloat16 beside it.  Then Llama-3.2-3B with
+   ``param_dtype=torch.bfloat16`` at full width and depth: the forward
+   at 4 x 512 and ``generate`` (batch 4, 500 prompt tokens, 16 greedy,
+   the float32 cache of 1,024 rows, each decode step one replayed
+   graph), its logits (every step's, teacher-forced) no further from a
+   float32 plain run of the same weights than 1.5 times the bfloat16
+   plain path's distance plus 1e-3 max(1, max|logits|); its training
+   with remat ("full"), batch 8 x 512, 5 AdamW steps through
+   ``make_train_step(donate=True)``: step 0's loss and gradients by the
+   same rule, its gradients with remat equal to those without within a
+   bfloat16 ulp, B4 and B6 twice a layer a step; and Zamba2-1.2B's
+   float32 training through ``build_trainer`` as in 6, at batch 4 x 512
+   (``HYBRID_TRAIN_BATCH``: its plain path does not fit at 8 after the
+   earlier phases) (SSD three launches
+   a layer, two RMSNorms a layer and a shared application, one attention
+   a shared application).
 12. Static-decode paths (``make_decode_step(mdl, kv_len)``, the
    reference's decode cells): Llama-3.2-3B at decode_32k (28 layers,
    batch 4, a 30 GB cache of 32,768 rows from the seeded generator) and
@@ -313,6 +340,10 @@ SEED = 0
 BATCH, PROMPT = 4, 512
 SERVE_PROMPT, SERVE_GEN = 500, 16
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 512, 5
+#: Zamba2's train batch, halved: at 8 x 512 its plain path peaked at
+#: 81.68 GB alone (run 28C) and ran out of the card's 79.18 GiB after the
+#: earlier phases (run 28F)
+HYBRID_TRAIN_BATCH = TRAIN_BATCH // 2
 #: Llama-3.2-3B's MLP: d_model (B3's K) and d_ff (its N)
 ANCHOR_K, ANCHOR_N = 3072, 8192
 MOE_ARCH = "granite-moe-1b-a400m"
@@ -733,7 +764,8 @@ def anchored_groups(compiled) -> list:
 
 def kernel_kind(name: str) -> str:
     low = name.lower()
-    if "rms_vec_kernel" in low or "rms_scalar_kernel" in low:
+    if any(k in low for k in ("rms_vec_kernel", "rms_scalar_kernel",
+                              "rms_ring_kernel")):
         return "cuda rmsnorm"
     if "flash_fwd_kernel" in low:
         return "cuda flash"
@@ -756,8 +788,9 @@ def kernel_kind(name: str) -> str:
         return "cuda matmul_fused"
     if low == "kernel":
         return "generated"
+    # cuBLAS's Hopper GEMMs include "nvjet" kernels (its bfloat16 ones)
     if any(k in low for k in ("gemm", "sm90", "cutlass", "matmul", "xmma",
-                              "gemv")):
+                              "gemv", "nvjet")):
         return "matmul"
     return "plain ops"
 
@@ -1130,13 +1163,14 @@ def check_anchored(em, graph, gen, *, label: str, reps: int,
 def ext_values(comp, em, args, gen) -> list:
     """The anchored group's inputs: the call's own arguments where the
     group reads a graph input, standard normal values of the right shape
-    where it reads a value computed outside it."""
+    and type where it reads a value computed outside it."""
     import torch
+    from repro_torch.core.tracer import TORCH_DTYPES
 
     given = dict(zip(comp.graph.inputs, args))
     return [given[i] if i in given else torch.randn(
-        comp.graph.node(i).spec.shape, generator=gen, device="cuda")
-        for i in em.ext_ids]
+        comp.graph.node(i).spec.shape, generator=gen, device="cuda").to(
+        TORCH_DTYPES[comp.graph.node(i).spec.dtype]) for i in em.ext_ids]
 
 
 def anchored_of(fn, args) -> tuple:
@@ -2622,7 +2656,8 @@ def launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import WIDE_SCORE_MOD
     from repro_torch.kernels.matmul import CLUSTER_EPILOGUE, PROLOGUE_REDUCE
 
-    return {"onepass": OnePassKernel.launches,
+    return {**{k: v.launches for k, v in bf16_counters().items()},
+            "onepass": OnePassKernel.launches,
             "flash_attention_wide": flash_attention_wide_cuda.launches,
             "matmul_fused": matmul_fused.launches,
             "matmul_fused_prologue_reduce": PROLOGUE_REDUCE.launches,
@@ -2638,6 +2673,19 @@ def launch_counts() -> dict:
             "softmax": softmax_cuda.launches,
             "softmax_bwd": softmax_bwd_cuda.launches,
             "ssd_scan": ssd_scan_cuda.launches}
+
+
+def bf16_counters() -> dict:
+    """{name: counter} of the kernels' bfloat16 instances (counted in
+    their kernel's own counter too)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
+    from repro_torch.kernels import rmsnorm as RN
+
+    return {"rmsnorm_bf16": RN.BF16, "flash_attention_bf16": FA.BF16,
+            "flash_score_mod_bf16": FA.SCORE_MOD_BF16,
+            "flash_decode_bf16": FA.DECODE_BF16,
+            "matmul_fused_bf16": MM.BF16}
 
 
 def reset_launch_counts() -> None:
@@ -2657,6 +2705,8 @@ def reset_launch_counts() -> None:
 
     PROLOGUE_REDUCE.launches = CLUSTER_EPILOGUE.launches = 0
     WIDE_SCORE_MOD.launches = 0
+    for c in bf16_counters().values():
+        c.launches = 0
     OnePassKernel.launches = StreamingKernel.launches = 0
     flash_attention_wide_cuda.launches = 0
     matmul_fused.launches = ScoreMod.launches = 0
@@ -4046,7 +4096,8 @@ def compare_grads(got, want) -> dict:
             "n": len(leaves)}
 
 
-def phase_train(arch: str = "hubert-xlarge") -> dict:
+def phase_train(arch: str = "hubert-xlarge",
+                batch: int = TRAIN_BATCH) -> dict:
     """``build_trainer`` at full width in the default (stitched) mode,
     then the plain path from the same weights and batches; returns the
     launches of the counted 5-step run.  For an MoE model the step-0
@@ -4064,7 +4115,7 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     cfg = get_config(arch)
     moe = cfg.family == "moe"
     unit = "frames" if cfg.frontend == "audio" else "tokens"
-    B, S, N = TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS
+    B, S, N = batch, TRAIN_FRAMES, TRAIN_STEPS
     data = SyntheticTokens(DataConfig(seed=SEED, global_batch=B, seq_len=S),
                            cfg)
     batches = [data.batch_at(i) for i in range(N)]
@@ -4075,6 +4126,11 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
              f"{cfg.ssm_state} d_inner={cfg.resolved_d_inner}"
              if cfg.family == "ssm" else
              f"heads={cfg.n_heads}x{cfg.resolved_head_dim}{experts}")
+    if cfg.family == "hybrid":
+        heads = (f"ssm_heads={cfg.ssm_heads}x{cfg.ssm_head_dim} state="
+                 f"{cfg.ssm_state} d_inner={cfg.resolved_d_inner} shared "
+                 f"attention {cfg.n_heads}x{cfg.resolved_head_dim} every "
+                 f"{cfg.attn_every} layers")
     print(f"train path: {cfg.name} layers={cfg.n_layers} d_model="
           f"{cfg.d_model} {heads} vocab={cfg.vocab_size} (padded "
           f"{cfg.padded_vocab}) "
@@ -4104,6 +4160,7 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
         return out
 
     def run(fusion: str, kern=None) -> dict:
+        gc.collect()  # an earlier path's graphs and pools, if cycles hold them
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mdl, init_state, train_step = build_trainer(
@@ -4158,10 +4215,14 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     L = cfg.n_layers
     norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
     want = {norm: 2 * L + 1, "flash_attention": L}
-    if cfg.family == "ssm":  # the block's norm and the gated norm
+    if cfg.family in ("ssm", "hybrid"):
+        # the block's norm and the gated norm; the hybrid's shared block
+        # two norms and one attention an application
         from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL
+        from repro_torch.models.model import shared_layers
 
-        want = {norm: 2 * L + 1, "flash_attention": 0,
+        apps = len(shared_layers(cfg))
+        want = {norm: 2 * L + 2 * apps + 1, "flash_attention": apps,
                 "ssd_scan": L * LAUNCHES_PER_CALL}
     if norm == "layernorm":
         from repro_torch.kernels.layernorm import BWD_LAUNCHES_PER_CALL
@@ -4213,18 +4274,577 @@ def phase_train(arch: str = "hubert-xlarge") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# bfloat16: the kernels' bfloat16 instances, and Llama-3.2-3B with
+# bfloat16 weights serving and training (remat), Zamba2-1.2B training
+# ---------------------------------------------------------------------------
+#: The reference's bfloat16 bands, (rtol, atol) of each element against
+#: the plain version (``src/repro/runtime/guard.py:208-213`` for B6 and
+#: B8, the anchored band of :224-226 for B3 and B4), and the factor by
+#: which a kernel may be further than the plain version from the same
+#: function in float64 of the same bfloat16 inputs.
+BF16_BAND, BF16_BAND_ANCHORED, BF16_F64_FACTOR = (2e-2, 2e-2), \
+    (4e-2, 1.2e-1), 2.0
+#: H100 SXM dense bfloat16 tensor-core peak (data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
+#: The paths' agreement rule with a float32 plain run of the same weights
+#: (the bfloat16 values widened): the kernel path's largest distance at
+#: most this factor times the bfloat16 plain path's, plus
+#: ``BF16_PATH_FLOOR`` max(1, max|float32 value|).
+BF16_PATH_FACTOR, BF16_PATH_FLOOR = 1.5, 1e-3
+BF16_RESULTS: dict = {}
+
+
+def bf16_bound_ms(nbytes: float, ops: float,
+                  mma_ops: float) -> tuple[float, str]:
+    """(bound ms, "bytes"|"operations") at bfloat16: the bytes over the HBM
+    rate against element-wise ``ops`` at float32's rate plus the products'
+    ``mma_ops`` at the tensor cores' bfloat16 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / FP32_OPS_PER_S + mma_ops / BF16_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
+                      nbytes: float, ops: float = 0, mma_ops: float = 0,
+                      band=BF16_BAND, reps: int = 20,
+                      library=None) -> dict:
+    """Hold a kernel's bfloat16 instance to its plain version on the same
+    bfloat16 inputs: (a) every element within ``band`` of the plain
+    version; (b) its largest distance from ``exact`` (the function in
+    float64 of those inputs) at most ``BF16_F64_FACTOR`` times the plain
+    version's.  Times as ``check_cuda_kernel``'s; the bound at bfloat16's
+    rate (``bf16_bound_ms``)."""
+    import torch
+
+    def outs(r):
+        return list(r) if isinstance(r, (tuple, list)) else [r]
+
+    got, want = outs(launch(*inputs)), outs(plain(*inputs))
+    ex = outs(exact(*inputs))
+    torch.cuda.synchronize()
+    rtol, atol = band
+    worst = err = kerr = perr = 0.0
+    for g, w, e in zip(got, want, ex):
+        if g.dtype != w.dtype:
+            fail(f"{label}: kernel output {g.dtype}, plain {w.dtype}")
+        g, w, e = g.double(), w.double(), e.double().reshape(g.shape)
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (atol + rtol * w.abs())).max()))
+        kerr = max(kerr, float((g - e).abs().max()))
+        perr = max(perr, float((w - e).abs().max()))
+    ms = time_ms(lambda: launch(*inputs), reps)
+    call_ms = time_ms(lambda: launch(*inputs), reps, queued=False)
+    plain_ms = time_ms(lambda: plain(*inputs), max(3, reps // 4))
+    lib_ms = time_ms(lambda: library(*inputs), reps) if library else None
+    bound, bound_by = bf16_bound_ms(nbytes, ops, mma_ops)
+    print(f"cuda kernel bf16 {label}: max_abs_err={err:.3e} against the "
+          f"plain version (worst err/band {worst:.3f}, band rtol {rtol:g} "
+          f"atol {atol:g}); against float64: kernel {kerr:.3e}, plain "
+          f"{perr:.3e} (ratio {kerr / max(perr, 1e-30):.3f}, limit "
+          f"{BF16_F64_FACTOR:g}) ms={ms:.4f} (call with the host's cost: "
+          f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
+          f"bound_ms={bound:.4f} ({bound_by}: {nbytes:.0f} B, {ops:.0f} "
+          f"element-wise ops, {mma_ops:.0f} product ops at bf16's rate)")
+    if not all(torch.isfinite(g).all() for g in got):
+        fail(f"bf16 {label}: kernel output not finite")
+    if worst > 1.0:
+        fail(f"bf16 {label}: kernel outside the bfloat16 band of its plain "
+             f"version (worst err/band {worst:.3f})")
+    if kerr > BF16_F64_FACTOR * perr:
+        fail(f"bf16 {label}: kernel {kerr:.3e} from float64, more than "
+             f"{BF16_F64_FACTOR:g} x the plain version's {perr:.3e}")
+    return {"max_abs_err": err, "worst": worst, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms, "f64_err": kerr, "plain_f64_err": perr}
+
+
+def check_bf16_anchored(fn, args, gen, *, label: str, library) -> dict:
+    """``check_bf16_kernel`` for the anchored group of
+    ``stitched_jit(fn)`` at ``args``: its function op by op in float64
+    (``float64_outputs``) as the exact one, its bytes and operations
+    from the graph (``anchored_work``), the anchored band."""
+    comp, ems = anchored_of(fn, args)
+    em = ems[0]
+    vals = ext_values(comp, em, args, gen)
+    nbytes, ops, mma = anchored_work(em, comp.graph)
+    res = check_bf16_kernel(
+        label, em.fn.launch, em.fn.plain,
+        lambda *v: float64_outputs(em, comp.graph, list(v)), vals,
+        nbytes=nbytes, ops=ops, mma_ops=mma, band=BF16_BAND_ANCHORED,
+        library=library)
+    return dict(res, _bytes=nbytes,
+                _score=getattr(em.fn, "score_mod", None) is not None,
+                _tile=getattr(em.fn, "tile", None))
+
+
+def phase_bf16_kernels(gen) -> dict:
+    """The bfloat16 instances of B6, B4 (with and without a score
+    functor), B8 and B3 at Llama-3.2-3B's shapes, each held to its plain
+    version (``check_bf16_kernel``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+
+    bf = torch.bfloat16
+    checks: dict[str, list] = {}
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    for R, C in ((BATCH * PROMPT, 3072), (BATCH, 3072)):
+        x, g = rnd(R, C), rnd(C, scale=0.1) + 1.0
+        nbytes = 2 * (2 * R * C + C) + 4 * R
+        res = check_bf16_kernel(
+            f"rmsnorm [{R}, {C}]", lambda a, b: RN.rmsnorm_cuda(a, b, 1e-6),
+            lambda a, b: RN.rmsnorm_plain(a, b, 1e-6),
+            lambda a, b: a.double() * torch.rsqrt(
+                (a.double() ** 2).mean(-1, keepdim=True) + 1e-6)
+            * b.double(), (x, g), nbytes=nbytes, ops=4 * R * C, reps=50,
+            library=lambda a, b, _C=C: F.rms_norm(a, (_C,), b, 1e-6))
+        checks.setdefault("rmsnorm_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=R > BATCH))
+
+    llama = (BATCH, 24, 8, 128)
+    for label, (B, Hq, Hkv, D) in (("llama prefill causal", llama),
+                                    ("granite heads D64", (BATCH, 16, 8, 64)),
+                                    ("gemma-7b heads D256",
+                                     (BATCH, 16, 16, 256))):
+        S = PROMPT
+        q, k, v = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+        pairs = S * (S + 1) // 2
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        res = check_bf16_kernel(
+            f"flash_attention {label} B{B} Hq{Hq} Hkv{Hkv} S{S} D{D}",
+            lambda a, b, c: FA.flash_attention_cuda(a, b, c, True),
+            lambda a, b, c: FA.flash_attention_plain(a, b, c, True),
+            lambda a, b, c: ref.attention(a.double(), b.double(),
+                                          c.double(), causal=True),
+            (q, k, v), nbytes=nbytes, mma_ops=4 * D * B * Hq * pairs,
+            band=BF16_BAND_ANCHORED,
+            library=lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True, enable_gqa=True))
+        checks.setdefault("flash_attention_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=label.startswith("llama")))
+
+    # Llama's heads with a bias folded as a generated score functor
+    # (bench_anchor_fusion's attention block, as the float32 row)
+    B, H, S, D = BATCH, 24, PROMPT, 128
+    args = (rnd(B, H, S, D), rnd(B, H, S, D), rnd(B, H, S, D),
+            rnd(1, 1, S, S))
+    res = check_bf16_anchored(
+        bench_attn, args, gen,
+        label=f"flash_attention score_mod (scale 0.125 + bias [1, 1, {S}, "
+              f"{S}]) B{B} H{H} S{S} D{D}",
+        library=lambda *v, _a=args: F.scaled_dot_product_attention(
+            _a[0], _a[1], _a[2], attn_mask=_a[3], scale=0.125))
+    if not res["_score"]:
+        fail("bench attention block in bfloat16: no score chain folded")
+    checks.setdefault("flash_score_mod_bf16", []).append(dict(res, _main=True))
+
+    # B8 at decode_32k with a bfloat16 q, against float32 and bfloat16
+    # caches
+    B, Hq, Hkv, D = llama
+    for cache in (torch.float32, bf):
+        q = rnd(B, Hq, D)
+        k, v = rnd(B, Hkv, STATIC_KV, D, dtype=cache), \
+            rnd(B, Hkv, STATIC_KV, D, dtype=cache)
+        q32 = q.float()
+        isz = 4 if cache == torch.float32 else 2
+        nbytes = isz * 2 * k.numel() + 2 * 2 * q.numel()
+        res = check_bf16_kernel(
+            f"flash_decode decode_32k B{B} Hq{Hq} Hkv{Hkv} S{STATIC_KV} D{D} "
+            f"q bfloat16, caches {str(cache).removeprefix('torch.')}",
+            lambda a, b, c: FA.flash_decode_cuda(a, b, c),
+            lambda a, b, c: FA.flash_decode_plain(a, b, c),
+            lambda a, b, c: ref.decode_attention(a.double(), b.double(),
+                                                 c.double()),
+            (q, k, v), nbytes=nbytes, mma_ops=4 * D * B * Hq * STATIC_KV,
+            reps=10,
+            library=lambda a, b, c, _q=(q if cache == bf else q32):
+                F.scaled_dot_product_attention(_q[:, :, None], b, c,
+                                               enable_gqa=True)[:, :, 0])
+        checks.setdefault("flash_decode_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=cache == torch.float32))
+        del k, v
+        torch.cuda.empty_cache()
+
+    # B3: Llama's gate projection with its SiLU x up epilogue (as the
+    # float32 rows), at the prefill's M and the decode tile's
+    K, N = ANCHOR_K, ANCHOR_N
+    for M in (BATCH * PROMPT, BATCH):
+        args = (rnd(M, K), rnd(K, N, scale=K ** -0.5),
+                rnd(K, N, scale=K ** -0.5))
+        res = check_bf16_anchored(
+            t_gate, args, gen,
+            label=f"matmul_fused llama gate+SiLU x up M{M} K{K} N{N}",
+            library=lambda *v, _a=args: torch.matmul(_a[0], _a[1]))
+        print(f"  (tile {res['_tile']}: {MM.TILES[res['_tile']]})")
+        checks.setdefault("matmul_fused_bf16", []).append(
+            dict(res, _main=M > BATCH))
+    torch.cuda.empty_cache()
+    return checks
+
+
+def nonzero(counts: dict) -> str:
+    """The launch counts that moved, as JSON."""
+    return json.dumps({k: n for k, n in counts.items() if n})
+
+
+def tree_float(tree):
+    """A param tree's floating leaves in float32 (new tensors)."""
+    import torch
+
+    return torch.utils._pytree.tree_map(lambda t: t.float(), tree)
+
+
+def path_rule(label: str, got, plain, exact) -> dict:
+    """The bfloat16 paths' agreement (``BF16_PATH_FACTOR``): the kernel
+    path's max distance from the float32 run against the bfloat16 plain
+    path's; fails past it."""
+    err = float((got.double() - exact.double()).abs().max())
+    perr = float((plain.double() - exact.double()).abs().max())
+    limit = BF16_PATH_FACTOR * perr + BF16_PATH_FLOOR * max(
+        1.0, float(exact.abs().max()))
+    if not (err <= limit and math.isfinite(err)):
+        fail(f"{label}: the bfloat16 kernel path is {err:.4e} from the "
+             f"float32 plain run, past {limit:.4e} (the bfloat16 plain "
+             f"path: {perr:.4e})")
+    return {"err": err, "plain_err": perr, "limit": limit}
+
+
+def phase_bf16_llama(gen) -> tuple[dict, dict]:
+    """Llama-3.2-3B with ``param_dtype=torch.bfloat16`` at full width and
+    depth: the forward at batch 4 x 512 and ``generate`` (batch 4, 500
+    prompt tokens, 16 greedy tokens, the float32 cache of 1,024 rows,
+    each decode step one replayed CUDA graph), each held to a float32
+    plain run of the same weights by ``path_rule``; returns the launches
+    of the counted forward and generate."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, greedy_step
+    from repro_torch.models import Model
+    from repro_torch.serving.buckets import Buckets, pad_tokens
+
+    bf = torch.bfloat16
+    cfg = get_config("llama3.2-3b")
+    V = cfg.vocab_size
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, param_dtype=bf)
+    params = model.init(SEED)
+    plain = Model(cfg, "xla", dispatch="interpret", param_dtype=bf)
+    plain32 = Model(cfg, "xla", dispatch="interpret")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, V, (BATCH, PROMPT))).to("cuda")
+    print(f"bf16 paths: {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} param_dtype=bfloat16 seed={SEED}; forward batch="
+          f"{BATCH}x{PROMPT}; generate batch={BATCH} prompt={SERVE_PROMPT} "
+          f"gen={SERVE_GEN} float32 cache")
+    out: dict = {}
+
+    # the forward
+    with torch.no_grad():
+        model.forward(params, toks)  # compile
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        logits = model.forward(params, toks)[0]
+        torch.cuda.synchronize()
+        fwd = launch_counts()
+        out["forward_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.forward(params, toks)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["forward_ms"] = statistics.median(walls)
+        prof = where_the_time_goes("one bf16 forward",
+                                   lambda: model.forward(params, toks))
+        busy = sum(v for k, v in prof.items() if k != "wall_ms")
+        out["forward_busy"] = busy / out["forward_ms"]
+        lp = plain.forward(params, toks)[0]
+        p32 = tree_float(params)
+        l32 = plain32.forward(p32, toks)[0]
+        out["forward_rule"] = path_rule("bf16 forward", logits[..., :V],
+                                        lp[..., :V], l32[..., :V])
+        del lp, l32, logits
+    print(f"bf16 forward: {out['forward_ms']:.2f} ms (median of 3, host "
+          f"clock around a synchronized call) peak_memory_GB="
+          f"{out['forward_peak_gb']:.2f}; device busy {busy:.2f} ms = "
+          f"{100 * out['forward_busy']:.1f}% of the call; launches "
+          f"{nonzero(fwd)}; against "
+          f"float32: kernel path {out['forward_rule']['err']:.4e}, bf16 "
+          f"plain {out['forward_rule']['plain_err']:.4e} (limit "
+          f"{out['forward_rule']['limit']:.4e})")
+    for k in ("rmsnorm_bf16", "flash_attention_bf16", "matmul_fused_bf16"):
+        if fwd[k] <= 0:
+            fail(f"the bf16 forward launched no {k}")
+
+    # generate: the counted run, then TTFT, the captured decode step, the
+    # busy share, and the teacher-forced logits of every step
+    B, S, G = BATCH, SERVE_PROMPT, SERVE_GEN
+    prompts = rng.integers(0, V, (B, S))
+    generate(model, params, prompts, G)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs = generate(model, params, prompts, G)
+    out["generate_s"] = time.perf_counter() - t0
+    gen_launches = launch_counts()
+    out["generate_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for k in ("rmsnorm_bf16", "flash_attention_bf16", "matmul_fused_bf16"):
+        if gen_launches[k] <= 0:
+            fail(f"the bf16 generate launched no {k}")
+    bk = Buckets()
+    Sp = bk.bucket(S)
+    max_len = bk.bucket(max(Sp, S + G))
+    ptoks = torch.from_numpy(pad_tokens(prompts, Sp)).to("cuda")
+    positions = torch.arange(S, S + G, device="cuda")
+    cache = model.init_cache(B, max_len)
+    if cache["k"].dtype != torch.float32:
+        fail("init_cache's default is not float32")
+
+    def first_token():
+        lg, _ = model.prefill(params, ptoks, cache)
+        return lg[:, S - 1:S, :V].argmax(-1)
+
+    ttft = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = first_token().cpu()
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    tok = tok.to("cuda")
+    graph = greedy_step(model, params, cache)
+    ctok = graph(tok, positions[0])
+    steps = []
+    for i in range(G - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctok = graph(ctok, positions[i])
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    del graph, ctok
+    out["ttft_ms"] = statistics.median(ttft)
+    out["decode_ms"] = statistics.median(steps)
+    dec = where_the_time_goes("one bf16 decode step", lambda:
+                              model.decode_step(params, cache, tok,
+                                                positions[1],
+                                                kv_len=positions[1] + 1))
+    busy = sum(v for k, v in dec.items() if k != "wall_ms")
+    out["decode_busy"] = busy / out["decode_ms"]
+
+    forced = torch.from_numpy(seqs[:, S:]).to("cuda")
+
+    def forced_logits(mdl, p):
+        c = mdl.init_cache(B, max_len)
+        lg, _ = mdl.prefill(p, ptoks, c)
+        rows = [lg[:, S - 1, :V].float()]
+        for i in range(G - 1):
+            lg, _ = mdl.decode_step(p, c, forced[:, i:i + 1], positions[i],
+                                    kv_len=positions[i] + 1)
+            rows.append(lg[:, 0, :V].float())
+        return torch.stack(rows)
+
+    with torch.no_grad():
+        got = forced_logits(model, params)
+        want = forced_logits(plain, params)
+        p32 = tree_float(params)
+        exact = forced_logits(plain32, p32)
+        del p32
+    worst = 0.0
+    for i in range(G):
+        r = path_rule(f"bf16 generate step {i}", got[i], want[i], exact[i])
+        worst = max(worst, r["err"] / r["limit"])
+        if i in (0, G - 1):
+            print(f"  bf16 generate step {i}: kernel {r['err']:.4e}, plain "
+                  f"{r['plain_err']:.4e} from float32 (limit "
+                  f"{r['limit']:.4e})")
+    out["generate_worst"] = worst
+    print(f"bf16 generate: TTFT={out['ttft_ms']:.2f} ms (median of 3) "
+          f"decode={out['decode_ms']:.2f} ms per token (captured, median of "
+          f"{G - 1} replays) decode busy {100 * out['decode_busy']:.1f}% "
+          f"(eager step's device time over the captured step) "
+          f"generate_s={out['generate_s']:.3f} peak_memory_GB="
+          f"{out['generate_peak_gb']:.2f}; worst err/limit over {G} steps "
+          f"{worst:.3f}; launches {nonzero(gen_launches)}")
+    if tuple(seqs.shape) != (B, S + G):
+        fail("bf16 generate: wrong output shape")
+    BF16_RESULTS["llama_serve"] = out
+    del got, want, exact, cache, model, plain, plain32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, gen_launches
+
+
+def bf16_ulps(a, b) -> float:
+    """The largest |a - b| in bfloat16 ulps of b's binade (2^-133 at
+    least, the smallest subnormal's)."""
+    import torch
+
+    b = b.double()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126)))
+                     - 7)
+    return float(((a.double() - b).abs() / ulp).max())
+
+
+def phase_bf16_train() -> dict:
+    """Llama-3.2-3B training with ``param_dtype=torch.bfloat16``,
+    ``remat=True`` ("full"): batch 8 x 512, 5 AdamW steps through
+    ``make_train_step`` (the update written in place, as the reference's
+    trainer donates its state).  Step 0: loss and gradients by
+    ``path_rule`` against a float32 plain run of the same weights; the
+    gradients with remat equal those without within one bfloat16 ulp; B4
+    and B6 launch twice a layer (the recompute).  Returns the launches of
+    the counted 5 steps."""
+    import torch
+    from torch.utils._pytree import tree_flatten_with_path, tree_leaves, \
+        keystr
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    cfg = get_config("llama3.2-3b")
+    L = cfg.n_layers
+    B, S, N = TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bf16 train path: {cfg.name} layers={L} param_dtype=bfloat16 "
+          f"remat=True (full) batch={B}x{S} tokens steps={N} AdamW; "
+          f"allocated before it {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    data = SyntheticTokens(DataConfig(seed=SEED, global_batch=B, seq_len=S),
+                           cfg)
+    batches = [{k: torch.as_tensor(v).to("cuda")
+                for k, v in data.batch_at(i).items()} for i in range(N)]
+    mdl = Model(cfg, param_dtype=bf, remat=True)
+    params = mdl.init(SEED)
+    out: dict = {}
+
+    # step 0: the float32 plain run first (its params dropped after it)
+    p32 = tree_float(params)
+    l32, g32 = loss_and_grads(Model(cfg, "xla", remat=True), p32, batches[0])
+    del p32
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    lk, gk = loss_and_grads(mdl, params, batches[0])
+    torch.cuda.synchronize()
+    step0 = launch_counts()
+    lnr, gnr = loss_and_grads(Model(cfg, param_dtype=bf, remat=False),
+                              params, batches[0])
+    ulps = max(bf16_ulps(a, b) for a, b in zip(tree_leaves(gk),
+                                                tree_leaves(gnr)))
+    del gnr
+    lp, gp = loss_and_grads(Model(cfg, "xla", param_dtype=bf, remat=True),
+                            params, batches[0])
+    worst, where = 0.0, ""
+    for (path, a), p, e in zip(tree_flatten_with_path(gk)[0],
+                               tree_leaves(gp), tree_leaves(g32)):
+        r = path_rule(f"bf16 train step 0 gradient {keystr(path)}", a, p, e)
+        if r["err"] / r["limit"] > worst:
+            worst, where = r["err"] / r["limit"], keystr(path)
+    loss_rule = path_rule("bf16 train step 0 loss", lk.reshape(1),
+                          lp.reshape(1), l32.reshape(1))
+    del gk, gp, g32
+    torch.cuda.empty_cache()
+    print(f"bf16 train step 0: loss kernel {float(lk):.6f} plain bf16 "
+          f"{float(lp):.6f} float32 {float(l32):.6f} (kernel "
+          f"{loss_rule['err']:.3e}, "
+          f"plain {loss_rule['plain_err']:.3e} from float32, limit "
+          f"{loss_rule['limit']:.3e}); gradients: worst err/limit {worst:.3f} "
+          f"at {where}; remat against no remat: loss {float(lk):.6f} vs "
+          f"{float(lnr):.6f}, gradients within {ulps:.3f} bfloat16 ulps "
+          f"(limit 1); launches {nonzero(step0)}")
+    if ulps > 1.0 or float(lk) != float(lnr):
+        fail(f"bf16 train: remat changed the step-0 loss or gradients "
+             f"({ulps:.3f} ulps)")
+    want = {"rmsnorm": 4 * L + 1, "rmsnorm_bf16": 4 * L + 1,
+            "flash_attention": 2 * L, "flash_attention_bf16": 2 * L}
+    for k, n in want.items():
+        if step0[k] != n:
+            fail(f"bf16 train step 0 (remat) launched {k} {step0[k]} "
+                 f"times, want {n}: twice a layer")
+
+    opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=min(20, N // 10),
+                                total_steps=N)
+    state = optim.init(opt_cfg, params)
+    step = make_train_step(mdl, opt_cfg, donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    out.update(losses=losses, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms[1:]),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss_rule=loss_rule, grad_worst=worst, remat_ulps=ulps)
+    # a sixth step under the profiler: where the step's time goes
+    prof = where_the_time_goes("one bf16 train step (remat)",
+                               lambda: step(params, state, batches[0]))
+    busy = sum(v for k, v in prof.items() if k != "wall_ms")
+    out["busy_share"] = busy / out["step_ms_median"]
+    out["busy_by_kind"] = {k: round(100 * v / busy, 2)
+                           for k, v in prof.items() if k != "wall_ms"}
+    print(f"bf16 train: losses={[round(x, 5) for x in losses]} step_ms="
+          f"{[round(x, 1) for x in step_ms]} median of steps 2-{N} "
+          f"{out['step_ms_median']:.1f} ms "
+          f"({B * S * 1e3 / out['step_ms_median']:.0f} tokens/s) "
+          f"peak_memory_GB={out['peak_gb']:.2f} "
+          f"(torch.cuda.max_memory_allocated, the 5 steps); launches "
+          f"{nonzero(launches)}; device "
+          f"busy {100 * out['busy_share']:.1f}% of the median step, by kind "
+          f"(%): {json.dumps(out['busy_by_kind'])}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(map(math.isfinite, losses)):
+        fail("bf16 train: a loss is not finite")
+    for k, n in want.items():
+        if launches[k] != N * n:
+            fail(f"bf16 train launched {k} {launches[k]} times in {N} steps, "
+                 f"want {N * n}")
+    BF16_RESULTS["llama_train"] = out
+    del params, state, mdl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card (see the "
                     "module's docstring for the phases).")
     ap.add_argument(
-        "--phase", choices=("all", "router", "tuned", "dispatch"),
+        "--phase", choices=("all", "router", "tuned", "dispatch", "bf16"),
         default="all",
         help="'router': only the device line, the build and the router "
              "floor rows (phase 3c), then their JSON line; no path runs. "
              "'tuned': only the device line and the tuned phase (5c), "
              "then its JSON line. 'dispatch': only the device line and "
-             "the dispatch phase (3f), then its JSON line")
+             "the dispatch phase (3f), then its JSON line. 'bf16': only "
+             "the device line, the build and the bfloat16 phase (5e: the "
+             "kernels' bfloat16 rows, Llama-3.2-3B's bfloat16 forward, "
+             "generate and remat training, Zamba2-1.2B's training), then "
+             "its JSON lines")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4261,6 +4881,22 @@ def main(argv=None) -> int:
         phase_dispatch(gen, {})
         print(json.dumps({"dispatch": DISPATCH_RESULTS}, default=str))
         return 0
+    if args.phase == "bf16":
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"nvcc build: {time.perf_counter() - t0:.1f} s")
+        bf16_checks = phase_bf16_kernels(gen)
+        phase_bf16_llama(gen)
+        phase_bf16_train()
+        phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
+        print(json.dumps({"bf16": BF16_RESULTS,
+                          "bf16_kernels": {k: summarize(v) for k, v in
+                                           bf16_checks.items()}},
+                         default=str))
+        print(f"chip_smoke --phase bf16: {time.perf_counter() - t_start:.1f}"
+              " s")
+        return 0
     phase_kernels(gen)
     checks = phase_cuda_kernels(gen)
     phase_router_floor(gen)
@@ -4291,6 +4927,10 @@ def main(argv=None) -> int:
           f"{n_moe} more of MoE serving, {n_rec} more of SSM and hybrid "
           f"serving")
     ssm_train_launches = phase_train(SSM_ARCH)
+    checks.update(phase_bf16_kernels(gen))
+    bf16_fwd_launches, bf16_serve_launches = phase_bf16_llama(gen)
+    bf16_train_launches = phase_bf16_train()
+    hybrid_train_launches = phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
     t_static = time.perf_counter()
     static_launches = phase_static_decode(gen, "llama3.2-3b", BATCH,
                                           STATIC_KV)
@@ -4339,7 +4979,21 @@ def main(argv=None) -> int:
              "src/repro/kernels/matmul.py:53"),
             ("flash_wide_score_mod", "cuda",
              "src/repro_torch/csrc/flash_attention_wide.cuh",
-             "src/repro/kernels/flash_attention.py:31")):
+             "src/repro/kernels/flash_attention.py:31"),
+            ("rmsnorm_bf16", "cuda", "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:20"),
+            ("flash_attention_bf16", "cuda",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:87"),
+            ("flash_score_mod_bf16", "cuda",
+             "src/repro_torch/csrc/flash_attention.cuh",
+             "src/repro/kernels/flash_attention.py:31"),
+            ("flash_decode_bf16", "cuda",
+             "src/repro_torch/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_attention.py:161"),
+            ("matmul_fused_bf16", "cuda",
+             "src/repro_torch/csrc/matmul_fused.cuh",
+             "src/repro/kernels/matmul.py:53")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name],
@@ -4358,7 +5012,11 @@ def main(argv=None) -> int:
                    "anchor_bench": anchor_launches[name],
                    "anchor_forms": form_launches[name],
                    "differentiable": diff_launches[name],
-                   "dispatch": dispatch_launches[name]}
+                   "dispatch": dispatch_launches[name],
+                   "bf16_forward": bf16_fwd_launches[name],
+                   "bf16_serve": bf16_serve_launches[name],
+                   "bf16_train": bf16_train_launches[name],
+                   "hybrid_train": hybrid_train_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -4374,6 +5032,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tuned": TUNED_RESULTS}, default=str))
     print(json.dumps({"differentiable": DIFF_RESULTS}))
     print(json.dumps({"dispatch": DISPATCH_RESULTS}, default=str))
+    print(json.dumps({"bf16": BF16_RESULTS}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

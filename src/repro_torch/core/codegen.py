@@ -1381,9 +1381,12 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
         epi_ops = _chain_operands(graph, epi, {a})
         epi_roles_d = epi_info.roles
 
+        acc_dtype = TORCH_DTYPES[graph.node(a).spec.dtype]
+
         def epilogue(acc, *blocks):
             env = dict(zip(epi_ops, blocks))
-            env[a] = acc
+            # the product in its own type, as the reference's anchor_dtype
+            env[a] = acc.to(acc_dtype)
             env = _eval_chain(graph, epi_order, epi_roles_d, M, N, env)
             return tuple(env[o] for o in out_ids)
     else:
@@ -1405,7 +1408,7 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
     def source() -> str:
         return cc.matmul_source(
             cc.prologue_struct(graph, pro_order, pro_roles_d, pro_ops,
-                               lhs_id),
+                               lhs_id, graph.node(rhs_id).spec.dtype),
             cc.epilogue_struct(graph, epi_order, epi_roles_d, epi_ops, a,
                                out_ids), tiles)
 
@@ -1476,8 +1479,11 @@ def _emit_anchored_attention(graph: Graph, parts, m: dict, ext_ids,
     out_spec = graph.node(pv).spec
     score_shapes = [_pad4(graph.node(i).spec.shape) for i in score_ext]
 
+    qk_dtype = TORCH_DTYPES[graph.node(qk).spec.dtype]
+
     def plain_mod(s, *args):
-        env = {qk: s.reshape(graph.node(qk).spec.shape)}
+        # the product in its own type first, as the generated functor
+        env = {qk: s.reshape(graph.node(qk).spec.shape).to(qk_dtype)}
         env.update((i, a.reshape(graph.node(i).spec.shape))
                    for i, a in zip(score_ext, args))
         run_subgraph(graph, score_order, env, s.device)
@@ -1488,7 +1494,7 @@ def _emit_anchored_attention(graph: Graph, parts, m: dict, ext_ids,
     def source() -> str:
         return cc.attention_source(
             cc.score_struct(graph, score_order, score_ext, qk, s_pre),
-            wide=wide)
+            wide=wide, dtype=graph.node(q_id).spec.dtype)
 
     mod = None
     if score:

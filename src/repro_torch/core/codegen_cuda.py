@@ -9,9 +9,10 @@ indexed: ``full`` by (row, column), ``row`` by row, ``col`` by column,
 ``scalar`` once), and the ``.cu`` source that instantiates the kernel
 template with them.  It lowers exactly ``codegen.EMITTABLE_PRIMS`` (the
 Triton generator's set, one vocabulary for both), each node on its own
-dtype (``_typed``): the anchored chains hold float32 and bool values (the
-H100 gate refuses others), the streaming groups every dtype of the row
-view.
+dtype (``_typed``): the anchored chains hold float32, bfloat16 and bool
+values (the H100 gate refuses others; a bfloat16 value computes in
+float32, rounds to its type at its node and is stored as its bits), the
+streaming groups every dtype of the row view.
 
 * ``prologue_struct`` -- ``Pro``: the lhs element (m, k), in phases
   where the prologue reduces over K (its statistics first).
@@ -76,13 +77,14 @@ _OTHER = ("convert_element_type", "integer_pow", "select_n", "clamp", "const")
 CUDA_PRIMS = frozenset(set(_CU_UNARY) | set(_CU_BINARY) | set(REDUCE_OPS)
                        | set(_PASS) | set(_OTHER))
 
-_CTYPES = {"float32": "float", "bool": "bool"}
+_CTYPES = {"float32": "float", "bfloat16": "float", "bool": "bool"}
 
 
 def ctype(dtype: str) -> str:
+    """What an anchored chain's value of ``dtype`` computes in."""
     if dtype not in _CTYPES:
-        raise ValueError(f"the CUDA chains compute in float32 and bool, "
-                         f"not {dtype}")
+        raise ValueError(f"the anchored CUDA chains hold float32, bfloat16 "
+                         f"and bool values, not {dtype}")
     return _CTYPES[dtype]
 
 
@@ -133,6 +135,8 @@ _COMPUTE = {"float32": "float", "bfloat16": "float", "float16": "float",
             "uint8": "unsigned char"}
 _STORAGE = dict(_COMPUTE, bfloat16="uint16_t", float16="uint16_t")
 _HALF = {"bfloat16": "bf16", "float16": "f16"}
+#: dtypes B3 stages a (M, K) prologue operand (or the lhs) in by cp.async
+_MM_STAGED = ("float32", "bfloat16")
 #: dtypes the streaming kernel stages in shared memory (as float32 values
 #: they are exact); the others it reads from device memory in every phase
 STAGED_DTYPES = {"float32": 4, "bfloat16": 2, "float16": 2, "bool": 1,
@@ -199,7 +203,10 @@ class _Writer:
 
 def _load(k: int, dtype: str, index: str) -> str:
     t = ctype(dtype)
-    return f"const {t} x{k} = static_cast<const {t}*>(in[{k}])[{index}];"
+    v = f"static_cast<const {_STORAGE[dtype]}*>(in[{k}])[{index}]"
+    if dtype in _HALF:
+        v = f"repro_chain::from_{_HALF[dtype]}({v})"
+    return f"const {t} x{k} = {v};"
 
 
 def _role_index(role: Role, row: str, col: str, width: str) -> str:
@@ -212,21 +219,27 @@ def _members(graph: Graph, order: Sequence[int]) -> list[int]:
 
 
 def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
-                    operands: Sequence[int], lhs: int) -> str:
+                    operands: Sequence[int], lhs: int,
+                    rhs_dtype: str = "float32") -> str:
     """``Pro``: the lhs element (m, k) from the prologue operands (in
     ``operands`` order; a lone lhs operand when the prologue is empty,
-    and then ``kIdentity``: the kernel copies the raw float32 lhs), in
-    phases as ``Epi``: phase p < kPhases - 1 accumulates the reductions
-    over K of level p + 1 (the kernel's pass over the row before its
-    k-tiles), the last phase returns the element.  ``kStaged`` names the
-    operand the kernel stages a k-tile at a time with 16-byte copies (the
-    first float32 one of the whole (M, K) view; -1 if none), and
-    ``elem_at`` is ``elem`` with that operand's value given (read from
-    the staged tile, or as a float4 in the statistics pass)."""
+    and then ``kIdentity``: the kernel copies the raw lhs), in phases as
+    ``Epi``: phase p < kPhases - 1 accumulates the reductions over K of
+    level p + 1 (the kernel's pass over the row before its k-tiles), the
+    last phase returns the element.  ``kStaged`` names the operand the
+    kernel stages a k-tile at a time with 16-byte copies (the first
+    float32 or bfloat16 one of the whole (M, K) view; -1 if none;
+    ``kStagedBf16`` whether it is bfloat16), and ``elem_at`` is ``elem``
+    with that operand's value given (read from the staged tile, or four
+    at a time in the statistics pass).  ``kExact``: the lhs is bfloat16,
+    so its values are exact in TF32; ``kRhsBf16``: the product's rhs
+    (``rhs_dtype``) is bfloat16."""
     members = _members(graph, order)
     staged = next((k for k, i in enumerate(operands)
                    if roles[i] is Role.FULL
-                   and graph.node(i).spec.dtype == "float32"), -1)
+                   and graph.node(i).spec.dtype in _MM_STAGED), -1)
+    staged_bf16 = (staged >= 0
+                   and graph.node(operands[staged]).spec.dtype == "bfloat16")
     loads = [_load(k, graph.node(i).spec.dtype,
                    _role_index(roles[i], "m", "k", "K"))
              for k, i in enumerate(operands)]
@@ -241,7 +254,7 @@ def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
     at_branches = _phased(graph, members, operands, at_loads, ret)[0]
     n = len(operands)
     identity = (not members and list(operands) == [lhs]
-                and graph.node(lhs).spec.dtype == "float32")
+                and graph.node(lhs).spec.dtype in _MM_STAGED)
     slots = _slot_functions(graph, reduces, lvl, phases)
     sig = ("long long m, long long k, long long K, const float* red, "
            "float* part) const {")
@@ -250,6 +263,11 @@ def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
         f"  static constexpr bool kIdentity = {str(identity).lower()};",
         f"  static constexpr int kIn = {n};",
         f"  static constexpr int kStaged = {staged};",
+        f"  static constexpr bool kStagedBf16 = {str(staged_bf16).lower()};",
+        "  static constexpr bool kExact = "
+        f"{str(graph.node(lhs).spec.dtype == 'bfloat16').lower()};",
+        f"  static constexpr bool kRhsBf16 = "
+        f"{str(rhs_dtype == 'bfloat16').lower()};",
         *slots[:3],
         f"  const void* in[{max(1, n)}];",
         *slots[3:],
@@ -274,8 +292,8 @@ def prologue_struct(graph: Graph, order: Sequence[int], roles: dict,
 
 
 def _phased(graph: Graph, members: Sequence[int], operands: Sequence[int],
-            loads: Sequence[str], store, *, anchor: int | None = None
-            ) -> tuple[list[str], list[int], dict, int]:
+            loads: Sequence[str], store, *, anchor: int | None = None,
+            acc: str = "acc") -> tuple[list[str], list[int], dict, int]:
     """The ``if constexpr (P == p)`` branches of a chain run in phases, as
     the streaming kernel runs a group: phase p evaluates the nodes of
     reduce level <= p and accumulates the reductions of level p + 1 into
@@ -292,7 +310,7 @@ def _phased(graph: Graph, members: Sequence[int], operands: Sequence[int],
     for p in range(phases):
         w = _Writer(graph, operands, members)
         if anchor is not None:
-            w.names[anchor] = "acc"
+            w.names[anchor] = acc
         body = list(loads)
         for nid in members:
             node = graph.node(nid)
@@ -357,9 +375,10 @@ def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
                     operands: Sequence[int], anchor: int,
                     out_ids: Sequence[int]) -> str:
     """``Epi``: the epilogue on one accumulator element, in phases (the
-    anchor's value is ``acc``; ``out_ids`` are stored in the last phase
-    by role: ``full`` everywhere, ``row`` at n == 0, ``col`` at m == 0,
-    ``scalar`` at (0, 0))."""
+    anchor's value is ``acc``, rounded to the anchor's type first where
+    it is bfloat16, as the reference's ``anchor_dtype`` cast; ``out_ids``
+    are stored in the last phase by role: ``full`` everywhere, ``row`` at
+    n == 0, ``col`` at m == 0, ``scalar`` at (0, 0))."""
     members = _members(graph, order)
     loads = [_load(k, graph.node(i).spec.dtype,
                    _role_index(roles[i], "m", "n", "N"))
@@ -368,16 +387,20 @@ def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
     def store(w: _Writer) -> list[str]:
         lines = []
         for k, o in enumerate(out_ids):
-            t = ctype(graph.node(o).spec.dtype)
+            dt = graph.node(o).spec.dtype
+            t = _STORAGE[dt]
+            v = (f"repro_chain::to_{_HALF[dt]}(static_cast<float>"
+                 f"({w.val(o)}))" if dt in _HALF
+                 else f"static_cast<{t}>({w.val(o)})")
             st = (f"static_cast<{t}*>(out[{k}])"
-                  f"[{_role_index(roles[o], 'm', 'n', 'N')}] = "
-                  f"static_cast<{t}>({w.val(o)});")
+                  f"[{_role_index(roles[o], 'm', 'n', 'N')}] = {v};")
             cond = _store_cond(roles[o], "m", "n")
             lines.append(st if cond is None else f"if ({cond}) {st}")
         return lines
 
-    branches, reduces, lvl, phases = _phased(graph, members, operands, loads,
-                                             store, anchor=anchor)
+    branches, reduces, lvl, phases = _phased(
+        graph, members, operands, loads, store, anchor=anchor,
+        acc=_rounded(graph.node(anchor).spec.dtype, "acc"))
     n_in, n_out = len(operands), len(out_ids)
     slots = _slot_functions(graph, reduces, lvl, phases)
     return "\n".join([
@@ -406,6 +429,12 @@ def staged_inputs(graph: Graph, roles: dict,
             for k, i in enumerate(operands)
             if roles[i] is Role.FULL
             and graph.node(i).spec.dtype in STAGED_DTYPES]
+
+
+def _rounded(dtype: str, x: str) -> str:
+    """The float32 expression ``x`` rounded to ``dtype`` where that is a
+    16-bit float (an anchor's product in its own type), else ``x``."""
+    return f"repro_chain::round_{_HALF[dtype]}({x})" if dtype in _HALF else x
 
 
 def _as_float(dtype: str, x: str) -> str:
@@ -520,15 +549,16 @@ def stream_struct(graph: Graph, order: Sequence[int], roles: dict,
 def score_struct(graph: Graph, order: Sequence[int],
                  operands: Sequence[int], qk: int, s_pre: int) -> str:
     """``Score``: flash attention's functor, the pre-softmax score of one
-    (b, h, qi, ki) from the scaled q k^T value ``s`` and the score
-    operands, each read through its 4D strides ``st``."""
+    (b, h, qi, ki) from the scaled q k^T value ``s`` (rounded to the
+    product's type first where it is bfloat16, as B3's accumulator) and
+    the score operands, each read through its 4D strides ``st``."""
     loads = [_load(k, graph.node(i).spec.dtype,
                    f"b * st[{k}][0] + h * st[{k}][1] + qi * st[{k}][2] "
                    f"+ ki * st[{k}][3]")
              for k, i in enumerate(operands)]
     members = _members(graph, order)
     w = _Writer(graph, operands, members)
-    w.names[qk] = "s"
+    w.names[qk] = _rounded(graph.node(qk).spec.dtype, "s")
     body = list(loads)
     for nid in members:
         body.append(w.stmt(nid))
@@ -586,7 +616,7 @@ def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
         "// the shared memory the H100 gate prices is the instance's own",
         *asserts, "", "#ifdef __CUDACC__",
         'extern "C" int repro_mm_fused(int tile, const void* const* pro_in,',
-        "                              const float* rhs,",
+        "                              const void* rhs,",
         "                              const void* const* epi_in,",
         "                              void* const* outs, int M, int K, int N,",
         "                              void* stream) {",
@@ -623,14 +653,33 @@ def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
         "}", "#endif", ""])
 
 
-def attention_source(score: str, wide: bool = False) -> str:
+def attention_source(score: str, wide: bool = False,
+                     dtype: str = "float32") -> str:
     """The ``.cu`` of one anchored attention: the flash template
     (``csrc/flash_attention.cuh``, or with ``wide`` the template above
-    head dim 256, ``csrc/flash_attention_wide.cuh``) instantiated with the
-    ``Score`` functor, a C entry for the card, and the host harness of the
-    functor for the CPU tests."""
+    head dim 256, ``csrc/flash_attention_wide.cuh``, float32 only)
+    instantiated with the ``Score`` functor on q, k, v and o of ``dtype``
+    (float32 or bfloat16), a C entry for the card, and the host harness
+    of the functor for the CPU tests."""
+    if dtype not in ("float32", "bfloat16") or (wide and dtype != "float32"):
+        raise ValueError(f"anchored attention on {dtype} operands"
+                         + (" above head dim 256" if wide else ""))
     ns = "repro_flash_wide" if wide else "repro_flash"
     header = "flash_attention_wide.cuh" if wide else "flash_attention.cuh"
+    if wide:
+        params = [
+            f"  {ns}::Params p{{static_cast<const float*>(q),",
+            "      static_cast<const float*>(k), static_cast<const float*>(v),",
+            "      static_cast<float*>(o), q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
+            "      v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale, causal};",
+            f"  return {ns}::run(p, mod, B, static_cast<cudaStream_t>(stream));"]
+    else:
+        t = "uint16_t" if dtype == "bfloat16" else "float"
+        params = [
+            f"  {ns}::Params p{{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
+            "      v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale, causal};",
+            f"  return {ns}::run<{t}>(p, mod, B,",
+            "                         static_cast<cudaStream_t>(stream));"]
     return "\n".join([
         _HEAD, f'#include "{header}"', "", "namespace {", score,
         "}  // namespace", "", "#ifdef __CUDACC__",
@@ -648,11 +697,7 @@ def attention_source(score: str, wide: bool = False) -> str:
         "  }",
         "  if (Hkv < 1 || Hq % Hkv != 0)",
         "    return static_cast<int>(cudaErrorInvalidValue);",
-        f"  {ns}::Params p{{static_cast<const float*>(q),",
-        "      static_cast<const float*>(k), static_cast<const float*>(v),",
-        "      static_cast<float*>(o), q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
-        "      v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale, causal};",
-        f"  return {ns}::run(p, mod, B, static_cast<cudaStream_t>(stream));",
+        *params,
         "}", "#else",
         'extern "C" void repro_host_score(const float* s,',
         "                                 const void* const* ins,",

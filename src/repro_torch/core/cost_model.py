@@ -684,8 +684,11 @@ def _anchor_vmem_tpu(graph: Graph, anchors) -> int:
     return total
 
 
-#: Types the CUDA chains compute in (the anchored kernels are float32).
-_GPU_CHAIN_DTYPES = ("float32", "bool")
+#: Types the anchored CUDA kernels' chains hold: float32 and bool, and
+#: bfloat16 (computed in float32, rounded to its type at its node); the
+#: products take float32 or bfloat16 operands.  float16 has no instance.
+_GPU_CHAIN_DTYPES = ("float32", "bfloat16", "bool")
+_GPU_PRODUCT_DTYPES = ("float32", "bfloat16")
 
 
 def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
@@ -693,11 +696,14 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     that kernel's own tile constants and the chain's own count of row
     reductions (``Tile.smem``); the budget (``anchor_gain``) refuses an
     instance past one block's shared memory.  None where no instance can
-    run the group: a value outside float32 and bool, or an epilogue that
-    reduces over an N wider than the row tile's largest cluster
-    (``matmul.ROW_MAX_N``).  An attention group prices the flash instance
-    of its head dim (above 256 the wide kernel's, which takes a score
-    functor as the tuned ones do)."""
+    run the group: a value outside float32, bfloat16 and bool, or an
+    epilogue that reduces over an N wider than the row tile's largest
+    cluster (``matmul.ROW_MAX_N``).  An attention group prices the flash
+    instance of its head dim and operand type (above 256 the wide
+    kernel's, which takes a score functor as the tuned ones do, in
+    float32 only); a matmul group the B3 tile it launches, whose shared
+    memory is the same for float32 and bfloat16 operands (a bfloat16
+    k-tile is staged in the float32 tile's room)."""
     from ..kernels import flash_attention as fa
     from ..kernels import matmul as mm
 
@@ -707,10 +713,16 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
         if graph.node(nid).spec.dtype not in _GPU_CHAIN_DTYPES:
             return None
     if len(anchors) == 2:
-        q = graph.node(graph.node(anchors[0]).inputs[0]).spec
-        if q.dtype != "float32" or not q.shape:
+        qk = graph.node(anchors[0])
+        q = graph.node(qk.inputs[0]).spec
+        v = graph.node(graph.node(anchors[1]).inputs[-1]).spec
+        if (q.dtype not in _GPU_PRODUCT_DTYPES or not q.shape
+                or {graph.node(qk.inputs[1]).spec.dtype, v.dtype}
+                != {q.dtype}):
             return None
-        return fa.flash_smem_bytes(q.shape[-1])
+        if q.dtype != "float32" and fa.flash_instance(q.shape[-1]) is None:
+            return None                  # the wide kernel is float32 only
+        return fa.flash_smem_bytes(q.shape[-1], q.itemsize)
     if len(anchors) != 1:
         return None
     a = anchors[0]
@@ -719,7 +731,8 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
         return None
     lhs = graph.node(node.inputs[0]).spec
     rhs = graph.node(node.inputs[1]).spec
-    if "float32" != lhs.dtype or "float32" != rhs.dtype:
+    if (lhs.dtype not in _GPU_PRODUCT_DTYPES
+            or rhs.dtype not in _GPU_PRODUCT_DTYPES):
         return None
     K, N = lhs.shape[-1], rhs.shape[-1]
     M = lhs.size // max(1, K)

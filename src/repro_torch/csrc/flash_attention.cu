@@ -1,5 +1,5 @@
 // Flash attention forward for Hopper (sm_90a), float32 on the tensor
-// cores, head dims 64, 80, 128 and 256.
+// cores, head dims 64, 80, 128 and 256, float32 or bfloat16 operands.
 //
 // Replaces the TPU kernel `_attn_kernel` / `flash_attention`
 // (src/repro/kernels/flash_attention.py:31,87); this file is its
@@ -25,20 +25,21 @@
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch.  q, k, v are taken with their element strides (the last
 // dimension contiguous, rows 16-byte aligned); o is a contiguous
-// [B, Hq, Sq, D]; D is one of the instances' head dims.
+// [B, Hq, Sq, D]; D is one of the instances' head dims; q, k, v and o
+// are all float32 (bf16 0) or all bfloat16 (bf16 1).
 #include "flash_attention.cuh"
 
-extern "C" int repro_flash_attention_f32(
+extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, float scale, int causal,
-    void* stream) {
-  repro_flash::Params p{static_cast<const float*>(q),
-                        static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<float*>(o),
-                        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                        Hq, Hq / Hkv, Sq, Skv, D, scale, causal};
-  return repro_flash::run(p, repro_flash::NoScoreMod{}, B,
-                          static_cast<cudaStream_t>(stream));
+    int bf16, void* stream) {
+  repro_flash::Params p{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                        v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale,
+                        causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return repro_flash::run<uint16_t>(p, repro_flash::NoScoreMod{}, B, s);
+  return repro_flash::run<float>(p, repro_flash::NoScoreMod{}, B, s);
 }

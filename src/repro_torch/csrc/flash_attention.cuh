@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a), float32 on the tensor
-// cores, head dims 64, 80, 128 and 256: the kernel body, a template on a
-// score functor.
+// cores, head dims 64, 80, 128 and 256: the kernel body, a template on the
+// operands' type (float32 or bfloat16) and a score functor.
 //
 // Replaces the TPU kernel `_attn_kernel` / `flash_attention`
 // (src/repro/kernels/flash_attention.py:31,87):
@@ -43,6 +43,14 @@
 // K fragments are 8-byte loads.  K tiles wholly above the causal
 // diagonal are skipped (each would leave (m, l, o) unchanged), and the
 // query tiles with the most keys are launched first.
+//
+// bfloat16 operands (T = uint16_t, the bits; q, k, v and o all of it) are
+// staged in shared memory as they are, half the bytes, and widened to
+// float32 at fragment load.  A bfloat16 value is exact in TF32 (8
+// significant bits inside 10), so its split has no small half: q k^T is
+// one TF32 product a pair, and p v two (p is float32 and split, V exact).
+// Every sum, the online softmax and the output's division are float32;
+// o is rounded to bfloat16 once, at the store.
 #pragma once
 
 #include "chain.cuh"
@@ -65,24 +73,29 @@ __host__ __device__ constexpr bool qreg(int d) { return d <= 80; }
 // K/V rows a tile: 64, or 32 where the Q tile takes shared memory (two
 // blocks an SM at D 128)
 __host__ __device__ constexpr int kbk(int d) { return qreg(d) ? 64 : 32; }
-// Row strides in floats: conflict-free 8-byte fragment loads of Q and K,
-// 4-byte loads of V
+// Row strides in elements: conflict-free fragment loads of Q and K (8
+// bytes in float32, 4 in bfloat16), 4-byte loads of V; a row of a tile
+// starts 16 bytes aligned (a bfloat16 V row pads by 8 values)
 __host__ __device__ constexpr int kstride(int d) { return d + 8; }
 __host__ __device__ constexpr int vstride(int d) { return d + 4; }
+__host__ __device__ constexpr int vstride_t(int d, int bytes) {
+  return bytes == 4 ? vstride(d) : kstride(d);
+}
 
-// Shared memory of one block of the D instance: the K and V ring (two
-// stages) and, at D > 80, the Q tile.  (64: 71,680 bytes; 80: 88,064;
-// 128: 103,424; 256: 201,728.)
-__host__ __device__ constexpr int smem_floats(int d) {
-  return 2 * kbk(d) * (kstride(d) + vstride(d))
-         + (qreg(d) ? 0 : kBQ * kstride(d));
+// Shared memory of one block of the D instance with `bytes`-byte values:
+// the K and V ring (two stages) and, at D > 80, the Q tile.  (float32 64:
+// 71,680 bytes; 80: 88,064; 128: 103,424; 256: 201,728; bfloat16 64:
+// 36,864; 80: 45,056; 128: 53,248; 256: 102,400.)
+__host__ __device__ constexpr int smem_bytes(int d, int bytes = 4) {
+  return bytes * (2 * kbk(d) * (kstride(d) + vstride_t(d, bytes))
+                  + (qreg(d) ? 0 : kBQ * kstride(d)));
 }
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -100,9 +113,45 @@ struct NoScoreMod {
 };
 
 using repro_tf32::mma3;
+using repro_tf32::mma_tf32;
 using repro_tf32::split_tf32;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+// Two consecutive values at p (8-byte aligned in float32, 4-byte in
+// bfloat16) and one, as float32; two float32 values stored at p in T.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const uint16_t* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const uint16_t* p) {
+  return __uint_as_float(static_cast<uint32_t>(*p) << 16);
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(uint16_t* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) =
+      repro_chain::to_bf16(a)
+      | (static_cast<uint32_t>(repro_chain::to_bf16(b)) << 16);
+}
+// The TF32 halves of a float32 value; a bfloat16 one (EXACT) is its own
+// big half and has no small one.
+template <bool EXACT>
+__device__ __forceinline__ void halves(float x, uint32_t& big,
+                                       uint32_t& small) {
+  if constexpr (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    split_tf32(x, big, small);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
@@ -116,18 +165,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
-// Copy rows [r0, r0 + ROWS) of a [*, D] operand (row stride `ss` floats)
-// into a tile of row stride `ld`; rows past `rows` are zero-filled.
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+// Copy rows [r0, r0 + ROWS) of a [*, D] operand (row stride `ss`
+// elements) into a tile of row stride `ld`; rows past `rows` are
+// zero-filled.
+template <int D, int ROWS, int LD, class T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long ss, int r0, int rows,
                                           int tid) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int CH = D / E;          // chunks a row
   for (int i = tid; i < ROWS * CH; i += kThreads) {
     const int r = i / CH, c = i % CH;
     const bool in = r0 + r < rows;
-    cp_async16(dst + r * LD + 4 * c,
-               src + (in ? static_cast<long long>(r0 + r) * ss : 0) + 4 * c,
+    cp_async16(dst + r * LD + E * c,
+               src + (in ? static_cast<long long>(r0 + r) * ss : 0) + E * c,
                in);
   }
 }
@@ -135,18 +186,20 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 // k8 steps of D a partial sum of q k^T holds
 constexpr int kQChunk = 2;
 
-template <int D, class ScoreMod>
+template <int D, class T, class ScoreMod>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(Params p, const ScoreMod mod) {
-  constexpr int KBK = kbk(D), KS = kstride(D), VS = vstride(D);
+  constexpr bool EXACT = sizeof(T) == 2;  // bfloat16: exact in TF32
+  constexpr int KBK = kbk(D), KS = kstride(D);
+  constexpr int VS = vstride_t(D, sizeof(T));
   constexpr bool QREG = qreg(D);
   constexpr int NJ = KBK / 8;  // key columns of 8 a tile
   constexpr int ND = D / 8;    // head-dim columns (and k8 steps) of 8
   static_assert(D % 16 == 0, "head dim: 16-wide partial sums of q k^T");
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                 // [2][KBK][KS]
-  float* Vs = Ks + 2 * KBK * KS;    // [2][KBK][VS]
-  float* Qs = Vs + 2 * KBK * VS;    // [kBQ][KS] (D > 80)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [2][KBK][KS]
+  T* Vs = Ks + 2 * KBK * KS;               // [2][KBK][VS]
+  T* Qs = Vs + 2 * KBK * VS;               // [kBQ][KS] (D > 80)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -154,9 +207,9 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.group;
-  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   const int off = p.Skv - p.Sq;  // causal offset
   int k_end = p.Skv;
@@ -180,14 +233,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int kk = 0; kk < ND; ++kk) {
       const int d = 8 * kk + 2 * t;
       float2 x0 = make_float2(0.f, 0.f), x1 = x0;
-      if (qr0 < p.Sq)
-        x0 = *reinterpret_cast<const float2*>(qg + qr0 * p.q_ss + d);
-      if (qr1 < p.Sq)
-        x1 = *reinterpret_cast<const float2*>(qg + qr1 * p.q_ss + d);
-      split_tf32(x0.x, qb[kk][0], qs[kk][0]);
-      split_tf32(x1.x, qb[kk][1], qs[kk][1]);
-      split_tf32(x0.y, qb[kk][2], qs[kk][2]);
-      split_tf32(x1.y, qb[kk][3], qs[kk][3]);
+      if (qr0 < p.Sq) x0 = ld2(qg + qr0 * p.q_ss + d);
+      if (qr1 < p.Sq) x1 = ld2(qg + qr1 * p.q_ss + d);
+      halves<EXACT>(x0.x, qb[kk][0], qs[kk][0]);
+      halves<EXACT>(x1.x, qb[kk][1], qs[kk][1]);
+      halves<EXACT>(x0.y, qb[kk][2], qs[kk][2]);
+      halves<EXACT>(x1.y, qb[kk][3], qs[kk][3]);
     }
   }
 
@@ -211,8 +262,8 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* Kt = Ks + buf * KBK * KS;
-    const float* Vt = Vs + buf * KBK * VS;
+    const T* Kt = Ks + buf * KBK * KS;
+    const T* Vt = Vs + buf * KBK * VS;
 
     // ---- s = q k^T: a partial sum from zero each 16 of D, then added ---
     float s[NJ][4];
@@ -238,23 +289,23 @@ __global__ void __launch_bounds__(kThreads)
           }
         } else {
           const int d = 8 * kk + 2 * t;
-          const float2 x0 =
-              *reinterpret_cast<const float2*>(Qs + (16 * warp + g) * KS + d);
-          const float2 x1 = *reinterpret_cast<const float2*>(
-              Qs + (16 * warp + g + 8) * KS + d);
-          split_tf32(x0.x, ab[0], as[0]);
-          split_tf32(x1.x, ab[1], as[1]);
-          split_tf32(x0.y, ab[2], as[2]);
-          split_tf32(x1.y, ab[3], as[3]);
+          const float2 x0 = ld2(Qs + (16 * warp + g) * KS + d);
+          const float2 x1 = ld2(Qs + (16 * warp + g + 8) * KS + d);
+          halves<EXACT>(x0.x, ab[0], as[0]);
+          halves<EXACT>(x1.x, ab[1], as[1]);
+          halves<EXACT>(x0.y, ab[2], as[2]);
+          halves<EXACT>(x1.y, ab[3], as[3]);
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float2 kv = *reinterpret_cast<const float2*>(
-              Kt + (8 * j + g) * KS + 8 * kk + 2 * t);
+          const float2 kv = ld2(Kt + (8 * j + g) * KS + 8 * kk + 2 * t);
           uint32_t bb0, bs0, bb1, bs1;
-          split_tf32(kv.x, bb0, bs0);
-          split_tf32(kv.y, bb1, bs1);
-          mma3(part[j], ab, as, bb0, bb1, bs0, bs1);
+          halves<EXACT>(kv.x, bb0, bs0);
+          halves<EXACT>(kv.y, bb1, bs1);
+          if constexpr (EXACT)
+            mma_tf32(part[j], ab, bb0, bb1);
+          else
+            mma3(part[j], ab, as, bb0, bb1, bs0, bs1);
         }
       }
 #pragma unroll
@@ -311,11 +362,16 @@ __global__ void __launch_bounds__(kThreads)
       float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float* vr = Vt + (8 * j + 2 * t) * VS + 8 * n + g;
+        const T* vr = Vt + (8 * j + 2 * t) * VS + 8 * n + g;
         uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(vr[0], bb0, bs0);
-        split_tf32(vr[VS], bb1, bs1);
-        mma3(pv, pb[j], ps[j], bb0, bb1, bs0, bs1);
+        halves<EXACT>(ld1(vr), bb0, bs0);
+        halves<EXACT>(ld1(vr + VS), bb1, bs1);
+        if constexpr (EXACT) {
+          mma_tf32(pv, ps[j], bb0, bb1);
+          mma_tf32(pv, pb[j], bb0, bb1);
+        } else {
+          mma3(pv, pb[j], ps[j], bb0, bb1, bs0, bs1);
+        }
       }
       o[n][0] = fmaf(o[n][0], alpha[0], pv[0]);
       o[n][1] = fmaf(o[n][1], alpha[0], pv[1]);
@@ -332,49 +388,51 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float inv0 = 1.f / fmaxf(l_run[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l_run[1], 1e-30f);
-  float* ob = p.o + (static_cast<long long>(b) * p.Hq + h) * p.Sq * p.D;
+  T* ob = static_cast<T*>(p.o)
+          + (static_cast<long long>(b) * p.Hq + h) * p.Sq * p.D;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int d = 8 * n + 2 * t;
     if (qr0 < p.Sq)
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr0) * p.D + d) =
-          make_float2(o[n][0] * inv0, o[n][1] * inv0);
+      st2(ob + static_cast<long long>(qr0) * p.D + d, o[n][0] * inv0,
+          o[n][1] * inv0);
     if (qr1 < p.Sq)
-      *reinterpret_cast<float2*>(ob + static_cast<long long>(qr1) * p.D + d) =
-          make_float2(o[n][2] * inv1, o[n][3] * inv1);
+      st2(ob + static_cast<long long>(qr1) * p.D + d, o[n][2] * inv1,
+          o[n][3] * inv1);
   }
 }
 
-template <int D, class ScoreMod>
+template <int D, class T, class ScoreMod>
 cudaError_t launch(const Params& p, const ScoreMod& mod, int B,
                    cudaStream_t stream) {
-  constexpr int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
+  constexpr int bytes = smem_bytes(D, sizeof(T));
   // allow this kernel more than 48 KB of shared memory on the current
   // device; the attribute is per device, so it is set on every launch
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, ScoreMod>,
+      flash_fwd_kernel<D, T, ScoreMod>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, B);
-  flash_fwd_kernel<D, ScoreMod><<<grid, kThreads, bytes, stream>>>(p, mod);
+  flash_fwd_kernel<D, T, ScoreMod><<<grid, kThreads, bytes, stream>>>(p, mod);
   return cudaGetLastError();
 }
 
 // Launch the instance of head dim p.D: 64, 80, 128 or 256, exactly (the
-// wrapper, kernels/flash_attention.py, pads any other D up to one).
-template <class ScoreMod>
+// wrapper, kernels/flash_attention.py, pads any other D up to one), with
+// operands of type T (float, or uint16_t for bfloat16).
+template <class T, class ScoreMod>
 int run(const Params& p, const ScoreMod& mod, int B, cudaStream_t s) {
   cudaError_t err;
   if (B == 0 || p.Sq == 0) {
     err = cudaSuccess;
   } else if (p.D == 64) {
-    err = launch<64>(p, mod, B, s);
+    err = launch<64, T>(p, mod, B, s);
   } else if (p.D == 80) {
-    err = launch<80>(p, mod, B, s);
+    err = launch<80, T>(p, mod, B, s);
   } else if (p.D == 128) {
-    err = launch<128>(p, mod, B, s);
+    err = launch<128, T>(p, mod, B, s);
   } else if (p.D == 256) {
-    err = launch<256>(p, mod, B, s);
+    err = launch<256, T>(p, mod, B, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
-// Flash decode for Hopper (sm_90a), float32, any head dim that is a
-// multiple of 4: instances for 64, 128, 256, 384 and 512, each masking
-// its columns at the true head dim, and above 512 a tiled kernel.
+// Flash decode for Hopper (sm_90a), any head dim that is a multiple of 4:
+// instances for 64, 128, 256, 384 and 512, each masking its columns at
+// the true head dim, and above 512 a tiled kernel.  q (and o) float32 or
+// bfloat16, the caches float32 or bfloat16 on their own, float32 inside.
 //
 // Replaces the TPU kernel `flash_decode` (src/repro/kernels/flash_attention.py:161),
 // which runs `_attn_kernel` (:31, `pallas_call` at :135) with one query
@@ -12,9 +13,19 @@
 // final division by max(l, 1e-30).
 //
 // Bound: bytes.  A decode step reads the whole live cache once, 2 * kv_len
-// * D floats a (batch, kv head), and does 4 D operations a key and query
-// head: at Llama-3.2-3B's [4, 24/8, 32768, 128] 268 MB against 0.4 GFLOP,
-// 0.32 ms at 3.35 TB/s; at [1, 8/2, 4000, 320] 20.5 MB, 0.0061 ms.
+// * D values a (batch, kv head), and does 4 D operations a key and query
+// head: at Llama-3.2-3B's [4, 24/8, 32768, 128] 268 MB in float32 (134 MB
+// in bfloat16) against 0.4 GFLOP, 0.32 ms (0.16 ms) at 3.35 TB/s; at
+// [1, 8/2, 4000, 320] 20.5 MB, 0.0061 ms.
+//
+// Types: the cache type is a template parameter of every kernel that
+// reads the cache (`TC`, float or bfloat16 bits); q's and o's, read once
+// a block and written once a column, are a runtime flag.  A bfloat16
+// cache is read 16 bytes a load, 8 values (`RowLayout`: a row takes half
+// the lanes of a float32 row of the same D, so a warp has twice the row
+// slots), each value widened to float32 exactly; the wrapper pads a
+// bfloat16 cache's D to a multiple of 8.  At D 384 and in the tiled
+// kernel a bfloat16 load carries 4 values (8 bytes).
 //
 // The TPU kernel walks the K blocks as a sequential grid axis, one grid
 // row per (batch, query head), carrying (m, l, acc) in VMEM.  That would
@@ -72,8 +83,13 @@
 // above 512 D rounded up to a multiple of 512) and part_ml [B, Hkv g,
 // splits, 2] are contiguous.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "chain.cuh"
 
 namespace {
+
+using bf16 = uint16_t;  // a bfloat16 value's bits
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -81,31 +97,39 @@ constexpr int kTile = 8;  // rows a row slot reads at once
 constexpr float kNegInf = -1e30f;
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;
+  const void* k;
+  const void* v;
   float* part_acc;
   float* part_ml;
-  float* o;
+  void* o;
   long long q_sb, q_sk, q_sh;
   long long o_sb, o_sk, o_sh;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   int Hq, G, dlen, kv_len, rows_per_split, splits;  // Hq = Hkv G; dlen = D
   float scale;
+  int q_bf16;  // q and o bfloat16, else float32
 };
 
-// A row's layout in a warp: VPL float4 a lane, LPR lanes a row, RPW row
-// slots a warp, TILE rows a slot reads at once (fewer where a lane holds
-// more columns).  From D 256 up a whole warp reads a row.
-template <int D>
+// A row's layout in a warp for cache values of type TC: a 16-byte load
+// carries E of them (4 float32, or 8 bfloat16 -- 4 at D 384, which 8 a
+// load cannot cut into whole lanes), NU loads a lane, LPR lanes a row,
+// RPW row slots a warp, TILE rows a slot reads at once (fewer where a
+// lane holds more columns, W = E NU).  From D 256 up (float32) a whole
+// warp reads a row; a bfloat16 row of D is read as a float32 row of D /
+// 2, its lane holding twice the columns.
+template <int D, class TC>
 struct RowLayout {
-  static constexpr int VPL = D > 128 ? D / 128 : 1;
-  static constexpr int LPR = D / (4 * VPL);
+  static constexpr int E =
+      sizeof(TC) == 2 && (D <= 256 || D % 256 == 0) ? 8 : 4;
+  static constexpr int NU = D > 32 * E ? D / (32 * E) : 1;
+  static constexpr int LPR = D / (E * NU);
   static constexpr int RPW = 32 / LPR;
-  static constexpr int TILE =
-      D > 256 ? kTile / 4 : D > 128 ? kTile / 2 : kTile;
-  static_assert(LPR * 4 * VPL == D && LPR <= 32 && 32 % LPR == 0,
+  static constexpr int W = E * NU;   // a lane's columns of a row
+  static constexpr int NG = W / 4;   // ... in float4 groups
+  static constexpr int TILE = W > 8 ? kTile / 4 : W > 4 ? kTile / 2 : kTile;
+  static_assert(LPR * E * NU == D && LPR <= 32 && 32 % LPR == 0,
                 "a head dim of 64, 128, 256, 384 or 512");
 };
 
@@ -122,15 +146,62 @@ __host__ __device__ constexpr int max_group(int d) {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// E cache values at p (16-byte aligned for 8 bfloat16) as E / 4 float4
+template <int E>
+__device__ __forceinline__ void ld_unit(const float* p, float4* dst) {
+  static_assert(E == 4, "float32: four values a load");
+  dst[0] = ld4(p);
+}
+template <int E>
+__device__ __forceinline__ void ld_unit(const bf16* p, float4* dst) {
+  if constexpr (E == 4) {
+    dst[0] = ld4(p);
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    dst[0] = make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    dst[1] = make_float4(__uint_as_float(u.z << 16),
+                         __uint_as_float(u.z & 0xffff0000u),
+                         __uint_as_float(u.w << 16),
+                         __uint_as_float(u.w & 0xffff0000u));
+  }
+}
+
+// q's four values at element offset i, and o's value at i, in q's type
+__device__ __forceinline__ float4 ldq4(const Params& p, long long i) {
+  return p.q_bf16 ? ld4(static_cast<const bf16*>(p.q) + i)
+                  : ld4(static_cast<const float*>(p.q) + i);
+}
+__device__ __forceinline__ float ldq(const Params& p, long long i) {
+  return p.q_bf16 ? repro_chain::from_bf16(static_cast<const bf16*>(p.q)[i])
+                  : static_cast<const float*>(p.q)[i];
+}
+__device__ __forceinline__ void sto(const Params& p, long long i, float x) {
+  if (p.q_bf16)
+    static_cast<bf16*>(p.o)[i] = repro_chain::to_bf16(x);
+  else
+    static_cast<float*>(p.o)[i] = x;
+}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
 }
 
-template <int D, int G, bool MASK>
+template <int D, int G, bool MASK, class TC>
 __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Params p) {
-  using RL = RowLayout<D>;
-  constexpr int VPL = RL::VPL, LPR = RL::LPR, RPW = RL::RPW, TILE = RL::TILE;
+  using RL = RowLayout<D, TC>;
+  constexpr int E = RL::E, NU = RL::NU, NG = RL::NG, LPR = RL::LPR;
+  constexpr int RPW = RL::RPW, TILE = RL::TILE, Q = E / 4;
   constexpr int NSUB = kWarps * RPW;  // online-softmax states of a block
   constexpr int STEP = kWarps * RPW * TILE;  // rows a block reads at once
   __shared__ float s_m[NSUB][G];
@@ -141,51 +212,58 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Params p) 
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = lane / LPR, c = 4 * (lane % LPR);
+  const int slot = lane / LPR, c = E * (lane % LPR);
   const int row0 = split * p.rows_per_split;
   const int row1 = min(p.kv_len, row0 + p.rows_per_split);
 
-  // lane columns c + 4 LPR u of each row, u < VPL, read at kg + off[u];
-  // with MASK one at or past the true head dim holds zeros of q and
-  // reads K and V at dlen - 4
-  bool col[VPL];
-  int off[VPL];
+  // lane columns c + E LPR u .. + E of each row, u < NU (float4 group
+  // j = Q u + i the 4 from c + E LPR u + 4 i), read at kg + off[u]; with
+  // MASK a load at or past the true head dim (a multiple of E) holds
+  // zeros of q and reads K and V at dlen - E
+  bool col[NU];
+  int off[NU];
 #pragma unroll
-  for (int u = 0; u < VPL; ++u) {
-    col[u] = !MASK || c + 4 * LPR * u < p.dlen;
-    off[u] = MASK ? (col[u] ? c + 4 * LPR * u : p.dlen - 4) : 4 * LPR * u;
+  for (int u = 0; u < NU; ++u) {
+    col[u] = !MASK || c + E * LPR * u < p.dlen;
+    off[u] = MASK ? (col[u] ? c + E * LPR * u : p.dlen - E) : E * LPR * u;
   }
   const int cb = MASK ? 0 : c;
-  const float* kg = p.k + b * p.k_sb + hk * p.k_sh + cb;
-  const float* vg = p.v + b * p.v_sb + hk * p.v_sh + cb;
-  const float* qg = p.q + b * p.q_sb + hk * p.q_sk + c;
-  float4 qv[G][VPL], acc[G][VPL];
+  const TC* kg = static_cast<const TC*>(p.k) + b * p.k_sb + hk * p.k_sh + cb;
+  const TC* vg = static_cast<const TC*>(p.v) + b * p.v_sb + hk * p.v_sh + cb;
+  const long long qg = b * p.q_sb + hk * p.q_sk + c;
+  float4 qv[G][NG], acc[G][NG];
   float m[G], l[G];
 #pragma unroll
   for (int h = 0; h < G; ++h) {
 #pragma unroll
-    for (int u = 0; u < VPL; ++u) {
-      qv[h][u] = col[u] ? ld4(qg + h * p.q_sh + 4 * LPR * u)
+    for (int j = 0; j < NG; ++j) {
+      const int u = j / Q, i = j % Q;
+      qv[h][j] = col[u] ? ldq4(p, qg + h * p.q_sh + E * LPR * u + 4 * i)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      acc[h][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[h][j] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     m[h] = kNegInf;
     l[h] = 0.f;
   }
 
   for (int base = row0 + warp * RPW * TILE; base < row1; base += STEP) {
-    float4 kk[TILE][VPL], vv[TILE][VPL];
+    float4 kk[TILE][NG], vv[TILE][NG];
     bool in[TILE];
 #pragma unroll
     for (int t = 0; t < TILE; ++t) {
       const int r = base + t * RPW + slot;
       in[t] = r < row1;
 #pragma unroll
-      for (int u = 0; u < VPL; ++u) {
-        kk[t][u] = in[t] ? ld4(kg + r * p.k_ss + off[u])
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-        vv[t][u] = in[t] ? ld4(vg + r * p.v_ss + off[u])
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int u = 0; u < NU; ++u) {
+        if (in[t]) {
+          ld_unit<E>(kg + r * p.k_ss + off[u], &kk[t][Q * u]);
+          ld_unit<E>(vg + r * p.v_ss + off[u], &vv[t][Q * u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < Q; ++i)
+            kk[t][Q * u + i] = vv[t][Q * u + i] =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
     }
 #pragma unroll
@@ -196,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Params p) 
       for (int t = 0; t < TILE; ++t) {
         float d = dot4(qv[h][0], kk[t][0]);
 #pragma unroll
-        for (int u = 1; u < VPL; ++u) d += dot4(qv[h][u], kk[t][u]);
+        for (int j = 1; j < NG; ++j) d += dot4(qv[h][j], kk[t][j]);
 #pragma unroll
         for (int w = LPR / 2; w > 0; w >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, w);
@@ -205,28 +283,28 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Params p) 
       }
       const float alpha = expf(m[h] - mx);
       float ps = 0.f;
-      float4 pv[VPL];
+      float4 pv[NG];
 #pragma unroll
-      for (int u = 0; u < VPL; ++u) pv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < NG; ++j) pv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int t = 0; t < TILE; ++t) {
         const float e = in[t] ? expf(s[t] - mx) : 0.f;
         ps += e;
 #pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          pv[u].x = fmaf(e, vv[t][u].x, pv[u].x);
-          pv[u].y = fmaf(e, vv[t][u].y, pv[u].y);
-          pv[u].z = fmaf(e, vv[t][u].z, pv[u].z);
-          pv[u].w = fmaf(e, vv[t][u].w, pv[u].w);
+        for (int j = 0; j < NG; ++j) {
+          pv[j].x = fmaf(e, vv[t][j].x, pv[j].x);
+          pv[j].y = fmaf(e, vv[t][j].y, pv[j].y);
+          pv[j].z = fmaf(e, vv[t][j].z, pv[j].z);
+          pv[j].w = fmaf(e, vv[t][j].w, pv[j].w);
         }
       }
       l[h] = l[h] * alpha + ps;
 #pragma unroll
-      for (int u = 0; u < VPL; ++u) {
-        acc[h][u].x = fmaf(acc[h][u].x, alpha, pv[u].x);
-        acc[h][u].y = fmaf(acc[h][u].y, alpha, pv[u].y);
-        acc[h][u].z = fmaf(acc[h][u].z, alpha, pv[u].z);
-        acc[h][u].w = fmaf(acc[h][u].w, alpha, pv[u].w);
+      for (int j = 0; j < NG; ++j) {
+        acc[h][j].x = fmaf(acc[h][j].x, alpha, pv[j].x);
+        acc[h][j].y = fmaf(acc[h][j].y, alpha, pv[j].y);
+        acc[h][j].z = fmaf(acc[h][j].z, alpha, pv[j].z);
+        acc[h][j].w = fmaf(acc[h][j].w, alpha, pv[j].w);
       }
       m[h] = mx;
     }
@@ -240,8 +318,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Params p) 
       s_l[sub][h] = l[h];
     }
 #pragma unroll
-    for (int u = 0; u < VPL; ++u)
-      *reinterpret_cast<float4*>(&s_acc[sub][h][c + 4 * LPR * u]) = acc[h][u];
+    for (int j = 0; j < NG; ++j)
+      *reinterpret_cast<float4*>(
+          &s_acc[sub][h][c + E * LPR * (j / Q) + 4 * (j % Q)]) = acc[h][j];
   }
   __syncthreads();
 
@@ -275,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Params p) 
 // rows in flight together, and V's tile columns (four float4 a lane),
 // whose loads start before the scores.  Every tile of a split
 // computes the same (m, l); tile 0 writes them.
-template <int G>
+template <int G, class TC>
 __global__ void __launch_bounds__(kThreads) flash_decode_tiled_kernel(
     Params p) {
   constexpr int VPL = kDT / 128, TILE = 2;
@@ -293,12 +372,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_tiled_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = split * p.rows_per_split;
   const int row1 = min(p.kv_len, row0 + p.rows_per_split);
-  const float* kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
-  const float* qg = p.q + b * p.q_sb + hk * p.q_sk;
+  const TC* kg = static_cast<const TC*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const TC* vg = static_cast<const TC*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const long long qg = b * p.q_sb + hk * p.q_sk;
   for (int i = threadIdx.x; i < G * dq; i += kThreads) {
     const int h = i / dq, d = i % dq;
-    s_q[i] = d < p.dlen ? qg[h * p.q_sh + d] : 0.f;
+    s_q[i] = d < p.dlen ? ldq(p, qg + h * p.q_sh + d) : 0.f;
   }
   __syncthreads();
 
@@ -442,8 +521,8 @@ __global__ void __launch_bounds__(D) flash_decode_combine_kernel(Params p) {
     aa = fmaf(acc[(long long)i * D], w, aa);
   }
   if (d < p.dlen)
-    p.o[b * p.o_sb + (h / p.G) * p.o_sk + (h % p.G) * p.o_sh + d] =
-        aa / fmaxf(ll, 1e-30f);
+    sto(p, b * p.o_sb + (h / p.G) * p.o_sk + (h % p.G) * p.o_sh + d,
+        aa / fmaxf(ll, 1e-30f));
 }
 
 // Above 256: grid (Hq, B, width / kMergeCols), blockDim (kMergeCols,
@@ -488,17 +567,19 @@ __global__ void __launch_bounds__(kMergeCols * kMergeGroups)
     ll = fmaf(s_l[j][x], w, ll);
     aa = fmaf(s_a[j][x], w, aa);
   }
-  p.o[b * p.o_sb + (h / p.G) * p.o_sk + (h % p.G) * p.o_sh + d] =
-      aa / fmaxf(ll, 1e-30f);
+  sto(p, b * p.o_sb + (h / p.G) * p.o_sk + (h % p.G) * p.o_sh + d,
+      aa / fmaxf(ll, 1e-30f));
 }
 
-template <int D, int G>
+template <int D, int G, class TC>
 cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
   const dim3 grid(p.splits, Hkv, B);
   if (p.dlen == D)
-    flash_decode_split_kernel<D, G, false><<<grid, kThreads, 0, stream>>>(p);
+    flash_decode_split_kernel<D, G, false, TC>
+        <<<grid, kThreads, 0, stream>>>(p);
   else
-    flash_decode_split_kernel<D, G, true><<<grid, kThreads, 0, stream>>>(p);
+    flash_decode_split_kernel<D, G, true, TC>
+        <<<grid, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (D > 256)
@@ -510,18 +591,18 @@ cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int G>
+template <int G, class TC>
 cudaError_t launch_tiled(const Params& p, int B, int Hkv,
                          cudaStream_t stream) {
   const int bytes = tiled_smem_bytes(p.dlen, G);
   if (bytes > 232448) return cudaErrorInvalidValue;
   // the attribute is per device, so it is set on every launch
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_tiled_kernel<G>,
+      flash_decode_tiled_kernel<G, TC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (p.dlen + kDT - 1) / kDT;
-  flash_decode_tiled_kernel<G>
+  flash_decode_tiled_kernel<G, TC>
       <<<dim3(p.splits, Hkv * tiles, B), kThreads, bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -532,31 +613,42 @@ cudaError_t launch_tiled(const Params& p, int B, int Hkv,
 }
 
 // G within the cap of head dim D (kMaxD + 4 stands for the tiled kernel)
-template <int D, int G>
+template <int D, int G, class TC>
 cudaError_t launch_capped(const Params& p, int B, int Hkv, cudaStream_t s) {
   if constexpr (G > max_group(D)) {
     return cudaErrorInvalidValue;
   } else if constexpr (D > kMaxD) {
-    return launch_tiled<G>(p, B, Hkv, s);
+    return launch_tiled<G, TC>(p, B, Hkv, s);
   } else {
-    return launch<D, G>(p, B, Hkv, s);
+    return launch<D, G, TC>(p, B, Hkv, s);
   }
 }
 
-template <int D>
+template <int D, class TC>
 cudaError_t launch_group(const Params& p, int B, int Hkv, int G,
                          cudaStream_t s) {
   switch (G) {
-    case 1: return launch_capped<D, 1>(p, B, Hkv, s);
-    case 2: return launch_capped<D, 2>(p, B, Hkv, s);
-    case 3: return launch_capped<D, 3>(p, B, Hkv, s);
-    case 4: return launch_capped<D, 4>(p, B, Hkv, s);
-    case 5: return launch_capped<D, 5>(p, B, Hkv, s);
-    case 6: return launch_capped<D, 6>(p, B, Hkv, s);
-    case 7: return launch_capped<D, 7>(p, B, Hkv, s);
-    case 8: return launch_capped<D, 8>(p, B, Hkv, s);
+    case 1: return launch_capped<D, 1, TC>(p, B, Hkv, s);
+    case 2: return launch_capped<D, 2, TC>(p, B, Hkv, s);
+    case 3: return launch_capped<D, 3, TC>(p, B, Hkv, s);
+    case 4: return launch_capped<D, 4, TC>(p, B, Hkv, s);
+    case 5: return launch_capped<D, 5, TC>(p, B, Hkv, s);
+    case 6: return launch_capped<D, 6, TC>(p, B, Hkv, s);
+    case 7: return launch_capped<D, 7, TC>(p, B, Hkv, s);
+    case 8: return launch_capped<D, 8, TC>(p, B, Hkv, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <class TC>
+cudaError_t launch_dim(const Params& p, int B, int Hkv, int G, int D,
+                       cudaStream_t s) {
+  if (D <= 64) return launch_group<64, TC>(p, B, Hkv, G, s);
+  if (D <= 128) return launch_group<128, TC>(p, B, Hkv, G, s);
+  if (D <= 256) return launch_group<256, TC>(p, B, Hkv, G, s);
+  if (D <= 384) return launch_group<384, TC>(p, B, Hkv, G, s);
+  if (D <= kMaxD) return launch_group<512, TC>(p, B, Hkv, G, s);
+  return launch_group<kMaxD + 4, TC>(p, B, Hkv, G, s);
 }
 
 }  // namespace
@@ -564,38 +656,32 @@ cudaError_t launch_group(const Params& p, int B, int Hkv, int G,
 // One launch pair for G query heads of each of the Hkv KV heads (at most
 // max_group(D)), at head dim D (a multiple of 4); part_acc and part_ml at
 // the width of D's instance (64, 128, 256, 384 or 512), or above 512 of
-// the tiled kernel's tiles (D rounded up to a multiple of 512).
-extern "C" int repro_flash_decode_f32(
+// the tiled kernel's tiles (D rounded up to a multiple of 512).  q and o
+// are float32 (q_bf16 0) or bfloat16 (1), the caches float32 (c_bf16 0)
+// or bfloat16 (1).
+extern "C" int repro_flash_decode(
     const void* q, const void* k, const void* v, void* part_acc,
     void* part_ml, void* o, int B, int G, int Hkv, int D, int kv_len,
     int rows_per_split, int splits, long long q_sb, long long q_sk,
     long long q_sh, long long o_sb, long long o_sk, long long o_sh,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, float scale, void* stream) {
-  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-           static_cast<const float*>(v), static_cast<float*>(part_acc),
-           static_cast<float*>(part_ml), static_cast<float*>(o),
+    long long v_sh, long long v_ss, float scale, int q_bf16, int c_bf16,
+    void* stream) {
+  Params p{q, k, v, static_cast<float*>(part_acc),
+           static_cast<float*>(part_ml), o,
            q_sb, q_sk, q_sh, o_sb, o_sk, o_sh, k_sb, k_sh, k_ss,
            v_sb, v_sh, v_ss, Hkv * G, G, D, kv_len, rows_per_split, splits,
-           scale};
+           scale, q_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (B == 0) {
     err = cudaSuccess;
   } else if (D <= 0 || D % 4) {
     err = cudaErrorInvalidValue;
-  } else if (D <= 64) {
-    err = launch_group<64>(p, B, Hkv, G, s);
-  } else if (D <= 128) {
-    err = launch_group<128>(p, B, Hkv, G, s);
-  } else if (D <= 256) {
-    err = launch_group<256>(p, B, Hkv, G, s);
-  } else if (D <= 384) {
-    err = launch_group<384>(p, B, Hkv, G, s);
-  } else if (D <= kMaxD) {
-    err = launch_group<512>(p, B, Hkv, G, s);
+  } else if (c_bf16) {
+    err = launch_dim<bf16>(p, B, Hkv, G, D, s);
   } else {
-    err = launch_group<kMaxD + 4>(p, B, Hkv, G, s);
+    err = launch_dim<float>(p, B, Hkv, G, D, s);
   }
   return static_cast<int>(err);
 }

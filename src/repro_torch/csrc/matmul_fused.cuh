@@ -5,7 +5,10 @@
 // pallas_call at :105): out = epilogue(prologue(lhs) @ rhs, operands).
 // core/codegen_cuda.py generates, per stitched chain, a .cu file that
 // includes this header and defines
-//   Pro  -- kIdentity (the lhs is operand 0, unchanged), kPhases, kSlots,
+//   Pro  -- kIdentity (the lhs is operand 0, unchanged), kStaged and
+//           kStagedBf16 (the operand staged by cp.async, and whether it is
+//           bfloat16), kExact (the lhs values are bfloat16: exact in
+//           TF32), kRhsBf16 (the rhs is bfloat16), kPhases, kSlots,
 //           slot_op(s), slot_phase(s) and
 //           template <int P> elem(m, k, K, red, part): phase P of the
 //           prologue on one lhs element.  A reduction over K accumulates
@@ -87,6 +90,18 @@
 // FLOP against the split's 165 TFLOP/s), bytes at decode sizes (the K x
 // N panel over 3.35 TB/s), where the small tile streams the panel with
 // two blocks an SM.
+//
+// bfloat16.  The rhs, the staged prologue operand and any chain operand
+// may be bfloat16 (their bits; every chain value computes in float32 and
+// rounds to its type at its node, codegen_cuda's `_typed`), and the
+// accumulator is rounded to the product's type before the epilogue, as
+// the reference's `anchor_dtype` cast.  A bfloat16 k-tile is staged as it
+// is, 8 values a 16-byte copy, in the raw stages' room, and widened at
+// the split.  A bfloat16 value is exact in TF32, so its split has no
+// small half and its products with it are dropped: with both the lhs
+// (Pro::kExact: the prologue's lhs node is bfloat16) and the rhs in
+// bfloat16 a k-step is one TF32 product, with one of them two, with
+// neither three.
 #pragma once
 
 #include "chain.cuh"
@@ -119,6 +134,33 @@ constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// float, or uint16_t (bfloat16 bits) where B
+template <bool B>
+struct elem_type {
+  using type = float;
+};
+template <>
+struct elem_type<true> {
+  using type = uint16_t;
+};
+
+// one value, and four consecutive values (16-byte aligned in float32,
+// 8-byte in bfloat16), as float32
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const uint16_t* p) {
+  return __uint_as_float(static_cast<uint32_t>(*p) << 16);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const uint16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // big and small TF32 halves of x, each rounded as cvt.rna.tf32.f32
@@ -368,9 +410,9 @@ __device__ __forceinline__ void epi_phase(
 // across the warp (every lane ends with the row's value).  With `xrow`
 // (the staged operand's row, 16-byte aligned, K a multiple of 4) a lane
 // reads 4 consecutive values at once and gives them to elem_at.
-template <int P, class Pro>
+template <int P, class Pro, class T>
 __device__ __forceinline__ void pro_stats(const Pro& pro, long long m, int K,
-                                          const float* xrow,
+                                          const T* xrow,
                                           float (&red)[Pro::kSlotsArr],
                                           int lane) {
   if constexpr (P < Pro::kPhases - 1) {
@@ -386,9 +428,8 @@ __device__ __forceinline__ void pro_stats(const Pro& pro, long long m, int K,
         float4 x[U];
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          x[u] = k0 + 128 * u < K
-                     ? *reinterpret_cast<const float4*>(xrow + k0 + 128 * u)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+          x[u] = k0 + 128 * u < K ? ld4(xrow + k0 + 128 * u)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int k = k0 + 128 * u;
@@ -418,7 +459,7 @@ __device__ __forceinline__ void pro_stats(const Pro& pro, long long m, int K,
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
@@ -434,8 +475,14 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int BM, int BN, int BK, int ST, int RS, int WN, int PROMO, int PW,
           int AM, class Pro, class Epi>
 __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
-    mm_fused_kernel(const Pro pro, const float* __restrict__ rhs,
+    mm_fused_kernel(const Pro pro, const void* __restrict__ rhs_v,
                     const Epi epi, int M, int K, int N) {
+  // the staged lhs operand's and the rhs's types, and the values a
+  // 16-byte copy of each carries
+  using LhsT = typename elem_type<Pro::kStagedBf16>::type;
+  using RhsT = typename elem_type<Pro::kRhsBf16>::type;
+  constexpr int VA = 16 / sizeof(LhsT), VB = 16 / sizeof(RhsT);
+  const RhsT* rhs = static_cast<const RhsT*>(rhs_v);
   constexpr int WM = BM / 64;          // consumer warpgroups along M
   constexpr int CW = WM * WN;          // consumer warpgroups
   constexpr int NW = BN / WN;          // columns of a consumer
@@ -445,8 +492,10 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
   constexpr int A_F = AM * BK, B_F = BN * BK;
   constexpr int STAGE_F = 2 * (A_F + B_F);
   constexpr int AS = BK + 4;           // raw lhs row stride (floats)
+  constexpr int ASE = AS * 4 / sizeof(LhsT);  // ... in LhsT values
   constexpr int RAW_A = AM * AS, RAW_F = RAW_A + BK * BN;
   constexpr int A_TASKS = AM * BK / 4;
+  constexpr int A_COPIES = AM * BK / VA;
   constexpr int TA = (A_TASKS + 127) / 128, TB = BN * BK / 4 / 128;
   constexpr uint32_t LBO = 128, SBO = BK / 4 * 128, SBO_A = AM < BM ? 0 : SBO;
   static_assert(BM % 64 == 0 && BN % (8 * WN) == 0 && BN % 32 == 0
@@ -488,9 +537,9 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
   // the operand staged by 16-byte copies: the raw float32 lhs of the
   // identity prologue, else the prologue's own float32 (M, K) operand
   // (kStaged), from which the split evaluates the prologue
-  const float* lhs =
-      static_cast<const float*>(pro.in[Pro::kStaged >= 0 ? Pro::kStaged : 0]);
-  const bool a_raw = Pro::kStaged >= 0 && (K & 3) == 0
+  const LhsT* lhs =
+      static_cast<const LhsT*>(pro.in[Pro::kStaged >= 0 ? Pro::kStaged : 0]);
+  const bool a_raw = Pro::kStaged >= 0 && K % VA == 0
                      && (reinterpret_cast<uintptr_t>(lhs) & 15) == 0;
   if constexpr (PS > 0) {
     // the prologue's row statistics: a row a warp, every warp of the block
@@ -519,39 +568,40 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
     // slots (kt mod RS), RR of them, RR - 1 in flight
     const int pw = wg - CW, pt = tid - 128 * wg;
     constexpr int RR = RS / PW;
-    // 16-byte copies need K (N) a multiple of 4 and aligned bases; any
-    // other lhs (a prologue without a float32 (M, K) operand, an odd K) is
-    // read through `pro` by the split
-    const bool b_raw = (N & 3) == 0
+    // 16-byte copies need K (N) a multiple of 4 (8 in bfloat16) and
+    // aligned bases; any other lhs (a prologue without a float32 or
+    // bfloat16 (M, K) operand, an odd K) is read through `pro` by the split
+    const bool b_raw = N % VB == 0
                        && (reinterpret_cast<uintptr_t>(rhs) & 15) == 0;
     // This thread's tasks, the same in every k-tile.  Copies: lhs chunk
-    // (row r, 4 k) and rhs chunk (k row kr, 4 n).  Split: lhs task (row,
-    // chunk) with 8 rows of one chunk a phase (conflict-free reads of the
-    // padded raw rows, 128-byte stores of a core matrix); rhs task (col,
-    // chunk) with a warp on 32 consecutive columns of one chunk, so the
-    // raw [BK][BN] tile is read along its rows and written K-major.
-    constexpr int CA = TA, CB = BK * BN / 4 / 128;
-    static_assert(CB * 512 == BK * BN, "copies");
+    // (row r, VA k) and rhs chunk (k row kr, VB n), into the raw stage as
+    // LhsT and RhsT values.  Split: lhs task (row, chunk of 4) with 8 rows of
+    // one chunk a phase (conflict-free reads of the padded raw rows,
+    // 128-byte stores of a core matrix); rhs task (col, chunk) with a warp
+    // on 32 consecutive columns of one chunk, so the raw [BK][BN] tile is
+    // read along its rows and written K-major.
+    constexpr int CA = (A_COPIES + 127) / 128, CB = BK * BN / VB / 128;
+    static_assert(CB * 128 * VB == BK * BN, "copies");
     int ca_dst[CA], cb_dst[CB];
-    const float* ca_src[CA];
-    const float* cb_src[CB];
+    const LhsT* ca_src[CA];
+    const RhsT* cb_src[CB];
     bool ca_ok[CA], cb_ok[CB];
     int cb_k[CB];
 #pragma unroll
     for (int i = 0; i < CA; ++i) {
-      const int j = pt + 128 * i, r = j / (BK / 4), c = j % (BK / 4);
-      ca_dst[i] = r * AS + 4 * c;
-      ca_ok[i] = j < A_TASKS && m0 + r < M;
-      ca_src[i] = lhs + (ca_ok[i] ? (m0 + r) * K : 0) + 4 * c;
+      const int j = pt + 128 * i, r = j / (BK / VA), c = j % (BK / VA);
+      ca_dst[i] = r * ASE + VA * c;
+      ca_ok[i] = j < A_COPIES && m0 + r < M;
+      ca_src[i] = lhs + (ca_ok[i] ? (m0 + r) * K : 0) + VA * c;
     }
 #pragma unroll
     for (int i = 0; i < CB; ++i) {
-      const int j = pt + 128 * i, kr = j / (BN / 4), c = j % (BN / 4);
-      cb_dst[i] = RAW_A + kr * BN + 4 * c;
-      cb_ok[i] = n0 + 4 * c < N;
+      const int j = pt + 128 * i, kr = j / (BN / VB), c = j % (BN / VB);
+      cb_dst[i] = kr * BN + VB * c;
+      cb_ok[i] = n0 + VB * c < N;
       cb_k[i] = kr;
       cb_src[i] = rhs + static_cast<long long>(kr) * N
-                  + (cb_ok[i] ? n0 + 4 * c : 0);
+                  + (cb_ok[i] ? n0 + VB * c : 0);
     }
     int a_src[TA], a_dst[TA], b_src[TB], b_dst[TB];
     bool a_ok[TA], b_ok[TB];
@@ -560,7 +610,7 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
       const int t = pt + 128 * i;
       const int row = (t / (8 * (BK / 4))) * 8 + (t & 7);
       const int c = (t >> 3) % (BK / 4);
-      a_src[i] = row * AS + 4 * c;
+      a_src[i] = row * ASE + 4 * c;
       a_dst[i] = tile_off<BK>(row, c);
       a_ok[i] = t < A_TASKS && m0 + row < M;
     }
@@ -577,20 +627,22 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
     auto issue = [&](int kt) {
       if (kt < ktiles) {
         float* raw_s = raw + (kt % RS) * RAW_F;
+        LhsT* raw_a = reinterpret_cast<LhsT*>(raw_s);
+        RhsT* raw_b = reinterpret_cast<RhsT*>(raw_s + RAW_A);
         const int k0 = kt * BK;
         if (a_raw)
 #pragma unroll
           for (int i = 0; i < CA; ++i) {
-            const int k = k0 + 4 * ((pt + 128 * i) % (BK / 4));
+            const int k = k0 + VA * ((pt + 128 * i) % (BK / VA));
             if (ca_ok[i])
-              cp_async16(raw_s + ca_dst[i], ca_src[i] + (k < K ? k0 : 0),
+              cp_async16(raw_a + ca_dst[i], ca_src[i] + (k < K ? k0 : 0),
                          k < K ? 16 : 0);
           }
         if (b_raw)
 #pragma unroll
           for (int i = 0; i < CB; ++i) {
             const bool in = cb_ok[i] && k0 + cb_k[i] < K;
-            cp_async16(raw_s + cb_dst[i],
+            cp_async16(raw_b + cb_dst[i],
                        in ? cb_src[i] + static_cast<long long>(k0) * N
                           : rhs, in ? 16 : 0);
           }
@@ -612,13 +664,14 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
       if (kt >= ST) mbar_wait(&empty[s], (kt / ST - 1) & 1);
       float* a_big = smem + s * STAGE_F;
       float* b_big = a_big + 2 * A_F;
-      const float* ra = raw + (kt % RS) * RAW_F;
-      const float* rb = ra + RAW_A;
+      const float* raw_s = raw + (kt % RS) * RAW_F;
+      const LhsT* ra = reinterpret_cast<const LhsT*>(raw_s);
+      const RhsT* rb = reinterpret_cast<const RhsT*>(raw_s + RAW_A);
       if (a_raw) {
 #pragma unroll
         for (int i = 0; i < TA; ++i) {
           if (!a_ok[i]) continue;
-          const float4 x = *reinterpret_cast<const float4*>(ra + a_src[i]);
+          const float4 x = ld4(ra + a_src[i]);
           if constexpr (Pro::kIdentity) {
             store4(a_big + a_dst[i], a_big + A_F + a_dst[i], x.x, x.y, x.z,
                    x.w);
@@ -660,9 +713,9 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
 #pragma unroll
         for (int i = 0; i < TB; ++i) {
           if (!b_ok[i]) continue;
-          const float* x = rb + b_src[i];
-          store4(b_big + b_dst[i], b_big + B_F + b_dst[i], x[0], x[BN],
-                 x[2 * BN], x[3 * BN]);
+          const RhsT* x = rb + b_src[i];
+          store4(b_big + b_dst[i], b_big + B_F + b_dst[i], ld1(x),
+                 ld1(x + BN), ld1(x + 2 * BN), ld1(x + 3 * BN));
         }
       } else {
 #pragma unroll
@@ -674,8 +727,9 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
           float v[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            v[j] = k + j < K ? rhs[static_cast<long long>(k + j) * N + n]
-                             : 0.f;
+            v[j] = k + j < K
+                       ? ld1(rhs + static_cast<long long>(k + j) * N + n)
+                       : 0.f;
           store4(b_big + b_dst[i], b_big + B_F + b_dst[i], v[0], v[1], v[2],
                  v[3]);
         }
@@ -725,12 +779,20 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
 #pragma unroll
       for (int k8 = 0; k8 < BK / 8; ++k8) {
         const uint32_t o = k8 * 256;  // two core matrices a k8 step
-        wgmma_tf32<NW>(part, gmma_desc(a_small + o, LBO, SBO_A),
-                       gmma_desc(b_big + o, LBO, SBO), !(first && k8 == 0));
+        // a bfloat16 side's small half is zero: its product is dropped
+        int acc_d = !(first && k8 == 0);
+        if constexpr (!Pro::kExact) {
+          wgmma_tf32<NW>(part, gmma_desc(a_small + o, LBO, SBO_A),
+                         gmma_desc(b_big + o, LBO, SBO), acc_d);
+          acc_d = 1;
+        }
+        if constexpr (!Pro::kRhsBf16) {
+          wgmma_tf32<NW>(part, gmma_desc(a_big + o, LBO, SBO_A),
+                         gmma_desc(b_small + o, LBO, SBO), acc_d);
+          acc_d = 1;
+        }
         wgmma_tf32<NW>(part, gmma_desc(a_big + o, LBO, SBO_A),
-                       gmma_desc(b_small + o, LBO, SBO), 1);
-        wgmma_tf32<NW>(part, gmma_desc(a_big + o, LBO, SBO_A),
-                       gmma_desc(b_big + o, LBO, SBO), 1);
+                       gmma_desc(b_big + o, LBO, SBO), acc_d);
       }
       wgmma_commit();
       if (last) {
@@ -757,7 +819,7 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
 
 template <int BM, int BN, int BK, int ST, int RS, int WN, int PROMO, int PW,
           int AM, class Pro, class Epi>
-cudaError_t launch(const Pro& pro, const float* rhs, const Epi& epi, int M,
+cudaError_t launch(const Pro& pro, const void* rhs, const Epi& epi, int M,
                    int K, int N, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (AM < BM && M > AM) return cudaErrorInvalidValue;
@@ -836,15 +898,25 @@ void pro_host_phase(const Pro& pro, long long m, long long K, float* red) {
   }
 }
 
+// the staged operand's value i, as float32
+template <class Pro>
+float staged_host(const Pro& pro, long long i) {
+  if constexpr (Pro::kStagedBf16)
+    return repro_chain::from_bf16(
+        static_cast<const uint16_t*>(pro.in[Pro::kStaged])[i]);
+  else
+    return static_cast<const float*>(pro.in[Pro::kStaged])[i];
+}
+
 template <int P, class Pro>
 void pro_host_phase_at(const Pro& pro, long long m, long long K, float* red) {
   if constexpr (P < Pro::kPhases - 1) {
-    const float* xs = static_cast<const float*>(pro.in[Pro::kStaged]);
     float part[Pro::kSlotsArr];
     for (int s = 0; s < Pro::kSlotsArr; ++s)
       part[s] = repro_chain::ident(Pro::slot_op(s));
     for (long long k = 0; k < K; ++k)
-      pro.template elem_at<P>(xs[m * K + k], m, k, K, red, part);
+      pro.template elem_at<P>(staged_host(pro, m * K + k), m, k, K, red,
+                              part);
     for (int s = 0; s < Pro::kSlots; ++s)
       if (Pro::slot_phase(s) == P) red[s] = part[s];
     pro_host_phase_at<P + 1>(pro, m, K, red);
@@ -862,11 +934,10 @@ void prologue_host(const Pro& pro, float* lhs, long long M, long long K,
     for (int s = 0; s < Pro::kSlotsArr; ++s)
       red[s] = repro_chain::ident(Pro::slot_op(s));
     if (staged && Pro::kStaged >= 0) {
-      const float* xs = static_cast<const float*>(pro.in[Pro::kStaged]);
       pro_host_phase_at<0>(pro, m, K, red);
       for (long long k = 0; k < K; ++k)
         lhs[m * K + k] = pro.template elem_at<Pro::kPhases - 1>(
-            xs[m * K + k], m, k, K, red, nullptr);
+            staged_host(pro, m * K + k), m, k, K, red, nullptr);
     } else {
       pro_host_phase<0>(pro, m, K, red);
       for (long long k = 0; k < K; ++k) lhs[m * K + k] = pro(m, k, K, red);

@@ -1,14 +1,17 @@
-// RMSNorm forward for Hopper (sm_90a), float32.
+// RMSNorm forward for Hopper (sm_90a): x and the gain each float32 or
+// bfloat16, y in x's type, rstd and every sum in float32.
 //
 // Replaces the TPU kernel `_rms_kernel` / `rmsnorm_fwd`
 // (src/repro/kernels/rmsnorm.py:12,20):
 //     y    = x * rsqrt(mean(x^2) + eps) * g        x, y [R, C]
 //     rstd = rsqrt(mean(x^2) + eps)                 [R, 1] float32
+// with x, y and g float32 or bfloat16 (y rounded to x's type once, at
+// the store, as the reference's `.astype(x.dtype)`).
 //
 // Bound: bytes.  Each row is read once and written once (the gain is
-// read once per warp or block), 8 R C bytes in all; the 3 R C operations
-// are nothing beside them.  The TPU kernel stages a block of rows in
-// VMEM.  On the card the gain is in keeping enough bytes in flight and
+// read once per warp or block), 8 R C bytes in all in float32, 4 R C in
+// bfloat16; the 3 R C operations are nothing beside them.  The TPU
+// kernel stages a block of rows in VMEM.  On the card the gain is in keeping enough bytes in flight and
 // moving no extra ones, and the best way to do that depends on the shape,
 // so the entry point takes one of two paths (chosen from the H100's
 // timings of both, PERF.md):
@@ -39,13 +42,53 @@
 // Rows whose width is not a multiple of 4, or wider than the block path
 // holds (8,192 columns), take a scalar loop that reads the row twice.
 //
+// Every path reads and writes four values at a time (`load4`, `store4`):
+// a float4 in float32, 8 bytes of four bfloat16 values otherwise, which
+// widen to float32 exactly.  A bfloat16 row takes the ring only where its
+// bytes are a multiple of 16 (C a multiple of 8, what a bulk copy needs);
+// the ring's stage then holds the row in bfloat16, half the bytes.
+//
 // C interface (bound with ctypes): every entry returns cudaGetLastError()
 // after its launch.  Pointers are device pointers of contiguous tensors;
 // `stream` is the caller's cudaStream_t.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain.cuh"
+
 namespace {
+
+using bf16 = uint16_t;  // a bfloat16 value's bits
+
+// Four consecutive values at p (16-byte aligned in float32, 8-byte in
+// bfloat16) as float32, and four float32 values stored at p in T.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  uint2 u;
+  u.x = repro_chain::to_bf16(v.x) | (uint32_t(repro_chain::to_bf16(v.y)) << 16);
+  u.y = repro_chain::to_bf16(v.z) | (uint32_t(repro_chain::to_bf16(v.w)) << 16);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return repro_chain::from_bf16(*p);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  *p = repro_chain::to_bf16(v);
+}
 
 constexpr int kThreads = 256;     // the block path's and scalar path's block
 constexpr int kRingWarps = 8;     // warps a CTA of the ring path
@@ -130,20 +173,22 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 }
 
 // Warp `w` of CTA `b` takes rows b * warps + w, then strided by the
-// grid's warps; VPL float4 of a row a lane (C <= 128 VPL).
-template <int VPL>
+// grid's warps; VPL groups of four values of a row a lane (C <= 128 VPL).
+// TX is x's and y's type, TG the gain's.
+template <int VPL, class TX, class TG>
 __global__ void __launch_bounds__(32 * kRingWarps)
-rms_ring_kernel(const float* __restrict__ x, const float4* __restrict__ g,
-                float* __restrict__ y, float* __restrict__ rstd, int R,
+rms_ring_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+                TX* __restrict__ y, float* __restrict__ rstd, int R,
                 int C, float eps) {
-  extern __shared__ __align__(16) float4 ring4[];  // [warps][stages][C4]
+  // [warps][stages][C] values of TX
+  extern __shared__ __align__(16) unsigned char ring_raw[];
   __shared__ unsigned long long bars[kRingWarps][kRingStages];
   const int C4 = C / 4;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float4* ring = ring4 + warp * kRingStages * C4;
+  TX* ring = reinterpret_cast<TX*>(ring_raw) + warp * kRingStages * C;
   const int stride = gridDim.x * warps;
-  const uint32_t bytes = static_cast<uint32_t>(C) * 4u;
+  const uint32_t bytes = static_cast<uint32_t>(C) * sizeof(TX);
   const float inv_c = 1.f / static_cast<float>(C);
   int row = blockIdx.x * warps + warp;
   if (lane == 0) {
@@ -152,7 +197,7 @@ rms_ring_kernel(const float* __restrict__ x, const float4* __restrict__ g,
     for (int s = 0; s < kRingStages; ++s) {
       const int r = row + s * stride;
       if (r < R)
-        bulk_load(ring + s * C4, x + static_cast<size_t>(r) * C, bytes,
+        bulk_load(ring + s * C, x + static_cast<size_t>(r) * C, bytes,
                   &bars[warp][s]);
     }
   }
@@ -161,18 +206,18 @@ rms_ring_kernel(const float* __restrict__ x, const float4* __restrict__ g,
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = lane + 32 * i;
-    gv[i] = c < C4 ? __ldg(g + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    gv[i] = c < C4 ? load4(g + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (int it = 0; row < R; row += stride, ++it) {
     const int s = it % kRingStages;
-    float4* buf = ring + s * C4;
+    TX* buf = ring + s * C;
     bar_wait(&bars[warp][s], (it / kRingStages) & 1);
     float4 v[VPL];
     float ss = 0.f;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int c = lane + 32 * i;
-      v[i] = c < C4 ? buf[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i] = c < C4 ? load4(buf + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
       ss += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z +
             v[i].w * v[i].w;
     }
@@ -181,8 +226,9 @@ rms_ring_kernel(const float* __restrict__ x, const float4* __restrict__ g,
     for (int i = 0; i < VPL; ++i) {
       const int c = lane + 32 * i;
       if (c < C4)
-        buf[c] = make_float4(v[i].x * r * gv[i].x, v[i].y * r * gv[i].y,
-                             v[i].z * r * gv[i].z, v[i].w * r * gv[i].w);
+        store4(buf + 4 * c,
+               make_float4(v[i].x * r * gv[i].x, v[i].y * r * gv[i].y,
+                           v[i].z * r * gv[i].z, v[i].w * r * gv[i].w));
     }
     if (lane == 0) rstd[row] = r;
     // y is in the stage: make the writes visible to the bulk copy
@@ -209,7 +255,7 @@ rms_ring_kernel(const float* __restrict__ x, const float4* __restrict__ g,
 // the kernel's shared-memory limit and asks the occupancy; later calls
 // read a small set-once cache, so a decode step's launches pay no CUDA
 // runtime queries.
-template <int VPL>
+template <int VPL, class TX, class TG>
 int ring_ctas(int C, size_t bytes, int* sms_out) {
   struct Entry {
     int dev, C, ctas, sms;
@@ -226,14 +272,14 @@ int ring_ctas(int C, size_t bytes, int* sms_out) {
   int sms = 0, per_sm = 0;
   // the limit for the widest row, so that no width lowers it for another
   constexpr int most =
-      static_cast<int>(sizeof(float)) * kRingWarps * kRingStages * kRingMaxC;
-  if (cudaFuncSetAttribute(rms_ring_kernel<VPL>,
+      static_cast<int>(sizeof(TX)) * kRingWarps * kRingStages * kRingMaxC;
+  if (cudaFuncSetAttribute(rms_ring_kernel<VPL, TX, TG>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            most) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rms_ring_kernel<VPL>, 32 * kRingWarps, bytes) !=
+          &per_sm, rms_ring_kernel<VPL, TX, TG>, 32 * kRingWarps, bytes) !=
           cudaSuccess)
     return 0;
   if (filled < 16) cache[filled++] = Entry{dev, C, per_sm * sms, sms};
@@ -245,93 +291,101 @@ int ring_ctas(int C, size_t bytes, int* sms_out) {
 // rows, and at kRingNarrowC columns or fewer each SM must find
 // kRingNarrowRowsPerSm; else the block path is the faster.  Returns
 // whether it launched.
-template <int VPL>
+template <int VPL, class TX, class TG>
 bool launch_ring(const void* x, const void* g, void* y, float* rstd, int R,
                  int C, float eps, cudaStream_t s) {
   const size_t bytes =
-      sizeof(float) * static_cast<size_t>(kRingWarps) * kRingStages * C;
+      sizeof(TX) * static_cast<size_t>(kRingWarps) * kRingStages * C;
   int sms = 0;
-  const int ctas = ring_ctas<VPL>(C, bytes, &sms);
+  const int ctas = ring_ctas<VPL, TX, TG>(C, bytes, &sms);
   if (ctas == 0 || R < ctas * kRingWarps ||
       (C <= kRingNarrowC && R < kRingNarrowRowsPerSm * sms))
     return false;
-  rms_ring_kernel<VPL><<<ctas, 32 * kRingWarps, bytes, s>>>(
-      static_cast<const float*>(x), static_cast<const float4*>(g),
-      static_cast<float*>(y), rstd, R, C, eps);
+  rms_ring_kernel<VPL, TX, TG><<<ctas, 32 * kRingWarps, bytes, s>>>(
+      static_cast<const TX*>(x), static_cast<const TG*>(g),
+      static_cast<TX*>(y), rstd, R, C, eps);
   return true;
 }
 
 // ---------------------------------------------------------------------------
 // the block path and the scalar path
 // ---------------------------------------------------------------------------
-template <int VPT>
+template <int VPT, class TX, class TG>
 __global__ void __launch_bounds__(kThreads)
-rms_vec_kernel(const float4* __restrict__ x, const float4* __restrict__ g,
-               float4* __restrict__ y, float* __restrict__ rstd, int C,
+rms_vec_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+               TX* __restrict__ y, float* __restrict__ rstd, int C,
                float eps) {
   const int C4 = C / 4;
   const size_t row = blockIdx.x;
-  const float4* xr = x + row * C4;
+  const TX* xr = x + row * C;
   float4 v[VPT];
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int c = threadIdx.x + i * kThreads;
-    v[i] = c < C4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[i] = c < C4 ? load4(xr + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
     ss += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z + v[i].w * v[i].w;
   }
   const float r = rsqrtf(block_sum(ss) / C + eps);
-  float4* yr = y + row * C4;
+  TX* yr = y + row * C;
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int c = threadIdx.x + i * kThreads;
     if (c < C4) {
-      const float4 gv = g[c];
-      yr[c] = make_float4(v[i].x * r * gv.x, v[i].y * r * gv.y,
-                          v[i].z * r * gv.z, v[i].w * r * gv.w);
+      const float4 gv = load4(g + 4 * c);
+      store4(yr + 4 * c, make_float4(v[i].x * r * gv.x, v[i].y * r * gv.y,
+                                     v[i].z * r * gv.z, v[i].w * r * gv.w));
     }
   }
   if (threadIdx.x == 0) rstd[row] = r;
 }
 
+template <class TX, class TG>
 __global__ void __launch_bounds__(kThreads)
-rms_scalar_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                  float* __restrict__ y, float* __restrict__ rstd, int C,
+rms_scalar_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+                  TX* __restrict__ y, float* __restrict__ rstd, int C,
                   float eps) {
   const size_t row = blockIdx.x;
-  const float* xr = x + row * C;
+  const TX* xr = x + row * C;
   float ss = 0.f;
-  for (int c = threadIdx.x; c < C; c += kThreads) ss += xr[c] * xr[c];
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float v = load1(xr + c);
+    ss += v * v;
+  }
   const float r = rsqrtf(block_sum(ss) / C + eps);
-  float* yr = y + row * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) yr[c] = xr[c] * r * g[c];
+  TX* yr = y + row * C;
+  for (int c = threadIdx.x; c < C; c += kThreads)
+    store1(yr + c, load1(xr + c) * r * load1(g + c));
   if (threadIdx.x == 0) rstd[row] = r;
 }
 
-}  // namespace
-
-extern "C" int repro_rmsnorm_f32(const void* x, const void* g, void* y,
-                                 void* rstd, int R, int C, float eps,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <class TX, class TG>
+int rmsnorm(const void* x, const void* g, void* y, void* rstd, int R, int C,
+            float eps, cudaStream_t s) {
   if (R <= 0) return static_cast<int>(cudaGetLastError());
+  // four values a load: 16 bytes in float32, 8 in bfloat16
+  constexpr size_t ax = 4 * sizeof(TX), ag = 4 * sizeof(TG);
   const bool vec = C % 4 == 0 &&
-                   reinterpret_cast<size_t>(x) % 16 == 0 &&
-                   reinterpret_cast<size_t>(g) % 16 == 0 &&
-                   reinterpret_cast<size_t>(y) % 16 == 0;
+                   reinterpret_cast<size_t>(x) % ax == 0 &&
+                   reinterpret_cast<size_t>(g) % ag == 0 &&
+                   reinterpret_cast<size_t>(y) % ax == 0;
+  // a bulk copy moves a multiple of 16 bytes between 16-byte addresses
+  const bool bulk = vec && (C * sizeof(TX)) % 16 == 0 &&
+                    reinterpret_cast<size_t>(x) % 16 == 0 &&
+                    reinterpret_cast<size_t>(y) % 16 == 0;
   auto rs = static_cast<float*>(rstd);
-  // the ring path: a lane's float4 of a row, in steps of 8
+  // the ring path: a lane's four-value groups of a row, in steps of 8
   const int vpl = (C / 4 + 31) / 32;
-  if (vec && C > 0 && C <= kRingMaxC &&
-      (vpl <= 8    ? launch_ring<8>(x, g, y, rs, R, C, eps, s)
-       : vpl <= 16 ? launch_ring<16>(x, g, y, rs, R, C, eps, s)
-                   : launch_ring<24>(x, g, y, rs, R, C, eps, s)))
+  if (bulk && C > 0 && C <= kRingMaxC &&
+      (vpl <= 8    ? launch_ring<8, TX, TG>(x, g, y, rs, R, C, eps, s)
+       : vpl <= 16 ? launch_ring<16, TX, TG>(x, g, y, rs, R, C, eps, s)
+                   : launch_ring<24, TX, TG>(x, g, y, rs, R, C, eps, s)))
     return static_cast<int>(cudaGetLastError());
   const dim3 grid(R), block(kThreads);
-  const int per_thread = (C / 4 + kThreads - 1) / kThreads;  // float4s
-  auto xv = static_cast<const float4*>(x);
-  auto gv = static_cast<const float4*>(g);
-  auto yv = static_cast<float4*>(y);
+  const int per_thread = (C / 4 + kThreads - 1) / kThreads;  // groups of 4
+  auto xv = static_cast<const TX*>(x);
+  auto gv = static_cast<const TG*>(g);
+  auto yv = static_cast<TX*>(y);
   if (vec && per_thread <= 1) {
     rms_vec_kernel<1><<<grid, block, 0, s>>>(xv, gv, yv, rs, C, eps);
   } else if (vec && per_thread <= 2) {
@@ -341,9 +395,22 @@ extern "C" int repro_rmsnorm_f32(const void* x, const void* g, void* y,
   } else if (vec && per_thread <= 8) {
     rms_vec_kernel<8><<<grid, block, 0, s>>>(xv, gv, yv, rs, C, eps);
   } else {
-    rms_scalar_kernel<<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<float*>(y), rs, C, eps);
+    rms_scalar_kernel<<<grid, block, 0, s>>>(xv, gv, yv, rs, C, eps);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, y [R, C] of x's type and g [C] of its own: float32 (0) or bfloat16
+// (1) each; rstd [R] float32.
+extern "C" int repro_rmsnorm(const void* x, const void* g, void* y,
+                             void* rstd, int R, int C, float eps, int x_bf16,
+                             int g_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return g_bf16 ? rmsnorm<bf16, bf16>(x, g, y, rstd, R, C, eps, s)
+                  : rmsnorm<bf16, float>(x, g, y, rstd, R, C, eps, s);
+  return g_bf16 ? rmsnorm<float, bf16>(x, g, y, rstd, R, C, eps, s)
+                : rmsnorm<float, float>(x, g, y, rstd, R, C, eps, s);
 }

@@ -71,6 +71,9 @@ from . import _build, ref
 
 #: The largest head dim of the tuned instances; above it the wide kernel.
 MAX_HEAD_DIM = 256
+#: The types the tuned instances and the decode kernel take (float32
+#: inside); the wide kernel takes float32 only.
+CUDA_DTYPES = (torch.float32, torch.bfloat16)
 #: The kernel's constants, mirrored from ``csrc/flash_attention.cuh`` (a
 #: test holds the two equal): query rows a block (``kBQ``), the head-dim
 #: instances (a D between them is zero-padded up to the next), K/V rows a
@@ -122,11 +125,13 @@ def flash_kbk(D: int) -> int:
     return 64 if d <= FLASH_QREG_MAX_D else 32
 
 
-def flash_smem_bytes(D: int) -> int:
-    """Shared memory of one block of the kernel that runs ``D``.  A tuned
+def flash_smem_bytes(D: int, itemsize: int = 4) -> int:
+    """Shared memory of one block of the kernel that runs ``D`` on
+    operands of ``itemsize`` bytes (4, float32; 2, bfloat16).  A tuned
     instance: the K and V tiles of the two-stage ring (rows padded to D +
-    8 and D + 4 floats) and, above ``FLASH_QREG_MAX_D``, the Q tile
-    (``smem_floats`` in ``csrc/flash_attention.cuh``).  Above
+    8 and D + 4 values, D + 8 and D + 8 in bfloat16) and, above
+    ``FLASH_QREG_MAX_D``, the Q tile (``smem_bytes`` in
+    ``csrc/flash_attention.cuh``).  Above
     ``MAX_HEAD_DIM`` the wide kernel's (``smem_floats`` in its source):
     up to ``WIDE_DT`` its Q tile (rows of D + 8 floats), the ring of K/V
     chunks (rows of ``WIDE_DC`` + 8), p (rows of ``WIDE_BK`` + 4) and the
@@ -140,15 +145,17 @@ def flash_smem_bytes(D: int) -> int:
                     + WIDE_STAGES * (WIDE_BK + (0 if qres else WIDE_BQ)) * ld
                     + WIDE_BQ * (WIDE_BK + 4) + 2 * 2 * WIDE_BQ)
     q = 0 if d <= FLASH_QREG_MAX_D else FLASH_BQ * (d + 8)
-    return 4 * (2 * flash_kbk(D) * ((d + 8) + (d + 4)) + q)
+    vpad = 4 if itemsize == 4 else 8
+    return itemsize * (2 * flash_kbk(D) * ((d + 8) + (d + vpad)) + q)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if the kernel can read it with float4 loads (last dimension
+    """``t`` if the kernel can read it with 16-byte loads (last dimension
     contiguous, the base and every other stride 16-byte aligned), else a
     contiguous copy in storage of its own (aligned by the allocator)."""
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:-1])):
+            and all(s * t.element_size() % 16 == 0
+                    for s in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -189,6 +196,12 @@ class ScoreMod:
 
 #: launches of the wide kernel's scored instances
 WIDE_SCORE_MOD = _build.LaunchCount("flash_wide_score_mod")
+#: launches of the bfloat16 instances (counted in ``flash_attention_cuda``,
+#: ``ScoreMod`` and ``flash_decode_cuda`` too): the identity instance, the
+#: scored ones, and the decode kernel with a bfloat16 q or cache
+BF16 = _build.LaunchCount("flash_attention_bf16")
+SCORE_MOD_BF16 = _build.LaunchCount("flash_score_mod_bf16")
+DECODE_BF16 = _build.LaunchCount("flash_decode_bf16")
 
 
 def _check_score_args(q, k, score_args) -> None:
@@ -213,10 +226,15 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     Every query row sees a key, so the kernel's ``max(l, 1e-30)`` never
     binds and the two agree to rounding.  With ``score_mod`` the scaled
     scores pass through ``score_mod.plain`` before the causal mask, as in
-    the kernel."""
+    the kernel.  bfloat16 operands compute in float32 and the output
+    rounds to q's type, as in the kernel (the reference's widens its
+    blocks to float32, ``o_ref.dtype`` q's); float64 ones (a check's
+    reference) stay float64."""
     _check_shapes(q, k, v, causal)
     if score_mod is None:
-        return ref.attention(q, k, v, causal=causal, scale=scale)
+        wide = torch.promote_types(q.dtype, torch.float32)
+        return ref.attention(q.to(wide), k.to(wide), v.to(wide),
+                             causal=causal, scale=scale).to(q.dtype)
     _check_score_args(q, k, score_args)
     Sq, Skv, D = q.shape[2], k.shape[2], q.shape[3]
     sc = 1.0 / math.sqrt(D) if scale is None else scale
@@ -234,8 +252,10 @@ def flash_attention_plain(q, k, v, causal: bool = True,
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          scale: float | None = None, *, score_mod=None,
                          score_args=()) -> torch.Tensor:
-    """Launch the CUDA kernel (float32, on the current stream): the
-    identity instance of ``csrc/flash_attention.cu``, or with
+    """Launch the CUDA kernel (on the current stream; q, k, v all float32
+    or, up to ``MAX_HEAD_DIM``, all bfloat16; float32 inside, the output
+    in q's type): the identity instance of ``csrc/flash_attention.cu``, or
+    with
     ``score_mod`` its generated instance, whose score operands are read
     through 4D strides (0 on each dim of extent 1).  q, k, v are taken
     with their strides; a tensor the kernel cannot read with 16-byte
@@ -252,9 +272,10 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention_cuda: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}; all must lie on one "
                          "CUDA device")
-    if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
-        raise TypeError(f"flash_attention_cuda takes float32, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in CUDA_DTYPES:
+        raise TypeError(f"flash_attention_cuda takes q, k, v all float32 "
+                        f"or all bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if score_mod is not None and score_mod.wide != (D > MAX_HEAD_DIM):
@@ -271,28 +292,34 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         q, k, v = (torch.nn.functional.pad(t, (0, Dp - D))
                    for t in (q, k, v))
     q, k, v = (_aligned(t) for t in (q, k, v))
-    o = torch.empty(B, Hq, Sq, Dp, dtype=torch.float32, device=dev)
+    o = torch.empty(B, Hq, Sq, Dp, dtype=q.dtype, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, Hq, Hkv, Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], float(scale), int(causal))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if score_mod is None:
-        _build.check(_entry()(*args, stream), "repro_flash_attention_f32")
+        _build.check(_entry()(*args, int(q.dtype == torch.bfloat16), stream),
+                     "repro_flash_attention")
         _build.count(flash_attention_cuda)
+        if q.dtype == torch.bfloat16:
+            _build.count(BF16)
         return o if Dp == D else o[..., :D]
     _build.check(score_mod.entry(*args, *_score_operands(score_args, dev),
                                  stream), "repro_flash_scored")
     _build.count(ScoreMod)
+    if q.dtype == torch.bfloat16:
+        _build.count(SCORE_MOD_BF16)
     return o if Dp == D else o[..., :D]
 
 
 def _score_operands(score_args, dev) -> tuple:
     """(pointers, 4D element strides: 0 on each dim of extent 1) of the
     score operands, as a generated instance's C entry takes them."""
-    if any(a.device != dev or a.dtype not in (torch.float32, torch.bool)
+    if any(a.device != dev or a.dtype not in (torch.float32, torch.bfloat16,
+                                              torch.bool)
            for a in score_args):
-        raise TypeError("flash attention: score operands must be float32 "
-                        f"or bool on {dev}")
+        raise TypeError("flash attention: score operands must be float32, "
+                        f"bfloat16 or bool on {dev}")
     ins = (ctypes.c_void_p * max(1, len(score_args)))(
         *[a.data_ptr() for a in score_args])
     st = (ctypes.c_longlong * max(4, 4 * len(score_args)))(
@@ -370,8 +397,13 @@ def _bind_attention(fn):
 
 @functools.cache
 def _entry():
-    return _bind_attention(
-        _build.library("flash_attention").repro_flash_attention_f32)
+    fn = _build.library("flash_attention").repro_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
@@ -490,13 +522,18 @@ def live_len(kv_len, S: int) -> int:
 def flash_decode_plain(q, k_cache, v_cache, kv_len: int | None = None,
                        scale: float | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the caches sliced to their
-    live prefix, then ``ref.decode_attention``.  Rows inside ``kv_len``
-    that were never written are attended as they stand (a zero key adds
-    exp(-m) to the denominator), as in the reference."""
+    live prefix, then ``ref.decode_attention``, float32 inside and the
+    output in q's type (the reference's kernel: its operands widened to
+    float32, ``o_ref.dtype`` q's; float64 stays float64).  Rows inside
+    ``kv_len`` that were never written are attended as they stand (a
+    zero key adds exp(-m) to the denominator), as in the reference."""
     _check_decode_shapes(q, k_cache, v_cache)
     eff = live_len(kv_len, k_cache.shape[2])
-    return ref.decode_attention(q, k_cache[:, :, :eff], v_cache[:, :, :eff],
-                                scale=scale)
+    wide = torch.promote_types(torch.promote_types(q.dtype, k_cache.dtype),
+                               torch.float32)
+    return ref.decode_attention(q.to(wide), k_cache[:, :, :eff].to(wide),
+                                v_cache[:, :, :eff].to(wide),
+                                scale=scale).to(q.dtype)
 
 
 def decode_splits(pairs: int, eff: int) -> tuple[int, int]:
@@ -584,20 +621,21 @@ def decode_by_subgroups(q, k_cache, v_cache, eff: int, scale: float,
 
 def decode_padded(q, k_cache, v_cache, kv_len, scale, run) -> torch.Tensor:
     """``run(q, k, v, eff, scale)`` at the default scale 1/sqrt(D) of the
-    true D.  The decode kernel reads a head dim that is a multiple of 4 in
-    place (its instance masks the columns at D; above the largest
-    instance the tiled kernel masks its last tile), so the caches pass
-    through as they are; another D (no config has one) is zero-padded up
-    to the next multiple of 4, which float4 loads need, and the result
-    cut back to D.  Zero columns add nothing to q k^T, so the padded call
-    computes the same function; only the live prefix of the caches is
-    padded (a copy, device time)."""
+    true D.  The decode kernel reads a head dim that is a multiple of 4
+    (8 for a bfloat16 cache) in place (its instance masks the columns at
+    D; above the largest instance the tiled kernel masks its last tile),
+    so the caches pass through as they are; another D (no config has one)
+    is zero-padded up to the next multiple, which its 16-byte loads need,
+    and the result cut back to D.  Zero columns add nothing to q k^T, so
+    the padded call computes the same function; only the live prefix of
+    the caches is padded (a copy, device time)."""
     eff = live_len(kv_len, k_cache.shape[2])
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    if D % 4 == 0:
+    unit = 8 if k_cache.dtype == torch.bfloat16 else 4
+    if D % unit == 0:
         return run(q, k_cache, v_cache, eff, scale)
-    pad = (0, -D % 4)
+    pad = (0, -D % unit)
     q, k_cache, v_cache = (torch.nn.functional.pad(t, pad) for t in (
         q, k_cache[:, :, :eff], v_cache[:, :, :eff]))
     return run(q, k_cache, v_cache, eff, scale)[..., :D]
@@ -605,7 +643,9 @@ def decode_padded(q, k_cache, v_cache, kv_len, scale, run) -> torch.Tensor:
 
 def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
                       scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA decode kernel (float32, on the current stream): the
+    """Launch the CUDA decode kernel (on the current stream; q float32 or
+    bfloat16, the two caches float32 or bfloat16 on their own, float32
+    inside, the output in q's type): the
     split pass, then the combine, once a sub-group of at most
     ``decode_max_group(D)`` query heads a KV head, on the head-dim
     instance that holds D, or above the largest on the tiled kernel
@@ -619,8 +659,10 @@ def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
         raise ValueError(f"flash_decode_cuda: q on {q.device}, caches on "
                          f"{k_cache.device}, {v_cache.device}; all must lie "
                          "on one CUDA device")
-    if {q.dtype, k_cache.dtype, v_cache.dtype} != {torch.float32}:
-        raise TypeError(f"flash_decode_cuda takes float32, got {q.dtype}, "
+    if (q.dtype not in CUDA_DTYPES or k_cache.dtype not in CUDA_DTYPES
+            or v_cache.dtype != k_cache.dtype):
+        raise TypeError(f"flash_decode_cuda takes q and one cache type each "
+                        f"float32 or bfloat16, got {q.dtype}, "
                         f"{k_cache.dtype}, {v_cache.dtype}")
     return decode_padded(q, k_cache, v_cache, kv_len, scale, _decode_run)
 
@@ -646,9 +688,12 @@ def _decode_launch(qs, k_cache, v_cache, eff: int, scale: float, os) -> None:
         part_acc.data_ptr(), part_ml.data_ptr(), os.data_ptr(),
         B, n, Hkv, D, eff, rows, splits, *qs.stride()[:3], *os.stride()[:3],
         *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
+        int(qs.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream),
-        "repro_flash_decode_f32")
+        "repro_flash_decode")
     _build.count(flash_decode_cuda)
+    if torch.bfloat16 in (qs.dtype, k_cache.dtype):
+        _build.count(DECODE_BF16)
 
 
 flash_decode_cuda.launches = 0  # kernel launches (plain runs excluded)
@@ -656,10 +701,11 @@ flash_decode_cuda.launches = 0  # kernel launches (plain runs excluded)
 
 @functools.cache
 def _decode_entry():
-    fn = _build.library("flash_decode").repro_flash_decode_f32
+    fn = _build.library("flash_decode").repro_flash_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -20,7 +20,12 @@ memory, a 3072 x 8192 panel is 100 MB: the CUDA kernel
 ``core/codegen_cuda.py``) is a GPU GEMM instead -- a grid over (N tiles,
 M tiles), a loop over K through a ring of shared-memory stages, the
 products on the tensor cores (``wgmma``) through the three-way TF32
-split (``kernels/split_float.py``), float32 results.  A prologue that
+split (``kernels/split_float.py``), float32 results.  The rhs and the
+chains' operands and outputs may be bfloat16: a bfloat16 operand is
+exact in TF32, so its side of the split has no small half and a k-step
+with both sides bfloat16 is one TF32 product (one side, two); the
+accumulator rounds to the product's type before the epilogue, as the
+reference's ``anchor_dtype`` cast.  A prologue that
 reduces over K gets its row statistics from a pass over the block's lhs
 rows before the k-tiles; an epilogue that reduces over N runs on the row
 tile, whose blocks along N form a thread-block cluster of up to
@@ -150,6 +155,8 @@ SMS = 132
 PROLOGUE_REDUCE = _build.LaunchCount("matmul_fused_prologue_reduce")
 #: launches whose epilogue reduces across the N tiles of a cluster
 CLUSTER_EPILOGUE = _build.LaunchCount("matmul_fused_cluster_epilogue")
+#: launches of instances with a bfloat16 rhs
+BF16 = _build.LaunchCount("matmul_fused_bf16")
 
 
 def pick_tile(M: int, N: int, row_reduce: bool) -> int:
@@ -185,9 +192,9 @@ def matmul_fused_plain(pro_args: Sequence, rhs, epi_args: Sequence, *,
                        out_dtypes: Sequence, prologue: Callable | None = None,
                        epilogue: Callable | None = None) -> tuple:
     """The kernel's function in plain PyTorch: the prologue on the whole
-    (M, K) view, ``torch.matmul`` in float32, the epilogue on the whole
-    (M, N) result.  Outputs are 2D by role: (M, N), (M, 1), (1, N) or
-    (1, 1)."""
+    (M, K) view, ``torch.matmul`` in float32 (a bfloat16 lhs or rhs
+    widened exactly), the epilogue on the whole (M, N) result.  Outputs
+    are 2D by role: (M, N), (M, 1), (1, N) or (1, 1)."""
     pro = [_view(v, r, M, K) for v, r in zip(pro_args, pro_roles)]
     lhs = prologue(*pro) if prologue is not None else pro[0]
     acc = torch.matmul(lhs.to(torch.float32), rhs.reshape(K, N)
@@ -206,8 +213,8 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
     ``entry`` is the instance's C entry point (``codegen_cuda``; its
     ``pro_slots`` and ``epi_slots`` are the chain's row reductions), ``tile``
     an index into ``TILES``.  The rhs is read as a contiguous [K, N]
-    float32 panel, every operand as a contiguous array of its role's
-    view.  Every launch counts in ``matmul_fused.launches``; one with a
+    panel of float32 or bfloat16 (the instance's type), every operand as a
+    contiguous array of its role's view.  Every launch counts in ``matmul_fused.launches``; one with a
     reducing prologue also in ``PROLOGUE_REDUCE``, one whose epilogue
     reduces across more than one N tile in ``CLUSTER_EPILOGUE``."""
     dev = rhs.device
@@ -215,9 +222,9 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
     if any(v.device != dev for v in vals) or dev.type != "cuda":
         raise ValueError("matmul_fused_cuda: every operand must lie on one "
                          f"CUDA device, got {sorted({str(v.device) for v in vals})}")
-    if rhs.dtype != torch.float32:
-        raise TypeError(f"matmul_fused_cuda takes a float32 rhs, got "
-                        f"{rhs.dtype}")
+    if rhs.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"matmul_fused_cuda takes a float32 or bfloat16 "
+                        f"rhs, got {rhs.dtype}")
     pro = [v.contiguous() for v in pro_args]
     epi = [v.contiguous() for v in epi_args]
     rhs = rhs.reshape(K, N).contiguous()
@@ -236,6 +243,8 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
         _build.count(PROLOGUE_REDUCE)
     if getattr(entry, "epi_slots", 0) and N > TILE_ROW.bn:
         _build.count(CLUSTER_EPILOGUE)
+    if rhs.dtype == torch.bfloat16:
+        _build.count(BF16)
     return tuple(outs)
 
 

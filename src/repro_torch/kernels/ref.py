@@ -66,7 +66,14 @@ def decode_attention(q, k_cache, v_cache, lengths=None, scale=None):
     """Single-token decode: q [B, Hq, D]; caches [B, Hkv, S, D].
 
     ``lengths`` [B] masks cache rows at or past each sequence's length.
+    q and a cache of another type (a bfloat16 model's q against the
+    default float32 cache) compute in the wider of the two, as JAX
+    promotes them, and the result is in q's type, as the decode kernel's
+    (the reference keeps the promoted type; ROADMAP C).
     """
+    out_dtype = q.dtype
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    q, k_cache, v_cache = q.to(dt), k_cache.to(dt), v_cache.to(dt)
     B, Hq, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
@@ -81,7 +88,7 @@ def decode_attention(q, k_cache, v_cache, lengths=None, scale=None):
                              logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.bmm(probs.reshape(B * Hkv, g, S), vf)
-    return out.reshape(B, Hq, D)
+    return out.reshape(B, Hq, D).to(out_dtype)
 
 
 # --------------------------------------------------------------------------

@@ -34,15 +34,20 @@ def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y.reshape(x.shape), rstd
 
 
+#: The types the kernel takes for x and for gamma, each on its own.
+CUDA_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
                  eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (float32, on the current stream)."""
+    """Launch the CUDA kernel (on the current stream): x and gamma each
+    float32 or bfloat16, y in x's type, float32 inside."""
     if x.device.type != "cuda" or gamma.device != x.device:
         raise ValueError(f"rmsnorm_cuda: x on {x.device}, gamma on "
                          f"{gamma.device}; both must lie on one CUDA device")
-    if x.dtype != torch.float32 or gamma.dtype != torch.float32:
-        raise TypeError(f"rmsnorm_cuda takes float32, got {x.dtype} and "
-                        f"{gamma.dtype}")
+    if x.dtype not in CUDA_DTYPES or gamma.dtype not in CUDA_DTYPES:
+        raise TypeError(f"rmsnorm_cuda takes float32 or bfloat16, got "
+                        f"{x.dtype} and {gamma.dtype}")
     C = x.shape[-1]
     if gamma.shape != (C,):
         raise ValueError(f"gamma {tuple(gamma.shape)} for rows of {C}")
@@ -55,20 +60,28 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     fn = _entry()
     _build.check(fn(x2.data_ptr(), g.data_ptr(), y.data_ptr(),
                     rstd.data_ptr(), R, C, float(eps),
+                    int(x.dtype == torch.bfloat16),
+                    int(gamma.dtype == torch.bfloat16),
                     torch.cuda.current_stream(x.device).cuda_stream),
-                 "repro_rmsnorm_f32")
+                 "repro_rmsnorm")
     _build.count(rmsnorm_cuda)
+    if torch.bfloat16 in (x.dtype, gamma.dtype):
+        _build.count(BF16)
     return y.reshape(x.shape), rstd
 
 
 rmsnorm_cuda.launches = 0  # kernel launches (plain runs are not counted)
+#: launches of the instances with a bfloat16 x or gain (counted in
+#: ``rmsnorm_cuda.launches`` too)
+BF16 = _build.LaunchCount("rmsnorm_bf16")
 
 
 @functools.cache
 def _entry():
-    fn = _build.library("rmsnorm").repro_rmsnorm_f32
+    fn = _build.library("rmsnorm").repro_rmsnorm
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

@@ -147,6 +147,9 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-len", type=int, default=None,
                     help="decode at this static cache length "
                          "(generate_static) instead of generate's buckets")
+    ap.add_argument("--param-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the weights' type (the cache stays float32)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -155,7 +158,8 @@ def main(argv=None) -> None:
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
 
-    mdl = Model(cfg, args.fusion, device=args.device)
+    mdl = Model(cfg, args.fusion, device=args.device,
+                param_dtype=getattr(torch, args.param_dtype))
     params = mdl.init(args.seed)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
@@ -169,7 +173,8 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     tput = args.batch * args.gen / dt
     kv = "" if args.kv_len is None else f" kv_len={args.kv_len}"
-    print(f"arch={cfg.name} device={mdl.device} batch={args.batch} "
+    print(f"arch={cfg.name} device={mdl.device} {args.param_dtype} "
+          f"batch={args.batch} "
           f"prompt={args.prompt_len} gen={args.gen}{kv}: {dt:.2f}s  "
           f"({tput:.1f} tok/s incl. compile)")
     print("sample:", seqs[0, args.prompt_len - 4:].tolist())

@@ -33,12 +33,15 @@ def loss_and_grads(mdl: Model, params, batch: dict):
 
 
 def make_train_step(mdl: Model, opt_cfg: optim.AdamWConfig,
-                    microbatches: int = 1):
+                    microbatches: int = 1, *, donate: bool = False):
     """Train step with optional gradient accumulation: ``microbatches > 1``
     splits the batch along its first dimension and accumulates the grads,
-    each scaled by ``1 / microbatches``.  The step returns
-    ``(params, opt_state, {"loss", "grad_norm", "lr"})``, tensors on the
-    device."""
+    each scaled by ``1 / microbatches``.  The loss is ``mdl.loss``, with
+    the model's remat.  The step returns ``(params, opt_state, {"loss",
+    "grad_norm", "lr"})``, tensors on the device.  ``donate`` writes the
+    update into the given params and optimizer state (``optim.apply``'s
+    ``inplace``), as the reference's trainer donates them to its jitted
+    step: one copy of the state lives, not two."""
     def _split(batch, i):
         def sl(x):
             mb = x.shape[0] // microbatches
@@ -60,7 +63,7 @@ def make_train_step(mdl: Model, opt_cfg: optim.AdamWConfig,
                                                           gi)
         grads, opt_state = optim.compress_grads(opt_cfg, grads, opt_state)
         params, opt_state, metrics = optim.apply(opt_cfg, params, grads,
-                                                 opt_state)
+                                                 opt_state, inplace=donate)
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step

@@ -39,14 +39,19 @@ from . import steps as S
 
 
 def build_trainer(cfg, *, fusion_mode="stitched", lr=1e-3, total_steps=1000,
-                  bf16_grads=False, device="cuda"):
+                  bf16_grads=False, device="cuda",
+                  param_dtype=torch.float32, remat=False):
     """-> (model, init_state(seed), train_step(state, batch)).
 
     ``train_step`` takes a batch of numpy arrays or tensors, moves it to
     the model's device, and leaves the step's metrics, as Python floats,
-    in ``train_step.last_metrics``.
+    in ``train_step.last_metrics``.  The model is float32 without remat
+    by default, as the reference's trainer builds it
+    (``src/repro/launch/train.py:33``); ``param_dtype`` and ``remat``
+    (its "full" policy) change that.
     """
-    mdl = Model(cfg, fusion_mode, device=device)
+    mdl = Model(cfg, fusion_mode, param_dtype=param_dtype, remat=remat,
+                device=device)
     opt_cfg = optim.AdamWConfig(lr=lr, warmup_steps=min(20, total_steps // 10),
                                 total_steps=total_steps,
                                 bf16_grads=bf16_grads)
@@ -79,6 +84,10 @@ def main(argv=None) -> None:
     ap.add_argument("--bf16-grads", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--param-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -87,11 +96,12 @@ def main(argv=None) -> None:
 
     mdl, init_state, train_step = build_trainer(
         cfg, fusion_mode=args.fusion, lr=args.lr, total_steps=args.steps,
-        bf16_grads=args.bf16_grads, device=args.device)
+        bf16_grads=args.bf16_grads, device=args.device,
+        param_dtype=getattr(torch, args.param_dtype), remat=args.remat)
     state = init_state(args.seed)
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     print(f"arch={cfg.name} params={n_params:,} fusion={args.fusion} "
-          f"device={mdl.device}")
+          f"device={mdl.device} {args.param_dtype} remat={args.remat}")
 
     data = SyntheticTokens(
         DataConfig(seed=args.seed, global_batch=args.batch, seq_len=args.seq),

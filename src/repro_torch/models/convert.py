@@ -11,6 +11,17 @@ import numpy as np
 import torch
 
 
+def to_tensor(arr) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) as a CPU tensor of
+    its dtype.  A bfloat16 array (numpy's ``ml_dtypes`` type, which
+    ``torch.from_numpy`` refuses) is carried as its bits: viewed as
+    uint16, then as ``torch.bfloat16``."""
+    arr = np.array(np.asarray(arr), copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _to_torch(tree, device, index=None):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, index) for k, v in tree.items()}
@@ -19,7 +30,7 @@ def _to_torch(tree, device, index=None):
     arr = np.asarray(tree)
     if index is not None:
         arr = arr[index]
-    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+    return to_tensor(arr).to(device)
 
 
 def from_jax_params(params: dict, *, device="cuda") -> dict:
@@ -34,7 +45,8 @@ def from_jax_params(params: dict, *, device="cuda") -> dict:
     the router [d, E] and the experts' [E, d, ff] / [E, ff, d], and layer
     i of Mamba2 its ``mamba`` subtree.  The hybrid (Zamba2) keeps its
     layers as a list, one unstacked tree each, which is carried over as
-    it is, like its ``shared_attn`` block."""
+    it is, like its ``shared_attn`` block.  Every leaf keeps its dtype,
+    bfloat16 included (``to_tensor``)."""
     blocks = params["blocks"]
     out = {k: _to_torch(v, device) for k, v in params.items()
            if k != "blocks"}

@@ -49,6 +49,20 @@ hand-written CUDA kernels, the Mamba layers' scan through the SSD kernel
 ``dispatch="interpret"`` replays each traced graph op by op: with
 ``"xla"`` no kernel of any kind runs, which makes it the plain reference
 on the card.
+
+``param_dtype`` (float32 by default, as in the reference) is the type of
+the weights: ``init`` draws in float32 and casts, but for the Mamba
+layers' ``A_log``, ``D`` and ``dt_bias``, which stay float32 as the
+reference's do.  ``remat`` with ``remat_policy`` ("full", "dots" or
+"none") recomputes each layer in the backward, as the reference's
+``jax.checkpoint`` around its scanned layer: under
+``torch.is_grad_enabled()`` and without a cache, for the families the
+reference scans (every one but the hybrid), each layer runs under
+``torch.utils.checkpoint.checkpoint`` -- "full" saves only its input,
+"dots" also the outputs of its 2-D products (``aten.mm`` /
+``aten.addmm``: the counterpart of ``dots_with_no_batch_dims_saveable``,
+by a selective-checkpoint policy).  ``scan_unroll`` is accepted and does
+nothing: the port's layers are a Python loop, not a ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -56,6 +70,8 @@ import copy
 import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..core.cost_model import H100, Hardware
@@ -66,6 +82,21 @@ from .layers import FusionMode
 
 
 RECURRENT = ("ssm", "hybrid")
+#: The families whose layers the reference scans, and so rematerializes
+#: in training (``src/repro/models/model.py:28-29``).
+SCANNED = ("dense", "vlm", "encoder", "moe", "ssm")
+REMAT_POLICIES = ("full", "dots", "none")
+#: The 2-D products whose outputs the "dots" policy saves.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def block_init(cfg: ArchConfig, gen, dtype, device) -> dict:
@@ -185,10 +216,11 @@ class Model:
     its compiled functions (the encoder family trains; it has no decode).
 
     ``device`` is CUDA unless the caller passes ``device="cpu"`` (where
-    every kernel runs its plain version).  Weights are float32.  The
-    model owns its compiled functions, and each caches one compiled
-    instance per input signature: repeated ``generate`` calls on one
-    model never re-trace.
+    every kernel runs its plain version).  Weights are ``param_dtype``
+    (see the module's notes for it, ``remat``, ``remat_policy`` and
+    ``scan_unroll``).  The model owns its compiled functions, and each
+    caches one compiled instance per input signature: repeated
+    ``generate`` calls on one model never re-trace.
 
     ``plan_cache`` (a directory; default ``$REPRO_PLAN_CACHE``) and
     ``autotune`` are passed to every compiled function
@@ -200,12 +232,20 @@ class Model:
     """
 
     def __init__(self, cfg: ArchConfig, fusion_mode: str = "stitched", *,
+                 param_dtype: torch.dtype = torch.float32, remat: bool = True,
+                 remat_policy: str = "full", scan_unroll: int | bool = 1,
                  device="cuda", hw: Hardware = H100,
                  dispatch: str = "single", plan_cache: str | None = None,
                  autotune: bool = False):
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
         self.cfg = cfg
         self.fusion_mode = fusion_mode
         self.fm = FusionMode(fusion_mode)
+        self.param_dtype = param_dtype
+        self.remat, self.remat_policy = remat, remat_policy
+        self.scan_unroll = scan_unroll
         self.device = resolve_device(device)
         self._hw, self._dispatch = hw, dispatch
         #: {(plan_cache, autotune): the model bound to that set}, shared
@@ -257,9 +297,10 @@ class Model:
         self.shared_pre = jit(shared_pre)
 
     def init(self, seed: int) -> dict:
-        """Random weights from ``seed``, made on the model's device.  An
-        audio model has ``feat_proj`` in place of ``embed``."""
-        cfg, dt, dev = self.cfg, torch.float32, self.device
+        """Random weights from ``seed``, made on the model's device, drawn
+        in float32 and cast to ``param_dtype``.  An audio model has
+        ``feat_proj`` in place of ``embed``."""
+        cfg, dt, dev = self.cfg, self.param_dtype, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         if cfg.frontend == "audio":
             first = {"feat_proj": {"w": L.dense(gen, cfg.frontend_dim,
@@ -296,17 +337,18 @@ class Model:
         load-balance loss summed over the layers, 0.0 without MoE."""
         cfg, fm = self.cfg, self.fm
         if cfg.frontend == "audio":
-            h = frames.to(torch.float32) @ params["feat_proj"]["w"]
+            h = frames.to(self.param_dtype) @ params["feat_proj"]["w"]
         else:
             h = params["embed"][tokens]
         positions = torch.arange(h.shape[1], device=h.device)
         aux = 0.0
         emb0, shared = h, shared_layers(cfg)
+        layer = self._layer_fn()
         for i, p in enumerate(params["blocks"]):
             if i in shared:
                 h = shared_apply(cfg, fm, params["shared_attn"], h, emb0,
                                  positions)
-            h, a = block_apply_aux(cfg, p, h, positions, fm=fm)
+            h, a = layer(p, h, positions)
             if a is not None:
                 aux = aux + a
         return head_logits(cfg, fm, self._head_params(params), h), aux
@@ -325,6 +367,28 @@ class Model:
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
         return -ll.mean() + 0.01 * aux
+
+    def remats(self) -> bool:
+        """Whether ``apply`` recomputes its layers in the backward now:
+        ``remat`` with a policy but "none", a family the reference scans,
+        and autograd recording (``apply`` has no cache)."""
+        return (self.remat and self.remat_policy != "none"
+                and self.cfg.family in SCANNED and torch.is_grad_enabled())
+
+    def _layer_fn(self):
+        """``block_apply_aux`` of one layer, under a checkpoint where the
+        model rematerializes (``remats``)."""
+        cfg, fm = self.cfg, self.fm
+
+        def layer(p, h, positions):
+            return block_apply_aux(cfg, p, h, positions, fm=fm)
+
+        if not self.remats():
+            return layer
+        kw = ({"context_fn": _dots_contexts}
+              if self.remat_policy == "dots" else {})
+        return lambda p, h, positions: checkpoint(
+            layer, p, h, positions, use_reentrant=False, **kw)
 
     @staticmethod
     def _head_params(params: dict) -> dict:
@@ -481,3 +545,19 @@ class Model:
                              f"for a batch of {B}: a scalar or [{B}]")
         return self._layers(params, h, positions, cache,
                             self._decode_post(kv_len)), cache
+
+
+def build_model(cfg_or_name, fusion_mode: str = "stitched",
+                param_dtype: torch.dtype = torch.float32, remat: bool = True,
+                scan_unroll: int | bool = 1, remat_policy: str = "full",
+                device="cuda", **kw) -> Model:
+    """``Model`` of a config or its name, with the reference's arguments
+    and defaults (``src/repro/models/model.py:284-292``); ``device`` and
+    the rest of ``Model``'s keywords pass through."""
+    if isinstance(cfg_or_name, str):
+        from ..configs import get_config
+
+        cfg_or_name = get_config(cfg_or_name)
+    return Model(cfg_or_name, fusion_mode, param_dtype=param_dtype,
+                 remat=remat, remat_policy=remat_policy,
+                 scan_unroll=scan_unroll, device=device, **kw)

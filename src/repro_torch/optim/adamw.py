@@ -8,12 +8,19 @@ bfloat16 before the update (the reference's compression ahead of its DP
 all-reduce), with an optional error-feedback residual.
 
 The reference's update is XLA-fused jnp, not a Pallas kernel, so the
-port's is plain tensor code: ``torch._foreach_*`` over all tensors at
-once, so that a step issues a few dozen multi-tensor launches rather than
-some ten launches per tensor.  ``apply`` is functional, as in the
-reference: it returns new params and states and leaves its inputs alone.
-Step, learning rate and clip factor stay tensors on the params' device,
-so an update needs no host sync.
+port's is plain tensor code: ``torch._foreach_*`` over a group of
+tensors at a time (``GROUP_ELEMS``: a few dozen multi-tensor launches a
+group rather than some ten launches per tensor), so that only one
+group's float32 temporaries live at once -- a list of every leaf in
+float32 is 13-14 GB at Llama-3.2-3B.  Params keep their dtype (a
+bfloat16 model's are bfloat16); m and v are float32, as the reference's
+``init``.  ``apply`` is functional, as in the reference: it returns new
+params and states and leaves its inputs alone; with ``inplace=True`` it
+writes them into the given params' and states' tensors instead, the
+counterpart of the reference trainer's donated buffers
+(``donate_argnums=(0, 1)``), so that a step holds one copy of the
+state.  Step, learning rate and clip factor stay tensors on the params'
+device, so an update needs no host sync.
 """
 from __future__ import annotations
 
@@ -63,10 +70,31 @@ def init(cfg: AdamWConfig, params) -> dict:
     return state
 
 
+#: Elements of a group of leaves the update works on at once (a leaf
+#: larger than this is a group of its own).
+GROUP_ELEMS = 1 << 27
+
+
+def groups(leaves, cap: int = GROUP_ELEMS) -> list[slice]:
+    """Consecutive runs of ``leaves`` of at most ``cap`` elements each (a
+    larger leaf alone)."""
+    out, start, n = [], 0, 0
+    for i, t in enumerate(leaves):
+        if i > start and n + t.numel() > cap:
+            out.append(slice(start, i))
+            start, n = i, 0
+        n += t.numel()
+    if start < len(leaves):
+        out.append(slice(start, len(leaves)))
+    return out
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    norms = torch._foreach_norm([t.to(torch.float32)
-                                 for t in tree_leaves(tree)])
+    """sqrt of the sum of squares of every leaf, in float32 (each leaf's
+    norm of its float32 value, a group of leaves at a time)."""
+    leaves = tree_leaves(tree)
+    norms = [n for g in groups(leaves) for n in torch._foreach_norm(
+        [t.to(torch.float32) for t in leaves[g]])]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -84,8 +112,11 @@ def compress_grads(cfg: AdamWConfig, grads, state: dict):
     return comp, state
 
 
-def apply(cfg: AdamWConfig, params, grads, state: dict):
-    """One AdamW update.  Returns (new_params, new_state, metrics)."""
+def apply(cfg: AdamWConfig, params, grads, state: dict, *,
+          inplace: bool = False):
+    """One AdamW update.  Returns (new_params, new_state, metrics); with
+    ``inplace`` the new params, m and v are written into ``params``'
+    and ``state``'s own tensors, which are returned."""
     step = state["step"]
     gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -100,6 +131,32 @@ def apply(cfg: AdamWConfig, params, grads, state: dict):
     flat_g = tree_flatten(grads)[0]
     flat_m = tree_flatten(state["m"])[0]
     flat_v = tree_flatten(state["v"])[0]
+    new_p, new_m, new_v = [], [], []
+    for grp in groups(flat_p):
+        p, m, v = _update(cfg, flat_p[grp], flat_g[grp], flat_m[grp],
+                          flat_v[grp], clip, lr, bc1, bc2)
+        if inplace:
+            for dst, src in ((flat_p[grp], p), (flat_m[grp], m),
+                             (flat_v[grp], v)):
+                torch._foreach_copy_(dst, src)
+            del p, m, v
+        else:
+            new_p += p
+            new_m += m
+            new_v += v
+    if inplace:
+        new_p, new_m, new_v = flat_p, flat_m, flat_v
+
+    new_state = {**state, "step": step + 1, "m": tree_unflatten(new_m, spec),
+                 "v": tree_unflatten(new_v, spec)}
+    return (tree_unflatten(new_p, spec), new_state,
+            {"grad_norm": gnorm, "lr": lr})
+
+
+def _update(cfg: AdamWConfig, flat_p, flat_g, flat_m, flat_v, clip, lr, bc1,
+            bc2):
+    """One group's (new params in their dtypes, new m, new v)."""
+    b1, b2 = cfg.betas
     p32 = [p.to(torch.float32) for p in flat_p]
     # in-place steps act only on fresh temporaries: each value is the
     # reference's expression, evaluated in its order
@@ -121,8 +178,4 @@ def apply(cfg: AdamWConfig, params, grads, state: dict):
     torch._foreach_mul_(delta, lr)
     new_p = [n.to(p.dtype) for n, p in
              zip(torch._foreach_sub(p32, delta), flat_p)]
-
-    new_state = {**state, "step": step + 1, "m": tree_unflatten(m2, spec),
-                 "v": tree_unflatten(v2, spec)}
-    return (tree_unflatten(new_p, spec), new_state,
-            {"grad_norm": gnorm, "lr": lr})
+    return new_p, m2, v2

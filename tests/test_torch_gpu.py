@@ -622,7 +622,9 @@ def test_reduced_moe_train_step_on_the_card_matches_the_cpu(cuda):
             SM.softmax_cuda.launches - before[0],
             SM.softmax_bwd_cuda.launches - before[1]))
     assert results["cpu"][2] == (0, 0)
-    assert results["cuda"][2] == (cfg.n_layers, cfg.n_layers)
+    # the model's default remat runs each layer's router softmax again in
+    # the backward; its backward kernel once a layer
+    assert results["cuda"][2] == (2 * cfg.n_layers, cfg.n_layers)
     np.testing.assert_allclose(results["cuda"][0], results["cpu"][0],
                                rtol=1e-5)
     # float32 through 2 layers, other summation orders

@@ -259,33 +259,45 @@ Phases, each of which makes the script exit non-zero when it fails:
    8 x 512 tokens, the SSD kernel once a layer per step (three launches a
    call; its backward is the VJP of the plain oracle, as in the
    reference).
-11b. bfloat16 (``phase_bf16_kernels``, ``phase_bf16_llama``,
-   ``phase_bf16_train``; ``--phase bf16`` alone, 5e in its help): the
-   kernels' bfloat16 instances -- B6 at [2048, 3072] and [4, 3072]; B4 at
-   Llama's prefill (B4 Hq24 Hkv8 S512 D128 causal), D 64 and D 256, and
-   with a bias score functor at Llama's heads; B8 at decode_32k with a
-   bfloat16 q against float32 and against bfloat16 caches; B3 at Llama's
-   gate x SiLU x up, M 2048 and the decode tile's M 4 -- each within the
-   reference's bfloat16 band of its plain version (rtol = atol 2e-2 for
-   B6 and B8; 4e-2 and 1.2e-1 anchored) and no more than 2x the plain
-   version's distance from float64 of the same inputs, its bound at
-   989 TFLOP/s (bf16) or 3.35 TB/s, with ``F.rms_norm``, SDPA or
-   ``torch.matmul`` in bfloat16 beside it.  Then Llama-3.2-3B with
-   ``param_dtype=torch.bfloat16`` at full width and depth: the forward
-   at 4 x 512 and ``generate`` (batch 4, 500 prompt tokens, 16 greedy,
-   the float32 cache of 1,024 rows, each decode step one replayed
-   graph), its logits (every step's, teacher-forced) no further from a
-   float32 plain run of the same weights than 1.5 times the bfloat16
-   plain path's distance plus 1e-3 max(1, max|logits|); its training
-   with remat ("full"), batch 8 x 512, 5 AdamW steps through
-   ``make_train_step(donate=True)``: step 0's loss and gradients by the
-   same rule, its gradients with remat equal to those without within a
-   bfloat16 ulp, B4 and B6 twice a layer a step; and Zamba2-1.2B's
-   float32 training through ``build_trainer`` as in 6, at batch 4 x 512
-   (``HYBRID_TRAIN_BATCH``: its plain path does not fit at 8 after the
-   earlier phases) (SSD three launches
-   a layer, two RMSNorms a layer and a shared application, one attention
-   a shared application).
+11b. bfloat16 (``phase_bf16_kernels``, ``phase_bf16_paths``: each model
+   with ``param_dtype=torch.bfloat16``, full width and depth, freed before
+   the next; ``--phase bf16`` alone, 5e in its help): the kernels'
+   bfloat16 instances -- B6 at [2048, 3072] and [4, 3072]; B4 at Llama's
+   prefill (B4 Hq24 Hkv8 S512 D128 causal), D 64 and D 256, and with a
+   bias score functor at Llama's heads; B8 at decode_32k with a bfloat16
+   q against float32 and against bfloat16 caches; B3 at Llama's gate x
+   SiLU x up, M 2048 and the decode tile's M 4; B11 at Mamba2's prefill
+   and train shapes and Zamba2's prefill (x, B and C strided slices of
+   one bfloat16 activation); B5 and B9 at [4096, 1280] and [8192, 3072];
+   B7 and B10 at [2048, 32] and [256, 4096] -- each within the
+   reference's bfloat16 band of its plain version (rtol = atol 2e-2; 4e-2
+   and 1.2e-1 anchored) and no more than 2x the plain version's distance
+   from float64 of the same inputs (float32 outputs -- statistics, the
+   scan's state, dgamma and dbeta -- by their float32 limits), its bound
+   at 989 TFLOP/s (bf16; B11's products at TF32's 495) or 3.35 TB/s, with
+   ``F.rms_norm``, ``F.layer_norm``, ``native_layer_norm_backward``,
+   ``torch.softmax``, ``_softmax_backward_data``, SDPA or
+   ``torch.matmul`` in bfloat16 beside it.  Then the paths
+   (``BF16_PATHS``): Llama-3.2-3B's forward at 4 x 512 and ``generate``
+   (batch 4, 500 prompt tokens, 16 greedy, the float32 cache of 1,024
+   rows, each decode step one replayed graph), its logits (every step's,
+   teacher-forced) no further from a float32 plain run of the same
+   weights than 1.5 times the bfloat16 plain path's distance plus 1e-3
+   max(1, max|logits|); its training with remat ("full"), batch 8 x 512,
+   5 AdamW steps through ``make_train_step(donate=True)``: step 0's loss
+   and gradients by the same rule, its gradients with remat equal to
+   those without within a bfloat16 ulp, B4 and B6 twice a layer a step;
+   Mamba2-370m's ``generate`` (B11 in bfloat16 in its prefill) and its
+   training with remat (B11 and B6 twice a layer); Zamba2-1.2B's
+   ``generate`` (B11 at H 64 N 64, B4 at D 64); HuBERT-XLarge's training
+   without remat, 8 x 512 frames (B5 97 and B9 194 launches a step, B4
+   at D 80); Granite-3.0-1B-A400M's forward and ``generate`` (the router
+   softmax float32 behind its cast) -- each by the same rules and
+   launch counts; and Zamba2-1.2B's float32 training through
+   ``build_trainer`` as in 6, at batch 4 x 512 (``HYBRID_TRAIN_BATCH``:
+   its plain path does not fit at 8 after the earlier phases) (SSD
+   three launches a layer, two RMSNorms a layer and a shared application,
+   one attention a shared application).
 12. Static-decode paths (``make_decode_step(mdl, kv_len)``, the
    reference's decode cells): Llama-3.2-3B at decode_32k (28 layers,
    batch 4, a 30 GB cache of 32,768 rows from the seeded generator) and
@@ -2487,7 +2499,7 @@ def phase_router_floor(gen) -> dict:
     out["call with the host's cost, the operator"] = call
     # the host's cost of one B7 call, layer by layer
     yb = torch.empty_like(x)
-    entry = SM._entry("repro_softmax_fwd_f32")
+    entry = SM._entry("repro_softmax_fwd")
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     costs = {
@@ -2499,7 +2511,7 @@ def phase_router_floor(gen) -> dict:
         "torch._C._cuda_getCurrentRawStream": host_us(
             lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
         "ctypes entry and launch": host_us(
-            lambda: entry(x.data_ptr(), yb.data_ptr(), Rp, E, stream)),
+            lambda: entry(x.data_ptr(), yb.data_ptr(), Rp, E, 0, stream)),
     }
     for k, us in costs.items():
         out[f"host us: {k}"] = us
@@ -2682,10 +2694,16 @@ def bf16_counters() -> dict:
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import rmsnorm as RN
 
+    from repro_torch.kernels import layernorm as LN
+    from repro_torch.kernels import softmax as SM
+    from repro_torch.kernels import ssd_scan as SS
+
     return {"rmsnorm_bf16": RN.BF16, "flash_attention_bf16": FA.BF16,
             "flash_score_mod_bf16": FA.SCORE_MOD_BF16,
             "flash_decode_bf16": FA.DECODE_BF16,
-            "matmul_fused_bf16": MM.BF16}
+            "matmul_fused_bf16": MM.BF16, "layernorm_bf16": LN.BF16,
+            "layernorm_bwd_bf16": LN.BWD_BF16, "softmax_bf16": SM.BF16,
+            "softmax_bwd_bf16": SM.BWD_BF16, "ssd_scan_bf16": SS.BF16}
 
 
 def reset_launch_counts() -> None:
@@ -4295,20 +4313,22 @@ BF16_PATH_FACTOR, BF16_PATH_FLOOR = 1.5, 1e-3
 BF16_RESULTS: dict = {}
 
 
-def bf16_bound_ms(nbytes: float, ops: float,
-                  mma_ops: float) -> tuple[float, str]:
+def bf16_bound_ms(nbytes: float, ops: float, mma_ops: float,
+                  mma_rate: float = None) -> tuple[float, str]:
     """(bound ms, "bytes"|"operations") at bfloat16: the bytes over the HBM
     rate against element-wise ``ops`` at float32's rate plus the products'
-    ``mma_ops`` at the tensor cores' bfloat16 rate."""
+    ``mma_ops`` at ``mma_rate`` (the tensor cores' bfloat16 rate unless
+    given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / FP32_OPS_PER_S + mma_ops / BF16_OPS_PER_S) * 1e3
+    t_ops = (ops / FP32_OPS_PER_S
+             + mma_ops / (mma_rate or BF16_OPS_PER_S)) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
                       nbytes: float, ops: float = 0, mma_ops: float = 0,
-                      band=BF16_BAND, reps: int = 20,
-                      library=None) -> dict:
+                      band=BF16_BAND, reps: int = 20, library=None,
+                      mma_rate: float = None) -> dict:
     """Hold a kernel's bfloat16 instance to its plain version on the same
     bfloat16 inputs: (a) every element within ``band`` of the plain
     version; (b) its largest distance from ``exact`` (the function in
@@ -4338,7 +4358,7 @@ def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
     call_ms = time_ms(lambda: launch(*inputs), reps, queued=False)
     plain_ms = time_ms(lambda: plain(*inputs), max(3, reps // 4))
     lib_ms = time_ms(lambda: library(*inputs), reps) if library else None
-    bound, bound_by = bf16_bound_ms(nbytes, ops, mma_ops)
+    bound, bound_by = bf16_bound_ms(nbytes, ops, mma_ops, mma_rate)
     print(f"cuda kernel bf16 {label}: max_abs_err={err:.3e} against the "
           f"plain version (worst err/band {worst:.3f}, band rtol {rtol:g} "
           f"atol {atol:g}); against float64: kernel {kerr:.3e}, plain "
@@ -4347,7 +4367,8 @@ def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
           f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
           f"bound_ms={bound:.4f} ({bound_by}: {nbytes:.0f} B, {ops:.0f} "
-          f"element-wise ops, {mma_ops:.0f} product ops at bf16's rate)")
+          f"element-wise ops, {mma_ops:.0f} product ops at "
+          f"{(mma_rate or BF16_OPS_PER_S) / 1e12:g} TFLOP/s)")
     if not all(torch.isfinite(g).all() for g in got):
         fail(f"bf16 {label}: kernel output not finite")
     if worst > 1.0:
@@ -4489,7 +4510,167 @@ def phase_bf16_kernels(gen) -> dict:
         checks.setdefault("matmul_fused_bf16", []).append(
             dict(res, _main=M > BATCH))
     torch.cuda.empty_cache()
+    bf16_memory_kernels(gen, checks)
     return checks
+
+
+def ln_exact(x, g, b, eps: float):
+    """LayerNorm's forward in float64."""
+    xd = x.double()
+    xc = xd - xd.mean(-1, keepdim=True)
+    return xc * (xc * xc).mean(-1, keepdim=True).add(eps).rsqrt() \
+        * g.double() + b.double()
+
+
+def ln_bwd_exact(x, g, mean, rstd, dy):
+    """``_ln_bwd``'s dx in float64, at the given statistics."""
+    xd, dyd = x.double(), dy.double()
+    xhat = (xd - mean.double()) * rstd.double()
+    gdy = dyd * g.double()
+    return rstd.double() * (gdy - gdy.mean(-1, keepdim=True)
+                            - xhat * (gdy * xhat).mean(-1, keepdim=True))
+
+
+def ssd_exact(x, dt, A, B, C):
+    """The scan's y in float64 as its recurrence, h_t = exp(dt_t A)
+    h_{t-1} + dt_t x_t B_t^T, y_t = h_t C_t (one step a row: the
+    chunked form's function, summed in another order)."""
+    import torch
+
+    b, L, H, P = x.shape
+    xd, dtd, Bd, Cd = (t.double() for t in (x, dt, B, C))
+    h = torch.zeros(b, H, P, B.shape[-1], dtype=torch.float64,
+                    device=x.device)
+    y = torch.empty(b, L, H, P, dtype=torch.float64, device=x.device)
+    for t in range(L):
+        h.mul_(torch.exp(dtd[:, t] * A.double())[..., None, None]).add_(
+            (dtd[:, t, :, None] * xd[:, t])[..., None]
+            * Bd[:, t, None, None, :])
+        y[:, t] = (h * Cd[:, t, None, None, :]).sum(-1)
+    return y
+
+
+def bf16_memory_kernels(gen, checks: dict) -> None:
+    """The bfloat16 instances of B11, B5/B9 and B7/B10, each held to its
+    plain version (``check_bf16_kernel``, on y or dx; the scan's state,
+    the statistics and dgamma, dbeta are float32 and held to the plain
+    version's as in float32): B11 at Mamba2's prefill and train shapes and
+    Zamba2's prefill, x, B and C column slices of one bfloat16 activation;
+    B5 and B9 at HuBERT-XLarge's train rows [4096, 1280] and at [8192,
+    3072]; B7 and B10 at the router's [2048, 32] and at [256, 4096]."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import layernorm as LN
+    from repro_torch.kernels import softmax as SM
+    from repro_torch.kernels import ssd_scan as SS
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(bf)
+
+    # B11: products at the TF32 rate (the kernel's one to three TF32
+    # products a pair, the function's count)
+    for label, (b, L, H, P, N) in (
+            ("mamba2 prefill", (BATCH, PROMPT, 32, 64, 128)),
+            ("mamba2 train", (TRAIN_BATCH, TRAIN_FRAMES, 32, 64, 128)),
+            ("zamba2 prefill", (BATCH, PROMPT, 64, 64, 64))):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, b, L, H, P, N)
+        # one bfloat16 activation, sliced as the model slices it
+        di = H * P
+        xbc = torch.cat([x.reshape(b, L, di), Bm, Cm], -1).to(bf)
+        x, Bm, Cm = (xbc[..., :di].reshape(b, L, H, P),
+                     xbc[..., di:di + N], xbc[..., di + N:])
+        c = SS.kernel_chunk(SSD_CHUNK)
+        _, elem, mma = ssd_work(b, L, H, P, N, c)
+        nbytes = 2 * (2 * b * L * H * P + 2 * b * L * N) \
+            + 4 * (b * L * H + H + b * H * P * N)
+        _, state = SS.ssd_scan_cuda(x, dt, A, Bm, Cm, SSD_CHUNK)
+        _, want_state = SS.ssd_scan_plain(x, dt, A, Bm, Cm, SSD_CHUNK)
+        serr = float((state - want_state).abs().max())
+        slim = SSD_RTOL * max(1.0, float(want_state.abs().max()))
+        print(f"  ssd_scan bf16 {label}: final state (float32) "
+              f"max_abs_err={serr:.3e} against the plain version (limit "
+              f"{slim:.3e})")
+        if not serr <= slim:
+            fail(f"bf16 ssd_scan {label}: the state is {serr:.3e} from the "
+                 f"plain version's, past {slim:.3e}")
+        before = launch_counts()
+        res = check_bf16_kernel(
+            f"ssd_scan {label} b{b} L{L} H{H} P{P} N{N} chunk{SSD_CHUNK} "
+            "(x, B, C bfloat16 strided slices)",
+            lambda *a: SS.ssd_scan_cuda(*a, SSD_CHUNK)[0],
+            lambda *a: SS.ssd_scan_plain(*a, SSD_CHUNK)[0],
+            ssd_exact, (x, dt, A, Bm, Cm), nbytes=nbytes, ops=elem,
+            mma_ops=mma, mma_rate=SPLIT_OPS_PER_S * 3, reps=20)
+        launched("ssd_scan_bf16", before)
+        checks.setdefault("ssd_scan_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=label == "mamba2 prefill"))
+        del x, xbc, Bm, Cm, dt
+
+    eps = 1e-5
+    for R, C in ((TRAIN_BATCH * TRAIN_FRAMES, 1280), (8192, 3072)):
+        x, dy = rnd(R, C), rnd(R, C)
+        g, b = rnd(C, scale=0.1) + 1.0, rnd(C, scale=0.1)
+        nbytes = 2 * (2 * R * C + 2 * C) + 8 * R
+        res = check_bf16_kernel(
+            f"layernorm [{R}, {C}]",
+            lambda *a: LN.layernorm_cuda(*a, eps)[0],
+            lambda *a: LN.layernorm_plain(*a, eps)[0],
+            lambda *a: ln_exact(*a, eps), (x, g, b), nbytes=nbytes,
+            ops=8 * R * C, reps=50,
+            library=lambda *a, _C=C: F.layer_norm(a[0], (_C,), a[1], a[2],
+                                                  eps))
+        checks.setdefault("layernorm_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=C == 1280))
+        _, mean, rstd = LN.layernorm_plain(x, g, b, eps)
+        _, dg, db = LN.layernorm_bwd_cuda(x, g, mean, rstd, dy)
+        _, pdg, pdb = LN.layernorm_bwd_plain(x, g, mean, rstd, dy)
+        for name, got, want in (("dgamma", dg, pdg), ("dbeta", db, pdb)):
+            err = float((got - want).abs().max())
+            lim = 1e-5 * float(want.abs().max()) + 1e-5
+            if not err <= lim:
+                fail(f"bf16 layernorm_bwd [{R}, {C}]: {name} (float32) "
+                     f"{err:.3e} from the plain version's, past {lim:.3e}")
+        nbytes = 2 * (3 * R * C + C) + 8 * R + 8 * C
+        before = launch_counts()
+        res = check_bf16_kernel(
+            f"layernorm_bwd [{R}, {C}] (both launches; dgamma, dbeta within "
+            "1e-5 max|plain| + 1e-5 of the plain version's)",
+            lambda *a: LN.layernorm_bwd_cuda(*a)[0],
+            lambda *a: LN.layernorm_bwd_plain(*a)[0], ln_bwd_exact,
+            (x, g, mean, rstd, dy), nbytes=nbytes, ops=10 * R * C, reps=50,
+            library=lambda *a, _C=C, _b=b: torch.ops.aten.
+            native_layer_norm_backward(a[4], a[0], [_C], a[2], a[3], a[1],
+                                       _b, [True, True, True]))
+        launched("layernorm_bwd_bf16", before)
+        checks.setdefault("layernorm_bwd_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=C == 1280))
+        del x, dy
+
+    for R, C in ((2048, 32), (256, 4096)):
+        x, dy = rnd(R, C, scale=3.0), rnd(R, C)
+        nbytes = 2 * 2 * R * C
+        res = check_bf16_kernel(
+            f"softmax [{R}, {C}] ({SM.layout(x)})", SM.softmax_cuda,
+            SM.softmax_plain, lambda a: torch.softmax(a.double(), -1), (x,),
+            nbytes=nbytes, ops=4 * R * C, reps=200,
+            library=lambda a: torch.softmax(a, -1))
+        checks.setdefault("softmax_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=C == 32))
+        y = SM.softmax_plain(x)
+        nbytes = 2 * 3 * R * C
+        res = check_bf16_kernel(
+            f"softmax_bwd [{R}, {C}] ({SM.layout(y, dy)})",
+            SM.softmax_bwd_cuda, SM.softmax_bwd_plain,
+            lambda a, d: a.double() * (d.double() - (
+                d.double() * a.double()).sum(-1, keepdim=True)), (y, dy),
+            nbytes=nbytes, ops=3 * R * C, reps=200,
+            library=lambda a, d: torch._softmax_backward_data(d, a, -1, bf))
+        checks.setdefault("softmax_bwd_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=C == 32))
+    torch.cuda.empty_cache()
 
 
 def nonzero(counts: dict) -> str:
@@ -4519,22 +4700,55 @@ def path_rule(label: str, got, plain, exact) -> dict:
     return {"err": err, "plain_err": perr, "limit": limit}
 
 
-def phase_bf16_llama(gen) -> tuple[dict, dict]:
-    """Llama-3.2-3B with ``param_dtype=torch.bfloat16`` at full width and
-    depth: the forward at batch 4 x 512 and ``generate`` (batch 4, 500
-    prompt tokens, 16 greedy tokens, the float32 cache of 1,024 rows,
-    each decode step one replayed CUDA graph), each held to a float32
-    plain run of the same weights by ``path_rule``; returns the launches
-    of the counted forward and generate."""
+def rows_beyond(got, plain, exact) -> tuple[int, int]:
+    """How many logit rows [rows, V] miss ``path_rule`` taken row by row,
+    and how many would with the two bfloat16 paths swapped (printed for an
+    MoE model, whose rule is the path's: a routing flip moves a row by a
+    gate share and, through attention, the rows after it, on either
+    path)."""
+    e = exact.double()
+    floor = BF16_PATH_FLOOR * e.abs().amax(-1).clamp_min(1.0)
+    dg = (got.double() - e).abs().amax(-1)
+    dp = (plain.double() - e).abs().amax(-1)
+    return (int((dg > BF16_PATH_FACTOR * dp + floor).sum()),
+            int((dp > BF16_PATH_FACTOR * dg + floor).sum()))
+
+
+#: Short names of the models in ``BF16_RESULTS`` and the path labels.
+SHORT = {"llama3.2-3b": "llama", "mamba2-370m": "mamba2",
+         "zamba2-1.2b": "zamba2", "granite-moe-1b-a400m": "granite",
+         "hubert-xlarge": "hubert"}
+#: The bfloat16 instances each family's serving path must launch (the
+#: router's softmax stays float32 behind its cast: B7 in float32)
+BF16_SERVE_KERNELS = {
+    "dense": ("rmsnorm_bf16", "flash_attention_bf16", "matmul_fused_bf16"),
+    "ssm": ("rmsnorm_bf16", "ssd_scan_bf16"),
+    "hybrid": ("rmsnorm_bf16", "ssd_scan_bf16", "flash_attention_bf16"),
+    "moe": ("rmsnorm_bf16", "flash_attention_bf16", "softmax")}
+
+
+def phase_bf16_serve(gen, arch: str, forward: bool) -> tuple[dict, dict]:
+    """A model with ``param_dtype=torch.bfloat16`` at full width and
+    depth: the forward at batch 4 x 512 (where ``forward``) and
+    ``generate`` (batch 4, 500 prompt tokens -- bucketed to 512, or exact
+    for a recurrent model -- 16 greedy tokens, the float32 cache of 1,024
+    rows, each decode step one replayed CUDA graph), each held to a
+    float32 plain run of the same weights by ``path_rule``; returns the
+    launches of the counted forward (empty without one) and generate."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, greedy_step
     from repro_torch.models import Model
+    from repro_torch.models.model import RECURRENT
     from repro_torch.serving.buckets import Buckets, pad_tokens
 
+    t_phase = time.perf_counter()
     bf = torch.bfloat16
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
+    name = SHORT[arch]
+    need = BF16_SERVE_KERNELS[cfg.family]
+    moe = cfg.family == "moe"
     V = cfg.vocab_size
     gc.collect()
     torch.cuda.empty_cache()
@@ -4545,50 +4759,56 @@ def phase_bf16_llama(gen) -> tuple[dict, dict]:
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, V, (BATCH, PROMPT))).to("cuda")
     print(f"bf16 paths: {cfg.name} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model} param_dtype=bfloat16 seed={SEED}; forward batch="
-          f"{BATCH}x{PROMPT}; generate batch={BATCH} prompt={SERVE_PROMPT} "
-          f"gen={SERVE_GEN} float32 cache")
+          f"{cfg.d_model} param_dtype=bfloat16 seed={SEED}; "
+          + (f"forward batch={BATCH}x{PROMPT}; " if forward else "")
+          + f"generate batch={BATCH} prompt={SERVE_PROMPT} gen={SERVE_GEN} "
+          f"float32 cache")
     out: dict = {}
 
-    # the forward
-    with torch.no_grad():
-        model.forward(params, toks)  # compile
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        logits = model.forward(params, toks)[0]
-        torch.cuda.synchronize()
-        fwd = launch_counts()
-        out["forward_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        walls = []
-        for _ in range(3):
+    fwd: dict = {}
+    if forward:
+        with torch.no_grad():
+            model.forward(params, toks)  # compile
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.forward(params, toks)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            logits = model.forward(params, toks)[0]
             torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        out["forward_ms"] = statistics.median(walls)
-        prof = where_the_time_goes("one bf16 forward",
-                                   lambda: model.forward(params, toks))
-        busy = sum(v for k, v in prof.items() if k != "wall_ms")
-        out["forward_busy"] = busy / out["forward_ms"]
-        lp = plain.forward(params, toks)[0]
-        p32 = tree_float(params)
-        l32 = plain32.forward(p32, toks)[0]
-        out["forward_rule"] = path_rule("bf16 forward", logits[..., :V],
-                                        lp[..., :V], l32[..., :V])
-        del lp, l32, logits
-    print(f"bf16 forward: {out['forward_ms']:.2f} ms (median of 3, host "
-          f"clock around a synchronized call) peak_memory_GB="
-          f"{out['forward_peak_gb']:.2f}; device busy {busy:.2f} ms = "
-          f"{100 * out['forward_busy']:.1f}% of the call; launches "
-          f"{nonzero(fwd)}; against "
-          f"float32: kernel path {out['forward_rule']['err']:.4e}, bf16 "
-          f"plain {out['forward_rule']['plain_err']:.4e} (limit "
-          f"{out['forward_rule']['limit']:.4e})")
-    for k in ("rmsnorm_bf16", "flash_attention_bf16", "matmul_fused_bf16"):
-        if fwd[k] <= 0:
-            fail(f"the bf16 forward launched no {k}")
+            fwd = launch_counts()
+            out["forward_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.forward(params, toks)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out["forward_ms"] = statistics.median(walls)
+            prof = where_the_time_goes(f"one bf16 {name} forward",
+                                       lambda: model.forward(params, toks))
+            busy = sum(v for k, v in prof.items() if k != "wall_ms")
+            out["forward_busy"] = busy / out["forward_ms"]
+            lp = plain.forward(params, toks)[0]
+            p32 = tree_float(params)
+            l32 = plain32.forward(p32, toks)[0]
+            rows = [t[..., :V].reshape(-1, V) for t in (logits, lp, l32)]
+            out["forward_rule"] = path_rule(f"bf16 {name} forward", *rows)
+            out["forward_rows_beyond"] = rows_beyond(*rows)
+            del lp, l32, logits, p32, rows
+        print(f"bf16 {name} forward: {out['forward_ms']:.2f} ms (median of "
+              f"3, host clock around a synchronized call) peak_memory_GB="
+              f"{out['forward_peak_gb']:.2f}; device busy {busy:.2f} ms = "
+              f"{100 * out['forward_busy']:.1f}% of the call; launches "
+              f"{nonzero(fwd)}; against float32: kernel path "
+              f"{out['forward_rule']['err']:.4e}, bf16 plain "
+              f"{out['forward_rule']['plain_err']:.4e} (limit "
+              f"{out['forward_rule']['limit']:.4e}; row by row, "
+              f"{out['forward_rows_beyond'][0]} of {BATCH * PROMPT} rows "
+              f"beyond it, {out['forward_rows_beyond'][1]} with the paths "
+              "swapped)")
+        for k in need:
+            if fwd[k] <= 0:
+                fail(f"the bf16 {name} forward launched no {k}")
 
     # generate: the counted run, then TTFT, the captured decode step, the
     # busy share, and the teacher-forced logits of every step
@@ -4603,17 +4823,15 @@ def phase_bf16_llama(gen) -> tuple[dict, dict]:
     out["generate_s"] = time.perf_counter() - t0
     gen_launches = launch_counts()
     out["generate_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    for k in ("rmsnorm_bf16", "flash_attention_bf16", "matmul_fused_bf16"):
+    for k in need:
         if gen_launches[k] <= 0:
-            fail(f"the bf16 generate launched no {k}")
+            fail(f"the bf16 {name} generate launched no {k}")
     bk = Buckets()
-    Sp = bk.bucket(S)
+    Sp = S if cfg.family in RECURRENT else bk.bucket(S)
     max_len = bk.bucket(max(Sp, S + G))
     ptoks = torch.from_numpy(pad_tokens(prompts, Sp)).to("cuda")
     positions = torch.arange(S, S + G, device="cuda")
     cache = model.init_cache(B, max_len)
-    if cache["k"].dtype != torch.float32:
-        fail("init_cache's default is not float32")
 
     def first_token():
         lg, _ = model.prefill(params, ptoks, cache)
@@ -4638,7 +4856,10 @@ def phase_bf16_llama(gen) -> tuple[dict, dict]:
     del graph, ctok
     out["ttft_ms"] = statistics.median(ttft)
     out["decode_ms"] = statistics.median(steps)
-    dec = where_the_time_goes("one bf16 decode step", lambda:
+    pre = where_the_time_goes(f"one bf16 {name} prefill", first_token)
+    out["prefill_busy_by_kind"] = {
+        k: round(v, 4) for k, v in pre.items() if k != "wall_ms"}
+    dec = where_the_time_goes(f"one bf16 {name} decode step", lambda:
                               model.decode_step(params, cache, tok,
                                                 positions[1],
                                                 kv_len=positions[1] + 1))
@@ -4648,14 +4869,17 @@ def phase_bf16_llama(gen) -> tuple[dict, dict]:
     forced = torch.from_numpy(seqs[:, S:]).to("cuda")
 
     def forced_logits(mdl, p):
+        """Step 0: the prefill's rows (all B x Sp for an MoE model, else
+        the last prompt position's); then each decode step's B rows."""
         c = mdl.init_cache(B, max_len)
         lg, _ = mdl.prefill(p, ptoks, c)
-        rows = [lg[:, S - 1, :V].float()]
+        rows = [lg[:, :, :V].reshape(-1, V).float() if moe
+                else lg[:, S - 1, :V].float()]
         for i in range(G - 1):
             lg, _ = mdl.decode_step(p, c, forced[:, i:i + 1], positions[i],
                                     kv_len=positions[i] + 1)
             rows.append(lg[:, 0, :V].float())
-        return torch.stack(rows)
+        return rows
 
     with torch.no_grad():
         got = forced_logits(model, params)
@@ -4663,25 +4887,40 @@ def phase_bf16_llama(gen) -> tuple[dict, dict]:
         p32 = tree_float(params)
         exact = forced_logits(plain32, p32)
         del p32
-    worst = 0.0
-    for i in range(G):
-        r = path_rule(f"bf16 generate step {i}", got[i], want[i], exact[i])
-        worst = max(worst, r["err"] / r["limit"])
-        if i in (0, G - 1):
-            print(f"  bf16 generate step {i}: kernel {r['err']:.4e}, plain "
-                  f"{r['plain_err']:.4e} from float32 (limit "
-                  f"{r['limit']:.4e})")
+    if moe:  # the path's rule over every row of every step at once
+        rows = [torch.cat(t) for t in (got, want, exact)]
+        r = path_rule(f"bf16 {name} generate", *rows)
+        worst = r["err"] / r["limit"]
+        out["generate_rows_beyond"] = rows_beyond(*rows)
+        print(f"  bf16 {name} generate, {len(rows[0])} logit rows (the "
+              f"prefill's {B * Sp}, then {B} a step): kernel {r['err']:.4e}, "
+              f"plain {r['plain_err']:.4e} from float32 (limit "
+              f"{r['limit']:.4e}); row by row, "
+              f"{out['generate_rows_beyond'][0]} rows beyond it, "
+              f"{out['generate_rows_beyond'][1]} with the paths swapped")
+        del rows
+    else:
+        worst = 0.0
+        for i in range(G):
+            r = path_rule(f"bf16 {name} generate step {i}", got[i], want[i],
+                          exact[i])
+            worst = max(worst, r["err"] / r["limit"])
+            if i in (0, G - 1):
+                print(f"  bf16 {name} generate step {i}: kernel "
+                      f"{r['err']:.4e}, plain {r['plain_err']:.4e} from "
+                      f"float32 (limit {r['limit']:.4e})")
     out["generate_worst"] = worst
-    print(f"bf16 generate: TTFT={out['ttft_ms']:.2f} ms (median of 3) "
+    print(f"bf16 {name} generate: TTFT={out['ttft_ms']:.2f} ms (median of 3) "
           f"decode={out['decode_ms']:.2f} ms per token (captured, median of "
           f"{G - 1} replays) decode busy {100 * out['decode_busy']:.1f}% "
           f"(eager step's device time over the captured step) "
           f"generate_s={out['generate_s']:.3f} peak_memory_GB="
           f"{out['generate_peak_gb']:.2f}; worst err/limit over {G} steps "
-          f"{worst:.3f}; launches {nonzero(gen_launches)}")
+          f"{worst:.3f}; launches {nonzero(gen_launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
     if tuple(seqs.shape) != (B, S + G):
-        fail("bf16 generate: wrong output shape")
-    BF16_RESULTS["llama_serve"] = out
+        fail(f"bf16 {name} generate: wrong output shape")
+    BF16_RESULTS[f"{name}_serve"] = out
     del got, want, exact, cache, model, plain, plain32, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4699,15 +4938,35 @@ def bf16_ulps(a, b) -> float:
     return float(((a.double() - b).abs() / ulp).max())
 
 
-def phase_bf16_train() -> dict:
-    """Llama-3.2-3B training with ``param_dtype=torch.bfloat16``,
-    ``remat=True`` ("full"): batch 8 x 512, 5 AdamW steps through
+def bf16_train_want(cfg, remat: bool) -> dict:
+    """The launches of one bfloat16 train step, by kernel: the forward's
+    norms and kernels, twice a layer under remat (the recompute); B9's
+    two launches a LayerNorm backward."""
+    from repro_torch.kernels.layernorm import BWD_LAUNCHES_PER_CALL
+    from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL
+
+    L, k = cfg.n_layers, 2 if remat else 1
+    if cfg.family == "ssm":
+        want = {"rmsnorm": 2 * k * L + 1,
+                "ssd_scan": k * L * LAUNCHES_PER_CALL}
+    elif cfg.norm == "layernorm":
+        want = {"layernorm": k * 2 * L + 1, "flash_attention": k * L,
+                "layernorm_bwd": (k * 2 * L + 1) * BWD_LAUNCHES_PER_CALL}
+    else:
+        want = {"rmsnorm": 2 * k * L + 1, "flash_attention": k * L}
+    want.update({f"{n}_bf16": v for n, v in want.items()})
+    return want
+
+
+def phase_bf16_train(arch: str = "llama3.2-3b", remat: bool = True) -> dict:
+    """Training with ``param_dtype=torch.bfloat16`` (and ``remat`` "full"
+    where asked): batch 8 x 512, 5 AdamW steps through
     ``make_train_step`` (the update written in place, as the reference's
     trainer donates its state).  Step 0: loss and gradients by
-    ``path_rule`` against a float32 plain run of the same weights; the
-    gradients with remat equal those without within one bfloat16 ulp; B4
-    and B6 launch twice a layer (the recompute).  Returns the launches of
-    the counted 5 steps."""
+    ``path_rule`` against a float32 plain run of the same weights; with
+    remat, the gradients equal those without within one bfloat16 ulp; the
+    launches of each step are ``bf16_train_want``'s.  Returns the launches
+    of the counted 5 steps."""
     import torch
     from torch.utils._pytree import tree_flatten_with_path, tree_leaves, \
         keystr
@@ -4719,65 +4978,73 @@ def phase_bf16_train() -> dict:
 
     t_phase = time.perf_counter()
     bf = torch.bfloat16
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
+    name = SHORT[arch]
     L = cfg.n_layers
     B, S, N = TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS
+    unit = "frames" if cfg.frontend == "audio" else "tokens"
     gc.collect()
     torch.cuda.empty_cache()
     print(f"bf16 train path: {cfg.name} layers={L} param_dtype=bfloat16 "
-          f"remat=True (full) batch={B}x{S} tokens steps={N} AdamW; "
-          f"allocated before it {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+          f"remat={remat}{' (full)' if remat else ''} batch={B}x{S} {unit} "
+          f"steps={N} AdamW; allocated before it "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     data = SyntheticTokens(DataConfig(seed=SEED, global_batch=B, seq_len=S),
                            cfg)
     batches = [{k: torch.as_tensor(v).to("cuda")
                 for k, v in data.batch_at(i).items()} for i in range(N)]
-    mdl = Model(cfg, param_dtype=bf, remat=True)
+    mdl = Model(cfg, param_dtype=bf, remat=remat)
     params = mdl.init(SEED)
     out: dict = {}
 
     # step 0: the float32 plain run first (its params dropped after it)
     p32 = tree_float(params)
-    l32, g32 = loss_and_grads(Model(cfg, "xla", remat=True), p32, batches[0])
+    l32, g32 = loss_and_grads(Model(cfg, "xla", remat=remat), p32,
+                              batches[0])
     del p32
     torch.cuda.empty_cache()
     reset_launch_counts()
     lk, gk = loss_and_grads(mdl, params, batches[0])
     torch.cuda.synchronize()
     step0 = launch_counts()
-    lnr, gnr = loss_and_grads(Model(cfg, param_dtype=bf, remat=False),
-                              params, batches[0])
-    ulps = max(bf16_ulps(a, b) for a, b in zip(tree_leaves(gk),
-                                                tree_leaves(gnr)))
-    del gnr
-    lp, gp = loss_and_grads(Model(cfg, "xla", param_dtype=bf, remat=True),
+    ulps, lnr = 0.0, lk
+    if remat:
+        lnr, gnr = loss_and_grads(Model(cfg, param_dtype=bf, remat=False),
+                                  params, batches[0])
+        ulps = max(bf16_ulps(a, b) for a, b in zip(tree_leaves(gk),
+                                                    tree_leaves(gnr)))
+        del gnr
+    lp, gp = loss_and_grads(Model(cfg, "xla", param_dtype=bf, remat=remat),
                             params, batches[0])
     worst, where = 0.0, ""
     for (path, a), p, e in zip(tree_flatten_with_path(gk)[0],
                                tree_leaves(gp), tree_leaves(g32)):
-        r = path_rule(f"bf16 train step 0 gradient {keystr(path)}", a, p, e)
+        r = path_rule(f"bf16 {name} train step 0 gradient {keystr(path)}",
+                      a, p, e)
         if r["err"] / r["limit"] > worst:
             worst, where = r["err"] / r["limit"], keystr(path)
-    loss_rule = path_rule("bf16 train step 0 loss", lk.reshape(1),
+    loss_rule = path_rule(f"bf16 {name} train step 0 loss", lk.reshape(1),
                           lp.reshape(1), l32.reshape(1))
     del gk, gp, g32
     torch.cuda.empty_cache()
-    print(f"bf16 train step 0: loss kernel {float(lk):.6f} plain bf16 "
+    print(f"bf16 {name} train step 0: loss kernel {float(lk):.6f} plain bf16 "
           f"{float(lp):.6f} float32 {float(l32):.6f} (kernel "
           f"{loss_rule['err']:.3e}, "
           f"plain {loss_rule['plain_err']:.3e} from float32, limit "
           f"{loss_rule['limit']:.3e}); gradients: worst err/limit {worst:.3f} "
-          f"at {where}; remat against no remat: loss {float(lk):.6f} vs "
-          f"{float(lnr):.6f}, gradients within {ulps:.3f} bfloat16 ulps "
-          f"(limit 1); launches {nonzero(step0)}")
+          f"at {where}"
+          + (f"; remat against no remat: loss {float(lk):.6f} vs "
+             f"{float(lnr):.6f}, gradients within {ulps:.3f} bfloat16 ulps "
+             f"(limit 1)" if remat else "")
+          + f"; launches {nonzero(step0)}")
     if ulps > 1.0 or float(lk) != float(lnr):
-        fail(f"bf16 train: remat changed the step-0 loss or gradients "
-             f"({ulps:.3f} ulps)")
-    want = {"rmsnorm": 4 * L + 1, "rmsnorm_bf16": 4 * L + 1,
-            "flash_attention": 2 * L, "flash_attention_bf16": 2 * L}
+        fail(f"bf16 {name} train: remat changed the step-0 loss or "
+             f"gradients ({ulps:.3f} ulps)")
+    want = bf16_train_want(cfg, remat)
     for k, n in want.items():
         if step0[k] != n:
-            fail(f"bf16 train step 0 (remat) launched {k} {step0[k]} "
-                 f"times, want {n}: twice a layer")
+            fail(f"bf16 {name} train step 0 launched {k} {step0[k]} times, "
+                 f"want {n}")
 
     opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=min(20, N // 10),
                                 total_steps=N)
@@ -4800,16 +5067,17 @@ def phase_bf16_train() -> dict:
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                loss_rule=loss_rule, grad_worst=worst, remat_ulps=ulps)
     # a sixth step under the profiler: where the step's time goes
-    prof = where_the_time_goes("one bf16 train step (remat)",
+    prof = where_the_time_goes(f"one bf16 {name} train step"
+                               + (" (remat)" if remat else ""),
                                lambda: step(params, state, batches[0]))
     busy = sum(v for k, v in prof.items() if k != "wall_ms")
     out["busy_share"] = busy / out["step_ms_median"]
     out["busy_by_kind"] = {k: round(100 * v / busy, 2)
                            for k, v in prof.items() if k != "wall_ms"}
-    print(f"bf16 train: losses={[round(x, 5) for x in losses]} step_ms="
-          f"{[round(x, 1) for x in step_ms]} median of steps 2-{N} "
+    print(f"bf16 {name} train: losses={[round(x, 5) for x in losses]} "
+          f"step_ms={[round(x, 1) for x in step_ms]} median of steps 2-{N} "
           f"{out['step_ms_median']:.1f} ms "
-          f"({B * S * 1e3 / out['step_ms_median']:.0f} tokens/s) "
+          f"({B * S * 1e3 / out['step_ms_median']:.0f} {unit}/s) "
           f"peak_memory_GB={out['peak_gb']:.2f} "
           f"(torch.cuda.max_memory_allocated, the 5 steps); launches "
           f"{nonzero(launches)}; device "
@@ -4817,15 +5085,44 @@ def phase_bf16_train() -> dict:
           f"(%): {json.dumps(out['busy_by_kind'])}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     if not all(map(math.isfinite, losses)):
-        fail("bf16 train: a loss is not finite")
+        fail(f"bf16 {name} train: a loss is not finite")
     for k, n in want.items():
         if launches[k] != N * n:
-            fail(f"bf16 train launched {k} {launches[k]} times in {N} steps, "
-                 f"want {N * n}")
-    BF16_RESULTS["llama_train"] = out
-    del params, state, mdl
+            fail(f"bf16 {name} train launched {k} {launches[k]} times in {N} "
+                 f"steps, want {N * n}")
+    BF16_RESULTS[f"{name}_train"] = out
+    del params, state, mdl, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+#: The bfloat16 model paths of phase 11b, in order: (label, arch, what)
+#: with what "serve" (``generate``), "forward+serve" or "train" (remat
+#: "full") / "train-noremat"
+BF16_PATHS = (("bf16_forward+bf16_serve", "llama3.2-3b", "forward+serve"),
+              ("bf16_train", "llama3.2-3b", "train"),
+              ("bf16_ssm_serve", SSM_ARCH, "serve"),
+              ("bf16_ssm_train", SSM_ARCH, "train"),
+              ("bf16_hybrid_serve", HYBRID_ARCH, "serve"),
+              ("bf16_encoder_train", "hubert-xlarge", "train-noremat"),
+              ("bf16_moe_forward+bf16_moe_serve", MOE_ARCH, "forward+serve"))
+
+
+def phase_bf16_paths(gen) -> dict:
+    """Every bfloat16 model path (``BF16_PATHS``), each model freed before
+    the next; returns {path label: its launches}."""
+    launches = {}
+    for label, arch, what in BF16_PATHS:
+        if what.startswith("train"):
+            launches[label] = phase_bf16_train(arch, remat=what == "train")
+        else:
+            fwd, serve = phase_bf16_serve(gen, arch,
+                                          what.startswith("forward"))
+            names = label.split("+")
+            if len(names) == 2:
+                launches[names[0]] = fwd
+            launches[names[-1]] = serve
     return launches
 
 
@@ -4843,8 +5140,10 @@ def main(argv=None) -> int:
              "the dispatch phase (3f), then its JSON line. 'bf16': only "
              "the device line, the build and the bfloat16 phase (5e: the "
              "kernels' bfloat16 rows, Llama-3.2-3B's bfloat16 forward, "
-             "generate and remat training, Zamba2-1.2B's training), then "
-             "its JSON lines")
+             "generate and remat training, Mamba2-370m's generate and "
+             "remat training, Zamba2-1.2B's generate, HuBERT-XLarge's "
+             "training, Granite's forward and generate, Zamba2-1.2B's "
+             "float32 training), then its JSON lines")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -4887,8 +5186,7 @@ def main(argv=None) -> int:
         _build.build_all()
         print(f"nvcc build: {time.perf_counter() - t0:.1f} s")
         bf16_checks = phase_bf16_kernels(gen)
-        phase_bf16_llama(gen)
-        phase_bf16_train()
+        phase_bf16_paths(gen)
         phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
         print(json.dumps({"bf16": BF16_RESULTS,
                           "bf16_kernels": {k: summarize(v) for k, v in
@@ -4928,8 +5226,7 @@ def main(argv=None) -> int:
           f"serving")
     ssm_train_launches = phase_train(SSM_ARCH)
     checks.update(phase_bf16_kernels(gen))
-    bf16_fwd_launches, bf16_serve_launches = phase_bf16_llama(gen)
-    bf16_train_launches = phase_bf16_train()
+    bf16_launches = phase_bf16_paths(gen)
     hybrid_train_launches = phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
     t_static = time.perf_counter()
     static_launches = phase_static_decode(gen, "llama3.2-3b", BATCH,
@@ -4993,7 +5290,17 @@ def main(argv=None) -> int:
              "src/repro/kernels/flash_attention.py:161"),
             ("matmul_fused_bf16", "cuda",
              "src/repro_torch/csrc/matmul_fused.cuh",
-             "src/repro/kernels/matmul.py:53")):
+             "src/repro/kernels/matmul.py:53"),
+            ("layernorm_bf16", "cuda", "src/repro_torch/csrc/layernorm.cu",
+             "src/repro/kernels/layernorm.py:34"),
+            ("layernorm_bwd_bf16", "cuda", "src/repro_torch/csrc/layernorm.cu",
+             "src/repro/kernels/layernorm.py:92"),
+            ("softmax_bf16", "cuda", "src/repro_torch/csrc/softmax.cu",
+             "src/repro/kernels/softmax.py:22"),
+            ("softmax_bwd_bf16", "cuda", "src/repro_torch/csrc/softmax.cu",
+             "src/repro/kernels/softmax.py:52"),
+            ("ssd_scan_bf16", "cuda", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:75")):
         s = summarize(checks[name])
         by_path = {"forward": fwd_launches[name],
                    "serve": serve_launches[name],
@@ -5013,9 +5320,7 @@ def main(argv=None) -> int:
                    "anchor_forms": form_launches[name],
                    "differentiable": diff_launches[name],
                    "dispatch": dispatch_launches[name],
-                   "bf16_forward": bf16_fwd_launches[name],
-                   "bf16_serve": bf16_serve_launches[name],
-                   "bf16_train": bf16_train_launches[name],
+                   **{path: n[name] for path, n in bf16_launches.items()},
                    "hybrid_train": hybrid_train_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,

@@ -1,5 +1,6 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a), float32, chunk-parallel
-// on the tensor cores.
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), chunk-parallel on the
+// tensor cores: x, B and C float32 or bfloat16, dt and A float32, y in
+// x's type, the state and every sum in float32.
 //
 // Replaces the TPU kernel `_ssd_kernel` / `ssd_scan`
 // (src/repro/kernels/ssd_scan.py:25,75):
@@ -11,7 +12,9 @@
 //     y       = W @ x + exp(cum) * (C @ h^T)
 //     h       = h * exp(cum_last) + (x * exp(cum_last - cum) * dt)^T @ B
 // The decay exponent is taken only where i >= j (the masked pairs, whose
-// exponent is positive, never overflow).
+// exponent is positive, never overflow).  As the reference's kernel, the
+// bfloat16 instances widen x, B and C to float32 and round y once, at its
+// store (`.astype(y_ref.dtype)`).
 //
 // Bound: operations (products at the split's float32 rate on the tensor
 // cores) at Mamba2's shapes, bytes at Zamba2's.  The TPU kernel's grid is
@@ -36,34 +39,59 @@
 //       as its fragments are read; C and C B^T are copied once for the
 //       group, and the next head's x, h and dt while a head multiplies; y
 //       is written once.
-// The four products (C B^T, the state's, W x, C h^T) run on the tensor
-// cores, `mma.sync.m16n8k8` TF32, through the three-way split of
-// mma_tf32.cuh (kernels/split_float.py: its plain form and the step-0
-// measurement of these products), one float32 sum over each product's
-// contracted extent; each warp owns 32 x 32 of a product's output, so a
-// split fragment feeds four or two products.  Operand tiles are copied
-// to shared memory by cp.async, rows padded by four floats.  Any head dim
-// P and state N, and any chunk up to 64 rows, are zero-padded to the
-// tiles (32 rows, 32 columns) in shared memory: zero rows (dt 0) neither
-// decay nor contribute.  The chunk states that (a) writes, (b) rewrites
-// and (c) reads are the design's own traffic above the function's bound;
-// x is read twice, by (a) and (c).
+// The four products (C B^T, the state's, W x, C h^T) run on the tensor cores,
+// `mma.sync.m16n8k8` TF32, through the three-way split of mma_tf32.cuh
+// (kernels/split_float.py: its plain form and the step-0 measurement of these
+// products), one float32 sum over each product's contracted extent; each warp
+// owns 32 x 32 of a product's output, so a split fragment feeds four or two
+// products.  A side read from a bfloat16 tile is exact in TF32 (8 bits of
+// mantissa in 11), so its small half is zero and its products are skipped: C
+// B^T of bfloat16 B and C is one product, the state's product and W x two when
+// B, or x, is bfloat16; C h^T (h float32) stays three.  Operand tiles are
+// copied to shared memory by cp.async in their own type (a bfloat16 tile at
+// half the bytes, widened to float32 as a fragment reads it), rows padded by
+// 16 bytes.  A tile whose source is not 16-byte aligned (pointer, row stride
+// or width) is copied value by value: 4-byte cp.async in float32, through
+// registers in bfloat16 -- no operand is copied beforehand.  Any head dim P
+// and state N, and any chunk up to 64 rows, are zero-padded to the tiles (32
+// rows, 32 columns) in shared memory: zero rows (dt 0) neither decay nor
+// contribute.  The chunk states that (a) writes, (b) rewrites and (c) reads
+// are the design's own traffic above the function's bound; x is read twice, by
+// (a) and (c).
 //
 // C interface (bound with ctypes): returns the first CUDA error of the
-// launches, or 0.  x, dt, B, C are taken with their element strides (x,
-// B, C with a contiguous last dimension); y and the state are
-// contiguous; S [b, L / c, H, P, N], cum_last [b, L / c, H] and C B^T
-// [b, L / c, c', c'] (c' the chunk padded to 32) are scratch the caller
-// allocates.
+// launches, or 0.  x, dt, B, C are taken with their element strides (x, B, C
+// with a contiguous last dimension); y (x's type, or float32 where the caller
+// sums slices of it) and the state are contiguous; S [b, L / c, H, P, N],
+// cum_last [b, L / c, H] and C B^T [b, L / c, c', c'] (c' the chunk padded to
+// 32) are scratch the caller allocates.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "chain.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
 
 using repro_tf32::mma_tf32;
 using repro_tf32::split_tf32;
+using bf16 = uint16_t;  // a bfloat16 value's bits
+
+// A value of T as float32 (exact), and a float32 value stored as T
+// (rounded once, to nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = repro_chain::to_bf16(v);
+}
+// whether a value read from a T tile is exact in TF32
+template <class T>
+constexpr bool kExactTf32 = std::is_same<T, bf16>::value;
 
 constexpr int kThreadsA = 128;  // pass (a): four warps
 constexpr int kThreadsC = 256;  // pass (c): eight warps
@@ -71,13 +99,14 @@ constexpr int kThreadsB = 128;  // pass (b): a thread a state element
 constexpr int kMaxChunk = 64;   // two rows a lane in the cumulative sum
 constexpr int kTile = 32;       // padding of the chunk, P and N
 
+// x, B, C and y in the instance's types (the kernels cast them)
 struct Params {
-  const float* x;
+  const void* x;
   const float* dt;
   const float* A;
-  const float* B;
-  const float* C;
-  float* y;
+  const void* B;
+  const void* C;
+  void* y;
   float* state;
   float* S;
   float* cl;
@@ -86,46 +115,59 @@ struct Params {
   long long dt_sb, dt_sl, dt_sh;
   long long b_sb, b_sl;
   long long c_sb, c_sl;
-  int L, H, P, N, chunk, nc, hg;
+  int L, H, P, N, chunk, nc, hg, batch;
+  int y_f32;  // y float32, else x's type
 };
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// Padded extents and the shared-memory row strides, in floats (each a
-// multiple of 4; 4 past a multiple of 32, so that a fragment's reads hit
-// 32 banks).
+// Padded extents and the shared-memory row strides in values of the
+// tile's type: each row padded by 16 bytes (4 floats, 8 bfloat16), so a
+// float32 row is 4 floats past a multiple of 32 and a fragment's reads
+// hit 32 banks.  xb and bcb are the bytes of a value of x and of B and C.
 struct Dims {
   int c, P, N;
-  int ns, ps, cs;
+  int xb, bcb;
+  int nb;      // B and C tiles (B and C's type)
+  int px;      // x tiles (x's type)
+  int ns, cs;  // state and C B^T tiles (float32)
 };
 
-__host__ __device__ inline Dims dims(int chunk, int P, int N) {
+__host__ __device__ inline Dims dims(int chunk, int P, int N, int xb,
+                                     int bcb) {
   Dims d;
   d.c = round_up(chunk, kTile);
   d.P = round_up(P, kTile);
   d.N = round_up(N, kTile);
+  d.xb = xb;
+  d.bcb = bcb;
+  d.nb = d.N + 16 / bcb;
+  d.px = d.P + 16 / xb;
   d.ns = d.N + 4;
-  d.ps = d.P + 4;
   d.cs = d.c + 4;
   return d;
 }
 
-// Pass (a): B [c][ns]; x [c][ps]; a strip of C [32][ns]; dt, cum and
-// exp(cum_last - cum) dt [c] each.
+// Bytes of each region: a multiple of 16 (c and the padded extents are
+// multiples of 32), so each region starts 16-byte aligned.
+// Pass (a): B [c][nb]; x [c][px]; a strip of C [32][nb]; dt, cum and
+// exp(cum_last - cum) dt [c] float32 each.
 __host__ __device__ inline size_t smem_a(const Dims& d) {
-  return sizeof(float) * static_cast<size_t>(d.c * d.ns + d.c * d.ps +
-                                             kTile * d.ns + 3 * d.c);
+  return static_cast<size_t>(d.bcb) * (d.c * d.nb + kTile * d.nb) +
+         static_cast<size_t>(d.xb) * d.c * d.px + 4 * 3 * d.c;
 }
-// Pass (c): C [c][ns]; C B^T [c][cs]; cum and exp(cum) [c]; and for
-// each of `bufs` heads in flight x [c][ps], h [P][ns] and dt [c].
-__host__ __device__ inline int head_floats(const Dims& d) {
-  return d.c * d.ps + d.P * d.ns + d.c;
+// Pass (c): C [c][nb]; C B^T [c][cs]; cum and exp(cum) [c]; and for
+// each of `bufs` heads in flight x [c][px], h [P][ns] and dt [c].
+__host__ __device__ inline size_t head_bytes(const Dims& d) {
+  return static_cast<size_t>(d.xb) * d.c * d.px +
+         4 * static_cast<size_t>(d.P * d.ns + d.c);
 }
 __host__ __device__ inline size_t smem_c(const Dims& d, int bufs) {
-  return sizeof(float) * static_cast<size_t>(d.c * d.ns + d.c * d.cs +
-                                             2 * d.c + bufs * head_floats(d));
+  return static_cast<size_t>(d.bcb) * d.c * d.nb +
+         4 * static_cast<size_t>(d.c * d.cs + 2 * d.c) +
+         bufs * head_bytes(d);
 }
 
 // f(i0, n0) for each (16 SR) x 32 item of an M x Nc output, the block's
@@ -143,8 +185,11 @@ __device__ __forceinline__ void for_items(int M, int Nc, F f) {
 // accumulator.  acc[r][q] is the m16n8 fragment of rows i0 + 16 r, columns
 // n0 + 8 q; a(i, k) and b(k, j) read shared memory.  Each k8 step splits
 // SR A fragments and four B fragments and issues 12 SR products, term by
-// term, so that the accumulator chains interleave.
-template <int SR, class FA, class FB>
+// term, so that the accumulator chains interleave.  A side whose values
+// are exact in TF32 (kExactA, kExactB: read from a bfloat16 tile) has a
+// zero small half: its term is not issued (8 SR products with one such
+// side, 4 SR with two).
+template <int SR, bool kExactA, bool kExactB, class FA, class FB>
 __device__ __forceinline__ void mma_item(float (&acc)[SR][4][4], int i0,
                                          int n0, int K, FA a, FB b) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -166,16 +211,18 @@ __device__ __forceinline__ void mma_item(float (&acc)[SR][4][4], int i0,
       split_tf32(b(k0 + t + 4, j), bb[q][1], bs[q][1]);
     }
     // the small terms first, as mma_tf32.cuh::mma3 takes them
+    if (!kExactA)
 #pragma unroll
-    for (int r = 0; r < SR; ++r)
+      for (int r = 0; r < SR; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        mma_tf32(acc[r][q], as[r], bb[q][0], bb[q][1]);
+        for (int q = 0; q < 4; ++q)
+          mma_tf32(acc[r][q], as[r], bb[q][0], bb[q][1]);
+    if (!kExactB)
 #pragma unroll
-    for (int r = 0; r < SR; ++r)
+      for (int r = 0; r < SR; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        mma_tf32(acc[r][q], ab[r], bs[q][0], bs[q][1]);
+        for (int q = 0; q < 4; ++q)
+          mma_tf32(acc[r][q], ab[r], bs[q][0], bs[q][1]);
 #pragma unroll
     for (int r = 0; r < SR; ++r)
 #pragma unroll
@@ -224,14 +271,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // global -> shared without registers; `in` false writes zeros
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(in ? 4 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_u32(dst)),
@@ -249,27 +296,41 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
+// One value into shared memory, zero where `in` is false: a 4-byte
+// cp.async in float32, through a register in bfloat16 (cp.async moves no
+// 2-byte value; the store is visible after the block's next barrier).
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool in) {
+  cp_async4(dst, src, in);
+}
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, bool in) {
+  *dst = in ? *src : bf16(0);
+}
+
 // Start copying a [rows][stride] tile of an operand with row stride sl
 // and contiguous columns, from row l0, zero past (valid rows, width):
-// 16 bytes a copy where the rows allow it.
-__device__ __forceinline__ void load_tile(float* dst, int rows, int cols,
-                                          int stride, const float* src,
+// 16 bytes a copy (4 floats, 8 bfloat16) where the pointer, the row
+// stride and the width allow it, else value by value.
+template <class T>
+__device__ __forceinline__ void load_tile(T* dst, int rows, int cols,
+                                          int stride, const T* src,
                                           long long sl, int l0, int valid,
                                           int width) {
+  constexpr int kV = 16 / sizeof(T);  // values a 16-byte copy
   const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-                   sl % 4 == 0 && width % 4 == 0;
+                   sl % kV == 0 && width % kV == 0;
   if (vec) {
-    for_tile(rows, cols / 4, [&](int r, int n) {
-      const bool in = r < valid && 4 * n < width;
-      cp_async16(dst + r * stride + 4 * n,
-                 in ? src + static_cast<long long>(l0 + r) * sl + 4 * n : src,
+    for_tile(rows, cols / kV, [&](int r, int n) {
+      const bool in = r < valid && kV * n < width;
+      cp_async16(dst + r * stride + kV * n,
+                 in ? src + static_cast<long long>(l0 + r) * sl + kV * n
+                    : src,
                  in);
     });
   } else {
     for_tile(rows, cols, [&](int r, int n) {
       const bool in = r < valid && n < width;
-      cp_async4(dst + r * stride + n,
-                in ? src + static_cast<long long>(l0 + r) * sl + n : src, in);
+      copy1(dst + r * stride + n,
+            in ? src + static_cast<long long>(l0 + r) * sl + n : src, in);
     });
   }
 }
@@ -323,20 +384,24 @@ __device__ __forceinline__ float warp_cumsum(const float* dts, float* cums,
   return last;
 }
 
+template <class TX, class TBC>
 __global__ void __launch_bounds__(kThreadsA) ssd_chunk_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const Dims d = dims(p.chunk, p.P, p.N);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Dims d = dims(p.chunk, p.P, p.N, sizeof(TX), sizeof(TBC));
   const int z = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int l0 = z * p.chunk;
-  float* Bs = smem;                 // [c][ns]
-  float* xs = Bs + d.c * d.ns;      // [c][ps]
-  float* Cst = xs + d.c * d.ps;     // [32][ns]
-  float* dts = Cst + kTile * d.ns;
+  TBC* Bs = reinterpret_cast<TBC*>(smem);                   // [c][nb]
+  TX* xs = reinterpret_cast<TX*>(Bs + d.c * d.nb);          // [c][px]
+  TBC* Cst = reinterpret_cast<TBC*>(xs + d.c * d.px);       // [32][nb]
+  float* dts = reinterpret_cast<float*>(Cst + kTile * d.nb);
   float* cums = dts + d.c;
   float* scs = cums + d.c;
+  const TX* x = static_cast<const TX*>(p.x);
+  const TBC* B = static_cast<const TBC*>(p.B);
+  const TBC* C = static_cast<const TBC*>(p.C);
 
-  load_tile(Bs, d.c, d.N, d.ns, p.B + b * p.b_sb, p.b_sl, l0, p.chunk, p.N);
-  load_tile(xs, d.c, d.P, d.ps, p.x + b * p.x_sb + h * p.x_sh, p.x_sl, l0,
+  load_tile(Bs, d.c, d.N, d.nb, B + b * p.b_sb, p.b_sl, l0, p.chunk, p.N);
+  load_tile(xs, d.c, d.P, d.px, x + b * p.x_sb + h * p.x_sh, p.x_sl, l0,
             p.chunk, p.P);
   load_dt(dts, p, b, h, l0, d.c);
   cp_async_wait_all();
@@ -355,10 +420,10 @@ __global__ void __launch_bounds__(kThreadsA) ssd_chunk_kernel(Params p) {
   for_items<2>(d.P, d.N, [&](int i0, int n0) {
     float acc[2][4][4];
     zero(acc);
-    mma_item(
+    mma_item<2, false, kExactTf32<TBC>>(
         acc, i0, n0, d.c,
-        [&](int i, int k) { return xs[k * d.ps + i] * scs[k]; },
-        [&](int k, int j) { return Bs[k * d.ns + j]; });
+        [&](int i, int k) { return widen(xs[k * d.px + i]) * scs[k]; },
+        [&](int k, int j) { return widen(Bs[k * d.nb + j]); });
     for_acc(acc, i0, n0, [&](int i, int j, float v) {
       if (i < p.P && j < p.N) Sg[static_cast<long long>(i) * p.N + j] = v;
     });
@@ -368,16 +433,17 @@ __global__ void __launch_bounds__(kThreadsA) ssd_chunk_kernel(Params p) {
   float* CBg = p.CB + (static_cast<long long>(b) * p.nc + z) * d.c * d.c;
   for (int s = h; s < d.c / kTile; s += p.H) {
     __syncthreads();  // the strip buffer is free
-    load_tile(Cst, kTile, d.N, d.ns, p.C + b * p.c_sb, p.c_sl,
-              l0 + s * kTile, p.chunk - s * kTile, p.N);
+    load_tile(Cst, kTile, d.N, d.nb, C + b * p.c_sb, p.c_sl, l0 + s * kTile,
+              p.chunk - s * kTile, p.N);
     cp_async_wait_all();
     __syncthreads();
     for_items<2>(kTile, d.c, [&](int i0, int n0) {
       float acc[2][4][4];
       zero(acc);
-      mma_item(
-          acc, i0, n0, d.N, [&](int i, int k) { return Cst[i * d.ns + k]; },
-          [&](int k, int j) { return Bs[j * d.ns + k]; });
+      mma_item<2, kExactTf32<TBC>, kExactTf32<TBC>>(
+          acc, i0, n0, d.N,
+          [&](int i, int k) { return widen(Cst[i * d.nb + k]); },
+          [&](int k, int j) { return widen(Bs[j * d.nb + k]); });
       for_acc(acc, i0, n0, [&](int i, int j, float v) {
         CBg[static_cast<long long>(s * kTile + i) * d.c + j] = v;
       });
@@ -413,38 +479,45 @@ __global__ void __launch_bounds__(kThreadsB) ssd_pass_kernel(Params p) {
   p.state[(static_cast<long long>(b) * p.H + h) * PN + e] = acc;
 }
 
+template <class TX, class TBC>
 __global__ void __launch_bounds__(kThreadsC) ssd_output_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const Dims d = dims(p.chunk, p.P, p.N);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Dims d = dims(p.chunk, p.P, p.N, sizeof(TX), sizeof(TBC));
   const int z = blockIdx.x, h0 = blockIdx.y * p.hg, b = blockIdx.z;
   const int heads = p.H - h0 < p.hg ? p.H - h0 : p.hg;
   const int l0 = z * p.chunk;
-  float* Cs = smem;                 // [c][ns]
-  float* CBs = Cs + d.c * d.ns;     // [c][cs]
+  TBC* Cs = reinterpret_cast<TBC*>(smem);                   // [c][nb]
+  float* CBs = reinterpret_cast<float*>(Cs + d.c * d.nb);   // [c][cs]
   float* cums = CBs + d.c * d.cs;
   float* ecs = cums + d.c;
-  float* buf0 = ecs + d.c;          // a head's x, h, dt; two when pipelined
+  // a head's x, h, dt; two when pipelined
+  unsigned char* buf0 = reinterpret_cast<unsigned char*>(ecs + d.c);
   const long long PN = static_cast<long long>(p.P) * p.N;
+  const TX* x = static_cast<const TX*>(p.x);
+  auto head_x = [&](int k) {
+    return reinterpret_cast<TX*>(buf0 + k * head_bytes(d));
+  };
 
   // start copying a head's x, the state entering the chunk (left in S by
   // the state pass) and dt into buffer k
   auto load_head = [&](int h, int k) {
-    float* xs = buf0 + k * head_floats(d);
-    load_tile(xs, d.c, d.P, d.ps, p.x + b * p.x_sb + h * p.x_sh, p.x_sl,
-              l0, p.chunk, p.P);
+    TX* xs = head_x(k);
+    float* hs = reinterpret_cast<float*>(xs + d.c * d.px);
+    load_tile(xs, d.c, d.P, d.px, x + b * p.x_sb + h * p.x_sh, p.x_sl, l0,
+              p.chunk, p.P);
     if (z > 0)
-      load_tile(xs + d.c * d.ps, d.P, d.N, d.ns,
+      load_tile(hs, d.P, d.N, d.ns,
                 p.S + ((static_cast<long long>(b) * p.nc + z) * p.H + h) * PN,
                 p.N, 0, p.P, p.N);
-    load_dt(xs + d.c * d.ps + d.P * d.ns, p, b, h, l0, d.c);
+    load_dt(hs + d.P * d.ns, p, b, h, l0, d.c);
     cp_async_commit();
   };
   load_tile(CBs, d.c, d.c, d.cs,
             p.CB + (static_cast<long long>(b) * p.nc + z) * d.c * d.c, d.c,
             0, d.c, d.c);
   if (z > 0)
-    load_tile(Cs, d.c, d.N, d.ns, p.C + b * p.c_sb, p.c_sl, l0, p.chunk,
-              p.N);
+    load_tile(Cs, d.c, d.N, d.nb, static_cast<const TBC*>(p.C) + b * p.c_sb,
+              p.c_sl, l0, p.chunk, p.N);
   load_head(h0, 0);
 
   const long long y_sl = static_cast<long long>(p.H) * p.P;
@@ -453,8 +526,8 @@ __global__ void __launch_bounds__(kThreadsC) ssd_output_kernel(Params p) {
   const int warps = blockDim.x >> 5;
   for (int hh = 0; hh < heads; ++hh) {
     const int h = h0 + hh;
-    const float* xs = buf0 + (hh & 1) * head_floats(d);
-    const float* hs = xs + d.c * d.ps;
+    const TX* xs = head_x(hh & 1);
+    const float* hs = reinterpret_cast<const float*>(xs + d.c * d.px);
     const float* dts = hs + d.P * d.ns;
     if (hh + 1 < heads) {  // the next head arrives while this one works
       load_head(h + 1, (hh + 1) & 1);
@@ -469,28 +542,34 @@ __global__ void __launch_bounds__(kThreadsC) ssd_output_kernel(Params p) {
 
     // y = W x + (exp(cum) * C) h^T in one accumulator, W = C B^T *
     // exp(cum_i - cum_j) * dt_j (i >= j) formed as its fragments are read
-    float* yg = p.y + (static_cast<long long>(b) * p.L + l0) * y_sl +
-                static_cast<long long>(h) * p.P;
+    const long long y0 = (static_cast<long long>(b) * p.L + l0) * y_sl +
+                         static_cast<long long>(h) * p.P;
     for (int item = threadIdx.x >> 5; item < items; item += warps) {
       const int i0 = (item / groups) * 16 * SR;
       const int n0 = (item % groups) * kTile;
       float acc[SR][4][4];
       zero(acc);
-      mma_item(
+      mma_item<SR, false, kExactTf32<TX>>(
           acc, i0, n0, d.c,
           [&](int i, int k) {
             return i >= k ? CBs[i * d.cs + k] * expf(cums[i] - cums[k]) *
                                 dts[k]
                           : 0.f;
           },
-          [&](int k, int j) { return xs[k * d.ps + j]; });
+          [&](int k, int j) { return widen(xs[k * d.px + j]); });
       if (z > 0)
-        mma_item(
+        mma_item<SR, false, false>(
             acc, i0, n0, d.N,
-            [&](int i, int k) { return Cs[i * d.ns + k] * ecs[i]; },
+            [&](int i, int k) { return widen(Cs[i * d.nb + k]) * ecs[i]; },
             [&](int k, int j) { return hs[j * d.ns + k]; });
       for_acc(acc, i0, n0, [&](int i, int j, float v) {
-        if (i < p.chunk && j < p.P) yg[i * y_sl + j] = v;
+        if (i < p.chunk && j < p.P) {
+          const long long o = y0 + i * y_sl + j;
+          if (p.y_f32)
+            static_cast<float*>(p.y)[o] = v;
+          else
+            store(static_cast<TX*>(p.y) + o, v);
+        }
       });
     }
     __syncthreads();  // this head's buffer and the sums are free again
@@ -499,10 +578,12 @@ __global__ void __launch_bounds__(kThreadsC) ssd_output_kernel(Params p) {
 
 }  // namespace
 
-// Shared memory a block of the scan needs at (chunk, P, N), the larger of
-// the two passes: the wrapper refuses shapes above the card's limit.
-extern "C" long long repro_ssd_scan_smem(int chunk, int P, int N) {
-  const Dims d = dims(chunk, P, N);
+// Shared memory a block of the scan needs at (chunk, P, N) with x and
+// B, C of xb and bcb bytes a value, the larger of the two passes: the
+// wrapper slices shapes above the card's limit.
+extern "C" long long repro_ssd_scan_smem(int chunk, int P, int N, int xb,
+                                         int bcb) {
+  const Dims d = dims(chunk, P, N, xb, bcb);
   const size_t a = smem_a(d), s = smem_c(d, 1);
   return static_cast<long long>(a > s ? a : s);
 }
@@ -521,48 +602,60 @@ extern "C" int repro_ssd_scan_chunk_pad(int chunk) {
   return round_up(chunk, kTile);
 }
 
-// Three launches a call.
-extern "C" int repro_ssd_scan_f32(
+namespace {
+
+// Three launches a call, x of TX, B and C of TBC.
+template <class TX, class TBC>
+int scan(Params p, cudaStream_t s) {
+  const Dims d = dims(p.chunk, p.P, p.N, sizeof(TX), sizeof(TBC));
+  p.hg = heads_c(d, p.H);
+  const size_t sa = smem_a(d), sb = smem_c(d, p.hg > 1 ? 2 : 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_kernel<TX, TBC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sa));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(ssd_output_kernel<TX, TBC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sb));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int batch = static_cast<int>(p.batch);
+  ssd_chunk_kernel<TX, TBC><<<dim3(p.nc, p.H, batch), kThreadsA, sa, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long PN = static_cast<long long>(p.P) * p.N;
+  ssd_pass_kernel<<<dim3(static_cast<unsigned>((PN + kThreadsB - 1) /
+                                               kThreadsB),
+                         p.H, batch),
+                    kThreadsB, 0, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_output_kernel<TX, TBC>
+      <<<dim3(p.nc, (p.H + p.hg - 1) / p.hg, batch), kThreadsC, sb, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x of float32 (x_bf16 0) or bfloat16 (1), B and C of one type (bc_bf16),
+// y of x's type, or float32 where y_f32 is 1 (the caller sums N slices of
+// y and rounds once).
+extern "C" int repro_ssd_scan(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, void* y, void* state, void* S, void* cl, void* CB,
     int batch, int L, int H, int P, int N, int chunk, long long x_sb,
     long long x_sl, long long x_sh, long long dt_sb, long long dt_sl,
     long long dt_sh, long long b_sb, long long b_sl, long long c_sb,
-    long long c_sl, void* stream) {
+    long long c_sl, int x_bf16, int bc_bf16, int y_f32, void* stream) {
   if (batch == 0 || H == 0 || L == 0) return 0;
   if (chunk < 1 || chunk > kMaxChunk || L % chunk != 0 || P < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{static_cast<const float*>(x), static_cast<const float*>(dt),
-           static_cast<const float*>(A), static_cast<const float*>(B),
-           static_cast<const float*>(C), static_cast<float*>(y),
-           static_cast<float*>(state), static_cast<float*>(S),
+  Params p{x, static_cast<const float*>(dt), static_cast<const float*>(A),
+           B, C, y, static_cast<float*>(state), static_cast<float*>(S),
            static_cast<float*>(cl), static_cast<float*>(CB), x_sb, x_sl,
            x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, c_sb, c_sl, L, H, P, N,
-           chunk, L / chunk, 1};
+           chunk, L / chunk, 1, batch, y_f32 || !x_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dims d = dims(chunk, P, N);
-  p.hg = heads_c(d, H);
-  const size_t sa = smem_a(d), sb = smem_c(d, p.hg > 1 ? 2 : 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sa));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(ssd_output_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sb));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.nc, H, batch);
-  ssd_chunk_kernel<<<grid, kThreadsA, sa, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long PN = static_cast<long long>(P) * N;
-  ssd_pass_kernel<<<dim3(static_cast<unsigned>((PN + kThreadsB - 1) /
-                                               kThreadsB),
-                         H, batch),
-                    kThreadsB, 0, s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_output_kernel<<<dim3(p.nc, (H + p.hg - 1) / p.hg, batch), kThreadsC,
-                      sb, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (!x_bf16)
+    return bc_bf16 ? scan<float, bf16>(p, s) : scan<float, float>(p, s);
+  return bc_bf16 ? scan<bf16, bf16>(p, s) : scan<bf16, float>(p, s);
 }

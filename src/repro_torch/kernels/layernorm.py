@@ -16,6 +16,10 @@ reference's ``custom_vjp``, ``layernorm.py:140-161``) saves x, gamma and
 the statistics and calls ``layernorm_bwd``, dispatched the same way.
 The gradients arriving for ``mean`` and ``rstd`` are ignored: they are
 statistics, not values the reference differentiates.
+
+The kernels take what the reference's take: x (and dy) and the gain
+(and bias) each float32 or bfloat16, y and dx in x's type, the
+statistics and dgamma, dbeta float32, float32 inside.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from . import _build
 
 #: The backward's partial rows of dgamma and dbeta: at most this many a
 #: SM (its persistent CTAs, each writing one), summed by its second launch
+#: (``csrc/layernorm.cu``'s ``kBwdCtasPerSM``; a bfloat16 row's ring at
+#: half the bytes lets a second CTA onto an SM where a float32 one did not)
 BWD_PARTS_PER_SM = 2
 #: Kernel launches of one backward call: the rows, then the partials' sums
 BWD_LAUNCHES_PER_CALL = 2
@@ -67,25 +73,41 @@ def layernorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
             dyf.sum(0))
 
 
+#: The types the kernels take: x's (dy's) and the gain's (the bias's),
+#: each on its own.
+CUDA_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(what: str, tensors: dict, C: int) -> None:
     dev = tensors["x"].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors.values()):
         raise ValueError(f"{what}: " + ", ".join(
             f"{k} on {t.device}" for k, t in tensors.items())
             + "; all must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors.values()):
-        raise TypeError(f"{what} takes float32, got " + ", ".join(
-            f"{k} {t.dtype}" for k, t in tensors.items()))
+    x, g = tensors["x"], tensors["gamma"]
+    stats = [tensors[k] for k in ("mean", "rstd") if k in tensors]
+    if (x.dtype not in CUDA_DTYPES or g.dtype not in CUDA_DTYPES
+            or tensors.get("beta", g).dtype != g.dtype
+            or tensors.get("dy", x).dtype != x.dtype
+            or any(t.dtype != torch.float32 for t in stats)):
+        raise TypeError(
+            f"{what} takes x (and dy) float32 or bfloat16, gamma (and beta) "
+            "float32 or bfloat16, mean and rstd float32; got " + ", ".join(
+                f"{k} {t.dtype}" for k, t in tensors.items()))
     for k in ("gamma", "beta"):
         if k in tensors and tensors[k].shape != (C,):
             raise ValueError(f"{what}: {k} {tuple(tensors[k].shape)} for "
                              f"rows of {C}")
 
 
+def _flags(x: torch.Tensor, gamma: torch.Tensor) -> tuple[int, int]:
+    return int(x.dtype == torch.bfloat16), int(gamma.dtype == torch.bfloat16)
+
+
 def layernorm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch the forward kernel (float32, on the current stream)."""
+    """Launch the forward kernel (on the current stream): y in x's type."""
     C = x.shape[-1]
     _check("layernorm_cuda", {"x": x, "gamma": gamma, "beta": beta}, C)
     # a copy only where the rows are not contiguous (device time)
@@ -95,26 +117,32 @@ def layernorm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     y = torch.empty_like(x2)
     mean = torch.empty(R, 1, dtype=torch.float32, device=x.device)
     rstd = torch.empty(R, 1, dtype=torch.float32, device=x.device)
-    _build.check(_entry("repro_layernorm_fwd_f32")(
+    _build.check(_entry("repro_layernorm_fwd")(
         x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), R, C, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream),
-        "repro_layernorm_fwd_f32")
+        *_flags(x, gamma), torch.cuda.current_stream(x.device).cuda_stream),
+        "repro_layernorm_fwd")
     _build.count(layernorm_cuda)
+    if torch.bfloat16 in (x.dtype, gamma.dtype):
+        _build.count(BF16)
     return y.reshape(x.shape), mean, rstd
 
 
 layernorm_cuda.launches = 0  # kernel launches (plain runs are not counted)
+#: launches of the forward's instances with a bfloat16 x or gain (counted
+#: in ``layernorm_cuda.launches`` too)
+BF16 = _build.LaunchCount("layernorm_bf16")
 
 
 def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                        mean: torch.Tensor, rstd: torch.Tensor,
                        dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
                                                   torch.Tensor]:
-    """Launch the backward kernel (float32, on the current stream): the
-    rows, writing at most ``BWD_PARTS_PER_SM`` dgamma and dbeta partial
-    rows an SM into a workspace, then the partials' sums in a fixed
-    order -- two launches, no atomics, the same bits every run."""
+    """Launch the backward kernel (on the current stream): the rows,
+    writing at most ``BWD_PARTS_PER_SM`` dgamma and dbeta partial rows an
+    SM into a workspace, then the partials' sums in a fixed order -- two
+    launches, no atomics, the same bits every run.  dx in x's type (dy's
+    too), dgamma and dbeta float32."""
     C = x.shape[-1]
     _check("layernorm_bwd_cuda", {"x": x, "gamma": gamma, "mean": mean,
                                   "rstd": rstd, "dy": dy}, C)
@@ -131,28 +159,33 @@ def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=x.device)
     work = torch.empty(2, parts, C, **f32)  # dgamma, dbeta partial rows
     dg, db = torch.empty(C, **f32), torch.empty(C, **f32)
-    _build.check(_entry("repro_layernorm_bwd_f32")(
+    _build.check(_entry("repro_layernorm_bwd")(
         x2.data_ptr(), gamma.contiguous().data_ptr(),
         mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(),
         dy2.data_ptr(), dx.data_ptr(), work[0].data_ptr(),
         work[1].data_ptr(), dg.data_ptr(), db.data_ptr(), R, C, parts,
-        torch.cuda.current_stream(x.device).cuda_stream),
-        "repro_layernorm_bwd_f32")
+        *_flags(x, gamma), torch.cuda.current_stream(x.device).cuda_stream),
+        "repro_layernorm_bwd")
     _build.count(layernorm_bwd_cuda, BWD_LAUNCHES_PER_CALL)
+    if torch.bfloat16 in (x.dtype, gamma.dtype):
+        _build.count(BWD_BF16, BWD_LAUNCHES_PER_CALL)
     return dx.reshape(x.shape), dg, db
 
 
 layernorm_bwd_cuda.launches = 0  # kernel launches (plain runs excluded)
+#: launches of the backward's instances with a bfloat16 x or gain
+BWD_BF16 = _build.LaunchCount("layernorm_bwd_bf16")
 
 
 @functools.cache
 def _entry(name: str):
     fn = getattr(_build.library("layernorm"), name)
-    if name == "repro_layernorm_fwd_f32":
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_float, ctypes.c_void_p]
+    if name == "repro_layernorm_fwd":
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
     else:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

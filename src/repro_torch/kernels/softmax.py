@@ -17,8 +17,11 @@ dispatched the same way.
 
 Both kernels launch as programmatic dependents of the work before them
 on the stream (``csrc/softmax.cu``), and ``layout`` names the layout a
-call takes: rows of up to 128 columns in float4 lanes, a warp a row, or
-a block a row.  The wrappers pass a contiguous 2-D input to the kernel
+call takes: short rows in 16-byte unit lanes (a float4, or 8 bfloat16:
+up to 128 float32 or 256 bfloat16 columns), a warp a row, or a block a
+row.  They take what the reference's take: float32 or bfloat16 (one type
+a call: y and dy alike, as autograd gives them), y and dx in the input's
+type, float32 inside.  The wrappers pass a contiguous 2-D input to the kernel
 as it is, with no view or copy.
 """
 from __future__ import annotations
@@ -52,6 +55,10 @@ def softmax_bwd_plain(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return (yf * (dyf - s)).to(y.dtype).reshape(y.shape)
 
 
+#: The types the kernels take (one a call).
+CUDA_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(what: str, tensors: dict) -> None:
     first = next(iter(tensors.values()))
     dev = first.device
@@ -59,9 +66,11 @@ def _check(what: str, tensors: dict) -> None:
         raise ValueError(f"{what}: " + ", ".join(
             f"{k} on {t.device}" for k, t in tensors.items())
             + "; all must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors.values()):
-        raise TypeError(f"{what} takes float32, got " + ", ".join(
-            f"{k} {t.dtype}" for k, t in tensors.items()))
+    if (first.dtype not in CUDA_DTYPES
+            or any(t.dtype != first.dtype for t in tensors.values())):
+        raise TypeError(f"{what} takes float32 or bfloat16, one type for "
+                        "all, got " + ", ".join(
+                            f"{k} {t.dtype}" for k, t in tensors.items()))
     if any(t.shape != first.shape for t in tensors.values()):
         raise ValueError(f"{what}: " + ", ".join(
             f"{k} {tuple(t.shape)}" for k, t in tensors.items())
@@ -86,56 +95,70 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def softmax_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel (float32, on the current stream)."""
-    if not (x.is_cuda and x.dtype == torch.float32 and x.dim()):
+    """Launch the forward kernel (on the current stream): y in x's type."""
+    if not (x.is_cuda and x.dtype in CUDA_DTYPES and x.dim()):
         _check("softmax_cuda", {"x": x})  # raises, naming what is wrong
     x2 = _rows(x)
     y = torch.empty_like(x2)
-    _build.check(_entry("repro_softmax_fwd_f32")(
-        x2.data_ptr(), y.data_ptr(), x2.shape[0], x2.shape[1], _stream(x)),
-        "repro_softmax_fwd_f32")
+    bf16 = x.dtype == torch.bfloat16
+    _build.check(_entry("repro_softmax_fwd")(
+        x2.data_ptr(), y.data_ptr(), x2.shape[0], x2.shape[1], bf16,
+        _stream(x)), "repro_softmax_fwd")
     _build.count(softmax_cuda)
+    if bf16:
+        _build.count(BF16)
     return y if x2 is x else y.reshape(x.shape)
 
 
 softmax_cuda.launches = 0  # kernel launches (plain runs are not counted)
+#: launches of the forward's bfloat16 instances (counted in
+#: ``softmax_cuda.launches`` too)
+BF16 = _build.LaunchCount("softmax_bf16")
 
 
 def softmax_bwd_cuda(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Launch the backward kernel (float32, on the current stream)."""
-    if not (y.is_cuda and dy.device == y.device and y.dtype == torch.float32
-            and dy.dtype == torch.float32 and y.shape == dy.shape
-            and y.dim()):
+    """Launch the backward kernel (on the current stream): y and dy of one
+    type, dx in it."""
+    if not (y.is_cuda and dy.device == y.device and y.dtype in CUDA_DTYPES
+            and dy.dtype == y.dtype and y.shape == dy.shape and y.dim()):
         _check("softmax_bwd_cuda", {"y": y, "dy": dy})  # raises
     y2, dy2 = _rows(y), _rows(dy)
     dx = torch.empty_like(y2)
-    _build.check(_entry("repro_softmax_bwd_f32")(
+    bf16 = y.dtype == torch.bfloat16
+    _build.check(_entry("repro_softmax_bwd")(
         y2.data_ptr(), dy2.data_ptr(), dx.data_ptr(), y2.shape[0],
-        y2.shape[1], _stream(y)), "repro_softmax_bwd_f32")
+        y2.shape[1], bf16, _stream(y)), "repro_softmax_bwd")
     _build.count(softmax_bwd_cuda)
+    if bf16:
+        _build.count(BWD_BF16)
     return dx if y2 is y else dx.reshape(y.shape)
 
 
 softmax_bwd_cuda.launches = 0  # kernel launches (plain runs excluded)
+#: launches of the backward's bfloat16 instances
+BWD_BF16 = _build.LaunchCount("softmax_bwd_bf16")
 
 
 def layout(*operands: torch.Tensor) -> str:
     """The layout ``csrc/softmax.cu`` takes for these CUDA operands (x, or
     y and dy; the output the wrapper allocates is always aligned):
-    ``"float4 lanes L"`` (L lanes a row, a float4 each), ``"warp"`` (a
-    warp a row) or ``"block"`` (a block a row).  A non-contiguous operand
-    is copied by the wrapper, so it counts as aligned."""
+    ``"float4 lanes L"`` or ``"bf16x8 lanes L"`` (L lanes a row, a 16-byte
+    unit each), ``"warp"`` (a warp a row) or ``"block"`` (a block a row).
+    A non-contiguous operand is copied by the wrapper, so it counts as
+    aligned."""
     ptrs = [t.data_ptr() if t.is_contiguous() else 0 for t in operands]
+    bf16 = operands[0].dtype == torch.bfloat16
     lanes = _entry("repro_softmax_lanes")(
-        *(ptrs + [0] * (3 - len(ptrs))), operands[0].shape[-1])
-    return (f"float4 lanes {lanes}" if lanes > 0
+        *(ptrs + [0] * (3 - len(ptrs))), operands[0].shape[-1], bf16)
+    unit = "bf16x8" if bf16 else "float4"
+    return (f"{unit} lanes {lanes}" if lanes > 0
             else "warp" if lanes == 0 else "block")
 
 
 #: (pointer arguments, int arguments, a stream) of each C entry
-_SIGNATURES = {"repro_softmax_fwd_f32": (2, 2, True),
-               "repro_softmax_bwd_f32": (3, 2, True),
-               "repro_softmax_lanes": (3, 1, False)}
+_SIGNATURES = {"repro_softmax_fwd": (2, 3, True),
+               "repro_softmax_bwd": (3, 3, True),
+               "repro_softmax_lanes": (3, 2, False)}
 
 
 @functools.cache

@@ -5,8 +5,10 @@
 The counterpart of ``ssd_scan`` (the TPU kernel ``_ssd_kernel``,
 ``src/repro/kernels/ssd_scan.py:25,75``): x [b, L, H, P], dt [b, L, H],
 A [H], B and C [b, L, N] (one group, shared by the heads) -> (y
-[b, L, H, P], final state [b, H, P, N] float32), the state carried from
-chunk to chunk of ``chunk`` rows.  ``L`` must be a multiple of
+[b, L, H, P] like x, final state [b, H, P, N] float32), the state carried
+from chunk to chunk of ``chunk`` rows.  As the reference's, the kernel
+takes x, and B and C, float32 or bfloat16 (dt and A float32), float32
+inside, y rounded once to x's type.  ``L`` must be a multiple of
 ``chunk``; the model pads the sequence first.  The kernel takes three
 launches a slice (``LAUNCHES_PER_CALL``): every (batch, chunk, head) at
 once, the chunk's own state contribution (and C B^T once per (batch,
@@ -174,12 +176,30 @@ def ssd_scan_sliced(x, dt, A, B, C, chunk: int, scan, smem,
     return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)), state
 
 
+#: The types the kernel takes for x and for B and C (B and C of one type,
+#: x's their own); dt and A are float32, as the model passes them.
+CUDA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_types(x, dt, A, B, C) -> None:
+    if (x.dtype not in CUDA_DTYPES or B.dtype not in CUDA_DTYPES
+            or C.dtype != B.dtype or dt.dtype != torch.float32
+            or A.dtype != torch.float32):
+        raise TypeError(
+            f"ssd_scan_cuda takes x float32 or bfloat16, B and C of one of "
+            f"those types, dt and A float32; got x {x.dtype}, dt {dt.dtype}, "
+            f"A {A.dtype}, B {B.dtype}, C {C.dtype}")
+
+
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
-    """Run the CUDA kernel (float32, on the current stream) at any chunk,
-    head dim P and state N (``ssd_scan_sliced``: three launches a slice).
-    x, dt, B and C are read with their strides -- the model's x, B and C
-    are column slices of one activation -- and only a last dimension that
-    is not contiguous is copied (device time)."""
+    """Run the CUDA kernel (on the current stream) at any chunk, head dim
+    P and state N (``ssd_scan_sliced``: three launches a slice): x, and B
+    and C, float32 or bfloat16, dt and A float32; y in x's type, the state
+    float32.  x, dt, B and C are read with their strides -- the model's x,
+    B and C are column slices of one activation -- and only a last
+    dimension that is not contiguous is copied (device time).  Where the
+    N slices of a bfloat16 scan are summed, each slice writes y in
+    float32 and the sum is rounded once."""
     _check_shapes(x, dt, A, B, C, chunk)
     dev = x.device
     ts = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
@@ -187,21 +207,28 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
         raise ValueError("ssd_scan_cuda: " + ", ".join(
             f"{k} on {t.device}" for k, t in ts.items())
             + "; all must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in ts.values()):
-        raise TypeError("ssd_scan_cuda takes float32, got " + ", ".join(
-            f"{k} {t.dtype}" for k, t in ts.items()))
+    _check_types(x, dt, A, B, C)
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
-    return ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk, _launch,
-                           _smem())
+    smem = _smem(x.dtype == torch.bfloat16, B.dtype == torch.bfloat16)
+    _, n_slices = ssd_slices(kernel_chunk(chunk), x.shape[-1], B.shape[-1],
+                             smem)
+    if len(n_slices) > 1 and x.dtype != torch.float32:
+        y, state = ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk,
+                                   functools.partial(_launch, y_f32=True),
+                                   smem)
+        return y.to(x.dtype), state
+    return ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk, _launch, smem)
 
 
-def _launch(x, dt, A, B, C, chunk: int):
+def _launch(x, dt, A, B, C, chunk: int, y_f32: bool = False):
     """The kernel's three launches on one slice (chunk <= ``MAX_CHUNK``,
-    tiles within ``SMEM_LIMIT``)."""
+    tiles within ``SMEM_LIMIT``): y in x's type, or float32 if
+    ``y_f32``."""
     b, L, H, P = x.shape
     N = B.shape[-1]
     dev = x.device
-    y = torch.empty(b, L, H, P, dtype=torch.float32, device=dev)
+    y = torch.empty(b, L, H, P, device=dev,
+                    dtype=torch.float32 if y_f32 else x.dtype)
     state = torch.empty(b, H, P, N, dtype=torch.float32, device=dev)
     # scratch: each chunk's own state contribution and total decay, and
     # C B^T of each (batch, chunk) at the kernel's padded chunk
@@ -210,17 +237,25 @@ def _launch(x, dt, A, B, C, chunk: int):
     S = torch.empty(b, nc, H, P, N, **f32)
     cl = torch.empty(b, nc, H, **f32)
     CB = torch.empty(b, nc, cp, cp, **f32)
+    x_bf16 = x.dtype == torch.bfloat16
+    bc_bf16 = B.dtype == torch.bfloat16
     _build.check(_entry()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), state.data_ptr(), S.data_ptr(),
         cl.data_ptr(), CB.data_ptr(), b, L, H, P, N, chunk,
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2],
-        torch.cuda.current_stream(dev).cuda_stream), "repro_ssd_scan_f32")
+        int(x_bf16), int(bc_bf16), int(y_f32),
+        torch.cuda.current_stream(dev).cuda_stream), "repro_ssd_scan")
     _build.count(ssd_scan_cuda, LAUNCHES_PER_CALL)
+    if x_bf16 or bc_bf16:
+        _build.count(BF16, LAUNCHES_PER_CALL)
     return y, state
 
 
 ssd_scan_cuda.launches = 0  # kernel launches (plain runs are not counted)
+#: launches of the instances with a bfloat16 x, or B and C (counted in
+#: ``ssd_scan_cuda.launches`` too)
+BF16 = _build.LaunchCount("ssd_scan_bf16")
 
 
 @functools.cache
@@ -229,11 +264,14 @@ def _lib():
 
 
 @functools.cache
-def _smem():
+def _smem(x_bf16: bool = False, bc_bf16: bool = False):
+    """``smem(chunk, P, N)``: the shared memory a block of the kernel needs
+    with x, and B and C, of these types (float32 unless said)."""
     fn = _lib().repro_ssd_scan_smem
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    return fn
+    xb, bcb = 2 if x_bf16 else 4, 2 if bc_bf16 else 4
+    return lambda chunk, P, N: fn(chunk, P, N, xb, bcb)
 
 
 @functools.cache
@@ -246,9 +284,10 @@ def _chunk_pad():
 
 @functools.cache
 def _entry():
-    fn = _lib().repro_ssd_scan_f32
+    fn = _lib().repro_ssd_scan
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 10 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

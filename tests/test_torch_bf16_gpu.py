@@ -3,15 +3,19 @@ its plain version on the same bfloat16 inputs.
 
 B6 (RMSNorm, x and the gain each float32 or bfloat16), B8 (flash decode,
 q and the caches each float32 or bfloat16), B4 (flash attention at the
-tuned head dims, with and without a generated score functor) and B3 (the
+tuned head dims, with and without a generated score functor), B3 (the
 fused matmul: gate and up product, decode tile, reducing prologue,
-epilogue across a cluster).  Each is held two ways: within the
-reference's own bfloat16 band (``src/repro/runtime/guard.py:208-213``
-for B6 and B8, the anchored band of :224-226 for B3 and B4), and no
-less accurate than the plain version: against float64 of the same
-bfloat16 inputs, the kernel's largest error is at most twice the plain
-version's.  The kernels that stay float32-only raise ``TypeError`` on
-bfloat16.
+epilogue across a cluster), B5 and B9 (LayerNorm and its backward, x
+and the gain each float32 or bfloat16), B7 and B10 (the row softmax and
+its backward) and B11 (the SSD scan, x and B, C each float32 or
+bfloat16, on strided slices of one activation).  Each is held two ways:
+within the reference's own bfloat16 band
+(``src/repro/runtime/guard.py:208-213`` for B6 and B8, the anchored band
+of :224-226 for B3 and B4), and no less accurate than the plain version:
+against float64 of the same bfloat16 inputs, the kernel's largest error
+is at most twice the plain version's.  The one kernel that stays float32-only, the wide flash
+kernel above head dim 256, raises ``TypeError`` on bfloat16; every
+wrapper raises on float16.
 
 Marked ``gpu``: on a host without a CUDA card every test here skips (the
 decision is made in a fixture, never at import).  Run on the card with
@@ -255,24 +259,213 @@ def test_b3_takes_bfloat16(cuda, form, M, K, N):
                                rtol=BAND_ANCHORED[0], atol=BAND_ANCHORED[1])
 
 
+def _ln_exact(x, g, b, eps):
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    xc = xd - mu
+    return xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps) \
+        * g.double() + b.double()
+
+
+def _ln_bwd_exact(x, g, mean, rstd, dy):
+    """``_ln_bwd``'s formula in float64, at the given statistics."""
+    C = x.shape[-1]
+    xd, dyd = x.double().reshape(-1, C), dy.double().reshape(-1, C)
+    xhat = (xd - mean.double()) * rstd.double()
+    gdy = dyd * g.double()
+    dx = rstd.double() * (gdy - gdy.mean(-1, keepdim=True)
+                          - xhat * (gdy * xhat).mean(-1, keepdim=True))
+    return dx, (dyd * xhat).sum(0), dyd.sum(0)
+
+
+@pytest.mark.parametrize("R,C", [(4096, 1280), (8192, 3072), (1001, 1280),
+                                 (37, 200), (5, 203), (64, 6000)])
+@pytest.mark.parametrize("xd,gd", [(BF16, BF16), (BF16, torch.float32),
+                                   (torch.float32, BF16)])
+def test_b5_b9_layernorm_take_bfloat16(cuda, R, C, xd, gd):
+    """B5 and B9 at HuBERT-XLarge's rows, a ragged row count, the scalar
+    paths (a width no multiple of 8) and rows past the backward's
+    register path (6,000 columns: the forward's vector path, the
+    backward's scalar one): y and dx in x's type within the band, the
+    statistics, dgamma and dbeta float32 against the plain version's."""
+    x = _randn(cuda, R, C, dtype=xd)
+    g = (1.0 + 0.1 * _randn(cuda, C, dtype=torch.float32)).to(gd)
+    b = (0.1 * _randn(cuda, C, dtype=torch.float32)).to(gd)
+    before = (LN.layernorm_cuda.launches, LN.BF16.launches)
+    y, mean, rstd = LN.layernorm_cuda(x, g, b, 1e-5)
+    assert (LN.layernorm_cuda.launches, LN.BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    yp, mp, rp = LN.layernorm_plain(x, g, b, 1e-5)
+    assert (y.dtype, mean.dtype, rstd.dtype) == (xd, torch.float32,
+                                                 torch.float32)
+    hold(y, yp, _ln_exact(x, g, b, 1e-5), BAND)
+    torch.testing.assert_close(mean, mp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rp, rtol=1e-5, atol=1e-6)
+
+    dy = _randn(cuda, R, C, dtype=xd)
+    before = (LN.layernorm_bwd_cuda.launches, LN.BWD_BF16.launches)
+    dx, dg, db = LN.layernorm_bwd_cuda(x, g, mean, rstd, dy)
+    n = LN.BWD_LAUNCHES_PER_CALL
+    assert (LN.layernorm_bwd_cuda.launches, LN.BWD_BF16.launches) == (
+        before[0] + n, before[1] + n)
+    dxp, dgp, dbp = LN.layernorm_bwd_plain(x, g, mean, rstd, dy)
+    assert (dx.dtype, dg.dtype, db.dtype) == (xd, torch.float32,
+                                              torch.float32)
+    ex, eg, eb = _ln_bwd_exact(x, g, mean, rstd, dy)
+    hold(dx, dxp, ex, BAND)
+    # float32 sums over R rows in another order
+    for got, want in ((dg, dgp), (db, dbp)):
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=1e-5 * float(want.abs().max()) + 1e-5)
+    # the same bits every run: fixed-order sums, no atomics
+    dx2, dg2, db2 = LN.layernorm_bwd_cuda(x, g, mean, rstd, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2) \
+        and torch.equal(db, db2)
+
+
+def test_b5_b9_autograd_in_bfloat16(cuda):
+    """The operator under autograd on the card: y and dx in x's type,
+    dgamma and dbeta in gamma's (the reference's ``custom_vjp``)."""
+    x = _randn(cuda, 512, 1280).requires_grad_()
+    g = (1.0 + 0.1 * _randn(cuda, 1280)).requires_grad_()
+    b = (0.1 * _randn(cuda, 1280)).requires_grad_()
+    y, _, _ = LN.layernorm(x, g, b, 1e-5)
+    y.float().square().sum().backward()
+    assert (y.dtype, x.grad.dtype, g.grad.dtype, b.grad.dtype) == (BF16,) * 4
+
+
+@pytest.mark.parametrize("R,C,layout", [
+    (2048, 32, "bf16x8 lanes 4"), (4096, 32, "bf16x8 lanes 4"),
+    (1001, 40, "bf16x8 lanes 8"), (1001, 256, "bf16x8 lanes 32"),
+    (1001, 36, "warp"), (256, 4096, "block"), (7, 300, "block")])
+def test_b7_b10_softmax_take_bfloat16(cuda, R, C, layout):
+    """B7 and B10 in each layout: 16-byte lanes of 8 values (the router's
+    width, a ragged count of units, 256 columns in 32 lanes), a warp a row
+    (a width no multiple of 8), a block a row."""
+    x = _randn(cuda, R, C, scale=3.0)
+    assert SM.layout(x) == layout
+    before = (SM.softmax_cuda.launches, SM.BF16.launches)
+    y = SM.softmax_cuda(x)
+    assert (SM.softmax_cuda.launches, SM.BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == BF16
+    hold(y, SM.softmax_plain(x), torch.softmax(x.double(), -1), BAND)
+    dy = _randn(cuda, R, C)
+    assert SM.layout(y, dy) == layout
+    before = (SM.softmax_bwd_cuda.launches, SM.BWD_BF16.launches)
+    dx = SM.softmax_bwd_cuda(y, dy)
+    assert (SM.softmax_bwd_cuda.launches, SM.BWD_BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    yd, dyd = y.double(), dy.double()
+    exact = yd * (dyd - (dyd * yd).sum(-1, keepdim=True))
+    hold(dx, SM.softmax_bwd_plain(y, dy), exact, BAND)
+
+
+def _ssd_exact(x, dt, A, B, C):
+    """The scan's y in float64 as its recurrence: h_t = exp(dt_t A) h_{t-1}
+    + dt_t x_t B_t^T, y_t = h_t C_t."""
+    b, L, H, P = x.shape
+    xd, dtd, Bd, Cd = (t.double() for t in (x, dt, B, C))
+    h = torch.zeros(b, H, P, B.shape[-1], dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        h = h * torch.exp(dtd[:, t] * A.double())[..., None, None] \
+            + (dtd[:, t, :, None] * xd[:, t])[..., None] \
+            * Bd[:, t, None, None, :]
+        ys.append((h * Cd[:, t, None, None, :]).sum(-1))
+    return torch.stack(ys, 1)
+
+
+def _ssd_inputs(gen, b, L, H, P, N, xd, bcd, offset=0):
+    """x, dt, A, B, C with x, B and C column slices of one activation
+    [b, L, offset + H P + 2 N] (offset columns first), as the model's."""
+    xbc = _randn(gen, b, L, offset + H * P + 2 * N, dtype=torch.float32)
+    xbc_b = xbc.to(BF16)
+    x = (xbc_b if xd == BF16 else xbc)[..., offset:offset + H * P]
+    src = xbc_b if bcd == BF16 else xbc
+    Bm = src[..., offset + H * P:offset + H * P + N]
+    Cm = src[..., offset + H * P + N:]
+    dt = torch.nn.functional.softplus(
+        _randn(gen, b, L, H, dtype=torch.float32) - 2.0)
+    A = -torch.exp(0.5 * _randn(gen, H, dtype=torch.float32))
+    return x.reshape(b, L, H, P), dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("b,L,H,P,N,chunk,offset", [
+    (2, 256, 4, 64, 128, 64, 0), (1, 512, 8, 64, 64, 256, 0),
+    (2, 96, 3, 16, 16, 32, 0), (1, 128, 2, 40, 24, 64, 1),
+    (1, 64, 2, 64, 1024, 64, 0)])
+@pytest.mark.parametrize("xd,bcd", [(BF16, BF16), (BF16, torch.float32),
+                                    (torch.float32, BF16)])
+def test_b11_ssd_scan_takes_bfloat16(cuda, b, L, H, P, N, chunk, offset,
+                                     xd, bcd):
+    """B11 on strided slices of one activation: Mamba2's head and state,
+    Zamba2's state at a chunk of 256 (four of 64 a launch), small tiles,
+    a slice one column off 16-byte alignment with widths no multiple of 8
+    (the tiles' value-by-value path), and N 1,024 (N slices whose y are
+    summed in float32 and rounded once): y in x's type, within the band
+    where it is bfloat16, and the state float32, against the plain
+    version's."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, b, L, H, P, N, xd, bcd, offset)
+    smem = SSD._smem(xd == BF16, bcd == BF16)
+    p_sl, n_sl = SSD.ssd_slices(SSD.kernel_chunk(chunk), P, N, smem)
+    before = (SSD.ssd_scan_cuda.launches, SSD.BF16.launches)
+    y, state = SSD.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk)
+    n = SSD.LAUNCHES_PER_CALL * len(p_sl) * len(n_sl)
+    assert (SSD.ssd_scan_cuda.launches, SSD.BF16.launches) == (
+        before[0] + n, before[1] + n)
+    if N == 1024:
+        assert len(n_sl) > 1
+    yp, sp = SSD.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    assert (y.dtype, state.dtype) == (xd, torch.float32)
+    # float32 outputs by the float32 scan's rule (PERF.md section 2): within
+    # 1e-4 max(1, max|plain|) of the plain version
+    for got, want in ((y, yp), (state, sp)) if xd != BF16 else ((state, sp),):
+        torch.testing.assert_close(
+            got, want, rtol=0, atol=1e-4 * max(1.0, float(want.abs().max())))
+    if xd == BF16:
+        hold(y, yp, _ssd_exact(x, dt, A, Bm, Cm), BAND)
+
+
+def test_wrappers_raise_on_float16(cuda):
+    """Each wrapper this slice widened takes float32 and bfloat16 and
+    raises on float16 (and on float64), never running a plain version."""
+    x = _randn(cuda, 8, 256, dtype=torch.float16)
+    g = torch.ones(256, device="cuda", dtype=torch.float16)
+    m = torch.zeros(8, 1, device="cuda")
+    for bad in (torch.float16, torch.float64):
+        xb, gb = x.to(bad), g.to(bad)
+        with pytest.raises(TypeError):
+            LN.layernorm_cuda(xb, gb, gb, 1e-6)
+        with pytest.raises(TypeError):
+            LN.layernorm_bwd_cuda(xb, gb, m, m, xb)
+        with pytest.raises(TypeError):
+            SM.softmax_cuda(xb)
+        with pytest.raises(TypeError):
+            SM.softmax_bwd_cuda(xb, xb)
+        xs, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 2, 16, 16, BF16, BF16)
+        with pytest.raises(TypeError):
+            SSD.ssd_scan_cuda(xs.to(bad), dt, A, Bm, Cm, 64)
+        with pytest.raises(TypeError):
+            SSD.ssd_scan_cuda(xs, dt, A, Bm.to(bad), Cm.to(bad), 64)
+    # a mix the kernels do not take
+    xb = x.to(BF16)
+    with pytest.raises(TypeError):
+        SM.softmax_bwd_cuda(xb, xb.float())
+    with pytest.raises(TypeError):
+        LN.layernorm_bwd_cuda(xb, g.to(BF16), m, m, xb.float())
+    with pytest.raises(TypeError):
+        SSD.ssd_scan_cuda(xs, dt, A, Bm, Cm.float(), 64)
+
+
 def test_float32_only_kernels_refuse_bfloat16(cuda):
-    """B5/B9, B7/B10, B11 and the wide flash kernel raise on bfloat16:
-    none takes a plain version on the card."""
-    x = _randn(cuda, 8, 256)
-    g = torch.ones(256, device="cuda", dtype=BF16)
-    with pytest.raises(TypeError):
-        LN.layernorm_cuda(x, g, g, 1e-6)
-    with pytest.raises(TypeError):
-        SM.softmax_cuda(x)
+    """The wide flash kernel (head dims above 256) raises on bfloat16:
+    it takes no plain version on the card.  The other kernels take
+    bfloat16 (the tests above)."""
     q = _randn(cuda, 1, 2, 64, 320)
     with pytest.raises(TypeError):
         FA.flash_attention_cuda(q, q, q, True)
-    xs = _randn(cuda, 1, 64, 2, 16)
-    dt = torch.full((1, 64, 2), 0.1, device="cuda")
-    A = -torch.ones(2, device="cuda")
-    Bc = _randn(cuda, 1, 64, 16)
-    with pytest.raises(TypeError):
-        SSD.ssd_scan_cuda(xs, dt, A, Bc, Bc, 64)
 
 
 def test_the_plain_versions_compute_in_float32(cuda):

@@ -262,11 +262,14 @@ Phases, each of which makes the script exit non-zero when it fails:
 11b. bfloat16 (``phase_bf16_kernels``, ``phase_bf16_paths``: each model
    with ``param_dtype=torch.bfloat16``, full width and depth, freed before
    the next; ``--phase bf16`` alone, 5e in its help): the kernels'
-   bfloat16 instances -- B6 at [2048, 3072] and [4, 3072]; B4 at Llama's
-   prefill (B4 Hq24 Hkv8 S512 D128 causal), D 64 and D 256, and with a
-   bias score functor at Llama's heads; B8 at decode_32k with a bfloat16
-   q against float32 and against bfloat16 caches; B3 at Llama's gate x
-   SiLU x up, M 2048 and the decode tile's M 4; B11 at Mamba2's prefill
+   bfloat16 instances -- B6 at [2048, 3072] and [4, 3072]; B4 (native
+   bfloat16 products) at Llama's prefill (B4 Hq24 Hkv8 S512 D128
+   causal), D 64 and D 256, and with a bias score functor at Llama's
+   heads; the wide kernel at D 320 (B4 H16 S512 causal); B8 at
+   decode_32k with a bfloat16 q against float32 and against bfloat16
+   caches; B3 (its native instance: TMA and bfloat16 ``wgmma``) at
+   Llama's gate x SiLU x up, M 2048 and the decode tile's M 4, each
+   line with the row's earlier time (the TF32 instances'); B11 at Mamba2's prefill
    and train shapes and Zamba2's prefill (x, B and C strided slices of
    one bfloat16 activation); B5 and B9 at [4096, 1280] and [8192, 3072];
    B7 and B10 at [2048, 32] and [256, 4096] -- each within the
@@ -309,9 +312,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``make_decode_step`` is one captured graph: timed as replays, against
    the same steps eager (``captured_vs_eager``).
 13. Whether each B3, B4 and B11 instance built in the run holds
-   tensor-core instructions (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA``
-   ``.TF32`` in B4, in the wide flash kernel and in B11's chunk and
-   output passes), printed once;
+   tensor-core instructions of its product type (``cuobjdump -sass``:
+   ``HGMMA`` in B3, ``HMMA`` in B4, the wide flash kernel and B11's chunk
+   and output passes; ``BF16`` and no ``TF32`` in the instances that take
+   bfloat16 on both sides, ``TF32`` in every other), printed once;
    then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model), a
    ``{"tuned": {...}}`` line (phase 5c's), a ``{"differentiable":
    {...}}`` line (phase 3e's), a ``{"dispatch": {...}}`` line (phase
@@ -779,7 +783,8 @@ def kernel_kind(name: str) -> str:
     if any(k in low for k in ("rms_vec_kernel", "rms_scalar_kernel",
                               "rms_ring_kernel")):
         return "cuda rmsnorm"
-    if "flash_fwd_kernel" in low:
+    if any(k in low for k in ("flash_fwd_kernel", "flash_fwd_bf16_kernel",
+                              "flash_wide_kernel", "flash_wide_bf16_kernel")):
         return "cuda flash"
     if "flash_decode_" in low:
         return "cuda decode"
@@ -796,7 +801,7 @@ def kernel_kind(name: str) -> str:
         return "cuda ssd"
     if "stream_kernel" in low:
         return "cuda streaming"
-    if "mm_fused_kernel" in low:
+    if "mm_fused_kernel" in low or "mm_bf16_kernel" in low:
         return "cuda matmul_fused"
     if low == "kernel":
         return "generated"
@@ -2551,20 +2556,24 @@ def decode_group_sweep(gen) -> None:
 
 def sass_check() -> None:
     """Whether each instance of B3, B4 and B11 built in this run holds
-    tensor-core instructions, read with ``cuobjdump -sass`` on its
-    library: ``HGMMA`` (``wgmma``) in every B3 kernel, ``HMMA`` with
-    ``.TF32`` (``mma.sync``) in every B4 kernel, in every instance of the
-    wide flash kernel (above head dim 256) and in B11's chunk and output
-    passes (its state pass multiplies nothing).  Printed once; a kernel
-    without them fails the run."""
+    tensor-core instructions of its product type, read with ``cuobjdump
+    -sass`` on its library: a kernel that takes bfloat16 on both sides
+    (``mm_bf16_kernel``, ``flash_fwd_bf16_kernel``,
+    ``flash_wide_bf16_kernel``) ``HGMMA`` / ``HMMA`` with ``BF16`` and none
+    with ``TF32``; every other B3 kernel ``HGMMA`` with ``TF32``, every
+    other B4 kernel, wide instance and B11's chunk and output passes (its
+    state pass multiplies nothing) ``HMMA`` with ``TF32``.  Printed once;
+    a kernel without its type fails the run."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     # (library glob, B name, kernel name fragments with products)
-    kinds = (("mm_*.so", "B3", ("mm_fused_kernel",)),
-             ("attn_*.so", "B4", ("flash_fwd_kernel", "flash_wide_kernel")),
-             ("flash_attention-*.so", "B4", ("flash_fwd_kernel",)),
-             ("flash_attention_wide-*.so", "B4 wide", ("flash_wide_kernel",)),
+    b4 = ("flash_fwd_kernel", "flash_fwd_bf16_kernel", "flash_wide_kernel",
+          "flash_wide_bf16_kernel")
+    kinds = (("mm_*.so", "B3", ("mm_fused_kernel", "mm_bf16_kernel")),
+             ("attn_*.so", "B4", b4),
+             ("flash_attention-*.so", "B4", b4[:2]),
+             ("flash_attention_wide-*.so", "B4 wide", b4[2:]),
              ("ssd_scan-*.so", "B11", ("ssd_chunk_kernel",
                                        "ssd_output_kernel")))
     bad = []
@@ -2572,28 +2581,38 @@ def sass_check() -> None:
         for lib in sorted(_build.BUILD_DIR.glob(pattern)):
             bad += sass_of(cuobjdump, lib, which, kernels)
     if bad:
-        fail(f"no tensor-core instruction in {bad}")
+        fail(f"tensor-core instructions not of the kernel's type in {bad}")
+
+
+#: The kernels whose products take bfloat16 on both sides
+BF16_KERNELS = ("mm_bf16_kernel", "flash_fwd_bf16_kernel",
+                "flash_wide_bf16_kernel")
 
 
 def sass_of(cuobjdump, lib, which: str, kernels) -> list:
-    """Print the tensor-core instructions of each kernel of ``lib`` whose
-    name holds one of ``kernels``; return those without any."""
+    """Print the tensor-core instructions (``HGMMA`` in B3, ``HMMA``
+    elsewhere) of each kernel of ``lib`` whose name holds one of
+    ``kernels``, counted by type; return those of the wrong type: a
+    bfloat16 kernel (one of ``BF16_KERNELS`` by its own name: a generated
+    chain's mangled name also holds hex hashes, which may spell ``bf16``)
+    needs ``BF16`` ones and no ``TF32`` one, any other ``TF32`` ones."""
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    b3 = which == "B3"
+    op = "HGMMA" if which == "B3" else "HMMA"
     bad = []
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
         if not any(k in name for k in kernels):
             continue
-        lines = fn.splitlines()
-        n = sum(("HGMMA" in ln) if b3 else ("HMMA" in ln and "TF32" in ln)
-                for ln in lines)
+        mma = [ln for ln in fn.splitlines() if op in ln]
+        n_bf16 = sum("BF16" in ln for ln in mma)
+        n_tf32 = sum("TF32" in ln for ln in mma)
+        native = any(k in name for k in BF16_KERNELS)
         inst = f"{which} {lib.name.split('-')[0]}"
-        print(f"sass {inst} {name[:90]}: {n} "
-              f"{'HGMMA' if b3 else 'HMMA .TF32'}")
-        if n == 0:
+        print(f"sass {inst} {name[:90]}: {n_bf16} {op} BF16, {n_tf32} "
+              f"{op} TF32 ({'bfloat16' if native else 'float32'} kernel)")
+        if (n_bf16 == 0 or n_tf32 > 0) if native else n_tf32 == 0:
             bad.append(f"{inst} {name[:60]}")
     return bad
 
@@ -2699,6 +2718,8 @@ def bf16_counters() -> dict:
     from repro_torch.kernels import ssd_scan as SS
 
     return {"rmsnorm_bf16": RN.BF16, "flash_attention_bf16": FA.BF16,
+            "flash_attention_wide_bf16": FA.WIDE_BF16,
+            "matmul_fused_native_bf16": MM.NATIVE_BF16,
             "flash_score_mod_bf16": FA.SCORE_MOD_BF16,
             "flash_decode_bf16": FA.DECODE_BF16,
             "matmul_fused_bf16": MM.BF16, "layernorm_bf16": LN.BF16,
@@ -4328,13 +4349,14 @@ def bf16_bound_ms(nbytes: float, ops: float, mma_ops: float,
 def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
                       nbytes: float, ops: float = 0, mma_ops: float = 0,
                       band=BF16_BAND, reps: int = 20, library=None,
-                      mma_rate: float = None) -> dict:
+                      mma_rate: float = None, earlier: str = "") -> dict:
     """Hold a kernel's bfloat16 instance to its plain version on the same
     bfloat16 inputs: (a) every element within ``band`` of the plain
     version; (b) its largest distance from ``exact`` (the function in
     float64 of those inputs) at most ``BF16_F64_FACTOR`` times the plain
     version's.  Times as ``check_cuda_kernel``'s; the bound at bfloat16's
-    rate (``bf16_bound_ms``)."""
+    rate (``bf16_bound_ms``); ``earlier`` (the row's time before its
+    redesign, with its run) printed beside."""
     import torch
 
     def outs(r):
@@ -4363,8 +4385,9 @@ def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
           f"plain version (worst err/band {worst:.3f}, band rtol {rtol:g} "
           f"atol {atol:g}); against float64: kernel {kerr:.3e}, plain "
           f"{perr:.3e} (ratio {kerr / max(perr, 1e-30):.3f}, limit "
-          f"{BF16_F64_FACTOR:g}) ms={ms:.4f} (call with the host's cost: "
-          f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
+          f"{BF16_F64_FACTOR:g}) ms={ms:.4f} "
+          f"{f'(earlier {earlier}) ' if earlier else ''}(call with the "
+          f"host's cost: {call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
           f"bound_ms={bound:.4f} ({bound_by}: {nbytes:.0f} B, {ops:.0f} "
           f"element-wise ops, {mma_ops:.0f} product ops at "
@@ -4382,11 +4405,13 @@ def check_bf16_kernel(label: str, launch, plain, exact, inputs, *,
             "library_ms": lib_ms, "f64_err": kerr, "plain_f64_err": perr}
 
 
-def check_bf16_anchored(fn, args, gen, *, label: str, library) -> dict:
+def check_bf16_anchored(fn, args, gen, *, label: str, library,
+                        earlier: str = "", mma_rate: float = None) -> dict:
     """``check_bf16_kernel`` for the anchored group of
     ``stitched_jit(fn)`` at ``args``: its function op by op in float64
     (``float64_outputs``) as the exact one, its bytes and operations
-    from the graph (``anchored_work``), the anchored band."""
+    from the graph (``anchored_work``), the anchored band; the products
+    at ``mma_rate`` (bfloat16's by default)."""
     comp, ems = anchored_of(fn, args)
     em = ems[0]
     vals = ext_values(comp, em, args, gen)
@@ -4395,7 +4420,7 @@ def check_bf16_anchored(fn, args, gen, *, label: str, library) -> dict:
         label, em.fn.launch, em.fn.plain,
         lambda *v: float64_outputs(em, comp.graph, list(v)), vals,
         nbytes=nbytes, ops=ops, mma_ops=mma, band=BF16_BAND_ANCHORED,
-        library=library)
+        library=library, earlier=earlier, mma_rate=mma_rate)
     return dict(res, _bytes=nbytes,
                 _score=getattr(em.fn, "score_mod", None) is not None,
                 _tile=getattr(em.fn, "tile", None))
@@ -4433,10 +4458,13 @@ def phase_bf16_kernels(gen) -> dict:
             dict(res, _bytes=nbytes, _main=R > BATCH))
 
     llama = (BATCH, 24, 8, 128)
-    for label, (B, Hq, Hkv, D) in (("llama prefill causal", llama),
-                                    ("granite heads D64", (BATCH, 16, 8, 64)),
-                                    ("gemma-7b heads D256",
-                                     (BATCH, 16, 16, 256))):
+    for label, (B, Hq, Hkv, D), earlier in (
+            ("llama prefill causal", llama, "0.1450, TF32, 28G"),
+            ("granite heads D64", (BATCH, 16, 8, 64), "0.0625, TF32, 28G"),
+            ("gemma-7b heads D256", (BATCH, 16, 16, 256),
+             "0.2250, TF32, 28G"),
+            ("wide D320", (BATCH, 16, 16, 320),
+             "float32 0.4260, 23C; bfloat16 raised before")):
         S = PROMPT
         q, k, v = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
         pairs = S * (S + 1) // 2
@@ -4448,9 +4476,13 @@ def phase_bf16_kernels(gen) -> dict:
             lambda a, b, c: ref.attention(a.double(), b.double(),
                                           c.double(), causal=True),
             (q, k, v), nbytes=nbytes, mma_ops=4 * D * B * Hq * pairs,
-            band=BF16_BAND_ANCHORED,
+            band=BF16_BAND_ANCHORED, earlier=earlier,
             library=lambda a, b, c: F.scaled_dot_product_attention(
                 a, b, c, is_causal=True, enable_gqa=True))
+        if D > FA.MAX_HEAD_DIM:
+            checks.setdefault("flash_attention_wide_bf16", []).append(
+                dict(res, _bytes=nbytes, _main=True))
+            continue
         checks.setdefault("flash_attention_bf16", []).append(
             dict(res, _bytes=nbytes, _main=label.startswith("llama")))
 
@@ -4460,7 +4492,7 @@ def phase_bf16_kernels(gen) -> dict:
     args = (rnd(B, H, S, D), rnd(B, H, S, D), rnd(B, H, S, D),
             rnd(1, 1, S, S))
     res = check_bf16_anchored(
-        bench_attn, args, gen,
+        bench_attn, args, gen, earlier="0.3524, TF32, 28G",
         label=f"flash_attention score_mod (scale 0.125 + bias [1, 1, {S}, "
               f"{S}]) B{B} H{H} S{S} D{D}",
         library=lambda *v, _a=args: F.scaled_dot_product_attention(
@@ -4499,16 +4531,33 @@ def phase_bf16_kernels(gen) -> dict:
     # B3: Llama's gate projection with its SiLU x up epilogue (as the
     # float32 rows), at the prefill's M and the decode tile's
     K, N = ANCHOR_K, ANCHOR_N
-    for M in (BATCH * PROMPT, BATCH):
+    for M, earlier in ((BATCH * PROMPT, "1.0830, TF32, 28G"),
+                       (BATCH, "0.0658, TF32, 28G")):
         args = (rnd(M, K), rnd(K, N, scale=K ** -0.5),
                 rnd(K, N, scale=K ** -0.5))
+        before = launch_counts()
         res = check_bf16_anchored(
-            t_gate, args, gen,
+            t_gate, args, gen, earlier=earlier,
             label=f"matmul_fused llama gate+SiLU x up M{M} K{K} N{N}",
             library=lambda *v, _a=args: torch.matmul(_a[0], _a[1]))
-        print(f"  (tile {res['_tile']}: {MM.TILES[res['_tile']]})")
-        checks.setdefault("matmul_fused_bf16", []).append(
+        launched("matmul_fused_native_bf16", before)
+        print(f"  (tile {res['_tile']}: {MM.NATIVE_TILES[res['_tile']]})")
+        checks.setdefault("matmul_fused_native_bf16", []).append(
             dict(res, _main=M > BATCH))
+    # a mixed-type instance (bfloat16 lhs, float32 rhs): the TF32 split,
+    # the bfloat16 side's small half dropped (two products a k-step,
+    # bounded at TF32's rate over two), at the decode tile
+    args = (rnd(BATCH, K), rnd(K, N, scale=K ** -0.5, dtype=torch.float32),
+            rnd(K, N, scale=K ** -0.5, dtype=torch.float32))
+    before = launch_counts()
+    res = check_bf16_anchored(
+        t_gate, args, gen, mma_rate=SPLIT_OPS_PER_S * 3 / 2,
+        label=f"matmul_fused llama gate+SiLU x up M{BATCH} K{K} N{N}, "
+              "lhs bfloat16, rhs float32",
+        library=lambda *v, _a=args: torch.matmul(_a[0].float(), _a[1]))
+    launched("matmul_fused_bf16", before)
+    checks.setdefault("matmul_fused_bf16", []).append(dict(res, _main=True))
+    del args
     torch.cuda.empty_cache()
     bf16_memory_kernels(gen, checks)
     return checks
@@ -4721,9 +4770,11 @@ SHORT = {"llama3.2-3b": "llama", "mamba2-370m": "mamba2",
 #: The bfloat16 instances each family's serving path must launch (the
 #: router's softmax stays float32 behind its cast: B7 in float32)
 BF16_SERVE_KERNELS = {
-    "dense": ("rmsnorm_bf16", "flash_attention_bf16", "matmul_fused_bf16"),
+    "dense": ("rmsnorm_bf16", "flash_attention_bf16",
+              "matmul_fused_native_bf16"),
     "ssm": ("rmsnorm_bf16", "ssd_scan_bf16"),
-    "hybrid": ("rmsnorm_bf16", "ssd_scan_bf16", "flash_attention_bf16"),
+    "hybrid": ("rmsnorm_bf16", "ssd_scan_bf16", "flash_attention_bf16",
+               "matmul_fused_native_bf16"),
     "moe": ("rmsnorm_bf16", "flash_attention_bf16", "softmax")}
 
 
@@ -5188,6 +5239,7 @@ def main(argv=None) -> int:
         bf16_checks = phase_bf16_kernels(gen)
         phase_bf16_paths(gen)
         phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
+        sass_check()
         print(json.dumps({"bf16": BF16_RESULTS,
                           "bf16_kernels": {k: summarize(v) for k, v in
                                            bf16_checks.items()}},
@@ -5291,6 +5343,12 @@ def main(argv=None) -> int:
             ("matmul_fused_bf16", "cuda",
              "src/repro_torch/csrc/matmul_fused.cuh",
              "src/repro/kernels/matmul.py:53"),
+            ("matmul_fused_native_bf16", "cuda",
+             "src/repro_torch/csrc/matmul_bf16.cuh",
+             "src/repro/kernels/matmul.py:53"),
+            ("flash_attention_wide_bf16", "cuda",
+             "src/repro_torch/csrc/flash_attention_wide.cuh",
+             "src/repro/kernels/flash_attention.py:87"),
             ("layernorm_bf16", "cuda", "src/repro_torch/csrc/layernorm.cu",
              "src/repro/kernels/layernorm.py:34"),
             ("layernorm_bwd_bf16", "cuda", "src/repro_torch/csrc/layernorm.cu",

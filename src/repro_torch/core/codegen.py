@@ -1285,13 +1285,22 @@ def _eval_chain(graph: Graph, order: Sequence[int], roles: dict, rows: int,
 def _anchored_estimate(graph: Graph, union: frozenset[int],
                        hw: Hardware, block_rows: int,
                        n_steps: int) -> KernelEstimate:
+    """An anchored kernel's latency: its bytes over the HBM rate, each
+    anchor's products over ``hw.bf16_flops`` where both its operands are
+    bfloat16 (and the preset names that rate), else ``hw.peak_flops``."""
     hbm = graph.pattern_hbm_bytes(union)
-    flops = sum(2 * graph.node(a).spec.size
-                * graph.node(graph.node(a).inputs[0]).spec.shape[-1]
-                for a in union if graph.node(a).kind is OpKind.ANCHOR)
+    compute_s = 0.0
+    for a in union:
+        node = graph.node(a)
+        if node.kind is not OpKind.ANCHOR:
+            continue
+        ins = [graph.node(i).spec for i in node.inputs[:2]]
+        flops = 2 * node.spec.size * ins[0].shape[-1]
+        native = hw.bf16_flops and all(s.dtype == "bfloat16" for s in ins)
+        compute_s += flops / (hw.bf16_flops if native else hw.peak_flops)
     return KernelEstimate(
         schedule="anchored", block_rows=block_rows,
-        latency_s=hbm / hw.hbm_bw + flops / hw.peak_flops
+        latency_s=hbm / hw.hbm_bw + compute_s
         + hw.launch_s + hw.hbm_latency_s,
         hbm_bytes=hbm, vpu_ops=0.0, scratch_bytes=0,
         n_steps=n_steps, feasible=True)
@@ -1400,7 +1409,11 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
     epi_slots = sum(graph.node(n).kind is OpKind.REDUCE for n in epi)
     pro_slots = sum(graph.node(n).kind is OpKind.REDUCE for n in pro)
     row_reduce = epi_slots > 0
-    tile = mm.pick_tile(M, N, row_reduce)
+    # bfloat16 lhs and rhs: the native instances; any other pair the TF32
+    # split's
+    native = (graph.node(lhs_id).spec.dtype
+              == graph.node(rhs_id).spec.dtype == "bfloat16")
+    tile = mm.pick_tile(M, N, row_reduce, native)
     tiles = ([mm.TILES.index(mm.TILE_ROW)] if row_reduce else
              [mm.TILES.index(t) for t in (mm.TILE_LARGE, mm.TILE_SMALL,
                                           mm.TILE_DECODE)])
@@ -1410,12 +1423,13 @@ def _emit_anchored_matmul(graph: Graph, parts, m: dict, ext_ids, out_ids,
             cc.prologue_struct(graph, pro_order, pro_roles_d, pro_ops,
                                lhs_id, graph.node(rhs_id).spec.dtype),
             cc.epilogue_struct(graph, epi_order, epi_roles_d, epi_ops, a,
-                               out_ids), tiles)
+                               out_ids, split=native), tiles, native)
 
     entry = cc.GeneratedEntry("mm", source, "repro_mm_fused",
                               cc.MATMUL_ARGTYPES,
                               eager=hw.platform == "gpu")
     entry.epi_slots, entry.pro_slots = epi_slots, pro_slots
+    entry.native = native
 
     def operands(device, ext_vals):
         env = dict(zip(ext_ids, ext_vals))

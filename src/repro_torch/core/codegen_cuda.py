@@ -201,11 +201,16 @@ class _Writer:
                 f"{e};")
 
 
-def _load(k: int, dtype: str, index: str) -> str:
-    t = ctype(dtype)
+def _load_expr(k: int, dtype: str, index: str) -> tuple[str, str]:
+    """(computed type, expression) of operand ``k`` read at ``index``."""
     v = f"static_cast<const {_STORAGE[dtype]}*>(in[{k}])[{index}]"
     if dtype in _HALF:
         v = f"repro_chain::from_{_HALF[dtype]}({v})"
+    return ctype(dtype), v
+
+
+def _load(k: int, dtype: str, index: str) -> str:
+    t, v = _load_expr(k, dtype, index)
     return f"const {t} x{k} = {v};"
 
 
@@ -373,16 +378,22 @@ def _store_cond(role: Role, row: str, col: str) -> str | None:
 
 def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
                     operands: Sequence[int], anchor: int,
-                    out_ids: Sequence[int]) -> str:
+                    out_ids: Sequence[int], split: bool = False) -> str:
     """``Epi``: the epilogue on one accumulator element, in phases (the
     anchor's value is ``acc``, rounded to the anchor's type first where
     it is bfloat16, as the reference's ``anchor_dtype`` cast; ``out_ids``
     are stored in the last phase by role: ``full`` everywhere, ``row`` at
-    n == 0, ``col`` at m == 0, ``scalar`` at (0, 0))."""
+    n == 0, ``col`` at m == 0, ``scalar`` at (0, 0)).  With ``split`` (the
+    native bfloat16 instances) it also has the element's operand reads
+    apart from its chain: ``Ops``, ``load(m, n, N)`` and ``elem_ops<P>(acc,
+    ops, m, n, N)``, so that a thread issues the reads of many elements
+    before the first store (a read after a store through another pointer
+    is not moved ahead of it, and would wait out its latency alone)."""
     members = _members(graph, order)
-    loads = [_load(k, graph.node(i).spec.dtype,
-                   _role_index(roles[i], "m", "n", "N"))
+    exprs = [_load_expr(k, graph.node(i).spec.dtype,
+                        _role_index(roles[i], "m", "n", "N"))
              for k, i in enumerate(operands)]
+    loads = [f"const {t} x{k} = {v};" for k, (t, v) in enumerate(exprs)]
 
     def store(w: _Writer) -> list[str]:
         lines = []
@@ -398,11 +409,36 @@ def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
             lines.append(st if cond is None else f"if ({cond}) {st}")
         return lines
 
+    acc = _rounded(graph.node(anchor).spec.dtype, "acc")
     branches, reduces, lvl, phases = _phased(
-        graph, members, operands, loads, store, anchor=anchor,
-        acc=_rounded(graph.node(anchor).spec.dtype, "acc"))
+        graph, members, operands, loads, store, anchor=anchor, acc=acc)
     n_in, n_out = len(operands), len(out_ids)
     slots = _slot_functions(graph, reduces, lvl, phases)
+    ops = []
+    if split:
+        held = [f"const {t} x{k} = o.x{k};" for k, (t, _) in enumerate(exprs)]
+        ops_branches = _phased(graph, members, operands, held, store,
+                               anchor=anchor, acc=acc)[0]
+        ops = [
+            "  struct Ops {",
+            *(f"    {t} x{k};" for k, (t, _) in enumerate(exprs)),
+            "    char pad;",
+            "  };",
+            "  __host__ __device__ Ops load(long long m, long long n,",
+            "                               long long N) const {",
+            "    (void)m; (void)n; (void)N;",
+            "    Ops o;",
+            *(f"    o.x{k} = {v};" for k, (_, v) in enumerate(exprs)),
+            "    return o;",
+            "  }",
+            "  template <int P>",
+            "  __host__ __device__ void elem_ops(float acc, const Ops& o,",
+            "                                    long long m, long long n,",
+            "                                    long long N) const {",
+            "    (void)o; const float* red = nullptr; float* part = nullptr;",
+            "    (void)red; (void)part;",
+            *ops_branches,
+            "  }"]
     return "\n".join([
         "struct Epi {",
         f"  static constexpr int kIn = {n_in};",
@@ -418,6 +454,7 @@ def epilogue_struct(graph: Graph, order: Sequence[int], roles: dict,
         "    (void)red; (void)part;",
         *branches,
         "  }",
+        *ops,
         "};"])
 
 
@@ -589,29 +626,41 @@ def struct_slots(struct: str) -> int:
                          struct).group(1))
 
 
-def matmul_source(pro: str, epi: str, tiles: Sequence[int]) -> str:
+def matmul_source(pro: str, epi: str, tiles: Sequence[int],
+                  native: bool = False) -> str:
     """The ``.cu`` of one anchored matmul: the template instantiated with
     ``pro`` and ``epi`` at the tiles ``tiles`` (indices into
-    ``kernels.matmul.TILES``), a C entry for the card, and the host
+    ``kernels.matmul.TILES``, or with ``native`` into ``NATIVE_TILES``:
+    the bfloat16 template ``csrc/matmul_bf16.cuh``), a C entry for the
+    card, and the host
     harness for the CPU tests.  Each instance's shared memory is asserted
     to be ``Tile.smem`` at the chain's own counts of row reductions."""
-    from ..kernels.matmul import TILES
+    from ..kernels.matmul import tile_set
 
     epi_slots, pro_slots = struct_slots(epi), struct_slots(pro)
 
     cases, asserts = [], []
     for t in tiles:
-        c = TILES[t]
-        cases.append(f"    case {t}: return static_cast<int>(repro_mm::launch<"
-                     f"{c.template_args}>(pro, rhs, epi, M, K, N, s));")
-        smem = (f"{c.bm}, {c.bn}, {c.bk}, {c.stages}, {c.raw_stages}, "
-                f"{c.wn}, {c.am}, Epi::kSlots, Pro::kSlots")
-        asserts.append(f"static_assert(repro_mm::smem_bytes({smem}) == "
+        c = tile_set(native)[t]
+        if native:
+            call = f"launch_bf16<{c.template_args}>"
+            fn, name = "native_smem_bytes", "NATIVE_TILES"
+            smem = (f"{c.bm}, {c.bn}, {c.stages}, {c.wn}, {c.am}, "
+                    "Epi::kSlots, Pro::kSlots")
+        else:
+            call = f"launch<{c.template_args}>"
+            fn, name = "smem_bytes", "TILES"
+            smem = (f"{c.bm}, {c.bn}, {c.bk}, {c.stages}, {c.raw_stages}, "
+                    f"{c.wn}, {c.am}, Epi::kSlots, Pro::kSlots")
+        cases.append(f"    case {t}: return static_cast<int>(repro_mm::{call}"
+                     "(pro, rhs, epi, M, K, N, s));")
+        asserts.append(f"static_assert(repro_mm::{fn}({smem}) == "
                        f"{c.smem(epi_slots, pro_slots)}, "
-                       f"\"kernels/matmul.py::TILES[{t}]\");")
+                       f"\"kernels/matmul.py::{name}[{t}]\");")
+    header = "matmul_bf16.cuh" if native else "matmul_fused.cuh"
 
     return "\n".join([
-        _HEAD, '#include "matmul_fused.cuh"', "", "namespace {", pro, "",
+        _HEAD, f'#include "{header}"', "", "namespace {", pro, "",
         epi, "}  // namespace", "",
         "// the shared memory the H100 gate prices is the instance's own",
         *asserts, "", "#ifdef __CUDACC__",
@@ -657,24 +706,23 @@ def attention_source(score: str, wide: bool = False,
                      dtype: str = "float32") -> str:
     """The ``.cu`` of one anchored attention: the flash template
     (``csrc/flash_attention.cuh``, or with ``wide`` the template above
-    head dim 256, ``csrc/flash_attention_wide.cuh``, float32 only)
-    instantiated with the ``Score`` functor on q, k, v and o of ``dtype``
-    (float32 or bfloat16), a C entry for the card, and the host harness
-    of the functor for the CPU tests."""
-    if dtype not in ("float32", "bfloat16") or (wide and dtype != "float32"):
-        raise ValueError(f"anchored attention on {dtype} operands"
-                         + (" above head dim 256" if wide else ""))
+    head dim 256, ``csrc/flash_attention_wide.cuh``) instantiated with the
+    ``Score`` functor on q, k, v and o of ``dtype`` (float32 or bfloat16),
+    a C entry for the card, and the host harness of the functor for the
+    CPU tests."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"anchored attention on {dtype} operands")
     ns = "repro_flash_wide" if wide else "repro_flash"
     header = "flash_attention_wide.cuh" if wide else "flash_attention.cuh"
+    t = "uint16_t" if dtype == "bfloat16" else "float"
     if wide:
         params = [
-            f"  {ns}::Params p{{static_cast<const float*>(q),",
-            "      static_cast<const float*>(k), static_cast<const float*>(v),",
-            "      static_cast<float*>(o), q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
+            f"  {ns}::Params<{t}> p{{static_cast<const {t}*>(q),",
+            f"      static_cast<const {t}*>(k), static_cast<const {t}*>(v),",
+            f"      static_cast<{t}*>(o), q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
             "      v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale, causal};",
             f"  return {ns}::run(p, mod, B, static_cast<cudaStream_t>(stream));"]
     else:
-        t = "uint16_t" if dtype == "bfloat16" else "float"
         params = [
             f"  {ns}::Params p{{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,",
             "      v_sb, v_sh, v_ss, Hq, Hq / Hkv, Sq, Skv, D, scale, causal};",

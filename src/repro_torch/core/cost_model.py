@@ -52,7 +52,9 @@ class Hardware:
     one generated program holds per live value (its register block,
     rows x columns, each padded to a power of two); 0 sets no cap.
     ``peak_flops`` is the compute peak an anchored kernel's products are
-    priced at (the reference's ``peak_bf16_flops`` on ``V5E``).
+    priced at (the reference's ``peak_bf16_flops`` on ``V5E``);
+    ``bf16_flops``, where not 0, the rate of those whose operands are both
+    bfloat16 (a device whose kernels take them natively).
     """
 
     hbm_bw: float = 819e9                # bytes/s
@@ -63,6 +65,7 @@ class Hardware:
     platform: str = "tpu"
     max_block_elems: int = 0
     peak_flops: float = 197e12           # MXU bf16 FLOP/s
+    bf16_flops: float = 0.0              # bf16 x bf16 products (0: peak)
 
     @property
     def vmem_budget(self) -> int:
@@ -89,10 +92,13 @@ V5E = Hardware()
 #: generated kernels keep a value's whole block in registers: 8192
 #: elements (32 per thread at 8 warps) per value.  ``peak_flops`` is the
 #: rate of the anchored kernels' products: the tensor cores' 495 TFLOP/s
-#: of TF32 over the three products of the float32 split.
+#: of TF32 over the three products of the float32 split; ``bf16_flops``
+#: that of products whose operands are both bfloat16, which B3 and B4 take
+#: natively: the data sheet's 989 TFLOP/s.
 H100 = Hardware(hbm_bw=3.35e12, vpu_ops=33.5e12, vmem_bytes=232_448,
                 launch_s=5e-6, hbm_latency_s=1e-6, platform="gpu",
-                max_block_elems=8192, peak_flops=495e12 / 3)
+                max_block_elems=8192, peak_flops=495e12 / 3,
+                bf16_flops=989e12)
 
 #: Block-row candidates the codegen enumerates (launch-dimension analogue).
 BLOCK_ROWS = (1, 8, 16, 32, 64, 128, 256)
@@ -700,10 +706,11 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     epilogue that reduces over an N wider than the row tile's largest
     cluster (``matmul.ROW_MAX_N``).  An attention group prices the flash
     instance of its head dim and operand type (above 256 the wide
-    kernel's, which takes a score functor as the tuned ones do, in
-    float32 only); a matmul group the B3 tile it launches, whose shared
-    memory is the same for float32 and bfloat16 operands (a bfloat16
-    k-tile is staged in the float32 tile's room)."""
+    kernel's, which takes a score functor as the tuned ones do); a matmul
+    group the B3 tile it launches: with a bfloat16 lhs and rhs the native
+    bfloat16 instance's (``matmul.NATIVE_TILES``), else the TF32 split's,
+    whose shared memory is the same for float32 and bfloat16 operands (a
+    bfloat16 k-tile is staged in the float32 tile's room)."""
     from ..kernels import flash_attention as fa
     from ..kernels import matmul as mm
 
@@ -720,8 +727,6 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
                 or {graph.node(qk.inputs[1]).spec.dtype, v.dtype}
                 != {q.dtype}):
             return None
-        if q.dtype != "float32" and fa.flash_instance(q.shape[-1]) is None:
-            return None                  # the wide kernel is float32 only
         return fa.flash_smem_bytes(q.shape[-1], q.itemsize)
     if len(anchors) != 1:
         return None
@@ -742,7 +747,9 @@ def _anchor_vmem_gpu(graph: Graph, anchors, parts) -> int | None:
     epi = [n for n in reduces if not (anc[a] >> n) & 1]
     if epi and N > mm.ROW_MAX_N:
         return None                      # wider than the largest cluster
-    return mm.TILES[mm.pick_tile(M, N, bool(epi))].smem(len(epi), len(pro))
+    native = lhs.dtype == rhs.dtype == "bfloat16"
+    return mm.tile_set(native)[mm.pick_tile(M, N, bool(epi), native)].smem(
+        len(epi), len(pro))
 
 
 def prologue_stats_bytes(graph: Graph, anchors, parts) -> int:
@@ -766,11 +773,13 @@ def prologue_stats_bytes(graph: Graph, anchors, parts) -> int:
     if not levels:
         return 0
     lhs = graph.node(node.inputs[0]).spec
-    K, N = lhs.shape[-1], graph.node(node.inputs[1]).spec.shape[-1]
+    rhs = graph.node(node.inputs[1]).spec
+    K, N = lhs.shape[-1], rhs.shape[-1]
     M = lhs.size // max(1, K)
     epi_reduces = any(graph.node(n).kind is OpKind.REDUCE
                       for n in members - pro)
-    bn = mm.TILES[mm.pick_tile(M, N, epi_reduces)].bn
+    native = lhs.dtype == rhs.dtype == "bfloat16"
+    bn = mm.tile_set(native)[mm.pick_tile(M, N, epi_reduces, native)].bn
     return levels * M * K * 4 * -(-N // bn)
 
 

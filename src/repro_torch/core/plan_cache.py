@@ -161,7 +161,8 @@ def graph_signature(graph: Graph, hw, *, remote_fusion: bool = True) -> str:
     # measurement candidates.  The stitch beam width is hashed, as in the
     # reference.
     w("hw", hw.peak_flops, hw.hbm_bw, hw.vpu_ops, hw.vmem_bytes,
-      hw.launch_s, hw.hbm_latency_s, hw.platform, hw.max_block_elems)
+      hw.launch_s, hw.hbm_latency_s, hw.platform, hw.max_block_elems,
+      hw.bf16_flops)
     w("knobs", TOP_K, MAX_GROUP, MAX_PATTERN, BEAM_WIDTH, remote_fusion,
       beam_width_from_env())
     w("io", tuple(graph.inputs), tuple(graph.outputs))

@@ -98,10 +98,11 @@
 // the reference's `anchor_dtype` cast.  A bfloat16 k-tile is staged as it
 // is, 8 values a 16-byte copy, in the raw stages' room, and widened at
 // the split.  A bfloat16 value is exact in TF32, so its split has no
-// small half and its products with it are dropped: with both the lhs
-// (Pro::kExact: the prologue's lhs node is bfloat16) and the rhs in
-// bfloat16 a k-step is one TF32 product, with one of them two, with
-// neither three.
+// small half and its products with it are dropped: with the lhs
+// (Pro::kExact: the prologue's lhs node is bfloat16) or the rhs in
+// bfloat16 a k-step is two TF32 products, with neither three.  At most
+// one side is bfloat16 here: a chain with both takes the native bfloat16
+// products of matmul_bf16.cuh.
 #pragma once
 
 #include "chain.cuh"
@@ -504,6 +505,8 @@ __global__ void __launch_bounds__(128 * (BM / 64 * WN + PW), 1)
   static_assert(AM == BM || (AM == 8 && BM == 64), "lhs rows");
   static_assert(ST >= PROMO && RS % PW == 0 && RS / PW >= 2, "ring depths");
   static_assert(PW == 1 || PW == 2, "producer warpgroups");
+  static_assert(!(Pro::kExact && Pro::kRhsBf16),
+                "bfloat16 x bfloat16 takes matmul_bf16.cuh");
   // registers moved from the producers to the consumers where four
   // warpgroups share the register file: 2 x 104 + 2 x 152 (x 128)
   constexpr bool kRealloc = CW == 2 && PW == 2;

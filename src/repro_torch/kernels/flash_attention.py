@@ -20,17 +20,20 @@ the reference's ``_attention_bwd`` does (``src/repro/kernels/ops.py:56-70``):
 the JAX package has no attention backward kernel, so the backward is
 plain ops on the card by the reference's own design.
 
-The kernel runs both products on the tensor cores through the
-three-way TF32 split (``kernels/split_float.py``), in instances for
+The kernel runs both products on the tensor cores, in instances for
 head dims 64, 80, 128 and 256 (``FLASH_HEAD_DIMS``; a D between two is
-zero-padded up to the next).  A head dim above 256 runs on a kernel of
-its own, ``csrc/flash_attention_wide.cuh`` (``flash_attention_wide_cuda``:
-the same split on the tensor cores, 8 warps a 64-row query tile that
+zero-padded up to the next): float32 operands through the three-way
+TF32 split (``kernels/split_float.py``), bfloat16 ones as Hopper's
+native bfloat16 products (``mma.sync.m16n8k16``; q k^T one product, p v
+two, p split into bfloat16 hi and lo: ``split_float.bf16_pair``).  A
+head dim above 256 runs on a kernel of its own,
+``csrc/flash_attention_wide.cuh`` (``flash_attention_wide_cuda``: the
+same products on the tensor cores, 8 warps a 64-row query tile that
 compute the scores once for every output column, K and V streamed in
 64-column chunks by cp.async; instances 320, 384, 448 and 512, a D below
-one read in place, above 512 output tiles of 512 columns), as the
-reference's kernel has no ceiling on D.  Its identity instance is
-``csrc/flash_attention_wide.cu``; a score chain above 256 gets a
+one read in place, above 512 output tiles of 512 columns; float32 or
+bfloat16), as the reference's kernel has no ceiling on D.  Its identity
+instance is ``csrc/flash_attention_wide.cu``; a score chain above 256 gets a
 generated instance of the wide template, as one up to 256 gets one of
 ``csrc/flash_attention.cuh`` (``ScoreMod.wide``; its launches count in
 ``WIDE_SCORE_MOD``).
@@ -71,8 +74,8 @@ from . import _build, ref
 
 #: The largest head dim of the tuned instances; above it the wide kernel.
 MAX_HEAD_DIM = 256
-#: The types the tuned instances and the decode kernel take (float32
-#: inside); the wide kernel takes float32 only.
+#: The types every attention kernel takes (float32 inside: scores,
+#: softmax, sums).
 CUDA_DTYPES = (torch.float32, torch.bfloat16)
 #: The kernel's constants, mirrored from ``csrc/flash_attention.cuh`` (a
 #: test holds the two equal): query rows a block (``kBQ``), the head-dim
@@ -83,6 +86,12 @@ CUDA_DTYPES = (torch.float32, torch.bfloat16)
 FLASH_BQ = 64
 FLASH_HEAD_DIMS = (64, 80, 128, 256)
 FLASH_QREG_MAX_D = 80
+#: The bfloat16 instances' own tiles (``kBf16Warps``, ``bf16_kbk`` in the
+#: source): query rows a block (16 a warp), K/V rows a tile by head dim
+#: (64 up to ``FLASH_BF16_KBK_MAX_D``, else 32), every row padded by 8
+#: values.
+FLASH_BF16_BQ = 64
+FLASH_BF16_KBK_MAX_D = 80
 #: The wide kernel's constants (``csrc/flash_attention_wide.cu``; a test
 #: holds the two equal): query rows a block (``kBQ``), keys a K/V tile
 #: (``kBK``), head-dim columns a staged chunk (``kDC``), the largest
@@ -115,38 +124,47 @@ def wide_instance(D: int) -> tuple[int, int]:
     return WIDE_DT, -(-D // WIDE_DT)
 
 
-def flash_kbk(D: int) -> int:
-    """K/V rows a tile of the kernel that runs ``D``: 32 where the tuned
-    instance's Q tile takes shared memory, else 64 (the wide kernel's
-    too)."""
+def flash_kbk(D: int, itemsize: int = 4) -> int:
+    """K/V rows a tile of the kernel that runs ``D`` on operands of
+    ``itemsize`` bytes: in float32 32 where the tuned instance's Q tile
+    takes shared memory, else 64; in bfloat16 64 up to
+    ``FLASH_BF16_KBK_MAX_D``, else 32; the wide kernel's 64."""
     d = flash_instance(D)
     if d is None:
         return WIDE_BK
+    if itemsize == 2:
+        return 64 if d <= FLASH_BF16_KBK_MAX_D else 32
     return 64 if d <= FLASH_QREG_MAX_D else 32
 
 
 def flash_smem_bytes(D: int, itemsize: int = 4) -> int:
     """Shared memory of one block of the kernel that runs ``D`` on
     operands of ``itemsize`` bytes (4, float32; 2, bfloat16).  A tuned
-    instance: the K and V tiles of the two-stage ring (rows padded to D +
-    8 and D + 4 values, D + 8 and D + 8 in bfloat16) and, above
-    ``FLASH_QREG_MAX_D``, the Q tile (``smem_bytes`` in
-    ``csrc/flash_attention.cuh``).  Above
-    ``MAX_HEAD_DIM`` the wide kernel's (``smem_floats`` in its source):
-    up to ``WIDE_DT`` its Q tile (rows of D + 8 floats), the ring of K/V
-    chunks (rows of ``WIDE_DC`` + 8), p (rows of ``WIDE_BK`` + 4) and the
-    exchange of the rows' max and sum; above it no Q tile, and each stage
-    also holds a chunk of Q."""
+    float32 instance: the K and V tiles of the two-stage ring (rows padded
+    to D + 8 and D + 4 floats) and, above ``FLASH_QREG_MAX_D``, the Q tile
+    (``smem_bytes`` in ``csrc/flash_attention.cuh``); a bfloat16 one
+    (``smem_bytes_bf16``): the Q tile and the two-stage K and V tiles, rows
+    of D + 8 values.  Above ``MAX_HEAD_DIM`` the wide kernel's
+    (``smem_floats``, ``smem_bytes_bf16`` in its source): up to
+    ``WIDE_DT`` its Q tile (rows of D + 8 values), the ring of K/V chunks
+    (rows of ``WIDE_DC`` + 8), p (float32 rows of ``WIDE_BK`` + 4, or two
+    bfloat16 planes of rows of ``WIDE_DC`` + 8) and the float32 exchange
+    of the rows' max and sum; above it no Q tile, and each stage also
+    holds a chunk of Q."""
     d = flash_instance(D)
     if d is None:
         (dt, tiles), ld = wide_instance(D), WIDE_DC + 8
         qres = tiles == 1
-        return 4 * ((WIDE_BQ * (dt + 8) if qres else 0)
-                    + WIDE_STAGES * (WIDE_BK + (0 if qres else WIDE_BQ)) * ld
-                    + WIDE_BQ * (WIDE_BK + 4) + 2 * 2 * WIDE_BQ)
+        tiles_vals = ((WIDE_BQ * (dt + 8) if qres else 0)
+                      + WIDE_STAGES * (WIDE_BK + (0 if qres else WIDE_BQ))
+                      * ld)
+        if itemsize == 2:
+            return 2 * (tiles_vals + 2 * WIDE_BQ * ld) + 4 * 2 * 2 * WIDE_BQ
+        return 4 * (tiles_vals + WIDE_BQ * (WIDE_BK + 4) + 2 * 2 * WIDE_BQ)
+    if itemsize == 2:
+        return 2 * (d + 8) * (FLASH_BF16_BQ + 4 * flash_kbk(D, itemsize))
     q = 0 if d <= FLASH_QREG_MAX_D else FLASH_BQ * (d + 8)
-    vpad = 4 if itemsize == 4 else 8
-    return itemsize * (2 * flash_kbk(D) * ((d + 8) + (d + vpad)) + q)
+    return 4 * (2 * flash_kbk(D) * ((d + 8) + (d + 4)) + q)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -196,6 +214,8 @@ class ScoreMod:
 
 #: launches of the wide kernel's scored instances
 WIDE_SCORE_MOD = _build.LaunchCount("flash_wide_score_mod")
+#: launches of the wide kernel's bfloat16 instances (identity and scored)
+WIDE_BF16 = _build.LaunchCount("flash_wide_bf16")
 #: launches of the bfloat16 instances (counted in ``flash_attention_cuda``,
 #: ``ScoreMod`` and ``flash_decode_cuda`` too): the identity instance, the
 #: scored ones, and the decode kernel with a bfloat16 q or cache
@@ -253,9 +273,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                          scale: float | None = None, *, score_mod=None,
                          score_args=()) -> torch.Tensor:
     """Launch the CUDA kernel (on the current stream; q, k, v all float32
-    or, up to ``MAX_HEAD_DIM``, all bfloat16; float32 inside, the output
-    in q's type): the identity instance of ``csrc/flash_attention.cu``, or
-    with
+    or all bfloat16; float32 inside, the output in q's type): the
+    identity instance of ``csrc/flash_attention.cu``, or with
     ``score_mod`` its generated instance, whose score operands are read
     through 4D strides (0 on each dim of extent 1).  q, k, v are taken
     with their strides; a tensor the kernel cannot read with 16-byte
@@ -334,15 +353,17 @@ flash_attention_cuda.launches = 0  # identity-instance launches
 def flash_attention_wide_cuda(q, k, v, causal: bool = True,
                               scale: float | None = None, *, score_mod=None,
                               score_args=()) -> torch.Tensor:
-    """Launch the wide kernel (``csrc/flash_attention_wide.cuh``: float32
-    on the tensor cores, head dims above ``MAX_HEAD_DIM``; on the current
-    stream): its identity instance (``csrc/flash_attention_wide.cu``), or
-    with ``score_mod`` its generated wide instance, whose score operands
-    are read through 4D strides.  q, k, v are taken with their strides
-    and read in place (the kernel zero-fills the columns past D of its
-    instance); only a D that is not a multiple of 4 (no config has one) is
-    zero-padded up to one, and a tensor the kernel cannot read with
-    16-byte copies is copied."""
+    """Launch the wide kernel (``csrc/flash_attention_wide.cuh``: head
+    dims above ``MAX_HEAD_DIM`` on the tensor cores, q, k, v all float32
+    or all bfloat16, the output in q's type; on the current stream): its
+    identity instance (``csrc/flash_attention_wide.cu``), or with
+    ``score_mod`` its generated wide instance, whose score operands are
+    read through 4D strides.  q, k, v are taken with their strides and
+    read in place (the kernel zero-fills the columns past D of its
+    instance); only a D that is not a multiple of 4 (8 in bfloat16; no
+    config has one) is zero-padded up to one, and a tensor the kernel
+    cannot read with 16-byte copies is copied.  Its bfloat16 launches
+    also count in ``WIDE_BF16``."""
     _check_shapes(q, k, v, causal)
     if score_mod is not None:
         _check_score_args(q, k, score_args)
@@ -354,50 +375,48 @@ def flash_attention_wide_cuda(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention_wide_cuda: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}; all must lie on one "
                          "CUDA device")
-    if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
-        raise TypeError(f"flash_attention_wide_cuda takes float32, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in CUDA_DTYPES:
+        raise TypeError(f"flash_attention_wide_cuda takes q, k, v all "
+                        f"float32 or all bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_wide_cuda: head dim {D}; the "
                          f"wide kernel takes those above {MAX_HEAD_DIM}")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    Dp = -(-D // 4) * 4
+    bf16 = q.dtype == torch.bfloat16
+    unit = 8 if bf16 else 4  # values a 16-byte copy
+    Dp = -(-D // unit) * unit
     if Dp != D:  # zero dims add nothing to q k^T; o's are cut off below
         q, k, v = (torch.nn.functional.pad(t, (0, Dp - D))
                    for t in (q, k, v))
     q, k, v = (_aligned(t) for t in (q, k, v))
-    o = torch.empty(B, Hq, Sq, Dp, dtype=torch.float32, device=dev)
+    o = torch.empty(B, Hq, Sq, Dp, dtype=q.dtype, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
             Hkv, Sq, Skv, Dp, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], float(scale), int(causal))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if score_mod is None:
-        _build.check(_wide_entry()(*args, stream), "repro_flash_wide_f32")
+        _build.check(_wide_entry()(*args, int(bf16), stream),
+                     "repro_flash_wide_attention")
         _build.count(flash_attention_wide_cuda)
     else:
         _build.check(score_mod.entry(*args, *_score_operands(score_args,
                                                              dev), stream),
                      "repro_flash_scored")
         _build.count(WIDE_SCORE_MOD)
+    if bf16:
+        _build.count(WIDE_BF16)
     return o if Dp == D else o[..., :D]
 
 
 flash_attention_wide_cuda.launches = 0  # kernel launches (plain excluded)
 
 
-def _bind_attention(fn):
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _entry():
-    fn = _build.library("flash_attention").repro_flash_attention
+def _bind_flagged(fn):
+    """``fn`` bound as the attention entries that take a bfloat16 flag
+    before the stream."""
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -407,9 +426,15 @@ def _entry():
 
 
 @functools.cache
+def _entry():
+    return _bind_flagged(
+        _build.library("flash_attention").repro_flash_attention)
+
+
+@functools.cache
 def _wide_entry():
-    return _bind_attention(
-        _build.library("flash_attention_wide").repro_flash_wide_f32)
+    return _bind_flagged(
+        _build.library("flash_attention_wide").repro_flash_wide_attention)
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),

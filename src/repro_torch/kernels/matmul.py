@@ -22,16 +22,21 @@ M tiles), a loop over K through a ring of shared-memory stages, the
 products on the tensor cores (``wgmma``) through the three-way TF32
 split (``kernels/split_float.py``), float32 results.  The rhs and the
 chains' operands and outputs may be bfloat16: a bfloat16 operand is
-exact in TF32, so its side of the split has no small half and a k-step
-with both sides bfloat16 is one TF32 product (one side, two); the
-accumulator rounds to the product's type before the epilogue, as the
-reference's ``anchor_dtype`` cast.  A prologue that
-reduces over K gets its row statistics from a pass over the block's lhs
-rows before the k-tiles; an epilogue that reduces over N runs on the row
-tile, whose blocks along N form a thread-block cluster of up to
-``MAX_CLUSTER`` (so N up to ``ROW_MAX_N``) that exchanges the row
-partials through distributed shared memory.  ``TILES`` holds
-its tile constants; the cost model's H100 feasibility gate
+exact in TF32, so its side of the split has no small half (one side
+bfloat16: two TF32 products a k-step); the accumulator rounds to the
+product's type before the epilogue, as the reference's ``anchor_dtype``
+cast.  Where the prologue's lhs node and the rhs are both bfloat16 the
+chain instantiates the native template instead
+(``csrc/matmul_bf16.cuh``, ``NATIVE_TILES``): bfloat16 tiles copied by
+the Tensor Memory Accelerator into the 128-byte swizzle, ``wgmma`` with
+bfloat16 operands at the tensor cores' full rate, the same chains.  A
+prologue that reduces over K gets its row statistics from a pass over
+the block's lhs rows before the k-tiles; an epilogue that reduces over
+N runs on the row tile, whose blocks along N form a thread-block
+cluster of up to ``MAX_CLUSTER`` (so N up to ``ROW_MAX_N``) that
+exchanges the row partials through distributed shared memory.
+``TILES`` (and ``NATIVE_TILES``) hold the tile constants; the cost
+model's H100 feasibility gate
 (``cost_model._anchor_vmem``) and the launcher read them from here, so
 the two cannot drift apart (the generated source asserts each
 instance's shared memory against ``Tile.smem_bytes``).
@@ -66,7 +71,9 @@ class Tile:
     the k-tiles of its residue); the products of ``promote`` k-tiles
     summed on the tensor cores from zero, then added into the
     accumulator; ``a_rows`` (8) keeps only 8 lhs rows in shared memory,
-    for M <= 8."""
+    for M <= 8.  A ``native`` tile is one of ``csrc/matmul_bf16.cuh``
+    (bfloat16 x bfloat16): ``stages`` TMA stages of 64 of K, one
+    producer warpgroup, no raw stages, one sum over all of K."""
     bm: int
     bn: int
     bk: int
@@ -76,6 +83,7 @@ class Tile:
     promote: int = 1
     producers: int = 1
     a_rows: int = 0
+    native: bool = False
 
     @property
     def am(self) -> int:
@@ -93,7 +101,11 @@ class Tile:
 
     @property
     def template_args(self) -> str:
-        """The arguments of ``repro_mm::launch`` for this instance."""
+        """The arguments of ``repro_mm::launch`` for this instance (of
+        ``repro_mm::launch_bf16`` for a native one)."""
+        if self.native:
+            return (f"{self.bm}, {self.bn}, {self.stages}, {self.wn}, "
+                    f"{self.am}")
         return (f"{self.bm}, {self.bn}, {self.bk}, {self.stages}, "
                 f"{self.raw_stages}, {self.wn}, {self.promote}, "
                 f"{self.producers}, {self.am}")
@@ -106,11 +118,18 @@ class Tile:
         the raw stages (the lhs rows padded by 4 floats), the epilogue's
         slot exchanges (across the ``wn`` consumer warpgroups where ``wn``
         > 1, and across the cluster), the prologue's row statistics, and
-        two barriers a stage."""
-        op = self.stages * 2 * (self.am + self.bn) * self.bk
-        raw = self.raw_stages * (self.am * (self.bk + 4) + self.bk * self.bn)
+        two barriers a stage.  A native tile (``native_smem_bytes`` in
+        ``csrc/matmul_bf16.cuh``): 1,024 bytes to align the ring, its
+        stages of bfloat16 lhs and rhs tiles (128 bytes a row), two
+        barriers a stage, the same exchanges and statistics."""
         xch = self.wn * self.bm * epi_slots if self.wn > 1 else 0
         cx = self.bm * epi_slots
+        if self.native:
+            return (1024 + self.stages * 128 * (self.am + self.bn)
+                    + 16 * self.stages
+                    + 4 * (xch + cx + self.am * pro_slots))
+        op = self.stages * 2 * (self.am + self.bn) * self.bk
+        raw = self.raw_stages * (self.am * (self.bk + 4) + self.bk * self.bn)
         return 4 * (op + raw + xch + cx + self.am * pro_slots) \
             + 16 * self.stages
 
@@ -139,6 +158,22 @@ TILE_ROW = Tile(64, 256, 16, 3, 4, wn=2, promote=2, producers=2)
 #: an SM, N / 32 blocks streaming the panel (bytes bound)
 TILE_DECODE = Tile(64, 32, 32, 3, 12, promote=2, a_rows=8)
 TILES = (TILE_LARGE, TILE_SMALL, TILE_ROW, TILE_DECODE)
+#: The native bfloat16 instances (``csrc/matmul_bf16.cuh``), in the order
+#: of ``TILES`` (a chain's tile index names the same role in both):
+#: prefill-sized M, 128 x 256 a block (two consumer warpgroups of 64 x
+#: 256), 4 TMA stages of 64 of K (197,696 bytes: one block an SM); the
+#: faster on the card at Llama's gate of it and 128 x 128 with 6 stages
+NATIVE_LARGE = Tile(128, 256, 64, 4, 0, native=True)
+#: where the large tile leaves SMs idle: 64 x 64, 6 stages (99,424 bytes:
+#: two blocks an SM)
+NATIVE_SMALL = Tile(64, 64, 64, 6, 0, native=True)
+#: epilogues that reduce over N: 256 columns a block, two consumer
+#: warpgroups of 64 x 128 side by side, the row's blocks one cluster
+NATIVE_ROW = Tile(64, 256, 64, 4, 0, wn=2, native=True)
+#: decode (M <= 8): 8 lhs rows repeated over the 64 of `wgmma`, 12 stages
+#: of the streamed panel (111,808 bytes), N / 64 blocks
+NATIVE_DECODE = Tile(64, 64, 64, 12, 0, a_rows=8, native=True)
+NATIVE_TILES = (NATIVE_LARGE, NATIVE_SMALL, NATIVE_ROW, NATIVE_DECODE)
 #: blocks a cluster of the row tile holds at most (``kMaxCluster``: the
 #: portable cluster size, which every H100 grants), and so the widest N
 #: an epilogue may reduce over: the gate refuses a wider one (it then
@@ -155,20 +190,30 @@ SMS = 132
 PROLOGUE_REDUCE = _build.LaunchCount("matmul_fused_prologue_reduce")
 #: launches whose epilogue reduces across the N tiles of a cluster
 CLUSTER_EPILOGUE = _build.LaunchCount("matmul_fused_cluster_epilogue")
-#: launches of instances with a bfloat16 rhs
+#: launches of the TF32 split's instances with a bfloat16 operand (one
+#: side float32: the mixed-type instances)
 BF16 = _build.LaunchCount("matmul_fused_bf16")
+#: launches of the native bfloat16 instances (bfloat16 lhs and rhs)
+NATIVE_BF16 = _build.LaunchCount("matmul_fused_native_bf16")
 
 
-def pick_tile(M: int, N: int, row_reduce: bool) -> int:
-    """Index into ``TILES`` of the instance an (M, N) call runs: the row
-    tile for an epilogue that reduces over N, else the decode tile for M
-    <= 8, the large tile where it gives every SM a block, else the small
-    one."""
+def tile_set(native: bool) -> tuple:
+    """The instances of a chain: ``NATIVE_TILES`` for a bfloat16 lhs and
+    rhs, else ``TILES``; both indexed by ``pick_tile``."""
+    return NATIVE_TILES if native else TILES
+
+
+def pick_tile(M: int, N: int, row_reduce: bool, native: bool = False) -> int:
+    """Index into ``TILES`` (with ``native``, ``NATIVE_TILES``) of the
+    instance an (M, N) call runs: the row tile for an epilogue that
+    reduces over N, else the decode tile for M <= 8, the large tile where
+    it gives every SM a block, else the small one."""
     if row_reduce:
         return TILES.index(TILE_ROW)
     if M <= TILE_DECODE.am:
         return TILES.index(TILE_DECODE)
-    large = -(-M // TILE_LARGE.bm) * -(-N // TILE_LARGE.bn)
+    large_tile = tile_set(native)[TILES.index(TILE_LARGE)]
+    large = -(-M // large_tile.bm) * -(-N // large_tile.bn)
     return TILES.index(TILE_LARGE if large >= SMS else TILE_SMALL)
 
 
@@ -216,7 +261,9 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
     panel of float32 or bfloat16 (the instance's type), every operand as a
     contiguous array of its role's view.  Every launch counts in ``matmul_fused.launches``; one with a
     reducing prologue also in ``PROLOGUE_REDUCE``, one whose epilogue
-    reduces across more than one N tile in ``CLUSTER_EPILOGUE``."""
+    reduces across more than one N tile in ``CLUSTER_EPILOGUE``, one of
+    a native instance (``entry.native``) in ``NATIVE_BF16``, one of the
+    TF32 split with a bfloat16 operand in ``BF16``."""
     dev = rhs.device
     vals = list(pro_args) + [rhs] + list(epi_args)
     if any(v.device != dev for v in vals) or dev.type != "cuda":
@@ -243,7 +290,9 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
         _build.count(PROLOGUE_REDUCE)
     if getattr(entry, "epi_slots", 0) and N > TILE_ROW.bn:
         _build.count(CLUSTER_EPILOGUE)
-    if rhs.dtype == torch.bfloat16:
+    if getattr(entry, "native", False):
+        _build.count(NATIVE_BF16)
+    elif any(v.dtype == torch.bfloat16 for v in vals):
         _build.count(BF16)
     return tuple(outs)
 

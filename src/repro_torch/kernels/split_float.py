@@ -26,6 +26,21 @@ float32) and the plain float32 product against float64, and prints the
 worst ratio of each to the limit ``chip_smoke.py`` holds the kernels to.
 ``ssd_chunked`` is B11's chunk-parallel decomposition of the SSD scan,
 with its four products taken by a given product function.
+
+Where both operands are bfloat16 the kernels take Hopper's native
+products instead (``csrc/matmul_bf16.cuh``, ``csrc/mma_bf16.cuh``): a
+product of two bfloat16 values (8 significant bits each) is exact in
+float32, so one bfloat16 product forms what the split formed, summed in
+float32 (``bf16_matmul``).  Attention's p is float32: it is written as
+``hi = bf16(p)`` plus ``lo = bf16(p - hi)``, about 16 significant bits,
+and p v is two bfloat16 products into one float32 sum (``bf16_pv``).
+
+    PYTHONPATH=src python -m repro_torch.kernels.split_float --bf16
+
+measures, on the card, B3's native instance (one float32 sum over all
+of K) at K 3072 and 8192 against the bfloat16 rule ``chip_smoke.py``
+holds it to, beside the plain form with a partial sum each k-tile
+(``bf16_matmul(chunk=64)``) on the same inputs.
 """
 from __future__ import annotations
 
@@ -81,6 +96,45 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor,
             torch.cat([bb[..., sl, :], bs[..., sl, :], bb[..., sl, :]], -2))
         out = part if out is None else out + part
     return out
+
+
+def bf16_pair(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor, both bfloat16: hi = x rounded to the
+    nearest bfloat16 (ties to even, ``cvt.rn.bf16x2.f32``), lo = x - hi
+    rounded the same way.  hi + lo is x to about 2^-16 of |x|."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor,
+                chunk: int | None = None) -> torch.Tensor:
+    """``a @ b`` of bfloat16 operands as the native instances take it:
+    each product exact in float32, summed in float32 (float32 results).
+    ``chunk`` None: one sum over all of K (the tensor cores' accumulator
+    over the whole loop); else partial sums of ``chunk`` of K, each from
+    zero, added in order (the partial sums the TF32 instances take)."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"bf16_matmul takes bfloat16 operands, got "
+                        f"{a.dtype}, {b.dtype}")
+    a32, b32 = a.float(), b.float()
+    K = a.shape[-1]
+    step = K if chunk is None else chunk
+    out = None
+    for k0 in range(0, K, step):
+        part = torch.matmul(a32[..., k0:k0 + step], b32[..., k0:k0 + step, :])
+        out = part if out is None else out + part
+    return out
+
+
+def bf16_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``p @ v`` as B4's bfloat16 instances take it: the float32 p split
+    into bfloat16 hi and lo (``bf16_pair``), v bfloat16, two products each
+    exact in float32, one float32 sum."""
+    hi, lo = bf16_pair(p)
+    v32 = v.to(torch.bfloat16).float()
+    return torch.matmul(torch.cat([lo, hi], -1).float(),
+                        torch.cat([v32, v32], -2))
 
 
 def attention(q, k, v, *, causal: bool, scale: float | None = None,
@@ -336,6 +390,73 @@ extern "C" int repro_rna_check(void* bad, unsigned base, void* stream) {
 """
 
 
+#: ``chip_smoke.py``'s bfloat16 rule for B3 (a test holds the two files
+#: equal): each element within BF16_BAND (rtol, atol) of the plain
+#: version, and the largest distance from float64 at most BF16_F64_FACTOR
+#: times the plain version's
+BF16_BAND, BF16_F64_FACTOR = (4e-2, 1.2e-1), 2.0
+
+
+def bf16_rule_ratio(got, plain, f64) -> float:
+    """The worst ratio of a bfloat16 output to its rule (``BF16_BAND``
+    and ``BF16_F64_FACTOR``): 1 at the limit."""
+    g, w = got.double(), plain.double()
+    rtol, atol = BF16_BAND
+    band = float(((g - w).abs() / (atol + rtol * w.abs())).max())
+    kerr = float((g - f64).abs().max())
+    perr = float((w - f64).abs().max())
+    return max(band, kerr / (BF16_F64_FACTOR * max(perr, 1e-30)))
+
+
+def _gate(x, wg, u):
+    import torch.nn.functional as F
+
+    return F.silu(x @ wg) * u
+
+
+def _measure_bf16() -> list[dict]:
+    """B3's native bfloat16 instance (Llama's gate + SiLU x up, M 2048, N
+    8192: one tensor-core sum over all of K) at K 3072 and 8192, and the
+    plain form of the same products with a partial sum each k-tile
+    (``bf16_matmul(chunk=64)``, the same epilogue's roundings), each
+    against the plain version and float64: the worst ratio to the
+    bfloat16 rule."""
+    import torch.nn.functional as F
+    from ..core import stitched_jit
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(bf)
+
+    rows = []
+    M, N = 2048, 8192
+    for K in (3072, 8192):
+        args = (rnd(M, K), rnd(K, N, scale=K ** -0.5), rnd(M, N))
+        comp = stitched_jit(_gate).compiled(*args)
+        em = next(e for e in comp.emitted if e.kind == "anchored")
+        given = dict(zip(comp.graph.inputs, args))
+        vals = [given[i] for i in em.ext_ids]
+        got = em.fn.launch(*vals)[0]
+        plain = em.fn.plain(*vals)[0]
+        x, wg, u = args
+        h = bf16_matmul(x, wg, 64).to(bf).float()
+        chunked = (F.silu(h).to(bf).float() * u.float()).to(bf)
+        h64 = x.double() @ wg.double()
+        f64 = h64 * torch.sigmoid(h64) * u.double()
+        row = {"kernel": "B3 native bf16", "shape": f"M{M} K{K} N{N}",
+               "one_sum_err_over_limit": bf16_rule_ratio(got, plain, f64),
+               "chunk64_form_err_over_limit": bf16_rule_ratio(chunked,
+                                                              plain, f64),
+               "elements_differing": int((got != chunked).sum())}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del comp, em, got, plain, chunked, h, h64, f64
+    return rows
+
+
 def rna_mismatches() -> int:
     """Bit patterns on which the card's ``cvt.rna.tf32.f32`` and the
     integer rounding the kernels use (and ``tf32_rna``) differ."""
@@ -354,9 +475,16 @@ def rna_mismatches() -> int:
     return int(bad.item())
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
     import subprocess
 
+    ap = argparse.ArgumentParser(description="The split's and the native "
+                                 "bfloat16 products' limits, on the card.")
+    ap.add_argument("--bf16", action="store_true",
+                    help="only B3's native bfloat16 instance, beside "
+                         "the plain form with partial sums")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("split_float: no CUDA device")
         return 2
@@ -365,6 +493,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(card)
+    if args.bf16:
+        rows = _measure_bf16()
+        for key in ("one_sum_err_over_limit",
+                    "chunk64_form_err_over_limit"):
+            print(f"worst {key} {max(r[key] for r in rows):.4f} ({card})")
+        return 0
     print(f"cvt.rna.tf32.f32 against the integer rounding: "
           f"{rna_mismatches()} of the float32 bit patterns below 3e38 "
           "differ")

@@ -246,16 +246,20 @@ def _attn_graph(dtype, D):
 
 
 def test_h100_gate_admits_bfloat16_and_refuses_float16():
+    # a bfloat16 lhs and rhs: the native instance's own decode tile
     g, a, parts = _gate_graph(BF16)
     assert cost_model._anchor_vmem_gpu(g, a, parts) \
-        == MM.TILE_DECODE.smem(0, 0)
+        == MM.NATIVE_DECODE.smem(0, 0) != MM.TILE_DECODE.smem(0, 0)
     g, a, parts = _gate_graph(torch.float16)
     assert cost_model._anchor_vmem_gpu(g, a, parts) is None
     g, a, parts = _attn_graph(BF16, 128)
     assert cost_model._anchor_vmem_gpu(g, a, parts) \
         == FA.flash_smem_bytes(128, 2) < FA.flash_smem_bytes(128)
-    # above head dim 256 the wide kernel is float32 only
+    # above head dim 256 the wide kernel's bfloat16 instance
     g, a, parts = _attn_graph(BF16, 320)
+    assert cost_model._anchor_vmem_gpu(g, a, parts) \
+        == FA.flash_smem_bytes(320, 2) < FA.flash_smem_bytes(320)
+    g, a, parts = _attn_graph(torch.float16, 320)
     assert cost_model._anchor_vmem_gpu(g, a, parts) is None
     g, a, parts = _attn_graph(torch.float32, 320)
     assert cost_model._anchor_vmem_gpu(g, a, parts) \

@@ -3,9 +3,12 @@ its plain version on the same bfloat16 inputs.
 
 B6 (RMSNorm, x and the gain each float32 or bfloat16), B8 (flash decode,
 q and the caches each float32 or bfloat16), B4 (flash attention at the
-tuned head dims, with and without a generated score functor), B3 (the
-fused matmul: gate and up product, decode tile, reducing prologue,
-epilogue across a cluster), B5 and B9 (LayerNorm and its backward, x
+tuned head dims, with and without a generated score functor; native
+bfloat16 products), the wide flash kernel above head dim 256 (D 264,
+320, 384, 512 and 640, grouped heads, a causal offset, a score functor),
+B3 (the fused matmul's native bfloat16 instance: gate and up product,
+decode tile, reducing prologue, epilogue across a cluster, a K that is
+not a multiple of 8, staged by the producer warpgroup), B5 and B9 (LayerNorm and its backward, x
 and the gain each float32 or bfloat16), B7 and B10 (the row softmax and
 its backward) and B11 (the SSD scan, x and B, C each float32 or
 bfloat16, on strided slices of one activation).  Each is held two ways:
@@ -13,9 +16,8 @@ within the reference's own bfloat16 band
 (``src/repro/runtime/guard.py:208-213`` for B6 and B8, the anchored band
 of :224-226 for B3 and B4), and no less accurate than the plain version:
 against float64 of the same bfloat16 inputs, the kernel's largest error
-is at most twice the plain version's.  The one kernel that stays float32-only, the wide flash
-kernel above head dim 256, raises ``TypeError`` on bfloat16; every
-wrapper raises on float16.
+is at most twice the plain version's.  Every wrapper raises on float16
+and on a mix of types its kernel does not take.
 
 Marked ``gpu``: on a host without a CUDA card every test here skips (the
 decision is made in a fixture, never at import).  Run on the card with
@@ -235,8 +237,12 @@ def softmax_proj(x, w):
     ("gate_up", 2048, 3072, 8192), ("gate_up", 4, 3072, 8192),
     ("gate_up", 200, 96, 300), ("rms_proj", 2048, 3072, 512),
     ("rms_proj", 5, 3072, 1024), ("softmax_proj", 100, 64, 300),
-    ("softmax_proj", 4, 3072, 2000)])
+    ("softmax_proj", 4, 3072, 2000), ("gate_up", 300, 3070, 1001),
+    ("gate_up", 5, 1001, 500)])
 def test_b3_takes_bfloat16(cuda, form, M, K, N):
+    """bfloat16 lhs and rhs: the native instance (TMA where the rows are
+    16-byte aligned; a K or N that is not a multiple of 8 is staged by the
+    producer warpgroup into the same swizzled tiles)."""
     fn = {"gate_up": gate_up, "rms_proj": rms_proj,
           "softmax_proj": softmax_proj}[form]
     x = _randn(cuda, M, K)
@@ -247,9 +253,11 @@ def test_b3_takes_bfloat16(cuda, form, M, K, N):
     comp, em = _forced_b3(fn, args)
     given = dict(zip(comp.graph.inputs, args))
     vals = [given[i] for i in em.ext_ids]
-    before = MM.matmul_fused.launches
+    before = MM.matmul_fused.launches, MM.NATIVE_BF16.launches
     got = em.fn.launch(*vals)
-    assert MM.matmul_fused.launches == before + 1
+    assert em.fn.entry.native
+    assert (MM.matmul_fused.launches, MM.NATIVE_BF16.launches) == (
+        before[0] + 1, before[1] + 1)
     want = em.fn.plain(*vals)
     exact = fn(*(a.double() for a in args))
     for g, w in zip(got, want):
@@ -257,6 +265,32 @@ def test_b3_takes_bfloat16(cuda, form, M, K, N):
              BAND_ANCHORED)
     torch.testing.assert_close(stitched_jit(fn)(*args), fn(*args),
                                rtol=BAND_ANCHORED[0], atol=BAND_ANCHORED[1])
+
+
+@pytest.mark.parametrize("M,lhs,rhs", [(4, BF16, torch.float32),
+                                        (300, torch.float32, BF16)])
+def test_b3_mixed_types_take_the_tf32_split(cuda, M, lhs, rhs):
+    """One side float32: the TF32 split's instance (its bfloat16 side's
+    small half dropped), counted in ``BF16`` and not in ``NATIVE_BF16``."""
+    K, N = 3072, 1024
+    args = (_randn(cuda, M, K, dtype=lhs),
+            _randn(cuda, K, N, scale=K ** -0.5, dtype=rhs),
+            _randn(cuda, M, N, dtype=torch.float32))
+    comp, em = _forced_b3(gate_up, args)
+    given = dict(zip(comp.graph.inputs, args))
+    vals = [given[i] for i in em.ext_ids]
+    before = (MM.matmul_fused.launches, MM.BF16.launches,
+              MM.NATIVE_BF16.launches)
+    got = em.fn.launch(*vals)
+    assert not em.fn.entry.native
+    assert (MM.matmul_fused.launches, MM.BF16.launches,
+            MM.NATIVE_BF16.launches) == (before[0] + 1, before[1] + 1,
+                                         before[2])
+    want = em.fn.plain(*vals)
+    exact = gate_up(*(a.double() for a in args))
+    for g, w in zip(got, want):
+        hold(g.reshape(exact.shape), w.reshape(exact.shape), exact,
+             BAND_ANCHORED)
 
 
 def _ln_exact(x, g, b, eps):
@@ -459,13 +493,65 @@ def test_wrappers_raise_on_float16(cuda):
         SSD.ssd_scan_cuda(xs, dt, A, Bm, Cm.float(), 64)
 
 
-def test_float32_only_kernels_refuse_bfloat16(cuda):
-    """The wide flash kernel (head dims above 256) raises on bfloat16:
-    it takes no plain version on the card.  The other kernels take
-    bfloat16 (the tests above)."""
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (2, 8, 8, 512, 512, 264, True), (2, 16, 16, 512, 512, 320, True),
+    (2, 8, 8, 300, 300, 384, True), (1, 8, 8, 512, 512, 512, True),
+    (1, 8, 8, 256, 256, 640, False), (2, 16, 4, 256, 256, 320, True),
+    (2, 8, 2, 200, 500, 320, True), (1, 4, 2, 100, 260, 520, True)])
+def test_wide_flash_attention_takes_bfloat16(cuda, B, Hq, Hkv, Sq, Skv, D,
+                                             causal):
+    """Above head dim 256 the wide kernel's bfloat16 instances (native
+    products): D read in place by the next instance, 512-column output
+    tiles above 512, grouped heads, a causal offset."""
+    q = _randn(cuda, B, Hq, Sq, D)
+    k, v = (_randn(cuda, B, Hkv, Skv, D) for _ in range(2))
+    before = (FA.flash_attention_wide_cuda.launches, FA.WIDE_BF16.launches)
+    o = FA.flash_attention_cuda(q, k, v, causal)
+    assert (FA.flash_attention_wide_cuda.launches,
+            FA.WIDE_BF16.launches) == (before[0] + 1, before[1] + 1)
+    plain = FA.flash_attention_plain(q, k, v, causal)
+    assert o.dtype == BF16
+    hold(o, plain, _attn_exact(q, k, v, causal), BAND_ANCHORED)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+def test_wide_score_mod_takes_bfloat16(cuda, D):
+    """A bias folded as the wide kernel's generated score functor, in
+    bfloat16."""
+    B, H, S = 2, 8, 256
+    q, k, v = (_randn(cuda, B, H, S, D) for _ in range(3))
+    bias = _randn(cuda, 1, H, S, S, scale=0.5)
+    comp = stitched_jit(_bias_attn).compiled(q, k, v, bias)
+    em = [e for e in comp.emitted if e.kind == "anchored"]
+    assert len(em) == 1 and em[0].fn.score_mod is not None
+    em = em[0]
+    assert em.fn.score_mod.wide
+    given = dict(zip(comp.graph.inputs, (q, k, v, bias)))
+    vals = [given[i] for i in em.ext_ids]
+    before = (FA.WIDE_SCORE_MOD.launches, FA.WIDE_BF16.launches)
+    got = em.fn.launch(*vals)[0]
+    assert (FA.WIDE_SCORE_MOD.launches, FA.WIDE_BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = em.fn.plain(*vals)[0]
+    assert got.dtype == BF16
+    hold(got, plain, _attn_exact(q, k, v, False, bias), BAND_ANCHORED)
+
+
+def test_wide_kernel_refuses_float16_and_mixed_types(cuda):
+    """The wide flash kernel takes q, k, v all float32 or all bfloat16: it
+    raises on float16 and on a mix, and runs no plain version."""
     q = _randn(cuda, 1, 2, 64, 320)
+    h = q.to(torch.float16)
+    before = FA.flash_attention_wide_cuda.launches
     with pytest.raises(TypeError):
-        FA.flash_attention_cuda(q, q, q, True)
+        FA.flash_attention_cuda(h, h, h, True)
+    with pytest.raises(TypeError):
+        FA.flash_attention_wide_cuda(h, h, h, True)
+    with pytest.raises(TypeError):
+        FA.flash_attention_cuda(q, q.float(), q, True)
+    with pytest.raises(TypeError):
+        FA.flash_attention_wide_cuda(q.float(), q, q, True)
+    assert FA.flash_attention_wide_cuda.launches == before
 
 
 def test_the_plain_versions_compute_in_float32(cuda):

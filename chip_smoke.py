@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phase router|tuned|dispatch]
+    python3 chip_smoke.py [--phase router|tuned|dispatch|bf16|decode]
 
 Run from the root of a checkout on a machine with one CUDA card (Triton
 compiles the generated one-pass kernels there, nvcc the CUDA sources and
@@ -262,12 +262,17 @@ Phases, each of which makes the script exit non-zero when it fails:
 11b. bfloat16 (``phase_bf16_kernels``, ``phase_bf16_paths``: each model
    with ``param_dtype=torch.bfloat16``, full width and depth, freed before
    the next; ``--phase bf16`` alone, 5e in its help): the kernels'
-   bfloat16 instances -- B6 at [2048, 3072] and [4, 3072]; B4 (native
+   bfloat16 instances -- B6 at [2048, 3072], [4, 3072], [2000, 2048],
+   [4096, 1024], [4096, 2048] and [8192, 3072] (the warp path or the
+   block path, as the shape selects); B4 (native
    bfloat16 products) at Llama's prefill (B4 Hq24 Hkv8 S512 D128
    causal), D 64 and D 256, and with a bias score functor at Llama's
    heads; the wide kernel at D 320 (B4 H16 S512 causal); B8 at
-   decode_32k with a bfloat16 q against float32 and against bfloat16
-   caches; B3 (its native instance: TMA and bfloat16 ``wgmma``) at
+   decode_32k with a bfloat16 q against float32 caches, and (its native
+   bfloat16 kernel on the tensor cores) q and caches bfloat16 at
+   decode_32k batch 4 and 16 and at long_500k ([1, 32, 524288, 64]),
+   beside the split kernel's time on the same inputs and each launch's
+   device time from the profiler (``kernel_times``); B3 (its native instance: TMA and bfloat16 ``wgmma``) at
    Llama's gate x SiLU x up, M 2048 and the decode tile's M 4, each
    line with the row's earlier time (the TF32 instances'); B11 at Mamba2's prefill
    and train shapes and Zamba2's prefill (x, B and C strided slices of
@@ -302,20 +307,28 @@ Phases, each of which makes the script exit non-zero when it fails:
    three launches a layer, two RMSNorms a layer and a shared application,
    one attention a shared application).
 12. Static-decode paths (``make_decode_step(mdl, kv_len)``, the
-   reference's decode cells): Llama-3.2-3B at decode_32k (28 layers,
-   batch 4, a 30 GB cache of 32,768 rows from the seeded generator) and
-   Zamba2-1.2B at long_500k (batch 1, 7 shared-block caches of 524,288
-   rows, 60 GB; SSM state from zeros), 4 greedy steps at the last
-   positions each: compile seconds, ms per step, launches per step (flash
-   decode once an attention layer), a profile of one step, every step's
-   logits held against the plain path fed the same tokens.  The step of
-   ``make_decode_step`` is one captured graph: timed as replays, against
-   the same steps eager (``captured_vs_eager``).
-13. Whether each B3, B4 and B11 instance built in the run holds
-   tensor-core instructions of its product type (``cuobjdump -sass``:
-   ``HGMMA`` in B3, ``HMMA`` in B4, the wide flash kernel and B11's chunk
-   and output passes; ``BF16`` and no ``TF32`` in the instances that take
-   bfloat16 on both sides, ``TF32`` in every other), printed once;
+   reference's decode cells, their lengths read from the port's
+   ``configs.SHAPES``; ``--phase decode`` runs them alone): Llama-3.2-3B
+   at decode_32k (28 layers, batch 4, a 30 GB cache of 32,768 rows from
+   the seeded generator) and Zamba2-1.2B at long_500k (batch 1, 7
+   shared-block caches of 524,288 rows, 60 GB; SSM state from zeros) in
+   float32, then both with bfloat16 params and caches, as the reference
+   builds the cells (Llama at batch 16, 60 GB of cache; Zamba2 30 GB), 4
+   greedy steps at the last positions each: compile seconds, ms per
+   step, launches per step (flash decode once an attention layer; in
+   bfloat16 its native instance), a profile of one step and B8's share
+   of it, every step's logits held against the plain path fed the same
+   tokens (float32: 1e-4 max(1, max|logits|); bfloat16: the bfloat16
+   path rule, against a float32 copy of the weights and of the cache
+   rows of two sequences run on the host, beside the bfloat16 plain
+   path).  The step of ``make_decode_step`` is one captured graph: timed
+   as replays, against the same steps eager (``captured_vs_eager``).
+13. Whether each B3, B4 and B11 instance built in the run, and B8's
+   native bfloat16 kernel, holds tensor-core instructions of its product
+   type (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA`` in B4, the wide
+   flash kernel, B11's chunk and output passes and B8's native kernel;
+   ``BF16`` and no ``TF32`` in the instances that take bfloat16 on both
+   sides, ``TF32`` in every other), printed once;
    then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model), a
    ``{"tuned": {...}}`` line (phase 5c's), a ``{"differentiable":
    {...}}`` line (phase 3e's), a ``{"dispatch": {...}}`` line (phase
@@ -781,7 +794,7 @@ def anchored_groups(compiled) -> list:
 def kernel_kind(name: str) -> str:
     low = name.lower()
     if any(k in low for k in ("rms_vec_kernel", "rms_scalar_kernel",
-                              "rms_ring_kernel")):
+                              "rms_ring_kernel", "rms_warp_kernel")):
         return "cuda rmsnorm"
     if any(k in low for k in ("flash_fwd_kernel", "flash_fwd_bf16_kernel",
                               "flash_wide_kernel", "flash_wide_bf16_kernel")):
@@ -2391,17 +2404,18 @@ def phase_cuda_kernels(gen) -> dict:
     # decode_32k (its batch of 128 cut to 4) and batch 1, Granite's head
     # dim 64, Zamba2's long_500k (the cell's own batch of 1), a ragged
     # kv_len, and a live prefix of a layer's strided view
+    static_kv, long_kv = cell_len(STATIC_CELL), cell_len(LONG_CELL)
     for label, shape, S, n, layers in (
-            ("llama decode_32k", llama, STATIC_KV, None, 1),
-            ("llama decode_32k batch 1", (1, 24, 8, 128), STATIC_KV, None,
+            ("llama decode_32k", llama, static_kv, None, 1),
+            ("llama decode_32k batch 1", (1, 24, 8, 128), static_kv, None,
              1),
-            ("granite decode_32k", granite, STATIC_KV, None, 1),
-            ("zamba2 long_500k", (1, 32, 32, 64), LONG_KV, None, 1),
+            ("granite decode_32k", granite, static_kv, None, 1),
+            ("zamba2 long_500k", (1, 32, 32, 64), long_kv, None, 1),
             ("ragged kv_len", llama, 1024, 1000, 1),
             ("live prefix of a layer view", llama, 2048, 1500, 3),
-            ("gemma-7b decode_32k", gemma, STATIC_KV, None, 1),
+            ("gemma-7b decode_32k", gemma, static_kv, None, 1),
             ("head dim 80 masked", (BATCH, 16, 16, 80), 4096, 4000, 1),
-            ("16 query heads a KV head", (BATCH, 32, 2, 128), STATIC_KV,
+            ("16 query heads a KV head", (BATCH, 32, 2, 128), static_kv,
              None, 1)):
         decode_row(gen, checks, label, shape, S, n, layers,
                    main=label == "llama decode_32k")
@@ -2541,7 +2555,7 @@ def decode_group_sweep(gen) -> None:
 
     from repro_torch.kernels import flash_attention as FA
 
-    B, Hkv, S, D = BATCH, 2, STATIC_KV, 128
+    B, Hkv, S, D = BATCH, 2, cell_len(STATIC_CELL), 128
     k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
     v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
     times = []
@@ -2555,12 +2569,13 @@ def decode_group_sweep(gen) -> None:
 
 
 def sass_check() -> None:
-    """Whether each instance of B3, B4 and B11 built in this run holds
-    tensor-core instructions of its product type, read with ``cuobjdump
-    -sass`` on its library: a kernel that takes bfloat16 on both sides
-    (``mm_bf16_kernel``, ``flash_fwd_bf16_kernel``,
-    ``flash_wide_bf16_kernel``) ``HGMMA`` / ``HMMA`` with ``BF16`` and none
-    with ``TF32``; every other B3 kernel ``HGMMA`` with ``TF32``, every
+    """Whether each instance of B3, B4, B11 and B8's native bfloat16
+    kernel built in this run holds tensor-core instructions of its product
+    type, read with ``cuobjdump -sass`` on its library: a kernel that
+    takes bfloat16 on both sides (``mm_bf16_kernel``,
+    ``flash_fwd_bf16_kernel``, ``flash_wide_bf16_kernel``,
+    ``flash_decode_bf16_kernel``) ``HGMMA`` / ``HMMA`` with ``BF16`` and
+    none with ``TF32``; every other B3 kernel ``HGMMA`` with ``TF32``, every
     other B4 kernel, wide instance and B11's chunk and output passes (its
     state pass multiplies nothing) ``HMMA`` with ``TF32``.  Printed once;
     a kernel without its type fails the run."""
@@ -2575,7 +2590,8 @@ def sass_check() -> None:
              ("flash_attention-*.so", "B4", b4[:2]),
              ("flash_attention_wide-*.so", "B4 wide", b4[2:]),
              ("ssd_scan-*.so", "B11", ("ssd_chunk_kernel",
-                                       "ssd_output_kernel")))
+                                       "ssd_output_kernel")),
+             ("flash_decode-*.so", "B8", ("flash_decode_bf16_kernel",)))
     bad = []
     for pattern, which, kernels in kinds:
         for lib in sorted(_build.BUILD_DIR.glob(pattern)):
@@ -2586,7 +2602,7 @@ def sass_check() -> None:
 
 #: The kernels whose products take bfloat16 on both sides
 BF16_KERNELS = ("mm_bf16_kernel", "flash_fwd_bf16_kernel",
-                "flash_wide_bf16_kernel")
+                "flash_wide_bf16_kernel", "flash_decode_bf16_kernel")
 
 
 def sass_of(cuobjdump, lib, which: str, kernels) -> list:
@@ -2617,9 +2633,18 @@ def sass_of(cuobjdump, lib, which: str, kernels) -> list:
     return bad
 
 
-#: The static-decode paths' cache lengths: the reference's decode_32k and
-#: long_500k cells (``src/repro/configs/base.py:138-139``).
-STATIC_KV, LONG_KV = 32768, 524288
+#: The static-decode paths' cells: the reference's decode_32k and
+#: long_500k (``repro_torch.configs.SHAPES``, its copy of
+#: ``src/repro/configs/base.py:136-141``).
+STATIC_CELL, LONG_CELL = "decode_32k", "long_500k"
+
+
+def cell_len(cell: str) -> int:
+    """A shape cell's sequence length, its decode cache's rows
+    (``SHAPES``)."""
+    from repro_torch.configs import SHAPES
+
+    return SHAPES[cell].seq_len
 
 
 def decode_rtol(kv_len: int) -> float:
@@ -2627,7 +2652,7 @@ def decode_rtol(kv_len: int) -> float:
     ``agreement`` at RTOL up to 32,768 keys, then growing as the square
     root of the sum's length (float32 rounding of a sum grows so): 4e-5
     at 524,288 keys."""
-    return RTOL * max(1.0, math.sqrt(kv_len / STATIC_KV))
+    return RTOL * max(1.0, math.sqrt(kv_len / cell_len(STATIC_CELL)))
 
 
 #: The SSD scan's limit against its plain version: each output within
@@ -2722,6 +2747,7 @@ def bf16_counters() -> dict:
             "matmul_fused_native_bf16": MM.NATIVE_BF16,
             "flash_score_mod_bf16": FA.SCORE_MOD_BF16,
             "flash_decode_bf16": FA.DECODE_BF16,
+            "flash_decode_native_bf16": FA.DECODE_NATIVE_BF16,
             "matmul_fused_bf16": MM.BF16, "layernorm_bf16": LN.BF16,
             "layernorm_bwd_bf16": LN.BWD_BF16, "softmax_bf16": SM.BF16,
             "softmax_bwd_bf16": SM.BWD_BF16, "ssd_scan_bf16": SS.BF16}
@@ -3072,6 +3098,24 @@ PROFILED_CALLS = 3
 PROFILED_SESSIONS = 2
 
 
+def kernel_times(fn, calls: int = 20) -> dict:
+    """{kernel name: mean device us a launch} of ``calls`` calls of ``fn``
+    under ``torch.profiler`` (after three calls outside it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+            e.device_time_total / e.count
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def kernel_events(fn) -> tuple[float, dict, str]:
     """Calls of ``fn`` under ``torch.profiler``: (device busy ms a call,
     {kernel name: launches a call}, records dropped) -- a replayed graph's
@@ -3226,7 +3270,8 @@ def replay_vs_eager(label: str, replay, eager, kernels: dict, replays: int,
         fail(f"{label}: the profiler saw no kernel ({n_c} replayed, {n_e} "
              "eager)")
     share_c, share_e = busy_c / wall_captured, busy_e / wall_eager
-    tally = {getattr(k, "__name__", str(k)): v for k, v in kernels.items()}
+    tally = {getattr(k, "__name__", getattr(k, "name", str(k))): v
+             for k, v in kernels.items()}
     print(f"{label}: captured (one graph replay) wall {wall_captured:.3f} ms"
           f", device busy {busy_c:.3f} ms ({100 * share_c:.1f}%), {n_c} "
           f"kernel launches a step from the profiler; eager wall "
@@ -3832,29 +3877,58 @@ TUNED_RESULTS: dict = {}
 
 #: Greedy steps of a static-decode phase, at the cache's last positions.
 STATIC_STEPS = 4
+#: The batch of Llama-3.2-3B's bfloat16 decode_32k run: 60.13 GB of
+#: bfloat16 cache and 6.4 GB of weights on the 80 GB card (the cell's
+#: batch of 128 would need about 480 GB of cache)
+STATIC_BF16_BATCH = 16
 #: Device memory a static-decode phase needs beyond its weights and
 #: caches (activations, the plain path's logits and softmax, the
 #: allocator's slack).
 STATIC_SLACK_BYTES = 4e9
 
 
-def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
+#: Sequences of a bfloat16 static-decode batch held against the float32
+#: run (decode is independent across sequences; the float32 copy of the
+#: weights and of these rows runs on the host, beside the card's 80 GB)
+STATIC_EXACT_SEQS = 2
+
+
+def batch_rows(cache: dict, n: int) -> dict:
+    """Views of the first ``n`` sequences of a model's cache (the stacked
+    [n_layers, B, ...] caches, or a recurrent model's per-layer ones)."""
+    if "mamba" in cache:
+        return {k: [{n_: t[:n] for n_, t in c.items()} for c in v]
+                for k, v in cache.items()}
+    return {k: t[:, :n] for k, t in cache.items()}
+
+
+def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
+                        dtype=None) -> dict:
     """``make_decode_step(mdl, kv_len)`` at full width and depth: the
     reference's decode cells, each step attending all ``kv_len`` rows of
     a cache filled in place from the seeded generator (a recurrent
     model's SSM and conv state from zeros), ``STATIC_STEPS`` greedy steps
-    at the last positions.  Reports compile seconds, ms per step, the
-    device's busy share and a profile of one step, launches per step
-    (``flash_decode`` once an attention layer); holds every step's
-    logits against the plain path (``"xla"`` with
-    ``dispatch="interpret"``) fed the same tokens from the same cache
-    state (the rows the steps write are saved and restored).  Returns
-    the launches of the counted run."""
+    at the last positions; ``dtype`` the params' and the caches' type
+    (float32 by default; bfloat16 as the reference builds its cells).
+    Reports compile seconds, ms per step, the device's busy share and a
+    profile of one step, B8's share of it, launches per step
+    (``flash_decode`` once an attention layer; in bfloat16 its native
+    instance each time).  Holds every step's logits against the plain
+    path (``"xla"`` with ``dispatch="interpret"``) fed the same tokens
+    from the same cache state (the rows the steps write are saved and
+    restored): in float32 within 1e-4 max(1, max|logits|); in bfloat16 by
+    the bfloat16 path rule against a float32 copy of the same weights and
+    cache rows (``STATIC_EXACT_SEQS`` sequences, on the host), beside the
+    bfloat16 plain path on the same sequences.  Returns the launches of
+    the counted run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models.model import Model, shared_layers
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    tname = str(dtype).removeprefix("torch.")
     t_phase = time.perf_counter()
     cfg = get_config(arch)
     hybrid = cfg.family == "hybrid"
@@ -3862,17 +3936,19 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
     B, V, N = batch, cfg.vocab_size, STATIC_STEPS
     gc.collect()  # the earlier phases' models hold reference cycles
     torch.cuda.empty_cache()
-    model = Model(cfg)
+    model = Model(cfg, param_dtype=dtype)
     params = model.init(SEED)
     # the weights a step reads: all but the embedding (one row a token)
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        torch.utils._pytree.tree_leaves(
                            {k: v for k, v in params.items() if k != "embed"}))
+    itemsize = torch.empty(0, dtype=dtype).element_size()
     cache_bytes = (2 * n_attn * B * cfg.n_kv_heads * kv_len
-                   * cfg.resolved_head_dim * 4)
+                   * cfg.resolved_head_dim * itemsize)
     free, total = torch.cuda.mem_get_info()
+    label = f"{cfg.name} {tname} batch {B} kv_len {kv_len}"
     print(f"static decode: {cfg.name} layers={cfg.n_layers} (attention "
-          f"{n_attn}) batch={B} kv_len={kv_len} float32 seed={SEED}: caches "
+          f"{n_attn}) batch={B} kv_len={kv_len} {tname} seed={SEED}: caches "
           f"{cache_bytes / 1e9:.2f} GB, weights a step reads "
           f"{weight_bytes / 1e9:.2f} GB; "
           f"device memory free after the weights {free / 1e9:.2f} of "
@@ -3881,7 +3957,7 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
         fail(f"static decode {cfg.name}: the caches need "
              f"{cache_bytes / 1e9:.2f} GB and {STATIC_SLACK_BYTES / 1e9:.0f} "
              f"GB of slack, {free / 1e9:.2f} GB are free")
-    cache = model.init_cache(B, kv_len)
+    cache = model.init_cache(B, kv_len, dtype=dtype)
     kv = cache["attn"] if hybrid else [cache]
     for c in kv:
         c["k"].normal_(generator=gen)
@@ -3904,15 +3980,16 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
     tok0 = torch.randint(0, V, (B, 1), generator=gen, device="cuda")
     step = make_decode_step(model, kv_len)
 
-    def run(step_fn, forced=None, times=None):
+    def run(step_fn, forced=None, times=None, *, prm=params, cch=cache,
+            tok=tok0):
         """N steps from the saved state: greedy, or fed ``forced``."""
         restore()
-        tok, logits, toks = tok0, [], []
+        logits, toks = [], []
         for i, pos in enumerate(positions):
             toks.append(tok)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, _ = step_fn(params, cache, tok, pos)
+            lg, _ = step_fn(prm, cch, tok, pos)
             torch.cuda.synchronize()
             if times is not None:
                 times.append((time.perf_counter() - t0) * 1e3)
@@ -3939,6 +4016,10 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
     if per_step["flash_decode"] != n_attn:
         fail(f"flash_decode launched {per_step['flash_decode']} times a "
              f"static decode step, want {n_attn} (one an attention layer)")
+    if bf16 and per_step["flash_decode_native_bf16"] != n_attn:
+        fail(f"B8's native bfloat16 instance launched "
+             f"{per_step['flash_decode_native_bf16']} times a static decode "
+             f"step, want {n_attn}")
     print(f"compile_s={cold_s - sum(steps_ms) / 1e3:.2f} (the first {N} "
           f"steps minus the second {N}: trace, plan, emit, Triton builds, "
           f"the capture)  step_ms={step_ms:.2f} (median of {N} replays of "
@@ -3954,20 +4035,31 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
     graph.inputs[0].copy_(tok0)
     graph.inputs[1].fill_(positions[0])
     captured_vs_eager(
-        f"static decode step ({cfg.name}, batch {B}, kv_len {kv_len})",
+        f"static decode step ({label})",
         graph, lambda t, p: eager_step(params, cache, t, p),
         tuple(graph.inputs), step_ms, statistics.median(eager_ms))
     restore()
     prof = where_the_time_goes("one static decode step", lambda: step(
         params, cache, tok0, positions[0]))
     busy = sum(v for k, v in prof.items() if k != "wall_ms")
-    print(f"static decode step: device busy {busy:.2f} ms = "
+    b8 = prof.get("cuda decode", 0.0)
+    print(f"static decode step ({label}): device busy {busy:.2f} ms = "
           f"{100 * busy / step_ms:.1f}% of the unprofiled step "
-          f"({step_ms:.2f} ms); flash_decode "
-          f"{prof.get('cuda decode', 0.0):.3f} ms, at least "
+          f"({step_ms:.2f} ms); flash_decode {b8:.3f} ms "
+          f"({100 * b8 / max(busy, 1e-9):.1f}% of busy), at least "
           f"{cache_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms for the caches and "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms for the weights at "
           f"3.35 TB/s")
+    if bf16:
+        BF16_RESULTS[f"static_decode {label}"] = {
+            "step_ms": step_ms, "busy_ms": busy, "b8_ms": b8,
+            "b8_share": b8 / max(busy, 1e-9),
+            "b8_launches_per_step": per_step["flash_decode_native_bf16"],
+            "cache_GB": cache_bytes / 1e9}
+        static_bf16_agreement(cfg, model, params, cache, got, toks,
+                              run, restore, kv_len)
+        print(f"static decode phase: {time.perf_counter() - t_phase:.1f} s")
+        return launches
 
     plain = Model(cfg, "xla", dispatch="interpret")
     want, _ = run(make_decode_step(plain, kv_len, capture=False),
@@ -3992,6 +4084,82 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int) -> dict:
              "plain path")
     print(f"static decode phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def phase_static_paths(gen) -> tuple:
+    """The static-decode paths: Llama-3.2-3B at ``decode_32k`` (batch
+    ``BATCH``) and Zamba2-1.2B at ``long_500k`` in float32, then both in
+    bfloat16, params and caches, as the reference builds its cells
+    (Llama at ``STATIC_BF16_BATCH``); their launches in that order."""
+    import torch
+
+    static_kv, long_kv = cell_len(STATIC_CELL), cell_len(LONG_CELL)
+    t0 = time.perf_counter()
+    out = (phase_static_decode(gen, "llama3.2-3b", BATCH, static_kv),
+           phase_static_decode(gen, HYBRID_ARCH, 1, long_kv),
+           phase_static_decode(gen, "llama3.2-3b", STATIC_BF16_BATCH,
+                               static_kv, torch.bfloat16),
+           phase_static_decode(gen, HYBRID_ARCH, 1, long_kv,
+                               torch.bfloat16))
+    print(f"static decode phases: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def static_bf16_agreement(cfg, model, params, cache, got, toks, run,
+                          restore, kv_len: int) -> None:
+    """The bfloat16 path rule on a bfloat16 static decode: for the first
+    ``STATIC_EXACT_SEQS`` sequences, the kernel path's logits (``got``)
+    and the bfloat16 plain path's (``"xla"``, ``dispatch="interpret"``,
+    the same bfloat16 weights and cache rows, fed the same tokens) each
+    against a float32 copy of those weights and rows run on the host;
+    the kernel path at most ``BF16_PATH_FACTOR`` times the plain path's
+    distance plus ``BF16_PATH_FLOOR`` max(1, max|logits|), every step."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.model import Model
+
+    nb = min(STATIC_EXACT_SEQS, toks[0].shape[0])
+    forced = [t[:nb] for t in toks]
+    view = batch_rows(cache, nb)
+    plain = Model(cfg, "xla", dispatch="interpret",
+                  param_dtype=torch.bfloat16)
+    want, _ = run(make_decode_step(plain, kv_len, capture=False),
+                  forced=forced, cch=view, tok=forced[0])
+    restore()
+    t0 = time.perf_counter()
+    host = torch.utils._pytree.tree_map(
+        lambda t: t.to("cpu", torch.float32) if t.is_floating_point()
+        else t.cpu(), (params, view))
+    exact_model = Model(cfg, "xla", dispatch="interpret", device="cpu")
+    step = make_decode_step(exact_model, kv_len)
+    exact = []
+    tok = forced[0].cpu()
+    for i, pos in enumerate(range(kv_len - len(toks), kv_len)):
+        lg, _ = step(host[0], host[1], tok, pos)
+        exact.append(lg[:, 0, :cfg.vocab_size].to("cuda"))
+        tok = forced[i + 1].cpu() if i + 1 < len(toks) else None
+    del host
+    print(f"  float32 copy of {nb} sequences on the host: "
+          f"{time.perf_counter() - t0:.1f} s")
+    worst = 0.0
+    for i, (g, w, e) in enumerate(zip(got, want, exact)):
+        g, w, e = g[:nb].float(), w.float(), e.float()
+        kerr = float((g - e).abs().max())
+        perr = float((w - e).abs().max())
+        lim = (BF16_PATH_FACTOR * perr
+               + BF16_PATH_FLOOR * max(1.0, float(e.abs().max())))
+        worst = max(worst, kerr / lim)
+        agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+        print(f"  step {i}: kernel path {kerr:.4e}, bfloat16 plain path "
+              f"{perr:.4e} from float32 (limit {lim:.4e}); argmax agreement "
+              f"with the plain path {agree:.2f}")
+    print(f"static decode bfloat16 agreement over {len(got)} steps, "
+          f"sequences 0-{nb - 1}: worst err/limit {worst:.3f} (the "
+          f"bfloat16 path rule)")
+    BF16_RESULTS[f"static_decode {cfg.name} worst err/limit"] = worst
+    if not all(bool(torch.isfinite(g).all()) for g in got) or worst > 1.0:
+        fail(f"the bfloat16 static decode path of {cfg.name} breaks the "
+             "bfloat16 path rule")
 
 
 #: Share of an MoE model's compared logit rows that may miss the limit: a
@@ -4444,7 +4612,18 @@ def phase_bf16_kernels(gen) -> dict:
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
-    for R, C in ((BATCH * PROMPT, 3072), (BATCH, 3072)):
+    # B6: the warp path (a warp a bfloat16 row) or the block path, as the
+    # shape selects; the earlier times in brackets (run 31C: each path
+    # timed at each shape, the bfloat16 ring the fastest nowhere;
+    # run 28G: before the warp path)
+    for R, C, earlier in (
+            (BATCH * PROMPT, 3072,
+             "31C warp 0.0116, block 0.0117, ring 0.0141; 28G block 0.0138"),
+            (BATCH, 3072, "31C block 0.0063; 28G block 0.0060"),
+            (2000, 2048, "31C warp 0.0097, block 0.0100, ring 0.0100"),
+            (4096, 1024, "31C warp 0.0095, block 0.0112, ring 0.0106"),
+            (4096, 2048, "31C warp 0.0132, block 0.0151, ring 0.0158"),
+            (8192, 3072, "31C block 0.0410, warp 0.0428, ring 0.0448")):
         x, g = rnd(R, C), rnd(C, scale=0.1) + 1.0
         nbytes = 2 * (2 * R * C + C) + 4 * R
         res = check_bf16_kernel(
@@ -4453,9 +4632,10 @@ def phase_bf16_kernels(gen) -> dict:
             lambda a, b: a.double() * torch.rsqrt(
                 (a.double() ** 2).mean(-1, keepdim=True) + 1e-6)
             * b.double(), (x, g), nbytes=nbytes, ops=4 * R * C, reps=50,
-            library=lambda a, b, _C=C: F.rms_norm(a, (_C,), b, 1e-6))
+            library=lambda a, b, _C=C: F.rms_norm(a, (_C,), b, 1e-6),
+            earlier=earlier)
         checks.setdefault("rmsnorm_bf16", []).append(
-            dict(res, _bytes=nbytes, _main=R > BATCH))
+            dict(res, _bytes=nbytes, _main=R == BATCH * PROMPT))
 
     llama = (BATCH, 24, 8, 128)
     for label, (B, Hq, Hkv, D), earlier in (
@@ -4501,30 +4681,63 @@ def phase_bf16_kernels(gen) -> dict:
         fail("bench attention block in bfloat16: no score chain folded")
     checks.setdefault("flash_score_mod_bf16", []).append(dict(res, _main=True))
 
-    # B8 at decode_32k with a bfloat16 q, against float32 and bfloat16
-    # caches
-    B, Hq, Hkv, D = llama
-    for cache in (torch.float32, bf):
+    # B8 at decode_32k: a bfloat16 q against float32 caches (the split
+    # kernel), and q and caches bfloat16 (the native kernel, on the tensor
+    # cores) at batch 4 and 16 and at long_500k, beside the split kernel's
+    # time on the same bfloat16 inputs in this run
+    static_kv, long_kv = cell_len(STATIC_CELL), cell_len(LONG_CELL)
+    for label, (B, Hq, Hkv, D), S, cache, earlier in (
+            (STATIC_CELL, llama, static_kv, torch.float32, ""),
+            (STATIC_CELL, llama, static_kv, bf, "0.3506, 28G"),
+            (STATIC_CELL, (STATIC_BF16_BATCH, 24, 8, 128), static_kv, bf,
+             ""),
+            (LONG_CELL, (1, 32, 32, 64), long_kv, bf, "")):
         q = rnd(B, Hq, D)
-        k, v = rnd(B, Hkv, STATIC_KV, D, dtype=cache), \
-            rnd(B, Hkv, STATIC_KV, D, dtype=cache)
+        k, v = rnd(B, Hkv, S, D, dtype=cache), rnd(B, Hkv, S, D, dtype=cache)
         q32 = q.float()
+        native = cache == bf
         isz = 4 if cache == torch.float32 else 2
         nbytes = isz * 2 * k.numel() + 2 * 2 * q.numel()
+        if native:
+            def split(q=q, k=k, v=v, S=S, D=D):
+                return FA.decode_by_subgroups(q, k, v, S, 1.0 / math.sqrt(D),
+                                              FA._decode_launch)
+            split_ms = time_ms(split, 10)
+            earlier = "; ".join([f"split kernel {split_ms:.4f} this run"]
+                                + ([earlier] if earlier else []))
+            # each launch's device time, native against split, and the
+            # rate at which the first launch reads the cache (Nsight
+            # Compute does not run on the machine with the card)
+            parts = {"native": kernel_times(
+                         lambda: FA.flash_decode_cuda(q, k, v)),
+                     "split": kernel_times(split)}
+            for which, times in parts.items():
+                reads = sum(t for n, t in times.items() if "combine" not in n)
+                times["cache TB/s"] = nbytes / reads / 1e6
+                print(f"  {which} kernel, device us a launch: " + "; ".join(
+                    f"{n} {t:.2f}" for n, t in times.items()))
+            BF16_RESULTS[f"flash_decode {label} B{B} by launch"] = parts
+        before = launch_counts()
         res = check_bf16_kernel(
-            f"flash_decode decode_32k B{B} Hq{Hq} Hkv{Hkv} S{STATIC_KV} D{D} "
+            f"flash_decode {label} B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
             f"q bfloat16, caches {str(cache).removeprefix('torch.')}",
             lambda a, b, c: FA.flash_decode_cuda(a, b, c),
             lambda a, b, c: FA.flash_decode_plain(a, b, c),
             lambda a, b, c: ref.decode_attention(a.double(), b.double(),
                                                  c.double()),
-            (q, k, v), nbytes=nbytes, mma_ops=4 * D * B * Hq * STATIC_KV,
-            reps=10,
-            library=lambda a, b, c, _q=(q if cache == bf else q32):
+            (q, k, v), nbytes=nbytes, mma_ops=4 * D * B * Hq * S,
+            reps=10, earlier=earlier,
+            library=lambda a, b, c, _q=(q if native else q32):
                 F.scaled_dot_product_attention(_q[:, :, None], b, c,
                                                enable_gqa=True)[:, :, 0])
-        checks.setdefault("flash_decode_bf16", []).append(
-            dict(res, _bytes=nbytes, _main=cache == torch.float32))
+        if native:
+            launched("flash_decode_native_bf16", before)
+            checks.setdefault("flash_decode_native_bf16", []).append(
+                dict(res, _bytes=nbytes, _main=B == BATCH))
+        else:
+            launched("flash_decode_bf16", before)
+            checks.setdefault("flash_decode_bf16", []).append(
+                dict(res, _bytes=nbytes, _main=True))
         del k, v
         torch.cuda.empty_cache()
 
@@ -5182,7 +5395,8 @@ def main(argv=None) -> int:
         description="Drive the PyTorch port on one CUDA card (see the "
                     "module's docstring for the phases).")
     ap.add_argument(
-        "--phase", choices=("all", "router", "tuned", "dispatch", "bf16"),
+        "--phase", choices=("all", "router", "tuned", "dispatch", "bf16",
+                            "decode"),
         default="all",
         help="'router': only the device line, the build and the router "
              "floor rows (phase 3c), then their JSON line; no path runs. "
@@ -5194,7 +5408,10 @@ def main(argv=None) -> int:
              "generate and remat training, Mamba2-370m's generate and "
              "remat training, Zamba2-1.2B's generate, HuBERT-XLarge's "
              "training, Granite's forward and generate, Zamba2-1.2B's "
-             "float32 training), then its JSON lines")
+             "float32 training), then its JSON lines. 'decode': only the "
+             "device line, the build, the static-decode phases (12: "
+             "float32, then bfloat16 params and caches) and the SASS "
+             "check, then the bfloat16 JSON line.")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5230,6 +5447,15 @@ def main(argv=None) -> int:
     if args.phase == "dispatch":
         phase_dispatch(gen, {})
         print(json.dumps({"dispatch": DISPATCH_RESULTS}, default=str))
+        return 0
+    if args.phase == "decode":
+        from repro_torch.kernels import _build
+        _build.build_all()
+        phase_static_paths(gen)
+        sass_check()
+        print(json.dumps({"bf16": BF16_RESULTS}, default=str))
+        print(f"chip_smoke --phase decode: "
+              f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if args.phase == "bf16":
         from repro_torch.kernels import _build
@@ -5280,11 +5506,8 @@ def main(argv=None) -> int:
     checks.update(phase_bf16_kernels(gen))
     bf16_launches = phase_bf16_paths(gen)
     hybrid_train_launches = phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
-    t_static = time.perf_counter()
-    static_launches = phase_static_decode(gen, "llama3.2-3b", BATCH,
-                                          STATIC_KV)
-    long_launches = phase_static_decode(gen, HYBRID_ARCH, 1, LONG_KV)
-    print(f"static decode phases: {time.perf_counter() - t_static:.1f} s")
+    (static_launches, long_launches, static_bf16_launches,
+     long_bf16_launches) = phase_static_paths(gen)
     # last of the paths: the earlier phases run as they did before it
     tuned_launches = phase_tuned(gen, checks)
     sass_check()
@@ -5340,6 +5563,9 @@ def main(argv=None) -> int:
             ("flash_decode_bf16", "cuda",
              "src/repro_torch/csrc/flash_decode.cu",
              "src/repro/kernels/flash_attention.py:161"),
+            ("flash_decode_native_bf16", "cuda",
+             "src/repro_torch/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_attention.py:161"),
             ("matmul_fused_bf16", "cuda",
              "src/repro_torch/csrc/matmul_fused.cuh",
              "src/repro/kernels/matmul.py:53"),
@@ -5370,6 +5596,8 @@ def main(argv=None) -> int:
                    "ssm_train": ssm_train_launches[name],
                    "static_decode": static_launches[name],
                    "hybrid_long_decode": long_launches[name],
+                   "static_decode_bf16": static_bf16_launches[name],
+                   "hybrid_long_decode_bf16": long_bf16_launches[name],
                    "scheduler": sched_launches[name],
                    "moe_scheduler": moe_sched_launches[name],
                    "hybrid_scheduler": hybrid_sched_launches[name],

@@ -2,7 +2,9 @@
 framework-free ``repro.configs.base``; the port never imports ``repro``).
 
 One ``<arch>.py`` per architecture defines ``CONFIG``; ``get_config``
-resolves an id.  ``reduced()`` derives the smoke-test configuration (same
+resolves an id, ``all_configs`` the carried ones.  ``SHAPES`` holds the
+reference's four shape cells (``ShapeCell``) and ``cell_applicable`` its
+verdict on a config and a cell.  ``reduced()`` derives the smoke-test configuration (same
 family, tiny dims) the CPU tests use.
 """
 from __future__ import annotations
@@ -112,3 +114,35 @@ def get_config(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.CONFIG
+
+
+def all_configs() -> dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+# ---------------------------------------------------------------------------
+# assigned input shapes (the 4 LM shape cells)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """(runnable?, reason-if-skipped) per DESIGN.md §Arch-applicability."""
+    if shape.kind == "decode" and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: 500k decode needs sub-quadratic attention"
+    return True, ""

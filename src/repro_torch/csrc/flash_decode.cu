@@ -75,6 +75,39 @@
 // seen no row yet).  The products run as FMA on the CUDA cores: the
 // kernel is bound by bytes, not by operations.
 //
+// bfloat16 q against bfloat16 caches at D 64, 128 or 256 (Llama's,
+// Granite's, Zamba2's and Gemma-7B's heads) take `flash_decode_bf16_kernel`
+// instead (FlashDecoding with grouped query heads on the tensor cores).
+// Widening a bfloat16 value on the CUDA cores costs as many instructions as
+// a float32 value does, for half the bytes, so the split kernel above spends
+// twice the issue a byte on such a cache and reaches only about half its
+// bound (PERF.md, B8 bfloat16).  The native kernel keeps the values in
+// bfloat16 up to the products:
+//   * grid (splits, Hkv, B), 4 warps; the wrapper picks the splits so that
+//     B Hkv splits fills whole resident waves of this kernel (its own
+//     occupancy, `repro_flash_decode_bf16_blocks`);
+//   * K and V tiles of kKT = 64 rows go through a ring of shared memory
+//     (4 stages at D 64, 3 at 128, 2 at 256) by 16-byte `cp.async` copies
+//     that every thread issues, the next tiles in flight while the warps
+//     compute; a row's 16-byte chunks are XOR-swizzled by the row's low
+//     three bits, so that `ldmatrix` reads eight rows without a bank
+//     conflict; rows past the split's end are zero-filled, not read;
+//   * a warp takes 16 keys of each tile.  The g <= 8 query heads sit on the
+//     n8 side of `mma.sync.m16n8k16` bf16 (float32 accumulator): S^T[16 keys
+//     x 8] = K[16 x D] q^T, K by `ldmatrix`; q . k is one product (a product
+//     of two bfloat16 values is exact in float32, as the widened FMA was);
+//   * the online softmax keeps m and l of the lane's two heads in registers,
+//     in units of log2 e (one shuffle reduction of the max across the 16
+//     keys, l summed across lanes only at the end); rows past kv_len get
+//     probability 0;
+//   * p is float32, as in the reference; it is split into bfloat16 hi and
+//     lo (`repro_bf16::split_bf16`), moved from the score fragment's layout
+//     (key rows) to the B operand's (head columns) by `movmatrix.trans`,
+//     and o^T[D x 8] += V^T P^T takes two products, V by `ldmatrix.trans`;
+//   * the block's four warp states merge in shared memory (the ring, freed)
+//     into the float32 partials that `flash_decode_combine_kernel` merges
+//     over the splits, as the split kernel's do (m stored in natural units).
+//
 // C interface (bound with ctypes): returns the first CUDA error of the two
 // launches.  q, k, v are taken with their element strides (the last
 // dimension contiguous, every other stride and the base 16-byte aligned:
@@ -85,7 +118,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "chain.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -651,7 +687,319 @@ cudaError_t launch_dim(const Params& p, int B, int Hkv, int G, int D,
   return launch_group<kMaxD + 4, TC>(p, B, Hkv, G, s);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 q and caches on the tensor cores (D 64, 128, 256)
+// ---------------------------------------------------------------------------
+constexpr int kNWarps = 4;              // warps of the native kernel's block
+constexpr int kNThreads = 32 * kNWarps;
+constexpr int kKT = 16 * kNWarps;       // keys a tile: 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Stages of the K/V ring at head dim d, and the block's shared memory
+__host__ __device__ constexpr int native_stages(int d) {
+  return d <= 64 ? 4 : d <= 128 ? 3 : 2;
+}
+__host__ __device__ constexpr int native_smem_bytes(int d) {
+  return native_stages(d) * 2 * kKT * d * 2;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// An 8 x 8 matrix of 16-bit values, transposed across the warp: lane (g, t)
+// holds row g, columns 2t and 2t + 1, before and after.
+__device__ __forceinline__ uint32_t trans8x8(uint32_t x) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;"
+               : "=r"(r)
+               : "r"(x));
+  return r;
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kNThreads) flash_decode_bf16_kernel(
+    Params p) {
+  using repro_bf16::ldsm_x4;
+  using repro_bf16::ldsm_x4_t;
+  using repro_bf16::mma_bf16;
+  constexpr int NST = native_stages(D);
+  constexpr int CPR = D / 8;    // 16-byte chunks a row
+  constexpr int KS = D / 16;    // k16 steps of q . k, m16 tiles of o^T
+  constexpr int CPT = kKT * CPR / kNThreads;  // chunks a thread a tile
+  static_assert(CPR >= 8 && kKT * CPR % kNThreads == 0 && G <= 8,
+                "D 64, 128 or 256; at most 8 query heads");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [NST][K, V][kKT][D]
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = split * p.rows_per_split;
+  const int row1 = min(p.kv_len, row0 + p.rows_per_split);
+  const int n_tiles = (row1 - row0 + kKT - 1) / kKT;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // tile `tile`'s K and V rows into stage `stage`: chunk c of row r at
+  // chunk c ^ (r & 7); a row past the split's end is zero-filled
+  auto load = [&](int tile, int stage) {
+    const uint32_t ks = repro_bf16::smem_addr(ring + stage * 2 * kKT * D);
+    const uint32_t vs = ks + kKT * D * 2;
+    const int base = row0 + tile * kKT;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int i = threadIdx.x + j * kNThreads;
+      const int r = i / CPR, c = i % CPR;
+      const bool in = base + r < row1;
+      const long long row = in ? base + r : row0;
+      const uint32_t off = 2 * (r * D + 8 * (c ^ (r & 7)));
+      cp_async16(ks + off, kg + row * p.k_ss + 8 * c, in ? 16 : 0);
+      cp_async16(vs + off, vg + row * p.v_ss + 8 * c, in ? 16 : 0);
+    }
+  };
+
+  // q^T as the B operand of the score products: head g (zero past G),
+  // columns 16 kk + 2t, + 1 and 16 kk + 2t + 8, + 9
+  uint32_t qb[KS][2];
+  const bf16* qh = static_cast<const bf16*>(p.q) + b * p.q_sb +
+                   hk * p.q_sk + static_cast<long long>(g) * p.q_sh;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    qb[kk][0] = g < G ? *reinterpret_cast<const uint32_t*>(
+                            qh + 16 * kk + 2 * t) : 0u;
+    qb[kk][1] = g < G ? *reinterpret_cast<const uint32_t*>(
+                            qh + 16 * kk + 2 * t + 8) : 0u;
+  }
+
+  // o^T fragments: rows d = 16 mt + g (+ 8), columns heads 2t, 2t + 1;
+  // m and l of heads 2t and 2t + 1 (m in units of log2 e; l this lane's
+  // share until the end)
+  float acc[KS][4];
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt)
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < n_tiles) load(s, s);
+    cp_async_commit();
+  }
+  // ldmatrix rows: K's (a row of 16 keys x 16 columns a k-step) and V's
+  // (transposed: 16 columns x 16 keys an m-tile)
+  const int rk = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int rv = 16 * warp + (lane & 7) + ((lane >> 4) & 1) * 8;
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // the tile landed; the stage refilled next is free
+    if (it + NST - 1 < n_tiles) load(it + NST - 1, (it + NST - 1) % NST);
+    cp_async_commit();
+    const bf16* ks = ring + (it % NST) * 2 * kKT * D;
+    const bf16* vs = ks + kKT * D;
+
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};  // S^T: keys g, g + 8 x heads 2t, +1
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      const int c = 2 * kk + (lane >> 4);
+      ldsm_x4(a, ks + rk * D + 8 * (c ^ (rk & 7)));
+      mma_bf16(sc, a, qb[kk][0], qb[kk][1]);
+    }
+    const int key = row0 + it * kKT + 16 * warp + g;
+    const bool in0 = key < row1, in1 = key + 8 < row1;
+    const float s00 = in0 ? sc[0] * sl2 : kNegInf;
+    const float s01 = in0 ? sc[1] * sl2 : kNegInf;
+    const float s10 = in1 ? sc[2] * sl2 : kNegInf;
+    const float s11 = in1 ? sc[3] * sl2 : kNegInf;
+    float mx0 = fmaxf(s00, s10), mx1 = fmaxf(s01, s11);
+#pragma unroll
+    for (int w = 4; w < 32; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    const float p00 = in0 ? exp2f(s00 - mn0) : 0.f;
+    const float p01 = in0 ? exp2f(s01 - mn1) : 0.f;
+    const float p10 = in1 ? exp2f(s10 - mn0) : 0.f;
+    const float p11 = in1 ? exp2f(s11 - mn1) : 0.f;
+    l0 = fmaf(l0, al0, p00 + p10);
+    l1 = fmaf(l1, al1, p01 + p11);
+    m0 = mn0;
+    m1 = mn1;
+    // P^T as the B operand: the score fragment holds key rows, the
+    // operand head columns -- one 8 x 8 transpose a half and a part
+    uint32_t h0, lo0, h1, lo1;
+    repro_bf16::split_bf16(p00, p01, h0, lo0);
+    repro_bf16::split_bf16(p10, p11, h1, lo1);
+    const uint32_t bh0 = trans8x8(h0), bh1 = trans8x8(h1);
+    const uint32_t bl0 = trans8x8(lo0), bl1 = trans8x8(lo1);
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt) {
+      acc[mt][0] *= al0;
+      acc[mt][1] *= al1;
+      acc[mt][2] *= al0;
+      acc[mt][3] *= al1;
+      uint32_t a[4];
+      const int c = 2 * mt + ((lane >> 3) & 1);
+      ldsm_x4_t(a, vs + rv * D + 8 * (c ^ (rv & 7)));
+      mma_bf16(acc[mt], a, bh0, bh1);
+      mma_bf16(acc[mt], a, bl0, bl1);
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states now
+#pragma unroll
+  for (int w = 4; w < 32; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  float* s_acc = reinterpret_cast<float*>(smem_raw);  // [kNWarps][8][D]
+  float* s_m = s_acc + kNWarps * 8 * D;               // [kNWarps][8]
+  float* s_l = s_m + kNWarps * 8;
+  if (g == 0) {
+    s_m[warp * 8 + 2 * t] = m0;
+    s_m[warp * 8 + 2 * t + 1] = m1;
+    s_l[warp * 8 + 2 * t] = l0;
+    s_l[warp * 8 + 2 * t + 1] = l1;
+  }
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt) {
+    float* a0 = s_acc + (warp * 8 + 2 * t) * D + 16 * mt + g;
+    a0[0] = acc[mt][0];
+    a0[8] = acc[mt][2];
+    a0[D] = acc[mt][1];
+    a0[D + 8] = acc[mt][3];
+  }
+  __syncthreads();
+
+  // merge the block's states: one (query head, column) a thread
+  for (int idx = threadIdx.x; idx < G * D; idx += kNThreads) {
+    const int h = idx / D, d = idx % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kNWarps; ++w) mm = fmaxf(mm, s_m[w * 8 + h]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kNWarps; ++w) {
+      const float wt = exp2f(s_m[w * 8 + h] - mm);
+      ll = fmaf(s_l[w * 8 + h], wt, ll);
+      aa = fmaf(s_acc[(w * 8 + h) * D + d], wt, aa);
+    }
+    const long long row =
+        ((long long)b * p.Hq + hk * G + h) * p.splits + split;
+    p.part_acc[row * D + d] = aa;
+    if (d == 0) {
+      p.part_ml[2 * row] = mm * kLn2;
+      p.part_ml[2 * row + 1] = ll;
+    }
+  }
+}
+
+template <int D, int G>
+cudaError_t launch_bf16(const Params& p, int B, int Hkv, cudaStream_t s) {
+  constexpr int bytes = native_smem_bytes(D);
+  // the attribute is per device, so it is set on every launch
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_decode_bf16_kernel<D, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  flash_decode_bf16_kernel<D, G>
+      <<<dim3(p.splits, Hkv, B), kNThreads, bytes, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_decode_combine_kernel<D><<<dim3(p.Hq, B), D, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks of the native kernel at (D, G) resident on the whole device
+template <int D, int G>
+cudaError_t resident_bf16(int* blocks) {
+  constexpr int bytes = native_smem_bytes(D);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_decode_bf16_kernel<D, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_decode_bf16_kernel<D, G>, kNThreads, bytes);
+  *blocks = per_sm * sms;
+  return err;
+}
+
+// F(D, G) for a head dim of 64, 128 or 256 and 1 <= G <= 8
+template <int D, class F>
+cudaError_t by_group(int G, F f) {
+  switch (G) {
+    case 1: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, D>{}, std::integral_constant<int, 8>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+template <class F>
+cudaError_t by_native(int D, int G, F f) {
+  if (D == 64) return by_group<64>(G, f);
+  if (D == 128) return by_group<128>(G, f);
+  if (D == 256) return by_group<256>(G, f);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// One launch pair of the native bfloat16 kernel (q, o and both caches
+// bfloat16; D 64, 128 or 256; G <= 8), the arguments as
+// repro_flash_decode's; part_acc at width D.
+extern "C" int repro_flash_decode_bf16(
+    const void* q, const void* k, const void* v, void* part_acc,
+    void* part_ml, void* o, int B, int G, int Hkv, int D, int kv_len,
+    int rows_per_split, int splits, long long q_sb, long long q_sk,
+    long long q_sh, long long o_sb, long long o_sk, long long o_sh,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, float scale, void* stream) {
+  Params p{q, k, v, static_cast<float*>(part_acc),
+           static_cast<float*>(part_ml), o,
+           q_sb, q_sk, q_sh, o_sb, o_sk, o_sh, k_sb, k_sh, k_ss,
+           v_sb, v_sh, v_ss, Hkv * G, G, D, kv_len, rows_per_split, splits,
+           scale, 1};
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_native(D, G, [&](auto d, auto g) {
+    return launch_bf16<decltype(d)::value, decltype(g)::value>(p, B, Hkv, s);
+  }));
+}
+
+// The native kernel's resident blocks on the current device at (D, G), in
+// *blocks: the wrapper's split target.
+extern "C" int repro_flash_decode_bf16_blocks(int D, int G, int* blocks) {
+  *blocks = 0;
+  return static_cast<int>(by_native(D, G, [&](auto d, auto g) {
+    return resident_bf16<decltype(d)::value, decltype(g)::value>(blocks);
+  }));
+}
 
 // One launch pair for G query heads of each of the Hkv KV heads (at most
 // max_group(D)), at head dim D (a multiple of 4); part_acc and part_ml at

@@ -11,16 +11,16 @@
 // Bound: bytes.  Each row is read once and written once (the gain is
 // read once per warp or block), 8 R C bytes in all in float32, 4 R C in
 // bfloat16; the 3 R C operations are nothing beside them.  The TPU
-// kernel stages a block of rows in VMEM.  On the card the gain is in keeping enough bytes in flight and
-// moving no extra ones, and the best way to do that depends on the shape,
-// so the entry point takes one of two paths (chosen from the H100's
-// timings of both, PERF.md):
+// kernel stages a block of rows in VMEM.  On the card the gain is in
+// keeping enough bytes in flight and moving no extra ones, and the best
+// way to do that depends on the shape, so the entry point takes one of
+// three paths (chosen from the H100's timings of each, PERF.md):
 //
-// * The ring path, where the rows fill every warp the card holds at once
-//   (R at least the resident warps), a row is at most 3,072 columns, and
-//   at 2,048 columns or fewer each SM finds at least 16 rows: a
-//   persistent grid, one warp a row at a time, rows strided by the
-//   grid.  Each warp has a two-stage ring in shared memory that the
+// * The ring path, for float32 rows, where the rows fill every warp the
+//   card holds at once (R at least the resident warps), a row is at most
+//   3,072 columns, and at 2,048 columns or fewer each SM finds at least
+//   16 rows: a persistent grid, one warp a row at a time, rows strided by
+//   the grid.  Each warp has a two-stage ring in shared memory that the
 //   Tensor Memory Accelerator fills (`cp.async.bulk`, one mbarrier a
 //   stage): the next row is in flight while the warp reduces the current
 //   one by shuffles alone (no block barrier), writes y over it in shared
@@ -31,10 +31,25 @@
 //   H100 measured the ring faster (PERF.md): [2048, 3072], [4096, 1024]
 //   and [4096, 2048] take it, while at [2000, 2048] (Zamba2's prefill),
 //   where the ring also has one CTA an SM, it was 3% slower than the
-//   block path.
-// * The block path otherwise (decode rows, rows that leave the ring's
-//   warps idle, rows up to 8,192 columns): one block of 256 threads a
-//   row, the row in registers as float4 (VPT of them a thread), the sum
+//   block path.  No bfloat16 row takes it (its bfloat16 instances are not
+//   built): the warp or the block path was faster at every bfloat16 shape
+//   the H100 timed (PERF.md).
+// * The warp path, for bfloat16 rows of at most 4,096 columns, a multiple
+//   of 8, where the rows outnumber one wave of the block path (8 blocks an
+//   SM) and are at most twice the warps it holds at once: a persistent
+//   grid of 8-warp blocks, one warp a row at a time, so Llama's prefill
+//   [2048, 3072] is 256 blocks, all resident at once, where the block path
+//   took two waves of 256-thread blocks.  A lane holds its share of the
+//   row in registers as 16-byte loads of 8 values (12 at 3,072 columns),
+//   all issued before the reduction, and the next row's loads are issued
+//   before the current row is reduced and stored; the gain is staged once
+//   a block in shared memory while the first rows load; the sum of squares
+//   is reduced by shuffles alone (no block barrier), and y leaves in
+//   16-byte stores, rounded once.  Beyond twice its resident warps (at
+//   [8192, 3072]) the block path was faster.
+// * The block path otherwise (decode rows, rows that leave the other
+//   paths' warps idle, rows up to 8,192 columns): one block of 256 threads
+//   a row, the row in registers as float4 (VPT of them a thread), the sum
 //   of squares reduced by shuffles and one shared-memory step.  Launch
 //   latency bounds the decode row [4, 3072], where this path is the
 //   fastest.
@@ -42,11 +57,10 @@
 // Rows whose width is not a multiple of 4, or wider than the block path
 // holds (8,192 columns), take a scalar loop that reads the row twice.
 //
-// Every path reads and writes four values at a time (`load4`, `store4`):
-// a float4 in float32, 8 bytes of four bfloat16 values otherwise, which
-// widen to float32 exactly.  A bfloat16 row takes the ring only where its
-// bytes are a multiple of 16 (C a multiple of 8, what a bulk copy needs);
-// the ring's stage then holds the row in bfloat16, half the bytes.
+// The ring and block paths read and write four values at a time
+// (`load4`, `store4`): a float4 in float32, 8 bytes of four bfloat16
+// values otherwise, which widen to float32 exactly; the warp path 8
+// bfloat16 values, 16 bytes.
 //
 // C interface (bound with ctypes): every entry returns cudaGetLastError()
 // after its launch.  Pointers are device pointers of contiguous tensors;
@@ -174,7 +188,8 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 
 // Warp `w` of CTA `b` takes rows b * warps + w, then strided by the
 // grid's warps; VPL groups of four values of a row a lane (C <= 128 VPL).
-// TX is x's and y's type, TG the gain's.
+// TX is x's and y's type (float32: `rmsnorm` launches no other), TG the
+// gain's.
 template <int VPL, class TX, class TG>
 __global__ void __launch_bounds__(32 * kRingWarps)
 rms_ring_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
@@ -359,6 +374,171 @@ rms_scalar_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
   if (threadIdx.x == 0) rstd[row] = r;
 }
 
+// ---------------------------------------------------------------------------
+// the warp path (bfloat16 rows)
+// ---------------------------------------------------------------------------
+constexpr int kWarpRows = 8;        // rows (warps) a block of the warp path
+constexpr int kWarpMaxC = 4096;     // its widest row
+
+// 8 gain values at column c (16-byte aligned) as float32
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// One warp a bfloat16 row at a time, NV 16-byte units of 8 values a lane
+// (C <= 256 NV), TG the gain's type.  A persistent grid: warp w of block b
+// takes rows b kWarpRows + w, then strided by the grid's warps, the next
+// row's loads issued before the current row is reduced and stored.  The
+// gain is staged once a block in shared memory while the first rows load.
+// The row stays packed (16-byte units) in registers until y is formed.
+template <int NV, class TG>
+__global__ void __launch_bounds__(32 * kWarpRows, NV <= 12 ? 2 : 1)
+rms_warp_kernel(const bf16* __restrict__ x, const TG* __restrict__ g,
+                bf16* __restrict__ y, float* __restrict__ rstd, int R,
+                int C, float eps) {
+  __shared__ __align__(16) TG s_g[kWarpMaxC];
+  constexpr int GU = 16 / sizeof(TG);  // gain values a 16-byte unit
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarpRows;
+  const int C8 = C / 8;
+  int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  uint4 cur[NV], nxt[NV];
+  auto load_row = [&](int r, uint4 (&v)[NV]) {
+    const bf16* xr = x + static_cast<size_t>(r) * C;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C8 ? *reinterpret_cast<const uint4*>(xr + 8 * c)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  if (row < R) load_row(row, cur);
+  for (int i = threadIdx.x; i < C / GU; i += blockDim.x)
+    reinterpret_cast<uint4*>(s_g)[i] = reinterpret_cast<const uint4*>(g)[i];
+  __syncthreads();
+  for (; row < R; row += stride) {
+    const int next = row + stride;
+    if (next < R) load_row(next, nxt);
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const uint32_t w[4] = {cur[i].x, cur[i].y, cur[i].z, cur[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a = __uint_as_float(w[j] << 16);
+        const float b = __uint_as_float(w[j] & 0xffff0000u);
+        ss = fmaf(a, a, fmaf(b, b, ss));
+      }
+    }
+    const float r = rsqrtf(warp_sum(ss) / static_cast<float>(C) + eps);
+    bf16* yr = y + static_cast<size_t>(row) * C;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C8) {
+        float gv[8];
+        load8(s_g + 8 * c, gv);
+        const uint32_t w[4] = {cur[i].x, cur[i].y, cur[i].z, cur[i].w};
+        uint32_t o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float a = __uint_as_float(w[j] << 16) * r * gv[2 * j];
+          const float b =
+              __uint_as_float(w[j] & 0xffff0000u) * r * gv[2 * j + 1];
+          o[j] = repro_chain::to_bf16(a) |
+                 (static_cast<uint32_t>(repro_chain::to_bf16(b)) << 16);
+        }
+        *reinterpret_cast<uint4*>(yr + 8 * c) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    if (lane == 0) rstd[row] = r;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) cur[i] = nxt[i];
+  }
+}
+
+// The device's SMs, asked once a device
+int device_sms() {
+  static int sms[16] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
+}
+
+// Blocks of rms_warp_kernel<NV, TG> resident on the device at once, asked
+// once a device
+template <int NV, class TG>
+int warp_blocks() {
+  static int blocks[16] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16) return 0;
+  int per_sm = 0;
+  if (blocks[dev] == 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rms_warp_kernel<NV, TG>, 32 * kWarpRows, 0) ==
+          cudaSuccess)
+    blocks[dev] = per_sm * device_sms();
+  return blocks[dev];
+}
+
+template <int NV, class TG>
+cudaError_t launch_warp_grid(const bf16* x, const TG* g, bf16* y,
+                             float* rstd, int R, int C, float eps,
+                             cudaStream_t s, bool* taken) {
+  const int most = warp_blocks<NV, TG>();
+  // more rows than twice the resident warps: the block path was faster
+  *taken = R <= 2 * kWarpRows * most;
+  if (!*taken) return cudaSuccess;
+  const int rows = (R + kWarpRows - 1) / kWarpRows;
+  rms_warp_kernel<NV, TG>
+      <<<most > 0 && most < rows ? most : rows, 32 * kWarpRows, 0, s>>>(
+          x, g, y, rstd, R, C, eps);
+  return cudaGetLastError();
+}
+
+// Launch the warp path if it takes the shape: bfloat16 x, C a multiple of
+// 8 up to kWarpMaxC, 16-byte aligned rows and gain, more rows than one
+// wave of the block path's 256-thread blocks and at most twice the warp
+// path's resident warps (where the H100 measured it the fastest of the
+// three paths, PERF.md).  Returns whether it launched, its error in *err.
+template <class TG>
+bool launch_warp(const void* x, const void* g, void* y, float* rstd, int R,
+                 int C, float eps, cudaStream_t s, cudaError_t* err) {
+  const bool fits = C > 0 && C % 8 == 0 && C <= kWarpMaxC &&
+                    reinterpret_cast<size_t>(x) % 16 == 0 &&
+                    reinterpret_cast<size_t>(y) % 16 == 0 &&
+                    reinterpret_cast<size_t>(g) % 16 == 0;
+  if (!fits || R <= (2048 / kThreads) * device_sms()) return false;
+  auto xv = static_cast<const bf16*>(x);
+  auto gv = static_cast<const TG*>(g);
+  auto yv = static_cast<bf16*>(y);
+  const int nv = (C / 8 + 31) / 32;
+  bool taken = false;
+  auto grid = nv <= 4    ? launch_warp_grid<4, TG>
+               : nv <= 8  ? launch_warp_grid<8, TG>
+               : nv <= 12 ? launch_warp_grid<12, TG>
+                          : launch_warp_grid<16, TG>;
+  *err = grid(xv, gv, yv, rstd, R, C, eps, s, &taken);
+  return taken;
+}
+
 template <class TX, class TG>
 int rmsnorm(const void* x, const void* g, void* y, void* rstd, int R, int C,
             float eps, cudaStream_t s) {
@@ -369,18 +549,23 @@ int rmsnorm(const void* x, const void* g, void* y, void* rstd, int R, int C,
                    reinterpret_cast<size_t>(x) % ax == 0 &&
                    reinterpret_cast<size_t>(g) % ag == 0 &&
                    reinterpret_cast<size_t>(y) % ax == 0;
-  // a bulk copy moves a multiple of 16 bytes between 16-byte addresses
-  const bool bulk = vec && (C * sizeof(TX)) % 16 == 0 &&
-                    reinterpret_cast<size_t>(x) % 16 == 0 &&
-                    reinterpret_cast<size_t>(y) % 16 == 0;
   auto rs = static_cast<float*>(rstd);
-  // the ring path: a lane's four-value groups of a row, in steps of 8
-  const int vpl = (C / 4 + 31) / 32;
-  if (bulk && C > 0 && C <= kRingMaxC &&
-      (vpl <= 8    ? launch_ring<8, TX, TG>(x, g, y, rs, R, C, eps, s)
-       : vpl <= 16 ? launch_ring<16, TX, TG>(x, g, y, rs, R, C, eps, s)
-                   : launch_ring<24, TX, TG>(x, g, y, rs, R, C, eps, s)))
-    return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(TX) == 2) {
+    cudaError_t err = cudaSuccess;
+    if (launch_warp<TG>(x, g, y, rs, R, C, eps, s, &err))
+      return static_cast<int>(err);
+  } else {
+    // the ring path, float32 rows only (the warp or the block path was
+    // faster for bfloat16 rows wherever the H100 timed the three,
+    // PERF.md): a lane's four-value groups of a row, in steps of 8; `vec`
+    // is what a bulk copy needs, 16-byte rows at 16-byte addresses
+    const int vpl = (C / 4 + 31) / 32;
+    if (vec && C > 0 && C <= kRingMaxC &&
+        (vpl <= 8    ? launch_ring<8, TX, TG>(x, g, y, rs, R, C, eps, s)
+         : vpl <= 16 ? launch_ring<16, TX, TG>(x, g, y, rs, R, C, eps, s)
+                     : launch_ring<24, TX, TG>(x, g, y, rs, R, C, eps, s)))
+      return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid(R), block(kThreads);
   const int per_thread = (C / 4 + kThreads - 1) / kThreads;  // groups of 4
   auto xv = static_cast<const TX*>(x);

@@ -59,8 +59,13 @@ multiple of 4; the scale stays that of the true D), ``decode_by_subgroups``
 runs a larger group as sub-groups, one launch each (``decode_subgroups``
 is the plan), and a D above 512 runs on its tiled kernel, which stages q
 in shared memory and cuts the output into tiles of 512 columns.  Every D
-splits the cache over blocks and reads each K/V row once a sub-group.  It
-has no autograd formula: the reference has none for the decode path.
+splits the cache over blocks and reads each K/V row once a sub-group.
+Where q and both caches are bfloat16 at a head dim of 64, 128 or 256 it
+runs a native bfloat16 kernel instead (``flash_decode_bf16_kernel``:
+FlashDecoding on the tensor cores, the query heads of a KV head on the
+n8 side of ``mma.sync`` bf16, K/V tiles through a ``cp.async`` ring, one
+resident wave of blocks, ``native_decode_splits``).  It has no autograd
+formula: the reference has none for the decode path.
 """
 from __future__ import annotations
 
@@ -70,13 +75,14 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, widen
 
 #: The largest head dim of the tuned instances; above it the wide kernel.
 MAX_HEAD_DIM = 256
 #: The types every attention kernel takes (float32 inside: scores,
-#: softmax, sums).
-CUDA_DTYPES = (torch.float32, torch.bfloat16)
+#: softmax, sums); float16 and mixes of q, k and v are widened to float32
+#: first (``widen``), as the reference's kernel widens its blocks.
+CUDA_DTYPES = widen.KERNEL_DTYPES
 #: The kernel's constants, mirrored from ``csrc/flash_attention.cuh`` (a
 #: test holds the two equal): query rows a block (``kBQ``), the head-dim
 #: instances (a D between them is zero-padded up to the next), K/V rows a
@@ -218,7 +224,8 @@ WIDE_SCORE_MOD = _build.LaunchCount("flash_wide_score_mod")
 WIDE_BF16 = _build.LaunchCount("flash_wide_bf16")
 #: launches of the bfloat16 instances (counted in ``flash_attention_cuda``,
 #: ``ScoreMod`` and ``flash_decode_cuda`` too): the identity instance, the
-#: scored ones, and the decode kernel with a bfloat16 q or cache
+#: scored ones, and the split decode kernel with a bfloat16 q or cache
+#: (the native bfloat16 decode kernel has ``DECODE_NATIVE_BF16``)
 BF16 = _build.LaunchCount("flash_attention_bf16")
 SCORE_MOD_BF16 = _build.LaunchCount("flash_score_mod_bf16")
 DECODE_BF16 = _build.LaunchCount("flash_decode_bf16")
@@ -273,7 +280,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                          scale: float | None = None, *, score_mod=None,
                          score_args=()) -> torch.Tensor:
     """Launch the CUDA kernel (on the current stream; q, k, v all float32
-    or all bfloat16; float32 inside, the output in q's type): the
+    or all bfloat16, else -- float16, a mix -- each widened to float32
+    first; float32 inside, the output in q's type): the
     identity instance of ``csrc/flash_attention.cu``, or with
     ``score_mod`` its generated instance, whose score operands are read
     through 4D strides (0 on each dim of extent 1).  q, k, v are taken
@@ -291,10 +299,12 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention_cuda: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}; all must lie on one "
                          "CUDA device")
+    widen.check("flash_attention_cuda", {"q": q, "k": k, "v": v})
     if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in CUDA_DTYPES:
-        raise TypeError(f"flash_attention_cuda takes q, k, v all float32 "
-                        f"or all bfloat16, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+        # float16, or a mix: the float32 instance, o in q's type
+        return widen.to(flash_attention_cuda(
+            *widen.one_type(q, k, v), causal, scale, score_mod=score_mod,
+            score_args=score_args), q.dtype)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if score_mod is not None and score_mod.wide != (D > MAX_HEAD_DIM):
@@ -355,7 +365,8 @@ def flash_attention_wide_cuda(q, k, v, causal: bool = True,
                               score_args=()) -> torch.Tensor:
     """Launch the wide kernel (``csrc/flash_attention_wide.cuh``: head
     dims above ``MAX_HEAD_DIM`` on the tensor cores, q, k, v all float32
-    or all bfloat16, the output in q's type; on the current stream): its
+    or all bfloat16, else each widened to float32 first, the output in q's
+    type; on the current stream): its
     identity instance (``csrc/flash_attention_wide.cu``), or with
     ``score_mod`` its generated wide instance, whose score operands are
     read through 4D strides.  q, k, v are taken with their strides and
@@ -375,10 +386,11 @@ def flash_attention_wide_cuda(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention_wide_cuda: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}; all must lie on one "
                          "CUDA device")
+    widen.check("flash_attention_wide_cuda", {"q": q, "k": k, "v": v})
     if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in CUDA_DTYPES:
-        raise TypeError(f"flash_attention_wide_cuda takes q, k, v all "
-                        f"float32 or all bfloat16, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+        return widen.to(flash_attention_wide_cuda(
+            *widen.one_type(q, k, v), causal, scale, score_mod=score_mod,
+            score_args=score_args), q.dtype)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if D <= MAX_HEAD_DIM:
@@ -520,6 +532,13 @@ DECODE_SMEM_LIMIT = 232_448
 #: sequence; a split holds a multiple of ``DECODE_ROW_QUANTUM`` rows.
 DECODE_TARGET_BLOCKS = 8 * 132
 DECODE_ROW_QUANTUM = 64
+#: Head dims of the native bfloat16 kernel (``flash_decode_bf16_kernel``:
+#: q and both caches bfloat16, products on the tensor cores); every other
+#: case keeps the kernels above.
+DECODE_NATIVE_HEAD_DIMS = (64, 128, 256)
+#: Launches of the native bfloat16 kernel (counted in ``flash_decode_cuda``
+#: too)
+DECODE_NATIVE_BF16 = _build.LaunchCount("flash_decode_native_bf16")
 
 
 def _check_decode_shapes(q, k_cache, v_cache) -> None:
@@ -569,6 +588,27 @@ def decode_splits(pairs: int, eff: int) -> tuple[int, int]:
     per = -(-eff // want)
     rows = -(-per // DECODE_ROW_QUANTUM) * DECODE_ROW_QUANTUM
     return -(-eff // rows), rows
+
+
+def native_decode_splits(pairs: int, eff: int,
+                         resident: int) -> tuple[int, int]:
+    """(splits, rows a split) of ``eff`` cache rows for ``pairs`` (batch,
+    KV head) pairs on the native bfloat16 kernel, ``resident`` of whose
+    blocks the card holds at once: B Hkv splits fills whole resident
+    waves (the fewest that hold every pair), no tail wave; a split holds a
+    multiple of ``DECODE_ROW_QUANTUM`` rows, none empty."""
+    waves = max(1, -(-pairs // max(1, resident)))
+    want = max(1, waves * resident // pairs)
+    per = -(-eff // want)
+    rows = -(-per // DECODE_ROW_QUANTUM) * DECODE_ROW_QUANTUM
+    return -(-eff // rows), rows
+
+
+def native_decode(q, k_cache, v_cache) -> bool:
+    """Whether the native bfloat16 kernel runs a decode call: q and both
+    caches bfloat16 at a head dim of ``DECODE_NATIVE_HEAD_DIMS``."""
+    return (q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16
+            and q.shape[-1] in DECODE_NATIVE_HEAD_DIMS)
 
 
 def decode_instance(D: int) -> int | None:
@@ -670,13 +710,15 @@ def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
                       scale: float | None = None) -> torch.Tensor:
     """Launch the CUDA decode kernel (on the current stream; q float32 or
     bfloat16, the two caches float32 or bfloat16 on their own, float32
-    inside, the output in q's type): the
-    split pass, then the combine, once a sub-group of at most
-    ``decode_max_group(D)`` query heads a KV head, on the head-dim
-    instance that holds D, or above the largest on the tiled kernel
-    (``decode_padded``).  The caches are taken with their strides (a
-    layer's view of the model's [n_layers, B, Hkv, S, D] buffer is not
-    copied)."""
+    inside, the output in q's type): the split pass, then the combine,
+    once a sub-group of at most ``decode_max_group(D)`` query heads a KV
+    head, on the head-dim instance that holds D, or above the largest on
+    the tiled kernel (``decode_padded``).  q and both caches bfloat16 at a
+    head dim of ``DECODE_NATIVE_HEAD_DIMS`` take the native bfloat16
+    kernel (``native_decode``).  The caches are taken with their strides
+    (a layer's view of the model's [n_layers, B, Hkv, S, D] buffer is not
+    copied).  A float16 q, or float16 caches or caches of two types, are
+    widened to float32 first (the caches' live prefix only)."""
     _check_decode_shapes(q, k_cache, v_cache)
     dev = q.device
     if (dev.type != "cuda" or k_cache.device != dev
@@ -684,55 +726,109 @@ def flash_decode_cuda(q, k_cache, v_cache, kv_len: int | None = None,
         raise ValueError(f"flash_decode_cuda: q on {q.device}, caches on "
                          f"{k_cache.device}, {v_cache.device}; all must lie "
                          "on one CUDA device")
+    widen.check("flash_decode_cuda", {"q": q, "k_cache": k_cache,
+                                      "v_cache": v_cache})
     if (q.dtype not in CUDA_DTYPES or k_cache.dtype not in CUDA_DTYPES
             or v_cache.dtype != k_cache.dtype):
-        raise TypeError(f"flash_decode_cuda takes q and one cache type each "
-                        f"float32 or bfloat16, got {q.dtype}, "
-                        f"{k_cache.dtype}, {v_cache.dtype}")
+        eff = live_len(kv_len, k_cache.shape[2])
+        kc, vc = widen.one_type(k_cache[:, :, :eff], v_cache[:, :, :eff])
+        return widen.to(flash_decode_cuda(widen.own(q), kc, vc, None,
+                                          scale), q.dtype)
     return decode_padded(q, k_cache, v_cache, kv_len, scale, _decode_run)
 
 
 def _decode_run(q, k_cache, v_cache, eff: int, scale: float) -> torch.Tensor:
     q, k_cache, v_cache = (_aligned(t) for t in (q, k_cache, v_cache))
-    return decode_by_subgroups(q, k_cache, v_cache, eff, scale,
-                               _decode_launch)
+    launch = (_decode_native_launch if native_decode(q, k_cache, v_cache)
+              else _decode_launch)
+    return decode_by_subgroups(q, k_cache, v_cache, eff, scale, launch)
+
+
+def _decode_args(qs, k_cache, v_cache, eff: int, scale: float, os,
+                 splits: int, rows: int) -> tuple:
+    """The C entries' arguments up to the scale, and the partials (kept
+    alive by the caller until the launch is queued)."""
+    B, Hkv, n, D = qs.shape
+    part_acc = torch.empty(B, Hkv * n, splits, decode_width(D),
+                           dtype=torch.float32, device=qs.device)
+    part_ml = torch.empty(B, Hkv * n, splits, 2, dtype=torch.float32,
+                          device=qs.device)
+    return (part_acc, part_ml), (
+        qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), os.data_ptr(),
+        B, n, Hkv, D, eff, rows, splits, *qs.stride()[:3], *os.stride()[:3],
+        *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale))
 
 
 def _decode_launch(qs, k_cache, v_cache, eff: int, scale: float, os) -> None:
     """One launch pair of the decode kernel for the sub-group views ``qs``
     and ``os`` [B, Hkv, n, D] (their strides passed as they are)."""
-    B, Hkv, n, D = qs.shape
-    dev = qs.device
+    B, Hkv = qs.shape[:2]
     splits, rows = decode_splits(B * Hkv, eff)
-    part_acc = torch.empty(B, Hkv * n, splits, decode_width(D),
-                           dtype=torch.float32, device=dev)
-    part_ml = torch.empty(B, Hkv * n, splits, 2, dtype=torch.float32,
-                          device=dev)
+    _parts, args = _decode_args(qs, k_cache, v_cache, eff, scale, os,
+                                splits, rows)
     _build.check(_decode_entry()(
-        qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), os.data_ptr(),
-        B, n, Hkv, D, eff, rows, splits, *qs.stride()[:3], *os.stride()[:3],
-        *k_cache.stride()[:3], *v_cache.stride()[:3], float(scale),
-        int(qs.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream),
+        *args, int(qs.dtype == torch.bfloat16),
+        int(k_cache.dtype == torch.bfloat16),
+        torch.cuda.current_stream(qs.device).cuda_stream),
         "repro_flash_decode")
     _build.count(flash_decode_cuda)
     if torch.bfloat16 in (qs.dtype, k_cache.dtype):
         _build.count(DECODE_BF16)
 
 
+def _decode_native_launch(qs, k_cache, v_cache, eff: int, scale: float,
+                          os) -> None:
+    """One launch pair of the native bfloat16 kernel for the sub-group
+    views ``qs`` and ``os`` [B, Hkv, n, D], split to fill whole resident
+    waves (``native_decode_splits``)."""
+    B, Hkv, n, D = qs.shape
+    splits, rows = native_decode_splits(
+        B * Hkv, eff, _native_resident(qs.device.index or 0, D, n))
+    _parts, args = _decode_args(qs, k_cache, v_cache, eff, scale, os,
+                                splits, rows)
+    _build.check(_native_entry()(
+        *args, torch.cuda.current_stream(qs.device).cuda_stream),
+        "repro_flash_decode_bf16")
+    _build.count(flash_decode_cuda)
+    _build.count(DECODE_NATIVE_BF16)
+
+
 flash_decode_cuda.launches = 0  # kernel launches (plain runs excluded)
+
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                    + [ctypes.c_longlong] * 12 + [ctypes.c_float])
 
 
 @functools.cache
 def _decode_entry():
     fn = _build.library("flash_decode").repro_flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = _DECODE_ARGTYPES + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _native_entry():
+    fn = _build.library("flash_decode").repro_flash_decode_bf16
+    fn.argtypes = _DECODE_ARGTYPES + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _native_resident(device: int, D: int, G: int) -> int:
+    """Blocks of the native kernel at (D, G) that ``device`` holds at
+    once (its occupancy, asked once)."""
+    fn = _build.library("flash_decode").repro_flash_decode_bf16_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(fn(D, G, ctypes.byref(blocks)),
+                     "repro_flash_decode_bf16_blocks")
+    return blocks.value
 
 
 @torch.library.custom_op("repro_torch::flash_decode", mutates_args=(),

@@ -17,9 +17,11 @@ the statistics and calls ``layernorm_bwd``, dispatched the same way.
 The gradients arriving for ``mean`` and ``rstd`` are ignored: they are
 statistics, not values the reference differentiates.
 
-The kernels take what the reference's take: x (and dy) and the gain
-(and bias) each float32 or bfloat16, y and dx in x's type, the
-statistics and dgamma, dbeta float32, float32 inside.
+The kernels have instances for x (and dy) and the gain (and bias) each
+float32 or bfloat16, y and dx in x's type, the statistics and dgamma,
+dbeta float32, float32 inside; the wrappers widen float16 and the mixes
+those instances do not take to float32 first (``widen``), as the
+reference's kernels widen every operand.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, widen
 
 #: The backward's partial rows of dgamma and dbeta: at most this many a
 #: SM (its persistent CTAs, each writing one), summed by its second launch
@@ -74,8 +76,10 @@ def layernorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor,
 
 
 #: The types the kernels take: x's (dy's) and the gain's (the bias's),
-#: each on its own.
-CUDA_DTYPES = (torch.float32, torch.bfloat16)
+#: each on its own; float16, and a mix of x and dy or of the gain and the
+#: bias, are widened to float32 first (``widen``), as are statistics that
+#: are not float32.
+CUDA_DTYPES = widen.KERNEL_DTYPES
 
 
 def _check(what: str, tensors: dict, C: int) -> None:
@@ -84,16 +88,7 @@ def _check(what: str, tensors: dict, C: int) -> None:
         raise ValueError(f"{what}: " + ", ".join(
             f"{k} on {t.device}" for k, t in tensors.items())
             + "; all must lie on one CUDA device")
-    x, g = tensors["x"], tensors["gamma"]
-    stats = [tensors[k] for k in ("mean", "rstd") if k in tensors]
-    if (x.dtype not in CUDA_DTYPES or g.dtype not in CUDA_DTYPES
-            or tensors.get("beta", g).dtype != g.dtype
-            or tensors.get("dy", x).dtype != x.dtype
-            or any(t.dtype != torch.float32 for t in stats)):
-        raise TypeError(
-            f"{what} takes x (and dy) float32 or bfloat16, gamma (and beta) "
-            "float32 or bfloat16, mean and rstd float32; got " + ", ".join(
-                f"{k} {t.dtype}" for k, t in tensors.items()))
+    widen.check(what, tensors)
     for k in ("gamma", "beta"):
         if k in tensors and tensors[k].shape != (C,):
             raise ValueError(f"{what}: {k} {tuple(tensors[k].shape)} for "
@@ -107,9 +102,14 @@ def _flags(x: torch.Tensor, gamma: torch.Tensor) -> tuple[int, int]:
 def layernorm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch the forward kernel (on the current stream): y in x's type."""
+    """Launch the forward kernel (on the current stream): y in x's type
+    (float16 x widened to float32 first, and gamma and beta widened to
+    float32 where they are float16 or of two types)."""
     C = x.shape[-1]
     _check("layernorm_cuda", {"x": x, "gamma": gamma, "beta": beta}, C)
+    out_dtype = x.dtype
+    x = widen.own(x)
+    gamma, beta = widen.one_type(gamma, beta)
     # a copy only where the rows are not contiguous (device time)
     x2 = x.reshape(-1, C).contiguous()
     g, b = gamma.contiguous(), beta.contiguous()
@@ -125,7 +125,7 @@ def layernorm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.count(layernorm_cuda)
     if torch.bfloat16 in (x.dtype, gamma.dtype):
         _build.count(BF16)
-    return y.reshape(x.shape), mean, rstd
+    return widen.to(y, out_dtype).reshape(x.shape), mean, rstd
 
 
 layernorm_cuda.launches = 0  # kernel launches (plain runs are not counted)
@@ -141,11 +141,18 @@ def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     """Launch the backward kernel (on the current stream): the rows,
     writing at most ``BWD_PARTS_PER_SM`` dgamma and dbeta partial rows an
     SM into a workspace, then the partials' sums in a fixed order -- two
-    launches, no atomics, the same bits every run.  dx in x's type (dy's
-    too), dgamma and dbeta float32."""
+    launches, no atomics, the same bits every run.  dx in x's type,
+    dgamma and dbeta float32 (the gain's type is the autograd formula's
+    cast, as the reference's); float16 x, dy or gain, x and dy of two
+    types, and statistics that are not float32 are widened to float32
+    first."""
     C = x.shape[-1]
     _check("layernorm_bwd_cuda", {"x": x, "gamma": gamma, "mean": mean,
                                   "rstd": rstd, "dy": dy}, C)
+    out_dtype = x.dtype
+    x, dy = widen.one_type(x, dy)
+    gamma = widen.own(gamma)
+    mean, rstd = mean.to(torch.float32), rstd.to(torch.float32)
     x2 = x.reshape(-1, C).contiguous()
     dy2 = dy.reshape(-1, C).contiguous()
     R = x2.shape[0]
@@ -169,7 +176,7 @@ def layernorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     _build.count(layernorm_bwd_cuda, BWD_LAUNCHES_PER_CALL)
     if torch.bfloat16 in (x.dtype, gamma.dtype):
         _build.count(BWD_BF16, BWD_LAUNCHES_PER_CALL)
-    return dx.reshape(x.shape), dg, db
+    return widen.to(dx, out_dtype).reshape(x.shape), dg, db
 
 
 layernorm_bwd_cuda.launches = 0  # kernel launches (plain runs excluded)

@@ -54,7 +54,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from . import _build
+from . import _build, widen
 
 ROLE_FULL, ROLE_ROW, ROLE_COL, ROLE_SCALAR = "full", "row", "col", "scalar"
 
@@ -269,12 +269,14 @@ def matmul_fused_cuda(pro_args: Sequence, rhs, epi_args: Sequence, *,
     if any(v.device != dev for v in vals) or dev.type != "cuda":
         raise ValueError("matmul_fused_cuda: every operand must lie on one "
                          f"CUDA device, got {sorted({str(v.device) for v in vals})}")
-    if rhs.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"matmul_fused_cuda takes a float32 or bfloat16 "
-                        f"rhs, got {rhs.dtype}")
+    if rhs.dtype not in widen.TAKEN_DTYPES:
+        raise TypeError(f"matmul_fused_cuda takes a float32, bfloat16 or "
+                        f"float16 rhs, got {rhs.dtype}")
     pro = [v.contiguous() for v in pro_args]
     epi = [v.contiguous() for v in epi_args]
-    rhs = rhs.reshape(K, N).contiguous()
+    # a float16 rhs (an instance's rhs is bfloat16 only for a bfloat16
+    # graph) is read as float32, widened first as the reference widens
+    rhs = widen.own(rhs).reshape(K, N).contiguous()
     outs = [torch.empty(_OUT_SHAPE[r](M, N), dtype=dt, device=dev)
             for r, dt in zip(out_roles, out_dtypes)]
 

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, widen
 
 
 def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -34,40 +34,40 @@ def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y.reshape(x.shape), rstd
 
 
-#: The types the kernel takes for x and for gamma, each on its own.
-CUDA_DTYPES = (torch.float32, torch.bfloat16)
+#: The types the kernel takes for x and for gamma, each on its own
+#: (float16 is widened to float32 first, ``widen``).
+CUDA_DTYPES = widen.KERNEL_DTYPES
 
 
 def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
                  eps: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel (on the current stream): x and gamma each
-    float32 or bfloat16, y in x's type, float32 inside."""
+    float32 or bfloat16 (a float16 one widened to float32 first), y in
+    x's type, float32 inside."""
     if x.device.type != "cuda" or gamma.device != x.device:
         raise ValueError(f"rmsnorm_cuda: x on {x.device}, gamma on "
                          f"{gamma.device}; both must lie on one CUDA device")
-    if x.dtype not in CUDA_DTYPES or gamma.dtype not in CUDA_DTYPES:
-        raise TypeError(f"rmsnorm_cuda takes float32 or bfloat16, got "
-                        f"{x.dtype} and {gamma.dtype}")
+    widen.check("rmsnorm_cuda", {"x": x, "gamma": gamma})
     C = x.shape[-1]
     if gamma.shape != (C,):
         raise ValueError(f"gamma {tuple(gamma.shape)} for rows of {C}")
     # a copy only where the rows are not contiguous (device time)
-    x2 = x.reshape(-1, C).contiguous()
-    g = gamma.contiguous()
+    x2 = widen.own(x).reshape(-1, C).contiguous()
+    g = widen.own(gamma).contiguous()
     R = x2.shape[0]
     y = torch.empty_like(x2)
     rstd = torch.empty(R, 1, dtype=torch.float32, device=x.device)
     fn = _entry()
     _build.check(fn(x2.data_ptr(), g.data_ptr(), y.data_ptr(),
                     rstd.data_ptr(), R, C, float(eps),
-                    int(x.dtype == torch.bfloat16),
-                    int(gamma.dtype == torch.bfloat16),
+                    int(x2.dtype == torch.bfloat16),
+                    int(g.dtype == torch.bfloat16),
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "repro_rmsnorm")
     _build.count(rmsnorm_cuda)
-    if torch.bfloat16 in (x.dtype, gamma.dtype):
+    if torch.bfloat16 in (x2.dtype, g.dtype):
         _build.count(BF16)
-    return y.reshape(x.shape), rstd
+    return widen.to(y, x.dtype).reshape(x.shape), rstd
 
 
 rmsnorm_cuda.launches = 0  # kernel launches (plain runs are not counted)

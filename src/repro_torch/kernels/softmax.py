@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, widen
 
 
 def softmax_plain(x: torch.Tensor) -> torch.Tensor:
@@ -55,8 +55,9 @@ def softmax_bwd_plain(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return (yf * (dyf - s)).to(y.dtype).reshape(y.shape)
 
 
-#: The types the kernels take (one a call).
-CUDA_DTYPES = (torch.float32, torch.bfloat16)
+#: The types the kernels take (one a call; float16 and a mix of y and dy
+#: are widened to float32 first, ``widen``).
+CUDA_DTYPES = widen.KERNEL_DTYPES
 
 
 def _check(what: str, tensors: dict) -> None:
@@ -66,11 +67,7 @@ def _check(what: str, tensors: dict) -> None:
         raise ValueError(f"{what}: " + ", ".join(
             f"{k} on {t.device}" for k, t in tensors.items())
             + "; all must lie on one CUDA device")
-    if (first.dtype not in CUDA_DTYPES
-            or any(t.dtype != first.dtype for t in tensors.values())):
-        raise TypeError(f"{what} takes float32 or bfloat16, one type for "
-                        "all, got " + ", ".join(
-                            f"{k} {t.dtype}" for k, t in tensors.items()))
+    widen.check(what, tensors)
     if any(t.shape != first.shape for t in tensors.values()):
         raise ValueError(f"{what}: " + ", ".join(
             f"{k} {tuple(t.shape)}" for k, t in tensors.items())
@@ -95,9 +92,11 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def softmax_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel (on the current stream): y in x's type."""
+    """Launch the forward kernel (on the current stream): y in x's type
+    (a float16 x widened to float32 first)."""
     if not (x.is_cuda and x.dtype in CUDA_DTYPES and x.dim()):
         _check("softmax_cuda", {"x": x})  # raises, naming what is wrong
+        return widen.to(softmax_cuda(x.to(torch.float32)), x.dtype)
     x2 = _rows(x)
     y = torch.empty_like(x2)
     bf16 = x.dtype == torch.bfloat16
@@ -117,11 +116,13 @@ BF16 = _build.LaunchCount("softmax_bf16")
 
 
 def softmax_bwd_cuda(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Launch the backward kernel (on the current stream): y and dy of one
-    type, dx in it."""
+    """Launch the backward kernel (on the current stream): dx in y's
+    type (y and dy widened to float32 first where they are float16 or of
+    two types)."""
     if not (y.is_cuda and dy.device == y.device and y.dtype in CUDA_DTYPES
             and dy.dtype == y.dtype and y.shape == dy.shape and y.dim()):
         _check("softmax_bwd_cuda", {"y": y, "dy": dy})  # raises
+        return widen.to(softmax_bwd_cuda(*widen.one_type(y, dy)), y.dtype)
     y2, dy2 = _rows(y), _rows(dy)
     dx = torch.empty_like(y2)
     bf16 = y.dtype == torch.bfloat16

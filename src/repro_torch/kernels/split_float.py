@@ -34,6 +34,8 @@ float32, so one bfloat16 product forms what the split formed, summed in
 float32 (``bf16_matmul``).  Attention's p is float32: it is written as
 ``hi = bf16(p)`` plus ``lo = bf16(p - hi)``, about 16 significant bits,
 and p v is two bfloat16 products into one float32 sum (``bf16_pv``).
+B8's native bfloat16 kernel takes the same products, its online softmax
+kept a warp of 16 keys at a time (``bf16_decode``).
 
     PYTHONPATH=src python -m repro_torch.kernels.split_float --bf16
 
@@ -135,6 +137,63 @@ def bf16_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     v32 = v.to(torch.bfloat16).float()
     return torch.matmul(torch.cat([lo, hi], -1).float(),
                         torch.cat([v32, v32], -2))
+
+
+def bf16_decode(q, k, v, kv_len: int | None = None,
+                scale: float | None = None, *, rows: int, tile: int = 64,
+                warps: int = 4) -> torch.Tensor:
+    """o [B, Hq, D] (float32) of bfloat16 q [B, Hq, D] against bfloat16
+    caches [B, Hkv, S, D] as B8's native bfloat16 kernel takes it
+    (``flash_decode_bf16_kernel``): the live rows cut into splits of
+    ``rows``, each split's rows into tiles of ``tile`` keys, ``tile /
+    warps`` keys of each tile a warp; q . k one bfloat16 product, exact in
+    float32, summed in float32; each warp's online softmax over its keys
+    in units of log2 e (rows past ``kv_len`` probability 0); p float32,
+    split into bfloat16 hi and lo (``bf16_pair``), p v two products into
+    one float32 sum; the warps' states merged, then the splits' (m in
+    natural units), and the division by max(l, 1e-30)."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    g, kw = Hq // Hkv, tile // warps
+    eff = S if kv_len is None else min(int(kv_len), S)
+    sc = 1.0 / math.sqrt(D) if scale is None else scale
+    splits = -(-eff // rows)
+    nt = rows // tile
+    n = splits * rows
+    kf = torch.zeros(B, Hkv, n, D)
+    vf = torch.zeros(B, Hkv, n, D)
+    kf[:, :, :eff] = k[:, :, :eff].float()
+    vf[:, :, :eff] = v[:, :, :eff].float()
+    live = torch.arange(n) < eff
+    s = torch.matmul(q.float().reshape(B, Hkv, g, D), kf.transpose(-1, -2))
+    s2 = (s * (sc / math.log(2.0))).masked_fill(~live, -1e30)
+    # [B, Hkv, g, splits, tiles, warps, kw] and V's keys alike
+    s2 = s2.reshape(B, Hkv, g, splits, nt, warps, kw)
+    ok = live.reshape(splits, nt, warps, kw)
+    vt = vf.reshape(B, Hkv, 1, splits, nt, warps, kw, D)
+    m = torch.full((B, Hkv, g, splits, warps), -1e30)
+    l = torch.zeros(B, Hkv, g, splits, warps)
+    acc = torch.zeros(B, Hkv, g, splits, warps, D)
+    for t in range(nt):
+        st = s2[:, :, :, :, t]
+        mn = torch.maximum(m, st.amax(-1))
+        al = torch.exp2(m - mn)
+        p = torch.where(ok[:, t], torch.exp2(st - mn[..., None]), 0.0)
+        l = l * al + p.sum(-1)
+        hi, lo = bf16_pair(p)
+        vv = vt[:, :, :, :, t]
+        acc = (acc * al[..., None]
+               + torch.matmul(hi.float()[..., None, :], vv)[..., 0, :]
+               + torch.matmul(lo.float()[..., None, :], vv)[..., 0, :])
+        m = mn
+    mm = m.amax(-1, keepdim=True)
+    w = torch.exp2(m - mm)
+    ls, accs = (l * w).sum(-1), (acc * w[..., None]).sum(-2)
+    mn = mm[..., 0] * math.log(2.0)
+    mx = mn.amax(-1, keepdim=True)
+    w = torch.exp(mn - mx)
+    lt, at = (ls * w).sum(-1), (accs * w[..., None]).sum(-2)
+    return (at / lt.clamp_min(1e-30)[..., None]).reshape(B, Hq, D)
 
 
 def attention(q, k, v, *, causal: bool, scale: float | None = None,

@@ -44,7 +44,7 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, ref, widen
 
 def _check_shapes(x, dt, A, B, C, chunk: int) -> None:
     if x.dim() != 4:
@@ -178,24 +178,22 @@ def ssd_scan_sliced(x, dt, A, B, C, chunk: int, scan, smem,
 
 #: The types the kernel takes for x and for B and C (B and C of one type,
 #: x's their own); dt and A are float32, as the model passes them.
-CUDA_DTYPES = (torch.float32, torch.bfloat16)
+#: float16, B and C of two types, and dt or A of another type are widened
+#: to float32 first (``widen``).
+CUDA_DTYPES = widen.KERNEL_DTYPES
 
 
 def _check_types(x, dt, A, B, C) -> None:
-    if (x.dtype not in CUDA_DTYPES or B.dtype not in CUDA_DTYPES
-            or C.dtype != B.dtype or dt.dtype != torch.float32
-            or A.dtype != torch.float32):
-        raise TypeError(
-            f"ssd_scan_cuda takes x float32 or bfloat16, B and C of one of "
-            f"those types, dt and A float32; got x {x.dtype}, dt {dt.dtype}, "
-            f"A {A.dtype}, B {B.dtype}, C {C.dtype}")
+    widen.check("ssd_scan_cuda", {"x": x, "dt": dt, "A": A, "B": B,
+                                  "C": C})
 
 
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
     """Run the CUDA kernel (on the current stream) at any chunk, head dim
     P and state N (``ssd_scan_sliced``: three launches a slice): x, and B
-    and C, float32 or bfloat16, dt and A float32; y in x's type, the state
-    float32.  x, dt, B and C are read with their strides -- the model's x,
+    and C, float32 or bfloat16, dt and A float32 (float16 and the mixes
+    the instances do not take widened to float32 first); y in x's type,
+    the state float32.  x, dt, B and C are read with their strides -- the model's x,
     B and C are column slices of one activation -- and only a last
     dimension that is not contiguous is copied (device time).  Where the
     N slices of a bfloat16 scan are summed, each slice writes y in
@@ -208,6 +206,10 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
             f"{k} on {t.device}" for k, t in ts.items())
             + "; all must lie on one CUDA device")
     _check_types(x, dt, A, B, C)
+    out_dtype = x.dtype
+    x = widen.own(x)
+    B, C = widen.one_type(B, C)
+    dt, A = dt.to(torch.float32), A.to(torch.float32)
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
     smem = _smem(x.dtype == torch.bfloat16, B.dtype == torch.bfloat16)
     _, n_slices = ssd_slices(kernel_chunk(chunk), x.shape[-1], B.shape[-1],
@@ -216,8 +218,10 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int):
         y, state = ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk,
                                    functools.partial(_launch, y_f32=True),
                                    smem)
-        return y.to(x.dtype), state
-    return ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk, _launch, smem)
+        return y.to(out_dtype), state
+    y, state = ssd_scan_sliced(x, dt, A.contiguous(), B, C, chunk, _launch,
+                               smem)
+    return widen.to(y, out_dtype), state
 
 
 def _launch(x, dt, A, B, C, chunk: int, y_f32: bool = False):

@@ -16,8 +16,9 @@ within the reference's own bfloat16 band
 (``src/repro/runtime/guard.py:208-213`` for B6 and B8, the anchored band
 of :224-226 for B3 and B4), and no less accurate than the plain version:
 against float64 of the same bfloat16 inputs, the kernel's largest error
-is at most twice the plain version's.  Every wrapper raises on float16
-and on a mix of types its kernel does not take.
+is at most twice the plain version's.  Every wrapper widens float16, and
+a mix of types its kernel's instances do not take, to float32 in front of
+the kernel (the reference's kernels widen every operand); float64 raises.
 
 Marked ``gpu``: on a host without a CUDA card every test here skips (the
 decision is made in a fixture, never at import).  Run on the card with
@@ -87,8 +88,9 @@ def hold(got, plain, exact, band):
                                    (torch.float32, BF16)])
 def test_b6_rmsnorm_takes_bfloat16(cuda, R, C, xd, gd):
     """The block path, the scalar path (a width no multiple of 4) and, at
-    [4096, 3072] and [16384, 1024], the ring (its rows fill the card's
-    resident warps in either type)."""
+    [4096, 3072] and [16384, 1024], the ring for float32 rows (its rows
+    fill the card's resident warps) and the warp path or the block path
+    for bfloat16 rows."""
     x = _randn(cuda, R, C, dtype=xd)
     g = (1.0 + 0.1 * _randn(cuda, C, dtype=torch.float32)).to(gd)
     before = RN.rmsnorm_cuda.launches
@@ -96,6 +98,31 @@ def test_b6_rmsnorm_takes_bfloat16(cuda, R, C, xd, gd):
     assert RN.rmsnorm_cuda.launches == before + 1
     yp, rp = RN.rmsnorm_plain(x, g, 1e-6)
     assert y.dtype == xd and rstd.dtype == torch.float32
+    xd64 = x.double()
+    exact = xd64 * torch.rsqrt((xd64 ** 2).mean(-1, keepdim=True) + 1e-6) \
+        * g.double()
+    hold(y, yp, exact, BAND)
+    torch.testing.assert_close(rstd, rp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("R,C", [
+    # the warp path: C % 8 == 0 up to 4,096, R above one wave of the block
+    # path and at most twice the warp path's resident warps
+    (2048, 3072), (2000, 2048), (4096, 1024), (2048, 4096),
+    # the block path: past twice the warp path's resident warps, decode
+    # rows, a C that is no multiple of 8, a C past 4,096
+    (8192, 3072), (4, 3072), (16, 2048), (2048, 3076), (2048, 6144)])
+@pytest.mark.parametrize("gd", [BF16, torch.float32])
+def test_b6_bfloat16_paths(cuda, R, C, gd):
+    """bfloat16 rows at shapes that select the warp path and at shapes
+    that select the block path, against the plain version and float64."""
+    x = _randn(cuda, R, C)
+    g = (1.0 + 0.1 * _randn(cuda, C, dtype=torch.float32)).to(gd)
+    before = (RN.rmsnorm_cuda.launches, RN.BF16.launches)
+    y, rstd = RN.rmsnorm_cuda(x, g, 1e-6)
+    assert (RN.rmsnorm_cuda.launches, RN.BF16.launches) == (
+        before[0] + 1, before[1] + 1)
+    yp, rp = RN.rmsnorm_plain(x, g, 1e-6)
     xd64 = x.double()
     exact = xd64 * torch.rsqrt((xd64 ** 2).mean(-1, keepdim=True) + 1e-6) \
         * g.double()
@@ -125,14 +152,57 @@ def test_b8_flash_decode_takes_bfloat16(cuda, B, Hq, Hkv, S, D, kv_len,
     q = _randn(cuda, B, Hq, D)
     k = _randn(cuda, B, Hkv, S, D, dtype=cache)
     v = _randn(cuda, B, Hkv, S, D, dtype=cache)
-    before = FA.flash_decode_cuda.launches
+    before = FA.flash_decode_cuda.launches, FA.DECODE_BF16.launches
     o = FA.flash_decode_cuda(q, k, v, kv_len)
-    assert FA.flash_decode_cuda.launches > before
+    assert FA.flash_decode_cuda.launches > before[0]
+    # the split kernel's bfloat16 counter moves where it runs, not where
+    # the native kernel does
+    assert (FA.DECODE_BF16.launches > before[1]) != FA.native_decode(q, k, v)
     plain = FA.flash_decode_plain(q, k, v, kv_len)
     assert o.dtype == BF16
     eff = FA.live_len(kv_len, S)
     exact = _decode_exact(q, k[:, :, :eff], v[:, :, :eff], 1 / math.sqrt(D))
     hold(o, plain, exact, BAND)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 8, 16])
+def test_b8_native_bfloat16_instances(cuda, D, G):
+    """q and both caches bfloat16 at D 64, 128 and 256: the native kernel
+    (tensor cores), one launch a sub-group of at most 8 query heads (16:
+    two), over a ragged live prefix (1,333 of 1,500 rows: a last tile
+    part-filled, the rows past it never read)."""
+    B, Hkv, S, kv_len = 2, 2, 1500, 1333
+    q = _randn(cuda, B, Hkv * G, D)
+    k, v = (_randn(cuda, B, Hkv, S, D) for _ in range(2))
+    counters = (FA.DECODE_NATIVE_BF16, FA.flash_decode_cuda, FA.DECODE_BF16)
+    before = [c.launches for c in counters]
+    o = FA.flash_decode_cuda(q, k, v, kv_len)
+    n = len(FA.decode_subgroups(G, D))
+    # the split kernel's bfloat16 counter does not move
+    assert [c.launches for c in counters] == [before[0] + n, before[1] + n,
+                                              before[2]]
+    exact = _decode_exact(q, k[:, :, :kv_len], v[:, :, :kv_len],
+                          1 / math.sqrt(D))
+    hold(o, FA.flash_decode_plain(q, k, v, kv_len), exact, BAND)
+
+
+@pytest.mark.parametrize("kv_len", [1, 64, 1500, None])
+def test_b8_native_bfloat16_on_a_layer_view(cuda, kv_len):
+    """A strided view of a stacked [n_layers, B, Hkv, S, D] bfloat16
+    cache (Llama's heads): one layer, every other sequence, read in place
+    (not copied): one row, one tile, a ragged prefix and the whole
+    cache."""
+    cache = _randn(cuda, 2, 3, 6, 8, 2048, 128)
+    k, v = cache[0, 1, ::2], cache[1, 1, ::2]
+    q = _randn(cuda, 3, 24, 128)
+    assert not k.is_contiguous() and FA._aligned(k) is k
+    before = FA.DECODE_NATIVE_BF16.launches
+    o = FA.flash_decode_cuda(q, k, v, kv_len)
+    assert FA.DECODE_NATIVE_BF16.launches == before + 1
+    eff = FA.live_len(kv_len, 2048)
+    exact = _decode_exact(q, k[:, :, :eff], v[:, :, :eff], 1 / math.sqrt(128))
+    hold(o, FA.flash_decode_plain(q, k, v, kv_len), exact, BAND)
 
 
 def test_b8_float32_q_against_a_bfloat16_cache(cuda):
@@ -462,35 +532,90 @@ def test_b11_ssd_scan_takes_bfloat16(cuda, b, L, H, P, N, chunk, offset,
         hold(y, yp, _ssd_exact(x, dt, A, Bm, Cm), BAND)
 
 
+#: one rounding of float16 either side (both compute in float32)
+F16_TOL = dict(rtol=2 ** -9, atol=2 ** -14)
+
+
 def test_wrappers_raise_on_float16(cuda):
-    """Each wrapper this slice widened takes float32 and bfloat16 and
-    raises on float16 (and on float64), never running a plain version."""
+    """Each wrapper widens float16, and the mixes its instances do not
+    take, to float32 in front of the same kernel (the reference's kernels
+    widen every operand), stores the output in the reference's type and
+    agrees with the plain version on the same inputs; float64 still
+    raises (the reference runs without x64), and no plain version runs
+    (each call counts one kernel call)."""
     x = _randn(cuda, 8, 256, dtype=torch.float16)
-    g = torch.ones(256, device="cuda", dtype=torch.float16)
+    g = 1.0 + 0.1 * _randn(cuda, 256, dtype=torch.float16)
+    b = 0.1 * _randn(cuda, 256, dtype=torch.float16)
     m = torch.zeros(8, 1, device="cuda")
-    for bad in (torch.float16, torch.float64):
-        xb, gb = x.to(bad), g.to(bad)
-        with pytest.raises(TypeError):
-            LN.layernorm_cuda(xb, gb, gb, 1e-6)
-        with pytest.raises(TypeError):
-            LN.layernorm_bwd_cuda(xb, gb, m, m, xb)
-        with pytest.raises(TypeError):
-            SM.softmax_cuda(xb)
-        with pytest.raises(TypeError):
-            SM.softmax_bwd_cuda(xb, xb)
-        xs, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 2, 16, 16, BF16, BF16)
-        with pytest.raises(TypeError):
-            SSD.ssd_scan_cuda(xs.to(bad), dt, A, Bm, Cm, 64)
-        with pytest.raises(TypeError):
-            SSD.ssd_scan_cuda(xs, dt, A, Bm.to(bad), Cm.to(bad), 64)
-    # a mix the kernels do not take
+    r = torch.ones(8, 1, device="cuda")
+    with pytest.raises(TypeError):
+        LN.layernorm_cuda(x.double(), g.double(), g.double(), 1e-6)
+    with pytest.raises(TypeError):
+        LN.layernorm_bwd_cuda(x.double(), g, m, r, x.double())
+    with pytest.raises(TypeError):
+        SM.softmax_cuda(x.double())
+    with pytest.raises(TypeError):
+        SM.softmax_bwd_cuda(x.double(), x.double())
+    xs, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 64, 2, 16, 16, BF16, BF16)
+    with pytest.raises(TypeError):
+        SSD.ssd_scan_cuda(xs.double(), dt, A, Bm, Cm, 64)
+    with pytest.raises(TypeError):
+        SSD.ssd_scan_cuda(xs, dt, A, Bm.double(), Cm.double(), 64)
+
+    def counted(fn, counter, *args):
+        before = counter.launches
+        out = fn(*args)
+        assert counter.launches > before
+        return out
+
+    # float16 throughout
+    y, _, _ = counted(LN.layernorm_cuda, LN.layernorm_cuda, x, g, b, 1e-6)
+    assert y.dtype == torch.float16
+    torch.testing.assert_close(y, LN.layernorm_plain(x, g, b, 1e-6)[0],
+                               **F16_TOL)
+    _, mean, rstd = LN.layernorm_plain(x, g, b, 1e-6)
+    dx, dg, db = counted(LN.layernorm_bwd_cuda, LN.layernorm_bwd_cuda, x, g,
+                         mean, rstd, x)
+    pdx, pdg, pdb = LN.layernorm_bwd_plain(x, g, mean, rstd, x)
+    assert (dx.dtype, dg.dtype) == (torch.float16, torch.float32)
+    torch.testing.assert_close(dx, pdx, **F16_TOL)
+    torch.testing.assert_close(dg, pdg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(db, pdb, rtol=1e-5, atol=1e-5)
+    sy = counted(SM.softmax_cuda, SM.softmax_cuda, x)
+    assert sy.dtype == torch.float16
+    torch.testing.assert_close(sy, SM.softmax_plain(x), **F16_TOL)
+    sdx = counted(SM.softmax_bwd_cuda, SM.softmax_bwd_cuda, sy, x)
+    torch.testing.assert_close(sdx, SM.softmax_bwd_plain(sy, x), **F16_TOL)
+    ry, _ = counted(RN.rmsnorm_cuda, RN.rmsnorm_cuda, x, g, 1e-6)
+    torch.testing.assert_close(ry, RN.rmsnorm_plain(x, g, 1e-6)[0],
+                               **F16_TOL)
+    xh = xs.to(torch.float16)
+    yh, st = counted(SSD.ssd_scan_cuda, SSD.ssd_scan_cuda, xh, dt, A, Bm,
+                     Cm, 64)
+    yp, sp = SSD.ssd_scan_plain(xh, dt, A, Bm, Cm, 64)
+    assert (yh.dtype, st.dtype) == (torch.float16, torch.float32)
+    torch.testing.assert_close(yh.float(), yp.float(), rtol=2 ** -9,
+                               atol=1e-4 * max(1.0, float(yp.abs().max())))
+    torch.testing.assert_close(st, sp, rtol=0,
+                               atol=1e-4 * max(1.0, float(sp.abs().max())))
+
+    # mixes the instances do not take: each widened to float32
     xb = x.to(BF16)
-    with pytest.raises(TypeError):
-        SM.softmax_bwd_cuda(xb, xb.float())
-    with pytest.raises(TypeError):
-        LN.layernorm_bwd_cuda(xb, g.to(BF16), m, m, xb.float())
-    with pytest.raises(TypeError):
-        SSD.ssd_scan_cuda(xs, dt, A, Bm, Cm.float(), 64)
+    sdx = counted(SM.softmax_bwd_cuda, SM.softmax_bwd_cuda, xb, xb.float())
+    assert sdx.dtype == BF16
+    hold(sdx, SM.softmax_bwd_plain(xb, xb.float()),
+         SM.softmax_bwd_plain(xb.double(), xb.double()), BAND)
+    dx, _, _ = counted(LN.layernorm_bwd_cuda, LN.layernorm_bwd_cuda, xb,
+                       g.to(BF16), m, r, xb.float())
+    assert dx.dtype == BF16
+    hold(dx, LN.layernorm_bwd_plain(xb, g.to(BF16), m, r, xb.float())[0],
+         LN.layernorm_bwd_plain(xb.double(), g.double(), m.double(),
+                                r.double(), xb.double())[0], BAND)
+    ym, _ = counted(SSD.ssd_scan_cuda, SSD.ssd_scan_cuda, xs, dt, A, Bm,
+                    Cm.float(), 64)
+    assert ym.dtype == BF16
+    hold(ym, SSD.ssd_scan_plain(xs, dt, A, Bm, Cm.float(), 64)[0],
+         _ssd_exact(xs, dt, A, Bm, Cm), BAND)
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
@@ -538,20 +663,40 @@ def test_wide_score_mod_takes_bfloat16(cuda, D):
 
 
 def test_wide_kernel_refuses_float16_and_mixed_types(cuda):
-    """The wide flash kernel takes q, k, v all float32 or all bfloat16: it
-    raises on float16 and on a mix, and runs no plain version."""
+    """The flash kernels' instances take q, k, v all float32 or all
+    bfloat16; float16 and a mix are widened to float32 in front of them
+    (the float32 instance runs; o in q's type), as the reference widens
+    them, and agree with the plain version; float64 still raises."""
     q = _randn(cuda, 1, 2, 64, 320)
     h = q.to(torch.float16)
-    before = FA.flash_attention_wide_cuda.launches
     with pytest.raises(TypeError):
-        FA.flash_attention_cuda(h, h, h, True)
+        FA.flash_attention_cuda(q.double(), q.double(), q.double(), True)
     with pytest.raises(TypeError):
-        FA.flash_attention_wide_cuda(h, h, h, True)
-    with pytest.raises(TypeError):
-        FA.flash_attention_cuda(q, q.float(), q, True)
-    with pytest.raises(TypeError):
-        FA.flash_attention_wide_cuda(q.float(), q, q, True)
-    assert FA.flash_attention_wide_cuda.launches == before
+        FA.flash_attention_wide_cuda(q.double(), q, q, True)
+    for fn, counter in ((FA.flash_attention_cuda,
+                         FA.flash_attention_wide_cuda),
+                        (FA.flash_attention_wide_cuda,
+                         FA.flash_attention_wide_cuda)):
+        for args in ((h, h, h), (q, q.float(), q), (q.float(), q, h)):
+            before = (counter.launches, FA.WIDE_BF16.launches)
+            o = fn(*args, True)
+            # the float32 instance: no bfloat16 launch
+            assert (counter.launches, FA.WIDE_BF16.launches) == (
+                before[0] + 1, before[1])
+            assert o.dtype == args[0].dtype
+            plain = FA.flash_attention_plain(*args, True)
+            # the float32 kernel through the TF32 split, rounded to q's
+            # type once, as the plain version
+            torch.testing.assert_close(o.float(), plain.float(),
+                                       rtol=2 ** -7, atol=2 ** -9)
+    # below head dim 256: the tuned kernel's float32 instance
+    q64 = _randn(cuda, 1, 4, 64, 64)
+    before = FA.flash_attention_cuda.launches
+    o = FA.flash_attention_cuda(q64, q64.float(), q64.half(), True)
+    assert FA.flash_attention_cuda.launches == before + 1
+    assert o.dtype == BF16
+    hold(o, FA.flash_attention_plain(q64, q64.float(), q64.half(), True),
+         _attn_exact(q64, q64, q64.half().to(BF16), True), BAND_ANCHORED)
 
 
 def test_the_plain_versions_compute_in_float32(cuda):

@@ -261,7 +261,14 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
 
     x = torch.randn(4, 64, device="cuda")
     with pytest.raises(TypeError):
-        RN.rmsnorm_cuda(x.half(), torch.ones(64, device="cuda").half(), 1e-6)
+        RN.rmsnorm_cuda(x.double(), torch.ones(64, device="cuda"), 1e-6)
+    # float16 is widened to float32 in front of the kernel, y in x's type
+    h, gh = x.half(), torch.ones(64, device="cuda").half()
+    y, rstd = RN.rmsnorm_cuda(h, gh, 1e-6)
+    yp, rp = RN.rmsnorm_plain(h, gh, 1e-6)
+    assert y.dtype == torch.float16
+    torch.testing.assert_close(y, yp, rtol=2 ** -9, atol=2 ** -14)
+    torch.testing.assert_close(rstd, rp, rtol=1e-5, atol=1e-6)
     for D, causal, Sq in ((264, False, 70), (320, True, 70),
                           (512, True, 61), (640, False, 70),
                           (330, True, 70)):
@@ -353,7 +360,15 @@ def test_layernorm_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn(4, 64, device="cuda")
     g, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
     with pytest.raises(TypeError):
-        K.layernorm_cuda(x.half(), g.half(), b.half(), 1e-6)
+        K.layernorm_cuda(x.double(), g, b, 1e-6)
+    # float16 is widened to float32 in front of the kernel, y in x's type
+    before = K.layernorm_cuda.launches
+    y, _, _ = K.layernorm_cuda(x.half(), g.half(), b.half(), 1e-6)
+    assert K.layernorm_cuda.launches == before + 1
+    assert y.dtype == torch.float16
+    torch.testing.assert_close(
+        y, K.layernorm_plain(x.half(), g.half(), b.half(), 1e-6)[0],
+        rtol=2 ** -9, atol=2 ** -14)
     with pytest.raises(ValueError, match="CUDA device"):
         K.layernorm_cuda(x, g.cpu(), b, 1e-6)
     _, m, r = K.layernorm_plain(x, g, b, 1e-6)
@@ -562,7 +577,14 @@ def test_softmax_kernels_refuse_what_they_do_not_take(cuda):
 
     x = torch.randn(4, 32, device="cuda")
     with pytest.raises(TypeError):
-        K.softmax_cuda(x.half())
+        K.softmax_cuda(x.double())
+    # float16 is widened to float32 in front of the kernel, y in x's type
+    before = K.softmax_cuda.launches
+    y = K.softmax_cuda(x.half())
+    assert K.softmax_cuda.launches == before + 1
+    assert y.dtype == torch.float16
+    torch.testing.assert_close(y, K.softmax_plain(x.half()), rtol=2 ** -9,
+                               atol=2 ** -14)
     with pytest.raises(ValueError, match="CUDA device"):
         K.softmax_bwd_cuda(x, x.cpu())
     with pytest.raises(ValueError, match="one shape"):
@@ -779,7 +801,13 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 32, 64, device="cuda")
     kv = torch.randn(1, 2, 16, 64, device="cuda")
     with pytest.raises(TypeError, match="float32"):
-        K.flash_decode_cuda(q[:, :4].half(), kv.half(), kv.half(), None)
+        K.flash_decode_cuda(q[:, :4].double(), kv, kv, None)
+    # float16 is widened to float32 in front of the kernel, o in q's type
+    o = K.flash_decode_cuda(q[:, :4].half(), kv.half(), kv.half(), None)
+    assert o.dtype == torch.float16
+    torch.testing.assert_close(
+        o, K.flash_decode_plain(q[:, :4].half(), kv.half(), kv.half()),
+        rtol=2 ** -9, atol=2 ** -14)
     with pytest.raises(ValueError, match="kv_len"):
         K.flash_decode_cuda(q[:, :4], kv, kv, 0)
     for B, Hq, Hkv, S, D, n, launches, wide in (

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phase router|tuned|dispatch|bf16|decode]
+    python3 chip_smoke.py [--phase router|tuned|dispatch|bf16|decode|cells]
 
 Run from the root of a checkout on a machine with one CUDA card (Triton
 compiles the generated one-pass kernels there, nvcc the CUDA sources and
@@ -323,6 +323,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    rows of two sequences run on the host, beside the bfloat16 plain
    path).  The step of ``make_decode_step`` is one captured graph: timed
    as replays, against the same steps eager (``captured_vs_eager``).
+12b. The reference's prompt and decode cells in bfloat16 (``phase_cells``;
+   ``--phase cells`` runs them alone), params and caches as the
+   reference builds them, weights from seed 0 on the card, each model
+   freed before the next: the kernels at the cells' shapes (B4 bfloat16
+   at 32,768 rows for Llama, HuBERT and Gemma, its plain version in query
+   blocks; B8's native kernel at G 1 / 4 / 6 / 8; B3 at the new gate
+   widths); then DeepSeek-67B (36 of 95 layers, listed as ``reduced``),
+   InternVL2-26B (256 spliced vision rows), Mistral-NeMo-12B and
+   Gemma-7B at prefill_32k and decode_32k, Llama-3.2-3B and HuBERT-XLarge
+   (frames) at prefill_32k, each at the largest batch the free memory
+   holds by a bytes reckoning that is printed: the agreement (a
+   2,048-token prompt and two decode steps over 32,768 rows, the kernel
+   path and the bfloat16 plain path against a float32 run, full depth or
+   4 layers at full width), the prompt (compile seconds, TTFT, device
+   time and busy share, a profile, launches, peak memory; the logits
+   finite, the pad columns masked; its last row against prefill of S - 1
+   tokens and one decode step at kv_len S) and the decode cell as in 12.
 13. Whether each B3, B4 and B11 instance built in the run, and B8's
    native bfloat16 kernel, holds tensor-core instructions of its product
    type (``cuobjdump -sass``: ``HGMMA`` in B3, ``HMMA`` in B4, the wide
@@ -332,7 +349,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    then a ``{"scheduler": {...}}`` line (phase 5b's numbers by model), a
    ``{"tuned": {...}}`` line (phase 5c's), a ``{"differentiable":
    {...}}`` line (phase 3e's), a ``{"dispatch": {...}}`` line (phase
-   3f's) and
+   3f's), a ``{"bf16": {...}}`` line, a ``{"cells": {...}}`` line (phase
+   12b's, its ``reduced`` key the depth cut) and
    a ``{"kernels": [...]}`` summary line (per kernel: the times of
    its main-path instance, else of its checked instance that moves the most
    bytes, the largest error of any instance, ``timing`` saying how the
@@ -344,6 +362,7 @@ Imports ``torch`` and the port only.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -583,34 +602,6 @@ def phase_kernels(gen) -> None:
         var = ((x - mean) ** 2).mean(-1, keepdim=True)
         return (x - mean) * torch.rsqrt(var + 1e-6)
 
-    # the streaming kernel (B2): the head's softmax, a three-phase
-    # LayerNorm with and without its column inputs gamma and beta (read
-    # from device memory in the last phase), rows longer than a cluster
-    # holds, bfloat16 rows
-    for (R, C), fn, label, lib in (
-            ((2048, 128256), lambda v: torch.softmax(v, -1), "softmax",
-             lambda v: torch.softmax(v, -1)),
-            ((1024, 65536), layer_norm, "layernorm (three phases)",
-             lambda xv, gv, bv: torch.nn.functional.layer_norm(
-                 xv, (xv.shape[-1],), gv, bv, 1e-6)),
-            ((1024, 65536), normalize,
-             "layernorm without gamma and beta (three phases)",
-             lambda xv: torch.nn.functional.layer_norm(
-                 xv, (xv.shape[-1],), None, None, 1e-6)),
-            ((64, 600000), lambda v: torch.softmax(v, -1),
-             "softmax longer than a cluster holds",
-             lambda v: torch.softmax(v, -1))):
-        args = [torch.randn(R, C, generator=gen, device="cuda")]
-        if fn is layer_norm:
-            args += [torch.randn(C, generator=gen, device="cuda")
-                     for _ in range(2)]
-        c = stitched_jit(fn).compiled(*args)
-        em = only_generated(c, "streaming")
-        check_kernel(em, c.graph, gen, label=f"{label} [{R}, {C}]",
-                     reps=10, library=lib,
-                     inputs=ordered(c, em, args))
-        del args, c, em
-
     def rms_f32(x, g):  # bfloat16 rows in, float32 out
         xf = x.float()
         return xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + 1e-6) * g
@@ -618,14 +609,79 @@ def phase_kernels(gen) -> None:
     def rms_bf16(x, g):  # bfloat16 rows in and out, float32 inside
         return rms_f32(x, g).to(x.dtype)
 
+    streaming = (
+        ((2048, 128256), lambda v: torch.softmax(v, -1), "softmax",
+         lambda v: torch.softmax(v, -1)),
+        ((1024, 65536), layer_norm, "layernorm (three phases)",
+         lambda xv, gv, bv: torch.nn.functional.layer_norm(
+             xv, (xv.shape[-1],), gv, bv, 1e-6)),
+        ((1024, 65536), normalize,
+         "layernorm without gamma and beta (three phases)",
+         lambda xv: torch.nn.functional.layer_norm(
+             xv, (xv.shape[-1],), None, None, 1e-6)),
+        ((64, 600000), lambda v: torch.softmax(v, -1),
+         "softmax longer than a cluster holds",
+         lambda v: torch.softmax(v, -1)))
+    cases = []
+    for (R, C), fn, label, lib in streaming:
+        args = [torch.randn(R, C, generator=gen, device="cuda")]
+        if fn is layer_norm:
+            args += [torch.randn(C, generator=gen, device="cuda")
+                     for _ in range(2)]
+        cases.append((stitched_jit(fn).compiled(*args), args,
+                      f"{label} [{R}, {C}]", lib))
+    xb = torch.randn(2048, 32768, generator=gen, device="cuda").bfloat16()
+    gb = torch.randn(32768, generator=gen, device="cuda")
+    rms = [(stitched_jit(fn).compiled(xb, gb), fn, out)
+           for fn, out in ((rms_f32, "float32"), (rms_bf16, "bfloat16"))]
+
+    # the rest of the reference's vocabulary (libdevice round, erfc, cbrt,
+    # pow, atan2, fmod, nextafter; the prod/and/or row reductions), each
+    # element within 1e-5 |plain| alone.  The reductions run over rows of
+    # 64: a float32 product's rounding in another order grows with its
+    # length (up to ~n 2^-24 relative), past 1e-5 at 1,024 factors.
+    from repro_torch.core.codegen import emit_pattern
+
+    # the streaming rows are forced with a planner budget that admits the
+    # seven-output group's column tile (the H100 preset runs it packed)
+    import dataclasses
+    from repro_torch.core import H100
+
+    wide = dataclasses.replace(H100, vmem_bytes=1 << 20)
+    elementwise = "round+erfc+cbrt+pow+atan2+rem+nextafter"
+    reductions = "reduce_prod+reduce_and+reduce_or"
+    vocab = []
+    for (R, C), reduces, label, kind in (
+            ((4096, 1024), False, elementwise, "onepass"),
+            ((65536, 64), True, reductions, "onepass"),
+            ((64, 131072), False, elementwise, "streaming"),
+            ((256, 131072), True, reductions, "streaming")):
+        g, pat = vocabulary_group(R, C, reduces,
+                                  exact_prod=kind == "streaming")
+        em = emit_pattern(g, pat, hw=wide if kind == "streaming" else H100)
+        if em.kind != kind:
+            fail(f"the vocabulary group at [{R}, {C}] ran {em.kind}, not "
+                 f"as a {kind} kernel")
+        vocab.append((R, C, label, g, em))
+    # every streaming group's source (emitted at compile) built together
+    from repro_torch.kernels import _build
+    _build.build_all()
+
+    # the streaming kernel (B2): the head's softmax, a three-phase
+    # LayerNorm with and without its column inputs gamma and beta (read
+    # from device memory in the last phase), rows longer than a cluster
+    # holds, bfloat16 rows
+    for c, args, label, lib in cases:
+        em = only_generated(c, "streaming")
+        check_kernel(em, c.graph, gen, label=label, reps=10, library=lib,
+                     inputs=ordered(c, em, args))
+    del cases
+
     # the float32 output against the plain version; the bfloat16 output
     # (same cluster geometry, same sums) bit for bit against the float32
     # kernel's output rounded to nearest even
-    xb = torch.randn(2048, 32768, generator=gen, device="cuda").bfloat16()
-    gb = torch.randn(32768, generator=gen, device="cuda")
     want = None
-    for fn, out in ((rms_f32, "float32"), (rms_bf16, "bfloat16")):
-        c = stitched_jit(fn).compiled(xb, gb)
+    for c, fn, out in rms:
         em = only_generated(c, "streaming")
         exact = want is not None
         res = check_kernel(
@@ -651,32 +707,8 @@ def phase_kernels(gen) -> None:
     check_kernel(em, c.graph, gen, label="expm1+log1p+tanh |x| <= 1e-4 "
                  "[4096, 1024]", reps=20, inputs=[xz], floor=0.0)
 
-    # the rest of the reference's vocabulary (libdevice round, erfc, cbrt,
-    # pow, atan2, fmod, nextafter; the prod/and/or row reductions), each
-    # element within 1e-5 |plain| alone.  The reductions run over rows of
-    # 64: a float32 product's rounding in another order grows with its
-    # length (up to ~n 2^-24 relative), past 1e-5 at 1,024 factors.
-    from repro_torch.core.codegen import emit_pattern
-
-    # the streaming rows are forced with a planner budget that admits the
-    # seven-output group's column tile (the H100 preset runs it packed)
-    import dataclasses
-    from repro_torch.core import H100
-
-    wide = dataclasses.replace(H100, vmem_bytes=1 << 20)
-    elementwise = "round+erfc+cbrt+pow+atan2+rem+nextafter"
-    reductions = "reduce_prod+reduce_and+reduce_or"
-    for (R, C), reduces, label, kind in (
-            ((4096, 1024), False, elementwise, "onepass"),
-            ((65536, 64), True, reductions, "onepass"),
-            ((64, 131072), False, elementwise, "streaming"),
-            ((256, 131072), True, reductions, "streaming")):
-        g, pat = vocabulary_group(R, C, reduces,
-                                  exact_prod=kind == "streaming")
-        em = emit_pattern(g, pat, hw=wide if kind == "streaming" else H100)
-        if em.kind != kind:
-            fail(f"the vocabulary group at [{R}, {C}] ran {em.kind}, not "
-                 f"as a {kind} kernel")
+    # the rest of the reference's vocabulary, emitted above
+    for R, C, label, g, em in vocab:
         x = torch.randn(R, C, generator=gen, device="cuda")
         y = torch.randn(R, C, generator=gen, device="cuda")
         check_kernel(em, g, gen, label=f"{label} [{R}, {C}]", reps=20,
@@ -861,7 +893,8 @@ def where_the_time_goes(label: str, fn) -> dict:
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {kind:12s} {ms:9.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%")
     for ms, n, name in sorted(rows, reverse=True)[:12]:
-        print(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+        print(f"    {ms:9.3f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  "
+              f"x{n:<5d} {name}")
     return dict(kinds, wall_ms=wall_ms)
 
 
@@ -2592,10 +2625,16 @@ def sass_check() -> None:
              ("ssd_scan-*.so", "B11", ("ssd_chunk_kernel",
                                        "ssd_output_kernel")),
              ("flash_decode-*.so", "B8", ("flash_decode_bf16_kernel",)))
+    jobs = [(lib, which, kernels) for pattern, which, kernels in kinds
+            for lib in sorted(_build.BUILD_DIR.glob(pattern))]
+    # one cuobjdump a library, all running together
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        dumps = list(pool.map(lambda job: subprocess.run(
+            [str(cuobjdump), "-sass", str(job[0])], capture_output=True,
+            text=True, timeout=300, check=True).stdout, jobs))
     bad = []
-    for pattern, which, kernels in kinds:
-        for lib in sorted(_build.BUILD_DIR.glob(pattern)):
-            bad += sass_of(cuobjdump, lib, which, kernels)
+    for (lib, which, kernels), sass in zip(jobs, dumps):
+        bad += sass_of(sass, lib, which, kernels)
     if bad:
         fail(f"tensor-core instructions not of the kernel's type in {bad}")
 
@@ -2605,16 +2644,14 @@ BF16_KERNELS = ("mm_bf16_kernel", "flash_fwd_bf16_kernel",
                 "flash_wide_bf16_kernel", "flash_decode_bf16_kernel")
 
 
-def sass_of(cuobjdump, lib, which: str, kernels) -> list:
+def sass_of(sass: str, lib, which: str, kernels) -> list:
     """Print the tensor-core instructions (``HGMMA`` in B3, ``HMMA``
-    elsewhere) of each kernel of ``lib`` whose name holds one of
-    ``kernels``, counted by type; return those of the wrong type: a
-    bfloat16 kernel (one of ``BF16_KERNELS`` by its own name: a generated
-    chain's mangled name also holds hex hashes, which may spell ``bf16``)
-    needs ``BF16`` ones and no ``TF32`` one, any other ``TF32`` ones."""
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
+    elsewhere) of each kernel of ``lib`` (its ``cuobjdump -sass``
+    listing ``sass``) whose name holds one of ``kernels``, counted by
+    type; return those of the wrong type: a bfloat16 kernel (one of
+    ``BF16_KERNELS`` by its own name: a generated chain's mangled name
+    also holds hex hashes, which may spell ``bf16``) needs ``BF16`` ones
+    and no ``TF32`` one, any other ``TF32`` ones."""
     op = "HGMMA" if which == "B3" else "HMMA"
     bad = []
     for fn in sass.split("Function : ")[1:]:
@@ -3883,8 +3920,9 @@ STATIC_STEPS = 4
 STATIC_BF16_BATCH = 16
 #: Device memory a static-decode phase needs beyond its weights and
 #: caches (activations, the plain path's logits and softmax, the
-#: allocator's slack).
-STATIC_SLACK_BYTES = 4e9
+#: allocator's slack); a decode cell's batch leaves it free (at 4 GB
+#: Mistral-NeMo-12B would take batch 10, 79.7 GB of the card's 85.0).
+STATIC_SLACK_BYTES = 6e9
 
 
 #: Sequences of a bfloat16 static-decode batch held against the float32
@@ -3902,8 +3940,9 @@ def batch_rows(cache: dict, n: int) -> dict:
     return {k: t[:, :n] for k, t in cache.items()}
 
 
-def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
-                        dtype=None) -> dict:
+def phase_static_decode(gen, arch: str, batch: int | None, kv_len: int,
+                        dtype=None, *, layers: int | None = None,
+                        agree: bool = True) -> dict:
     """``make_decode_step(mdl, kv_len)`` at full width and depth: the
     reference's decode cells, each step attending all ``kv_len`` rows of
     a cache filled in place from the seeded generator (a recurrent
@@ -3919,10 +3958,15 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
     restored): in float32 within 1e-4 max(1, max|logits|); in bfloat16 by
     the bfloat16 path rule against a float32 copy of the same weights and
     cache rows (``STATIC_EXACT_SEQS`` sequences, on the host), beside the
-    bfloat16 plain path on the same sequences.  Returns the launches of
-    the counted run."""
+    bfloat16 plain path on the same sequences.  ``layers`` cuts the
+    depth (DeepSeek-67B's cell); ``batch`` None takes the largest the free
+    memory holds beside ``STATIC_SLACK_BYTES``, at most the cell's; without
+    ``agree`` the caller holds the path to the plain one (at a cut depth,
+    ``cell_agreement``).  Returns the launches of the counted run."""
+    import dataclasses
+
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models.model import Model, shared_layers
 
@@ -3931,28 +3975,41 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
     tname = str(dtype).removeprefix("torch.")
     t_phase = time.perf_counter()
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     hybrid = cfg.family == "hybrid"
     n_attn = len(shared_layers(cfg)) if hybrid else cfg.n_layers
-    B, V, N = batch, cfg.vocab_size, STATIC_STEPS
+    V, N = cfg.vocab_size, STATIC_STEPS
     gc.collect()  # the earlier phases' models hold reference cycles
     torch.cuda.empty_cache()
     model = Model(cfg, param_dtype=dtype)
     params = model.init(SEED)
+    torch.cuda.empty_cache()  # init's float32 draws, back to the card
     # the weights a step reads: all but the embedding (one row a token)
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        torch.utils._pytree.tree_leaves(
                            {k: v for k, v in params.items() if k != "embed"}))
     itemsize = torch.empty(0, dtype=dtype).element_size()
-    cache_bytes = (2 * n_attn * B * cfg.n_kv_heads * kv_len
-                   * cfg.resolved_head_dim * itemsize)
+    seq_bytes = (2 * n_attn * cfg.n_kv_heads * kv_len
+                 * cfg.resolved_head_dim * itemsize)
     free, total = torch.cuda.mem_get_info()
+    cell_batch = next(c.global_batch for c in SHAPES.values()
+                      if c.kind == "decode" and c.seq_len == kv_len)
+    B = batch if batch is not None else min(
+        cell_batch, int((free - STATIC_SLACK_BYTES) // seq_bytes))
+    cache_bytes = B * seq_bytes
     label = f"{cfg.name} {tname} batch {B} kv_len {kv_len}"
     print(f"static decode: {cfg.name} layers={cfg.n_layers} (attention "
           f"{n_attn}) batch={B} kv_len={kv_len} {tname} seed={SEED}: caches "
-          f"{cache_bytes / 1e9:.2f} GB, weights a step reads "
-          f"{weight_bytes / 1e9:.2f} GB; "
-          f"device memory free after the weights {free / 1e9:.2f} of "
-          f"{total / 1e9:.2f} GB")
+          f"{cache_bytes / 1e9:.2f} GB ({seq_bytes / 1e9:.2f} a sequence), "
+          f"weights a step reads {weight_bytes / 1e9:.2f} GB; device memory "
+          f"free after the weights {free / 1e9:.2f} of {total / 1e9:.2f} GB"
+          + ("" if batch is not None else
+             f"; batch: the most (free - {STATIC_SLACK_BYTES / 1e9:.0f} GB "
+             f"of slack) / a sequence's cache holds, of the cell's "
+             f"{cell_batch}"))
+    if B < 1:
+        fail(f"static decode {cfg.name}: no sequence of {kv_len} rows fits")
     if cache_bytes + STATIC_SLACK_BYTES > free:
         fail(f"static decode {cfg.name}: the caches need "
              f"{cache_bytes / 1e9:.2f} GB and {STATIC_SLACK_BYTES / 1e9:.0f} "
@@ -4001,10 +4058,12 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
     t0 = time.perf_counter()
     run(step)
     cold_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()  # the counted run of the static-decode path
     steps_ms = []
     got, toks = run(step, times=steps_ms)
     launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = statistics.median(steps_ms)
     per_step = {k: v / N for k, v in launches.items()}
     print(f"launches per static decode step: {json.dumps(per_step)}")
@@ -4024,7 +4083,7 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
           f"steps minus the second {N}: trace, plan, emit, Triton builds, "
           f"the capture)  step_ms={step_ms:.2f} (median of {N} replays of "
           f"the captured step, host clock around a synchronized step) "
-          f"tokens/s={B * 1e3 / step_ms:.1f}")
+          f"tokens/s={B * 1e3 / step_ms:.1f} peak_memory_GB={peak_gb:.2f}")
     eager_step = make_decode_step(model, kv_len, capture=False)
     eager_ms = []
     run(eager_step, times=eager_ms)
@@ -4055,9 +4114,12 @@ def phase_static_decode(gen, arch: str, batch: int, kv_len: int,
             "step_ms": step_ms, "busy_ms": busy, "b8_ms": b8,
             "b8_share": b8 / max(busy, 1e-9),
             "b8_launches_per_step": per_step["flash_decode_native_bf16"],
-            "cache_GB": cache_bytes / 1e9}
-        static_bf16_agreement(cfg, model, params, cache, got, toks,
-                              run, restore, kv_len)
+            "cache_GB": cache_bytes / 1e9, "batch": B,
+            "layers": cfg.n_layers, "compile_s": cold_s - sum(steps_ms) / 1e3,
+            "peak_GB": peak_gb}
+        if agree:
+            static_bf16_agreement(cfg, model, params, cache, got, toks,
+                                  run, restore, kv_len)
         print(f"static decode phase: {time.perf_counter() - t_phase:.1f} s")
         return launches
 
@@ -4940,6 +5002,14 @@ def nonzero(counts: dict) -> str:
     return json.dumps({k: n for k, n in counts.items() if n})
 
 
+def weight_gb(params) -> float:
+    """A param tree's bytes, in GB."""
+    import torch
+
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(params)) / 1e9
+
+
 def tree_float(tree):
     """A param tree's floating leaves in float32 (new tensors)."""
     import torch
@@ -4979,7 +5049,9 @@ def rows_beyond(got, plain, exact) -> tuple[int, int]:
 #: Short names of the models in ``BF16_RESULTS`` and the path labels.
 SHORT = {"llama3.2-3b": "llama", "mamba2-370m": "mamba2",
          "zamba2-1.2b": "zamba2", "granite-moe-1b-a400m": "granite",
-         "hubert-xlarge": "hubert"}
+         "hubert-xlarge": "hubert", "gemma-7b": "gemma",
+         "mistral-nemo-12b": "mistral", "internvl2-26b": "internvl",
+         "deepseek-67b": "deepseek"}
 #: The bfloat16 instances each family's serving path must launch (the
 #: router's softmax stays float32 behind its cast: B7 in float32)
 BF16_SERVE_KERNELS = {
@@ -5390,13 +5462,529 @@ def phase_bf16_paths(gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 12b. The reference's prompt and decode cells in bfloat16 (--phase cells)
+# ---------------------------------------------------------------------------
+PREFILL_CELL = "prefill_32k"
+#: DeepSeek-67B's layers on one card: its 95 are 134.9 GB of bfloat16
+#: weights; 36 are 53.2 GB, beside which a prompt of 32,768 rows fits its
+#: cache, logits and activations (a depth cut, listed as ``reduced``)
+DEEPSEEK_LAYERS = 36
+#: (arch, the cells it serves, its layers or None for the full depth), in
+#: this order (the largest first), each model freed before the next
+CELL_MODELS = (
+    ("deepseek-67b", (PREFILL_CELL, STATIC_CELL), DEEPSEEK_LAYERS),
+    ("internvl2-26b", (PREFILL_CELL, STATIC_CELL), None),
+    ("mistral-nemo-12b", (PREFILL_CELL, STATIC_CELL), None),
+    ("gemma-7b", (PREFILL_CELL, STATIC_CELL), None),
+    ("llama3.2-3b", (PREFILL_CELL,), None),
+    ("hubert-xlarge", (PREFILL_CELL,), None))
+#: Device memory a prompt cell leaves free beyond its weights, cache,
+#: logits and the activations ``prefill_seq_bytes`` reckons (the compiled
+#: functions' buffers, the allocator's slack)
+CELL_SLACK_BYTES = 8e9
+#: The agreement runs: a prompt of this many tokens, batch 1, into a cache
+#: of the cell's 32,768 rows, then ``CELL_AGREE_STEPS`` decode steps over
+#: all of them; a model whose bfloat16 weights pass
+#: ``CELL_AGREE_FULL_BYTES`` agrees at ``CELL_AGREE_LAYERS`` layers (its
+#: float32 copy must fit beside it), at full width
+CELL_AGREE_PROMPT, CELL_AGREE_STEPS = 2048, 2
+CELL_AGREE_FULL_BYTES, CELL_AGREE_LAYERS = 8e9, 4
+#: Query rows a block of B4's plain version against 32,768 keys
+CELL_QUERY_BLOCK = 256
+CELL_RESULTS: dict = {}
+
+
+def param_count(cfg) -> int:
+    """A dense, vlm or encoder config's weights, from its widths."""
+    d, D, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    first = (cfg.frontend_dim if cfg.frontend == "audio"
+             else cfg.padded_vocab) * d
+    attn = 2 * d * cfg.n_heads * D + 2 * d * cfg.n_kv_heads * D
+    mlp = (2 if cfg.activation == "gelu_mlp" else 3) * d * ff
+    return first + d * cfg.padded_vocab + cfg.n_layers * (attn + mlp)
+
+
+def act_bytes_per_token(cfg) -> int:
+    """A layer's live activations a prompt token, reckoned from the
+    widths: four bfloat16 rows of d and two of d_ff for a gated MLP (about
+    twice what the dense prompts held on an H100: 0.95-2.0 GB a sequence
+    at 32,768 rows); a plain GELU MLP's three float32 rows of d_ff (its
+    packed GELU widens them: 2.26 GB a sequence for HuBERT)."""
+    if cfg.activation == "gelu_mlp":
+        return 4 * 3 * cfg.d_ff + 2 * 4 * cfg.d_model
+    return 2 * (4 * cfg.d_model + 2 * cfg.d_ff)
+
+
+def prefill_seq_bytes(cfg, S: int) -> dict:
+    """{cache, logits, activations}: a prompt sequence's device bytes in
+    bfloat16 -- its KV cache, its [S, padded_vocab] logits (twice where
+    the pad columns are masked: the mask writes a new tensor) and a
+    layer's activations (``act_bytes_per_token``)."""
+    D = cfg.resolved_head_dim
+    masked = 2 if cfg.padded_vocab != cfg.vocab_size else 1
+    return {"cache": 2 * cfg.n_layers * 2 * cfg.n_kv_heads * S * D,
+            "logits": masked * 2 * S * cfg.padded_vocab,
+            "activations": S * act_bytes_per_token(cfg)}
+
+
+def cell_inputs(cfg, cell, B: int, gen) -> dict:
+    """A cell's batch at batch ``B`` on the card, its keys, shapes and
+    dtypes from ``launch.steps.batch_specs`` (bfloat16 activations):
+    token ids uniform over the vocabulary, frames normal, vision
+    embeddings normal at the token embedding's scale (0.02)."""
+    import torch
+    from repro_torch.launch.steps import batch_specs
+
+    out = {}
+    for k, m in batch_specs(cfg, cell, torch.bfloat16, batch=B).items():
+        if k in ("tokens", "labels"):
+            out[k] = torch.randint(0, cfg.vocab_size, tuple(m.shape),
+                                   generator=gen, device="cuda",
+                                   dtype=m.dtype)
+        else:
+            scale = 0.02 if k == "vision_embeds" else 1.0
+            out[k] = (torch.randn(tuple(m.shape), generator=gen,
+                                  device="cuda") * scale).to(m.dtype)
+    return out
+
+
+def logits_checked(label: str, cfg, logits, rows: int = 4096) -> None:
+    """A prompt's logits [B, S, padded_vocab]: finite in the vocabulary's
+    columns, the pad columns at -1e30 (in bfloat16), and the argmax over
+    all columns inside the vocabulary (what ``generate`` reads from
+    ``[:vocab_size]``); in blocks of ``rows`` rows (one boolean of the
+    whole tensor would take gigabytes)."""
+    V, Vp = cfg.vocab_size, cfg.padded_vocab
+    if logits.shape[-1] != Vp:
+        fail(f"{label}: logits of {logits.shape[-1]} columns, want {Vp}")
+    flat = logits.reshape(-1, Vp)
+    for r in range(0, flat.shape[0], rows):
+        blk = flat[r:r + rows]
+        if not bool(blk[:, :V].isfinite().all()):
+            fail(f"{label}: logits not finite")
+        if Vp > V and not bool((blk[:, V:] <= -1e29).all()):
+            fail(f"{label}: a pad column is not masked")
+        if not bool((blk.argmax(-1) < V).all()):
+            fail(f"{label}: the argmax fell on a pad column")
+
+
+def cell_agreement(gen, cfg) -> dict:
+    """Check 2 of a model's cells: at full width and full depth, or at
+    ``CELL_AGREE_LAYERS`` layers where the bfloat16 weights pass
+    ``CELL_AGREE_FULL_BYTES``, weights from seed 0, a prompt of
+    ``CELL_AGREE_PROMPT`` tokens at batch 1 into a cache of the cell's
+    32,768 rows through ``make_prefill_step``, then (a decoder)
+    ``CELL_AGREE_STEPS`` greedy steps of ``make_decode_step(kv_len=
+    32768)`` (the rows past the prompt zeros, attended as in the
+    reference's decode cells) -- the kernel path in bfloat16, the
+    bfloat16 plain path and a float32 plain run of the same weights, fed
+    the same tokens, each logit tensor held by the bfloat16 path rule
+    (``path_rule``).  Returns the worst ratio and the plain path's
+    largest distance from float32 (check 3's scale)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SHAPES, ShapeCell
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import Model
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = (cfg.n_layers if 2 * param_count(cfg) <= CELL_AGREE_FULL_BYTES
+              else CELL_AGREE_LAYERS)
+    acfg = dataclasses.replace(cfg, n_layers=layers)
+    kv = SHAPES[PREFILL_CELL].seq_len
+    P, V = CELL_AGREE_PROMPT, cfg.vocab_size
+    batch = cell_inputs(acfg, ShapeCell("agree", P, 1, "prefill"), 1, gen)
+    model = Model(acfg, param_dtype=bf)
+    params = model.init(SEED)
+    p32 = tree_float(params)
+    b32 = {k: v if k == "tokens" else v.float() for k, v in batch.items()}
+    runs = ((model, params, batch, bf),
+            (Model(acfg, "xla", dispatch="interpret", param_dtype=bf),
+             params, batch, bf),
+            (Model(acfg, "xla", dispatch="interpret"), p32, b32,
+             torch.float32))
+    decode = cfg.supports_decode
+
+    def logits(mdl, p, b, dt) -> list:
+        """The prompt's logits, then each decode step's, fed the kernel
+        path's greedy tokens (``toks``, filled by the first run)."""
+        c = mdl.init_cache(1, kv, dtype=dt)
+        out = [make_prefill_step(mdl)(p, b, c)[0][0, :, :V].float()]
+        for i in range(CELL_AGREE_STEPS if decode else 0):
+            if len(toks) == i:
+                toks.append(out[-1][-1:].argmax(-1).reshape(1, 1).to(
+                    torch.int32))
+            lg, _ = make_decode_step(mdl, kv, capture=False)(
+                p, c, toks[i], P + i)
+            out.append(lg[0, :, :V].float())
+        return out
+
+    toks: list = []
+    with torch.no_grad():
+        outs = [logits(*run) for run in runs]
+    rules = [path_rule(f"cell agreement {cfg.name} "
+                       f"{'prompt' if i == 0 else f'decode step {i}'}",
+                       g, w, e)
+             for i, (g, w, e) in enumerate(zip(*outs))]
+    worst = max(r["err"] / r["limit"] for r in rules)
+    out = {"layers": layers, "prompt": P, "kv_len": kv, "worst": worst,
+           "plain_err": max(r["plain_err"] for r in rules),
+           "rules": rules}
+    print(f"cell agreement {cfg.name} ({layers} of {cfg.n_layers} layers, "
+          f"full width, seed {SEED}): a {P}-token prompt into a {kv}-row "
+          f"cache"
+          + (f", then {CELL_AGREE_STEPS} decode steps at kv_len {kv}"
+             if decode else "")
+          + "; kernel path / bfloat16 plain path from float32: "
+          + "; ".join(f"{r['err']:.4e} / {r['plain_err']:.4e} (limit "
+                      f"{r['limit']:.4e})" for r in rules)
+          + f"; worst err/limit {worst:.3f} (the bfloat16 path rule); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del runs, outs, model, params, p32, batch, b32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cell_prefill(gen, cfg, model, params, agree: dict) -> dict:
+    """``make_prefill_step`` at the reference's prompt cell (32,768
+    tokens; an audio model's frames, a vision model's spliced rows) with
+    bfloat16 params and cache, at the largest batch the free memory holds
+    beside ``CELL_SLACK_BYTES`` by ``prefill_seq_bytes``'s reckoning, at
+    most the cell's 32: the first call under the profiler (its kernels,
+    their device time by kernel: the same at every call), compile seconds
+    (the first call less the second), the second call counted: TTFT (host
+    clock around the prompt and the argmax of its last row, on the host),
+    the busy share (the device time over it), the launches, peak memory;
+    the logits checked (``logits_checked``).  Then check 3 for a decoder: sequence 0's last
+    logits against ``prefill`` of its first S - 1 tokens followed by one
+    ``make_decode_step`` at kv_len S (B4 at 32,768 against B8 at 32,768),
+    within twice the bfloat16 path rule's limit at the plain path's
+    distance from float32 measured by ``cell_agreement`` (``agree``).
+    Returns the launches."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    cell = SHAPES[PREFILL_CELL]
+    S, V, name = cell.seq_len, cfg.vocab_size, SHORT[cfg.name]
+    per = prefill_seq_bytes(cfg, S)
+    gc.collect()
+    torch.cuda.empty_cache()  # what the agreement freed, back to the card
+    free, total = torch.cuda.mem_get_info()
+    B = min(cell.global_batch,
+            int((free - CELL_SLACK_BYTES) // sum(per.values())))
+    label = f"{cfg.name} {PREFILL_CELL} bfloat16 batch {B}"
+    print(f"cell {label}: {cfg.n_layers} layers, weights "
+          f"{weight_gb(params):.2f} GB, device memory free beside them "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB; a sequence of {S} "
+          f"rows needs " + ", ".join(f"{k} {v / 1e9:.2f} GB"
+                                     for k, v in per.items())
+          + f" = {sum(per.values()) / 1e9:.2f} GB; batch {B} of the cell's "
+          f"{cell.global_batch} ({CELL_SLACK_BYTES / 1e9:.0f} GB of slack)")
+    if B < 1:
+        fail(f"cell {cfg.name} {PREFILL_CELL}: no sequence fits")
+    batch = cell_inputs(cfg, cell, B, gen)
+    cache = model.init_cache(B, S, dtype=torch.bfloat16)
+    step = make_prefill_step(model)
+
+    def prompt():
+        return step(params, batch, cache)[0]
+
+    out = {}
+
+    def first_token():
+        """The prompt and its last row's argmax on the host; the logits
+        kept in ``out``.  The last call's logits go back to the card
+        first: left in the allocator's cache, their block is split by the
+        next call's activations and the next logits no longer fit
+        (Mistral-NeMo-12B at batch 3 ran out so on an H100)."""
+        out["logits"] = None
+        torch.cuda.empty_cache()
+        out["logits"] = prompt()
+        return out["logits"][:, -1, :V].argmax(-1).cpu()
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = where_the_time_goes(f"the first {name} {PREFILL_CELL} "
+                                   f"prompt (batch {B})", first_token)
+        cold_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()  # the counted call of the prompt cell
+        t0 = time.perf_counter()
+        first = first_token()
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        logits = out.pop("logits")
+        logits_checked(label, cfg, logits)
+        last0 = logits[0, -1, :V].float().clone()
+        del logits
+    busy = sum(v for k, v in prof.items() if k != "wall_ms")
+    res = {"batch": B, "layers": cfg.n_layers, "seq_GB": {
+        k: round(v / 1e9, 3) for k, v in per.items()},
+        "compile_s": cold_s - ttft_ms / 1e3, "ttft_ms": ttft_ms,
+        "busy_ms": busy, "busy_share": busy / ttft_ms,
+        "by_kind": {k: round(v, 3) for k, v in prof.items()
+                    if k != "wall_ms"}, "peak_GB": peak,
+        "tokens_per_s": B * S / ttft_ms * 1e3}
+    print(f"cell {label}: compile_s={res['compile_s']:.2f} (the first call "
+          f"less the second: trace, plan, emit, builds, the profiler) "
+          f"TTFT={ttft_ms:.1f} ms (host clock, the prompt and its last "
+          f"row's argmax on the host; {res['tokens_per_s']:.0f} prompt "
+          f"tokens/s) "
+          f"device busy {busy:.1f} ms ({100 * busy / ttft_ms:.1f}% of the "
+          f"TTFT) peak_memory_GB={peak:.2f}; launches {nonzero(launches)}; "
+          f"first tokens {first.tolist()[:8]}")
+    for k in ("flash_attention_bf16", "matmul_fused_native_bf16",
+              "layernorm_bf16" if cfg.norm == "layernorm" else
+              "rmsnorm_bf16"):
+        if launches[k] <= 0:
+            fail(f"cell {label}: launched no {k}")
+    seq0 = {k: v[:1].clone() for k, v in batch.items()}
+    del cache, batch, prompt
+    if cfg.supports_decode:
+        gc.collect()
+        torch.cuda.empty_cache()
+        c1 = model.init_cache(1, S, dtype=torch.bfloat16)
+        with torch.no_grad():
+            short = {k: v[:, :S - 1] if k == "tokens" else v
+                     for k, v in seq0.items()}
+            step(params, short, c1)
+            lg, _ = make_decode_step(model, S)(
+                params, c1, seq0["tokens"][:, S - 1:], S - 1)
+        dec = lg[0, 0, :V].float()
+        err = float((dec - last0).abs().max())
+        limit = 2 * (BF16_PATH_FACTOR * agree["plain_err"] + BF16_PATH_FLOOR
+                     * max(1.0, float(last0.abs().max())))
+        same = bool(dec.argmax() == last0.argmax())
+        res["consistency"] = {"err": err, "limit": limit, "argmax": same}
+        print(f"cell {label}: check 3, sequence 0's last logits from the "
+              f"{S}-token prompt against prefill of {S - 1} tokens then one "
+              f"decode step at kv_len {S}: max|d|={err:.4e} (limit "
+              f"{limit:.4e}: twice the bfloat16 path rule at the plain "
+              f"path's {agree['plain_err']:.4e} from float32), argmax "
+              f"{'agrees' if same else 'differs'}")
+        if not err <= limit:
+            fail(f"cell {label}: prefill and decode disagree at {S} rows")
+        del c1, lg
+    res["phase_s"] = time.perf_counter() - t_phase
+    CELL_RESULTS[f"{name} {PREFILL_CELL}"] = res
+    return launches
+
+
+def cell_kernel_rows(gen, checks: dict) -> None:
+    """The kernels at the cells' new shapes, each held to its plain
+    version (``check_bf16_kernel``'s rules) and timed beside its bound and
+    one PyTorch call: B4 bfloat16 at 32,768 rows (Llama, HuBERT, Gemma;
+    batch 1; its plain version in blocks of ``CELL_QUERY_BLOCK`` query
+    rows against every key up to the block's last, never the whole score
+    matrix); B8's native kernel at Gemma's D 256 G 1, Mistral's G 4,
+    InternVL's G 6 and DeepSeek's G 8 (batch 1, kv_len 32,768); B3's
+    native instance at the new gate widths (a 2,048-row tile)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import gelu_tanh
+
+    bf = torch.bfloat16
+    S = cell_len(PREFILL_CELL)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(bf)
+
+    for arch, causal in (("llama3.2-3b", True), ("hubert-xlarge", False),
+                         ("gemma-7b", True)):
+        cfg = get_config(arch)
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, k, v = rnd(1, Hq, S, D), rnd(1, Hkv, S, D), rnd(1, Hkv, S, D)
+        bq = CELL_QUERY_BLOCK
+
+        def plain(a, b, c, dt=None, rows=range(0, S, bq)):
+            """The plain version block by block (``dt``: float64, the
+            function itself), each block [1, Hq, bq, D]."""
+            out = []
+            for i in rows:
+                j = i + bq if causal else S
+                blk = [t if dt is None else t.to(dt)
+                       for t in (a[:, :, i:i + bq], b[:, :, :j],
+                                 c[:, :, :j])]
+                out.append(FA.flash_attention_plain(*blk, causal))
+            return torch.cat(out, dim=2)
+
+        pairs = S * (S + 1) // 2 if causal else S * S
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        sampled = (0, S // 2, S - bq)
+
+        def launch(a, b, c):
+            return FA.flash_attention_cuda(a, b, c, causal)
+
+        before = launch_counts()
+        res = check_bf16_kernel(
+            f"flash_attention {cfg.name} B1 Hq{Hq} Hkv{Hkv} S{S} D{D} "
+            f"{'causal' if causal else 'non-causal'} (the first, middle "
+            f"and last {bq}-row query blocks against float64; the plain "
+            f"version in {S // bq} blocks)",
+            lambda a, b, c: torch.cat([o[:, :, i:i + bq] for o in
+                                       [launch(a, b, c)] for i in sampled],
+                                      dim=2),
+            lambda a, b, c: plain(a, b, c, rows=sampled),
+            lambda a, b, c: plain(a, b, c, torch.float64, rows=sampled),
+            (q, k, v), nbytes=nbytes, mma_ops=4 * D * Hq * pairs,
+            band=BF16_BAND_ANCHORED, reps=3,
+            library=lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=causal, enable_gqa=True))
+        # the row's times: the kernel alone, the whole plain version
+        res["ms"] = time_ms(lambda: launch(q, k, v), 3)
+        res["call_ms"] = time_ms(lambda: launch(q, k, v), 3, queued=False)
+        res["plain_ms"] = time_ms(lambda: plain(q, k, v), 1)
+        full = launch(q, k, v)
+        worst = 0.0
+        for i in range(0, S, bq):  # every block within the band
+            w = plain(q, k, v, rows=(i,)).double()
+            d = (full[:, :, i:i + bq].double() - w).abs()
+            worst = max(worst, float((d / (BF16_BAND_ANCHORED[1]
+                                           + BF16_BAND_ANCHORED[0]
+                                           * w.abs())).max()))
+        launched("flash_attention_bf16", before)
+        print(f"  {arch} B4 at {S} rows: kernel ms={res['ms']:.4f} (call "
+              f"{res['call_ms']:.4f}) plain_ms={res['plain_ms']:.4f} (all "
+              f"{S // bq} blocks) SDPA {res['library_ms']:.4f}; every block "
+              f"within the band of the plain version: worst err/band "
+              f"{worst:.3f}")
+        if worst > 1.0:
+            fail(f"B4 {arch} at {S} rows: outside the bfloat16 band")
+        checks.setdefault("flash_attention_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=False))
+        del q, k, v, full
+        torch.cuda.empty_cache()
+
+    for arch in ("gemma-7b", "mistral-nemo-12b", "internvl2-26b",
+                 "deepseek-67b"):
+        cfg = get_config(arch)
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q = rnd(1, Hq, D)
+        k, v = rnd(1, Hkv, S, D), rnd(1, Hkv, S, D)
+        nbytes = 2 * 2 * k.numel() + 2 * 2 * q.numel()
+        before = launch_counts()
+        res = check_bf16_kernel(
+            f"flash_decode {cfg.name} B1 Hq{Hq} Hkv{Hkv} (G {Hq // Hkv}) "
+            f"S{S} D{D} q and caches bfloat16",
+            lambda a, b, c: FA.flash_decode_cuda(a, b, c),
+            lambda a, b, c: FA.flash_decode_plain(a, b, c),
+            lambda a, b, c: ref.decode_attention(a.double(), b.double(),
+                                                 c.double()),
+            (q, k, v), nbytes=nbytes, mma_ops=4 * D * Hq * S, reps=10,
+            library=lambda a, b, c: F.scaled_dot_product_attention(
+                a[:, :, None], b, c, enable_gqa=True)[:, :, 0])
+        launched("flash_decode_native_bf16", before)
+        checks.setdefault("flash_decode_native_bf16", []).append(
+            dict(res, _bytes=nbytes, _main=False))
+        del k, v
+        torch.cuda.empty_cache()
+
+    def t_geglu(x, wg, wu):
+        return gelu_tanh(x @ wg) * (x @ wu)
+
+    M = CELL_AGREE_PROMPT
+    for arch in ("gemma-7b", "mistral-nemo-12b", "internvl2-26b",
+                 "deepseek-67b"):
+        cfg = get_config(arch)
+        K, N = cfg.d_model, cfg.d_ff
+        fn = t_geglu if cfg.activation == "gelu" else t_gate
+        args = (rnd(M, K), rnd(K, N, scale=K ** -0.5),
+                rnd(K, N, scale=K ** -0.5))
+        before = launch_counts()
+        res = check_bf16_anchored(
+            fn, args, gen,
+            label=f"matmul_fused {cfg.name} gate+"
+                  f"{'GELU(tanh)' if fn is t_geglu else 'SiLU'} x up M{M} "
+                  f"K{K} N{N}",
+            library=lambda *_, _a=args: torch.matmul(_a[0], _a[1]))
+        launched("matmul_fused_native_bf16", before)
+        checks.setdefault("matmul_fused_native_bf16", []).append(
+            dict(res, _main=False))
+        del args
+        torch.cuda.empty_cache()
+
+
+def phase_cells(gen, checks: dict) -> dict:
+    """The reference's cells on the card (``CELL_MODELS``), bfloat16
+    params and caches as ``src/repro/launch/dryrun.py:126-139`` builds
+    them, weights from seed 0 on the device, each model freed before the
+    next: the kernels at the cells' shapes (``cell_kernel_rows``), then a
+    model at a time its agreement (``cell_agreement``), its prompt cell
+    (``phase_cell_prefill``) and its decode cell (``phase_static_decode``
+    at ``decode_32k``, the batch from the free memory, its agreement
+    ``cell_agreement``'s).  Returns {path: launches}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cell_kernel_rows(gen, checks)
+    print(f"cell kernel rows: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for arch, cells, layers in CELL_MODELS:
+        t_model = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"cell {arch}: device memory free {free / 1e9:.2f} of "
+              f"{total / 1e9:.2f} GB; PyTorch holds "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in tensors, "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+        if layers is not None:
+            CELL_RESULTS.setdefault("reduced", {})[arch] = (
+                f"{layers} of {full.n_layers} layers")
+            print(f"cell {arch}: reduced: {layers} of {full.n_layers} layers "
+                  f"at full width ({2 * param_count(full) / 1e9:.1f} GB of "
+                  f"bfloat16 weights whole, "
+                  f"{2 * param_count(cfg) / 1e9:.1f} GB cut)")
+        agree = cell_agreement(gen, full)
+        CELL_RESULTS[f"{SHORT[arch]} agreement"] = agree
+        name = SHORT[arch]
+        if PREFILL_CELL in cells:
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = Model(cfg, param_dtype=torch.bfloat16)
+            params = model.init(SEED)
+            launches[f"cells_{name}_prefill"] = phase_cell_prefill(
+                gen, cfg, model, params, agree)
+            del model, params
+        if STATIC_CELL in cells:
+            launches[f"cells_{name}_decode"] = phase_static_decode(
+                gen, arch, None, cell_len(STATIC_CELL), torch.bfloat16,
+                layers=layers, agree=False)
+        print(f"cell {arch}: {time.perf_counter() - t_model:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cells phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card (see the "
                     "module's docstring for the phases).")
     ap.add_argument(
         "--phase", choices=("all", "router", "tuned", "dispatch", "bf16",
-                            "decode"),
+                            "decode", "cells"),
         default="all",
         help="'router': only the device line, the build and the router "
              "floor rows (phase 3c), then their JSON line; no path runs. "
@@ -5411,7 +5999,13 @@ def main(argv=None) -> int:
              "float32 training), then its JSON lines. 'decode': only the "
              "device line, the build, the static-decode phases (12: "
              "float32, then bfloat16 params and caches) and the SASS "
-             "check, then the bfloat16 JSON line.")
+             "check, then the bfloat16 JSON line. 'cells': only the "
+             "device line, the build, the reference's cells in bfloat16 "
+             "(12b: the kernels at their shapes, then Llama-3.2-3B and "
+             "HuBERT-XLarge at prefill_32k, Gemma-7B, Mistral-NeMo-12B, "
+             "InternVL2-26B and DeepSeek-67B (36 layers) at prefill_32k "
+             "and decode_32k) and the SASS check, then the cells' JSON "
+             "line.")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -5457,6 +6051,15 @@ def main(argv=None) -> int:
         print(f"chip_smoke --phase decode: "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.phase == "cells":
+        from repro_torch.kernels import _build
+        _build.build_all()
+        phase_cells(gen, {})
+        sass_check()
+        print(json.dumps({"cells": CELL_RESULTS}, default=str))
+        print(f"chip_smoke --phase cells: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.phase == "bf16":
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
@@ -5473,27 +6076,42 @@ def main(argv=None) -> int:
         print(f"chip_smoke --phase bf16: {time.perf_counter() - t_start:.1f}"
               " s")
         return 0
+    def done(phase: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
+
     phase_kernels(gen)
+    done("phase_kernels")
     checks = phase_cuda_kernels(gen)
+    done("phase_cuda_kernels")
     phase_router_floor(gen)
+    done("phase_router_floor")
     anchor_checks, anchor_launches = phase_anchored_kernels(gen)
+    done("phase_anchored_kernels")
     checks.update(anchor_checks)
     form_checks, form_launches = phase_anchor_forms(gen)
+    done("phase_anchor_forms")
     checks.update(form_checks)
     diff_launches = phase_differentiable(gen)
+    done("phase_differentiable")
     dispatch_launches = phase_dispatch(gen, checks)
+    done("phase_dispatch")
     reset_launch_counts()
     fwd_launches, fwd_checks = phase_main_path(gen)
+    done("phase_main_path")
     checks.update(fwd_checks)
     n_fwd = sum(map(len, fwd_checks.values()))
     serve_launches, sched_launches = phase_serving(gen, checks)
+    done("phase_serving")
     n_gen = sum(len(checks[k]) for k in ("onepass", "streaming"))
     train_launches = phase_train()
+    done("phase_train")
     moe_serve_launches, moe_sched_launches = phase_serving(gen, checks,
                                                            MOE_ARCH)
     n_moe = sum(len(checks[k]) for k in ("onepass", "streaming")) - n_gen
     moe_train_launches = phase_train(MOE_ARCH)
+    done("phase_train")
     ssm_serve_launches, _ = phase_serving(gen, checks, SSM_ARCH)
+    done("phase_serving")
     hybrid_serve_launches, hybrid_sched_launches = phase_serving(
         gen, checks, HYBRID_ARCH)
     n_rec = sum(len(checks[k]) for k in ("onepass", "streaming")) \
@@ -5503,13 +6121,20 @@ def main(argv=None) -> int:
           f"{n_moe} more of MoE serving, {n_rec} more of SSM and hybrid "
           f"serving")
     ssm_train_launches = phase_train(SSM_ARCH)
+    done("phase_train")
     checks.update(phase_bf16_kernels(gen))
     bf16_launches = phase_bf16_paths(gen)
+    done("phase_bf16_paths")
     hybrid_train_launches = phase_train(HYBRID_ARCH, HYBRID_TRAIN_BATCH)
+    done("phase_train")
     (static_launches, long_launches, static_bf16_launches,
      long_bf16_launches) = phase_static_paths(gen)
+    done("phase_static_paths")
+    cell_launches = phase_cells(gen, checks)
+    done("phase_cells")
     # last of the paths: the earlier phases run as they did before it
     tuned_launches = phase_tuned(gen, checks)
+    done("phase_tuned")
     sass_check()
 
     kernels = []
@@ -5607,6 +6232,7 @@ def main(argv=None) -> int:
                    "differentiable": diff_launches[name],
                    "dispatch": dispatch_launches[name],
                    **{path: n[name] for path, n in bf16_launches.items()},
+                   **{path: n[name] for path, n in cell_launches.items()},
                    "hybrid_train": hybrid_train_launches[name]}
         kernels.append({
             "name": name, "route": route, "source": source,
@@ -5624,6 +6250,7 @@ def main(argv=None) -> int:
     print(json.dumps({"differentiable": DIFF_RESULTS}))
     print(json.dumps({"dispatch": DISPATCH_RESULTS}, default=str))
     print(json.dumps({"bf16": BF16_RESULTS}, default=str))
+    print(json.dumps({"cells": CELL_RESULTS}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 framework-free ``repro.configs.base``; the port never imports ``repro``).
 
 One ``<arch>.py`` per architecture defines ``CONFIG``; ``get_config``
-resolves an id, ``all_configs`` the carried ones.  ``SHAPES`` holds the
-reference's four shape cells (``ShapeCell``) and ``cell_applicable`` its
-verdict on a config and a cell.  ``reduced()`` derives the smoke-test configuration (same
-family, tiny dims) the CPU tests use.
+resolves an id, ``all_configs`` the reference's ten, in its order.
+``SHAPES`` holds the reference's four shape cells (``ShapeCell``) and
+``cell_applicable`` its verdict on a config and a cell.  ``reduced()``
+derives the smoke-test configuration (same family, tiny dims) the CPU
+tests use.
 """
 from __future__ import annotations
 
@@ -102,9 +103,11 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
-ARCH_IDS = ["llama3.2-3b", "hubert-xlarge", "granite-moe-1b-a400m",
-            "granite-moe-3b-a800m", "mamba2-370m",
-            "zamba2-1.2b"]  # the configs the port carries
+ARCH_IDS = [
+    "zamba2-1.2b", "internvl2-26b", "deepseek-67b", "mistral-nemo-12b",
+    "llama3.2-3b", "gemma-7b", "hubert-xlarge", "mamba2-370m",
+    "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+]
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

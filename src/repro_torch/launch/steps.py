@@ -1,6 +1,7 @@
 """Step-function builders: the counterpart of ``repro.launch.steps``'s
 ``make_train_step``, ``make_prefill_step``, ``make_encoder_step`` and
-``make_decode_step`` (``src/repro/launch/steps.py:26-89``).
+``make_decode_step`` (``src/repro/launch/steps.py:26-89``), and of its
+``batch_specs`` (:98-116), the model inputs of a shape cell.
 
 ``jax.value_and_grad(mdl.loss)`` becomes ``loss_and_grads``: the params'
 leaves are taken as leaf tensors that require grad, the loss runs eagerly
@@ -19,6 +20,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from .. import optim
+from ..configs.base import ArchConfig, ShapeCell
 from ..core.capture import CapturedStep, leaf_signature
 from ..models.model import Model
 
@@ -70,18 +72,13 @@ def make_train_step(mdl: Model, opt_cfg: optim.AdamWConfig,
 
 
 def make_prefill_step(mdl: Model):
-    """``prefill_step(params, batch, cache) -> (logits, cache)`` over
-    ``batch["tokens"]``.  The port's ``Model`` has no ``vision_embeds``
-    splice yet and no cached audio prompt, so a batch that carries
-    either is refused, never dropped."""
+    """``prefill_step(params, batch, cache) -> (logits, cache)`` over the
+    batch's ``tokens``, ``vision_embeds`` and ``frames`` (each may be
+    absent), as the reference's (``src/repro/launch/steps.py:63-70``)."""
     def prefill_step(params, batch, cache):
-        for key in ("vision_embeds", "frames"):
-            if batch.get(key) is not None:
-                raise NotImplementedError(
-                    f"make_prefill_step: batch[{key!r}] is not taken by the "
-                    "port's Model.prefill (tokens only; encoders use "
-                    "make_encoder_step)")
-        return mdl.prefill(params, batch["tokens"], cache)
+        return mdl.prefill(params, batch.get("tokens"), cache,
+                           vision_embeds=batch.get("vision_embeds"),
+                           frames=batch.get("frames"))
 
     return prefill_step
 
@@ -130,3 +127,32 @@ def make_decode_step(mdl: Model, kv_len: int | None, *,
 
     decode_step.graph = None  # the CapturedStep of the last call
     return decode_step
+
+
+def batch_specs(cfg: ArchConfig, cell: ShapeCell,
+                act_dtype: torch.dtype = torch.bfloat16, *,
+                batch: int | None = None) -> dict:
+    """The model inputs of one shape cell, as meta tensors: the keys,
+    shapes and dtypes of the reference's ``batch_specs``
+    (``src/repro/launch/steps.py:98-116``).  An audio model takes ``frames`` (and, to
+    train, ``labels``); every other model ``tokens`` -- S + 1 of them to
+    train, S to prefill, one to decode against an S-row cache -- and a
+    vision model outside decode its ``vision_embeds``.  ``batch``
+    replaces the cell's global batch (what one card holds)."""
+    B = cell.global_batch if batch is None else batch
+    S = cell.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.frontend == "audio":
+        out = {"frames": meta((B, S, cfg.frontend_dim), act_dtype)}
+        if cell.kind == "train":
+            out["labels"] = meta((B, S), torch.int32)
+        return out
+    n_tokens = {"train": S + 1, "prefill": S}.get(cell.kind, 1)
+    out = {"tokens": meta((B, n_tokens), torch.int32)}
+    if cfg.frontend == "vision" and cell.kind != "decode":
+        out["vision_embeds"] = meta((B, cfg.n_vision_tokens, cfg.d_model),
+                                    act_dtype)
+    return out

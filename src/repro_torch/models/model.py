@@ -1,5 +1,7 @@
-"""Dense decoder, encoder, MoE, SSM (Mamba2) and hybrid (Zamba2) models:
-prompt pass, training, KV and SSM caches, prefill and decode.
+"""Dense decoder, vision-language (``vlm``: the dense decoder with a
+vision stub's embeddings as its first rows), encoder, MoE, SSM (Mamba2)
+and hybrid (Zamba2) models: prompt pass, training, KV and SSM caches,
+prefill and decode.
 
 ``block_apply`` is the per-layer program of the JAX package's
 ``models/model.py::block_apply``.  The layer loop is a Python loop over
@@ -212,8 +214,9 @@ def mask_pad_columns(cfg: ArchConfig, logits):
 
 
 class Model:
-    """A dense, encoder, MoE, SSM or hybrid model bound to a device, with
-    its compiled functions (the encoder family trains; it has no decode).
+    """A dense, vlm, encoder, MoE, SSM or hybrid model bound to a device,
+    with its compiled functions (the encoder family trains and prefills;
+    it has no decode).
 
     ``device`` is CUDA unless the caller passes ``device="cpu"`` (where
     every kernel runs its plain version).  Weights are ``param_dtype``
@@ -324,22 +327,41 @@ class Model:
                 "mlp": L.mlp_init(cfg, gen, dt, dev)}
         return params
 
-    # -- training -----------------------------------------------------------
-    def apply(self, params: dict, tokens=None, frames=None):
-        """Eager and differentiable, no cache: tokens [B, S] (or frames
-        [B, S, frontend_dim] for audio) -> logits [B, S, padded_vocab],
-        the pad columns at -1e30.  The reference's ``Model.apply``
-        without a cache, less its ``aux`` (``apply_aux``)."""
-        return self.apply_aux(params, tokens, frames)[0]
-
-    def apply_aux(self, params: dict, tokens=None, frames=None):
-        """``apply`` -> (logits, aux): aux is the MoE layers'
-        load-balance loss summed over the layers, 0.0 without MoE."""
-        cfg, fm = self.cfg, self.fm
-        if cfg.frontend == "audio":
+    # -- embedding ----------------------------------------------------------
+    def _embed(self, params: dict, tokens=None, frames=None,
+               vision_embeds=None):
+        """The first hidden state [B, S, d]: the token embedding (an audio
+        model: frames [B, S, frontend_dim] @ ``feat_proj``); a vision
+        model given ``vision_embeds`` [B, nv, d] takes them, cast to the
+        embedding's type, as its first ``nv`` rows
+        (``src/repro/models/model.py:138-148``)."""
+        if self.cfg.frontend == "audio":
             h = frames.to(self.param_dtype) @ params["feat_proj"]["w"]
         else:
             h = params["embed"][tokens]
+        if self.cfg.frontend == "vision" and vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            h = torch.cat([vision_embeds.to(h.dtype), h[:, nv:]], dim=1)
+        return h
+
+    # -- training -----------------------------------------------------------
+    def apply(self, params: dict, tokens=None, frames=None, *,
+              vision_embeds=None):
+        """Eager and differentiable, no cache: tokens [B, S] (or frames
+        [B, S, frontend_dim] for audio; a vision model's first rows
+        replaced by ``vision_embeds``, ``_embed``) -> logits [B, S,
+        padded_vocab], the pad columns at -1e30.  The reference's
+        ``Model.apply`` without a cache, less its ``aux``
+        (``apply_aux``)."""
+        return self.apply_aux(params, tokens, frames,
+                              vision_embeds=vision_embeds)[0]
+
+    def apply_aux(self, params: dict, tokens=None, frames=None, *,
+                  vision_embeds=None):
+        """``apply`` -> (logits, aux): aux is the MoE layers'
+        load-balance loss summed over the layers, 0.0 without MoE."""
+        cfg, fm = self.cfg, self.fm
+        h = self._embed(params, tokens, frames, vision_embeds)
         positions = torch.arange(h.shape[1], device=h.device)
         aux = 0.0
         emb0, shared = h, shared_layers(cfg)
@@ -362,7 +384,9 @@ class Model:
             labels = batch["labels"]
         else:
             tokens = batch["tokens"]
-            logits, aux = self.apply_aux(params, tokens=tokens[:, :-1])
+            logits, aux = self.apply_aux(
+                params, tokens=tokens[:, :-1],
+                vision_embeds=batch.get("vision_embeds"))
             labels = tokens[:, 1:]
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -512,12 +536,17 @@ class Model:
             mc["ssm"].copy_(ssm)
         return self.logits_head(self._head_params(params), h)
 
-    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict):
-        """tokens [B, S] -> (logits [B, S, padded_vocab], cache); fills the
+    def prefill(self, params: dict, tokens, cache: dict, *,
+                vision_embeds=None, frames=None):
+        """tokens [B, S] (an audio model: None, and ``frames`` [B, S,
+        frontend_dim]; a vision model's first rows ``vision_embeds``,
+        ``_embed``) -> (logits [B, S, padded_vocab], cache); fills the
         cache rows 0..S-1 (and sets each Mamba layer's state after the
-        prompt)."""
-        h = params["embed"][tokens]
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        prompt).  The attention is the config's: an encoder's prompt
+        attends both ways, as the reference's ``prefill`` does
+        (``apply(cache=..., cache_pos=0)``)."""
+        h = self._embed(params, tokens, frames, vision_embeds)
+        positions = torch.arange(h.shape[1], device=h.device)
         return self._layers(params, h, positions, cache, None), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor,

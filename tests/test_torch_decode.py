@@ -416,10 +416,25 @@ def test_prefill_step_matches_the_reference():
     assert out is cache and cache["k"][:, :, :, :8].abs().sum() > 0
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                atol=2e-4)
-    with pytest.raises(NotImplementedError, match="vision_embeds"):
-        step(tparams, {"tokens": _t(tokens),
-                       "vision_embeds": torch.zeros(2, 8, cfg.d_model)},
-             cache)
+    # a vision model's batch: its vision_embeds replace the first rows
+    # (the reduced InternVL2-26B, 8 of 12 prompt rows)
+    jvcfg, vcfg, _, jvparams, tvparams = _reduced("internvl2-26b")
+    jv = build_model(jvcfg, "xla", remat=False)
+    vtok = np.random.default_rng(10).integers(0, vcfg.vocab_size, (2, 12))
+    ve = np.random.default_rng(11).standard_normal(
+        (2, vcfg.n_vision_tokens, vcfg.d_model)).astype(np.float32)
+    jl, jc = jsteps.make_prefill_step(jv)(
+        jvparams, {"tokens": jnp.asarray(vtok, jnp.int32),
+                   "vision_embeds": jnp.asarray(ve)}, jv.init_cache(2, 16))
+    vm = Model(vcfg, device="cpu")
+    vcache = vm.init_cache(2, 16)
+    tl, _ = steps.make_prefill_step(vm)(
+        tvparams, {"tokens": _t(vtok), "vision_embeds": _t(ve)}, vcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(vcache["k"].numpy(),
+                               np.asarray(jc["attn"]["k"]), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_encoder_step_matches_the_reference():

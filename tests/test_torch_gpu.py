@@ -1094,3 +1094,106 @@ def test_a_failed_capture_raises(cuda):
     assert len(ran) == WARMUP + 1 and step.graph is None
     torch.cuda.synchronize()
     assert float(torch.ones(2, device="cuda").sum()) == 2.0
+
+
+# ---------------------------------------------------------------------------
+# the reference's other configs, and the prompt cell's sizes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "mistral-nemo-12b",
+                                  "internvl2-26b", "deepseek-67b",
+                                  "hubert-xlarge"])
+def test_reduced_cell_steps_on_the_card_match_the_cpu(cuda, arch, dtype):
+    """``make_prefill_step`` (InternVL's vision rows spliced, HuBERT's
+    frames) and, for a decoder, two ``make_decode_step`` steps at a
+    static kv_len, on the card against the CPU (head dim 64: the kernels'
+    instance).  float32: within 1e-4 / 2e-4; bfloat16 params and cache:
+    the card's distance from the CPU's float32 run at most 1.5 times the
+    CPU's bfloat16 run's, plus 1e-3 max(1, max|logits|)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    dt = getattr(torch, dtype)
+    cfg = get_config(arch).reduced(head_dim=64)
+    r = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(
+        r.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32))}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.from_numpy(r.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.frontend == "audio":
+        batch = {"frames": torch.from_numpy(r.standard_normal(
+            (2, 12, cfg.frontend_dim)).astype(np.float32))}
+    params32 = Model(cfg, device="cpu").init(0)
+
+    def run(dev, pdt):
+        mdl = Model(cfg, device=dev, param_dtype=pdt)
+        p = torch.utils._pytree.tree_map(
+            lambda t: t.to(dev, pdt if t.is_floating_point() else t.dtype),
+            params32)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        cache = mdl.init_cache(2, 16, dtype=pdt)
+        lg, _ = make_prefill_step(mdl)(p, b, cache)
+        out = [lg[:, :, :cfg.vocab_size].float().cpu()]
+        for pos in ((12, 13) if cfg.supports_decode else ()):
+            tok = torch.tensor([[pos], [pos + 1]], device=dev)
+            lg, _ = make_decode_step(mdl, pos + 1)(p, cache, tok, pos)
+            out.append(lg[:, :, :cfg.vocab_size].float().cpu())
+        return out
+
+    got = run("cuda", dt)
+    if dt == torch.float32:
+        for g, w in zip(got, run("cpu", dt)):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=2e-4)
+        return
+    for g, w, e in zip(got, run("cpu", dt), run("cpu", torch.float32)):
+        lim = 1.5 * float((w - e).abs().max()) + 1e-3 * max(
+            1.0, float(e.abs().max()))
+        assert float((g - e).abs().max()) <= lim
+
+
+def test_rmsnorm_past_2_31_elements(cuda):
+    """B6 over [700000, 3072] (2.15e9 elements, past 2^31), float32 and
+    bfloat16: the first and last rows against the plain version."""
+    from repro_torch.kernels import rmsnorm as RN
+
+    R, C = 700_000, 3072
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.empty(R, C, device="cuda", dtype=dt)
+        x[:1024].normal_(generator=cuda)
+        x[1024:-1024] = 0.5
+        x[-1024:].normal_(generator=cuda)
+        g = torch.randn(C, device="cuda", generator=cuda).to(dt)
+        y = RN.rmsnorm_cuda(x, g, 1e-6)[0]
+        for rows in (slice(0, 1024), slice(R - 1024, R)):
+            want = RN.rmsnorm_plain(x[rows], g, 1e-6)[0]
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+            torch.testing.assert_close(y[rows].float(), want.float(),
+                                       rtol=tol, atol=tol)
+        assert bool((y[5000].float() - 0.5 * torch.rsqrt(
+            torch.tensor(0.25 + 1e-6, device="cuda")) * g.float())
+            .abs().max() < 2e-2)
+        del x, y
+        torch.cuda.empty_cache()
+
+
+def test_flash_attention_past_2_31_elements(cuda):
+    """B4 in bfloat16 at Llama's heads, 22 sequences of 32,768 rows (q:
+    2.27e9 elements, past 2^31), causal: query blocks of the last sequence
+    and of the first against the plain version computed block by block
+    (the first rows, the last rows)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Hq, Hkv, S, D, bq = 22, 24, 8, 32768, 128, 128
+    bf = torch.bfloat16
+    q = torch.randn(B, Hq, S, D, device="cuda", generator=cuda).to(bf)
+    k = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda).to(bf)
+    v = torch.randn(B, Hkv, S, D, device="cuda", generator=cuda).to(bf)
+    o = FA.flash_attention_cuda(q, k, v, True)
+    assert q.numel() > 2 ** 31
+    for b in (0, B - 1):
+        for i in (0, S - bq):
+            want = FA.flash_attention_plain(
+                q[b:b + 1, :, i:i + bq], k[b:b + 1, :, :i + bq],
+                v[b:b + 1, :, :i + bq], True)
+            torch.testing.assert_close(o[b:b + 1, :, i:i + bq].float(),
+                                       want.float(), rtol=4e-2, atol=1.2e-1)
